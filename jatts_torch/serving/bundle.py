@@ -1,0 +1,106 @@
+"""In-process serving bundle (counterpart of ``build_infer_fn`` plus
+``ServingBundle`` in jatts_tpu/serving/export.py, without ``jax.export``).
+
+The bundle holds FastSpeech2 and a HiFi-GAN vocoder on their device with
+the acoustic model's mel statistics (and the vocoder's, when given). A
+call pads the requests to the fixed ``batch_size`` and the smallest text
+bucket that fits, runs inference -> denormalise -> (renormalise) ->
+vocoder -> pcm16 (or f32) in one pass, fetches each output once and crops
+every row by its ``olens``.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, List, Optional, Sequence
+
+import numpy as np
+import torch
+
+
+class ServingBundle:
+    def __init__(
+        self,
+        model,
+        vocoder,
+        mel_mean: np.ndarray,
+        mel_scale: np.ndarray,
+        *,
+        batch_size: int,
+        buckets: Sequence[int],
+        max_frames: int,
+        voc_mean: Optional[np.ndarray] = None,
+        voc_scale: Optional[np.ndarray] = None,
+        wav_format: str = "pcm16",
+    ):
+        if wav_format not in ("pcm16", "f32"):
+            raise ValueError(f"wav_format must be 'pcm16' or 'f32', not {wav_format!r}")
+        self.model = model
+        self.vocoder = vocoder
+        self.device = next(model.parameters()).device
+        self.batch_size = int(batch_size)
+        self.buckets = sorted(int(t) for t in buckets)
+        self.max_frames = int(max_frames)
+        self.hop_size = int(vocoder.hop_size)
+        self.wav_format = wav_format
+
+        def stat(x):
+            return None if x is None else torch.as_tensor(
+                np.asarray(x, np.float32), device=self.device
+            )
+
+        self.mel_mean, self.mel_scale = stat(mel_mean), stat(mel_scale)
+        self.voc_mean, self.voc_scale = stat(voc_mean), stat(voc_scale)
+
+    def prepare(self, token_ids: Sequence[Sequence[int]]):
+        """Pad <= batch_size requests to the smallest fitting bucket ->
+        (xs [batch_size, bucket], ilens [batch_size]) on the device."""
+        n = len(token_ids)
+        if n > self.batch_size:
+            raise ValueError(f"batch {n} > bundle batch {self.batch_size}")
+        longest = max(len(t) for t in token_ids)
+        fit = [b for b in self.buckets if b >= longest]
+        if not fit:
+            raise ValueError(
+                f"text length {longest} exceeds largest bucket {self.buckets[-1]}"
+            )
+        xs = np.zeros((self.batch_size, fit[0]), np.int64)
+        ilens = np.zeros((self.batch_size,), np.int64)
+        for i, ids in enumerate(token_ids):
+            xs[i, : len(ids)] = np.asarray(ids, np.int64)
+            ilens[i] = len(ids)
+        return torch.from_numpy(xs).to(self.device), torch.from_numpy(ilens).to(self.device)
+
+    @torch.no_grad()
+    def run(self, xs: torch.Tensor, ilens: torch.Tensor) -> Dict[str, torch.Tensor]:
+        """The fixed-shape program on device tensors: xs [batch_size, bucket],
+        ilens [batch_size] -> {"olens", "wav"} (+ "mel" for f32)."""
+        out = self.model.inference(xs, ilens, self.max_frames)
+        mel = out["feat_gen"].float() * self.mel_scale + self.mel_mean
+        v = mel if self.voc_mean is None else (mel - self.voc_mean) / self.voc_scale
+        voc_dtype = next(self.vocoder.parameters()).dtype
+        wav = self.vocoder(v.to(voc_dtype))[..., 0].float()
+        res = {"olens": out["olens"]}
+        if self.wav_format == "pcm16":
+            res["wav"] = torch.round(torch.clamp(wav, -1.0, 1.0) * 32767.0).to(torch.int16)
+        else:
+            res["mel"] = mel
+            res["wav"] = wav
+        return res
+
+    def synthesize(self, token_ids: Sequence[Sequence[int]], seed: int = 0) -> List[Dict[str, Any]]:
+        """token_ids: <= batch_size sequences -> per-utterance dicts with
+        ``wav`` [olens*hop] (int16 or float32) and, for f32, ``mel``
+        [olens, n_mels]. FastSpeech2 is deterministic: ``seed`` is accepted
+        for the serving interface and changes nothing."""
+        xs, ilens = self.prepare(token_ids)
+        out = self.run(xs, ilens)
+        # one device->host fetch per output, rows sliced on the host
+        host = {k: v.cpu().numpy() for k, v in out.items()}
+        results = []
+        for i in range(len(token_ids)):
+            n = int(host["olens"][i])
+            r = {"wav": host["wav"][i, : n * self.hop_size]}
+            if "mel" in host:
+                r["mel"] = host["mel"][i, :n]
+            results.append(r)
+        return results

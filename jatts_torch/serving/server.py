@@ -1,0 +1,147 @@
+"""Micro-batching request server over the port's ServingBundle
+(counterpart of jatts_tpu/serving/server.py; streaming is a later slice).
+
+The bundle runs at a fixed batch size, but requests arrive one utterance
+at a time. A background thread groups up to ``bundle.batch_size`` queued
+requests inside a bounded latency window and runs them as one call; each
+caller gets exactly the result it would have got alone, because rows are
+independent and cropped by their own lengths.
+
+Usage:
+    server = BatchingServer(bundle, max_delay_ms=5)
+    fut = server.submit(token_ids=[...])          # non-blocking -> Future
+    wav = fut.result()["wav"]
+    server.close()
+
+Requests with different ``seed`` values never share a call (the seed is a
+per-call input), so the batcher groups by seed.
+"""
+
+from __future__ import annotations
+
+import threading
+import time
+from concurrent.futures import Future
+from queue import Empty, Queue
+from typing import Any, Dict, List, Optional
+
+from jatts_torch.serving.bundle import ServingBundle
+
+
+class _Request:
+    __slots__ = ("fields", "seed", "future")
+
+    def __init__(self, fields: Dict[str, Any], seed: int):
+        self.fields = fields
+        self.seed = int(seed)
+        self.future: Future = Future()
+
+
+class BatchingServer:
+    """Groups per-utterance requests into fixed-batch bundle calls.
+
+    Dispatch rule: once the oldest queued request has waited ``max_delay_ms``
+    (or a full batch is available, whichever is first), every queued request
+    with the same seed, up to ``bundle.batch_size``, runs as one call."""
+
+    def __init__(self, bundle: ServingBundle, max_delay_ms: float = 5.0):
+        self.bundle = bundle
+        self.batch_size = int(bundle.batch_size)
+        self.max_delay = float(max_delay_ms) / 1000.0
+        self._queue: "Queue[Optional[_Request]]" = Queue()
+        self._pending: List[_Request] = []
+        self._closed = False
+        self.stats = {"requests": 0, "batches": 0, "rows": 0}
+        self._thread = threading.Thread(
+            target=self._loop, name="jatts-torch-serving-batcher", daemon=True
+        )
+        self._thread.start()
+
+    def submit(self, seed: int = 0, **fields) -> Future:
+        """Enqueue one utterance (``token_ids=[...]``); returns a Future of
+        the bundle's per-utterance dict."""
+        if self._closed:
+            raise RuntimeError("server is closed")
+        if "token_ids" not in fields:
+            raise TypeError("missing request field: token_ids")
+        # fail fast at submit so a bad request cannot poison its batch-mates
+        longest = self.bundle.buckets[-1]
+        if len(fields["token_ids"]) > longest:
+            raise ValueError(
+                f"text length {len(fields['token_ids'])} exceeds largest "
+                f"bucket {longest}"
+            )
+        req = _Request(fields, seed)
+        self._queue.put(req)
+        return req.future
+
+    def synthesize(self, seed: int = 0, **fields):
+        """Blocking convenience wrapper around submit()."""
+        return self.submit(seed=seed, **fields).result()
+
+    def close(self, timeout: Optional[float] = 10.0):
+        """Drain the queue, stop the dispatcher thread."""
+        if self._closed:
+            return
+        self._closed = True
+        self._queue.put(None)
+        self._thread.join(timeout=timeout)
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
+
+    def _loop(self):
+        stop = False
+        while not (stop and not self._pending and self._queue.empty()):
+            # block for the first request, then hold the window open
+            if not self._pending:
+                item = self._queue.get()
+                if item is None:
+                    stop = True
+                    continue
+                self._pending.append(item)
+            deadline = time.monotonic() + self.max_delay
+            while len(self._pending) < self.batch_size:
+                wait = deadline - time.monotonic()
+                if wait <= 0:
+                    break
+                try:
+                    item = self._queue.get(timeout=wait)
+                except Empty:
+                    break
+                if item is None:
+                    stop = True
+                    break
+                self._pending.append(item)
+            seed = self._pending[0].seed
+            batch = [r for r in self._pending if r.seed == seed][: self.batch_size]
+            self._pending = [r for r in self._pending if r not in batch]
+            self._dispatch(batch, seed)
+        # report shutdown to anything still queued (submit raced close)
+        while True:
+            try:
+                item = self._queue.get_nowait()
+            except Empty:
+                break
+            if item is not None:
+                item.future.set_exception(RuntimeError("server closed"))
+
+    def _dispatch(self, batch: List[_Request], seed: int):
+        self.stats["batches"] += 1
+        self.stats["rows"] += self.batch_size
+        self.stats["requests"] += len(batch)
+        try:
+            results = self.bundle.synthesize(
+                [r.fields["token_ids"] for r in batch], seed=seed
+            )
+        except Exception as e:  # propagate to every caller in the group
+            for r in batch:
+                if not r.future.cancelled():
+                    r.future.set_exception(e)
+            return
+        for r, res in zip(batch, results):
+            if not r.future.cancelled():
+                r.future.set_result(res)

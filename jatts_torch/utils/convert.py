@@ -1,0 +1,106 @@
+"""Flax variables of the JAX package -> the port's ``state_dict``.
+
+The inverse of ``jatts_tpu/utils/torch_import.py`` (``t_linear``,
+``t_conv1d``, ``t_bn``, …) and of ``jatts_tpu/vocoder/convert.py``
+(``_conv_w``, ``_convT_w``). Takes ``{"params": ..., "batch_stats": ...}``
+as nested dicts of numpy arrays and returns tensors keyed by the reference
+state_dict names, ready for ``load_state_dict``. No JAX is imported: the
+caller hands numpy arrays (``jax.device_get`` on its side).
+
+Leaves convert by name and rank:
+    Dense kernel [in, out]           -> weight [out, in]
+    Conv kernel [k, in, out]         -> weight [out, in, k]  (depthwise [k, 1, C] too)
+    ConvTranspose kernel [k, out, in] -> weight [in, out, k]
+    Embed embedding                  -> weight
+    LayerNorm / BatchNorm scale      -> weight
+    BatchNorm mean / var             -> running_mean / running_var
+"""
+
+from __future__ import annotations
+
+import re
+from typing import Any, Dict, Iterable, Mapping, Tuple
+
+import numpy as np
+import torch
+
+# flax module path ("/"-joined) -> reference module path, first match wins
+FASTSPEECH2_RENAMES = (
+    (r"^encoder/embed_tok$", "encoder/embed/0"),
+    (r"^(encoder|decoder)/encoders_(\d+)/", r"\1/encoders/\2/"),
+    (r"^(\w+_predictor)/conv/conv_(\d+)$", r"\1/conv/\2/0"),
+    (r"^(\w+_predictor)/conv/norm_(\d+)$", r"\1/conv/\2/2"),
+    (r"^(pitch|energy)_embed$", r"\1_embed/0"),
+    (r"^postnet/conv_(\d+)$", r"postnet/postnet/\1/0"),
+    (r"^postnet/bn_(\d+)$", r"postnet/postnet/\1/1"),
+)
+
+HIFIGAN_RENAMES = (
+    (r"^upsample_(\d+)$", r"upsamples/\1/1"),
+    (r"^blocks_(\d+)/convs([12])_(\d+)$", r"blocks/\1/convs\2/\3/1"),
+    (r"^output_conv$", "output_conv/1"),
+)
+
+_LEAF_NAMES = {
+    "embedding": "weight",
+    "scale": "weight",
+    "kernel": "weight",
+    "bias": "bias",
+    "mean": "running_mean",
+    "var": "running_var",
+}
+
+
+def _flatten(tree: Mapping[str, Any], prefix: Tuple[str, ...] = ()) -> Iterable:
+    for key, val in tree.items():
+        if isinstance(val, Mapping):
+            yield from _flatten(val, prefix + (key,))
+        else:
+            yield prefix + (key,), np.asarray(val)
+
+
+def _rename(module_path: str, renames) -> str:
+    for pattern, repl in renames:
+        new, n = re.subn(pattern, repl, module_path)
+        if n:
+            return new
+    return module_path
+
+
+def _leaf(name: str, arr: np.ndarray) -> Tuple[str, np.ndarray]:
+    if name not in _LEAF_NAMES:  # raw parameters such as pos_bias_u keep their name
+        return name, arr
+    if name == "kernel":
+        arr = arr.T if arr.ndim == 2 else np.transpose(arr, (2, 1, 0))
+    return _LEAF_NAMES[name], arr
+
+
+def flax_to_state_dict(
+    variables: Mapping[str, Any], renames=()
+) -> Dict[str, torch.Tensor]:
+    """Generic converter: walks ``params`` and ``batch_stats``, renames each
+    module path by ``renames`` and converts each leaf by its name. BatchNorm
+    modules also get ``num_batches_tracked``, which ``load_state_dict``
+    expects."""
+    sd: Dict[str, torch.Tensor] = {}
+    for collection in ("params", "batch_stats"):
+        for path, arr in _flatten(variables.get(collection, {})):
+            module = _rename("/".join(path[:-1]), renames)
+            name, arr = _leaf(path[-1], arr)
+            key = ".".join(p for p in module.split("/") + [name] if p)
+            sd[key] = torch.from_numpy(np.ascontiguousarray(arr, dtype=np.float32))
+            if name == "running_mean":
+                sd[key[: -len("running_mean")] + "num_batches_tracked"] = torch.tensor(0)
+    return sd
+
+
+def fastspeech2_state_dict_from_jax(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """FastSpeech2 flax variables -> the port's (and the reference's) state_dict."""
+    return flax_to_state_dict(variables, FASTSPEECH2_RENAMES)
+
+
+def hifigan_state_dict_from_jax(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """HiFiGANGenerator flax variables -> the port's state_dict. The flax
+    ConvTranspose kernel (transpose_kernel=True) is [k, out, in], so the
+    same (2, 1, 0) transpose as a Conv gives torch's [in, out, k]."""
+    return flax_to_state_dict(variables, HIFIGAN_RENAMES)
