@@ -88,7 +88,7 @@ def flax_to_state_dict(
             module = _rename("/".join(path[:-1]), renames)
             name, arr = _leaf(path[-1], arr)
             key = ".".join(p for p in module.split("/") + [name] if p)
-            sd[key] = torch.from_numpy(np.ascontiguousarray(arr, dtype=np.float32))
+            sd[key] = torch.from_numpy(np.array(arr, dtype=np.float32))
             if name == "running_mean":
                 sd[key[: -len("running_mean")] + "num_batches_tracked"] = torch.tensor(0)
     return sd
@@ -97,6 +97,15 @@ def flax_to_state_dict(
 def fastspeech2_state_dict_from_jax(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     """FastSpeech2 flax variables -> the port's (and the reference's) state_dict."""
     return flax_to_state_dict(variables, FASTSPEECH2_RENAMES)
+
+
+def aligner_state_dict_from_jax(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """Aligner flax variables (or the bare ``params`` tree that
+    ``train_aligner`` returns) -> the port's state_dict. The flax names are
+    the port's keys: ``embed``, ``conv{i}``, ``ln{i}``, ``alignment.t_conv1`` …"""
+    if "params" not in variables:
+        variables = {"params": variables}
+    return flax_to_state_dict(variables)
 
 
 def hifigan_state_dict_from_jax(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]:

@@ -1,6 +1,7 @@
 """jatts_torch package checks: no JAX anywhere in the port, the K1 wrapper's
-CPU route and input checks, the default device, the kernel build command,
-and (marked ``cuda``, skipped without a card) K1 against its plain twin."""
+CPU route and input checks, the default device, the kernel build commands,
+and (marked ``cuda``, skipped without a card) K1, K2 and K3 against their
+plain twins."""
 
 import ast
 import os
@@ -16,6 +17,7 @@ torch = pytest.importorskip("torch")
 from jatts_torch.device import resolve_device  # noqa: E402
 from jatts_torch.ops import build  # noqa: E402
 from jatts_torch.ops import flash_attention as k1  # noqa: E402
+from jatts_torch.ops import mas  # noqa: E402
 
 ROOT = Path(__file__).resolve().parents[1]
 FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "jatts_tpu"}
@@ -31,8 +33,11 @@ def test_import_leaves_jax_out_of_sys_modules():
     code = (
         "import sys, jatts_torch, jatts_torch.models.fastspeech2, "
         "jatts_torch.vocoder.hifigan, jatts_torch.serving, jatts_torch.utils.convert, "
-        "jatts_torch.ops.flash_attention\n"
+        "jatts_torch.ops.flash_attention, jatts_torch.ops.mas, jatts_torch.ops.dsp, "
+        "jatts_torch.losses.align, jatts_torch.modules.alignment, jatts_torch.aligner, "
+        "jatts_torch.features.extractors, jatts_torch.utils.io, jatts_torch.bin.align\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in %r)\n"
+        "bad += [m for m in ('h5py', 'yaml', 'triton') if m in sys.modules]\n"
         "print(bad); sys.exit(1 if bad else 0)" % (FORBIDDEN,)
     )
     env = dict(os.environ, PYTHONPATH=str(ROOT))
@@ -106,16 +111,24 @@ def test_resolve_device_defaults_to_cuda():
             resolve_device("cuda:0")
 
 
-def test_kernel_build_command_targets_hopper(monkeypatch):
+@pytest.mark.parametrize("kernel", [k1.KERNEL, mas.KERNEL])
+def test_kernel_build_command_targets_hopper(monkeypatch, kernel):
     monkeypatch.setattr(build, "nvcc_path", lambda: "nvcc")
-    out = build.library_path(k1.KERNEL)
-    cmd = build.nvcc_command(k1.KERNEL, out)
+    out = build.library_path(kernel)
+    cmd = build.nvcc_command(kernel, out)
     assert "arch=compute_90a,code=sm_90a" in cmd and "-shared" in cmd
-    assert Path(cmd[-1]).exists() and cmd[-1].endswith("csrc/flash_attn_fwd.cu")
+    assert Path(cmd[-1]).exists() and cmd[-1].endswith(f"csrc/{kernel}.cu")
     # built into the git-ignored build/ directory, named by the source's hash
     assert out.parent == ROOT / "build" / "kernels"
-    assert out == build.library_path(k1.KERNEL)
+    assert out == build.library_path(kernel)
     assert "build/" in (ROOT / ".gitignore").read_text().split()
+
+
+def test_mas_source_holds_two_global_kernels_and_a_plain_c_interface():
+    src = (ROOT / "jatts_torch" / "csrc" / "mas_viterbi.cu").read_text()
+    assert src.count("__global__") == 2
+    assert 'extern "C" int jatts_mas_fwd(' in src and 'extern "C" int jatts_mas_backtrace(' in src
+    assert "torch/" not in src and "#include <ATen" not in src
 
 
 def test_chip_smoke_refuses_without_a_card(tmp_path):
@@ -149,3 +162,49 @@ def test_k1_matches_plain_on_card(dtype, tol):
     err = (got.float() - want).abs().max().item()
     assert np.isfinite(err) and err <= tol
     assert torch.all(got[1] == 0)
+
+
+def _mas_inputs(case):
+    """(log_p_attn, text_lengths, feats_lengths) on the CPU."""
+    rng = np.random.default_rng(3)
+    if case == "ragged":
+        b, t_feats, t_text = 5, 200, 77
+        tl, fl = [77, 33, 32, 31, 1], [200, 199, 100, 40, 77]
+    elif case == "edges":  # text_len 1, feats_len 1, feats_len < text_len, zero-length rows
+        b, t_feats, t_text = 5, 24, 8
+        tl, fl = [1, 8, 8, 0, 5], [24, 1, 5, 0, 0]
+    else:  # ties: quantised to multiples of 0.25
+        b, t_feats, t_text = 4, 300, 200
+        tl, fl = [200, 150, 5, 200], [300, 300, 100, 200]
+    x = rng.normal(size=(b, t_feats, t_text)).astype(np.float32)
+    lp = torch.log_softmax(torch.from_numpy(x), -1)
+    if case == "ties":
+        lp = (lp * 4).round() / 4
+    return lp, torch.tensor(tl), torch.tensor(fl)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["ragged", "edges", "ties"])
+def test_k2_k3_match_plain_on_card(case):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    lp, tl, fl = (t.cuda() for t in _mas_inputs(case))
+    t_text = lp.shape[2]
+    mas.reset_launches()
+    bits = mas.mas_decisions(lp, tl)
+    torch.cuda.synchronize()
+    d_ref = mas.mas_decisions_ref(lp, tl)
+    assert torch.equal(bits, mas.pack_bits(d_ref))  # K2, padding bits of the last word included
+    path = mas.mas_backtrace(mas.pack_bits(d_ref), tl, fl, t_text)
+    torch.cuda.synchronize()
+    assert torch.equal(path, mas.mas_backtrace_ref(d_ref, tl, fl))  # K3
+    pair = mas.mas_path_cuda(lp, tl, fl)
+    torch.cuda.synchronize()
+    assert torch.equal(pair, mas.mas_path_ref(lp, tl, fl))
+    assert (mas.fwd_launches, mas.backtrace_launches) == (2, 2)
+    # bf16 input is cast by the wrapper, as the plain version casts
+    assert torch.equal(mas.mas_path_cuda(lp.bfloat16(), tl, fl), mas.mas_path_ref(lp.bfloat16(), tl, fl))
+    with pytest.raises(ValueError, match="contiguous"):
+        mas.mas_decisions(lp.transpose(1, 2).contiguous().transpose(1, 2), tl)
+    with pytest.raises(TypeError):
+        mas.mas_decisions(lp.double(), tl)
