@@ -31,7 +31,22 @@ Phases, each of which fails the run with a non-zero exit:
      just after; then the duration invariants, the accuracy against the
      known alignment, the same dump with ``mas_backend="scan"``, K2 and K3
      against their twins on the largest batch's lattice, and the time of a
-     training step and its parts.
+     training step and its parts;
+  9. K1-bwd (flash-attention backward: the dk/dv kernel and the dq/d(ab)
+     kernel) against its plain version for each output at the training
+     shapes and at other head dims, in f32 and bf16, with and without bias,
+     at a ragged length and with a row of no valid key; against autograd
+     through K1's plain version; then the kernels' times beside the plain
+     version's, SDPA forward+backward's (the yardstick, never used by the
+     port) and the bound;
+ 10. the training slice: phase 8's corpus and durations become .npz dumps
+     (log-mel, per-token log tone frequency as pitch, per-token energy),
+     and ``jatts_torch/bin/tts_train.py:run`` trains FastSpeech2 at the full
+     JSUT width (egs/jsut/tts1/conf/fastspeech2.v1.yaml, batch 32, f32) with
+     ``attn_backend: flash`` for 200 steps (warm-up 50), launch counts set
+     to 0 just before and read just after; then the loss, launch,
+     checkpoint/resume and inference checks, the time of one step and its
+     parts, a profiled step, and the same step under ``attn_backend: xla``.
 The line before the last is the kernels' JSON record, the last line
 ``{"ok": true, "device": {...}}``. Exits 2 without a CUDA device or
 without the jatts_torch package beside this file.
@@ -57,6 +72,10 @@ PEAK_FLOPS_S = {"bf16": 989e12, "f32": 67e12}
 # K1 tolerances on max |kernel - plain|: f32 differs by summation order only;
 # bf16 output is rounded once to bf16 (half an ulp is 2^-8 |o|, |o| < 4 here)
 TOL = {"f32": 1e-4, "bf16": 1e-2}
+# K1-bwd tolerances on max |kernel - plain| over dq, dk, dv, d(ab), relative
+# to max(1, max |plain|): f32 differs by summation order only (sums of up to
+# 1024 terms); bf16 outputs are rounded once to bf16 (2^-9 relative)
+TOL_BWD = {"f32": 1e-4, "bf16": 1e-2}
 
 
 def fail(msg: str) -> None:
@@ -95,7 +114,8 @@ def time_ms(fn, iters: int = 20, warmup: int = 3, host_clock: bool = False) -> f
 
 def k1_inputs(b, h, t, d, dtype, with_bias, seed):
     """Main-path-like K1 inputs: bias at the scale of q·kᵀ, varied key
-    lengths including a full row, one key and no valid key."""
+    lengths (cycled over the batch) including a full row, one key and no
+    valid key."""
     import torch
 
     g = torch.Generator(device="cuda").manual_seed(seed)
@@ -103,7 +123,8 @@ def k1_inputs(b, h, t, d, dtype, with_bias, seed):
     ab = None
     if with_bias:
         ab = (torch.randn(b, h, t, t, device="cuda", generator=g) * math.sqrt(d)).to(dtype)
-    lens = [t, t - 1, (3 * t) // 4, t // 2, 17, 1, 0, t - 63][:b]
+    lens = ([t, t - 1, (3 * t) // 4, t // 2, 17, 1, 0, t - 63] * (b // 8 + 1))[:b]
+    lens = [max(0, min(t, n)) for n in lens]
     key_mask = torch.arange(t, device="cuda")[None, :] < torch.tensor(lens, device="cuda")[:, None]
     return q, k, v, ab, key_mask, lens
 
@@ -119,8 +140,8 @@ def k1_bound_ms(b, h, t, d, elem_bytes, with_bias, dtype_name):
 
 
 def print_unported_bounds():
-    """Bounds of the attention kernels that are not ported yet, from the
-    shapes the JAX package's recipes give them (no time: nothing to run)."""
+    """Bound of the attention kernel form that is not ported yet, from the
+    shapes the JAX package's recipes give it (no time: nothing to run)."""
     # K1b, causal form without bias: VALL-E trunk, d_model 1024 / 16 heads
     # (egs/hificaptain_jp_female/tts3/conf), per-card batch 16, S ~ 1536, bf16
     b, h, t, d = 16, 16, 1536, 64
@@ -130,18 +151,6 @@ def print_unported_bounds():
     print(
         f"K1b bound (not ported) causal bf16 B,H,T,d={b},{h},{t},{d}: {max(t_bytes, t_ops):.4f} ms by "
         f"{'bytes' if t_bytes >= t_ops else 'operations'} ({io / 1e6:.1f} MB -> {t_bytes:.4f} ms, "
-        f"{flops / 1e9:.1f} GFLOP -> {t_ops:.4f} ms)", flush=True,
-    )
-    # K1-bwd at K1's decoder shape with the dense bias: reads q, k, v, out,
-    # d(out), ab and the row log-sum-exp, writes dq, dk, dv, d(ab); five
-    # products (scores again, dv, dp, dq, dk) of 2*T*T*d each
-    b, h, t, d = 8, 2, 1024, 192
-    io = 8 * b * h * t * d * 2 + 2 * b * h * t * t * 2 + b * h * t * 4 + b * t
-    flops = 10 * b * h * t * t * d
-    t_bytes, t_ops = io / PEAK_BYTES_S * 1e3, flops / PEAK_FLOPS_S["bf16"] * 1e3
-    print(
-        f"K1-bwd bound (not ported) bf16 B,H,T,d={b},{h},{t},{d} with bias: {max(t_bytes, t_ops):.4f} ms "
-        f"by {'bytes' if t_bytes >= t_ops else 'operations'} ({io / 1e6:.1f} MB -> {t_bytes:.4f} ms, "
         f"{flops / 1e9:.1f} GFLOP -> {t_ops:.4f} ms)", flush=True,
     )
 
@@ -310,7 +319,7 @@ def write_tone_corpus(root, seed, n_utts=64, n_phones=40):
     paths = [str(Path(root) / "train.csv"), str(Path(root) / "dev.csv")]
     write_csv(rows[n_dev:], paths[0])
     write_csv(rows[:n_dev], paths[1])
-    return paths, truth
+    return paths, truth, freqs
 
 
 def frame_accuracy(ds, durs):
@@ -323,9 +332,11 @@ def frame_accuracy(ds, durs):
     return float(np.mean(pred[:n] == true[:n]))
 
 
-def aligner_slice(seed, where):
-    """Phase 8. Returns (K2 launches, K3 launches) of the main-path run and
-    what check_mas found on the run's own largest lattice."""
+def aligner_slice(seed, where, root):
+    """Phase 8, on a corpus written under ``root`` (kept for phase 10).
+    Returns (K2 launches, K3 launches) of the main-path run, what check_mas
+    found on the run's own largest lattice, the csv paths and the phones'
+    tone frequencies."""
     import numpy as np
     import torch
 
@@ -336,27 +347,26 @@ def aligner_slice(seed, where):
     from jatts_torch.utils.io import read_audio, read_csv
 
     sr, hop = ALIGN_CONFIG["sampling_rate"], ALIGN_CONFIG["hop_size"]
-    with tempfile.TemporaryDirectory(prefix="jatts_align_") as root:
-        paths, truth = write_tone_corpus(root, seed)
-        mas.reset_launches()
-        t0 = time.perf_counter()
-        out = align_cli.run(paths, ALIGN_CONFIG, str(Path(root) / "exp"), steps=ALIGN_STEPS, seed=seed)
-        torch.cuda.synchronize()
-        run_s = time.perf_counter() - t0
-        k2_launches, k3_launches = mas.fwd_launches, mas.backtrace_launches
-        check((Path(root) / "exp" / "aligner.pt").exists(), "aligner.pt was not saved")
+    paths, truth, freqs = write_tone_corpus(root, seed)
+    mas.reset_launches()
+    t0 = time.perf_counter()
+    out = align_cli.run(paths, ALIGN_CONFIG, str(Path(root) / "exp"), steps=ALIGN_STEPS, seed=seed)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    k2_launches, k3_launches = mas.fwd_launches, mas.backtrace_launches
+    check((Path(root) / "exp" / "aligner.pt").exists(), "aligner.pt was not saved")
 
-        rows = [r for p in paths for r in read_csv(p, dict_reader=True)[0]]
-        accs = []
-        for row in rows:
-            check(bool(row.get("durations")), f"{row['sample_id']}: no durations")
-            got = np.asarray([int(d) for d in row["durations"].split()])
-            check(len(got) == len(row["phonemes"].split()), f"{row['sample_id']}: one duration a phone")
-            check(bool((got >= 1).all()), f"{row['sample_id']}: a duration below 1")
-            wav, _ = read_audio(row["wav_path"], sr, row["start"], row["end"])
-            check(int(got.sum()) == 1 + len(wav) // hop,
-                  f"{row['sample_id']}: durations sum {got.sum()} != 1 + {len(wav)} // {hop}")
-            accs.append(frame_accuracy(got, truth[row["sample_id"]]))
+    rows = [r for p in paths for r in read_csv(p, dict_reader=True)[0]]
+    accs = []
+    for row in rows:
+        check(bool(row.get("durations")), f"{row['sample_id']}: no durations")
+        got = np.asarray([int(d) for d in row["durations"].split()])
+        check(len(got) == len(row["phonemes"].split()), f"{row['sample_id']}: one duration a phone")
+        check(bool((got >= 1).all()), f"{row['sample_id']}: a duration below 1")
+        wav, _ = read_audio(row["wav_path"], sr, row["start"], row["end"])
+        check(int(got.sum()) == 1 + len(wav) // hop,
+              f"{row['sample_id']}: durations sum {got.sum()} != 1 + {len(wav)} // {hop}")
+        accs.append(frame_accuracy(got, truth[row["sample_id"]]))
 
     model, batches, items = out["model"], out["batches"], out["items"]
     fsum_hist = out["history"]["fsum"]
@@ -452,7 +462,365 @@ def aligner_slice(seed, where):
         f"{busy_ms:.2f} ms in {sum(e.count for e in events)} kernels, idle share "
         f"{1 - busy_ms / wall_ms:.3f}", flush=True,
     )
-    return k2_launches, k3_launches, own_check
+    return k2_launches, k3_launches, own_check, paths, freqs
+
+
+# ---------------------------------------------------------------------------
+# K1-bwd: flash-attention backward
+# ---------------------------------------------------------------------------
+
+def k1bwd_inputs(b, h, t, d, dtype, with_bias, seed):
+    """k1_inputs plus an output gradient."""
+    import torch
+
+    q, k, v, ab, key_mask, lens = k1_inputs(b, h, t, d, dtype, with_bias, seed)
+    g = torch.Generator(device="cuda").manual_seed(seed + 1000)
+    do = torch.randn(b, h, t, d, device="cuda", generator=g).to(dtype)
+    return q, k, v, ab, key_mask, do, lens
+
+
+def check_k1bwd(b, h, t, d, dtype_name, with_bias, seed, against_autograd=False):
+    """K1-bwd's four outputs against flash_attention_bwd_ref, both fed the
+    plain forward's o and lse; K1's own lse against the plain one; rows with
+    no valid key 0. Returns the largest |kernel - plain| over the outputs."""
+    import torch
+
+    from jatts_torch.ops import flash_attention as k1
+
+    dtype = {"f32": torch.float32, "bf16": torch.bfloat16}[dtype_name]
+    q, k, v, ab, key_mask, do, lens = k1bwd_inputs(b, h, t, d, dtype, with_bias, seed)
+    scale = d ** -0.5
+    o, lse = k1.flash_attention_ref(q, k, v, ab, key_mask, scale, return_lse=True)
+    _, lse_k = k1.flash_attention_fwd(q, k, v, ab, key_mask, scale)
+    got = k1.flash_attention_bwd(q, k, v, ab, key_mask, scale, o, lse, do)
+    torch.cuda.synchronize()
+
+    def f32(x):
+        return None if x is None else x.float()
+
+    want = k1.flash_attention_bwd_ref(f32(q), f32(k), f32(v), f32(ab), key_mask, scale, f32(o), lse, f32(do))
+    tol = TOL_BWD[dtype_name]
+    errs, mags = {}, {}
+    for name, g_, w in zip(("dq", "dk", "dv", "dab"), got, want):
+        if w is None:
+            check(g_ is None, "K1-bwd wrote d(ab) without a bias")
+            continue
+        check(bool(torch.isfinite(g_).all()), f"K1-bwd {name} not finite at {(b, h, t, d)}")
+        mags[name] = max(1.0, w.abs().max().item())
+        errs[name] = (g_.float() - w).abs().max().item()
+        check(errs[name] <= tol * mags[name],
+              f"K1-bwd {dtype_name} {(b, h, t, d)} {name} err {errs[name]} > {tol} x {mags[name]}")
+    both_inf = torch.isinf(lse) & torch.isinf(lse_k)
+    check(bool((torch.isinf(lse) == torch.isinf(lse_k)).all()), "K1 lse: +inf rows differ")
+    lse_err = (lse_k - lse).masked_fill(both_inf, 0.0).abs().max().item()
+    check(lse_err <= 1e-4 * max(1.0, lse.masked_fill(both_inf, 0).abs().max().item()), f"K1 lse err {lse_err}")
+    for i, n in enumerate(lens):
+        if n == 0:
+            check(all(bool((x[i] == 0).all()) for x in got if x is not None),
+                  "K1-bwd: a row with no valid key is not 0")
+    line = ", ".join(f"{n} {errs[n]:.2e}" for n in errs)
+    print(
+        f"K1-bwd check {dtype_name} B,H,T,d={b},{h},{t},{d} bias={with_bias}: max_abs_err {line} "
+        f"(tol {tol:.0e} x max(1, max|plain|) = {tol * max(mags.values()):.1e}); "
+        f"K1 lse err {lse_err:.1e}; rows with no valid key: {lens.count(0)}", flush=True,
+    )
+    if against_autograd:
+        leaves = [x.float().detach().requires_grad_() for x in (q, k, v, ab) if x is not None]
+        args = leaves + ([None] if ab is None else [])
+        out = k1.flash_attention_ref(*args, key_mask, scale)
+        ag = torch.autograd.grad(out, leaves, do.float())
+        ag_err = max((g_.float() - a).abs().max().item() for g_, a in zip(got, ag))
+        print(f"K1-bwd vs autograd through the plain K1: max_abs_err {ag_err:.2e} "
+              f"(tol {tol * max(mags.values()):.1e})", flush=True)
+        check(ag_err <= tol * max(mags.values()), "K1-bwd disagrees with autograd of the plain K1")
+    return max(errs.values())
+
+
+def k1bwd_bounds_ms(b, h, t, d, elem, dtype_name):
+    """Least times of the two K1-bwd kernels with a dense bias and every key
+    valid: each input read once, each output written once; operations are
+    the 2*T*T*d products each kernel does (dkv: scores again, dp, dv, dk;
+    dq: scores again, dp, dq) at the CUDA cores' f32 rate for f32 and the
+    tensor cores' rate for bf16."""
+    n = b * h * t * d * elem
+    bias = b * h * t * t * elem
+    rows = 2 * b * h * t * 4 + b * t  # lse, di, key mask
+    dkv_bytes = 4 * n + bias + rows + 2 * n
+    dq_bytes = 4 * n + bias + rows + n + bias
+    out = []
+    for nbytes, products in ((dkv_bytes, 4), (dq_bytes, 3)):
+        t_bytes = nbytes / PEAK_BYTES_S * 1e3
+        flops = 2 * products * b * h * t * t * d
+        t_ops = flops / PEAK_FLOPS_S[dtype_name] * 1e3
+        out.append((max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations", nbytes, flops))
+    return out
+
+
+def time_k1bwd(seed, where):
+    """K1-bwd at the training decoder shape: the two kernels, the plain
+    backward, SDPA forward+backward with a float bias that takes a gradient
+    (the library yardstick), K1's forward with the log-sum-exp, bounds."""
+    import torch
+
+    from jatts_torch.ops import flash_attention as k1
+
+    b, h, t, d = 32, 2, 1024, 192
+    q, k, v, ab, _, do, _ = k1bwd_inputs(b, h, t, d, torch.float32, True, seed)
+    full = torch.ones(b, t, dtype=torch.bool, device="cuda")
+    scale = d ** -0.5
+    o, lse = k1.flash_attention_fwd(q, k, v, ab, full, scale)
+    di = (o * do).sum(-1)
+    fwd_ms = time_ms(lambda: k1.flash_attention_fwd(q, k, v, ab, full, scale), iters=10)
+    dkv_ms = time_ms(lambda: k1.flash_attention_bwd_dkv(q, k, v, ab, full, scale, lse, di, do), iters=10)
+    dq_ms = time_ms(lambda: k1.flash_attention_bwd_dq(q, k, v, ab, full, scale, lse, di, do), iters=10)
+    plain_ms = time_ms(lambda: k1.flash_attention_bwd_ref(q, k, v, ab, full, scale, o, lse, do), iters=5, warmup=1)
+    qs, ks, vs = (x.detach().requires_grad_() for x in (q, k, v))
+    bias = (ab * scale).detach().requires_grad_()  # SDPA adds its mask after the scale
+
+    def sdpa_fwd_bwd():
+        out = torch.nn.functional.scaled_dot_product_attention(qs, ks, vs, attn_mask=bias, scale=scale)
+        torch.autograd.grad(out, (qs, ks, vs, bias), do)
+
+    library_ms = time_ms(sdpa_fwd_bwd, iters=5, warmup=1)
+    (dkv_bound, dkv_by, dkv_bytes, dkv_flops), (dq_bound, dq_by, dq_bytes, dq_flops) = k1bwd_bounds_ms(
+        b, h, t, d, 4, "f32")
+    print(
+        f"K1-bwd time f32 B,H,T,d={b},{h},{t},{d} with bias: dkv kernel {dkv_ms:.4f} ms (bound "
+        f"{dkv_bound:.4f} ms by {dkv_by}: {dkv_bytes / 1e6:.1f} MB, {dkv_flops / 1e9:.1f} GFLOP), dq kernel "
+        f"{dq_ms:.4f} ms (bound {dq_bound:.4f} ms by {dq_by}: {dq_bytes / 1e6:.1f} MB, "
+        f"{dq_flops / 1e9:.1f} GFLOP); plain backward {plain_ms:.4f} ms; sdpa forward+backward "
+        f"{library_ms:.4f} ms; K1 forward with lse {fwd_ms:.4f} ms; {where}", flush=True,
+    )
+    return {"dkv": (dkv_ms, dkv_bound, dkv_by), "dq": (dq_ms, dq_bound, dq_by),
+            "plain_ms": plain_ms, "library_ms": library_ms, "fwd_ms": fwd_ms}
+
+
+# ---------------------------------------------------------------------------
+# the training slice
+# ---------------------------------------------------------------------------
+
+JSUT_CONF = ROOT / "egs" / "jsut" / "tts1" / "conf" / "fastspeech2.v1.yaml"
+TRAIN_STEPS = 200  # the conf's train_max_steps is 100000
+TRAIN_WARMUP = 50  # the conf's warmup_steps is 4000
+
+
+def write_fs2_corpus(root, align_paths, freqs):
+    """Phase 8's rows (cropped by start/end, with durations) as FastSpeech2
+    training data: per utterance an .npz with the log-mel at the JSUT
+    settings cropped to the durations' sum (as jatts_tpu/bin/preprocess.py
+    crops it), the per-token pitch (log of the phone's tone frequency) and
+    the per-token energy (the STFT-magnitude energy of ops/dsp.py averaged
+    over the token's frames, as the JAX Energy extractor averages it); the
+    stats (``<feat>_mean``/``_scale`` over the train rows, as
+    jatts_tpu/bin/compute_statistics.py computes them), tokens.txt and the
+    train/dev csvs. Returns (train csv, dev csv, stats, tokens)."""
+    import numpy as np
+    import torch
+
+    from jatts_torch.features.extractors import LogMelExtractor
+    from jatts_torch.ops.dsp import energy
+    from jatts_torch.utils.io import read_audio, read_csv, write_csv
+
+    c = ALIGN_CONFIG
+    sr, hop = c["sampling_rate"], c["hop_size"]
+    mel_ex = LogMelExtractor(
+        sampling_rate=sr, fft_size=c["fft_size"], hop_size=hop, win_length=c["win_length"],
+        num_mels=c["num_mels"], fmin=c["fmin"], fmax=c["fmax"], device="cuda",
+    )
+    tokens = str(Path(root) / "tokens.txt")
+    with open(tokens, "w", encoding="utf-8") as f:
+        f.write("\n".join(["<blank>", "<unk>", *sorted(freqs), "<sos/eos>"]) + "\n")
+    sums, sqs, counts = {}, {}, {}
+    out_paths = []
+    for split, path in zip(("train", "dev"), align_paths):
+        rows, _ = read_csv(path, dict_reader=True)
+        for row in rows:
+            wav, _ = read_audio(row["wav_path"], sr, row["start"], row["end"])
+            ds = np.asarray([int(x) for x in row["durations"].split()])
+            mel = mel_ex(wav)
+            check(abs(len(mel) - int(ds.sum())) <= 3, f"{row['sample_id']}: mel frames != sum(durations)")
+            mel = mel[: int(ds.sum())]
+            e = energy(torch.from_numpy(wav).cuda(), c["fft_size"], hop).cpu().numpy()[: len(mel)]
+            bounds = np.concatenate([[0], np.cumsum(ds)])
+            e_tok = np.asarray([
+                seg[seg > 0].mean() if (seg > 0).any() else 0.0
+                for seg in (e[a:z] for a, z in zip(bounds[:-1], bounds[1:]))
+            ], np.float32)
+            p_tok = np.log([freqs[p] for p in row["phonemes"].split()]).astype(np.float32)
+            feat_path = str(Path(root) / "dump" / f"{row['sample_id']}.npz")
+            Path(feat_path).parent.mkdir(parents=True, exist_ok=True)
+            np.savez(feat_path, mel=mel.astype(np.float32), pitch=p_tok, energy=e_tok)
+            row["feat_path"] = feat_path
+            if split == "train":
+                for name, x in (("mel", mel), ("pitch", p_tok[:, None]), ("energy", e_tok[:, None])):
+                    x = x.astype(np.float64)
+                    sums[name] = sums.get(name, 0.0) + x.sum(0)
+                    sqs[name] = sqs.get(name, 0.0) + (x ** 2).sum(0)
+                    counts[name] = counts.get(name, 0) + len(x)
+        out = str(Path(root) / f"{split}_fs2.csv")
+        write_csv(rows, out)
+        out_paths.append(out)
+    stats = {}
+    for name in sums:
+        mean = sums[name] / counts[name]
+        stats[f"{name}_mean"] = mean.astype(np.float32)
+        stats[f"{name}_scale"] = np.sqrt(np.maximum(sqs[name] / counts[name] - mean ** 2, 1e-12)).astype(np.float32)
+    stats_path = str(Path(root) / "stats.npz")
+    np.savez(stats_path, **stats)
+    return out_paths[0], out_paths[1], stats_path, tokens
+
+
+def training_slice(root, align_paths, freqs, seed, where):
+    """Phase 10. Returns the K1, K1-bwd dkv and dq launches of the training
+    run and the numbers the record and PERF.md need."""
+    import numpy as np
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from jatts_torch.bin import tts_train
+    from jatts_torch.models.fastspeech2 import FastSpeech2
+    from jatts_torch.modules.dropout import set_dropout_rate
+    from jatts_torch.ops import flash_attention as k1
+    from jatts_torch.train.trainer import Trainer
+    from jatts_torch.utils.checkpoint import find_latest_checkpoint
+    from jatts_torch.utils.config import load_config
+
+    t0 = time.perf_counter()
+    train_csv, dev_csv, stats, tokens = write_fs2_corpus(root, align_paths, freqs)
+    print(f"training corpus: .npz dumps, stats, tokens.txt in {time.perf_counter() - t0:.1f} s", flush=True)
+    config = load_config(str(JSUT_CONF))
+    print(
+        f"training config {JSUT_CONF.relative_to(ROOT)} with attn_backend flash; reductions: "
+        f"train_max_steps {config['train_max_steps']} -> {TRAIN_STEPS}, warmup_steps "
+        f"{config['scheduler_params']['warmup_steps']} -> {TRAIN_WARMUP}", flush=True,
+    )
+    config["train_max_steps"] = TRAIN_STEPS
+    config["scheduler_params"] = {**config["scheduler_params"], "warmup_steps": TRAIN_WARMUP}
+    outdir = str(Path(root) / "exp_fs2")
+
+    k1.reset_launches()
+    t0 = time.perf_counter()
+    trainer = tts_train.run(train_csv, dev_csv, stats, tokens, config, outdir, seed=seed,
+                            device="cuda", attn_backend="flash")
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches = (k1.launches, k1.launches_bwd_dkv, k1.launches_bwd_dq)
+
+    losses = [h["train/loss"] for h in trainer.history]
+    batches = trainer.train_loader.sampler.batches
+    print(
+        f"training: {len(trainer.train_loader.dataset)} utterances in {len(batches)} batches of "
+        f"<= {config['batch_size']}, {trainer.steps} steps in {run_s:.1f} s; launches K1 {launches[0]}, "
+        f"K1-bwd dkv {launches[1]}, dq {launches[2]} (8 a step = {8 * TRAIN_STEPS})", flush=True,
+    )
+    check(trainer.steps == TRAIN_STEPS, f"trained {trainer.steps} steps")
+    check(all(math.isfinite(v) for h in trainer.history for v in h.values()), "a training stat is not finite")
+    first, last = float(np.mean(losses[:10])), float(np.mean(losses[-10:]))
+    print(f"training loss: mean of the first 10 steps {first:.4f}, of the last 10 {last:.4f}", flush=True)
+    check(last < first, "the training loss did not fall")
+    check(launches[0] > 0 and launches[1] > 0 and launches[2] > 0, "K1/K1-bwd not launched in training")
+    check(launches == (8 * TRAIN_STEPS,) * 3, f"launches {launches} != 8 a step each")
+
+    # the checkpoint, and a resumed trainer
+    ckpt = find_latest_checkpoint(outdir)
+    check(ckpt is not None and ckpt.endswith(f"checkpoint-{TRAIN_STEPS}steps"), f"checkpoint {ckpt}")
+    model_params = trainer.config["model_params"]
+    model2 = FastSpeech2(**model_params, device="cuda")
+    resumed = Trainer(trainer.config, model2, trainer.criterions, trainer.loss_fn, trainer.train_loader,
+                      outdir=outdir, seed=seed)
+    resumed.init_state()
+    resumed.load_checkpoint()
+    same = all(torch.equal(model2.state_dict()[k], v) for k, v in trainer.model.state_dict().items())
+    print(f"resume from {Path(ckpt).name}: steps {resumed.steps}, parameters bitwise equal {same}", flush=True)
+    check(resumed.steps == TRAIN_STEPS and same, "the resumed trainer differs")
+
+    # the trained weights in inference
+    dev_set = trainer.dev_loader.dataset
+    dev_batch = trainer.dev_loader.collater([dev_set[i] for i in range(min(4, len(dev_set)))])
+    xs = torch.from_numpy(dev_batch["xs"]).long().cuda()
+    ilens = torch.from_numpy(dev_batch["ilens"]).long().cuda()
+    with torch.no_grad():
+        inf = model2.inference(xs, ilens, 1024)
+    olens = inf["olens"].tolist()
+    print(f"inference on 4 dev rows: olens {olens} (true {dev_batch['olens'].tolist()})", flush=True)
+    check(bool(torch.isfinite(inf["feat_gen"]).all()) and bool((inf["duration"] >= 0).all()),
+          "inference of the trained model")
+    del resumed, model2
+
+    # one step at the largest batch and its parts
+    big = max(batches, key=lambda idx: sum(trainer.train_loader.dataset.get_frame_len(i) for i in idx))
+    tb = trainer.to_device(trainer.train_loader.collater([trainer.train_loader.dataset[i] for i in big]))
+    shape = (tb["ys"].shape[0], tb["ys"].shape[1], tb["xs"].shape[1])
+    model, params, crit = trainer.model, trainer.params, trainer.criterions
+
+    def host_ms(fn, iters=3):
+        return time_ms(fn, iters=iters, warmup=1, host_clock=True)
+
+    def loss_of(m):
+        return trainer.loss_fn(m, tb, crit, trainer.config, 0)[0]
+
+    model.train()
+    fwd_ms = host_ms(lambda: loss_of(model))
+    loss = loss_of(model)
+    grads = torch.autograd.grad(loss, params, retain_graph=True)
+    bwd_ms = host_ms(lambda: torch.autograd.grad(loss, params, retain_graph=True))
+    for p, g in zip(params, grads):
+        p.grad = g
+    opt_ms = host_ms(trainer.optimizer.step, iters=5)
+    step_ms = host_ms(lambda: trainer.train_step(tb))
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        trainer.train_step(tb)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    busy_ms = sum(e.self_device_time_total for e in events) / 1e3
+    check(busy_ms > 0, "profile of one training step: the profiler saw no device time")
+    k_ms = {name: sum(e.self_device_time_total for e in events if name in e.key) / 1e3
+            for name in ("flash_attn_fwd_kernel", "flash_attn_bwd_dkv_kernel", "flash_attn_bwd_dq_kernel")}
+    print(
+        f"training step f32 JSUT width, batch {shape} (B, T_feats, T_text): whole step {step_ms:.1f} ms "
+        f"(host clock); forward+loss {fwd_ms:.1f} ms, backward {bwd_ms:.1f} ms, optimizer {opt_ms:.2f} ms; "
+        f"{where}", flush=True,
+    )
+    print(
+        f"profile of one training step: wall {wall_ms:.1f} ms under the profiler, device busy "
+        f"{busy_ms:.1f} ms in {sum(e.count for e in events)} kernels, idle share "
+        f"{1 - busy_ms / wall_ms:.3f}; K1 {k_ms['flash_attn_fwd_kernel']:.2f} ms, K1-bwd dkv "
+        f"{k_ms['flash_attn_bwd_dkv_kernel']:.2f} ms, dq {k_ms['flash_attn_bwd_dq_kernel']:.2f} ms "
+        f"(8 launches each)", flush=True,
+    )
+    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:8]:
+        print(f"  {e.self_device_time_total / 1e3:8.2f} ms  x{e.count:<5d} {e.key[:90]}")
+
+    # the same step under attn_backend xla, same weights and batch, dropout 0
+    state = model.state_dict()
+    pair = {}
+    for backend in ("flash", "xla"):
+        m = FastSpeech2(**{**model_params, "attn_backend": backend}, device="cuda")
+        m.load_state_dict(state)
+        set_dropout_rate(m, 0.0)
+        m.train()
+        k1.reset_launches()
+        lss = loss_of(m)
+        pair[backend] = (float(lss.detach()), torch.autograd.grad(lss, list(m.parameters())))
+        want = (8, 8, 8) if backend == "flash" else (0, 0, 0)
+        check((k1.launches, k1.launches_bwd_dkv, k1.launches_bwd_dq) == want,
+              f"{backend} step: K1/K1-bwd launches != {want}")
+        pair[backend] += (host_ms(lambda: torch.autograd.grad(loss_of(m), list(m.parameters()))),)
+        del m
+    (lf, gf, f_ms), (lx, gx, x_ms) = pair["flash"], pair["xla"]
+    loss_rel = abs(lf - lx) / abs(lx)
+    diff = math.sqrt(sum(float((a - b).double().pow(2).sum()) for a, b in zip(gf, gx)))
+    norm = math.sqrt(sum(float(b.double().pow(2).sum()) for b in gx))
+    print(
+        f"flash vs xla, one step at batch {shape}, dropout 0: loss {lf:.6f} vs {lx:.6f} (rel diff "
+        f"{loss_rel:.2e}, tol 1e-4), gradients |g_flash - g_xla| / |g_xla| {diff / norm:.2e} (tol 1e-3); "
+        f"forward+backward flash {f_ms:.1f} ms, xla {x_ms:.1f} ms", flush=True,
+    )
+    check(loss_rel <= 1e-4 and diff / norm <= 1e-3, "flash and xla training steps disagree")
+    return launches, {"step_ms": step_ms, "run_s": run_s, "k_ms": k_ms}
 
 
 def main() -> int:
@@ -496,8 +864,9 @@ def main() -> int:
 
     # 2. build
     t0 = time.perf_counter()
-    reports = build.build([k1.KERNEL, mas.KERNEL])
-    print(f"build: {k1.KERNEL}, {mas.KERNEL} in {time.perf_counter() - t0:.1f} s", flush=True)
+    reports = build.build([k1.KERNEL, k1.KERNEL_BWD, mas.KERNEL])
+    print(f"build: {k1.KERNEL}, {k1.KERNEL_BWD}, {mas.KERNEL} in {time.perf_counter() - t0:.1f} s",
+          flush=True)
     for kernel, report in reports.items():
         for line in report.splitlines():
             if "registers" in line or "spill" in line:
@@ -679,9 +1048,31 @@ def main() -> int:
 
     del fs2, voc, bundle, pcm, ref_model, k1_model
 
-    # 8. the aligner slice
-    k2_launches, k3_launches, own_check = aligner_slice(args.seed, where)
+    # 8. the aligner slice; its corpus and durations feed phase 10
+    tmp = tempfile.TemporaryDirectory(prefix="jatts_smoke_")
+    k2_launches, k3_launches, own_check, align_paths, freqs = aligner_slice(args.seed, where, tmp.name)
     mas_checks.append(own_check)
+
+    # 9. K1-bwd against its plain version, then its times
+    bwd_err = {"f32": 0.0, "bf16": 0.0}
+    for (b, h, t, d), dtype_name, with_bias in (
+        ((32, 2, 1024, 192), "f32", True),   # the training decoder
+        ((32, 2, 112, 192), "f32", True),    # the training encoder
+        ((8, 2, 256, 64), "f32", True),
+        ((8, 2, 256, 128), "f32", True),
+        ((8, 2, 256, 256), "f32", True),
+        ((8, 2, 1024, 192), "bf16", True),
+        ((8, 2, 256, 256), "bf16", True),
+        ((8, 2, 1024, 192), "f32", False),   # MHA form, no bias
+        ((8, 2, 1000, 192), "f32", True),    # ragged edge
+    ):
+        err = check_k1bwd(b, h, t, d, dtype_name, with_bias, args.seed, against_autograd=(t == 1024 and b == 32))
+        bwd_err[dtype_name] = max(bwd_err[dtype_name], err)
+    bwd_times = time_k1bwd(args.seed + 3, where)
+
+    # 10. the training slice
+    train_launches, train = training_slice(tmp.name, align_paths, freqs, args.seed, where)
+    tmp.cleanup()
     # K2, K3, pair: differing elements over every case and the run's own
     # lattice; K2, K3: the largest |kernel - twin| seen there
     mas_mismatches = [sum(counts[i] for counts, _ in mas_checks) for i in range(3)]
@@ -689,18 +1080,32 @@ def main() -> int:
 
     mas_row = {"route": "cuda", "source": "jatts_torch/csrc/mas_viterbi.cu",
                "bound_by": "bytes", "library_ms": None}
+    bwd_row = {"route": "cuda", "source": "jatts_torch/csrc/flash_attn_bwd.cu",
+               "max_abs_err": max(bwd_err.values()), "plain_ms": bwd_times["plain_ms"],
+               "library_ms": bwd_times["library_ms"]}
     record = {"kernels": [{
         "name": k1.KERNEL,
         "route": "cuda",
         "source": "jatts_torch/csrc/flash_attn_fwd.cu",
         "replaces": "jatts_tpu/modules/attention.py:158",
-        "launches": launches,
+        "launches": launches + train_launches[0],
+        "launches_by_path": {"serving": launches, "training": train_launches[0]},
         "max_abs_err": max(max_err.values()),
         "ms": ms,
         "plain_ms": plain_ms,
         "bound_ms": bound_ms,
         "bound_by": bound_by,
         "library_ms": library_ms,
+    }, {
+        "name": "flash_attn_bwd_dkv",
+        "replaces": "jax/experimental/pallas/ops/tpu/flash_attention.py:1121",
+        "launches": train_launches[1], "ms": bwd_times["dkv"][0], "bound_ms": bwd_times["dkv"][1],
+        "bound_by": bwd_times["dkv"][2], **bwd_row,
+    }, {
+        "name": "flash_attn_bwd_dq",
+        "replaces": "jax/experimental/pallas/ops/tpu/flash_attention.py:1456",
+        "launches": train_launches[2], "ms": bwd_times["dq"][0], "bound_ms": bwd_times["dq"][1],
+        "bound_by": bwd_times["dq"][2], **bwd_row,
     }, {
         "name": "mas_fwd", "replaces": "jatts_tpu/ops/mas_pallas.py:139", "launches": k2_launches,
         "mismatches": mas_mismatches[0] + mas_mismatches[2], "max_abs_err": mas_max_err[0], "ms": k2_ms, "plain_ms": k2_plain_ms,

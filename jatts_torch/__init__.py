@@ -6,8 +6,9 @@ own importers (``jatts_tpu.utils.torch_import``, ``jatts_tpu.vocoder.convert``)
 read the port's ``state_dict()`` unchanged.
 
 The package imports ``torch`` and never ``jax``, ``flax`` or ``jatts_tpu``.
-Entry points (``FastSpeech2``, ``HiFiGANGenerator``, ``ServingBundle``) run on
-``cuda`` unless the caller passes ``device="cpu"``. Hand-written CUDA kernels
+Entry points (``FastSpeech2``, ``HiFiGANGenerator``, ``ServingBundle``,
+``bin/align.py``, ``bin/tts_train.py``) run on ``cuda`` unless the caller
+passes ``device="cpu"``. Hand-written CUDA kernels
 live in ``csrc/`` and are built with ``nvcc`` at first use.
 """
 

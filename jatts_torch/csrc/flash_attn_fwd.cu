@@ -8,6 +8,10 @@
 //
 // with the bias added BEFORE the scale, as the TPU kernel does. Non-causal,
 // no dropout, f32 accumulation; q/k/v/ab/out in f32 or bf16 (one type).
+// When asked (lse != null, the autograd path), it also writes each row's
+// log-sum-exp lse = m + log(l) of the scaled scores in f32, which the
+// backward (flash_attn_bwd.cu) uses to recompute p = exp(s - lse). A row
+// with no valid key gets lse = +inf, so that its p is exactly 0 there.
 //
 // Masking is key padding: every query row attends the keys whose key_mask
 // byte is nonzero (all keys when key_mask is null); keys past Tk are the
@@ -72,7 +76,7 @@ __global__ void __launch_bounds__(NTHREADS)
 flash_attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                       const T* __restrict__ v, const T* __restrict__ ab,
                       const uint8_t* __restrict__ key_mask, T* __restrict__ out,
-                      int H, int Tq, int Tk, float sm_scale) {
+                      float* __restrict__ lse, int H, int Tq, int Tk, float sm_scale) {
   constexpr int LD = D + 1;
   constexpr int LDP = BK + 1;
   constexpr int DC = D / 16;
@@ -199,13 +203,15 @@ flash_attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int c = 0; c < DC; ++c)
       store_as(&out[q_base + (size_t)qr * D + tx + 16 * c], acc[i][c] * inv);
+    if (lse != nullptr && tx == 0)
+      lse[(size_t)bh * Tq + qr] = l[i] > 0.f ? m[i] + logf(l[i]) : INFINITY;
   }
 }
 
 template <typename T, int D>
 cudaError_t launch(const void* q, const void* k, const void* v, const void* ab,
-                   const void* key_mask, void* out, int B, int H, int Tq, int Tk,
-                   float sm_scale, cudaStream_t stream) {
+                   const void* key_mask, void* out, float* lse, int B, int H, int Tq,
+                   int Tk, float sm_scale, cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<D>();
   cudaError_t err = cudaFuncSetAttribute(flash_attn_fwd_kernel<T, D>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -215,19 +221,19 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* ab,
   flash_attn_fwd_kernel<T, D><<<grid, NTHREADS, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<const T*>(ab), static_cast<const uint8_t*>(key_mask),
-      static_cast<T*>(out), H, Tq, Tk, sm_scale);
+      static_cast<T*>(out), lse, H, Tq, Tk, sm_scale);
   return cudaGetLastError();
 }
 
 template <typename T>
 cudaError_t dispatch_d(const void* q, const void* k, const void* v, const void* ab,
-                       const void* key_mask, void* out, int B, int H, int Tq, int Tk,
-                       int D, float sm_scale, cudaStream_t stream) {
+                       const void* key_mask, void* out, float* lse, int B, int H, int Tq,
+                       int Tk, int D, float sm_scale, cudaStream_t stream) {
   switch (D) {
-    case 64: return launch<T, 64>(q, k, v, ab, key_mask, out, B, H, Tq, Tk, sm_scale, stream);
-    case 128: return launch<T, 128>(q, k, v, ab, key_mask, out, B, H, Tq, Tk, sm_scale, stream);
-    case 192: return launch<T, 192>(q, k, v, ab, key_mask, out, B, H, Tq, Tk, sm_scale, stream);
-    case 256: return launch<T, 256>(q, k, v, ab, key_mask, out, B, H, Tq, Tk, sm_scale, stream);
+    case 64: return launch<T, 64>(q, k, v, ab, key_mask, out, lse, B, H, Tq, Tk, sm_scale, stream);
+    case 128: return launch<T, 128>(q, k, v, ab, key_mask, out, lse, B, H, Tq, Tk, sm_scale, stream);
+    case 192: return launch<T, 192>(q, k, v, ab, key_mask, out, lse, B, H, Tq, Tk, sm_scale, stream);
+    case 256: return launch<T, 256>(q, k, v, ab, key_mask, out, lse, B, H, Tq, Tk, sm_scale, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -235,15 +241,17 @@ cudaError_t dispatch_d(const void* q, const void* k, const void* v, const void* 
 }  // namespace
 
 // q, out: [B, H, Tq, D]; k, v: [B, H, Tk, D]; ab: [B, H, Tq, Tk] or null;
-// key_mask: [B, Tk] bytes (nonzero = valid) or null. All contiguous, one
-// element type (is_bf16 ? bf16 : f32). Returns a cudaError_t (0 = launched).
+// key_mask: [B, Tk] bytes (nonzero = valid) or null; lse: [B, H, Tq] f32 or
+// null. All contiguous, one element type (is_bf16 ? bf16 : f32) but lse.
+// Returns a cudaError_t (0 = launched).
 extern "C" int jatts_flash_attn_fwd(const void* q, const void* k, const void* v,
                                     const void* ab, const void* key_mask, void* out,
-                                    int B, int H, int Tq, int Tk, int D, int is_bf16,
-                                    float sm_scale, void* stream) {
+                                    void* lse, int B, int H, int Tq, int Tk, int D,
+                                    int is_bf16, float sm_scale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* l = static_cast<float*>(lse);
   if (is_bf16)
-    return (int)dispatch_d<__nv_bfloat16>(q, k, v, ab, key_mask, out, B, H, Tq, Tk, D,
+    return (int)dispatch_d<__nv_bfloat16>(q, k, v, ab, key_mask, out, l, B, H, Tq, Tk, D,
                                           sm_scale, s);
-  return (int)dispatch_d<float>(q, k, v, ab, key_mask, out, B, H, Tq, Tk, D, sm_scale, s);
+  return (int)dispatch_d<float>(q, k, v, ab, key_mask, out, l, B, H, Tq, Tk, D, sm_scale, s);
 }

@@ -1,19 +1,24 @@
-"""FastSpeech2 inference (counterpart of jatts_tpu/models/fastspeech2.py).
+"""FastSpeech2 (counterpart of jatts_tpu/models/fastspeech2.py).
 
 Conformer encoder -> variance adaptor -> matmul length regulator ->
-conformer decoder -> linear feat_out -> postnet residual, batched at a
-static output capacity. Parameters carry the reference state_dict keys,
-so ``jatts_tpu.utils.torch_import.convert_fastspeech2`` reads
-``state_dict()`` as it stands.
+conformer decoder -> linear feat_out -> postnet residual. Parameters carry
+the reference state_dict keys, so
+``jatts_tpu.utils.torch_import.convert_fastspeech2`` reads ``state_dict()``
+as it stands.
 
-This slice ports ``encode`` and ``inference``. The training forward and
-multi-speaker inputs (``spks``, ``spk_embed_dim``) come with later slices;
-the dropout and init arguments are accepted so that a recipe's
-``model_params`` construct the model unchanged, and have no effect here.
+``forward`` is the training call (the JAX ``__call__``): teacher-forced
+durations, pitch and energy; dropout and BatchNorm follow ``self.training``
+(a fresh model is in training mode, like the JAX call's
+``deterministic=False``). ``encode`` and ``inference`` always run
+deterministic, as the JAX methods' default ``deterministic=True`` does,
+batched at a static output capacity. Multi-speaker inputs (``spks``,
+``spk_embed_dim``) come with a later slice. ``init_type`` is read by the
+trainer (``utils/initialize.py``), not here.
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import Dict, Optional, Union
 
 import torch
@@ -117,22 +122,28 @@ class FastSpeech2(nn.Module):
         self.encoder = ConformerEncoder(
             linear_units=eunits, num_blocks=elayers, input_layer="embed", idim=idim,
             normalize_before=encoder_normalize_before,
-            cnn_module_kernel=conformer_enc_kernel_size, **common,
+            cnn_module_kernel=conformer_enc_kernel_size,
+            dropout_rate=transformer_enc_dropout_rate,
+            positional_dropout_rate=transformer_enc_positional_dropout_rate,
+            attention_dropout_rate=transformer_enc_attn_dropout_rate, **common,
         )
+        self.stop_gradient_from_pitch_predictor = stop_gradient_from_pitch_predictor
+        self.stop_gradient_from_energy_predictor = stop_gradient_from_energy_predictor
+        self.init_type = init_type
         self.duration_predictor = DurationPredictor(
             adim, duration_predictor_layers, duration_predictor_chans,
-            duration_predictor_kernel_size,
+            duration_predictor_kernel_size, duration_predictor_dropout_rate,
         )
         self.pitch_predictor = VariancePredictor(
             adim, pitch_predictor_layers, pitch_predictor_chans,
-            pitch_predictor_kernel_size,
+            pitch_predictor_kernel_size, pitch_predictor_dropout,
         )
         self.pitch_embed = nn.Sequential(
             nn.Conv1d(1, adim, pitch_embed_kernel_size, padding="same")
         )
         self.energy_predictor = VariancePredictor(
             adim, energy_predictor_layers, energy_predictor_chans,
-            energy_predictor_kernel_size,
+            energy_predictor_kernel_size, energy_predictor_dropout,
         )
         self.energy_embed = nn.Sequential(
             nn.Conv1d(1, adim, energy_embed_kernel_size, padding="same")
@@ -140,21 +151,83 @@ class FastSpeech2(nn.Module):
         self.decoder = ConformerEncoder(
             linear_units=dunits, num_blocks=dlayers, input_layer=None,
             normalize_before=decoder_normalize_before,
-            cnn_module_kernel=conformer_dec_kernel_size, **common,
+            cnn_module_kernel=conformer_dec_kernel_size,
+            dropout_rate=transformer_dec_dropout_rate,
+            positional_dropout_rate=transformer_dec_positional_dropout_rate,
+            attention_dropout_rate=transformer_dec_attn_dropout_rate, **common,
         )
         self.feat_out = nn.Linear(adim, odim * reduction_factor)
         if postnet_layers > 0:
             self.postnet = Postnet(
-                odim, postnet_layers, postnet_chans, postnet_filts, use_batch_norm
+                odim, postnet_layers, postnet_chans, postnet_filts, use_batch_norm,
+                postnet_dropout_rate,
             )
         self.to(device=resolve_device(device), dtype=dtype)
-        self.eval()
 
-    def encode(self, xs: torch.Tensor, ilens: torch.Tensor):
-        """Encoder trunk -> (hs [B, T_text, adim], d_masks [B, T_text])."""
+    @contextlib.contextmanager
+    def _deterministic(self):
+        """Eval mode for the duration of a call, the mode restored after."""
+        was_training = self.training
+        self.eval()
+        try:
+            yield
+        finally:
+            self.train(was_training)
+
+    def _encode(self, xs: torch.Tensor, ilens: torch.Tensor):
         t_text = xs.shape[1]
         hs = self.encoder(xs, attn_mask(ilens, t_text))
         return hs, sequence_mask(ilens, t_text)
+
+    def encode(self, xs: torch.Tensor, ilens: torch.Tensor):
+        """Encoder trunk -> (hs [B, T_text, adim], d_masks [B, T_text]),
+        deterministic."""
+        with self._deterministic():
+            return self._encode(xs, ilens)
+
+    def forward(
+        self,
+        xs: torch.Tensor,      # [B, T_text] token ids
+        ilens: torch.Tensor,   # [B]
+        ys: torch.Tensor,      # [B, T_feats, odim]
+        olens: torch.Tensor,   # [B]
+        ds: torch.Tensor,      # [B, T_text] int durations
+        ps: torch.Tensor,      # [B, T_text, 1] token-averaged pitch
+        es: torch.Tensor,      # [B, T_text, 1] token-averaged energy
+    ) -> Dict[str, torch.Tensor]:
+        """Training forward (the JAX ``__call__``): the predictors see the
+        encoder output (detached for pitch/energy per
+        ``stop_gradient_from_*``), the decoder sees it plus the embedded
+        teacher pitch and energy, expanded by the given durations to
+        ``ys.shape[1]`` frames. Returns before/after-postnet outputs, the
+        predictions and ``ys``/``olens``, under the JAX package's keys."""
+        hs, d_masks = self._encode(xs, ilens)
+        p_in = hs.detach() if self.stop_gradient_from_pitch_predictor else hs
+        p_outs = self.pitch_predictor(p_in, d_masks[..., None])
+        e_in = hs.detach() if self.stop_gradient_from_energy_predictor else hs
+        e_outs = self.energy_predictor(e_in, d_masks[..., None])
+        d_outs = self.duration_predictor(hs, d_masks)
+
+        e_emb = self.energy_embed(es.to(hs.dtype).transpose(1, 2)).transpose(1, 2)
+        p_emb = self.pitch_embed(ps.to(hs.dtype).transpose(1, 2)).transpose(1, 2)
+        hs = hs + e_emb + p_emb
+        t_feats = ys.shape[1]
+        hs = regulate_length(hs, ds, t_feats, d_masks)
+
+        zs = self.decoder(hs, attn_mask(olens, t_feats))
+        before_outs = self.feat_out(zs).reshape(zs.shape[0], -1, self.odim)
+        after_outs = None
+        if self.postnet_layers > 0:
+            after_outs = before_outs + self.postnet(before_outs)
+        return {
+            "before_outs": before_outs,
+            "after_outs": after_outs,
+            "d_outs": d_outs,
+            "p_outs": p_outs,
+            "e_outs": e_outs,
+            "ys": ys,
+            "olens": olens,
+        }
 
     def inference(
         self,
@@ -163,10 +236,14 @@ class FastSpeech2(nn.Module):
         max_t_feats: int,
         alpha: float = 1.0,
     ) -> Dict[str, torch.Tensor]:
-        """Batched inference at a static output capacity. Returns feat_gen
-        [B, max_t_feats, odim] (zero past olens), duration [B, T_text] int32,
-        pitch/energy [B, T_text, 1] and olens [B]."""
-        hs, d_masks = self.encode(xs, ilens)
+        """Batched inference at a static output capacity, deterministic.
+        Returns feat_gen [B, max_t_feats, odim] (zero past olens), duration
+        [B, T_text] int32, pitch/energy [B, T_text, 1] and olens [B]."""
+        with self._deterministic():
+            return self._inference(xs, ilens, max_t_feats, alpha)
+
+    def _inference(self, xs, ilens, max_t_feats, alpha):
+        hs, d_masks = self._encode(xs, ilens)
         p_outs = self.pitch_predictor(hs, d_masks[..., None])
         e_outs = self.energy_predictor(hs, d_masks[..., None])
         d_log = self.duration_predictor(hs, d_masks)

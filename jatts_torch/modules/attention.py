@@ -2,7 +2,10 @@
 jatts_tpu/modules/attention.py).
 
 Masking is additive with a finite -1e9, and probabilities at masked keys
-are zeroed after the softmax, so a row with no valid key gives 0.
+are zeroed after the softmax, so a row with no valid key gives 0. In
+training the eager path drops attention probabilities after the masked
+softmax (``dropout_rate``); the flash path applies none, which is the JAX
+package's own semantics for its fused kernel.
 
 ``attn_backend`` selects the attention core: ``xla`` is the eager path
 (``_attend``, named after the JAX package's option), ``flash`` is K1
@@ -20,6 +23,7 @@ from typing import Optional
 import torch
 from torch import nn
 
+from jatts_torch.modules.dropout import Dropout
 from jatts_torch.ops.flash_attention import flash_attention
 
 _MASK_VAL = -1e9
@@ -38,8 +42,14 @@ def _merge_heads(x: torch.Tensor) -> torch.Tensor:
     return x.transpose(1, 2).reshape(b, t, h * dk)
 
 
-def _attend(scores: torch.Tensor, v: torch.Tensor, mask: Optional[torch.Tensor]):
-    """Masked softmax + value contraction; masked keys get zero weight.
+def _attend(
+    scores: torch.Tensor,
+    v: torch.Tensor,
+    mask: Optional[torch.Tensor],
+    dropout: Optional[Dropout] = None,
+):
+    """Masked softmax + value contraction; masked keys get zero weight, then
+    the probabilities go through ``dropout`` (a no-op in eval mode).
     mask: [B, 1, T_k] or [B, T_q, T_k], True on valid keys."""
     if mask is not None:
         m = mask[:, None]  # broadcast over heads
@@ -47,6 +57,8 @@ def _attend(scores: torch.Tensor, v: torch.Tensor, mask: Optional[torch.Tensor])
         attn = attn.masked_fill(~m, 0.0)
     else:
         attn = torch.softmax(scores, dim=-1)
+    if dropout is not None:
+        attn = dropout(attn)
     return torch.matmul(attn.to(v.dtype), v)
 
 
@@ -68,11 +80,14 @@ def _key_mask(mask: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
 class MultiHeadedAttention(nn.Module):
     """Vanilla MHA; parameters linear_q/k/v/out as in the reference."""
 
-    def __init__(self, n_head: int, n_feat: int, attn_backend: str = "xla"):
+    def __init__(
+        self, n_head: int, n_feat: int, attn_backend: str = "xla", dropout_rate: float = 0.0
+    ):
         super().__init__()
         self.n_head = n_head
         self.d_k = n_feat // n_head
         self.attn_backend = attn_backend
+        self.dropout = Dropout(dropout_rate)
         self.linear_q = nn.Linear(n_feat, n_feat)
         self.linear_k = nn.Linear(n_feat, n_feat)
         self.linear_v = nn.Linear(n_feat, n_feat)
@@ -90,7 +105,7 @@ class MultiHeadedAttention(nn.Module):
             )
         else:
             scores = torch.matmul(q, k.transpose(-1, -2)) * sm_scale
-            x = _attend(scores, v, mask)
+            x = _attend(scores, v, mask, self.dropout)
         return self.linear_out(_merge_heads(x))
 
 
@@ -107,8 +122,10 @@ class LegacyRelPositionMultiHeadedAttention(MultiHeadedAttention):
     """Legacy rel-pos MHA (the variant every published reference config
     runs). pos_emb has length T with reversed positions."""
 
-    def __init__(self, n_head: int, n_feat: int, attn_backend: str = "xla"):
-        super().__init__(n_head, n_feat, attn_backend)
+    def __init__(
+        self, n_head: int, n_feat: int, attn_backend: str = "xla", dropout_rate: float = 0.0
+    ):
+        super().__init__(n_head, n_feat, attn_backend, dropout_rate)
         self.linear_pos = nn.Linear(n_feat, n_feat, bias=False)
         self.pos_bias_u = nn.Parameter(torch.empty(n_head, self.d_k))
         self.pos_bias_v = nn.Parameter(torch.empty(n_head, self.d_k))
@@ -134,5 +151,5 @@ class LegacyRelPositionMultiHeadedAttention(MultiHeadedAttention):
             )
         else:
             matrix_ac = torch.matmul(q_u, k.transpose(-1, -2))
-            x = _attend((matrix_ac + matrix_bd) * sm_scale, v, mask)
+            x = _attend((matrix_ac + matrix_bd) * sm_scale, v, mask, self.dropout)
         return self.linear_out(_merge_heads(x))

@@ -5,8 +5,11 @@ PyTorch's [B, C, T] inside. Layer order as the reference EncoderLayer:
 macaron FFN -> rel-pos MHA -> conv module -> FFN -> final LayerNorm, all
 pre-norm residual. Padded frames are zeroed after each sub-block
 (``zero_pad``), so the k>1 convolutions never read them and padded query
-rows never reach valid rows. Inference only: BatchNorm always uses its
-running statistics, and there is no dropout.
+rows never reach valid rows. The mode follows ``self.training``: in
+training, dropout goes where the JAX modules put it (the FFN hidden layer,
+each sub-block's output before its residual add, the positional encoding,
+the attention probabilities on the eager path) and the conv module's
+BatchNorm uses batch statistics with flax's update (``modules/batchnorm.py``).
 
 Parameter names are the reference state_dict keys
 (``encoders.{i}.self_attn.linear_pos``, ``conv_module.depthwise_conv``, …).
@@ -24,6 +27,8 @@ from jatts_torch.modules.attention import (
     LegacyRelPositionMultiHeadedAttention,
     MultiHeadedAttention,
 )
+from jatts_torch.modules.batchnorm import BatchNorm1d
+from jatts_torch.modules.dropout import Dropout
 from jatts_torch.modules.positional import (
     LegacyRelPositionalEncoding,
     PositionalEncoding,
@@ -69,32 +74,40 @@ def _masked(x: torch.Tensor, pad_mask_t: Optional[torch.Tensor]) -> torch.Tensor
 class MultiLayeredConv1d(nn.Module):
     """Two-conv positionwise FFN (w_1, w_2)."""
 
-    def __init__(self, in_chans: int, hidden_chans: int, kernel_size: int):
+    def __init__(
+        self, in_chans: int, hidden_chans: int, kernel_size: int, dropout_rate: float = 0.0
+    ):
         super().__init__()
         self.w_1 = nn.Conv1d(in_chans, hidden_chans, kernel_size, padding="same")
         self.w_2 = nn.Conv1d(hidden_chans, in_chans, kernel_size, padding="same")
+        self.dropout = Dropout(dropout_rate)
 
     def forward(self, x, pad_mask_t=None):
         # w_1's bias makes padded rows nonzero; w_2 (k>1) must not read them
         x = _masked(F.relu(_conv_t(self.w_1, x)), pad_mask_t)
-        return _conv_t(self.w_2, x)
+        return _conv_t(self.w_2, self.dropout(x))
 
 
 class PositionwiseFeedForward(nn.Module):
     """Linear FFN (w_1, w_2)."""
 
-    def __init__(self, idim: int, hidden_units: int, activation: str = "relu"):
+    def __init__(
+        self, idim: int, hidden_units: int, activation: str = "relu", dropout_rate: float = 0.0
+    ):
         super().__init__()
         self.w_1 = nn.Linear(idim, hidden_units)
         self.w_2 = nn.Linear(hidden_units, idim)
         self.activation = _ACTIVATIONS[activation]
+        self.dropout = Dropout(dropout_rate)
 
     def forward(self, x, pad_mask_t=None):
-        return self.w_2(self.activation(self.w_1(x)))
+        return self.w_2(self.dropout(self.activation(self.w_1(x))))
 
 
 class ConvolutionModule(nn.Module):
-    """Pointwise-GLU -> depthwise -> BatchNorm (running stats) -> act -> pointwise."""
+    """Pointwise-GLU -> depthwise -> BatchNorm -> act -> pointwise. In
+    training the BatchNorm reduces over (B, T) including the zeroed padding
+    frames, as the JAX package's and the reference's do."""
 
     def __init__(self, channels: int, kernel_size: int, activation: str = "swish"):
         super().__init__()
@@ -102,7 +115,7 @@ class ConvolutionModule(nn.Module):
         self.depthwise_conv = nn.Conv1d(
             channels, channels, kernel_size, padding="same", groups=channels
         )
-        self.norm = nn.BatchNorm1d(channels, eps=1e-5)
+        self.norm = BatchNorm1d(channels, eps=1e-5)
         self.pointwise_conv2 = nn.Conv1d(channels, channels, 1)
         self.activation = _ACTIVATIONS[activation]
 
@@ -110,11 +123,7 @@ class ConvolutionModule(nn.Module):
         x = F.glu(self.pointwise_conv1(x.transpose(1, 2)), dim=1)  # [B, C, T]
         if pad_mask_t is not None:
             x = x * pad_mask_t[:, None, :].to(x.dtype)
-        x = self.depthwise_conv(x)
-        n = self.norm
-        x = F.batch_norm(
-            x, n.running_mean, n.running_var, n.weight, n.bias, training=False, eps=n.eps
-        )
+        x = self.norm(self.depthwise_conv(x))
         x = self.pointwise_conv2(self.activation(x))
         return x.transpose(1, 2)
 
@@ -136,23 +145,30 @@ class EncoderLayer(nn.Module):
         normalize_before: bool = True,
         selfattention_layer_type: str = "legacy_rel_selfattn",
         attn_backend: str = "xla",
+        dropout_rate: float = 0.0,
+        attention_dropout_rate: float = 0.0,
     ):
         super().__init__()
         self.macaron_style = macaron_style
         self.use_cnn_module = use_cnn_module
         self.normalize_before = normalize_before
+        self.dropout = Dropout(dropout_rate)
 
         def ffn():
             if positionwise_layer_type == "conv1d":
-                return MultiLayeredConv1d(size, linear_units, positionwise_conv_kernel_size)
-            return PositionwiseFeedForward(size, linear_units, activation_type)
+                return MultiLayeredConv1d(
+                    size, linear_units, positionwise_conv_kernel_size, dropout_rate
+                )
+            return PositionwiseFeedForward(size, linear_units, activation_type, dropout_rate)
 
         if selfattention_layer_type == "legacy_rel_selfattn":
             self.self_attn = LegacyRelPositionMultiHeadedAttention(
-                attention_heads, size, attn_backend
+                attention_heads, size, attn_backend, attention_dropout_rate
             )
         elif selfattention_layer_type == "selfattn":
-            self.self_attn = MultiHeadedAttention(attention_heads, size, attn_backend)
+            self.self_attn = MultiHeadedAttention(
+                attention_heads, size, attn_backend, attention_dropout_rate
+            )
         else:
             raise ValueError(
                 f"selfattention_layer_type {selfattention_layer_type!r} is not ported"
@@ -170,9 +186,9 @@ class EncoderLayer(nn.Module):
             self.norm_final = nn.LayerNorm(size, eps=1e-5)
 
     def _sublayer(self, x, norm, fn, scale=1.0):
-        """Residual sub-block with pre- or post-norm."""
+        """Residual sub-block with pre- or post-norm; dropout on its output."""
         h = fn(norm(x) if self.normalize_before else x)
-        x = x + scale * h
+        x = x + scale * self.dropout(h)
         return x if self.normalize_before else norm(x)
 
     def forward(self, x, pos_emb, mask, pad_mask_t=None):
@@ -232,14 +248,17 @@ class ConformerEncoder(nn.Module):
         cnn_module_kernel: int = 7,
         padding_idx: int = 0,
         attn_backend: str = "xla",
+        dropout_rate: float = 0.1,
+        positional_dropout_rate: float = 0.1,
+        attention_dropout_rate: float = 0.0,
     ):
         super().__init__()
         if pos_enc_layer_type == "legacy_rel_pos":
-            pos_enc = LegacyRelPositionalEncoding(attention_dim)
+            pos_enc = LegacyRelPositionalEncoding(attention_dim, dropout_rate=positional_dropout_rate)
         elif pos_enc_layer_type == "scaled_abs_pos":
-            pos_enc = ScaledPositionalEncoding(attention_dim)
+            pos_enc = ScaledPositionalEncoding(attention_dim, dropout_rate=positional_dropout_rate)
         elif pos_enc_layer_type == "abs_pos":
-            pos_enc = PositionalEncoding(attention_dim)
+            pos_enc = PositionalEncoding(attention_dim, dropout_rate=positional_dropout_rate)
         else:
             raise ValueError(f"pos_enc_layer_type {pos_enc_layer_type!r} is not ported")
         self.rel_pos = pos_enc_layer_type == "legacy_rel_pos"
@@ -259,7 +278,7 @@ class ConformerEncoder(nn.Module):
                 positionwise_layer_type, positionwise_conv_kernel_size,
                 macaron_style, use_cnn_module, cnn_module_kernel,
                 activation_type, normalize_before, selfattention_layer_type,
-                attn_backend,
+                attn_backend, dropout_rate, attention_dropout_rate,
             )
             for _ in range(num_blocks)
         )

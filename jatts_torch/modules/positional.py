@@ -2,7 +2,9 @@
 
 Tables are built in float64 with numpy, like the JAX package, and cast to
 the activation dtype. They are non-persistent buffers: no state_dict keys,
-as in the reference.
+as in the reference. In training the encodings apply dropout
+(``dropout_rate``) where the JAX modules do: to the scaled input, and for
+the relative encodings also to the positional table.
 """
 
 from __future__ import annotations
@@ -12,6 +14,8 @@ import math
 import numpy as np
 import torch
 from torch import nn
+
+from jatts_torch.modules.dropout import Dropout
 
 
 def sinusoid_table(t: int, d_model: int) -> np.ndarray:
@@ -46,26 +50,28 @@ def _table(table: np.ndarray, like: torch.Tensor) -> torch.Tensor:
 class PositionalEncoding(nn.Module):
     """Absolute sinusoidal PE: ``x*sqrt(d) + pe``."""
 
-    def __init__(self, d_model: int):
+    def __init__(self, d_model: int, dropout_rate: float = 0.0):
         super().__init__()
         self.d_model = d_model
+        self.dropout = Dropout(dropout_rate)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         pe = _table(sinusoid_table(x.shape[1], self.d_model), x)
-        return x * math.sqrt(self.d_model) + pe[None]
+        return self.dropout(x * math.sqrt(self.d_model) + pe[None])
 
 
 class ScaledPositionalEncoding(nn.Module):
     """Learnable-alpha PE: ``x + alpha*pe``."""
 
-    def __init__(self, d_model: int, init_alpha: float = 1.0):
+    def __init__(self, d_model: int, init_alpha: float = 1.0, dropout_rate: float = 0.0):
         super().__init__()
         self.d_model = d_model
         self.alpha = nn.Parameter(torch.tensor([init_alpha]))
+        self.dropout = Dropout(dropout_rate)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         pe = _table(sinusoid_table(x.shape[1], self.d_model), x)
-        return x + self.alpha.to(x.dtype) * pe[None]
+        return self.dropout(x + self.alpha.to(x.dtype) * pe[None])
 
 
 class LegacyRelPositionalEncoding(nn.Module):
@@ -75,10 +81,11 @@ class LegacyRelPositionalEncoding(nn.Module):
     ``max_len`` and its first T rows are sliced, so row p is
     PE(max_len-1-p), not PE(T-1-p)."""
 
-    def __init__(self, d_model: int, max_len: int = 5000):
+    def __init__(self, d_model: int, max_len: int = 5000, dropout_rate: float = 0.0):
         super().__init__()
         self.d_model = d_model
         self.max_len = max_len
+        self.dropout = Dropout(dropout_rate)
         table = sinusoid_table(max_len, d_model)[::-1].copy()
         self.register_buffer("pe", torch.from_numpy(table).float(), persistent=False)
 
@@ -88,16 +95,17 @@ class LegacyRelPositionalEncoding(nn.Module):
             pe = self.pe[:t].to(x.dtype)
         else:
             pe = _table(sinusoid_table(t, self.d_model)[::-1][:t], x)
-        return x * math.sqrt(self.d_model), pe[None]
+        return self.dropout(x * math.sqrt(self.d_model)), self.dropout(pe[None])
 
 
 class RelPositionalEncoding(nn.Module):
     """Returns ``(x*sqrt(d), pos_emb [1, 2T-1, d])``."""
 
-    def __init__(self, d_model: int):
+    def __init__(self, d_model: int, dropout_rate: float = 0.0):
         super().__init__()
         self.d_model = d_model
+        self.dropout = Dropout(dropout_rate)
 
     def forward(self, x: torch.Tensor):
         pe = _table(rel_sinusoid_table(x.shape[1], self.d_model), x)
-        return x * math.sqrt(self.d_model), pe[None]
+        return self.dropout(x * math.sqrt(self.d_model)), self.dropout(pe[None])

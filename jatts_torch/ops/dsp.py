@@ -127,3 +127,13 @@ def logmelfilterbank(
     if log_base == 2.0:
         return torch.log2(mel)
     raise ValueError(f"{log_base} is not supported.")
+
+
+def energy(
+    audio: torch.Tensor, n_fft: int = 1024, hop: int = 256, win_length: Optional[int] = None
+) -> torch.Tensor:
+    """Per-frame energy ``[n_frames]``: the L2 norm of the STFT magnitude
+    over frequency, floored at sqrt(1e-10)."""
+    spc = stft_magnitude(audio, n_fft, hop, win_length)
+    return torch.sqrt(torch.clamp((spc**2).sum(dim=-1), min=1e-10))
+

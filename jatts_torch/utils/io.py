@@ -1,8 +1,16 @@
-"""csv / wav IO (counterpart of jatts_tpu/utils/io.py; the HDF5 helpers are
-not ported yet).
+"""csv / wav / feature-dump IO (counterpart of jatts_tpu/utils/io.py).
 
 WAV IO is scipy-based; the csv contract matches the JAX package's so recipe
 artifacts are interchangeable.
+
+Feature dumps: the JAX package writes one HDF5 file per utterance (``mel``,
+``pitch``, ``energy``, ``spkemb`` …) and a stats file (``<feat>_mean``,
+``<feat>_scale``). ``h5py`` is imported inside the HDF5 functions only, and
+they raise an ImportError that names it where it is missing. The port also
+reads the same arrays from a numpy ``.npz`` archive with the same keys,
+because a machine without ``h5py`` must still train; :func:`read_array`
+picks the format by the file's suffix, and a ``.h5`` path never silently
+becomes anything else.
 """
 
 from __future__ import annotations
@@ -44,6 +52,61 @@ def write_csv(
         writer.writeheader()
         for row in data:
             writer.writerow(row)
+
+
+def _h5py():
+    try:
+        import h5py
+    except ImportError as e:
+        raise ImportError(
+            "reading or writing .h5 feature dumps needs the h5py package; "
+            "without it, dump features as .npz with the same keys"
+        ) from e
+    return h5py
+
+
+def read_hdf5(hdf5_name: str, hdf5_path: str) -> np.ndarray:
+    if not os.path.exists(hdf5_name):
+        raise FileNotFoundError(f"no such hdf5 file: {hdf5_name}")
+    with _h5py().File(hdf5_name, "r") as f:
+        if hdf5_path not in f:
+            raise KeyError(f"no such dataset {hdf5_path} in {hdf5_name}")
+        return f[hdf5_path][()]
+
+
+def write_hdf5(hdf5_name: str, hdf5_path: str, write_data, is_overwrite: bool = True) -> None:
+    os.makedirs(os.path.dirname(os.path.abspath(hdf5_name)), exist_ok=True)
+    write_data = np.asarray(write_data)
+    with _h5py().File(hdf5_name, "a") as f:
+        if hdf5_path in f:
+            if not is_overwrite:
+                raise RuntimeError(f"dataset {hdf5_path} exists in {hdf5_name}")
+            del f[hdf5_path]
+        f.create_dataset(hdf5_path, data=write_data)
+
+
+def list_hdf5(hdf5_name: str) -> List[str]:
+    h5py = _h5py()
+    with h5py.File(hdf5_name, "r") as f:
+        keys: List[str] = []
+        f.visit(lambda k: keys.append(k) if isinstance(f[k], h5py.Dataset) else None)
+    return keys
+
+
+def read_array(path: str, key: str) -> np.ndarray:
+    """Array ``key`` of a feature dump: ``.h5`` through :func:`read_hdf5`,
+    ``.npz`` through ``numpy.load``. Raises FileNotFoundError or KeyError
+    as :func:`read_hdf5` does, ValueError on any other suffix."""
+    if path.endswith(".h5"):
+        return read_hdf5(path, key)
+    if path.endswith(".npz"):
+        if not os.path.exists(path):
+            raise FileNotFoundError(f"no such npz file: {path}")
+        with np.load(path) as f:
+            if key not in f.files:
+                raise KeyError(f"no such array {key} in {path}")
+            return f[key]
+    raise ValueError(f"feature dump {path}: expected a .h5 or .npz file")
 
 
 def read_audio(

@@ -56,6 +56,13 @@ def test_logmelfilterbank_matches_jax(kw):
     np.testing.assert_allclose(got, want, rtol=0, atol=5e-5)
 
 
+def test_energy_matches_jax():
+    wav = _wave(3, 7 * HOP + 17)
+    got = tdsp.energy(torch.from_numpy(wav), 2048, HOP).numpy()
+    want = np.asarray(jdsp.energy(jnp.asarray(wav), 2048, HOP))
+    np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-5)
+
+
 def test_frame_signal_equals_jax():
     wav = _wave(1, 1000)
     np.testing.assert_array_equal(

@@ -1,7 +1,7 @@
 """jatts_torch package checks: no JAX anywhere in the port, the K1 wrapper's
-CPU route and input checks, the default device, the kernel build commands,
-and (marked ``cuda``, skipped without a card) K1, K2 and K3 against their
-plain twins."""
+CPU route and input checks, the default device of the entry points, the
+kernel build commands, and (marked ``cuda``, skipped without a card) K1,
+K1-bwd, K2 and K3 against their plain twins."""
 
 import ast
 import os
@@ -35,7 +35,11 @@ def test_import_leaves_jax_out_of_sys_modules():
         "jatts_torch.vocoder.hifigan, jatts_torch.serving, jatts_torch.utils.convert, "
         "jatts_torch.ops.flash_attention, jatts_torch.ops.mas, jatts_torch.ops.dsp, "
         "jatts_torch.losses.align, jatts_torch.modules.alignment, jatts_torch.aligner, "
-        "jatts_torch.features.extractors, jatts_torch.utils.io, jatts_torch.bin.align\n"
+        "jatts_torch.features.extractors, jatts_torch.utils.io, jatts_torch.bin.align, "
+        "jatts_torch.bin.tts_train, jatts_torch.train.trainer, jatts_torch.train.steps, "
+        "jatts_torch.train.schedulers, jatts_torch.losses.basic, jatts_torch.data.dataset, "
+        "jatts_torch.data.batcher, jatts_torch.utils.checkpoint, jatts_torch.utils.initialize, "
+        "jatts_torch.utils.config\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in %r)\n"
         "bad += [m for m in ('h5py', 'yaml', 'triton') if m in sys.modules]\n"
         "print(bad); sys.exit(1 if bad else 0)" % (FORBIDDEN,)
@@ -100,6 +104,17 @@ def test_k1_wrapper_rejects_bad_shapes(bad):
         k1.flash_attention(q, k, v, ab, key_mask)
 
 
+def test_tts_train_defaults_to_cuda():
+    """The training entry point runs on the card unless asked: without one
+    it raises before it reads anything."""
+    from jatts_torch.bin import tts_train
+
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is usable")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tts_train.run("train.csv", "dev.csv", "stats.npz", "tokens.txt", {}, "exp")
+
+
 def test_resolve_device_defaults_to_cuda():
     assert resolve_device("cpu") == torch.device("cpu")
     if torch.cuda.is_available():
@@ -111,7 +126,7 @@ def test_resolve_device_defaults_to_cuda():
             resolve_device("cuda:0")
 
 
-@pytest.mark.parametrize("kernel", [k1.KERNEL, mas.KERNEL])
+@pytest.mark.parametrize("kernel", [k1.KERNEL, k1.KERNEL_BWD, mas.KERNEL])
 def test_kernel_build_command_targets_hopper(monkeypatch, kernel):
     monkeypatch.setattr(build, "nvcc_path", lambda: "nvcc")
     out = build.library_path(kernel)
@@ -129,6 +144,14 @@ def test_mas_source_holds_two_global_kernels_and_a_plain_c_interface():
     assert src.count("__global__") == 2
     assert 'extern "C" int jatts_mas_fwd(' in src and 'extern "C" int jatts_mas_backtrace(' in src
     assert "torch/" not in src and "#include <ATen" not in src
+
+
+def test_flash_bwd_source_holds_two_global_kernels_and_a_plain_c_interface():
+    src = (ROOT / "jatts_torch" / "csrc" / "flash_attn_bwd.cu").read_text()
+    assert src.count("__global__") == 2
+    assert 'extern "C" int jatts_flash_attn_bwd_dkv(' in src
+    assert 'extern "C" int jatts_flash_attn_bwd_dq(' in src
+    assert "torch/" not in src and "#include <ATen" not in src and "atomicAdd" not in src
 
 
 def test_chip_smoke_refuses_without_a_card(tmp_path):
@@ -208,3 +231,37 @@ def test_k2_k3_match_plain_on_card(case):
         mas.mas_decisions(lp.transpose(1, 2).contiguous().transpose(1, 2), tl)
     with pytest.raises(TypeError):
         mas.mas_decisions(lp.double(), tl)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("d,with_bias", [(64, True), (192, True), (192, False), (256, True)])
+def test_k1_bwd_matches_plain_on_card(dtype, tol, d, with_bias):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    rng = np.random.default_rng(2)
+    b, h, t = 3, 2, 100
+    q, k, v, do = (torch.from_numpy(rng.normal(size=(b, h, t, d)).astype(np.float32)).cuda().to(dtype)
+                   for _ in range(4))
+    ab = None
+    if with_bias:
+        ab = torch.from_numpy((rng.normal(size=(b, h, t, t)) * np.sqrt(d)).astype(np.float32))
+        ab = ab.cuda().to(dtype)
+    mask = (torch.arange(t)[None, :] < torch.tensor([t, 37, 0])[:, None]).cuda()
+    scale = d ** -0.5
+    o, lse = k1.flash_attention_ref(q, k, v, ab, mask, scale, return_lse=True)
+    k1.reset_launches()
+    got = k1.flash_attention_bwd(q, k, v, ab, mask, scale, o, lse, do)
+    torch.cuda.synchronize()
+    assert (k1.launches_bwd_dkv, k1.launches_bwd_dq) == (1, 1)
+    want = k1.flash_attention_bwd_ref(
+        q.float(), k.float(), v.float(), None if ab is None else ab.float(), mask, scale,
+        o.float(), lse, do.float(),
+    )
+    for g, w in zip(got, want):
+        if w is None:
+            assert g is None
+            continue
+        err = (g.float() - w).abs().max().item()
+        assert np.isfinite(err) and err <= tol
+    assert torch.all(got[0][2] == 0) and not torch.isnan(got[0]).any()
