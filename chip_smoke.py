@@ -46,7 +46,25 @@ Phases, each of which fails the run with a non-zero exit:
      ``attn_backend: flash`` for 200 steps (warm-up 50), launch counts set
      to 0 just before and read just after; then the loss, launch,
      checkpoint/resume and inference checks, the time of one step and its
-     parts, a profiled step, and the same step under ``attn_backend: xla``.
+     parts, a profiled step, and the same step under ``attn_backend: xla``;
+ 11. K1b (the causal form of K1 and K1-bwd: the forward, dk/dv and dq
+     kernels) against their plain versions at VALL-E's attention shape in
+     bf16 with a ragged key mask, in f32, at a T that ends inside a diagonal
+     tile, at T = 1, at d = 192 with a bias, and with rows that see no key;
+     then their times at VALL-E's shape beside the plain versions', SDPA's
+     with a boolean causal and key-padding mask (the yardstick, never used
+     by the port) and the bounds;
+ 12. the VALL-E AR slice: a synthetic 64-utterance codec corpus (.npz
+     dumps) trains through ``jatts_torch/bin/tts_train.py:run`` on
+     egs/hificaptain_jp_female/tts3/conf/valle_ar.given.bs32.yaml as it
+     stands (d_model 1024, 16 heads, 12 layers, bf16 compute, batch 16 x
+     accumulation 2, AdamW) with ``attn_backend: flash`` for 200 steps
+     (warm-up 50), launch counts set to 0 just before and read just after;
+     then the loss, launch and bitwise-resume checks, the time of a step and
+     its parts, a profiled step, K1b at the batch's own shape, the same step
+     under ``attn_backend: xla``; then ``ar_generate`` from the trained model
+     on 4 dev rows (time a step, codes in range) and its KV-cached logits
+     against the flash trunk's, teacher-forced, in f32.
 The line before the last is the kernels' JSON record, the last line
 ``{"ok": true, "device": {...}}``. Exits 2 without a CUDA device or
 without the jatts_torch package beside this file.
@@ -141,17 +159,18 @@ def k1_bound_ms(b, h, t, d, elem_bytes, with_bias, dtype_name):
 
 def print_unported_bounds():
     """Bound of the attention kernel form that is not ported yet, from the
-    shapes the JAX package's recipes give it (no time: nothing to run)."""
-    # K1b, causal form without bias: VALL-E trunk, d_model 1024 / 16 heads
-    # (egs/hificaptain_jp_female/tts3/conf), per-card batch 16, S ~ 1536, bf16
-    b, h, t, d = 16, 16, 1536, 64
-    io = 4 * b * h * t * d * 2 + b * t
-    flops = 4 * b * h * t * t * d // 2  # the causal half
-    t_bytes, t_ops = io / PEAK_BYTES_S * 1e3, flops / PEAK_FLOPS_S["bf16"] * 1e3
+    shapes the JAX package would give it (no time: nothing to run)."""
+    # d_qk != d_v: the fused latest rel-pos attention of FastSpeech2 at the
+    # JSUT width (adim 384, 2 heads: d_qk = 192 + 384, d_v = 192), the
+    # training decoder's B, T, f32; no recipe conf selects it yet
+    b, h, t, d_qk, d_v = 32, 2, 1024, 576, 192
+    io = (2 * b * h * t * d_qk + 2 * b * h * t * d_v) * 4 + b * t
+    flops = 2 * b * h * t * t * (d_qk + d_v)
+    t_bytes, t_ops = io / PEAK_BYTES_S * 1e3, flops / PEAK_FLOPS_S["f32"] * 1e3
     print(
-        f"K1b bound (not ported) causal bf16 B,H,T,d={b},{h},{t},{d}: {max(t_bytes, t_ops):.4f} ms by "
-        f"{'bytes' if t_bytes >= t_ops else 'operations'} ({io / 1e6:.1f} MB -> {t_bytes:.4f} ms, "
-        f"{flops / 1e9:.1f} GFLOP -> {t_ops:.4f} ms)", flush=True,
+        f"K1b d_qk!=d_v forward bound (not ported) f32 B,H,T={b},{h},{t} d_qk={d_qk} d_v={d_v}: "
+        f"{max(t_bytes, t_ops):.4f} ms by {'bytes' if t_bytes >= t_ops else 'operations'} "
+        f"({io / 1e6:.1f} MB -> {t_bytes:.4f} ms, {flops / 1e9:.1f} GFLOP -> {t_ops:.4f} ms)", flush=True,
     )
 
 
@@ -596,6 +615,197 @@ def time_k1bwd(seed, where):
 
 
 # ---------------------------------------------------------------------------
+# K1b: the causal form of K1 and K1-bwd
+# ---------------------------------------------------------------------------
+
+# VALL-E AR's attention (egs/hificaptain_jp_female/tts3/conf/valle_ar.given.bs32.yaml:
+# d_model 1024, 16 heads, batch 16; the packed length of phase 12's corpus)
+VALLE_ATTN = (16, 16, 1088, 64)
+
+
+def k1b_cases():
+    """(name, (B, H, T, d), dtype, with bias, key mask rows as (first valid
+    key, number of valid keys) cycled over the batch)."""
+    b, h, t, d = VALLE_ATTN
+    ragged = [(0, t), (0, t - 1), (0, 900), (0, 611), (0, 1), (0, 64), (0, 65), (0, 1000)]
+    return [
+        ("VALL-E shape", (b, h, t, d), "bf16", False, ragged),
+        ("f32", (4, 4, 512, 64), "f32", False, [(0, 512), (0, 300), (0, 33), (0, 129)]),
+        # T ends inside a diagonal tile (1000 = 15 x 64 + 40; 31 x 32 + 8)
+        ("ragged T", (3, 2, 1000, 64), "f32", False, [(0, 1000), (0, 999), (0, 517)]),
+        ("ragged T bf16", (3, 2, 1000, 64), "bf16", False, [(0, 1000), (0, 999), (0, 517)]),
+        ("T=1", (2, 2, 1, 64), "f32", False, [(0, 1), (0, 0)]),
+        ("d=192 bias", (2, 2, 300, 192), "f32", True, [(0, 300), (0, 250)]),
+        ("d=192 bias bf16", (2, 2, 300, 192), "bf16", True, [(0, 300), (0, 250)]),
+        # rows 0..36 of the second item see no valid key (its keys start at 37),
+        # the third sees none at all
+        ("rows without a key", (3, 2, 200, 64), "f32", False, [(0, 200), (37, 100), (0, 0)]),
+    ]
+
+
+def k1b_inputs(shape, dtype, with_bias, rows, seed):
+    import torch
+
+    b, h, t, d = shape
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    q, k, v, do = (torch.randn(b, h, t, d, device="cuda", generator=g).to(dtype) for _ in range(4))
+    ab = (torch.randn(b, h, t, t, device="cuda", generator=g) * math.sqrt(d)).to(dtype) if with_bias else None
+    pos = torch.arange(t, device="cuda")
+    key_mask = torch.stack([(pos >= a) & (pos < a + n) for a, n in (rows * b)[:b]])
+    return q, k, v, ab, key_mask, do
+
+
+def check_k1b(name, shape, dtype_name, with_bias, rows, seed, against_autograd=False):
+    """The three causal kernels against flash_attention_ref /
+    flash_attention_bwd_ref(causal=True) on the same inputs (the backward
+    fed the plain forward's o and lse), K1b's lse against the plain one,
+    and rows that see no key 0. Returns the largest |kernel - plain| of
+    the forward and of the backward."""
+    import torch
+
+    from jatts_torch.ops import flash_attention as k1
+
+    dtype = {"f32": torch.float32, "bf16": torch.bfloat16}[dtype_name]
+    q, k, v, ab, key_mask, do = k1b_inputs(shape, dtype, with_bias, rows, seed)
+    d = shape[3]
+    scale = d ** -0.5
+
+    def f32(x):
+        return None if x is None else x.float()
+
+    out_k, lse_k = k1.flash_attention_fwd(q, k, v, ab, key_mask, scale, causal=True)
+    out_nolse = k1.flash_attention(q, k, v, ab, key_mask, scale, causal=True)
+    o, lse = k1.flash_attention_ref(f32(q), f32(k), f32(v), f32(ab), key_mask, scale,
+                                    return_lse=True, causal=True)
+    got = k1.flash_attention_bwd(q, k, v, ab, key_mask, scale, o.to(dtype), lse, do, causal=True)
+    torch.cuda.synchronize()
+    want = k1.flash_attention_bwd_ref(f32(q), f32(k), f32(v), f32(ab), key_mask, scale, o, lse,
+                                      f32(do), causal=True)
+    check(bool(torch.equal(out_k, out_nolse)), f"K1b {name}: the forward with and without lse differ")
+    # relative to max(1, max|plain|): a row that sees few keys carries |v| (up to ~5 here)
+    fwd_err = (out_k.float() - o).abs().max().item()
+    fwd_tol = TOL[dtype_name] * max(1.0, o.abs().max().item())
+    check(math.isfinite(fwd_err) and fwd_err <= fwd_tol, f"K1b {name} forward err {fwd_err} > {fwd_tol}")
+    seen_none = torch.isinf(lse)
+    check(bool(torch.equal(seen_none, torch.isinf(lse_k))), f"K1b {name}: +inf lse rows differ")
+    lse_err = (lse_k - lse).masked_fill(seen_none, 0.0).abs().max().item()
+    check(lse_err <= 1e-4 * max(1.0, lse.masked_fill(seen_none, 0).abs().max().item()),
+          f"K1b {name} lse err {lse_err}")
+    tol = TOL_BWD[dtype_name]
+    errs, mags = {}, {}
+    for gname, g_, w in zip(("dq", "dk", "dv", "dab"), got, want):
+        if w is None:
+            check(g_ is None, "K1b wrote d(ab) without a bias")
+            continue
+        check(bool(torch.isfinite(g_).all()), f"K1b {name} {gname} not finite")
+        mags[gname] = max(1.0, w.abs().max().item())
+        errs[gname] = (g_.float() - w).abs().max().item()
+        check(errs[gname] <= tol * mags[gname],
+              f"K1b {name} {gname} err {errs[gname]} > {tol} x {mags[gname]}")
+    # rows that see no key: output and dq exactly 0
+    zero_rows = seen_none[..., None].expand_as(out_k)
+    check(bool((out_k[zero_rows] == 0).all()) and bool((got[0][zero_rows] == 0).all()),
+          f"K1b {name}: a row that sees no key is not 0")
+    line = ", ".join(f"{n} {errs[n]:.2e}" for n in errs)
+    print(
+        f"K1b check {name} {dtype_name} B,H,T,d={','.join(map(str, shape))} bias={with_bias}: forward "
+        f"max_abs_err {fwd_err:.2e} (tol {TOL[dtype_name]:.0e} x max(1, max|plain|) = {fwd_tol:.1e}); "
+        f"backward {line} (tol {tol:.0e} x "
+        f"max(1, max|plain|) = {tol * max(mags.values()):.1e}); lse err {lse_err:.1e}; rows that "
+        f"see no key {int(seen_none.sum())}", flush=True,
+    )
+    if against_autograd:
+        leaves = [x.float().detach().requires_grad_() for x in (q, k, v)]
+        out = k1.flash_attention_ref(*leaves, f32(ab), key_mask, scale, causal=True)
+        ag = torch.autograd.grad(out, leaves, do.float())
+        ag_err = max((g_.float() - a).abs().max().item() for g_, a in zip(got, ag))
+        print(f"K1b backward vs autograd through the plain causal forward: max_abs_err {ag_err:.2e} "
+              f"(tol {tol * max(mags.values()):.1e})", flush=True)
+        check(ag_err <= tol * max(mags.values()), "K1b backward disagrees with autograd")
+    return fwd_err, max(errs.values())
+
+
+def k1b_bounds_ms(b, h, t, d, elem):
+    """Least times of the three causal kernels with every key valid, bf16
+    products at the tensor cores' rate: the forward needs the causal half
+    of 2 products (4·B·H·T²·d/2 FLOP), the backward 2.5x that (dk/dv: the
+    scores again, dp, dv, dk; dq: the scores again, dp, dq; split 4:3 as
+    the two kernels do them). Bytes: each input read once, each output
+    written once (q, k, v, o, do, dq, dk, dv in the working type; lse, di
+    f32; the key mask)."""
+    n = b * h * t * d * elem
+    rows = b * h * t * 4
+    half = b * h * t * t * d  # 2 products' worth over the causal half = 2 * (2·T²·d / 2)
+    out = {}
+    for name, nbytes, flops in (
+        ("fwd", 4 * n + rows + b * t, 2 * half),
+        ("dkv", 6 * n + 2 * rows + b * t, 4 * half),
+        ("dq", 5 * n + 2 * rows + b * t, 3 * half),
+    ):
+        t_bytes = nbytes / PEAK_BYTES_S * 1e3
+        t_ops = flops / PEAK_FLOPS_S["bf16"] * 1e3
+        out[name] = (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations", nbytes, flops)
+    return out
+
+
+def time_k1b(seed, where):
+    """The three causal kernels at VALL-E's shape, bf16, every key valid:
+    beside the plain versions, SDPA with a boolean causal ∧ key-padding mask
+    (forward alone and forward+backward; yardsticks only) and the bounds."""
+    import torch
+
+    from jatts_torch.ops import flash_attention as k1
+
+    b, h, t, d = VALLE_ATTN
+    q, k, v, _, key_mask, do = k1b_inputs(VALLE_ATTN, torch.bfloat16, False, [(0, t)], seed)
+    scale = d ** -0.5
+    o, lse = k1.flash_attention_fwd(q, k, v, None, key_mask, scale, causal=True)
+    di = (o.float() * do.float()).sum(-1)
+    fwd_ms = time_ms(lambda: k1.flash_attention_fwd(q, k, v, None, key_mask, scale, causal=True), iters=10)
+    dkv_ms = time_ms(lambda: k1.flash_attention_bwd_dkv(q, k, v, None, key_mask, scale, lse, di, do,
+                                                        causal=True), iters=10)
+    dq_ms = time_ms(lambda: k1.flash_attention_bwd_dq(q, k, v, None, key_mask, scale, lse, di, do,
+                                                      causal=True), iters=10)
+    plain_fwd_ms = time_ms(lambda: k1.flash_attention_ref(q, k, v, None, key_mask, scale, causal=True),
+                           iters=3, warmup=1)
+    plain_bwd_ms = time_ms(lambda: k1.flash_attention_bwd_ref(q, k, v, None, key_mask, scale, o, lse, do,
+                                                              causal=True), iters=3, warmup=1)
+    mask = torch.ones(t, t, dtype=torch.bool, device="cuda").tril()[None, None] & key_mask[:, None, None, :]
+    sdpa_fwd_ms = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+        q, k, v, attn_mask=mask, scale=scale), iters=10)
+    qs, ks, vs = (x.detach().requires_grad_() for x in (q, k, v))
+
+    def sdpa_fwd_bwd():
+        out = torch.nn.functional.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask, scale=scale)
+        torch.autograd.grad(out, (qs, ks, vs), do)
+
+    sdpa_ms = time_ms(sdpa_fwd_bwd, iters=5, warmup=1)
+    bounds = k1b_bounds_ms(b, h, t, d, 2)
+    parts = "; ".join(
+        f"{n} kernel {ms:.4f} ms (bound {bounds[n][0]:.4f} ms by {bounds[n][1]}: "
+        f"{bounds[n][2] / 1e6:.1f} MB, {bounds[n][3] / 1e9:.1f} GFLOP)"
+        for n, ms in (("fwd", fwd_ms), ("dkv", dkv_ms), ("dq", dq_ms))
+    )
+    print(
+        f"K1b time bf16 causal B,H,T,d={b},{h},{t},{d}, every key valid: {parts}; plain forward "
+        f"{plain_fwd_ms:.4f} ms, plain backward {plain_bwd_ms:.4f} ms; sdpa (bool causal & key mask) "
+        f"forward {sdpa_fwd_ms:.4f} ms, forward+backward {sdpa_ms:.4f} ms; {where}", flush=True,
+    )
+    return {"fwd": fwd_ms, "dkv": dkv_ms, "dq": dq_ms, "plain_fwd_ms": plain_fwd_ms,
+            "plain_bwd_ms": plain_bwd_ms, "sdpa_fwd_ms": sdpa_fwd_ms, "sdpa_ms": sdpa_ms, "bounds": bounds}
+
+
+def k1b_phase(seed, where):
+    """Phase 11: every K1b case, then the times. Returns the largest errors
+    of the forward and the backward and the times."""
+    fwd_err, bwd_err = 0.0, 0.0
+    for i, (name, shape, dtype_name, with_bias, rows) in enumerate(k1b_cases()):
+        fe, be = check_k1b(name, shape, dtype_name, with_bias, rows, seed + i, against_autograd=(name == "f32"))
+        fwd_err, bwd_err = max(fwd_err, fe), max(bwd_err, be)
+    return fwd_err, bwd_err, time_k1b(seed + 100, where)
+
+
+# ---------------------------------------------------------------------------
 # the training slice
 # ---------------------------------------------------------------------------
 
@@ -821,6 +1031,281 @@ def training_slice(root, align_paths, freqs, seed, where):
     )
     check(loss_rel <= 1e-4 and diff / norm <= 1e-3, "flash and xla training steps disagree")
     return launches, {"step_ms": step_ms, "run_s": run_s, "k_ms": k_ms}
+
+
+# ---------------------------------------------------------------------------
+# the VALL-E AR slice
+# ---------------------------------------------------------------------------
+
+TTS3_CONF = ROOT / "egs" / "hificaptain_jp_female" / "tts3" / "conf" / "valle_ar.given.bs32.yaml"
+VALLE_STEPS = 200  # the conf's train_max_steps is 400000
+VALLE_WARMUP = 50  # the conf's warmup_steps is 8000
+CODEC_HOP = 320  # EnCodec at 24 kHz: 75 frames a second
+
+
+def write_codec_corpus(root, seed, n_utts=64, n_phones=40):
+    """A codec corpus with something to learn: each phone a fixed seeded
+    8-level code, repeated over its 3-9 frames; 20-80 phones an utterance.
+    Per utterance an .npz with ``encodec`` [T, 8] int64; train/dev csvs
+    (start/end from the frame count, for the length buckets), tokens.txt
+    and an empty stats file (codes take no stats). Returns (train csv, dev
+    csv, stats, tokens)."""
+    import numpy as np
+
+    from jatts_torch.utils.io import write_csv
+
+    rng = np.random.default_rng(seed)
+    phones = [f"p{i:02d}" for i in range(n_phones)]
+    codebook = rng.integers(0, 1024, (n_phones, 8))
+    tokens = str(Path(root) / "tokens.txt")
+    with open(tokens, "w", encoding="utf-8") as f:
+        f.write("\n".join(["<blank>", "<unk>", *phones, "<sos/eos>"]) + "\n")
+    rows = []
+    for i in range(n_utts):
+        idx = rng.integers(0, n_phones, int(rng.integers(20, 81)))
+        codes = np.repeat(codebook[idx], rng.integers(3, 10, len(idx)), axis=0).astype(np.int64)
+        feat_path = str(Path(root) / "codec" / f"V{i:03d}.npz")
+        Path(feat_path).parent.mkdir(parents=True, exist_ok=True)
+        np.savez(feat_path, encodec=codes)
+        rows.append({"sample_id": f"V{i:03d}", "spk": "syn", "start": "0",
+                     "end": f"{len(codes) * CODEC_HOP / 24000:.6f}",
+                     "phonemes": " ".join(phones[j] for j in idx), "feat_path": feat_path})
+    paths = [str(Path(root) / "train_codec.csv"), str(Path(root) / "dev_codec.csv")]
+    n_dev = n_utts // 8
+    write_csv(rows[n_dev:], paths[0])
+    write_csv(rows[:n_dev], paths[1])
+    stats = str(Path(root) / "stats_codec.npz")
+    np.savez(stats)
+    return paths[0], paths[1], stats, tokens
+
+
+def valle_slice(root, seed, where):
+    """Phase 12. Returns the K1b launches of the training run (forward,
+    dk/dv, dq), the own-shape check's errors and the numbers PERF.md needs."""
+    import numpy as np
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from jatts_torch.bin import tts_train
+    from jatts_torch.models.valle import VALLEAR, ar_generate
+    from jatts_torch.modules.dropout import set_dropout_rate
+    from jatts_torch.ops import flash_attention as k1
+    from jatts_torch.train.trainer import Trainer
+    from jatts_torch.utils.checkpoint import find_latest_checkpoint
+    from jatts_torch.utils.config import load_config
+
+    train_csv, dev_csv, stats, tokens = write_codec_corpus(root, seed)
+    config = load_config(str(TTS3_CONF))
+    mp = config["model_params"]
+    print(
+        f"VALL-E config {TTS3_CONF.relative_to(ROOT)} (d_model {mp['d_model']}, {mp['n_heads']} heads, "
+        f"{mp['n_layers']} layers, dtype {mp['dtype']}, batch {config['batch_size']} x accumulation "
+        f"{config['gradient_accumulate_steps']}, {config['optimizer_type']}) with attn_backend flash; "
+        f"reductions: train_max_steps {config['train_max_steps']} -> {VALLE_STEPS}, warmup_steps "
+        f"{config['scheduler_params']['warmup_steps']} -> {VALLE_WARMUP}; a 64-utterance synthetic codec "
+        f"corpus", flush=True,
+    )
+    config["train_max_steps"] = VALLE_STEPS
+    config["scheduler_params"] = {**config["scheduler_params"], "warmup_steps": VALLE_WARMUP}
+    outdir = str(Path(root) / "exp_valle")
+
+    k1.reset_launches()
+    t0 = time.perf_counter()
+    trainer = tts_train.run(train_csv, dev_csv, stats, tokens, config, outdir, seed=seed,
+                            device="cuda", attn_backend="flash")
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches = (k1.launches_causal, k1.launches_bwd_dkv_causal, k1.launches_bwd_dq_causal)
+    other = (k1.launches, k1.launches_bwd_dkv, k1.launches_bwd_dq)
+    layers = trainer.model.n_layers
+    loader = trainer.train_loader
+    batches = loader.sampler.batches
+    print(
+        f"VALL-E training: {len(loader.dataset)} utterances in {len(batches)} batches of <= "
+        f"{config['batch_size']}, {trainer.steps} steps ({trainer.updates} updates) in {run_s:.1f} s; "
+        f"launches K1b forward {launches[0]}, dk/dv {launches[1]}, dq {launches[2]} ({layers} a step = "
+        f"{layers * VALLE_STEPS}); non-causal K1/K1-bwd {other}", flush=True,
+    )
+    check(trainer.steps == VALLE_STEPS, f"trained {trainer.steps} steps")
+    check(all(math.isfinite(v) for h in trainer.history for v in h.values()), "a training stat is not finite")
+    losses = [h["train/loss_ce"] for h in trainer.history]
+    first, last = float(np.mean(losses[:10])), float(np.mean(losses[-10:]))
+    print(f"VALL-E loss_ce: mean of the first 10 steps {first:.4f}, of the last 10 {last:.4f} "
+          f"(limit: at most 0.9 x the first)", flush=True)
+    check(last <= 0.9 * first, "the VALL-E loss did not fall by 10%")
+    check(min(launches) > 0, "K1b was not launched in VALL-E training")
+    check(launches == (layers * VALLE_STEPS,) * 3 and other == (0, 0, 0),
+          f"launches {launches} / {other} != {layers} causal a step each")
+
+    # the checkpoint, and a resumed trainer
+    model_params = dict(trainer.config["model_params"])
+    dtype = tts_train.DTYPES[model_params.pop("dtype")]
+    ckpt = find_latest_checkpoint(outdir)
+    check(ckpt is not None and ckpt.endswith(f"checkpoint-{VALLE_STEPS}steps"), f"checkpoint {ckpt}")
+    model2 = VALLEAR(**model_params, device="cuda", dtype=dtype)
+    resumed = Trainer(trainer.config, model2, trainer.criterions, trainer.loss_fn, loader, outdir=outdir, seed=seed)
+    resumed.init_state()
+    resumed.load_checkpoint()
+    same = all(torch.equal(model2.state_dict()[k], v) for k, v in trainer.model.state_dict().items())
+    same_opt = resumed.updates == trainer.updates and resumed.mini_step == trainer.mini_step
+    print(f"resume from {Path(ckpt).name}: steps {resumed.steps}, updates {resumed.updates}, parameters "
+          f"bitwise equal {same}", flush=True)
+    check(resumed.steps == VALLE_STEPS and same and same_opt, "the resumed VALL-E trainer differs")
+    del resumed, model2
+
+    # one step at the largest batch and its parts
+    model, params = trainer.model, trainer.params
+    big = max(batches, key=lambda idx: sum(loader.dataset.get_frame_len(i) for i in idx))
+    tb = trainer.to_device(loader.collater([loader.dataset[i] for i in big]))
+    s_len = tb["text"].shape[1] + tb["proms"].shape[1] + tb["resps"].shape[1] + 2
+    shape = (tb["text"].shape[0], s_len)
+
+    def host_ms(fn, iters=3):
+        return time_ms(fn, iters=iters, warmup=1, host_clock=True)
+
+    def loss_of(m, b=tb):
+        return trainer.loss_fn(m, b, trainer.criterions, trainer.config, 0)[0]
+
+    def eval_loss():
+        model.eval()
+        with torch.no_grad():
+            out = float(loss_of(model))
+        model.train()
+        return out
+
+    # the timing below takes optimizer steps; the trained weights come back after it
+    trained = {k: v.clone() for k, v in model.state_dict().items()}
+    trained_loss = eval_loss()
+    model.train()
+    fwd_ms = host_ms(lambda: loss_of(model))
+    loss = loss_of(model)
+    bwd_ms = host_ms(lambda: torch.autograd.grad(loss, params, retain_graph=True))
+    grads = torch.autograd.grad(loss, params)
+    for p, g in zip(params, grads):
+        p.grad = g
+    opt_ms = host_ms(trainer.optimizer.step, iters=5)
+    for p in params:
+        p.grad = None
+    del loss, grads
+    torch.cuda.reset_peak_memory_stats()
+    step_ms = host_ms(lambda: trainer.train_step(tb))
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        trainer.train_step(tb)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    busy_ms = sum(e.self_device_time_total for e in events) / 1e3
+    check(busy_ms > 0, "profile of one VALL-E step: the profiler saw no device time")
+    k_ms = {name: sum(e.self_device_time_total for e in events if name in e.key) / 1e3
+            for name in ("flash_attn_fwd_kernel", "flash_attn_bwd_dkv_kernel", "flash_attn_bwd_dq_kernel")}
+    print(
+        f"VALL-E training micro-step bf16, batch {shape} (B, S packed): whole step {step_ms:.1f} ms (host "
+        f"clock, peak memory {peak_gb:.1f} GiB); forward+loss {fwd_ms:.1f} ms, backward {bwd_ms:.1f} ms, "
+        f"optimizer {opt_ms:.2f} ms; {where}", flush=True,
+    )
+    print(
+        f"profile of one VALL-E micro-step: wall {wall_ms:.1f} ms under the profiler, device busy "
+        f"{busy_ms:.1f} ms in {sum(e.count for e in events)} kernels, idle share {1 - busy_ms / wall_ms:.3f}; "
+        f"K1b forward {k_ms['flash_attn_fwd_kernel']:.2f} ms, dk/dv {k_ms['flash_attn_bwd_dkv_kernel']:.2f} "
+        f"ms, dq {k_ms['flash_attn_bwd_dq_kernel']:.2f} ms ({layers} launches each)", flush=True,
+    )
+    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:8]:
+        print(f"  {e.self_device_time_total / 1e3:8.2f} ms  x{e.count:<5d} {e.key[:90]}")
+    timed_loss = eval_loss()
+    model.load_state_dict(trained)
+    print(f"VALL-E loss_ce on that batch, eval mode: {trained_loss:.4f} trained, {timed_loss:.4f} after the timed "
+          f"optimizer steps (the trained weights are restored for what follows)", flush=True)
+
+    # K1b against its plain version on this batch's own attention shape and key mask
+    total = (tb["text_lens"] + tb["prom_lens"] + tb["resp_lens"] + 2).tolist()
+    own = check_k1b("phase 12's largest batch", (shape[0], model.n_heads, s_len, model.d_model // model.n_heads),
+                    "bf16", False, [(0, n) for n in total], seed + 7)
+
+    # the same step under attn_backend xla: bf16 as trained (loose bound:
+    # the two round to bf16 at other places), then f32 on 4 rows (tight)
+    state = trained
+    small = {k: v[:4] for k, v in tb.items()}
+
+    def step_pair(dt, batch, tol_loss, tol_grad, timed):
+        pair = {}
+        for backend in ("flash", "xla"):
+            m = VALLEAR(**{**model_params, "attn_backend": backend}, device="cuda", dtype=dt)
+            m.load_state_dict(state)
+            set_dropout_rate(m, 0.0)
+            m.train()
+            k1.reset_launches()
+            lss = loss_of(m, batch)
+            g = torch.autograd.grad(lss, list(m.parameters()))
+            want = (layers,) * 3 if backend == "flash" else (0, 0, 0)
+            check((k1.launches_causal, k1.launches_bwd_dkv_causal, k1.launches_bwd_dq_causal) == want,
+                  f"{backend} step: K1b launches != {want}")
+            ms = host_ms(lambda: torch.autograd.grad(loss_of(m, batch), list(m.parameters()))) if timed else None
+            pair[backend] = (float(lss.detach()), g, ms)
+            del m
+        (lf, gf, f_ms), (lx, gx, x_ms) = pair["flash"], pair["xla"]
+        loss_rel = abs(lf - lx) / abs(lx)
+        diff = math.sqrt(sum(float((a - b).double().pow(2).sum()) for a, b in zip(gf, gx)))
+        norm = math.sqrt(sum(float(b.double().pow(2).sum()) for b in gx))
+        name = {torch.bfloat16: "bf16", torch.float32: "f32"}[dt]
+        times = f"; forward+backward flash {f_ms:.1f} ms, xla {x_ms:.1f} ms" if timed else ""
+        print(
+            f"VALL-E flash vs xla, {name}, batch {tuple(batch['text'].shape[:1]) + (s_len,)}, dropout 0: loss "
+            f"{lf:.6f} vs {lx:.6f} (rel diff {loss_rel:.2e}, tol {tol_loss:.0e}), gradients |g_flash - g_xla| "
+            f"/ |g_xla| {diff / norm:.2e} (tol {tol_grad:.0e}){times}", flush=True,
+        )
+        check(loss_rel <= tol_loss and diff / norm <= tol_grad, f"VALL-E flash and xla steps disagree ({name})")
+        return f_ms, x_ms, diff / norm
+
+    flash_ms, xla_ms, rel_bf16 = step_pair(dtype, tb, 1e-2, 5e-2, True)
+    _, _, rel_f32 = step_pair(torch.float32, small, 1e-4, 1e-3, False)
+
+    # decode: ar_generate from the trained model on 4 dev rows
+    dev_set = trainer.dev_loader.dataset
+    rows = min(4, len(dev_set))
+    db = trainer.to_device(trainer.dev_loader.collater([dev_set[i] for i in range(rows)]))
+    args4 = (db["text"], db["text_lens"], db["proms"], db["prom_lens"])
+    max_steps = int(db["resps"].shape[1])
+    model.eval()
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    ar_generate(model, *args4, max_steps=8, generator=gen)  # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = ar_generate(model, *args4, max_steps=max_steps, generator=gen)
+    torch.cuda.synchronize()
+    dec_s = time.perf_counter() - t0
+    codes, lens = out["codes"], out["resp_lens"]
+    print(
+        f"VALL-E decode, {rows} dev rows, max_steps {max_steps}: {dec_s * 1e3 / max_steps:.2f} ms a step, "
+        f"{rows * max_steps / dec_s:.0f} codes/s ({dec_s:.2f} s); resp_lens {lens.tolist()} (true "
+        f"{db['resp_lens'].tolist()}); {where}", flush=True,
+    )
+    check(codes.shape == (rows, max_steps), f"codes {tuple(codes.shape)}")
+    check(int(codes.min()) >= 0 and int(codes.max()) <= model.stop_token, "a code out of range")
+    check(bool((lens <= max_steps).all()) and bool((lens >= 0).all()), "a stop past max_steps")
+
+    # the KV cache against the causal kernel: an f32 copy, the decode
+    # teacher-forced on the drawn codes vs the flash trunk over them
+    f32m = VALLEAR(**{**model_params, "attn_backend": "flash"}, device="cuda", dtype=torch.float32).eval()
+    f32m.load_state_dict(state)
+    forced = ar_generate(f32m, *args4, max_steps=max_steps, forced=codes)
+    n = max_steps
+    k1.reset_launches()
+    with torch.no_grad():
+        logits, _ = f32m.trunk(*args4, codes[..., None], torch.full((rows,), n, device="cuda"),
+                               torch.ones(rows, dtype=torch.long, device="cuda"))
+    check(k1.launches_causal == layers, "the teacher-forced trunk did not run K1b")
+    start = (db["text_lens"] + db["prom_lens"] + 1)[:, None] + torch.arange(n, device="cuda")[None, :]
+    trunk = torch.gather(logits, 1, start[..., None].expand(rows, n, logits.shape[-1]))
+    kv_err = (forced["logits"] - trunk).abs().max().item()
+    kv_tol = 1e-3 * max(1.0, trunk.abs().max().item())
+    print(f"VALL-E KV-cached decode vs the flash trunk, teacher-forced, f32, {rows} x {n} codes: max_abs_err "
+          f"{kv_err:.2e} (tol 1e-3 x max(1, max|trunk|) = {kv_tol:.1e})", flush=True)
+    check(kv_err <= kv_tol, "the KV-cached logits disagree with the causal trunk")
+    return launches, own, {"step_ms": step_ms, "run_s": run_s, "k_ms": k_ms, "idle": 1 - busy_ms / wall_ms,
+                           "flash_ms": flash_ms, "xla_ms": xla_ms}
 
 
 def main() -> int:
@@ -1072,6 +1557,12 @@ def main() -> int:
 
     # 10. the training slice
     train_launches, train = training_slice(tmp.name, align_paths, freqs, args.seed, where)
+
+    # 11. K1b against its plain version, then its times
+    k1b_fwd_err, k1b_bwd_err, k1b_times = k1b_phase(args.seed, where)
+
+    # 12. the VALL-E AR slice
+    valle_launches, valle_own, valle = valle_slice(tmp.name, args.seed, where)
     tmp.cleanup()
     # K2, K3, pair: differing elements over every case and the run's own
     # lattice; K2, K3: the largest |kernel - twin| seen there
@@ -1114,7 +1605,18 @@ def main() -> int:
         "name": "mas_backtrace", "replaces": "jatts_tpu/ops/mas_pallas.py:161", "launches": k3_launches,
         "mismatches": mas_mismatches[1] + mas_mismatches[2], "max_abs_err": mas_max_err[1], "ms": k3_ms, "plain_ms": k3_plain_ms,
         "bound_ms": k3_bound_ms, **mas_row,
-    }]}
+    }] + [{
+        "name": f"{name}_causal", "route": "cuda", "source": f"jatts_torch/csrc/{src}",
+        "replaces": f"jax/experimental/pallas/ops/tpu/flash_attention.py:{line}",
+        "launches": n, "max_abs_err": max(err, own_err), "ms": k1b_times[key],
+        "plain_ms": k1b_times["plain_fwd_ms" if key == "fwd" else "plain_bwd_ms"],
+        "bound_ms": k1b_times["bounds"][key][0], "bound_by": k1b_times["bounds"][key][1],
+        "library_ms": k1b_times["sdpa_fwd_ms" if key == "fwd" else "sdpa_ms"],
+    } for name, src, line, key, n, err, own_err in (
+        ("flash_attn_fwd", "flash_attn_fwd.cu", 758, "fwd", valle_launches[0], k1b_fwd_err, valle_own[0]),
+        ("flash_attn_bwd_dkv", "flash_attn_bwd.cu", 1121, "dkv", valle_launches[1], k1b_bwd_err, valle_own[1]),
+        ("flash_attn_bwd_dq", "flash_attn_bwd.cu", 1456, "dq", valle_launches[2], k1b_bwd_err, valle_own[1]),
+    )]}
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps(record), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": count}}), flush=True)

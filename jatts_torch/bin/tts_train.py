@@ -1,4 +1,4 @@
-"""Train a TTS model, tts1 stage 3 (counterpart of jatts_tpu/bin/tts_train.py).
+"""Train a TTS model, tts1/tts3 stage 3 (counterpart of jatts_tpu/bin/tts_train.py).
 
 Builds the datasets, batcher, model, losses and optimizer from the recipe's
 yaml, overlays the CLI's arguments, writes ``outdir/config.yml`` and trains
@@ -12,8 +12,11 @@ on one GPU, writing ``checkpoint-{N}steps`` directories as the JAX CLI does:
 It runs on the CUDA card unless ``--device cpu`` is given. ``--attn-backend``
 overrides ``model_params.attn_backend`` (``flash``: the hand-written
 attention kernels forward and backward). Feature dumps and the stats file
-may be ``.h5`` (needs h5py) or ``.npz`` with the same keys. FastSpeech2 is
-the one model ported so far; ``--multihost`` is not ported.
+may be ``.h5`` (needs h5py) or ``.npz`` with the same keys. The models are
+FastSpeech2 and the VALL-E AR (``VALLEAR``, tts3 stage 3, e.g.
+``--config egs/hificaptain_jp_female/tts3/conf/valle_ar.given.bs32.yaml``);
+``model_params.dtype`` is passed to the model as its ``dtype`` (for VALL-E
+the compute dtype: parameters stay float32). ``--multihost`` is not ported.
 """
 
 from __future__ import annotations
@@ -36,11 +39,12 @@ from jatts_torch.data.dataset import TTSDataset
 from jatts_torch.device import resolve_device
 from jatts_torch.losses.basic import LOSS_REGISTRY
 from jatts_torch.models.fastspeech2 import FastSpeech2
+from jatts_torch.models.valle import VALLEAR
 from jatts_torch.train.steps import get_loss_fn
 from jatts_torch.train.trainer import Trainer
 from jatts_torch.utils.config import dump_config, load_config
 
-MODELS = {"FastSpeech2": FastSpeech2}
+MODELS = {"FastSpeech2": FastSpeech2, "VALLEAR": VALLEAR}
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
@@ -112,6 +116,13 @@ def run(
     sampler = BatchSampler(lengths, int(config.get("batch_size", 16)), seed=seed)
     collater_kwargs = {"out_feat_type": config.get("out_feat_type", "mel")}
     collater_kwargs.update(config.get("collater_params") or {})
+    if (
+        config.get("collater_type") == "VALLECollater"
+        and "prompt_max_frame_length" not in collater_kwargs
+        and "prompt_max_frame_length" in model_params
+    ):
+        # one yaml key rules the model's and the collater's prompt crop
+        collater_kwargs["prompt_max_frame_length"] = int(model_params["prompt_max_frame_length"])
     collater = COLLATER_REGISTRY[config.get("collater_type", "FastSpeech2Collater")](**collater_kwargs)
     k_exec = int(config.get("steps_per_execution", 1) or 1)
     train_loader = DataLoader(
@@ -124,6 +135,7 @@ def run(
         collater,
     )
 
+    torch.manual_seed(seed)  # the model's initial draws
     model = MODELS[model_type](**model_params, device=dev, dtype=dtype)
     trainer = Trainer(
         config, model, build_criterions(config), get_loss_fn(config["trainer_type"]),

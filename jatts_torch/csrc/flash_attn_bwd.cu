@@ -30,6 +30,19 @@
 // result is the same from run to run. A key tile with no valid key is
 // skipped (its dk, dv, d(ab) are written as 0).
 //
+// Causal form (K1b: the same two pallas_calls with causal=True, element mask
+// at flash_attention.py:877-885 and in the dq body): with Tq == Tk, p = 0
+// wherever key j > query row i, AND-ed with the key mask. A compile-time
+// flag (CAUSAL) selects it, so the non-causal instantiations are unchanged.
+// The work the mask removes is skipped, as the TPU kernels skip blocks
+// above the diagonal: the dk/dv block of key tile k0 starts at the query
+// tile that holds row k0 (no earlier row sees a key of the tile); the dq
+// block of query tile q0 stops at the last key tile that reaches its last
+// row (past it only d(ab) = 0 is written, when there is a bias). The tiles
+// that straddle the diagonal, 64 query rows against 32 keys, are masked
+// element by element. The dq blocks are taken in reverse order, so the
+// heaviest start first; the dk/dv blocks are heaviest first already.
+//
 // Bound on an H100 SXM (3.35 TB/s; 67 TFLOP/s f32 on the CUDA cores, 989
 // bf16 on the tensor cores): at the training decoder shape B=32, H=2,
 // T=1024, d=192 in f32 the pair must read q, k, v, o, do (252 MB) and the
@@ -90,8 +103,9 @@ __device__ __forceinline__ bool tile_has_valid_key(const uint8_t* mask_b, int k0
 }
 
 // p and ds of this thread's 4 x 2 cells of the 64 x 32 tile (q0, k0), from
-// the staged tiles. Rows past Tq and masked keys give p = ds = 0.
-template <typename T, int D>
+// the staged tiles. Rows past Tq and masked keys (and, causal, keys past
+// the row) give p = ds = 0.
+template <typename T, int D, bool CAUSAL>
 __device__ __forceinline__ void tile_p_ds(const float* sQ, const float* sdO, const float* sK,
                                           const float* sV, const T* ab_bh,
                                           const uint8_t* mask_b, const float* lse_bh,
@@ -142,14 +156,15 @@ __device__ __forceinline__ void tile_p_ds(const float* sQ, const float* sdO, con
       const int kc = k0 + tx + 16 * j;
       float x = s[i][j];
       if (ab_bh != nullptr && row && kc < Tk) x += to_f32(ab_bh[(size_t)qr * Tk + kc]);
-      const float pv = (row && valid[j]) ? expf(x * sm_scale - lse) : 0.f;
+      const bool seen = row && valid[j] && (!CAUSAL || kc <= qr);
+      const float pv = seen ? expf(x * sm_scale - lse) : 0.f;
       p[i][j] = pv;
       ds[i][j] = pv * (dp[i][j] - di) * sm_scale;
     }
   }
 }
 
-template <typename T, int D>
+template <typename T, int D, bool CAUSAL>
 __global__ void __launch_bounds__(NTHREADS)
 flash_attn_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                           const T* __restrict__ v, const T* __restrict__ ab,
@@ -184,14 +199,15 @@ flash_attn_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   if (tile_has_valid_key(mask_b, k0, Tk)) {
     stage<T, D>(sK, k + kv_base, k0, BK, Tk);
     stage<T, D>(sV, v + kv_base, k0, BK, Tk);
-    for (int q0 = 0; q0 < Tq; q0 += BQ) {
+    // causal: rows before k0 see no key of this tile
+    for (int q0 = CAUSAL ? (k0 / BQ) * BQ : 0; q0 < Tq; q0 += BQ) {
       __syncthreads();  // the previous tile's reads of sQ/sdO/sP/sdS are done
       stage<T, D>(sQ, q + q_base, q0, BQ, Tq);
       stage<T, D>(sdO, dout + q_base, q0, BQ, Tq);
       __syncthreads();
       float p[4][2], ds[4][2];
-      tile_p_ds<T, D>(sQ, sdO, sK, sV, ab_bh, mask_b, lse + (size_t)bh * Tq,
-                      di + (size_t)bh * Tq, q0, k0, Tq, Tk, sm_scale, p, ds);
+      tile_p_ds<T, D, CAUSAL>(sQ, sdO, sK, sV, ab_bh, mask_b, lse + (size_t)bh * Tq,
+                              di + (size_t)bh * Tq, q0, k0, Tq, Tk, sm_scale, p, ds);
 #pragma unroll
       for (int i = 0; i < 4; ++i)
 #pragma unroll
@@ -236,7 +252,7 @@ flash_attn_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <typename T, int D>
+template <typename T, int D, bool CAUSAL>
 __global__ void __launch_bounds__(NTHREADS)
 flash_attn_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                          const T* __restrict__ v, const T* __restrict__ ab,
@@ -254,7 +270,8 @@ flash_attn_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   float* sdS = sV + BK * LD + BQ * LDP;  // the p tile's room stays unused here
 
   const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
-  const int q0 = blockIdx.x * BQ;
+  // causal: the last query tile (the most keys) is scheduled first
+  const int q0 = (CAUSAL ? gridDim.x - 1 - blockIdx.x : blockIdx.x) * BQ;
   const int bh = blockIdx.y;
   const size_t q_base = (size_t)bh * Tq * D;
   const size_t kv_base = (size_t)bh * Tk * D;
@@ -271,8 +288,13 @@ flash_attn_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int c = 0; c < DC; ++c) acc[i][c] = 0.f;
 
-  for (int k0 = 0; k0 < Tk; k0 += BK) {
-    if (!tile_has_valid_key(mask_b, k0, Tk)) {  // also the barrier before restaging
+  // causal: key tiles from q0 + BQ on are above the diagonal, p = 0 there;
+  // they are visited only to write d(ab) = 0
+  const int k_live = CAUSAL ? min(Tk, q0 + BQ) : Tk;
+  const int k_end = dab_bh != nullptr ? Tk : k_live;
+  for (int k0 = 0; k0 < k_end; k0 += BK) {
+    // also the barrier before restaging; block-uniform, as is k0 < k_live
+    if (!tile_has_valid_key(mask_b, k0, Tk) || k0 >= k_live) {
       if (dab_bh != nullptr) {
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
@@ -290,8 +312,8 @@ flash_attn_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
     stage<T, D>(sV, v + kv_base, k0, BK, Tk);
     __syncthreads();
     float p[4][2], ds[4][2];
-    tile_p_ds<T, D>(sQ, sdO, sK, sV, ab_bh, mask_b, lse + (size_t)bh * Tq,
-                    di + (size_t)bh * Tq, q0, k0, Tq, Tk, sm_scale, p, ds);
+    tile_p_ds<T, D, CAUSAL>(sQ, sdO, sK, sV, ab_bh, mask_b, lse + (size_t)bh * Tq,
+                            di + (size_t)bh * Tq, q0, k0, Tq, Tk, sm_scale, p, ds);
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const int qr = q0 + ty + 16 * i;
@@ -336,10 +358,11 @@ struct Args {
   cudaStream_t stream;
 };
 
-template <typename T, int D, bool DKV>
+template <typename T, int D, bool DKV, bool CAUSAL>
 cudaError_t launch(const Args& a) {
   constexpr size_t smem = smem_bytes<D>();
-  auto kernel = DKV ? flash_attn_bwd_dkv_kernel<T, D> : flash_attn_bwd_dq_kernel<T, D>;
+  auto kernel =
+      DKV ? flash_attn_bwd_dkv_kernel<T, D, CAUSAL> : flash_attn_bwd_dq_kernel<T, D, CAUSAL>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
@@ -353,24 +376,31 @@ cudaError_t launch(const Args& a) {
   return cudaGetLastError();
 }
 
-template <bool DKV>
-cudaError_t dispatch(const Args& a, int D, int is_bf16) {
+template <bool DKV, bool CAUSAL>
+cudaError_t dispatch_d(const Args& a, int D, int is_bf16) {
   if (is_bf16) {
     switch (D) {
-      case 64: return launch<__nv_bfloat16, 64, DKV>(a);
-      case 128: return launch<__nv_bfloat16, 128, DKV>(a);
-      case 192: return launch<__nv_bfloat16, 192, DKV>(a);
-      case 256: return launch<__nv_bfloat16, 256, DKV>(a);
+      case 64: return launch<__nv_bfloat16, 64, DKV, CAUSAL>(a);
+      case 128: return launch<__nv_bfloat16, 128, DKV, CAUSAL>(a);
+      case 192: return launch<__nv_bfloat16, 192, DKV, CAUSAL>(a);
+      case 256: return launch<__nv_bfloat16, 256, DKV, CAUSAL>(a);
       default: return cudaErrorInvalidValue;
     }
   }
   switch (D) {
-    case 64: return launch<float, 64, DKV>(a);
-    case 128: return launch<float, 128, DKV>(a);
-    case 192: return launch<float, 192, DKV>(a);
-    case 256: return launch<float, 256, DKV>(a);
+    case 64: return launch<float, 64, DKV, CAUSAL>(a);
+    case 128: return launch<float, 128, DKV, CAUSAL>(a);
+    case 192: return launch<float, 192, DKV, CAUSAL>(a);
+    case 256: return launch<float, 256, DKV, CAUSAL>(a);
     default: return cudaErrorInvalidValue;
   }
+}
+
+template <bool DKV>
+cudaError_t dispatch(const Args& a, int D, int is_bf16, int causal) {
+  if (!causal) return dispatch_d<DKV, false>(a, D, is_bf16);
+  if (a.Tq != a.Tk) return cudaErrorInvalidValue;
+  return dispatch_d<DKV, true>(a, D, is_bf16);
 }
 
 }  // namespace
@@ -378,15 +408,16 @@ cudaError_t dispatch(const Args& a, int D, int is_bf16) {
 // q, dout: [B, H, Tq, D]; k, v: [B, H, Tk, D]; ab: [B, H, Tq, Tk] or null;
 // key_mask: [B, Tk] bytes (nonzero = valid) or null; lse, di: [B, H, Tq] f32.
 // dk, dv: [B, H, Tk, D]. All contiguous, one element type (is_bf16 ? bf16 :
-// f32) but lse and di. Returns a cudaError_t (0 = launched).
+// f32) but lse and di. causal != 0 takes the causal form, which needs
+// Tq == Tk. Returns a cudaError_t (0 = launched).
 extern "C" int jatts_flash_attn_bwd_dkv(const void* q, const void* k, const void* v,
                                         const void* ab, const void* key_mask, const void* lse,
                                         const void* di, const void* dout, void* dk, void* dv,
                                         int B, int H, int Tq, int Tk, int D, int is_bf16,
-                                        float sm_scale, void* stream) {
+                                        int causal, float sm_scale, void* stream) {
   const Args a{q, k, v, ab, key_mask, lse, di, dout, dk, dv, B, H, Tq, Tk, sm_scale,
                static_cast<cudaStream_t>(stream)};
-  return (int)dispatch<true>(a, D, is_bf16);
+  return (int)dispatch<true>(a, D, is_bf16, causal);
 }
 
 // As above; dq: [B, H, Tq, D]; dab: [B, H, Tq, Tk] or null (written when ab
@@ -395,8 +426,8 @@ extern "C" int jatts_flash_attn_bwd_dq(const void* q, const void* k, const void*
                                        const void* ab, const void* key_mask, const void* lse,
                                        const void* di, const void* dout, void* dq, void* dab,
                                        int B, int H, int Tq, int Tk, int D, int is_bf16,
-                                       float sm_scale, void* stream) {
+                                       int causal, float sm_scale, void* stream) {
   const Args a{q, k, v, ab, key_mask, lse, di, dout, dq, dab, B, H, Tq, Tk, sm_scale,
                static_cast<cudaStream_t>(stream)};
-  return (int)dispatch<false>(a, D, is_bf16);
+  return (int)dispatch<false>(a, D, is_bf16, causal);
 }

@@ -6,8 +6,18 @@
 //
 //     out = softmax((q . k^T + ab) * sm_scale) . v      over valid keys
 //
-// with the bias added BEFORE the scale, as the TPU kernel does. Non-causal,
-// no dropout, f32 accumulation; q/k/v/ab/out in f32 or bf16 (one type).
+// with the bias added BEFORE the scale, as the TPU kernel does. No dropout,
+// f32 accumulation; q/k/v/ab/out in f32 or bf16 (one type).
+//
+// Causal form (K1b, the `causal=True` path of the same pallas_call: causal
+// block skip at flash_attention.py:379, element mask :426-434): with Tq ==
+// Tk, query row i sees key j only when j <= i, AND-ed with the key mask. A
+// compile-time flag (CAUSAL) selects it, so the non-causal instantiations
+// are the code they were. The causal block of query tile q0 stops at the
+// last key tile that reaches its last row (keys < q0 + BQ): the tiles above
+// the diagonal are never loaded, as the TPU kernel skips them; the diagonal
+// tile is masked element by element. Query tiles are taken in reverse
+// block order, so the heaviest (last) tiles start first.
 // When asked (lse != null, the autograd path), it also writes each row's
 // log-sum-exp lse = m + log(l) of the scaled scores in f32, which the
 // backward (flash_attn_bwd.cu) uses to recompute p = exp(s - lse). A row
@@ -71,7 +81,7 @@ constexpr size_t smem_bytes() {
   return sizeof(float) * (size_t)(BQ * (D + 1) + 2 * BK * (D + 1) + BQ * (BK + 1));
 }
 
-template <typename T, int D>
+template <typename T, int D, bool CAUSAL>
 __global__ void __launch_bounds__(NTHREADS)
 flash_attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                       const T* __restrict__ v, const T* __restrict__ ab,
@@ -89,7 +99,8 @@ flash_attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int tid = threadIdx.x;
   const int ty = tid / 16;
   const int tx = tid % 16;
-  const int q0 = blockIdx.x * BQ;
+  // causal: the last query tile (the most keys) is scheduled first
+  const int q0 = (CAUSAL ? gridDim.x - 1 - blockIdx.x : blockIdx.x) * BQ;
   const int bh = blockIdx.y;  // b * H + h
   const size_t q_base = (size_t)bh * Tq * D;
   const size_t kv_base = (size_t)bh * Tk * D;
@@ -110,7 +121,9 @@ flash_attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int c = 0; c < DC; ++c) acc[i][c] = 0.f;
   }
 
-  for (int k0 = 0; k0 < Tk; k0 += BK) {
+  // causal: no key at or past q0 + BQ is seen by a row of this tile
+  const int k_end = CAUSAL ? min(Tk, q0 + BQ) : Tk;
+  for (int k0 = 0; k0 < k_end; k0 += BK) {
     __syncthreads();  // the previous tile's reads of sK/sV/sP are done
     for (int e = tid; e < BK * D; e += NTHREADS) {
       const int r = e / D, c = e % D, kr = k0 + r;
@@ -153,7 +166,8 @@ flash_attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
         const int kc = k0 + tx + 16 * j;
         float x = s[i][j];
         if (ab_bh != nullptr && qr < Tq && kc < Tk) x += to_f32(ab_bh[(size_t)qr * Tk + kc]);
-        s[i][j] = valid[j] ? x * sm_scale : -INFINITY;
+        const bool seen = valid[j] && (!CAUSAL || kc <= qr);
+        s[i][j] = seen ? x * sm_scale : -INFINITY;
       }
     }
 
@@ -208,34 +222,45 @@ flash_attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <typename T, int D>
+template <typename T, int D, bool CAUSAL>
 cudaError_t launch(const void* q, const void* k, const void* v, const void* ab,
                    const void* key_mask, void* out, float* lse, int B, int H, int Tq,
                    int Tk, float sm_scale, cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<D>();
-  cudaError_t err = cudaFuncSetAttribute(flash_attn_fwd_kernel<T, D>,
+  cudaError_t err = cudaFuncSetAttribute(flash_attn_fwd_kernel<T, D, CAUSAL>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((Tq + BQ - 1) / BQ, B * H);
-  flash_attn_fwd_kernel<T, D><<<grid, NTHREADS, smem, stream>>>(
+  flash_attn_fwd_kernel<T, D, CAUSAL><<<grid, NTHREADS, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<const T*>(ab), static_cast<const uint8_t*>(key_mask),
       static_cast<T*>(out), lse, H, Tq, Tk, sm_scale);
   return cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, bool CAUSAL>
 cudaError_t dispatch_d(const void* q, const void* k, const void* v, const void* ab,
                        const void* key_mask, void* out, float* lse, int B, int H, int Tq,
                        int Tk, int D, float sm_scale, cudaStream_t stream) {
   switch (D) {
-    case 64: return launch<T, 64>(q, k, v, ab, key_mask, out, lse, B, H, Tq, Tk, sm_scale, stream);
-    case 128: return launch<T, 128>(q, k, v, ab, key_mask, out, lse, B, H, Tq, Tk, sm_scale, stream);
-    case 192: return launch<T, 192>(q, k, v, ab, key_mask, out, lse, B, H, Tq, Tk, sm_scale, stream);
-    case 256: return launch<T, 256>(q, k, v, ab, key_mask, out, lse, B, H, Tq, Tk, sm_scale, stream);
+    case 64: return launch<T, 64, CAUSAL>(q, k, v, ab, key_mask, out, lse, B, H, Tq, Tk, sm_scale, stream);
+    case 128: return launch<T, 128, CAUSAL>(q, k, v, ab, key_mask, out, lse, B, H, Tq, Tk, sm_scale, stream);
+    case 192: return launch<T, 192, CAUSAL>(q, k, v, ab, key_mask, out, lse, B, H, Tq, Tk, sm_scale, stream);
+    case 256: return launch<T, 256, CAUSAL>(q, k, v, ab, key_mask, out, lse, B, H, Tq, Tk, sm_scale, stream);
     default: return cudaErrorInvalidValue;
   }
+}
+
+template <bool CAUSAL>
+cudaError_t dispatch_t(const void* q, const void* k, const void* v, const void* ab,
+                       const void* key_mask, void* out, float* lse, int B, int H, int Tq,
+                       int Tk, int D, int is_bf16, float sm_scale, cudaStream_t stream) {
+  if (is_bf16)
+    return dispatch_d<__nv_bfloat16, CAUSAL>(q, k, v, ab, key_mask, out, lse, B, H, Tq, Tk, D,
+                                             sm_scale, stream);
+  return dispatch_d<float, CAUSAL>(q, k, v, ab, key_mask, out, lse, B, H, Tq, Tk, D, sm_scale,
+                                   stream);
 }
 
 }  // namespace
@@ -243,15 +268,19 @@ cudaError_t dispatch_d(const void* q, const void* k, const void* v, const void* 
 // q, out: [B, H, Tq, D]; k, v: [B, H, Tk, D]; ab: [B, H, Tq, Tk] or null;
 // key_mask: [B, Tk] bytes (nonzero = valid) or null; lse: [B, H, Tq] f32 or
 // null. All contiguous, one element type (is_bf16 ? bf16 : f32) but lse.
-// Returns a cudaError_t (0 = launched).
+// causal != 0 takes the causal form, which needs Tq == Tk. Returns a
+// cudaError_t (0 = launched).
 extern "C" int jatts_flash_attn_fwd(const void* q, const void* k, const void* v,
                                     const void* ab, const void* key_mask, void* out,
                                     void* lse, int B, int H, int Tq, int Tk, int D,
-                                    int is_bf16, float sm_scale, void* stream) {
+                                    int is_bf16, int causal, float sm_scale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* l = static_cast<float*>(lse);
-  if (is_bf16)
-    return (int)dispatch_d<__nv_bfloat16>(q, k, v, ab, key_mask, out, l, B, H, Tq, Tk, D,
-                                          sm_scale, s);
-  return (int)dispatch_d<float>(q, k, v, ab, key_mask, out, l, B, H, Tq, Tk, D, sm_scale, s);
+  if (causal) {
+    if (Tq != Tk) return (int)cudaErrorInvalidValue;
+    return (int)dispatch_t<true>(q, k, v, ab, key_mask, out, l, B, H, Tq, Tk, D, is_bf16,
+                                 sm_scale, s);
+  }
+  return (int)dispatch_t<false>(q, k, v, ab, key_mask, out, l, B, H, Tq, Tk, D, is_bf16,
+                                sm_scale, s);
 }

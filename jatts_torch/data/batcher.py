@@ -1,7 +1,8 @@
 """Bucketed batching (counterpart of jatts_tpu/data/batcher.py).
 
 Batches are padded up to bucket boundaries (text to a multiple of 16
-tokens, features to a multiple of 64 frames), as the JAX package pads them
+tokens, features to a multiple of 64 frames, codec frames to a multiple of
+32), as the JAX package pads them
 to bound its compiled programs; the port keeps the same shapes so that both
 see the same batches. The sampler's seeded per-epoch shuffle of the batch
 order is the JAX package's, so both visit the batches in the same order.
@@ -97,7 +98,63 @@ class FastSpeech2Collater:
         return batch
 
 
-COLLATER_REGISTRY = {"FastSpeech2Collater": FastSpeech2Collater}
+class VALLECollater:
+    """VALL-E batches as padded arrays: text [B, Tx] (Tx a multiple of 16),
+    proms [B, Tp, 8] and resps [B, Tr, 8] codes (frames a multiple of 32,
+    ``[8, T]`` dumps transposed to ``[T, 8]``), with their lengths. The
+    prompt (``prompt_encodec``, else the utterance's own codes) is cropped
+    to ``prompt_max_frame_length`` at a random offset drawn from
+    ``np.random.default_rng(seed)`` item by item, so the crops equal the
+    JAX collater's."""
+
+    def __init__(
+        self,
+        pad_text_multiple: int = 16,
+        pad_frames_multiple: int = 32,
+        prompt_max_frame_length: int = 225,
+        seed: int = 0,
+        out_feat_type: str = "encodec",
+    ):
+        self.pad_text_multiple = pad_text_multiple
+        self.pad_frames_multiple = pad_frames_multiple
+        self.prompt_max = prompt_max_frame_length
+        self.rng = np.random.default_rng(seed)
+
+    @staticmethod
+    def _codes(x) -> np.ndarray:
+        x = np.asarray(x)
+        if x.ndim == 2 and x.shape[0] == 8 and x.shape[1] != 8:
+            x = x.T  # [8, T] -> [T, 8]
+        return x.astype(np.int32)
+
+    def __call__(self, items: List[Dict[str, Any]]) -> Dict[str, Any]:
+        texts = [it["x"] for it in items]
+        text_lens = np.asarray([len(t) for t in texts], np.int32)
+        tx = round_up(int(text_lens.max()), self.pad_text_multiple)
+        proms = []
+        for it in items:
+            p = self._codes(it.get("prompt_encodec", it["encodec"]))
+            if len(p) > self.prompt_max:  # random crop
+                off = int(self.rng.integers(0, len(p) - self.prompt_max + 1))
+                p = p[off : off + self.prompt_max]
+            proms.append(p)
+        prom_lens = np.asarray([len(p) for p in proms], np.int32)
+        tp = round_up(int(prom_lens.max()), self.pad_frames_multiple)
+        resps = [self._codes(it["encodec"]) for it in items]
+        resp_lens = np.asarray([len(r) for r in resps], np.int32)
+        tr = round_up(int(resp_lens.max()), self.pad_frames_multiple)
+        return {
+            "utt_ids": [it.get("utt_id", "") for it in items],
+            "text": np.stack([_pad_to(t, tx) for t in texts]).astype(np.int32),
+            "text_lens": text_lens,
+            "proms": np.stack([_pad_to(p, tp) for p in proms]),
+            "prom_lens": prom_lens,
+            "resps": np.stack([_pad_to(r, tr) for r in resps]),
+            "resp_lens": resp_lens,
+        }
+
+
+COLLATER_REGISTRY = {"FastSpeech2Collater": FastSpeech2Collater, "VALLECollater": VALLECollater}
 
 
 class DataLoader:

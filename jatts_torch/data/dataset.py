@@ -42,8 +42,10 @@ class TTSDataset:
     """Rows of a recipe csv as dicts: ``utt_id``, ``spk``, token ids ``x``
     (int64), ``durations`` (int64) when the csv has them, and the
     normalized features of ``feat_list`` (float32; pitch/energy as
-    ``[T, 1]``). Training items only: the inference mode of the JAX dataset
-    and the VALL-E prompts are not ported yet."""
+    ``[T, 1]``; codec codes ``encodec*`` as stored, integer ``[T, 8]``, and
+    never normalized). Training items only: the inference mode of the JAX
+    dataset and the VALL-E prompt strategies (``prompt_strategy``) are not
+    ported yet."""
 
     def __init__(
         self,

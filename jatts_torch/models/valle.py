@@ -1,0 +1,327 @@
+"""VALL-E AR neural-codec LM (counterpart of jatts_tpu/models/valle.py).
+
+The reference's lists of variable-length tensors are packed padded arrays:
+each sample's ``[text | sep | prompt | sep | response]`` sequence lies
+contiguously from position 0 (:func:`pack_three`, :func:`pack_ids`).
+:class:`VALLEAR` trains by next-token cross-entropy over the packed sequence
+(``forward``, the JAX ``__call__``) and decodes with a KV cache
+(:func:`ar_generate`: ``prefix_forward`` once, then ``decode_one`` a
+token). Parameters carry the reference state_dict keys that
+``jatts_tpu.utils.torch_import.convert_valle`` reads; ``dtype`` is the
+compute dtype in flax's sense (parameters stay float32, logits are float32),
+see ``modules/valle_modules.py``. Dropout follows ``self.training``.
+
+Not ported yet: ``VALLENAR`` (AdaLN blocks, ``nar_generate``), activation
+checkpointing (``use_remat``).
+"""
+
+from __future__ import annotations
+
+from typing import Dict, List, Optional, Union
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from jatts_torch.device import resolve_device
+from jatts_torch.modules.valle_modules import Dense, SinusoidalEmbedding, VALLEBlock, trunc_normal_
+from jatts_torch.ops.masks import sequence_mask
+
+IGNORE = -100
+
+
+def pack_three(e_text, text_lens, e_prom, prom_lens, e_resp, resp_lens, sep):
+    """Pack ``[text | sep | prom | sep | resp]`` contiguously per sample.
+
+    e_*: [B, T_i, D] embeddings; sep: [D]. Returns packed [B, S, D]
+    (S = Tx + 1 + Tp + 1 + Tr) and total lengths [B]. One gather from a
+    ``[text | sep | prom | resp | zero]`` source by a per-position index;
+    positions past a sample's total read the zero row."""
+    b, tx, d = e_text.shape
+    tp, tr = e_prom.shape[1], e_resp.shape[1]
+    s = tx + 1 + tp + 1 + tr
+    pos = torch.arange(s, device=e_text.device)[None, :]
+    lx, lp, lr = text_lens[:, None], prom_lens[:, None], resp_lens[:, None]
+    sep_row = sep.to(e_text.dtype).expand(b, 1, d)
+    zero_row = e_text.new_zeros(b, 1, d)
+    src = torch.cat([e_text, sep_row, e_prom.to(e_text.dtype), e_resp.to(e_text.dtype), zero_row], dim=1)
+    sep_idx, zero_idx = tx, tx + 1 + tp + tr
+    is_text = pos < lx
+    is_sep = (pos == lx) | (pos == lx + 1 + lp)
+    is_prom = (pos > lx) & (pos < lx + 1 + lp)
+    is_resp = (pos > lx + 1 + lp) & (pos < lx + 2 + lp + lr)
+    idx = torch.where(
+        is_text, pos,
+        torch.where(
+            is_sep, sep_idx,
+            torch.where(
+                is_prom, pos - (lx + 1) + (tx + 1),
+                torch.where(is_resp, pos - (lx + lp + 2) + (tx + 1 + tp), zero_idx),
+            ),
+        ),
+    ).clamp(0, zero_idx)
+    packed = torch.gather(src, 1, idx[..., None].expand(b, s, d))
+    return packed, text_lens + prom_lens + resp_lens + 2
+
+
+def pack_ids(vals_text, text_lens, tp: int, prom_lens, vals_resp, resp_lens, fill: int = IGNORE):
+    """:func:`pack_three`'s layout for integer ids; prompt and sep rows get
+    ``fill``. Returns [B, S] int64."""
+    b, tx = vals_text.shape
+    tr = vals_resp.shape[1]
+    s = tx + 1 + tp + 1 + tr
+    pos = torch.arange(s, device=vals_text.device)[None, :]
+    lx, lp, lr = text_lens[:, None], prom_lens[:, None], resp_lens[:, None]
+    g_text = torch.gather(vals_text.long(), 1, pos.clamp(0, tx - 1).expand(b, s))
+    g_resp = torch.gather(vals_resp.long(), 1, (pos - (lx + lp + 2)).clamp(0, tr - 1))
+    out = torch.full((b, s), fill, dtype=torch.long, device=vals_text.device)
+    out = torch.where(pos < lx, g_text, out)
+    return torch.where((pos > lx + 1 + lp) & (pos < lx + 2 + lp + lr), g_resp, out)
+
+
+class MultiEmbedding(nn.Module):
+    """Per-level embedding tables [L, V, D] (the reference's MultiEmbedding,
+    key ``weight``), drawn from N(0, 1) as the JAX package draws them."""
+
+    def __init__(self, n_levels: int, n_tokens: int, d_model: int, device=None):
+        super().__init__()
+        self.weight = nn.Parameter(torch.randn(n_levels, n_tokens, d_model, device=device))
+
+
+class VALLEBase(nn.Module):
+    causal = True
+    use_stop_token = True
+    norm_type = "ln"
+
+    def __init__(
+        self,
+        idim: Optional[int] = None,  # unused (the reference's signature)
+        n_tokens: int = 1024,
+        d_model: int = 512,
+        n_heads: int = 8,
+        n_layers: int = 12,
+        p_dropout: float = 0.1,
+        n_prom_levels: int = 8,
+        n_resp_levels: int = 7,
+        prompt_prefix_mode: int = 1,
+        prompt_max_frame_length: int = 225,
+        attn_backend: str = "xla",
+        device: Optional[Union[str, torch.device]] = None,
+        dtype: torch.dtype = torch.float32,
+    ):
+        super().__init__()
+        dev = resolve_device(device)
+        self.n_tokens = n_tokens
+        self.d_model = d_model
+        self.n_heads = n_heads
+        self.n_layers = n_layers
+        self.n_prom_levels = n_prom_levels
+        self.n_resp_levels = n_resp_levels
+        self.prompt_max_frame_length = prompt_max_frame_length
+        self.dtype = dtype
+        self.text_emb = nn.Embedding(n_tokens, d_model, device=dev)
+        with torch.no_grad():
+            trunc_normal_(self.text_emb.weight, d_model ** -0.5)  # flax's Embed init
+        self.proms_emb = MultiEmbedding(n_prom_levels, n_tokens, d_model, device=dev)
+        self.resps_emb = MultiEmbedding(n_resp_levels, self.n_resp_tokens, d_model, device=dev)
+        self.sep = nn.Parameter(torch.randn(d_model, device=dev))
+        self.sin_emb = SinusoidalEmbedding(d_model)
+        self.blocks = nn.ModuleList(
+            VALLEBlock(
+                d_model, n_heads, p_dropout, self.causal, self.norm_type, n_resp_levels,
+                attn_backend=attn_backend, compute_dtype=dtype, device=dev,
+            )
+            for _ in range(n_layers)
+        )
+        self.classifier = Dense(d_model, self.n_resp_tokens, compute_dtype=dtype, device=dev)
+
+    @property
+    def stop_token(self) -> int:
+        return self.n_tokens
+
+    @property
+    def n_resp_tokens(self) -> int:
+        return self.n_tokens + (1 if self.use_stop_token else 0)
+
+    def _multi_embed(self, weight, codes, n_active):
+        """Sum of the embeddings of the first ``n_active[b]`` levels of
+        ``codes`` [B, T, L] (levels past the table's count are dropped)."""
+        n_lv = min(codes.shape[-1], weight.shape[0])
+        v = weight.shape[1]
+        flat = weight[:n_lv].reshape(n_lv * v, weight.shape[-1])
+        offs = torch.arange(n_lv, device=codes.device) * v
+        emb = F.embedding(codes[:, :, :n_lv].long() + offs, flat)  # [B, T, L, D]
+        active = (torch.arange(n_lv, device=codes.device)[None, :] < n_active[:, None]).to(emb.dtype)
+        return torch.einsum("btld,bl->btd", emb, active)
+
+    def trunk(
+        self, text, text_lens, proms, prom_lens, resps, resp_lens, resp_levels,
+        quant_levels=None, return_hidden: bool = False,
+    ):
+        """Packed forward -> logits [B, S, n_resp_tokens] f32 (or, with
+        ``return_hidden``, the hidden states [B, S, D]) and the totals [B].
+        The residual stream is cast to the compute dtype once, after the f32
+        embeddings, packing and sinusoids."""
+        b = text.shape[0]
+        e_text = self.text_emb(text.long())
+        e_prom = self._multi_embed(
+            self.proms_emb.weight, proms, torch.full((b,), proms.shape[-1], device=text.device)
+        )
+        e_resp = self._multi_embed(self.resps_emb.weight, resps, resp_levels)
+        x, total = pack_three(e_text, text_lens, e_prom, prom_lens, e_resp, resp_lens, self.sep)
+        x = self.sin_emb(x).to(self.dtype)
+        m = sequence_mask(total, x.shape[1], x.dtype)[..., None]
+        for block in self.blocks:
+            x = block(x, m, quant_levels)
+        if return_hidden:
+            return x, total
+        return (self.classifier(x) * m).float(), total
+
+
+class VALLEAR(VALLEBase):
+    causal = True
+    use_stop_token = True
+    norm_type = "ln"
+
+    def __init__(self, *args, n_resp_levels: int = 1, **kwargs):
+        # the AR trains and decodes codec level 0 only
+        super().__init__(*args, n_resp_levels=n_resp_levels, **kwargs)
+
+    def forward(self, text, text_lens, proms, prom_lens, resps, resp_lens) -> Dict[str, torch.Tensor]:
+        """Training: next-token cross-entropy over the packed sequence.
+        text [B, Tx]; proms [B, Tp, Lp]; resps [B, Tr] level-0 codes.
+        Targets: the text's next token, none across a segment boundary or on
+        the prompt and the second sep, the response's next token and the
+        stop token after its last one."""
+        b = text.shape[0]
+        tp = proms.shape[1]
+        logits, total = self.trunk(
+            text, text_lens, proms, prom_lens, resps[..., None], resp_lens,
+            torch.ones(b, dtype=torch.long, device=text.device),
+        )
+        y = pack_ids(text, text_lens, tp, prom_lens, resps, resp_lens)
+        pos = torch.arange(y.shape[1], device=y.device)[None, :]
+        tgt = torch.cat([y[:, 1:], torch.full((b, 1), IGNORE, dtype=y.dtype, device=y.device)], dim=1)
+        lx, lp, lr = text_lens[:, None], prom_lens[:, None], resp_lens[:, None]
+        ignore = torch.full_like(tgt, IGNORE)
+        tgt = torch.where(pos == lx - 1, ignore, tgt)
+        tgt = torch.where(pos == lx + lp + 1 + lr, torch.full_like(tgt, self.stop_token), tgt)
+        tgt = torch.where(pos >= total[:, None], ignore, tgt)
+        tgt = torch.where(pos == lx + lp + 1, ignore, tgt)  # the second sep
+        valid = tgt != IGNORE
+        logp = torch.log_softmax(logits, dim=-1)
+        nll = -torch.gather(logp, -1, torch.where(valid, tgt, 0)[..., None])[..., 0]
+        loss = (nll * valid).sum() / valid.sum().clamp(min=1)
+        return {"loss": loss, "logits": logits, "total": total}
+
+    def prefix_forward(self, text, text_lens, proms, prom_lens):
+        """The ``[text | sep | prom | sep]`` prefix once, deterministic:
+        (last-position logits [B, V] f32, prefix lengths [B], per-layer
+        prefix k and v [B, Sp, H, Dh]). The residual stays f32 here, as in
+        the JAX package."""
+        b, tx = text.shape
+        tp = proms.shape[1]
+        prefix_len = text_lens + prom_lens + 2
+        e_text = self.text_emb(text.long())
+        e_prom = self._multi_embed(
+            self.proms_emb.weight, proms, torch.full((b,), proms.shape[-1], device=text.device)
+        )
+        empty = e_text.new_zeros(b, 1, self.d_model)
+        x, _ = pack_three(e_text, text_lens, e_prom, prom_lens, empty, torch.zeros_like(text_lens), self.sep)
+        x = self.sin_emb(x[:, : tx + 1 + tp + 1])
+        m = sequence_mask(prefix_len, x.shape[1], x.dtype)[..., None]
+        ks: List[torch.Tensor] = []
+        vs: List[torch.Tensor] = []
+        h = x
+        for block in self.blocks:
+            h, k, v = block.prefill(h, m)
+            ks.append(k)
+            vs.append(v)
+        last_h = h[torch.arange(b, device=h.device), prefix_len - 1][:, None]
+        last = self.classifier(last_h).float()[:, 0]
+        return last, prefix_len, ks, vs
+
+    def decode_one(self, tok, pos, step: int, prefix_len, prefix_k, prefix_v, caches_k, caches_v):
+        """One KV-cached step, deterministic: token [B] at absolute positions
+        ``pos`` [B] (the sinusoid's), cache slot ``step`` (the same for
+        every row) -> logits [B, V] f32. ``caches_k/v``: per layer
+        [B, S_max, H, Dh], written in place."""
+        e = self.resps_emb.weight[0][tok.long().clamp(0, self.n_resp_tokens - 1)]
+        h = e[:, None] + self.sin_emb.table(pos)[:, None].to(e.dtype)
+        sp = prefix_k[0].shape[1]
+        pvalid = torch.arange(sp, device=tok.device)[None, :] < prefix_len[:, None]
+        for i, block in enumerate(self.blocks):
+            h = block.decode_step(h, prefix_k[i], prefix_v[i], caches_k[i], caches_v[i], step, pvalid)
+        return self.classifier(h)[:, 0].float()
+
+
+@torch.no_grad()
+def ar_generate(
+    model: VALLEAR,
+    text, text_lens, proms, prom_lens,
+    max_steps: int = 1000,
+    sampling_temperature: float = 1.0,
+    n_chunks: Optional[int] = None,
+    generator: Optional[torch.Generator] = None,
+    forced: Optional[torch.Tensor] = None,
+) -> Dict[str, torch.Tensor]:
+    """KV-cached AR decode: the prefix once, then ``max_steps - 1`` steps
+    of one token, each attending the prefix cache and a preallocated
+    ``[B, max_steps - 1, H, Dh]`` decode cache per layer written at the
+    batch-uniform slot ``step``. Tokens are drawn from
+    ``softmax(logits / sampling_temperature)`` with ``generator``; once a
+    row has emitted the stop token it keeps emitting it. Returns ``codes``
+    [B, max_steps] and ``resp_lens`` [B] (the first stop's index, else
+    ``max_steps``).
+
+    ``forced`` [B, max_steps] replaces the draws (teacher forcing); the
+    result then also holds ``logits`` [B, max_steps, V], the distribution
+    each code was taken from. ``n_chunks`` (the JAX package's decode-cache
+    chunking, a scan-carry layout that it pins as sampling-exact) is
+    accepted and has no effect. Runs in eval mode; the mode is restored."""
+    del n_chunks
+    was_training = model.training
+    model.eval()
+    try:
+        last, prefix_len, pk, pv = model.prefix_forward(text, text_lens, proms, prom_lens)
+        b = text.shape[0]
+        stop = model.stop_token
+        steps = max_steps - 1
+
+        def pick(logits, i):
+            if forced is not None:
+                return forced[:, i].long()
+            probs = torch.softmax(logits / sampling_temperature, dim=-1)
+            return torch.multinomial(probs, 1, generator=generator)[:, 0]
+
+        ck = [k.new_zeros(b, max(steps, 1), *k.shape[2:]) for k in pk]
+        cv = [v.new_zeros(b, max(steps, 1), *v.shape[2:]) for v in pv]
+        tok = pick(last, 0)
+        toks, all_logits = [tok], [last]
+        pos = prefix_len.clone()
+        stopped = torch.zeros(b, dtype=torch.bool, device=tok.device)
+        for step in range(steps):
+            logits = model.decode_one(tok, pos, step, prefix_len, pk, pv, ck, cv)
+            stopped = stopped | (tok == stop)
+            tok = torch.where(stopped, torch.full_like(tok, stop), pick(logits, step + 1))
+            toks.append(tok)
+            all_logits.append(logits)
+            pos = pos + 1
+        codes = torch.stack(toks, dim=1)
+        is_stop = codes == stop
+        first = torch.where(
+            is_stop.any(dim=1), is_stop.int().argmax(dim=1), torch.full_like(codes[:, 0], max_steps)
+        )
+        out = {"codes": codes, "resp_lens": first}
+        if forced is not None:
+            out["logits"] = torch.stack(all_logits, dim=1)
+        return out
+    finally:
+        model.train(was_training)
+
+
+class VALLENAR(VALLEBase):
+    """Not ported yet (AdaLN blocks, ``nar_generate``)."""
+
+    def __init__(self, *args, **kwargs):
+        raise NotImplementedError("VALLENAR is not ported yet")

@@ -1,5 +1,6 @@
 """K1 — flash-attention forward (``csrc/flash_attn_fwd.cu``), K1-bwd — its
-backward (``csrc/flash_attn_bwd.cu``), and their plain twins.
+backward (``csrc/flash_attn_bwd.cu``), K1b — the causal form of both, and
+their plain twins.
 
 Replaces the Pallas TPU flash-attention forward that
 ``jatts_tpu/modules/attention.py:_flash_attend`` drives. Function, per
@@ -9,14 +10,20 @@ A row with no valid key returns 0. Key-padding semantics: on valid query
 rows this equals the TPU kernel (segment ids); on padded query rows it
 equals the eager ``_attend`` instead, and the conformer discards those rows.
 
+``causal=True`` (K1b, the Pallas kernel's ``causal`` form, driven by
+VALL-E's AR trunk) needs Tq == Tk and lets query row i see key j only when
+j <= i, AND-ed with the key mask. Every function here takes it; the kernels
+take it as a compile-time form, so the non-causal ones are unchanged.
+
 :func:`flash_attention` launches the CUDA kernel for CUDA tensors and takes
 :func:`flash_attention_ref` only for CPU tensors. When autograd needs a
 gradient it goes through :class:`FlashAttention`, whose forward is K1 with
 the row log-sum-exp and whose backward launches K1-bwd's two kernels (dk/dv,
 then dq and d(ab)), as the JAX package's flash path trains through the
 Pallas custom VJP. ``launches``, ``launches_bwd_dkv`` and ``launches_bwd_dq``
-count the kernel launches (and nothing else) so a run can show that it went
-through the kernels. See the source notes in the ``.cu`` files for the bounds.
+count the non-causal kernel launches, and the ``*_causal`` counters the
+causal ones (and nothing else), so a run can show that it went through the
+kernels. See the source notes in the ``.cu`` files for the bounds.
 """
 
 from __future__ import annotations
@@ -38,11 +45,32 @@ _MASK_VAL = -1e9
 launches = 0  # K1 (forward)
 launches_bwd_dkv = 0  # K1-bwd, dk/dv kernel
 launches_bwd_dq = 0  # K1-bwd, dq/d(ab) kernel
+launches_causal = 0  # K1b, causal forward
+launches_bwd_dkv_causal = 0  # K1b, causal dk/dv kernel
+launches_bwd_dq_causal = 0  # K1b, causal dq/d(ab) kernel
 
 
 def reset_launches() -> None:
     global launches, launches_bwd_dkv, launches_bwd_dq
+    global launches_causal, launches_bwd_dkv_causal, launches_bwd_dq_causal
     launches = launches_bwd_dkv = launches_bwd_dq = 0
+    launches_causal = launches_bwd_dkv_causal = launches_bwd_dq_causal = 0
+
+
+def _count(kind: str, causal: bool) -> None:
+    name = {"fwd": "launches", "dkv": "launches_bwd_dkv", "dq": "launches_bwd_dq"}[kind]
+    name += "_causal" if causal else ""
+    globals()[name] += 1
+
+
+def _seen(key_mask, tq: int, tk: int, causal: bool, device):
+    """Which keys each query row sees, broadcastable to [B, H, Tq, Tk]:
+    the key mask AND (causal) j <= i; None when every key is seen."""
+    seen = None if key_mask is None else key_mask[:, None, None, :]
+    if causal:
+        tril = torch.ones(tq, tk, dtype=torch.bool, device=device).tril()[None, None]
+        seen = tril if seen is None else seen & tril
+    return seen
 
 
 def flash_attention_ref(
@@ -53,26 +81,30 @@ def flash_attention_ref(
     key_mask: Optional[torch.Tensor] = None,
     sm_scale: Optional[float] = None,
     return_lse: bool = False,
+    causal: bool = False,
 ):
-    """Plain PyTorch version of K1, in f32, output in q's dtype.
+    """Plain PyTorch version of K1 (K1b with ``causal``), in f32, output in
+    q's dtype.
 
     q: [B, H, Tq, D]; k, v: [B, H, Tk, D]; ab: [B, H, Tq, Tk] or None;
-    key_mask: [B, Tk] bool (True = valid) or None. With ``return_lse`` also
-    the row log-sum-exp of the scaled scores over the valid keys [B, H, Tq]
-    f32, +inf on a row with no valid key (what K1 writes for K1-bwd)."""
+    key_mask: [B, Tk] bool (True = valid) or None. A row with no key it may
+    see returns 0. With ``return_lse`` also the row log-sum-exp of the
+    scaled scores over the keys it sees [B, H, Tq] f32, +inf on a row that
+    sees none (what K1 writes for K1-bwd)."""
     if sm_scale is None:
         sm_scale = q.shape[-1] ** -0.5
+    _check_causal(q, k, causal)
     s = _scores(q, k, ab, sm_scale)
-    if key_mask is None:
+    m = _seen(key_mask, q.shape[2], k.shape[2], causal, q.device)
+    if m is None:
         p = torch.softmax(s, dim=-1)
     else:
-        m = key_mask[:, None, None, :]
         p = torch.softmax(s.masked_fill(~m, _MASK_VAL), dim=-1).masked_fill(~m, 0.0)
     out = torch.matmul(p, v.float()).to(q.dtype)
     if not return_lse:
         return out
-    if key_mask is not None:
-        s = s.masked_fill(~key_mask[:, None, None, :], float("-inf"))
+    if m is not None:
+        s = s.masked_fill(~m, float("-inf"))
     lse = torch.logsumexp(s, dim=-1)
     return out, lse.masked_fill(torch.isneginf(lse), float("inf"))
 
@@ -85,18 +117,25 @@ def _scores(q, k, ab, sm_scale):
     return s * sm_scale
 
 
-def flash_attention_bwd_ref(q, k, v, ab, key_mask, sm_scale, o, lse, do):
-    """Plain PyTorch version of K1-bwd: the explicit f32 formulas, not
-    autograd. Returns ``(dq, dk, dv, dab)`` in the inputs' dtypes, ``dab``
-    None when ``ab`` is None.
+def _check_causal(q, k, causal: bool) -> None:
+    if causal and q.shape[2] != k.shape[2]:
+        raise ValueError(f"causal attention needs Tq == Tk, got {q.shape[2]} and {k.shape[2]}")
 
-    p = exp(s - lse) on valid keys (0 elsewhere), di = rowsum(o·do),
+
+def flash_attention_bwd_ref(q, k, v, ab, key_mask, sm_scale, o, lse, do, causal=False):
+    """Plain PyTorch version of K1-bwd (K1b's backward with ``causal``):
+    the explicit f32 formulas, not autograd. Returns ``(dq, dk, dv, dab)``
+    in the inputs' dtypes, ``dab`` None when ``ab`` is None.
+
+    p = exp(s - lse) on the keys a row sees (0 elsewhere), di = rowsum(o·do),
     dv = pᵀ·do, dp = do·vᵀ, ds = p·(dp - di)·sm_scale, dq = ds·k,
     dk = dsᵀ·q, d(ab) = ds (the bias is added before the scale)."""
+    _check_causal(q, k, causal)
     s = _scores(q, k, ab, sm_scale)
     p = torch.exp(s - lse.float()[..., None])
-    if key_mask is not None:
-        p = p.masked_fill(~key_mask[:, None, None, :], 0.0)
+    m = _seen(key_mask, q.shape[2], k.shape[2], causal, q.device)
+    if m is not None:
+        p = p.masked_fill(~m, 0.0)
     dof = do.float()
     di = (o.float() * dof).sum(-1)
     dv = torch.matmul(p.transpose(-1, -2), dof)
@@ -113,7 +152,7 @@ def _kernel_fn():
     fn.restype = ctypes.c_int
     # pointers and the stream as c_void_p: without argtypes ctypes would
     # pass them as 32-bit ints and cut them
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [
+    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [
         ctypes.c_float, ctypes.c_void_p,
     ]
     return fn
@@ -122,13 +161,13 @@ def _kernel_fn():
 def _bwd_kernel_fn(name: str):
     fn = getattr(build.load(KERNEL_BWD), name)
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 6 + [
+    fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 7 + [
         ctypes.c_float, ctypes.c_void_p,
     ]
     return fn
 
 
-def _check(q, k, v, ab, key_mask) -> None:
+def _check(q, k, v, ab, key_mask, causal=False) -> None:
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
         raise ValueError("q, k, v must be [B, H, T, D]")
     b, h, tq, d = q.shape
@@ -141,6 +180,7 @@ def _check(q, k, v, ab, key_mask) -> None:
         raise ValueError(f"ab {tuple(ab.shape)} is not [B, H, Tq, Tk] = {(b, h, tq, tk)}")
     if key_mask is not None and (key_mask.shape != (b, tk) or key_mask.dtype != torch.bool):
         raise ValueError(f"key_mask must be bool [B, Tk] = {(b, tk)}")
+    _check_causal(q, k, causal)
 
 
 def _check_card(q, k, v, ab, key_mask) -> None:
@@ -166,8 +206,8 @@ def _ptr(t: Optional[torch.Tensor]):
     return None if t is None else t.data_ptr()
 
 
-def _launch_fwd(q, k, v, ab, key_mask, sm_scale, with_lse: bool):
-    """K1 on checked card tensors -> (out, lse or None)."""
+def _launch_fwd(q, k, v, ab, key_mask, sm_scale, with_lse: bool, causal: bool):
+    """K1 (K1b with ``causal``) on checked card tensors -> (out, lse or None)."""
     b, h, tq, d = q.shape
     out = torch.empty_like(q)
     lse = torch.empty(b, h, tq, device=q.device, dtype=torch.float32) if with_lse else None
@@ -177,28 +217,27 @@ def _launch_fwd(q, k, v, ab, key_mask, sm_scale, with_lse: bool):
         rc = fn(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(ab), _ptr(key_mask),
             out.data_ptr(), _ptr(lse), b, h, tq, k.shape[2], d,
-            int(q.dtype == torch.bfloat16), float(sm_scale), stream,
+            int(q.dtype == torch.bfloat16), int(causal), float(sm_scale), stream,
         )
     if rc != 0:
         raise RuntimeError(f"flash_attn_fwd launch failed with CUDA error {rc}")
-    global launches
-    launches += 1
+    _count("fwd", causal)
     return out, lse
 
 
-def flash_attention_fwd(q, k, v, ab=None, key_mask=None, sm_scale=None):
-    """K1 on CUDA tensors with the row log-sum-exp: ``(out, lse)``, lse
-    [B, H, Tq] f32 (+inf on a row with no valid key), what
-    ``flash_attention_ref(..., return_lse=True)`` computes."""
-    _check(q, k, v, ab, key_mask)
+def flash_attention_fwd(q, k, v, ab=None, key_mask=None, sm_scale=None, causal=False):
+    """K1 (K1b with ``causal``) on CUDA tensors with the row log-sum-exp:
+    ``(out, lse)``, lse [B, H, Tq] f32 (+inf on a row that sees no key),
+    what ``flash_attention_ref(..., return_lse=True)`` computes."""
+    _check(q, k, v, ab, key_mask, causal)
     _check_card(q, k, v, ab, key_mask)
     if sm_scale is None:
         sm_scale = q.shape[-1] ** -0.5
-    return _launch_fwd(q, k, v, ab, key_mask, sm_scale, with_lse=True)
+    return _launch_fwd(q, k, v, ab, key_mask, sm_scale, with_lse=True, causal=causal)
 
 
-def _check_bwd(q, k, v, ab, key_mask, lse, di, do) -> None:
-    _check(q, k, v, ab, key_mask)
+def _check_bwd(q, k, v, ab, key_mask, lse, di, do, causal) -> None:
+    _check(q, k, v, ab, key_mask, causal)
     _check_card(q, k, v, ab, key_mask)
     b, h, tq, _ = q.shape
     if do.shape != q.shape or do.dtype != q.dtype:
@@ -210,66 +249,66 @@ def _check_bwd(q, k, v, ab, key_mask, lse, di, do) -> None:
         raise ValueError("flash_attention_bwd: lse, di, do must be contiguous on q's device")
 
 
-def _launch_bwd(name, q, k, v, ab, key_mask, sm_scale, lse, di, do, out_a, out_b):
+def _launch_bwd(name, q, k, v, ab, key_mask, sm_scale, lse, di, do, out_a, out_b, causal):
     b, h, tq, d = q.shape
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = _bwd_kernel_fn(f"jatts_flash_attn_bwd_{name}")(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(ab), _ptr(key_mask),
             lse.data_ptr(), di.data_ptr(), do.data_ptr(), out_a.data_ptr(), _ptr(out_b),
-            b, h, tq, k.shape[2], d, int(q.dtype == torch.bfloat16), float(sm_scale), stream,
+            b, h, tq, k.shape[2], d, int(q.dtype == torch.bfloat16), int(causal),
+            float(sm_scale), stream,
         )
     if rc != 0:
         raise RuntimeError(f"flash_attn_bwd {name} launch failed with CUDA error {rc}")
+    _count(name, causal)
 
 
-def flash_attention_bwd_dkv(q, k, v, ab, key_mask, sm_scale, lse, di, do):
-    """K1-bwd's dk/dv kernel on CUDA tensors -> ``(dk, dv)``; ``di`` is
-    rowsum(o·do) [B, H, Tq] f32."""
-    _check_bwd(q, k, v, ab, key_mask, lse, di, do)
+def flash_attention_bwd_dkv(q, k, v, ab, key_mask, sm_scale, lse, di, do, causal=False):
+    """K1-bwd's dk/dv kernel (K1b's with ``causal``) on CUDA tensors ->
+    ``(dk, dv)``; ``di`` is rowsum(o·do) [B, H, Tq] f32."""
+    _check_bwd(q, k, v, ab, key_mask, lse, di, do, causal)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    _launch_bwd("dkv", q, k, v, ab, key_mask, sm_scale, lse, di, do, dk, dv)
-    global launches_bwd_dkv
-    launches_bwd_dkv += 1
+    _launch_bwd("dkv", q, k, v, ab, key_mask, sm_scale, lse, di, do, dk, dv, causal)
     return dk, dv
 
 
-def flash_attention_bwd_dq(q, k, v, ab, key_mask, sm_scale, lse, di, do, with_dab=True):
-    """K1-bwd's dq/d(ab) kernel on CUDA tensors -> ``(dq, dab)``; ``dab`` is
-    written when ``ab`` is given and ``with_dab``, else None."""
-    _check_bwd(q, k, v, ab, key_mask, lse, di, do)
+def flash_attention_bwd_dq(q, k, v, ab, key_mask, sm_scale, lse, di, do, with_dab=True, causal=False):
+    """K1-bwd's dq/d(ab) kernel (K1b's with ``causal``) on CUDA tensors ->
+    ``(dq, dab)``; ``dab`` is written when ``ab`` is given and ``with_dab``,
+    else None."""
+    _check_bwd(q, k, v, ab, key_mask, lse, di, do, causal)
     dq = torch.empty_like(q)
     dab = torch.empty_like(ab) if ab is not None and with_dab else None
-    _launch_bwd("dq", q, k, v, ab, key_mask, sm_scale, lse, di, do, dq, dab)
-    global launches_bwd_dq
-    launches_bwd_dq += 1
+    _launch_bwd("dq", q, k, v, ab, key_mask, sm_scale, lse, di, do, dq, dab, causal)
     return dq, dab
 
 
-def flash_attention_bwd(q, k, v, ab, key_mask, sm_scale, o, lse, do, with_dab=True):
-    """K1-bwd on CUDA tensors: ``(dq, dk, dv, dab)`` as
-    :func:`flash_attention_bwd_ref` computes them (``dab`` None without a
-    bias or without ``with_dab``). ``di = rowsum(o·do)`` is a PyTorch op, as
-    in the JAX VJP; then the dk/dv kernel and the dq/d(ab) kernel launch on
-    the current stream."""
+def flash_attention_bwd(q, k, v, ab, key_mask, sm_scale, o, lse, do, with_dab=True, causal=False):
+    """K1-bwd (K1b's backward with ``causal``) on CUDA tensors:
+    ``(dq, dk, dv, dab)`` as :func:`flash_attention_bwd_ref` computes them
+    (``dab`` None without a bias or without ``with_dab``).
+    ``di = rowsum(o·do)`` is a PyTorch op, as in the JAX VJP; then the dk/dv
+    kernel and the dq/d(ab) kernel launch on the current stream."""
     if o.shape != q.shape or o.dtype != q.dtype:
         raise ValueError("flash_attention_bwd: o must be like q")
     di = (o.float() * do.float()).sum(-1)
-    dk, dv = flash_attention_bwd_dkv(q, k, v, ab, key_mask, sm_scale, lse, di, do)
-    dq, dab = flash_attention_bwd_dq(q, k, v, ab, key_mask, sm_scale, lse, di, do, with_dab)
+    dk, dv = flash_attention_bwd_dkv(q, k, v, ab, key_mask, sm_scale, lse, di, do, causal)
+    dq, dab = flash_attention_bwd_dq(q, k, v, ab, key_mask, sm_scale, lse, di, do, with_dab, causal)
     return dq, dk, dv, dab
 
 
 class FlashAttention(torch.autograd.Function):
     """K1 forward (with the row log-sum-exp) and K1-bwd backward on CUDA
-    tensors. Gradients flow to q, k, v and ab; the mask and the scale take
-    none."""
+    tensors, K1b's with ``causal``. Gradients flow to q, k, v and ab; the
+    mask, the scale and the form take none."""
 
     @staticmethod
-    def forward(ctx, q, k, v, ab, key_mask, sm_scale):
-        out, lse = _launch_fwd(q, k, v, ab, key_mask, sm_scale, with_lse=True)
+    def forward(ctx, q, k, v, ab, key_mask, sm_scale, causal=False):
+        out, lse = _launch_fwd(q, k, v, ab, key_mask, sm_scale, with_lse=True, causal=causal)
         ctx.save_for_backward(q, k, v, ab, key_mask, out, lse)
         ctx.sm_scale = sm_scale
+        ctx.causal = causal
         return out
 
     @staticmethod
@@ -277,9 +316,9 @@ class FlashAttention(torch.autograd.Function):
         q, k, v, ab, key_mask, out, lse = ctx.saved_tensors
         dq, dk, dv, dab = flash_attention_bwd(
             q, k, v, ab, key_mask, ctx.sm_scale, out, lse, dout.contiguous(),
-            with_dab=ctx.needs_input_grad[3],
+            with_dab=ctx.needs_input_grad[3], causal=ctx.causal,
         )
-        return dq, dk, dv, dab, None, None
+        return dq, dk, dv, dab, None, None, None
 
 
 def flash_attention(
@@ -289,8 +328,10 @@ def flash_attention(
     ab: Optional[torch.Tensor] = None,
     key_mask: Optional[torch.Tensor] = None,
     sm_scale: Optional[float] = None,
+    causal: bool = False,
 ) -> torch.Tensor:
-    """K1 on CUDA tensors, :func:`flash_attention_ref` on CPU tensors.
+    """K1 (K1b with ``causal``) on CUDA tensors, :func:`flash_attention_ref`
+    on CPU tensors.
 
     On the card it takes contiguous q/k/v (and ab) of one dtype, f32 or
     bf16, head dim in ``HEAD_DIMS``, all on one device, and raises on
@@ -298,13 +339,13 @@ def flash_attention(
     synchronise. When autograd records (grad mode on and an input that
     requires grad) it goes through :class:`FlashAttention`, so the backward
     is K1-bwd."""
-    _check(q, k, v, ab, key_mask)
+    _check(q, k, v, ab, key_mask, causal)
     if sm_scale is None:
         sm_scale = q.shape[-1] ** -0.5
     tensors = [t for t in (q, k, v, ab, key_mask) if t is not None]
     if all(t.device.type == "cpu" for t in tensors):
-        return flash_attention_ref(q, k, v, ab, key_mask, sm_scale)
+        return flash_attention_ref(q, k, v, ab, key_mask, sm_scale, causal=causal)
     _check_card(q, k, v, ab, key_mask)
     if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
-        return FlashAttention.apply(q, k, v, ab, key_mask, float(sm_scale))
-    return _launch_fwd(q, k, v, ab, key_mask, sm_scale, with_lse=False)[0]
+        return FlashAttention.apply(q, k, v, ab, key_mask, float(sm_scale), bool(causal))
+    return _launch_fwd(q, k, v, ab, key_mask, sm_scale, with_lse=False, causal=causal)[0]

@@ -11,6 +11,8 @@ from __future__ import annotations
 
 from typing import Any, Dict
 
+from jatts_torch.train.steps_valle import valle_kwargs, valle_loss
+
 
 def fastspeech2_kwargs(batch: Dict[str, Any], model=None) -> Dict[str, Any]:
     """batch -> ``FastSpeech2.forward`` kwargs (no multi-speaker inputs yet)."""
@@ -44,9 +46,11 @@ def fastspeech2_loss(model, batch: Dict[str, Any], criterions, config, step):
 
 LOSS_FN_REGISTRY = {
     "FastSpeech2Trainer": fastspeech2_loss,
+    "VALLETrainer": valle_loss,
 }
 KWARGS_REGISTRY = {
     "FastSpeech2Trainer": fastspeech2_kwargs,
+    "VALLETrainer": valle_kwargs,
 }
 
 

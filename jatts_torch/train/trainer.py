@@ -19,11 +19,13 @@ save intervals and its deferred stop (``request_stop``, set by the CLI's
 SIGTERM handler, raises ``SystemExit(143)`` at the next step boundary).
 ``steps_per_execution`` (a K-step ``lax.scan`` that saves TPU dispatches)
 is accepted and has no effect: the K steps run one by one, which the JAX
-package pins as equal (tests/test_train_loop.py).
+package pins as equal (tests/test_train_loop.py). ``rng_impl`` (the TPU's
+dropout-mask generator) is accepted and has no effect either.
 
-Not ported: the device mesh (data, tensor and sequence parallelism),
-multihost, ``rng_impl``, the tensorboard writer and the intermediate-results
-hook; training in a dtype other than float32.
+The parameters are float32; a model may compute in another dtype (VALL-E's
+``dtype: bfloat16``), as the JAX modules do. Not ported: the device mesh
+(data, tensor and sequence parallelism), multihost, the tensorboard writer
+and the intermediate-results hook.
 """
 
 from __future__ import annotations
@@ -65,7 +67,7 @@ class Trainer:
             raise ValueError("mesh parallelism is not ported: the trainer runs on one GPU")
         dtypes = {p.dtype for p in model.parameters()}
         if dtypes != {torch.float32}:
-            raise TypeError(f"training runs in float32 only; the model holds {sorted(map(str, dtypes))}")
+            raise TypeError(f"the parameters must be float32; the model holds {sorted(map(str, dtypes))}")
         self.config = config
         self.model = model
         self.criterions = criterions
@@ -86,6 +88,8 @@ class Trainer:
             logging.info(
                 f"steps_per_execution={k_exec} has no effect on the GPU: the steps run one by one"
             )
+        if config.get("rng_impl"):
+            logging.info(f"rng_impl={config['rng_impl']} has no effect: dropout draws from a torch.Generator")
         self.generator = torch.Generator(device=self.device)
         set_dropout_generator(model, self.generator)
         self.names: List[str] = [n for n, _ in model.named_parameters()]

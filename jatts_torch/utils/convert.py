@@ -113,3 +113,27 @@ def hifigan_state_dict_from_jax(variables: Mapping[str, Any]) -> Dict[str, torch
     ConvTranspose kernel (transpose_kernel=True) is [k, out, in], so the
     same (2, 1, 0) transpose as a Conv gives torch's [in, out, k]."""
     return flax_to_state_dict(variables, HIFIGAN_RENAMES)
+
+
+VALLE_RENAMES = (
+    (r"^blocks_(\d+)/norm_attn$", r"blocks/\1/attn/norm"),
+    (r"^blocks_(\d+)/attn/(to_qkv|to_out)$", r"blocks/\1/attn/block/\2"),
+    (r"^blocks_(\d+)/norm_ffn$", r"blocks/\1/ffn/norm"),
+    (r"^blocks_(\d+)/ffn_in$", r"blocks/\1/ffn/block/0"),
+    (r"^blocks_(\d+)/ffn_out$", r"blocks/\1/ffn/block/3"),
+)
+
+
+def valle_state_dict_from_jax(variables: Mapping[str, Any], n_layers: int) -> Dict[str, torch.Tensor]:
+    """VALL-E AR flax variables -> the port's (and the reference's)
+    state_dict: the inverse of ``jatts_tpu.utils.torch_import.convert_valle``.
+    The raw tables ``proms_emb``/``resps_emb`` become ``<name>.weight``;
+    ``sep`` keeps its name. Raises unless every one of the ``n_layers``
+    blocks was found."""
+    sd = flax_to_state_dict(variables, VALLE_RENAMES)
+    for name in ("proms_emb", "resps_emb"):
+        sd[f"{name}.weight"] = sd.pop(name)
+    found = {int(k.split(".")[1]) for k in sd if k.startswith("blocks.")}
+    if found != set(range(n_layers)):
+        raise ValueError(f"expected blocks 0..{n_layers - 1}, found {sorted(found)}")
+    return sd

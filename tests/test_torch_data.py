@@ -6,7 +6,10 @@ The JAX package's TTSDataset, BatchSampler and FastSpeech2Collater read the
 ``.h5`` dumps; the port's must give the same items and batches (exactly:
 integer and float32 arrays equal), in the same seeded order, with and
 without the prefetch thread. The same corpus written as ``.npz`` (the
-format a machine without h5py trains from) gives identical batches.
+format a machine without h5py trains from) gives identical batches. A codec
+corpus (VALL-E: integer ``encodec`` codes, never normalized) goes through
+both packages' datasets and VALLECollaters to equal batches, random prompt
+crops included.
 """
 
 import os
@@ -20,10 +23,11 @@ torch = pytest.importorskip("torch")
 
 from jatts_tpu.data.batcher import BatchSampler as JBatchSampler  # noqa: E402
 from jatts_tpu.data.batcher import FastSpeech2Collater as JCollater  # noqa: E402
+from jatts_tpu.data.batcher import VALLECollater as JVALLECollater  # noqa: E402
 from jatts_tpu.data.dataset import TTSDataset as JTTSDataset  # noqa: E402
 from jatts_tpu.utils.io import write_csv, write_hdf5  # noqa: E402
 from jatts_torch.bin import tts_train  # noqa: E402
-from jatts_torch.data.batcher import BatchSampler, DataLoader, FastSpeech2Collater  # noqa: E402
+from jatts_torch.data.batcher import BatchSampler, DataLoader, FastSpeech2Collater, VALLECollater  # noqa: E402
 from jatts_torch.data.dataset import TTSDataset  # noqa: E402
 from jatts_torch.utils import io as tio  # noqa: E402
 from jatts_torch.utils.checkpoint import find_latest_checkpoint  # noqa: E402
@@ -194,3 +198,69 @@ def test_tts_train_cli_runs_four_steps_on_cpu(tmp_path):
     state = torch.load(os.path.join(latest, "state.pt"), weights_only=True)
     assert set(state) == {"model", "optimizer", "steps", "epochs", "ema"} and state["steps"] == 4
     assert all(torch.isfinite(v).all() for v in state["model"].values() if v.is_floating_point())
+
+
+def write_codec_corpus(root, fmt, n_utts=7, seed=0, hop=320, sr=24000):
+    """A VALL-E corpus: per utterance an ``encodec`` dump of integer codes
+    (one utterance stored ``[8, T]``, the rest ``[T, 8]``), a csv with
+    start/end times for the frame-length buckets, and tokens.txt. Returns
+    (csv path, stats path (absent: codes take no stats), token list)."""
+    rng = np.random.default_rng(seed)
+    os.makedirs(os.path.join(root, "dump"), exist_ok=True)
+    tokens = os.path.join(root, "tokens.txt")
+    with open(tokens, "w", encoding="utf-8") as f:
+        f.write("\n".join(["<blank>", "<unk>", *PHONES, "<sos/eos>"]) + "\n")
+    rows = []
+    for i in range(n_utts):
+        n_frames = int(rng.integers(5, 60))
+        codes = rng.integers(0, 1024, (n_frames, 8)).astype(np.int64)
+        if i == 2:
+            codes = codes.T.copy()
+        path = os.path.join(root, "dump", f"C{i}.{fmt}")
+        if fmt == "h5":
+            write_hdf5(path, "encodec", codes)
+        else:
+            np.savez(path, encodec=codes)
+        ph = rng.choice(PHONES, int(rng.integers(3, 20))).tolist()
+        rows.append({"sample_id": f"C{i}", "spk": "s", "start": "0", "end": str(n_frames * hop / sr),
+                     "phonemes": " ".join(ph), "feat_path": path})
+    csv = os.path.join(root, f"codec_{fmt}.csv")
+    write_csv(rows, csv)
+    return csv, os.path.join(root, "no_stats.npz"), tokens
+
+
+@pytest.fixture(scope="module")
+def codec_corpora(tmp_path_factory):
+    root = str(tmp_path_factory.mktemp("codec"))
+    return {fmt: write_codec_corpus(root, fmt) for fmt in ("h5", "npz")}
+
+
+def test_codec_npz_corpus_items(codec_corpora):
+    csv, stats, tokens = codec_corpora["npz"]
+    ds = TTSDataset(csv, stats, ["encodec"], tokens, allow_cache=True)
+    assert ds.scaler is None or not ds.scaler.mean  # codes take no stats
+    for i in range(len(ds)):
+        item = ds[i]
+        assert item["encodec"].dtype.kind == "i" and 8 in item["encodec"].shape
+        assert ds.get_frame_len(i) == int(float(ds.data[i]["end"]) * 24000 / 300)  # csv start/end
+
+
+def test_valle_collater_matches_jax_crops_included(codec_corpora):
+    """Both packages' datasets and VALLECollaters (prompt crop to 20 frames,
+    the same seed) over the same sampler order: equal batches."""
+    j = JTTSDataset(codec_corpora["h5"][0], codec_corpora["h5"][1], ["encodec"], codec_corpora["h5"][2])
+    t = TTSDataset(*codec_corpora["npz"][:2], ["encodec"], codec_corpora["npz"][2])
+    lengths = [t.get_frame_len(i) for i in range(len(t))]
+    jcol, col = JVALLECollater(prompt_max_frame_length=20, seed=3), VALLECollater(prompt_max_frame_length=20, seed=3)
+    n_cropped = 0
+    for epoch in range(3):
+        js, ts = JBatchSampler(lengths, 3, seed=0), BatchSampler(lengths, 3, seed=0)
+        js.set_epoch(epoch)
+        ts.set_epoch(epoch)
+        for jb, tb in zip(js, ts):
+            want, got = jcol([j[i] for i in jb]), col([t[i] for i in tb])
+            assert got["resps"].shape[1] % 32 == 0 and got["text"].shape[1] % 16 == 0
+            assert got["proms"].shape[2] == 8
+            n_cropped += int((got["prom_lens"] == 20).sum())
+            _assert_same(got, want)
+    assert n_cropped > 0

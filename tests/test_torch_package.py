@@ -1,7 +1,7 @@
 """jatts_torch package checks: no JAX anywhere in the port, the K1 wrapper's
 CPU route and input checks, the default device of the entry points, the
 kernel build commands, and (marked ``cuda``, skipped without a card) K1,
-K1-bwd, K2 and K3 against their plain twins."""
+K1-bwd, K1b (their causal form), K2 and K3 against their plain twins."""
 
 import ast
 import os
@@ -39,7 +39,8 @@ def test_import_leaves_jax_out_of_sys_modules():
         "jatts_torch.bin.tts_train, jatts_torch.train.trainer, jatts_torch.train.steps, "
         "jatts_torch.train.schedulers, jatts_torch.losses.basic, jatts_torch.data.dataset, "
         "jatts_torch.data.batcher, jatts_torch.utils.checkpoint, jatts_torch.utils.initialize, "
-        "jatts_torch.utils.config\n"
+        "jatts_torch.utils.config, jatts_torch.models.valle, jatts_torch.modules.valle_modules, "
+        "jatts_torch.train.steps_valle\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in %r)\n"
         "bad += [m for m in ('h5py', 'yaml', 'triton') if m in sys.modules]\n"
         "print(bad); sys.exit(1 if bad else 0)" % (FORBIDDEN,)
@@ -115,6 +116,15 @@ def test_tts_train_defaults_to_cuda():
         tts_train.run("train.csv", "dev.csv", "stats.npz", "tokens.txt", {}, "exp")
 
 
+def test_valle_defaults_to_cuda():
+    from jatts_torch.models.valle import VALLEAR
+
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is usable")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        VALLEAR(n_tokens=8, d_model=16, n_heads=2, n_layers=1)
+
+
 def test_resolve_device_defaults_to_cuda():
     assert resolve_device("cpu") == torch.device("cpu")
     if torch.cuda.is_available():
@@ -152,6 +162,12 @@ def test_flash_bwd_source_holds_two_global_kernels_and_a_plain_c_interface():
     assert 'extern "C" int jatts_flash_attn_bwd_dkv(' in src
     assert 'extern "C" int jatts_flash_attn_bwd_dq(' in src
     assert "torch/" not in src and "#include <ATen" not in src and "atomicAdd" not in src
+
+
+def test_flash_sources_take_the_causal_form_as_a_compile_time_flag():
+    for name in ("flash_attn_fwd.cu", "flash_attn_bwd.cu"):
+        src = (ROOT / "jatts_torch" / "csrc" / name).read_text()
+        assert "bool CAUSAL" in src and "int causal" in src, name
 
 
 def test_chip_smoke_refuses_without_a_card(tmp_path):
@@ -265,3 +281,46 @@ def test_k1_bwd_matches_plain_on_card(dtype, tol, d, with_bias):
         err = (g.float() - w).abs().max().item()
         assert np.isfinite(err) and err <= tol
     assert torch.all(got[0][2] == 0) and not torch.isnan(got[0]).any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 1e-2)])
+@pytest.mark.parametrize("t,d,with_bias", [(100, 64, False), (1000, 64, False), (1, 64, False), (130, 192, True)])
+def test_k1b_causal_kernels_match_plain_on_card(dtype, tol, t, d, with_bias):
+    """The causal forward, dk/dv and dq kernels against
+    flash_attention_ref / flash_attention_bwd_ref(causal=True); errors
+    relative to max(1, max |plain|). Key masks: full, ragged, and one whose
+    valid keys start at 3, so its rows 0..2 see no key (0, not NaN)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    rng = np.random.default_rng(4)
+    b, h = 3, 2
+    q, k, v, do = (torch.from_numpy(rng.normal(size=(b, h, t, d)).astype(np.float32)).cuda().to(dtype)
+                   for _ in range(4))
+    ab = None
+    if with_bias:
+        ab = torch.from_numpy((rng.normal(size=(b, h, t, t)) * np.sqrt(d)).astype(np.float32)).cuda().to(dtype)
+    pos = torch.arange(t)
+    mask = torch.stack([pos < t, pos < max(1, (2 * t) // 3), pos >= min(3, t - 1)]).cuda()
+    scale = d ** -0.5
+
+    def f32(x):
+        return None if x is None else x.float()
+
+    k1.reset_launches()
+    out, lse_k = k1.flash_attention_fwd(q, k, v, ab, mask, scale, causal=True)
+    o, lse = k1.flash_attention_ref(f32(q), f32(k), f32(v), f32(ab), mask, scale, return_lse=True, causal=True)
+    got = k1.flash_attention_bwd(q, k, v, ab, mask, scale, o.to(dtype), lse, do, causal=True)
+    torch.cuda.synchronize()
+    assert (k1.launches_causal, k1.launches_bwd_dkv_causal, k1.launches_bwd_dq_causal) == (1, 1, 1)
+    assert (k1.launches, k1.launches_bwd_dkv, k1.launches_bwd_dq) == (0, 0, 0)
+    want = k1.flash_attention_bwd_ref(f32(q), f32(k), f32(v), f32(ab), mask, scale, o, lse, f32(do), causal=True)
+    for g, w in [(out, o)] + list(zip(got, want)):
+        if w is None:
+            assert g is None
+            continue
+        err = (g.float() - w).abs().max().item()
+        assert np.isfinite(err) and err <= tol * max(1.0, w.abs().max().item())
+    assert torch.equal(torch.isinf(lse), torch.isinf(lse_k))
+    none = torch.isinf(lse)[..., None].expand_as(out)
+    assert torch.all(out[none] == 0) and torch.all(got[0][none] == 0)

@@ -6,7 +6,10 @@ every dropout rate 0, and run Adam under ``warmuplr`` (warmup 4) with
 final weights, BatchNorm running statistics and EMA weights; the same with
 gradient accumulation over 2 steps. Also: the schedules against optax's,
 the clip below, at and above ``max_norm`` against
-``optax.clip_by_global_norm``, and a save/resume round trip.
+``optax.clip_by_global_norm``, and a save/resume round trip. VALL-E AR: a
+3-step trajectory against the JAX Trainer (AdamW with weight decay,
+gradient accumulation over 2 steps, dropout 0, f32), and the training CLI
+for 4 steps on the CPU (bf16 compute, ``attn_backend: flash``).
 
 Tolerances: losses and grad norms rtol 1e-5; weights and running
 statistics atol 2e-5 (Adam's m/sqrt(v) passes f32 gradient noise on
@@ -19,8 +22,11 @@ That BatchNorm's running mean takes the bias in, so it is held to the same
 bound.
 """
 
+import os
+
 import numpy as np
 import pytest
+import yaml
 
 torch = pytest.importorskip("torch")
 
@@ -37,8 +43,17 @@ from jatts_torch.models.fastspeech2 import FastSpeech2  # noqa: E402
 from jatts_torch.train import schedulers  # noqa: E402
 from jatts_torch.train.steps import fastspeech2_loss  # noqa: E402
 from jatts_torch.train.trainer import Trainer  # noqa: E402
-from jatts_torch.utils.convert import fastspeech2_state_dict_from_jax  # noqa: E402
+from jatts_tpu.models.valle import VALLEAR as JVALLEAR  # noqa: E402
+from jatts_tpu.train.steps_valle import valle_loss as jvalle_loss  # noqa: E402
+from jatts_torch.bin import tts_train  # noqa: E402
+from jatts_torch.models.valle import VALLEAR  # noqa: E402
+from jatts_torch.train.steps_valle import valle_loss  # noqa: E402
+from jatts_torch.utils.checkpoint import find_latest_checkpoint  # noqa: E402
+from jatts_torch.utils.convert import fastspeech2_state_dict_from_jax, valle_state_dict_from_jax  # noqa: E402
+from tests.test_torch_data import write_codec_corpus  # noqa: E402
 from tests.test_torch_train_modules import FS2_CONFIG, fs2_batch  # noqa: E402
+from tests.test_torch_valle import CFG as VALLE_CONFIG  # noqa: E402
+from tests.test_torch_valle import make_batch as valle_batch  # noqa: E402
 
 LOSS_TOL = dict(rtol=1e-5, atol=1e-6)
 PARAM_ATOL = 2e-5
@@ -197,3 +212,68 @@ def test_trainer_refuses_other_dtypes_and_stops_on_request(tmp_path):
     with pytest.raises(SystemExit) as e:
         t.run()
     assert e.value.code == 143 and t.steps == 1
+
+
+def test_valle_ar_three_step_trajectory_matches_jax_trainer(tmp_path):
+    """AdamW (weight decay 0.01) under warmuplr, clip at 1.0, gradients
+    averaged over 2 steps: the per-step losses and grad norms, and the
+    weights after one update plus one accumulated step."""
+    config = _config(optimizer_type="AdamW", optimizer_params={"lr": 1e-3, "weight_decay": 0.01},
+                     gradient_accumulate_steps=2, trainer_type="VALLETrainer")
+    batches = [valle_batch(seed=s) for s in range(3)]
+    jt = JTrainer(config, JVALLEAR(**VALLE_CONFIG), {}, jvalle_loss, FakeLoader(batches),
+                  outdir=str(tmp_path / "jax"), mesh=None, seed=0)
+    jt.init_state(jt._prep(batches[0], 1))
+    n_layers = VALLE_CONFIG["n_layers"]
+    model = VALLEAR(**VALLE_CONFIG, device="cpu")
+    model.load_state_dict(valle_state_dict_from_jax({"params": jax.device_get(jt.state.params)}, n_layers))
+    pt = Trainer(config, model, {}, valle_loss, FakeLoader(batches), outdir=str(tmp_path / "port"), seed=0)
+    pt.init_state()
+    for i, b in enumerate(batches):
+        jt.state, js = jt.train_step(jt.state, jt._prep(b, 1), jax.random.fold_in(jt.rng, i))
+        got = pt.train_step(b)
+        for key in ("train/loss", "train/loss_ce", "train/grad_norm"):
+            np.testing.assert_allclose(got[key], float(js[key]), err_msg=key, **LOSS_TOL)
+    assert pt.updates == 1 and pt.mini_step == 1
+    final = valle_state_dict_from_jax({"params": jax.device_get(jt.state.params)}, n_layers)
+    _assert_weights(pt.model.state_dict(), final, 0.0)
+
+
+def test_valle_ar_cli_runs_four_steps_on_cpu(tmp_path, monkeypatch):
+    """The tts3 AR conf's keys at a small width: bf16 compute (float32
+    parameters), flash attention (the plain causal version on the CPU),
+    the prompt crop taken from model_params, rng_impl and
+    steps_per_execution accepted."""
+    csv, stats, tokens = write_codec_corpus(str(tmp_path / "corpus"), "npz")
+    conf = {
+        "sampling_rate": 24000, "feat_list": ["encodec"], "out_feat_type": "encodec",
+        "model_type": "VALLEAR", "trainer_type": "VALLETrainer", "collater_type": "VALLECollater",
+        "model_params": {**{k: v for k, v in VALLE_CONFIG.items() if k != "idim"},
+                         "n_tokens": 1024, "prompt_max_frame_length": 24, "dtype": "bfloat16"},
+        "criterions": {}, "batch_size": 3, "gradient_accumulate_steps": 2,
+        "optimizer_type": "AdamW", "optimizer_params": {"lr": 1e-4, "weight_decay": 0.01},
+        "grad_norm": 1.0, "scheduler": "warmuplr", "scheduler_params": {"warmup_steps": 4},
+        "train_max_steps": 4, "save_interval_steps": 2, "eval_interval_steps": 2,
+        "log_interval_steps": 2, "rng_impl": "rbg", "steps_per_execution": 5,
+    }
+    conf_path = tmp_path / "conf.yaml"
+    conf_path.write_text(yaml.safe_dump(conf))
+    outdir = tmp_path / "exp"
+    trainers = []
+    real_run = tts_train.run
+    monkeypatch.setattr(tts_train, "run", lambda *a, **kw: trainers.append(real_run(*a, **kw)))
+    tts_train.main([
+        "--train-csv", csv, "--dev-csv", csv, "--stats", stats, "--token-list", tokens,
+        "--config", str(conf_path), "--outdir", str(outdir), "--device", "cpu",
+        "--attn-backend", "flash", "--verbose", "0",
+    ])
+    trainer = trainers[0]
+    assert trainer.model.dtype == torch.bfloat16
+    assert {p.dtype for p in trainer.model.parameters()} == {torch.float32}
+    assert trainer.train_loader.collater.prompt_max == 24
+    assert trainer.steps == 4 and trainer.updates == 2
+    assert all(np.isfinite(h["train/loss_ce"]) for h in trainer.history)
+    latest = find_latest_checkpoint(str(outdir))
+    assert latest.endswith("checkpoint-4steps")
+    state = torch.load(os.path.join(latest, "state.pt"), weights_only=True)
+    assert "blocks.0.attn.block.to_qkv.weight" in state["model"] and state["steps"] == 4
