@@ -64,7 +64,28 @@ Phases, each of which fails the run with a non-zero exit:
      its parts, a profiled step, K1b at the batch's own shape, the same step
      under ``attn_backend: xla``; then ``ar_generate`` from the trained model
      on 4 dev rows (time a step, codes in range) and its KV-cached logits
-     against the flash trunk's, teacher-forced, in f32.
+     against the flash trunk's, teacher-forced, in f32;
+ 13. K1r (the fused rel-pos form of K1 and K1-bwd, d_qk != d_v: the
+     forward, dk/dv and dq kernels) against their plain versions at the
+     JVS/JSUT width's pair (d_qk 576, d_v 192) in bf16 and f32, at the small
+     pair (192, 64), at a ragged T, at T = 1 and with rows that see no key;
+     the backward also against autograd through the plain forward; then
+     their times at the training decoder shape (f32) and the serving
+     decoder shape (bf16) beside the plain versions', SDPA's with a boolean
+     key mask (the yardstick, never used by the port; its backend printed)
+     and the bounds;
+ 14. the JVS-latest path: egs/jvs/tts1/conf/fastspeech2.v1.yaml (adim 384,
+     2 heads, 4+4 blocks, ``spk_embed_dim`` 192 ``add``) with
+     ``conformer_rel_pos_type: latest`` and ``attn_backend: flash``: 16
+     requests with a seed-made unit ``spemb`` each through BatchingServer in
+     bf16 (K1r 8 launches a batch), the same model small in f32 against its
+     eager path; then phase 8's corpus with a seed-made 192-d ``spkemb`` an
+     utterance (4 synthetic speakers) trains 200 steps through
+     ``jatts_torch/bin/tts_train.py:run`` (f32, batch 32, warm-up 50), launch
+     counts set to 0 just before and read just after (K1r 8 launches a step
+     each, no K1 or K1-bwd launch); the loss, bitwise resume, a step's time
+     and parts, a profiled step, and the same step under ``attn_backend:
+     xla`` (the eager rel_shift_gather path) on the same weights and batch.
 The line before the last is the kernels' JSON record, the last line
 ``{"ok": true, "device": {...}}``. Exits 2 without a CUDA device or
 without the jatts_torch package beside this file.
@@ -75,10 +96,12 @@ from __future__ import annotations
 import argparse
 import json
 import math
+import re
 import subprocess
 import sys
 import tempfile
 import time
+import warnings
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -94,6 +117,37 @@ TOL = {"f32": 1e-4, "bf16": 1e-2}
 # to max(1, max |plain|): f32 differs by summation order only (sums of up to
 # 1024 terms); bf16 outputs are rounded once to bf16 (2^-9 relative)
 TOL_BWD = {"f32": 1e-4, "bf16": 1e-2}
+# K1r tolerances on max |kernel - plain| of each output, relative to
+# max(1, max |plain|): f32 by summation order only (sums of <= 1024 terms of
+# <= 576 products), bf16 rounded once to bf16
+TOL_K1R = {"f32": 1e-5, "bf16": 1e-2}
+
+
+def ptxas_entry(line: str) -> str:
+    """``flash_attn_fwd_relpos_kernel<bf16,576,192>`` from the mangled name
+    on a ptxas "Compiling entry function" line."""
+    name = re.search(r"\d+([a-z_]+_kernel)", line)
+    if name is None:
+        return line.strip()
+    targs = re.search(r"_kernelI(.+?)EEv", line)  # a template's arguments
+    args, rest = [], targs.group(1) if targs else ""
+    while rest:
+        if rest.startswith("13__nv_bfloat16"):
+            args.append("bf16")
+            rest = rest[len("13__nv_bfloat16"):]
+        elif rest.startswith("f"):
+            args.append("f32")
+            rest = rest[1:]
+        elif rest.startswith("Lb"):
+            args.append("causal" if rest[2] == "1" else "non-causal")
+            rest = rest[4:]
+        elif rest.startswith("Li"):
+            args.append(rest[2:rest.index("E")])
+            rest = rest[rest.index("E") + 1:]
+        else:
+            args.append(rest)
+            break
+    return name.group(1) + (f"<{','.join(args)}>" if args else "")
 
 
 def fail(msg: str) -> None:
@@ -155,23 +209,6 @@ def k1_bound_ms(b, h, t, d, elem_bytes, with_bias, dtype_name):
     t_bytes = io / PEAK_BYTES_S * 1e3
     t_ops = flops / PEAK_FLOPS_S[dtype_name] * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations"), io, flops
-
-
-def print_unported_bounds():
-    """Bound of the attention kernel form that is not ported yet, from the
-    shapes the JAX package would give it (no time: nothing to run)."""
-    # d_qk != d_v: the fused latest rel-pos attention of FastSpeech2 at the
-    # JSUT width (adim 384, 2 heads: d_qk = 192 + 384, d_v = 192), the
-    # training decoder's B, T, f32; no recipe conf selects it yet
-    b, h, t, d_qk, d_v = 32, 2, 1024, 576, 192
-    io = (2 * b * h * t * d_qk + 2 * b * h * t * d_v) * 4 + b * t
-    flops = 2 * b * h * t * t * (d_qk + d_v)
-    t_bytes, t_ops = io / PEAK_BYTES_S * 1e3, flops / PEAK_FLOPS_S["f32"] * 1e3
-    print(
-        f"K1b d_qk!=d_v forward bound (not ported) f32 B,H,T={b},{h},{t} d_qk={d_qk} d_v={d_v}: "
-        f"{max(t_bytes, t_ops):.4f} ms by {'bytes' if t_bytes >= t_ops else 'operations'} "
-        f"({io / 1e6:.1f} MB -> {t_bytes:.4f} ms, {flops / 1e9:.1f} GFLOP -> {t_ops:.4f} ms)", flush=True,
-    )
 
 
 # ---------------------------------------------------------------------------
@@ -806,24 +843,356 @@ def k1b_phase(seed, where):
 
 
 # ---------------------------------------------------------------------------
+# K1r: the fused rel-pos form of K1 and K1-bwd (d_qk != d_v)
+# ---------------------------------------------------------------------------
+
+# the latest rel-pos attention at the JVS/JSUT width (adim 384, 2 heads):
+# d_qk = d_k + n_feat = 192 + 384, d_v = d_k = 192
+K1R_DIMS = (576, 192)
+K1R_TRAIN = (32, 2, 1024)  # the training decoder: batch 32, <= 1024 frames, f32
+K1R_SERVE = (8, 2, 1024)  # the serving decoder: batch 8, 1024 frames, bf16
+
+
+def k1r_cases():
+    """(name, (B, H, T), (d_qk, d_v), dtype, key mask rows as (first valid
+    key, number of valid keys) cycled over the batch)."""
+    b, h, t = K1R_SERVE
+    ragged = [(0, t), (0, t - 1), (0, 900), (0, 611), (0, 1), (0, 64), (0, 65), (0, 1000)]
+    small = [(0, 300), (0, 250), (0, 1), (0, 77)]
+    return [
+        ("serving decoder", (b, h, t), K1R_DIMS, "bf16", ragged),
+        ("f32", (4, 2, 512), K1R_DIMS, "f32", [(0, 512), (0, 300), (0, 33), (0, 129)]),
+        ("small pair", (4, 2, 300), (192, 64), "f32", small),
+        ("small pair bf16", (4, 2, 300), (192, 64), "bf16", small),
+        # T ends inside a tile (1000 = 15 x 64 + 40 = 31 x 32 + 8)
+        ("ragged T", (3, 2, 1000), K1R_DIMS, "f32", [(0, 1000), (0, 999), (0, 517)]),
+        ("T=1", (2, 2, 1), K1R_DIMS, "f32", [(0, 1), (0, 0)]),
+        # the second item's keys start at 37, the third has no valid key
+        ("rows without a key", (3, 2, 200), K1R_DIMS, "f32", [(0, 200), (37, 100), (0, 0)]),
+    ]
+
+
+def k1r_inputs(shape, dims, dtype, rows, seed):
+    import torch
+
+    b, h, t = shape
+    d_qk, d_v = dims
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    q, k = (torch.randn(b, h, t, d_qk, device="cuda", generator=g).to(dtype) for _ in range(2))
+    v, do = (torch.randn(b, h, t, d_v, device="cuda", generator=g).to(dtype) for _ in range(2))
+    pos = torch.arange(t, device="cuda")
+    key_mask = torch.stack([(pos >= a) & (pos < a + n) for a, n in (rows * b)[:b]])
+    return q, k, v, key_mask, do
+
+
+def check_k1r(name, shape, dims, dtype_name, rows, seed, against_autograd=False):
+    """The three K1r kernels against flash_attention_ref /
+    flash_attention_bwd_ref on the same inputs (the backward fed the plain
+    forward's o and lse), the kernel's lse against the plain one, rows that
+    see no key exactly 0. Errors are checked relative to max(1, max|plain|);
+    returns the largest |kernel - plain| of the forward and of the
+    backward."""
+    import torch
+
+    from jatts_torch.ops import flash_attention as k1
+
+    dtype = {"f32": torch.float32, "bf16": torch.bfloat16}[dtype_name]
+    q, k, v, key_mask, do = k1r_inputs(shape, dims, dtype, rows, seed)
+    scale = dims[1] ** -0.5  # 1/sqrt(d_k), as the attention layer passes it
+    before = _legacy_launches()
+    out_k, lse_k = k1.flash_attention_fwd(q, k, v, None, key_mask, scale)
+    out_nolse = k1.flash_attention(q, k, v, None, key_mask, scale)
+    o, lse = k1.flash_attention_ref(q.float(), k.float(), v.float(), None, key_mask, scale, return_lse=True)
+    got = k1.flash_attention_bwd(q, k, v, None, key_mask, scale, o.to(dtype), lse, do)
+    torch.cuda.synchronize()
+    check(_legacy_launches() == before, f"K1r {name}: a d_qk == d_v kernel launched")
+    want = k1.flash_attention_bwd_ref(q.float(), k.float(), v.float(), None, key_mask, scale, o, lse, do.float())
+    check(bool(torch.equal(out_k, out_nolse)), f"K1r {name}: the forward with and without lse differ")
+    tol = TOL_K1R[dtype_name]
+    abs_errs = {"out": (out_k.float() - o).abs().max().item()}
+    errs = {"out": abs_errs["out"] / max(1.0, o.abs().max().item())}
+    for gname, g_, w, width in zip(("dq", "dk", "dv"), got, want, (dims[0], dims[0], dims[1])):
+        check(g_.shape[-1] == width and bool(torch.isfinite(g_).all()), f"K1r {name} {gname}")
+        abs_errs[gname] = (g_.float() - w).abs().max().item()
+        errs[gname] = abs_errs[gname] / max(1.0, w.abs().max().item())
+    check(got[3] is None, f"K1r {name}: a d(ab) without a bias")
+    for gname, e in errs.items():
+        check(math.isfinite(e) and e <= tol, f"K1r {name} {dtype_name} {gname} err {e} > {tol}")
+    seen_none = torch.isinf(lse)
+    check(bool(torch.equal(seen_none, torch.isinf(lse_k))), f"K1r {name}: +inf lse rows differ")
+    lse_err = (lse_k - lse).masked_fill(seen_none, 0.0).abs().max().item()
+    check(lse_err <= 1e-4 * max(1.0, lse.masked_fill(seen_none, 0).abs().max().item()),
+          f"K1r {name} lse err {lse_err}")
+    zero_rows = seen_none[..., None]
+    check(bool((out_k.masked_select(zero_rows) == 0).all()) and bool((got[0].masked_select(zero_rows) == 0).all()),
+          f"K1r {name}: a row that sees no key is not 0")
+    print(
+        f"K1r check {name} {dtype_name} B,H,T={','.join(map(str, shape))} d_qk,d_v={dims[0]},{dims[1]}: "
+        + ", ".join(f"{n} {abs_errs[n]:.2e} ({e:.2e} relative)" for n, e in errs.items())
+        + f" (max |kernel - plain|, relative to max(1, max|plain|); tol {tol:.0e}); lse err {lse_err:.1e}; rows "
+        f"that see no key {int(seen_none.sum())}", flush=True,
+    )
+    if against_autograd:
+        leaves = [x.float().detach().requires_grad_() for x in (q, k, v)]
+        ag = torch.autograd.grad(k1.flash_attention_ref(*leaves, None, key_mask, scale), leaves, do.float())
+        ag_err = max((g_.float() - a).abs().max().item() / max(1.0, a.abs().max().item()) for g_, a in zip(got, ag))
+        print(f"K1r backward vs autograd through the plain forward: {ag_err:.2e} (tol {tol:.0e})", flush=True)
+        check(ag_err <= tol, "K1r backward disagrees with autograd")
+    return abs_errs["out"], max(abs_errs["dq"], abs_errs["dk"], abs_errs["dv"])
+
+
+def k1r_bounds_ms(b, h, t, d_qk, d_v, elem, dtype_name, with_lse):
+    """Least times of the three K1r kernels with every key valid: operations
+    2·B·H·T²·(sum of the product widths) (forward: s over d_qk, p·v over
+    d_v; dk/dv: s, dp, dv, dk; dq: s, dp, dq) at the f32 CUDA-core rate for
+    f32 and the tensor cores' for bf16; bytes: each input read once, each
+    output written once (q, k, dq, dk of width d_qk; v, o, do, dv of width
+    d_v; lse and di f32; the key mask)."""
+    nq, nv = b * h * t * d_qk * elem, b * h * t * d_v * elem
+    rows, mask = b * h * t * 4, b * t
+    sq = 2 * b * h * t * t
+    out = {}
+    for name, nbytes, flops in (
+        ("fwd", 2 * nq + 2 * nv + mask + (rows if with_lse else 0), sq * (d_qk + d_v)),
+        ("dkv", 3 * nq + 3 * nv + 2 * rows + mask, sq * (2 * d_qk + 2 * d_v)),
+        ("dq", 3 * nq + 2 * nv + 2 * rows + mask, sq * (2 * d_qk + d_v)),
+    ):
+        t_bytes = nbytes / PEAK_BYTES_S * 1e3
+        t_ops = flops / PEAK_FLOPS_S[dtype_name] * 1e3
+        out[name] = (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations", nbytes, flops)
+    return out
+
+
+def sdpa_backend(q, k, v, mask, scale):
+    """The first SDPA backend, in PyTorch's order of preference, that takes
+    these inputs (a d_qk != d_v call with a boolean mask)."""
+    import torch
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    for backend in (SDPBackend.FLASH_ATTENTION, SDPBackend.CUDNN_ATTENTION,
+                    SDPBackend.EFFICIENT_ATTENTION, SDPBackend.MATH):
+        try:
+            # a refusing backend warns why before it raises
+            with sdpa_kernel(backend), warnings.catch_warnings():
+                warnings.simplefilter("ignore", UserWarning)
+                torch.nn.functional.scaled_dot_product_attention(q, k, v, attn_mask=mask, scale=scale)
+            torch.cuda.synchronize()
+            return backend
+        except RuntimeError:
+            continue
+    fail("no SDPA backend takes the K1r shape")
+
+
+def time_k1r(seed, where):
+    """The three K1r kernels at the training decoder shape (f32) and the
+    forward at the serving decoder shape (bf16), every key valid, beside
+    the plain versions, SDPA with a boolean key mask (forward, and forward +
+    backward at the training shape; the yardstick only) and the bounds."""
+    import torch
+    from torch.nn.attention import sdpa_kernel
+
+    from jatts_torch.ops import flash_attention as k1
+
+    d_qk, d_v = K1R_DIMS
+    scale = d_v ** -0.5
+    res = {}
+    b, h, t = K1R_TRAIN
+    q, k, v, key_mask, do = k1r_inputs(K1R_TRAIN, K1R_DIMS, torch.float32, [(0, t)], seed)
+    o, lse = k1.flash_attention_fwd(q, k, v, None, key_mask, scale)
+    di = (o * do).sum(-1)
+    res["fwd"] = time_ms(lambda: k1.flash_attention_fwd(q, k, v, None, key_mask, scale), iters=5, warmup=1)
+    res["dkv"] = time_ms(lambda: k1.flash_attention_bwd_dkv(q, k, v, None, key_mask, scale, lse, di, do),
+                         iters=5, warmup=1)
+    res["dq"] = time_ms(lambda: k1.flash_attention_bwd_dq(q, k, v, None, key_mask, scale, lse, di, do),
+                        iters=5, warmup=1)
+    res["plain_fwd_ms"] = time_ms(lambda: k1.flash_attention_ref(q, k, v, None, key_mask, scale), iters=3, warmup=1)
+    res["plain_bwd_ms"] = time_ms(lambda: k1.flash_attention_bwd_ref(q, k, v, None, key_mask, scale, o, lse, do),
+                                  iters=3, warmup=1)
+    mask = key_mask[:, None, None, :]
+    backend = sdpa_backend(q, k, v, mask, scale)
+    qs, ks, vs = (x.detach().requires_grad_() for x in (q, k, v))
+
+    def sdpa_fwd_bwd():
+        out = torch.nn.functional.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask, scale=scale)
+        torch.autograd.grad(out, (qs, ks, vs), do)
+
+    with sdpa_kernel(backend):
+        res["sdpa_fwd_ms"] = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+            q, k, v, attn_mask=mask, scale=scale), iters=5, warmup=1)
+        res["sdpa_ms"] = time_ms(sdpa_fwd_bwd, iters=3, warmup=1)
+    res["sdpa_backend"] = backend.name
+    res["bounds"] = k1r_bounds_ms(b, h, t, d_qk, d_v, 4, "f32", with_lse=True)
+    del q, k, v, do, o, lse, di, qs, ks, vs
+    parts = "; ".join(
+        f"{n} kernel {res[n]:.4f} ms (bound {res['bounds'][n][0]:.4f} ms by {res['bounds'][n][1]}: "
+        f"{res['bounds'][n][2] / 1e6:.1f} MB, {res['bounds'][n][3] / 1e9:.1f} GFLOP)" for n in ("fwd", "dkv", "dq"))
+    print(
+        f"K1r time f32 B,H,T={b},{h},{t} d_qk,d_v={d_qk},{d_v}, every key valid: {parts}; plain forward "
+        f"{res['plain_fwd_ms']:.4f} ms, plain backward {res['plain_bwd_ms']:.4f} ms; sdpa ({backend.name}, "
+        f"bool key mask) forward {res['sdpa_fwd_ms']:.4f} ms, forward+backward {res['sdpa_ms']:.4f} ms; {where}",
+        flush=True,
+    )
+    # the serving decoder, bf16, forward only (no lse)
+    b, h, t = K1R_SERVE
+    q, k, v, key_mask, _ = k1r_inputs(K1R_SERVE, K1R_DIMS, torch.bfloat16, [(0, t)], seed + 1)
+    mask = key_mask[:, None, None, :]
+    serve = {"fwd": time_ms(lambda: k1.flash_attention(q, k, v, None, key_mask, scale), iters=10)}
+    serve["plain_fwd_ms"] = time_ms(lambda: k1.flash_attention_ref(q, k, v, None, key_mask, scale), iters=5, warmup=1)
+    backend = sdpa_backend(q, k, v, mask, scale)
+    with sdpa_kernel(backend):
+        serve["sdpa_fwd_ms"] = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+            q, k, v, attn_mask=mask, scale=scale), iters=10)
+    serve["sdpa_backend"] = backend.name
+    serve["bound"] = k1r_bounds_ms(b, h, t, d_qk, d_v, 2, "bf16", with_lse=False)["fwd"]
+    print(
+        f"K1r time bf16 B,H,T={b},{h},{t} d_qk,d_v={d_qk},{d_v} (serving decoder): forward kernel "
+        f"{serve['fwd']:.4f} ms (bound {serve['bound'][0]:.4f} ms by {serve['bound'][1]}: "
+        f"{serve['bound'][2] / 1e6:.1f} MB, {serve['bound'][3] / 1e9:.1f} GFLOP); plain {serve['plain_fwd_ms']:.4f} ms; "
+        f"sdpa ({backend.name}, bool key mask) {serve['sdpa_fwd_ms']:.4f} ms; {where}", flush=True,
+    )
+    res["serve"] = serve
+    return res
+
+
+def k1r_phase(seed, where):
+    """Phase 13: every K1r case, then the times. Returns the largest errors
+    of the forward and the backward and the times."""
+    fwd_err, bwd_err = 0.0, 0.0
+    for i, (name, shape, dims, dtype_name, rows) in enumerate(k1r_cases()):
+        fe, be = check_k1r(name, shape, dims, dtype_name, rows, seed + i, against_autograd=(name == "f32"))
+        fwd_err, bwd_err = max(fwd_err, fe), max(bwd_err, be)
+    return fwd_err, bwd_err, time_k1r(seed + 100, where)
+
+
+def jvs_serving(seed, where):
+    """Phase 14, serving: the JVS conf's FastSpeech2 with latest rel-pos
+    attention and K1r in bf16 behind BatchingServer, 16 requests with a
+    seed-made unit ``spemb`` each; then the same model small in f32 against
+    its eager path. Returns the K1r forward launches and the numbers."""
+    import numpy as np
+    import torch
+
+    from jatts_torch.models.fastspeech2 import FastSpeech2
+    from jatts_torch.ops import flash_attention as k1
+    from jatts_torch.serving import BatchingServer, ServingBundle
+    from jatts_torch.utils.config import load_config
+    from jatts_torch.vocoder.hifigan import HiFiGANGenerator
+
+    sr, max_frames, bucket, batch = 24000, 1024, 128, 8
+    mp = {**load_config(str(JVS_CONF))["model_params"], "conformer_rel_pos_type": "latest"}
+    spk_dim = int(mp["spk_embed_dim"])
+    torch.manual_seed(seed)
+    fs2 = FastSpeech2(idim=64, **{**mp, "attn_backend": "flash"}, device="cuda", dtype=torch.bfloat16)
+    voc = HiFiGANGenerator(device="cuda", dtype=torch.bfloat16)
+    with torch.no_grad():
+        # as phase 7: centre the random durations on max_frames / bucket frames a token
+        fs2.duration_predictor.linear.weight.mul_(0.1)
+        fs2.duration_predictor.linear.bias.fill_(math.log(1.0 + max_frames / bucket))
+    rng = np.random.default_rng(seed)
+    mel_mean = rng.normal(-4.0, 1.0, 80).astype(np.float32)
+    mel_scale = rng.uniform(0.5, 2.0, 80).astype(np.float32)
+    requests = [rng.integers(1, 64, size=int(n)).tolist() for n in rng.integers(40, bucket + 1, size=16)]
+    requests[0] = rng.integers(1, 64, size=bucket).tolist()
+    spembs = rng.normal(size=(16, spk_dim)).astype(np.float32)
+    spembs /= np.linalg.norm(spembs, axis=1, keepdims=True)
+    bundle = ServingBundle(fs2, voc, mel_mean, mel_scale, batch_size=batch, buckets=[bucket],
+                           max_frames=max_frames, wav_format="f32")
+    check(bundle.spk_dim == spk_dim, "the bundle does not take speaker embeddings")
+    bundle.synthesize(requests[:batch], spembs=spembs[:batch])  # warm-up
+    torch.cuda.synchronize()
+
+    k1.reset_launches()
+    t0 = time.perf_counter()
+    with BatchingServer(bundle, max_delay_ms=20.0) as server:
+        futures = [server.submit(token_ids=ids, spemb=se) for ids, se in zip(requests, spembs)]
+        results = [f.result(timeout=600) for f in futures]
+    served_s = time.perf_counter() - t0
+    launches, legacy = k1.launches_relpos, _legacy_launches()
+    batches = server.stats["batches"]
+    print(f"JVS-latest serving: {len(results)} requests with spemb in {batches} batches, {served_s:.3f} s; "
+          f"K1r launches {launches}, K1 {legacy[0]}", flush=True)
+    check(launches == 8 * batches and launches > 0, f"K1r launches {launches} != 8 per batch x {batches}")
+    check(legacy == (0, 0, 0), f"a d_qk == d_v kernel launched while serving the latest model: {legacy}")
+    hop = voc.hop_size
+    olens = []
+    for i, r in enumerate(results):
+        n = r["mel"].shape[0]
+        olens.append(n)
+        check(0 < n <= max_frames and r["wav"].shape == (n * hop,), f"JVS request {i}: olens {n}")
+        check(bool(np.isfinite(r["wav"]).all() and np.isfinite(r["mel"]).all()), f"JVS request {i}: not finite")
+    alone = bundle.synthesize([requests[3]], spembs=spembs[3:4])[0]
+    diff = float(np.abs(alone["wav"] - results[3]["wav"]).max())
+    other = bundle.synthesize([requests[3]], spembs=spembs[4:5])[0]
+    print(f"JVS request 3 alone vs in its batch: max |wav diff| {diff:.3e}; with another speaker's spemb "
+          f"olens {other['mel'].shape[0]} vs {results[3]['mel'].shape[0]}", flush=True)
+    check(alone["wav"].shape == results[3]["wav"].shape and diff <= 1e-3, "JVS: alone != batched")
+    check(other["mel"].shape != alone["mel"].shape or not np.allclose(other["mel"], alone["mel"]),
+          "JVS: the speaker embedding changes nothing")
+
+    pcm = ServingBundle(fs2, voc, mel_mean, mel_scale, batch_size=batch, buckets=[bucket], max_frames=max_frames)
+    batch_ms = time_ms(lambda: pcm.synthesize(requests[:batch], spembs=spembs[:batch]), iters=5, warmup=1)
+    audio_s = sum(min(max_frames, n) for n in olens[:batch]) * hop / sr
+    xs, ilens = pcm.prepare(requests[:batch])
+    se = pcm.prepare_spembs(spembs[:batch])
+    with torch.no_grad():
+        fs2_ms = time_ms(lambda: fs2.inference(xs, ilens, max_frames, se), iters=5, warmup=1)
+    print(
+        f"JVS-latest serving bf16 pcm16 B={batch} bucket={bucket} max_frames={max_frames}: {batch_ms:.2f} ms "
+        f"per batch, RTF {batch_ms / 1e3 / audio_s:.5f} ({audio_s:.2f} s of audio); fastspeech2 {fs2_ms:.2f} ms "
+        f"of it; {where}", flush=True,
+    )
+    del fs2, voc, bundle, pcm
+
+    # the same model small in f32: K1r against the eager rel_shift_gather path
+    torch.manual_seed(seed + 1)
+    small = {**mp, "idim": 64, "elayers": 1, "dlayers": 1, "device": "cuda"}
+    ref_model = FastSpeech2(**{**small, "attn_backend": "xla"})
+    k1r_model = FastSpeech2(**{**small, "attn_backend": "flash"})
+    k1r_model.load_state_dict(ref_model.state_dict())
+    for m in (ref_model, k1r_model):
+        with torch.no_grad():
+            m.duration_predictor.linear.weight.mul_(0.1)
+            m.duration_predictor.linear.bias.fill_(math.log(5.0))
+    xs = torch.randint(1, 64, (2, 40), device="cuda")
+    ilens = torch.tensor([40, 23], device="cuda")
+    se = torch.from_numpy(spembs[:2]).cuda()
+    k1.reset_launches()
+    with torch.no_grad():
+        want = ref_model.inference(xs, ilens, 256, se)
+        got = k1r_model.inference(xs, ilens, 256, se)
+    check(k1.launches_relpos == 2, f"the small f32 model launched K1r {k1.launches_relpos} times, not 2")
+    check(torch.equal(want["duration"], got["duration"]), "JVS: durations differ between K1r and eager")
+    feat_err = (want["feat_gen"] - got["feat_gen"]).abs().max().item()
+    print(f"JVS-latest f32 K1r vs eager (1+1 blocks, B=2, T=40): feat_gen max_abs_err {feat_err:.3e} (tol 1e-3)",
+          flush=True)
+    check(feat_err <= 1e-3, "JVS: feat_gen differs between K1r and eager")
+    return launches, {"batch_ms": batch_ms, "rtf": batch_ms / 1e3 / audio_s, "fs2_ms": fs2_ms}
+
+
+# ---------------------------------------------------------------------------
 # the training slice
 # ---------------------------------------------------------------------------
 
 JSUT_CONF = ROOT / "egs" / "jsut" / "tts1" / "conf" / "fastspeech2.v1.yaml"
+JVS_CONF = ROOT / "egs" / "jvs" / "tts1" / "conf" / "fastspeech2.v1.yaml"
+JVS_SPEAKERS = 4  # synthetic speakers of phase 14's corpus
 TRAIN_STEPS = 200  # the conf's train_max_steps is 100000
 TRAIN_WARMUP = 50  # the conf's warmup_steps is 4000
 
 
-def write_fs2_corpus(root, align_paths, freqs):
+def write_fs2_corpus(root, align_paths, freqs, tag="fs2", spk_dim=0, seed=0):
     """Phase 8's rows (cropped by start/end, with durations) as FastSpeech2
     training data: per utterance an .npz with the log-mel at the JSUT
     settings cropped to the durations' sum (as jatts_tpu/bin/preprocess.py
     crops it), the per-token pitch (log of the phone's tone frequency) and
     the per-token energy (the STFT-magnitude energy of ops/dsp.py averaged
-    over the token's frames, as the JAX Energy extractor averages it); the
-    stats (``<feat>_mean``/``_scale`` over the train rows, as
-    jatts_tpu/bin/compute_statistics.py computes them), tokens.txt and the
-    train/dev csvs. Returns (train csv, dev csv, stats, tokens)."""
+    over the token's frames, as the JAX Energy extractor averages it), and
+    with ``spk_dim`` a ``spkemb`` of that width (one of 4 seed-made unit
+    speaker vectors plus a little per-utterance noise, as x-vectors of one
+    speaker vary); the stats (``<feat>_mean``/``_scale`` over the train rows,
+    as jatts_tpu/bin/compute_statistics.py computes them: a 1-d dump counts
+    as a column), tokens.txt and the train/dev csvs, named by ``tag``.
+    Returns (train csv, dev csv, stats, tokens)."""
     import numpy as np
     import torch
 
@@ -840,8 +1209,12 @@ def write_fs2_corpus(root, align_paths, freqs):
     tokens = str(Path(root) / "tokens.txt")
     with open(tokens, "w", encoding="utf-8") as f:
         f.write("\n".join(["<blank>", "<unk>", *sorted(freqs), "<sos/eos>"]) + "\n")
+    rng = np.random.default_rng(seed)
+    speakers = rng.normal(size=(JVS_SPEAKERS, max(spk_dim, 1)))
+    speakers /= np.linalg.norm(speakers, axis=1, keepdims=True)
     sums, sqs, counts = {}, {}, {}
     out_paths = []
+    n_utt = 0
     for split, path in zip(("train", "dev"), align_paths):
         rows, _ = read_csv(path, dict_reader=True)
         for row in rows:
@@ -857,17 +1230,24 @@ def write_fs2_corpus(root, align_paths, freqs):
                 for seg in (e[a:z] for a, z in zip(bounds[:-1], bounds[1:]))
             ], np.float32)
             p_tok = np.log([freqs[p] for p in row["phonemes"].split()]).astype(np.float32)
-            feat_path = str(Path(root) / "dump" / f"{row['sample_id']}.npz")
+            feat_path = str(Path(root) / f"dump_{tag}" / f"{row['sample_id']}.npz")
             Path(feat_path).parent.mkdir(parents=True, exist_ok=True)
-            np.savez(feat_path, mel=mel.astype(np.float32), pitch=p_tok, energy=e_tok)
+            feats = {"mel": mel.astype(np.float32), "pitch": p_tok, "energy": e_tok}
+            if spk_dim:
+                spk = n_utt % JVS_SPEAKERS
+                row["spk"] = f"spk{spk}"
+                feats["spkemb"] = (speakers[spk] + 0.05 * rng.normal(size=spk_dim) / math.sqrt(spk_dim)).astype(np.float32)
+            n_utt += 1
+            np.savez(feat_path, **feats)
             row["feat_path"] = feat_path
             if split == "train":
-                for name, x in (("mel", mel), ("pitch", p_tok[:, None]), ("energy", e_tok[:, None])):
+                for name, x in feats.items():
+                    x = x if x.ndim > 1 else x[:, None]
                     x = x.astype(np.float64)
                     sums[name] = sums.get(name, 0.0) + x.sum(0)
                     sqs[name] = sqs.get(name, 0.0) + (x ** 2).sum(0)
                     counts[name] = counts.get(name, 0) + len(x)
-        out = str(Path(root) / f"{split}_fs2.csv")
+        out = str(Path(root) / f"{split}_{tag}.csv")
         write_csv(rows, out)
         out_paths.append(out)
     stats = {}
@@ -875,14 +1255,41 @@ def write_fs2_corpus(root, align_paths, freqs):
         mean = sums[name] / counts[name]
         stats[f"{name}_mean"] = mean.astype(np.float32)
         stats[f"{name}_scale"] = np.sqrt(np.maximum(sqs[name] / counts[name] - mean ** 2, 1e-12)).astype(np.float32)
-    stats_path = str(Path(root) / "stats.npz")
+    stats_path = str(Path(root) / f"stats_{tag}.npz")
     np.savez(stats_path, **stats)
     return out_paths[0], out_paths[1], stats_path, tokens
 
 
-def training_slice(root, align_paths, freqs, seed, where):
-    """Phase 10. Returns the K1, K1-bwd dkv and dq launches of the training
-    run and the numbers the record and PERF.md need."""
+def _legacy_launches():
+    from jatts_torch.ops import flash_attention as k1
+
+    return (k1.launches, k1.launches_bwd_dkv, k1.launches_bwd_dq)
+
+
+def _relpos_launches():
+    from jatts_torch.ops import flash_attention as k1
+
+    return (k1.launches_relpos, k1.launches_bwd_dkv_relpos, k1.launches_bwd_dq_relpos)
+
+
+# what the training slice runs: phase 10, the JSUT conf (legacy rel-pos, K1
+# and K1-bwd), or phase 14, the JVS conf with speaker embeddings and latest
+# rel-pos attention (K1r)
+SLICES = {
+    "jsut": dict(conf=JSUT_CONF, tag="fs2", spk_dim=0, latest=False, counts=_legacy_launches,
+                 others=_relpos_launches, names=("K1", "K1-bwd dkv", "dq"),
+                 kernels=("flash_attn_fwd_kernel", "flash_attn_bwd_dkv_kernel", "flash_attn_bwd_dq_kernel")),
+    "jvs": dict(conf=JVS_CONF, tag="jvs", spk_dim=192, latest=True, counts=_relpos_launches,
+                others=_legacy_launches, names=("K1r fwd", "K1r dkv", "dq"),
+                kernels=("flash_attn_fwd_relpos_kernel", "flash_attn_bwd_dkv_relpos_kernel",
+                         "flash_attn_bwd_dq_relpos_kernel")),
+}
+
+
+def training_slice(root, align_paths, freqs, seed, where, which="jsut"):
+    """Phase 10 (``which="jsut"``) or phase 14's training (``"jvs"``).
+    Returns the launches of the training run (forward, dk/dv, dq kernels of
+    the slice's form) and the numbers the record and PERF.md need."""
     import numpy as np
     import torch
     from torch.autograd import DeviceType
@@ -896,18 +1303,26 @@ def training_slice(root, align_paths, freqs, seed, where):
     from jatts_torch.utils.checkpoint import find_latest_checkpoint
     from jatts_torch.utils.config import load_config
 
+    sl = SLICES[which]
+    conf = sl["conf"]
+    names = sl["names"]
     t0 = time.perf_counter()
-    train_csv, dev_csv, stats, tokens = write_fs2_corpus(root, align_paths, freqs)
-    print(f"training corpus: .npz dumps, stats, tokens.txt in {time.perf_counter() - t0:.1f} s", flush=True)
-    config = load_config(str(JSUT_CONF))
+    train_csv, dev_csv, stats, tokens = write_fs2_corpus(
+        root, align_paths, freqs, tag=sl["tag"], spk_dim=sl["spk_dim"], seed=seed)
+    print(f"training corpus ({which}): .npz dumps, stats, tokens.txt in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    config = load_config(str(conf))
+    if sl["latest"]:
+        config["model_params"] = {**config["model_params"], "conformer_rel_pos_type": "latest"}
     print(
-        f"training config {JSUT_CONF.relative_to(ROOT)} with attn_backend flash; reductions: "
+        f"training config {conf.relative_to(ROOT)}{' with conformer_rel_pos_type latest' if sl['latest'] else ''}"
+        f" and attn_backend flash; reductions: "
         f"train_max_steps {config['train_max_steps']} -> {TRAIN_STEPS}, warmup_steps "
         f"{config['scheduler_params']['warmup_steps']} -> {TRAIN_WARMUP}", flush=True,
     )
     config["train_max_steps"] = TRAIN_STEPS
     config["scheduler_params"] = {**config["scheduler_params"], "warmup_steps": TRAIN_WARMUP}
-    outdir = str(Path(root) / "exp_fs2")
+    outdir = str(Path(root) / f"exp_{sl['tag']}")
 
     k1.reset_launches()
     t0 = time.perf_counter()
@@ -915,22 +1330,24 @@ def training_slice(root, align_paths, freqs, seed, where):
                             device="cuda", attn_backend="flash")
     torch.cuda.synchronize()
     run_s = time.perf_counter() - t0
-    launches = (k1.launches, k1.launches_bwd_dkv, k1.launches_bwd_dq)
+    launches, others = sl["counts"](), sl["others"]()
 
     losses = [h["train/loss"] for h in trainer.history]
     batches = trainer.train_loader.sampler.batches
     print(
-        f"training: {len(trainer.train_loader.dataset)} utterances in {len(batches)} batches of "
-        f"<= {config['batch_size']}, {trainer.steps} steps in {run_s:.1f} s; launches K1 {launches[0]}, "
-        f"K1-bwd dkv {launches[1]}, dq {launches[2]} (8 a step = {8 * TRAIN_STEPS})", flush=True,
+        f"training ({which}): {len(trainer.train_loader.dataset)} utterances in {len(batches)} batches of "
+        f"<= {config['batch_size']}, {trainer.steps} steps in {run_s:.1f} s; launches {names[0]} {launches[0]}, "
+        f"{names[1]} {launches[1]}, {names[2]} {launches[2]} (8 a step = {8 * TRAIN_STEPS}); the other "
+        f"form's {others}", flush=True,
     )
     check(trainer.steps == TRAIN_STEPS, f"trained {trainer.steps} steps")
     check(all(math.isfinite(v) for h in trainer.history for v in h.values()), "a training stat is not finite")
     first, last = float(np.mean(losses[:10])), float(np.mean(losses[-10:]))
     print(f"training loss: mean of the first 10 steps {first:.4f}, of the last 10 {last:.4f}", flush=True)
     check(last < first, "the training loss did not fall")
-    check(launches[0] > 0 and launches[1] > 0 and launches[2] > 0, "K1/K1-bwd not launched in training")
+    check(launches[0] > 0 and launches[1] > 0 and launches[2] > 0, f"{names[0]} not launched in training")
     check(launches == (8 * TRAIN_STEPS,) * 3, f"launches {launches} != 8 a step each")
+    check(others == (0, 0, 0), f"the other attention form launched {others} in this training run")
 
     # the checkpoint, and a resumed trainer
     ckpt = find_latest_checkpoint(outdir)
@@ -950,8 +1367,9 @@ def training_slice(root, align_paths, freqs, seed, where):
     dev_batch = trainer.dev_loader.collater([dev_set[i] for i in range(min(4, len(dev_set)))])
     xs = torch.from_numpy(dev_batch["xs"]).long().cuda()
     ilens = torch.from_numpy(dev_batch["ilens"]).long().cuda()
+    spembs = torch.from_numpy(dev_batch["spembs"]).cuda() if "spembs" in dev_batch else None
     with torch.no_grad():
-        inf = model2.inference(xs, ilens, 1024)
+        inf = model2.inference(xs, ilens, 1024, spembs)
     olens = inf["olens"].tolist()
     print(f"inference on 4 dev rows: olens {olens} (true {dev_batch['olens'].tolist()})", flush=True)
     check(bool(torch.isfinite(inf["feat_gen"]).all()) and bool((inf["duration"] >= 0).all()),
@@ -987,19 +1405,18 @@ def training_slice(root, align_paths, freqs, seed, where):
     events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
     busy_ms = sum(e.self_device_time_total for e in events) / 1e3
     check(busy_ms > 0, "profile of one training step: the profiler saw no device time")
-    k_ms = {name: sum(e.self_device_time_total for e in events if name in e.key) / 1e3
-            for name in ("flash_attn_fwd_kernel", "flash_attn_bwd_dkv_kernel", "flash_attn_bwd_dq_kernel")}
+    kn = sl["kernels"]
+    k_ms = {name: sum(e.self_device_time_total for e in events if name in e.key) / 1e3 for name in kn}
     print(
-        f"training step f32 JSUT width, batch {shape} (B, T_feats, T_text): whole step {step_ms:.1f} ms "
+        f"training step ({which}) f32, batch {shape} (B, T_feats, T_text): whole step {step_ms:.1f} ms "
         f"(host clock); forward+loss {fwd_ms:.1f} ms, backward {bwd_ms:.1f} ms, optimizer {opt_ms:.2f} ms; "
         f"{where}", flush=True,
     )
     print(
         f"profile of one training step: wall {wall_ms:.1f} ms under the profiler, device busy "
         f"{busy_ms:.1f} ms in {sum(e.count for e in events)} kernels, idle share "
-        f"{1 - busy_ms / wall_ms:.3f}; K1 {k_ms['flash_attn_fwd_kernel']:.2f} ms, K1-bwd dkv "
-        f"{k_ms['flash_attn_bwd_dkv_kernel']:.2f} ms, dq {k_ms['flash_attn_bwd_dq_kernel']:.2f} ms "
-        f"(8 launches each)", flush=True,
+        f"{1 - busy_ms / wall_ms:.3f}; {names[0]} {k_ms[kn[0]]:.2f} ms, {names[1]} "
+        f"{k_ms[kn[1]]:.2f} ms, {names[2]} {k_ms[kn[2]]:.2f} ms (8 launches each)", flush=True,
     )
     for e in sorted(events, key=lambda e: -e.self_device_time_total)[:8]:
         print(f"  {e.self_device_time_total / 1e3:8.2f} ms  x{e.count:<5d} {e.key[:90]}")
@@ -1016,8 +1433,8 @@ def training_slice(root, align_paths, freqs, seed, where):
         lss = loss_of(m)
         pair[backend] = (float(lss.detach()), torch.autograd.grad(lss, list(m.parameters())))
         want = (8, 8, 8) if backend == "flash" else (0, 0, 0)
-        check((k1.launches, k1.launches_bwd_dkv, k1.launches_bwd_dq) == want,
-              f"{backend} step: K1/K1-bwd launches != {want}")
+        check(sl["counts"]() == want and sl["others"]() == (0, 0, 0),
+              f"{backend} step: {names[0]} launches {sl['counts']()} != {want}")
         pair[backend] += (host_ms(lambda: torch.autograd.grad(loss_of(m), list(m.parameters()))),)
         del m
     (lf, gf, f_ms), (lx, gx, x_ms) = pair["flash"], pair["xla"]
@@ -1030,7 +1447,8 @@ def training_slice(root, align_paths, freqs, seed, where):
         f"forward+backward flash {f_ms:.1f} ms, xla {x_ms:.1f} ms", flush=True,
     )
     check(loss_rel <= 1e-4 and diff / norm <= 1e-3, "flash and xla training steps disagree")
-    return launches, {"step_ms": step_ms, "run_s": run_s, "k_ms": k_ms}
+    return launches, {"step_ms": step_ms, "run_s": run_s, "k_ms": k_ms, "idle": 1 - busy_ms / wall_ms,
+                      "flash_ms": f_ms, "xla_ms": x_ms}
 
 
 # ---------------------------------------------------------------------------
@@ -1353,9 +1771,12 @@ def main() -> int:
     print(f"build: {k1.KERNEL}, {k1.KERNEL_BWD}, {mas.KERNEL} in {time.perf_counter() - t0:.1f} s",
           flush=True)
     for kernel, report in reports.items():
+        entry = ""
         for line in report.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"  ptxas {kernel}: {line.strip()}", flush=True)
+            if "Compiling entry function" in line:
+                entry = ptxas_entry(line)
+            elif "registers" in line or "spill" in line:
+                print(f"  ptxas {kernel} {entry}: {line.strip()}", flush=True)
 
     # 3. K1 against its plain version at the main path's shapes
     max_err = {"f32": 0.0, "bf16": 0.0}
@@ -1401,7 +1822,6 @@ def main() -> int:
         f"({io / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP); {smi_line}", flush=True,
     )
     del q, k, v, ab, sdpa_mask
-    print_unported_bounds()
     where = smi_line
 
     # 5. K2 and K3 against their plain versions
@@ -1563,6 +1983,14 @@ def main() -> int:
 
     # 12. the VALL-E AR slice
     valle_launches, valle_own, valle = valle_slice(tmp.name, args.seed, where)
+
+    # 13. K1r against its plain version, then its times
+    k1r_fwd_err, k1r_bwd_err, k1r_times = k1r_phase(args.seed, where)
+
+    # 14. the JVS-latest path: serving, then training on phase 8's corpus
+    # with speaker embeddings
+    jvs_serve_launches, jvs_serve = jvs_serving(args.seed, where)
+    jvs_launches, jvs = training_slice(tmp.name, align_paths, freqs, args.seed, where, which="jvs")
     tmp.cleanup()
     # K2, K3, pair: differing elements over every case and the run's own
     # lattice; K2, K3: the largest |kernel - twin| seen there
@@ -1616,6 +2044,18 @@ def main() -> int:
         ("flash_attn_fwd", "flash_attn_fwd.cu", 758, "fwd", valle_launches[0], k1b_fwd_err, valle_own[0]),
         ("flash_attn_bwd_dkv", "flash_attn_bwd.cu", 1121, "dkv", valle_launches[1], k1b_bwd_err, valle_own[1]),
         ("flash_attn_bwd_dq", "flash_attn_bwd.cu", 1456, "dq", valle_launches[2], k1b_bwd_err, valle_own[1]),
+    )] + [{
+        "name": f"{name}_relpos", "route": "cuda", "source": f"jatts_torch/csrc/{src}",
+        "replaces": f"jax/experimental/pallas/ops/tpu/flash_attention.py:{line}",
+        "launches": n_serve + n_train, "launches_by_path": {"serving": n_serve, "training": n_train},
+        "max_abs_err": err, "ms": k1r_times[key],
+        "plain_ms": k1r_times["plain_fwd_ms" if key == "fwd" else "plain_bwd_ms"],
+        "bound_ms": k1r_times["bounds"][key][0], "bound_by": k1r_times["bounds"][key][1],
+        "library_ms": k1r_times["sdpa_fwd_ms" if key == "fwd" else "sdpa_ms"],
+    } for name, src, line, key, n_serve, n_train, err in (
+        ("flash_attn_fwd", "flash_attn_fwd.cu", 758, "fwd", jvs_serve_launches, jvs_launches[0], k1r_fwd_err),
+        ("flash_attn_bwd_dkv", "flash_attn_bwd.cu", 1121, "dkv", 0, jvs_launches[1], k1r_bwd_err),
+        ("flash_attn_bwd_dq", "flash_attn_bwd.cu", 1456, "dq", 0, jvs_launches[2], k1r_bwd_err),
     )]}
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps(record), flush=True)

@@ -13,7 +13,11 @@ It runs on the CUDA card unless ``--device cpu`` is given. ``--attn-backend``
 overrides ``model_params.attn_backend`` (``flash``: the hand-written
 attention kernels forward and backward). Feature dumps and the stats file
 may be ``.h5`` (needs h5py) or ``.npz`` with the same keys. The models are
-FastSpeech2 and the VALL-E AR (``VALLEAR``, tts3 stage 3, e.g.
+FastSpeech2 (multi-speaker too: with ``spkemb`` in ``feat_list`` and
+``spk_embed_dim`` in ``model_params``, as egs/jvs/tts1/conf/fastspeech2.v1.yaml
+has them, each batch carries its ``spembs``; ``conformer_rel_pos_type:
+latest`` with ``flash`` trains through K1r) and the VALL-E AR (``VALLEAR``,
+tts3 stage 3, e.g.
 ``--config egs/hificaptain_jp_female/tts3/conf/valle_ar.given.bs32.yaml``);
 ``model_params.dtype`` is passed to the model as its ``dtype`` (for VALL-E
 the compute dtype: parameters stay float32). ``--multihost`` is not ported.

@@ -58,6 +58,24 @@
 // (j < 2) of the 64 x 32 tile; in the accumulation phase it owns output
 // columns tx + 16*c (c < d/16) of key rows ty + 16*j (dkv) or query rows
 // ty + 16*i (dq).
+//
+// K1r, the fused rel-pos form (d_qk != d_v): the backward of the call that
+// jatts_tpu/modules/attention.py:372-385 makes for the "latest" rel-pos
+// attention (q, k of width d_qk = d_k + n_feat, v, do of width d_v = d_k, no
+// bias, key mask, non-causal): dq and dk of width d_qk, dv of width d_v. Two
+// kernels of their own (the *_relpos kernels), instantiated for the
+// (d_qk, d_v) pairs the port uses, so the d_qk == d_v instantiations above
+// are the code they were. At d_qk = 576 the 64-row tiles above need ~296 KB
+// of shared memory and the dq block 4 x 36 accumulators a thread; K1r takes
+// 32 x 32 tiles instead: the dk/dv block holds its 32 keys of k and v and
+// stages 32 query rows of q and do at a time (205,568 bytes at (576, 192)),
+// thread (ty, tx) owns 2 x 2 cells of the score tile and 2 key rows of dk
+// (2 x d_qk/16 accumulators) and dv (2 x d_v/16); the dq block holds its 32
+// rows of q and do and stages 32 keys at a time (201,344 bytes), 2 rows of
+// dq a thread (2 x d_qk/16). Bound at the training decoder shape (B, H, T =
+// 32, 2, 1024, f32): dk/dv does the products s, dp, dv and dk, 2 * B*H*T*T
+// * (576 + 192 + 192 + 576) = 206.2 GFLOP -> 3.08 ms at the f32 CUDA-core
+// peak; dq does s, dp and dq, 180.4 GFLOP -> 2.69 ms.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -350,6 +368,242 @@ flash_attn_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
+// ---------------------------------------------------------------------------
+// K1r: the fused rel-pos form, d_qk != d_v (no bias, key mask, non-causal)
+// ---------------------------------------------------------------------------
+
+constexpr int BQR = 32;  // query rows per tile
+
+// sQ [BQR][DQK+1], sdO [BQR][DV+1], sK [BK][DQK+1], sV [BK][DV+1], then
+// sP and sdS [BQR][BK+1] (the dq kernel uses the first of the two), all f32
+template <int DQK, int DV>
+constexpr size_t relpos_smem_bytes() {
+  return sizeof(float) * ((size_t)(BQR + BK) * (DQK + 1 + DV + 1) + 2 * BQR * LDP);
+}
+
+// p and ds of this thread's 2 x 2 cells of the 32 x 32 tile (q0, k0): s over
+// d_qk, dp over d_v. Rows past Tq and masked keys give p = ds = 0.
+template <int DQK, int DV>
+__device__ __forceinline__ void relpos_tile_p_ds(const float* sQ, const float* sdO,
+                                                 const float* sK, const float* sV,
+                                                 const uint8_t* mask_b, const float* lse_bh,
+                                                 const float* di_bh, int q0, int k0, int Tq,
+                                                 int Tk, float sm_scale, float p[2][2],
+                                                 float ds[2][2]) {
+  constexpr int LDQ = DQK + 1, LDV = DV + 1;
+  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
+  float s[2][2], dp[2][2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 2; ++j) s[i][j] = dp[i][j] = 0.f;
+#pragma unroll 4
+  for (int d = 0; d < DQK; ++d) {
+    float qd[2], kd[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) qd[i] = sQ[(ty + 16 * i) * LDQ + d];
+#pragma unroll
+    for (int j = 0; j < 2; ++j) kd[j] = sK[(tx + 16 * j) * LDQ + d];
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int j = 0; j < 2; ++j) s[i][j] = fmaf(qd[i], kd[j], s[i][j]);
+  }
+#pragma unroll 4
+  for (int d = 0; d < DV; ++d) {
+    float od[2], vd[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) od[i] = sdO[(ty + 16 * i) * LDV + d];
+#pragma unroll
+    for (int j = 0; j < 2; ++j) vd[j] = sV[(tx + 16 * j) * LDV + d];
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int j = 0; j < 2; ++j) dp[i][j] = fmaf(od[i], vd[j], dp[i][j]);
+  }
+  bool valid[2];
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+    const int kc = k0 + tx + 16 * j;
+    valid[j] = kc < Tk && (mask_b == nullptr || mask_b[kc] != 0);
+  }
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int qr = q0 + ty + 16 * i;
+    const bool row = qr < Tq;
+    const float lse = row ? lse_bh[qr] : INFINITY;
+    const float di = row ? di_bh[qr] : 0.f;
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const float pv = row && valid[j] ? expf(s[i][j] * sm_scale - lse) : 0.f;
+      p[i][j] = pv;
+      ds[i][j] = pv * (dp[i][j] - di) * sm_scale;
+    }
+  }
+}
+
+template <typename T, int DQK, int DV>
+__global__ void __launch_bounds__(NTHREADS)
+flash_attn_bwd_dkv_relpos_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                                 const T* __restrict__ v, const uint8_t* __restrict__ key_mask,
+                                 const float* __restrict__ lse, const float* __restrict__ di,
+                                 const T* __restrict__ dout, T* __restrict__ dk,
+                                 T* __restrict__ dv, int H, int Tq, int Tk, float sm_scale) {
+  constexpr int LDQ = DQK + 1, LDV = DV + 1;
+  constexpr int CQ = DQK / 16, CV = DV / 16;
+  extern __shared__ float smem[];
+  float* sQ = smem;
+  float* sdO = sQ + BQR * LDQ;
+  float* sK = sdO + BQR * LDV;
+  float* sV = sK + BK * LDQ;
+  float* sP = sV + BK * LDV;
+  float* sdS = sP + BQR * LDP;
+
+  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
+  const int k0 = blockIdx.x * BK;
+  const int bh = blockIdx.y;  // b * H + h
+  const size_t q_base = (size_t)bh * Tq * DQK;
+  const size_t o_base = (size_t)bh * Tq * DV;
+  const size_t k_base = (size_t)bh * Tk * DQK;
+  const size_t v_base = (size_t)bh * Tk * DV;
+  const uint8_t* mask_b = key_mask ? key_mask + (size_t)(bh / H) * Tk : nullptr;
+
+  float acc_k[2][CQ], acc_v[2][CV];
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+#pragma unroll
+    for (int c = 0; c < CQ; ++c) acc_k[j][c] = 0.f;
+#pragma unroll
+    for (int c = 0; c < CV; ++c) acc_v[j][c] = 0.f;
+  }
+
+  if (tile_has_valid_key(mask_b, k0, Tk)) {
+    stage<T, DQK>(sK, k + k_base, k0, BK, Tk);
+    stage<T, DV>(sV, v + v_base, k0, BK, Tk);
+    for (int q0 = 0; q0 < Tq; q0 += BQR) {
+      __syncthreads();  // the previous tile's reads of sQ/sdO/sP/sdS are done
+      stage<T, DQK>(sQ, q + q_base, q0, BQR, Tq);
+      stage<T, DV>(sdO, dout + o_base, q0, BQR, Tq);
+      __syncthreads();
+      float p[2][2], ds[2][2];
+      relpos_tile_p_ds<DQK, DV>(sQ, sdO, sK, sV, mask_b, lse + (size_t)bh * Tq,
+                                di + (size_t)bh * Tq, q0, k0, Tq, Tk, sm_scale, p, ds);
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          sP[(ty + 16 * i) * LDP + tx + 16 * j] = p[i][j];
+          sdS[(ty + 16 * i) * LDP + tx + 16 * j] = ds[i][j];
+        }
+      __syncthreads();
+      // dv[key] += sum_r p[r, key] do[r];  dk[key] += sum_r ds[r, key] q[r]
+#pragma unroll 2
+      for (int r = 0; r < BQR; ++r) {
+        float pr[2], dsr[2];
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          pr[j] = sP[r * LDP + ty + 16 * j];
+          dsr[j] = sdS[r * LDP + ty + 16 * j];
+        }
+#pragma unroll
+        for (int c = 0; c < CV; ++c) {
+          const float o = sdO[r * LDV + tx + 16 * c];
+#pragma unroll
+          for (int j = 0; j < 2; ++j) acc_v[j][c] = fmaf(pr[j], o, acc_v[j][c]);
+        }
+#pragma unroll
+        for (int c = 0; c < CQ; ++c) {
+          const float qq = sQ[r * LDQ + tx + 16 * c];
+#pragma unroll
+          for (int j = 0; j < 2; ++j) acc_k[j][c] = fmaf(dsr[j], qq, acc_k[j][c]);
+        }
+      }
+    }
+  }
+
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+    const int kr = k0 + ty + 16 * j;
+    if (kr >= Tk) continue;
+#pragma unroll
+    for (int c = 0; c < CQ; ++c) store_as(&dk[k_base + (size_t)kr * DQK + tx + 16 * c], acc_k[j][c]);
+#pragma unroll
+    for (int c = 0; c < CV; ++c) store_as(&dv[v_base + (size_t)kr * DV + tx + 16 * c], acc_v[j][c]);
+  }
+}
+
+template <typename T, int DQK, int DV>
+__global__ void __launch_bounds__(NTHREADS)
+flash_attn_bwd_dq_relpos_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                                const T* __restrict__ v, const uint8_t* __restrict__ key_mask,
+                                const float* __restrict__ lse, const float* __restrict__ di,
+                                const T* __restrict__ dout, T* __restrict__ dq,
+                                T* __restrict__ /* no d(ab) */, int H, int Tq, int Tk, float sm_scale) {
+  constexpr int LDQ = DQK + 1, LDV = DV + 1;
+  constexpr int CQ = DQK / 16;
+  extern __shared__ float smem[];
+  float* sQ = smem;
+  float* sdO = sQ + BQR * LDQ;
+  float* sK = sdO + BQR * LDV;
+  float* sV = sK + BK * LDQ;
+  float* sdS = sV + BK * LDV;
+
+  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
+  const int q0 = blockIdx.x * BQR;
+  const int bh = blockIdx.y;
+  const size_t q_base = (size_t)bh * Tq * DQK;
+  const size_t o_base = (size_t)bh * Tq * DV;
+  const size_t k_base = (size_t)bh * Tk * DQK;
+  const size_t v_base = (size_t)bh * Tk * DV;
+  const uint8_t* mask_b = key_mask ? key_mask + (size_t)(bh / H) * Tk : nullptr;
+
+  stage<T, DQK>(sQ, q + q_base, q0, BQR, Tq);
+  stage<T, DV>(sdO, dout + o_base, q0, BQR, Tq);
+
+  float acc[2][CQ];
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int c = 0; c < CQ; ++c) acc[i][c] = 0.f;
+
+  for (int k0 = 0; k0 < Tk; k0 += BK) {
+    // also the barrier before restaging; block-uniform
+    if (!tile_has_valid_key(mask_b, k0, Tk)) continue;
+    stage<T, DQK>(sK, k + k_base, k0, BK, Tk);
+    stage<T, DV>(sV, v + v_base, k0, BK, Tk);
+    __syncthreads();
+    float p[2][2], ds[2][2];
+    relpos_tile_p_ds<DQK, DV>(sQ, sdO, sK, sV, mask_b, lse + (size_t)bh * Tq,
+                              di + (size_t)bh * Tq, q0, k0, Tq, Tk, sm_scale, p, ds);
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int j = 0; j < 2; ++j) sdS[(ty + 16 * i) * LDP + tx + 16 * j] = ds[i][j];
+    __syncthreads();
+    // dq[r] += sum_key ds[r, key] k[key]
+#pragma unroll 2
+    for (int kk = 0; kk < BK; ++kk) {
+      float dsr[2];
+#pragma unroll
+      for (int i = 0; i < 2; ++i) dsr[i] = sdS[(ty + 16 * i) * LDP + kk];
+#pragma unroll
+      for (int c = 0; c < CQ; ++c) {
+        const float kv = sK[kk * LDQ + tx + 16 * c];
+#pragma unroll
+        for (int i = 0; i < 2; ++i) acc[i][c] = fmaf(dsr[i], kv, acc[i][c]);
+      }
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int qr = q0 + ty + 16 * i;
+    if (qr >= Tq) continue;
+#pragma unroll
+    for (int c = 0; c < CQ; ++c) store_as(&dq[q_base + (size_t)qr * DQK + tx + 16 * c], acc[i][c]);
+  }
+}
+
 struct Args {
   const void *q, *k, *v, *ab, *key_mask, *lse, *di, *dout;
   void *out_a, *out_b;  // dkv: dk, dv; dq: dq, dab
@@ -403,31 +657,66 @@ cudaError_t dispatch(const Args& a, int D, int is_bf16, int causal) {
   return dispatch_d<DKV, true>(a, D, is_bf16);
 }
 
+template <typename T, int DQK, int DV, bool DKV>
+cudaError_t launch_relpos(const Args& a) {
+  constexpr size_t smem = relpos_smem_bytes<DQK, DV>();
+  auto kernel = DKV ? flash_attn_bwd_dkv_relpos_kernel<T, DQK, DV>
+                    : flash_attn_bwd_dq_relpos_kernel<T, DQK, DV>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  const int tiles = DKV ? (a.Tk + BK - 1) / BK : (a.Tq + BQR - 1) / BQR;
+  kernel<<<dim3(tiles, a.B * a.H), NTHREADS, smem, a.stream>>>(
+      static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
+      static_cast<const uint8_t*>(a.key_mask), static_cast<const float*>(a.lse),
+      static_cast<const float*>(a.di), static_cast<const T*>(a.dout), static_cast<T*>(a.out_a),
+      static_cast<T*>(a.out_b), a.H, a.Tq, a.Tk, a.sm_scale);
+  return cudaGetLastError();
+}
+
+// K1r: the (d_qk, d_v) pairs of the port, 2 heads of 64 (adim 128) and of
+// 192 (adim 384, the JSUT/JVS width); no bias, no d(ab), no causal form
+template <bool DKV>
+cudaError_t dispatch_relpos(const Args& a, int Dqk, int Dv, int is_bf16, int causal) {
+  if (a.ab != nullptr || (!DKV && a.out_b != nullptr) || causal) return cudaErrorInvalidValue;
+  if (Dqk == 192 && Dv == 64)
+    return is_bf16 ? launch_relpos<__nv_bfloat16, 192, 64, DKV>(a)
+                   : launch_relpos<float, 192, 64, DKV>(a);
+  if (Dqk == 576 && Dv == 192)
+    return is_bf16 ? launch_relpos<__nv_bfloat16, 576, 192, DKV>(a)
+                   : launch_relpos<float, 576, 192, DKV>(a);
+  return cudaErrorInvalidValue;
+}
+
 }  // namespace
 
-// q, dout: [B, H, Tq, D]; k, v: [B, H, Tk, D]; ab: [B, H, Tq, Tk] or null;
-// key_mask: [B, Tk] bytes (nonzero = valid) or null; lse, di: [B, H, Tq] f32.
-// dk, dv: [B, H, Tk, D]. All contiguous, one element type (is_bf16 ? bf16 :
-// f32) but lse and di. causal != 0 takes the causal form, which needs
-// Tq == Tk. Returns a cudaError_t (0 = launched).
+// q: [B, H, Tq, Dqk]; k: [B, H, Tk, Dqk]; v: [B, H, Tk, Dv]; dout: [B, H,
+// Tq, Dv]; ab: [B, H, Tq, Tk] or null; key_mask: [B, Tk] bytes (nonzero =
+// valid) or null; lse, di: [B, H, Tq] f32. dk: [B, H, Tk, Dqk], dv: [B, H,
+// Tk, Dv]. All contiguous, one element type (is_bf16 ? bf16 : f32) but lse
+// and di. Dqk == Dv takes K1-bwd (causal != 0: K1b's, which needs Tq == Tk);
+// Dqk != Dv takes K1r's, which needs no bias and no causal form and a
+// (Dqk, Dv) pair it was built for. Returns a cudaError_t (0 = launched).
 extern "C" int jatts_flash_attn_bwd_dkv(const void* q, const void* k, const void* v,
                                         const void* ab, const void* key_mask, const void* lse,
                                         const void* di, const void* dout, void* dk, void* dv,
-                                        int B, int H, int Tq, int Tk, int D, int is_bf16,
-                                        int causal, float sm_scale, void* stream) {
+                                        int B, int H, int Tq, int Tk, int Dqk, int Dv,
+                                        int is_bf16, int causal, float sm_scale, void* stream) {
   const Args a{q, k, v, ab, key_mask, lse, di, dout, dk, dv, B, H, Tq, Tk, sm_scale,
                static_cast<cudaStream_t>(stream)};
-  return (int)dispatch<true>(a, D, is_bf16, causal);
+  if (Dqk != Dv) return (int)dispatch_relpos<true>(a, Dqk, Dv, is_bf16, causal);
+  return (int)dispatch<true>(a, Dqk, is_bf16, causal);
 }
 
-// As above; dq: [B, H, Tq, D]; dab: [B, H, Tq, Tk] or null (written when ab
-// was given: d(ab) = ds).
+// As above; dq: [B, H, Tq, Dqk]; dab: [B, H, Tq, Tk] or null (written when
+// ab was given: d(ab) = ds; always null for K1r).
 extern "C" int jatts_flash_attn_bwd_dq(const void* q, const void* k, const void* v,
                                        const void* ab, const void* key_mask, const void* lse,
                                        const void* di, const void* dout, void* dq, void* dab,
-                                       int B, int H, int Tq, int Tk, int D, int is_bf16,
-                                       int causal, float sm_scale, void* stream) {
+                                       int B, int H, int Tq, int Tk, int Dqk, int Dv,
+                                       int is_bf16, int causal, float sm_scale, void* stream) {
   const Args a{q, k, v, ab, key_mask, lse, di, dout, dq, dab, B, H, Tq, Tk, sm_scale,
                static_cast<cudaStream_t>(stream)};
-  return (int)dispatch<false>(a, D, is_bf16, causal);
+  if (Dqk != Dv) return (int)dispatch_relpos<false>(a, Dqk, Dv, is_bf16, causal);
+  return (int)dispatch<false>(a, Dqk, is_bf16, causal);
 }

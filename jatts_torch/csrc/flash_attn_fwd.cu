@@ -47,6 +47,24 @@
 // row are 16 lanes of one warp, so row max and row sum are xor shuffles.
 // Tile rows are padded to d + 1 floats so column reads are conflict-free.
 // The scores and the value product run on the CUDA cores in f32.
+//
+// K1r, the fused rel-pos form (d_qk != d_v): the same pallas_call as
+// jatts_tpu/modules/attention.py:372-385 makes it for the "latest" rel-pos
+// attention, q = [q_u, u~] and k = [k, phi] of width d_qk = d_k + n_feat, v
+// of width d_v = d_k, no bias, key mask, non-causal. The TPU wrapper pads
+// q, k and v to one width (640 at adim 384, 2 heads) and slices the output;
+// this kernel skips the padding and reads each at its own width. A kernel of
+// its own (flash_attn_fwd_relpos_kernel, instantiated for the (d_qk, d_v)
+// pairs the port uses), so the d_qk == d_v instantiations above are the code
+// they were. Its problem is shared memory: K1's tiles at d = 576 would need
+// ~449 KB of the 227 KB a block may hold. K1r keeps the whole 64-row query
+// tile in shared memory (64 x 577 f32, 148 KB) and stages each 64-key tile
+// of k in column slabs of 64 (17 KB), accumulating the 64 x 64 score tile in
+// registers across the slabs; the V tile, the P tile and the output
+// accumulator are K1's at d = d_v. 230,400 bytes at (576, 192), one block an
+// SM as K1 at d = 192. Bound at the training decoder shape (B, H, T = 32, 2,
+// 1024, f32): 2 * B*H*T*T*(d_qk + d_v) = 103.1 GFLOP -> 1.54 ms at the f32
+// CUDA-core peak; 402.7 MB of q, k, v, out -> 0.12 ms.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -263,19 +281,210 @@ cudaError_t dispatch_t(const void* q, const void* k, const void* v, const void* 
                                    stream);
 }
 
+// ---------------------------------------------------------------------------
+// K1r: the fused rel-pos form, d_qk != d_v (no bias, key mask, non-causal)
+// ---------------------------------------------------------------------------
+
+constexpr int SLAB = 64;  // key columns staged at a time
+
+// sQ [BQ][DQK+1] (the whole query tile), sK [BK][SLAB+1] (one column slab of
+// the key tile), sV [BK][DV+1], sP [BQ][BK+1], all f32
+template <int DQK, int DV>
+constexpr size_t relpos_smem_bytes() {
+  return sizeof(float) *
+         (size_t)(BQ * (DQK + 1) + BK * (SLAB + 1) + BK * (DV + 1) + BQ * (BK + 1));
+}
+
+template <typename T, int DQK, int DV>
+__global__ void __launch_bounds__(NTHREADS)
+flash_attn_fwd_relpos_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                             const T* __restrict__ v, const uint8_t* __restrict__ key_mask,
+                             T* __restrict__ out, float* __restrict__ lse, int H, int Tq,
+                             int Tk, float sm_scale) {
+  static_assert(DQK % SLAB == 0 && DV % 16 == 0, "K1r widths");
+  constexpr int LDQ = DQK + 1;
+  constexpr int LDS = SLAB + 1;
+  constexpr int LDV = DV + 1;
+  constexpr int LDP = BK + 1;
+  constexpr int DC = DV / 16;
+  extern __shared__ float smem[];
+  float* sQ = smem;
+  float* sK = sQ + BQ * LDQ;
+  float* sV = sK + BK * LDS;
+  float* sP = sV + BK * LDV;
+
+  const int tid = threadIdx.x;
+  const int ty = tid / 16;
+  const int tx = tid % 16;
+  const int q0 = blockIdx.x * BQ;
+  const int bh = blockIdx.y;  // b * H + h
+  const size_t q_base = (size_t)bh * Tq * DQK;
+  const size_t k_base = (size_t)bh * Tk * DQK;
+  const size_t v_base = (size_t)bh * Tk * DV;
+  const size_t o_base = (size_t)bh * Tq * DV;
+  const uint8_t* mask_b = key_mask ? key_mask + (size_t)(bh / H) * Tk : nullptr;
+
+  for (int e = tid; e < BQ * DQK; e += NTHREADS) {
+    const int r = e / DQK, c = e % DQK, qr = q0 + r;
+    sQ[r * LDQ + c] = qr < Tq ? to_f32(q[q_base + (size_t)qr * DQK + c]) : 0.f;
+  }
+
+  float m[4], l[4], acc[4][DC];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    m[i] = -INFINITY;
+    l[i] = 0.f;
+#pragma unroll
+    for (int c = 0; c < DC; ++c) acc[i][c] = 0.f;
+  }
+
+  for (int k0 = 0; k0 < Tk; k0 += BK) {
+    __syncthreads();  // the previous tile's reads of sK/sV/sP are done
+    for (int e = tid; e < BK * DV; e += NTHREADS) {
+      const int r = e / DV, c = e % DV, kr = k0 + r;
+      sV[r * LDV + c] = kr < Tk ? to_f32(v[v_base + (size_t)kr * DV + c]) : 0.f;
+    }
+
+    // the 64 x 64 score tile, accumulated over the column slabs of k
+    float s[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
+#pragma unroll 1
+    for (int s0 = 0; s0 < DQK; s0 += SLAB) {
+      if (s0 > 0) __syncthreads();  // the previous slab's reads of sK are done
+      for (int e = tid; e < BK * SLAB; e += NTHREADS) {
+        const int r = e / SLAB, c = e % SLAB, kr = k0 + r;
+        sK[r * LDS + c] = kr < Tk ? to_f32(k[k_base + (size_t)kr * DQK + s0 + c]) : 0.f;
+      }
+      __syncthreads();
+#pragma unroll 4
+      for (int d = 0; d < SLAB; ++d) {
+        float qd[4], kd[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) qd[i] = sQ[(ty + 16 * i) * LDQ + s0 + d];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) kd[j] = sK[(tx + 16 * j) * LDS + d];
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) s[i][j] = fmaf(qd[i], kd[j], s[i][j]);
+      }
+    }
+
+    // scale, then key mask (-inf marks a key the row must not see)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int kc = k0 + tx + 16 * j;
+      const bool valid = kc < Tk && (mask_b == nullptr || mask_b[kc] != 0);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) s[i][j] = valid ? s[i][j] * sm_scale : -INFINITY;
+    }
+
+    // online softmax, as K1
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      float mx = fmaxf(fmaxf(s[i][0], s[i][1]), fmaxf(s[i][2], s[i][3]));
+      mx = row_max16(mx);
+      const float m_new = fmaxf(m[i], mx);
+      const float shift = m_new == -INFINITY ? 0.f : m_new;
+      const float alpha = expf(m[i] - shift);
+      float rs = 0.f;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float p = expf(s[i][j] - shift);
+        sP[(ty + 16 * i) * LDP + tx + 16 * j] = p;
+        rs += p;
+      }
+      rs = row_sum16(rs);
+      l[i] = l[i] * alpha + rs;
+      m[i] = m_new;
+#pragma unroll
+      for (int c = 0; c < DC; ++c) acc[i][c] *= alpha;
+    }
+    __syncthreads();
+
+#pragma unroll 2
+    for (int kk = 0; kk < BK; ++kk) {
+      float p[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) p[i] = sP[(ty + 16 * i) * LDP + kk];
+#pragma unroll
+      for (int c = 0; c < DC; ++c) {
+        const float vv = sV[kk * LDV + tx + 16 * c];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) acc[i][c] = fmaf(p[i], vv, acc[i][c]);
+      }
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int qr = q0 + ty + 16 * i;
+    if (qr >= Tq) continue;
+    const float inv = l[i] > 0.f ? 1.f / l[i] : 0.f;
+#pragma unroll
+    for (int c = 0; c < DC; ++c)
+      store_as(&out[o_base + (size_t)qr * DV + tx + 16 * c], acc[i][c] * inv);
+    if (lse != nullptr && tx == 0)
+      lse[(size_t)bh * Tq + qr] = l[i] > 0.f ? m[i] + logf(l[i]) : INFINITY;
+  }
+}
+
+template <typename T, int DQK, int DV>
+cudaError_t launch_relpos(const void* q, const void* k, const void* v, const void* key_mask,
+                          void* out, float* lse, int B, int H, int Tq, int Tk, float sm_scale,
+                          cudaStream_t stream) {
+  constexpr size_t smem = relpos_smem_bytes<DQK, DV>();
+  cudaError_t err = cudaFuncSetAttribute(flash_attn_fwd_relpos_kernel<T, DQK, DV>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((Tq + BQ - 1) / BQ, B * H);
+  flash_attn_fwd_relpos_kernel<T, DQK, DV><<<grid, NTHREADS, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+      static_cast<const uint8_t*>(key_mask), static_cast<T*>(out), lse, H, Tq, Tk, sm_scale);
+  return cudaGetLastError();
+}
+
+// the (d_qk, d_v) pairs of the port: 2 heads of 64 (adim 128) and of 192
+// (adim 384, the JSUT/JVS width)
+template <typename T>
+cudaError_t dispatch_relpos(const void* q, const void* k, const void* v, const void* key_mask,
+                            void* out, float* lse, int B, int H, int Tq, int Tk, int Dqk,
+                            int Dv, float sm_scale, cudaStream_t stream) {
+  if (Dqk == 192 && Dv == 64)
+    return launch_relpos<T, 192, 64>(q, k, v, key_mask, out, lse, B, H, Tq, Tk, sm_scale, stream);
+  if (Dqk == 576 && Dv == 192)
+    return launch_relpos<T, 576, 192>(q, k, v, key_mask, out, lse, B, H, Tq, Tk, sm_scale, stream);
+  return cudaErrorInvalidValue;
+}
+
 }  // namespace
 
-// q, out: [B, H, Tq, D]; k, v: [B, H, Tk, D]; ab: [B, H, Tq, Tk] or null;
-// key_mask: [B, Tk] bytes (nonzero = valid) or null; lse: [B, H, Tq] f32 or
-// null. All contiguous, one element type (is_bf16 ? bf16 : f32) but lse.
-// causal != 0 takes the causal form, which needs Tq == Tk. Returns a
-// cudaError_t (0 = launched).
+// q: [B, H, Tq, Dqk]; k: [B, H, Tk, Dqk]; v: [B, H, Tk, Dv]; out: [B, H,
+// Tq, Dv]; ab: [B, H, Tq, Tk] or null; key_mask: [B, Tk] bytes (nonzero =
+// valid) or null; lse: [B, H, Tq] f32 or null. All contiguous, one element
+// type (is_bf16 ? bf16 : f32) but lse. Dqk == Dv takes K1 (causal != 0: K1b,
+// which needs Tq == Tk); Dqk != Dv takes K1r, which needs no bias and no
+// causal form and a (Dqk, Dv) pair it was built for. Returns a cudaError_t
+// (0 = launched).
 extern "C" int jatts_flash_attn_fwd(const void* q, const void* k, const void* v,
                                     const void* ab, const void* key_mask, void* out,
-                                    void* lse, int B, int H, int Tq, int Tk, int D,
+                                    void* lse, int B, int H, int Tq, int Tk, int Dqk, int Dv,
                                     int is_bf16, int causal, float sm_scale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* l = static_cast<float*>(lse);
+  if (Dqk != Dv) {
+    if (ab != nullptr || causal) return (int)cudaErrorInvalidValue;
+    if (is_bf16)
+      return (int)dispatch_relpos<__nv_bfloat16>(q, k, v, key_mask, out, l, B, H, Tq, Tk, Dqk,
+                                                 Dv, sm_scale, s);
+    return (int)dispatch_relpos<float>(q, k, v, key_mask, out, l, B, H, Tq, Tk, Dqk, Dv,
+                                       sm_scale, s);
+  }
+  const int D = Dqk;
   if (causal) {
     if (Tq != Tk) return (int)cudaErrorInvalidValue;
     return (int)dispatch_t<true>(q, k, v, ab, key_mask, out, l, B, H, Tq, Tk, D, is_bf16,

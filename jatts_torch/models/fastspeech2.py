@@ -11,9 +11,15 @@ durations, pitch and energy; dropout and BatchNorm follow ``self.training``
 (a fresh model is in training mode, like the JAX call's
 ``deterministic=False``). ``encode`` and ``inference`` always run
 deterministic, as the JAX methods' default ``deterministic=True`` does,
-batched at a static output capacity. Multi-speaker inputs (``spks``,
-``spk_embed_dim``) come with a later slice. ``init_type`` is read by the
-trainer (``utils/initialize.py``), not here.
+batched at a static output capacity. Multi-speaker inputs: with
+``spks > 1`` a speaker id table ``sid_emb`` is added to the encoder output
+(``sids``), with ``spk_embed_dim`` an utterance's speaker embedding
+(``spembs``, e.g. an x-vector) is L2-normalised and added through
+``projection`` (``spk_embed_integration_type: add``) or concatenated and
+projected (``concat``), as the JAX package does. ``conformer_rel_pos_type:
+latest`` gives both conformers the latest rel-pos layers, whose flash path
+is K1r. ``init_type`` is read by the trainer (``utils/initialize.py``), not
+here.
 """
 
 from __future__ import annotations
@@ -22,6 +28,7 @@ import contextlib
 from typing import Dict, Optional, Union
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from jatts_torch.device import resolve_device
@@ -99,8 +106,8 @@ class FastSpeech2(nn.Module):
         super().__init__()
         if encoder_type != "conformer" or decoder_type != "conformer":
             raise ValueError("only conformer encoder/decoder are supported")
-        if spk_embed_dim or (spks is not None and spks > 1):
-            raise ValueError("multi-speaker FastSpeech2 is not ported yet")
+        if spk_embed_integration_type not in ("add", "concat"):
+            raise ValueError(f"spk_embed_integration_type {spk_embed_integration_type!r}")
         self.odim = odim
         self.postnet_layers = postnet_layers
         pos_enc_type, selfattn_type = resolve_rel_pos_types(
@@ -127,6 +134,14 @@ class FastSpeech2(nn.Module):
             positional_dropout_rate=transformer_enc_positional_dropout_rate,
             attention_dropout_rate=transformer_enc_attn_dropout_rate, **common,
         )
+        self.spks = spks
+        self.spk_embed_dim = spk_embed_dim
+        self.spk_embed_integration_type = spk_embed_integration_type
+        if spks is not None and spks > 1:
+            self.sid_emb = nn.Embedding(spks, adim)
+        if spk_embed_dim is not None and spk_embed_dim > 0:
+            in_dim = spk_embed_dim if spk_embed_integration_type == "add" else adim + spk_embed_dim
+            self.projection = nn.Linear(in_dim, adim)
         self.stop_gradient_from_pitch_predictor = stop_gradient_from_pitch_predictor
         self.stop_gradient_from_energy_predictor = stop_gradient_from_energy_predictor
         self.init_type = init_type
@@ -174,16 +189,29 @@ class FastSpeech2(nn.Module):
         finally:
             self.train(was_training)
 
-    def _encode(self, xs: torch.Tensor, ilens: torch.Tensor):
+    def _integrate_spembs(self, hs: torch.Tensor, spembs: torch.Tensor) -> torch.Tensor:
+        """L2-normalise (eps 1e-12), then add the projection or concatenate
+        and project (the reference's _integrate_with_spk_embed)."""
+        spembs = F.normalize(spembs.float(), dim=-1, eps=1e-12).to(hs.dtype)
+        if self.spk_embed_integration_type == "add":
+            return hs + self.projection(spembs)[:, None, :]
+        spembs = spembs[:, None, :].expand(-1, hs.shape[1], -1)
+        return self.projection(torch.cat([hs, spembs], dim=-1))
+
+    def _encode(self, xs, ilens, spembs=None, sids=None):
         t_text = xs.shape[1]
         hs = self.encoder(xs, attn_mask(ilens, t_text))
+        if self.spks is not None and self.spks > 1 and sids is not None:
+            hs = hs + self.sid_emb(sids.reshape(-1))[:, None, :]
+        if self.spk_embed_dim is not None and spembs is not None:
+            hs = self._integrate_spembs(hs, spembs)
         return hs, sequence_mask(ilens, t_text)
 
-    def encode(self, xs: torch.Tensor, ilens: torch.Tensor):
-        """Encoder trunk -> (hs [B, T_text, adim], d_masks [B, T_text]),
-        deterministic."""
+    def encode(self, xs: torch.Tensor, ilens: torch.Tensor, spembs=None, sids=None):
+        """Encoder trunk (with the speaker inputs) -> (hs [B, T_text, adim],
+        d_masks [B, T_text]), deterministic."""
         with self._deterministic():
-            return self._encode(xs, ilens)
+            return self._encode(xs, ilens, spembs, sids)
 
     def forward(
         self,
@@ -194,6 +222,8 @@ class FastSpeech2(nn.Module):
         ds: torch.Tensor,      # [B, T_text] int durations
         ps: torch.Tensor,      # [B, T_text, 1] token-averaged pitch
         es: torch.Tensor,      # [B, T_text, 1] token-averaged energy
+        spembs: Optional[torch.Tensor] = None,  # [B, spk_embed_dim]
+        sids: Optional[torch.Tensor] = None,    # [B] or [B, 1] speaker ids
     ) -> Dict[str, torch.Tensor]:
         """Training forward (the JAX ``__call__``): the predictors see the
         encoder output (detached for pitch/energy per
@@ -201,7 +231,7 @@ class FastSpeech2(nn.Module):
         teacher pitch and energy, expanded by the given durations to
         ``ys.shape[1]`` frames. Returns before/after-postnet outputs, the
         predictions and ``ys``/``olens``, under the JAX package's keys."""
-        hs, d_masks = self._encode(xs, ilens)
+        hs, d_masks = self._encode(xs, ilens, spembs, sids)
         p_in = hs.detach() if self.stop_gradient_from_pitch_predictor else hs
         p_outs = self.pitch_predictor(p_in, d_masks[..., None])
         e_in = hs.detach() if self.stop_gradient_from_energy_predictor else hs
@@ -234,16 +264,18 @@ class FastSpeech2(nn.Module):
         xs: torch.Tensor,      # [B, T_text] token ids
         ilens: torch.Tensor,   # [B]
         max_t_feats: int,
+        spembs: Optional[torch.Tensor] = None,
+        sids: Optional[torch.Tensor] = None,
         alpha: float = 1.0,
     ) -> Dict[str, torch.Tensor]:
         """Batched inference at a static output capacity, deterministic.
         Returns feat_gen [B, max_t_feats, odim] (zero past olens), duration
         [B, T_text] int32, pitch/energy [B, T_text, 1] and olens [B]."""
         with self._deterministic():
-            return self._inference(xs, ilens, max_t_feats, alpha)
+            return self._inference(xs, ilens, max_t_feats, spembs, sids, alpha)
 
-    def _inference(self, xs, ilens, max_t_feats, alpha):
-        hs, d_masks = self._encode(xs, ilens)
+    def _inference(self, xs, ilens, max_t_feats, spembs, sids, alpha):
+        hs, d_masks = self._encode(xs, ilens, spembs, sids)
         p_outs = self.pitch_predictor(hs, d_masks[..., None])
         e_outs = self.energy_predictor(hs, d_masks[..., None])
         d_log = self.duration_predictor(hs, d_masks)

@@ -1,5 +1,5 @@
-"""Multi-head attention with legacy relative positions (counterpart of
-jatts_tpu/modules/attention.py).
+"""Multi-head attention with relative positions, legacy and latest
+(counterpart of jatts_tpu/modules/attention.py).
 
 Masking is additive with a finite -1e9, and probabilities at masked keys
 are zeroed after the softmax, so a row with no valid key gives 0. In
@@ -13,13 +13,23 @@ package's own semantics for its fused kernel.
 ``auto`` takes K1 only when the key length exceeds ``FLASH_AUTO_MIN_LEN``.
 K1 masks its own ragged edge, so the TPU path's 128-multiple condition
 does not carry over.
+
+The latest rel-pos layer (``RelPositionMultiHeadedAttention``) under K1
+takes the JAX package's fused form: the ``[B, H, T, T]`` positional bias
+decomposes exactly into features concatenated onto q and k
+(``relpos_fused_features``), so the kernel is K1r, the d_qk != d_v form,
+with no bias. That branch reads no ``pos_emb``, so it applies no positional
+dropout to the table, and no attention-probability dropout, as the JAX
+package's fused branch does in training.
 """
 
 from __future__ import annotations
 
+import functools
 import math
-from typing import Optional
+from typing import Optional, Tuple
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -150,6 +160,94 @@ class LegacyRelPositionMultiHeadedAttention(MultiHeadedAttention):
                 matrix_bd.to(q.dtype).contiguous(), _key_mask(mask), sm_scale,
             )
         else:
+            matrix_ac = torch.matmul(q_u, k.transpose(-1, -2))
+            x = _attend((matrix_ac + matrix_bd) * sm_scale, v, mask, self.dropout)
+        return self.linear_out(_merge_heads(x))
+
+
+def rel_shift_gather(matrix_bd: torch.Tensor, t_k: int) -> torch.Tensor:
+    """``[B, H, T_q, 2*T_q-1]`` scores over relative positions ->
+    ``[B, H, T_q, T_k]`` aligned scores. ``pos_emb`` row ``p`` holds relative
+    position ``T_q-1-p``; entry (i, j) needs ``i - j``, so ``p = T_q-1-i+j``:
+    the pad/reshape trick (pad a zero column, view as [2T, T], drop the first
+    row), then the first ``t_k`` columns."""
+    b, h, t_q, p = matrix_bd.shape  # p == 2*t_q - 1
+    x = torch.cat([matrix_bd.new_zeros(b, h, t_q, 1), matrix_bd], dim=-1)  # [B, H, T, 2T]
+    x = x.view(b, h, 2 * t_q, t_q)[:, :, 1:].reshape(b, h, t_q, p)
+    return x[..., :t_k]
+
+
+def relpos_fused_features(
+    q_v: torch.Tensor, w_pos: torch.Tensor, t: int, n_feat: int
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Exact low-rank form of the latest rel-pos bias: ``(u~ [B, H, T,
+    n_feat], phi [T, n_feat])`` with
+
+        u~ . phiᵀ == rel_shift_gather(q_v . (pos_emb @ w_pos)ᵀ, T)
+
+    per head, ``pos_emb`` the signed sinusoid table. ``w_pos`` is the
+    position projection in the flax layout ``[in, out]`` (the torch
+    ``linear_pos.weight.t()``), its output columns split ``(H, d_k)``.
+    u(i) = w_posᵀ q_v(i); the angle-addition identities split sin/cos of
+    ω(i - j) into i-only and j-only factors: u~ interleaves
+    (u_e sin + u_o cos, -u_e cos + u_o sin) of ω·i, phi interleaves
+    (cos, sin) of ω·j. The trig tables are built in float64 with numpy and
+    cast to the compute dtype (float32 sin/cos of large angles alone costs
+    ~1e-3 in the output)."""
+    h, dk = q_v.shape[1], q_v.shape[3]
+    w = w_pos.reshape(n_feat, h, dk)
+    u = torch.einsum("bhtd,fhd->bhtf", q_v, w)  # [B, H, T, n_feat]
+    sin_i, cos_i, phi = _fused_tables(t, n_feat, q_v.device, q_v.dtype)
+    u_e, u_o = u[..., 0::2], u[..., 1::2]
+    ut = torch.stack([u_e * sin_i + u_o * cos_i, -u_e * cos_i + u_o * sin_i], dim=-1).reshape(u.shape)
+    return ut.to(q_v.dtype), phi
+
+
+@functools.lru_cache(maxsize=32)
+def _fused_tables(t: int, n_feat: int, device: torch.device, dtype: torch.dtype):
+    """sin and cos of ω·i ``[T, n_feat / 2]`` and phi ``[T, n_feat]``, built
+    in float64 once per shape (the JAX package's trace-time constants);
+    callers must not write to them."""
+    om = np.exp(np.arange(0, n_feat, 2, dtype=np.float64) * -(np.log(10000.0) / n_feat))
+    ang = om[None, :] * np.arange(t, dtype=np.float64)[:, None]  # [T, n_feat / 2]
+
+    def table(x):
+        return torch.from_numpy(np.ascontiguousarray(x)).to(device, dtype)
+
+    phi = np.stack([np.cos(ang), np.sin(ang)], axis=-1).reshape(t, n_feat)
+    return table(np.sin(ang)), table(np.cos(ang)), table(phi)
+
+
+class RelPositionMultiHeadedAttention(LegacyRelPositionMultiHeadedAttention):
+    """Transformer-XL rel-pos MHA, the latest variant: ``pos_emb`` is
+    ``[1, 2T-1, d]`` over positions T-1 … -(T-1), aligned by
+    :func:`rel_shift_gather`. The parameters are the legacy layer's
+    (linear_q/k/v/out/pos, pos_bias_u/v). Under K1 the bias goes into the
+    kernel as concatenated features (K1r, d_qk = d_k + n_feat, d_v = d_k)
+    and ``pos_emb`` is not read."""
+
+    def forward(self, query, key, value, pos_emb, mask=None):
+        q = _split_heads(self.linear_q(query), self.n_head)
+        k = _split_heads(self.linear_k(key), self.n_head)
+        v = _split_heads(self.linear_v(value), self.n_head)
+        q_u = q + self.pos_bias_u[None, :, None, :]
+        q_v = q + self.pos_bias_v[None, :, None, :]
+        sm_scale = 1.0 / math.sqrt(self.d_k)
+        n_feat = self.n_head * self.d_k
+
+        if _flash_ok(self.attn_backend, mask, k.shape[2]):
+            # bd[i, j] = u~(i) . phi(j): one K1r call over [q_u, u~] and
+            # [k, phi], no [B, H, T, T] tensor
+            ut, phi = relpos_fused_features(q_v, self.linear_pos.weight.t(), q.shape[2], n_feat)
+            q_cat = torch.cat([q_u, ut], dim=-1)
+            k_cat = torch.cat([k, phi[None, None].expand(*k.shape[:3], n_feat)], dim=-1)
+            x = flash_attention(
+                q_cat.contiguous(), k_cat.contiguous(), v.contiguous(), None,
+                _key_mask(mask), sm_scale,
+            )
+        else:
+            p = _split_heads(self.linear_pos(pos_emb), self.n_head)  # [1, H, 2T-1, d_k]
+            matrix_bd = rel_shift_gather(torch.matmul(q_v, p.transpose(-1, -2)), k.shape[2])
             matrix_ac = torch.matmul(q_u, k.transpose(-1, -2))
             x = _attend((matrix_ac + matrix_bd) * sm_scale, v, mask, self.dropout)
         return self.linear_out(_merge_heads(x))

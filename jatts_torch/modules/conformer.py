@@ -26,12 +26,14 @@ from torch import nn
 from jatts_torch.modules.attention import (
     LegacyRelPositionMultiHeadedAttention,
     MultiHeadedAttention,
+    RelPositionMultiHeadedAttention,
 )
 from jatts_torch.modules.batchnorm import BatchNorm1d
 from jatts_torch.modules.dropout import Dropout
 from jatts_torch.modules.positional import (
     LegacyRelPositionalEncoding,
     PositionalEncoding,
+    RelPositionalEncoding,
     ScaledPositionalEncoding,
 )
 
@@ -165,6 +167,10 @@ class EncoderLayer(nn.Module):
             self.self_attn = LegacyRelPositionMultiHeadedAttention(
                 attention_heads, size, attn_backend, attention_dropout_rate
             )
+        elif selfattention_layer_type == "rel_selfattn":
+            self.self_attn = RelPositionMultiHeadedAttention(
+                attention_heads, size, attn_backend, attention_dropout_rate
+            )
         elif selfattention_layer_type == "selfattn":
             self.self_attn = MultiHeadedAttention(
                 attention_heads, size, attn_backend, attention_dropout_rate
@@ -173,7 +179,7 @@ class EncoderLayer(nn.Module):
             raise ValueError(
                 f"selfattention_layer_type {selfattention_layer_type!r} is not ported"
             )
-        self.rel_pos = selfattention_layer_type == "legacy_rel_selfattn"
+        self.rel_pos = selfattention_layer_type in ("legacy_rel_selfattn", "rel_selfattn")
         self.feed_forward = ffn()
         self.norm_ff = nn.LayerNorm(size, eps=1e-5)
         self.norm_mha = nn.LayerNorm(size, eps=1e-5)
@@ -255,13 +261,15 @@ class ConformerEncoder(nn.Module):
         super().__init__()
         if pos_enc_layer_type == "legacy_rel_pos":
             pos_enc = LegacyRelPositionalEncoding(attention_dim, dropout_rate=positional_dropout_rate)
+        elif pos_enc_layer_type == "rel_pos":
+            pos_enc = RelPositionalEncoding(attention_dim, dropout_rate=positional_dropout_rate)
         elif pos_enc_layer_type == "scaled_abs_pos":
             pos_enc = ScaledPositionalEncoding(attention_dim, dropout_rate=positional_dropout_rate)
         elif pos_enc_layer_type == "abs_pos":
             pos_enc = PositionalEncoding(attention_dim, dropout_rate=positional_dropout_rate)
         else:
             raise ValueError(f"pos_enc_layer_type {pos_enc_layer_type!r} is not ported")
-        self.rel_pos = pos_enc_layer_type == "legacy_rel_pos"
+        self.rel_pos = pos_enc_layer_type in ("legacy_rel_pos", "rel_pos")
         if input_layer == "embed":
             self.embed = nn.Sequential(
                 nn.Embedding(idim, attention_dim, padding_idx=padding_idx), pos_enc

@@ -9,6 +9,7 @@ the relative encodings also to the positional table.
 
 from __future__ import annotations
 
+import functools
 import math
 
 import numpy as np
@@ -45,6 +46,16 @@ def rel_sinusoid_table(t: int, d_model: int) -> np.ndarray:
 
 def _table(table: np.ndarray, like: torch.Tensor) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(table)).to(like.device, like.dtype)
+
+
+@functools.lru_cache(maxsize=32)
+def rel_table(t: int, d_model: int, device: torch.device, dtype: torch.dtype) -> torch.Tensor:
+    """``rel_sinusoid_table(t, d_model)`` on ``device`` in ``dtype``, built
+    once per shape, as the JAX package folds it into its traced program: a
+    table rebuilt with numpy and copied from pageable host memory on every
+    call costs milliseconds of host time and holds the stream. Callers must
+    not write to it."""
+    return torch.from_numpy(np.ascontiguousarray(rel_sinusoid_table(t, d_model))).to(device, dtype)
 
 
 class PositionalEncoding(nn.Module):
@@ -107,5 +118,5 @@ class RelPositionalEncoding(nn.Module):
         self.dropout = Dropout(dropout_rate)
 
     def forward(self, x: torch.Tensor):
-        pe = _table(rel_sinusoid_table(x.shape[1], self.d_model), x)
+        pe = rel_table(x.shape[1], self.d_model, x.device, x.dtype)
         return self.dropout(x * math.sqrt(self.d_model)), self.dropout(pe[None])

@@ -1,6 +1,6 @@
 """K1 — flash-attention forward (``csrc/flash_attn_fwd.cu``), K1-bwd — its
-backward (``csrc/flash_attn_bwd.cu``), K1b — the causal form of both, and
-their plain twins.
+backward (``csrc/flash_attn_bwd.cu``), K1b — the causal form of both, K1r —
+the fused rel-pos form of both (d_qk != d_v), and their plain twins.
 
 Replaces the Pallas TPU flash-attention forward that
 ``jatts_tpu/modules/attention.py:_flash_attend`` drives. Function, per
@@ -15,15 +15,24 @@ VALL-E's AR trunk) needs Tq == Tk and lets query row i see key j only when
 j <= i, AND-ed with the key mask. Every function here takes it; the kernels
 take it as a compile-time form, so the non-causal ones are unchanged.
 
+q and k share one width d_qk, v (and the output) may be narrower, d_v (K1r:
+the fused "latest" rel-pos attention, ``modules/attention.py:
+RelPositionMultiHeadedAttention``, concatenates positional features onto q
+and k only). On the card that form takes the (d_qk, d_v) pairs of
+``RELPOS_PAIRS``, no bias and no causal mask; its kernels are their own
+instantiations, so K1, K1-bwd and K1b are unchanged. dq and dk have width
+d_qk, dv width d_v.
+
 :func:`flash_attention` launches the CUDA kernel for CUDA tensors and takes
 :func:`flash_attention_ref` only for CPU tensors. When autograd needs a
 gradient it goes through :class:`FlashAttention`, whose forward is K1 with
 the row log-sum-exp and whose backward launches K1-bwd's two kernels (dk/dv,
 then dq and d(ab)), as the JAX package's flash path trains through the
 Pallas custom VJP. ``launches``, ``launches_bwd_dkv`` and ``launches_bwd_dq``
-count the non-causal kernel launches, and the ``*_causal`` counters the
-causal ones (and nothing else), so a run can show that it went through the
-kernels. See the source notes in the ``.cu`` files for the bounds.
+count the non-causal kernel launches at d_qk == d_v, the ``*_causal``
+counters the causal ones and the ``*_relpos`` counters K1r's (and nothing
+else), so a run can show that it went through the kernels. See the source
+notes in the ``.cu`` files for the bounds.
 """
 
 from __future__ import annotations
@@ -38,6 +47,9 @@ from jatts_torch.ops import build
 KERNEL = "flash_attn_fwd"
 KERNEL_BWD = "flash_attn_bwd"
 HEAD_DIMS = (64, 128, 192, 256)
+# K1r's (d_qk, d_v) = (d_k + n_feat, d_k): 2 heads of 64 (adim 128) and of
+# 192 (adim 384, the JSUT/JVS width)
+RELPOS_PAIRS = ((192, 64), (576, 192))
 DTYPES = (torch.float32, torch.bfloat16)
 _MASK_VAL = -1e9
 
@@ -48,18 +60,23 @@ launches_bwd_dq = 0  # K1-bwd, dq/d(ab) kernel
 launches_causal = 0  # K1b, causal forward
 launches_bwd_dkv_causal = 0  # K1b, causal dk/dv kernel
 launches_bwd_dq_causal = 0  # K1b, causal dq/d(ab) kernel
+launches_relpos = 0  # K1r, d_qk != d_v forward
+launches_bwd_dkv_relpos = 0  # K1r, dk/dv kernel
+launches_bwd_dq_relpos = 0  # K1r, dq kernel
 
 
 def reset_launches() -> None:
     global launches, launches_bwd_dkv, launches_bwd_dq
     global launches_causal, launches_bwd_dkv_causal, launches_bwd_dq_causal
+    global launches_relpos, launches_bwd_dkv_relpos, launches_bwd_dq_relpos
     launches = launches_bwd_dkv = launches_bwd_dq = 0
     launches_causal = launches_bwd_dkv_causal = launches_bwd_dq_causal = 0
+    launches_relpos = launches_bwd_dkv_relpos = launches_bwd_dq_relpos = 0
 
 
-def _count(kind: str, causal: bool) -> None:
+def _count(kind: str, causal: bool, relpos: bool) -> None:
     name = {"fwd": "launches", "dkv": "launches_bwd_dkv", "dq": "launches_bwd_dq"}[kind]
-    name += "_causal" if causal else ""
+    name += "_causal" if causal else "_relpos" if relpos else ""
     globals()[name] += 1
 
 
@@ -83,14 +100,15 @@ def flash_attention_ref(
     return_lse: bool = False,
     causal: bool = False,
 ):
-    """Plain PyTorch version of K1 (K1b with ``causal``), in f32, output in
-    q's dtype.
+    """Plain PyTorch version of K1 (K1b with ``causal``, K1r when v is
+    narrower than q and k), in f32, output in q's dtype.
 
-    q: [B, H, Tq, D]; k, v: [B, H, Tk, D]; ab: [B, H, Tq, Tk] or None;
-    key_mask: [B, Tk] bool (True = valid) or None. A row with no key it may
-    see returns 0. With ``return_lse`` also the row log-sum-exp of the
-    scaled scores over the keys it sees [B, H, Tq] f32, +inf on a row that
-    sees none (what K1 writes for K1-bwd)."""
+    q: [B, H, Tq, D_qk]; k: [B, H, Tk, D_qk]; v: [B, H, Tk, D_v]; ab:
+    [B, H, Tq, Tk] or None; key_mask: [B, Tk] bool (True = valid) or None;
+    out: [B, H, Tq, D_v]; ``sm_scale`` defaults to D_qk ** -0.5. A row with
+    no key it may see returns 0. With ``return_lse`` also the row
+    log-sum-exp of the scaled scores over the keys it sees [B, H, Tq] f32,
+    +inf on a row that sees none (what K1 writes for K1-bwd)."""
     if sm_scale is None:
         sm_scale = q.shape[-1] ** -0.5
     _check_causal(q, k, causal)
@@ -123,9 +141,10 @@ def _check_causal(q, k, causal: bool) -> None:
 
 
 def flash_attention_bwd_ref(q, k, v, ab, key_mask, sm_scale, o, lse, do, causal=False):
-    """Plain PyTorch version of K1-bwd (K1b's backward with ``causal``):
-    the explicit f32 formulas, not autograd. Returns ``(dq, dk, dv, dab)``
-    in the inputs' dtypes, ``dab`` None when ``ab`` is None.
+    """Plain PyTorch version of K1-bwd (K1b's backward with ``causal``,
+    K1r's when v is narrower): the explicit f32 formulas, not autograd.
+    Returns ``(dq, dk, dv, dab)`` in the inputs' dtypes (dq, dk of width
+    D_qk, dv of width D_v), ``dab`` None when ``ab`` is None.
 
     p = exp(s - lse) on the keys a row sees (0 elsewhere), di = rowsum(o·do),
     dv = pᵀ·do, dp = do·vᵀ, ds = p·(dp - di)·sm_scale, dq = ds·k,
@@ -152,7 +171,7 @@ def _kernel_fn():
     fn.restype = ctypes.c_int
     # pointers and the stream as c_void_p: without argtypes ctypes would
     # pass them as 32-bit ints and cut them
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [
+    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 + [
         ctypes.c_float, ctypes.c_void_p,
     ]
     return fn
@@ -161,7 +180,7 @@ def _kernel_fn():
 def _bwd_kernel_fn(name: str):
     fn = getattr(build.load(KERNEL_BWD), name)
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 7 + [
+    fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 8 + [
         ctypes.c_float, ctypes.c_void_p,
     ]
     return fn
@@ -172,7 +191,7 @@ def _check(q, k, v, ab, key_mask, causal=False) -> None:
         raise ValueError("q, k, v must be [B, H, T, D]")
     b, h, tq, d = q.shape
     tk = k.shape[2]
-    if k.shape != (b, h, tk, d) or v.shape != (b, h, tk, d):
+    if k.shape != (b, h, tk, d) or v.shape[:3] != (b, h, tk):
         raise ValueError(
             f"k {tuple(k.shape)} / v {tuple(v.shape)} do not match q {tuple(q.shape)}"
         )
@@ -183,7 +202,7 @@ def _check(q, k, v, ab, key_mask, causal=False) -> None:
     _check_causal(q, k, causal)
 
 
-def _check_card(q, k, v, ab, key_mask) -> None:
+def _check_card(q, k, v, ab, key_mask, causal=False) -> None:
     """What the kernels take on the card; raises on anything else."""
     tensors = [t for t in (q, k, v, ab, key_mask) if t is not None]
     if any(t.device != q.device for t in tensors) or q.device.type != "cuda":
@@ -195,9 +214,13 @@ def _check_card(q, k, v, ab, key_mask) -> None:
     if any(not t.is_contiguous() for t in tensors):
         raise ValueError("flash_attention: inputs must be contiguous")
     b, h, tq, d = q.shape
-    tk = k.shape[2]
-    if d not in HEAD_DIMS:
+    tk, d_v = k.shape[2], v.shape[3]
+    if d == d_v and d not in HEAD_DIMS:
         raise ValueError(f"flash_attention: head dim {d} not in {HEAD_DIMS}")
+    if d != d_v and (d, d_v) not in RELPOS_PAIRS:
+        raise ValueError(f"flash_attention: (d_qk, d_v) = {(d, d_v)} not in {RELPOS_PAIRS}")
+    if d != d_v and (ab is not None or causal):
+        raise ValueError("flash_attention: d_qk != d_v takes no bias and no causal mask")
     if tq == 0 or tk == 0 or b * h > 65535:
         raise ValueError(f"flash_attention: unsupported sizes B*H={b * h}, Tq={tq}, Tk={tk}")
 
@@ -207,30 +230,32 @@ def _ptr(t: Optional[torch.Tensor]):
 
 
 def _launch_fwd(q, k, v, ab, key_mask, sm_scale, with_lse: bool, causal: bool):
-    """K1 (K1b with ``causal``) on checked card tensors -> (out, lse or None)."""
+    """K1 (K1b with ``causal``, K1r when d_qk != d_v) on checked card
+    tensors -> (out, lse or None)."""
     b, h, tq, d = q.shape
-    out = torch.empty_like(q)
+    out = q.new_empty(b, h, tq, v.shape[3])
     lse = torch.empty(b, h, tq, device=q.device, dtype=torch.float32) if with_lse else None
     fn = _kernel_fn()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = fn(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(ab), _ptr(key_mask),
-            out.data_ptr(), _ptr(lse), b, h, tq, k.shape[2], d,
+            out.data_ptr(), _ptr(lse), b, h, tq, k.shape[2], d, v.shape[3],
             int(q.dtype == torch.bfloat16), int(causal), float(sm_scale), stream,
         )
     if rc != 0:
         raise RuntimeError(f"flash_attn_fwd launch failed with CUDA error {rc}")
-    _count("fwd", causal)
+    _count("fwd", causal, d != v.shape[3])
     return out, lse
 
 
 def flash_attention_fwd(q, k, v, ab=None, key_mask=None, sm_scale=None, causal=False):
-    """K1 (K1b with ``causal``) on CUDA tensors with the row log-sum-exp:
-    ``(out, lse)``, lse [B, H, Tq] f32 (+inf on a row that sees no key),
-    what ``flash_attention_ref(..., return_lse=True)`` computes."""
+    """K1 (K1b with ``causal``, K1r when d_qk != d_v) on CUDA tensors with
+    the row log-sum-exp: ``(out, lse)``, lse [B, H, Tq] f32 (+inf on a row
+    that sees no key), what ``flash_attention_ref(..., return_lse=True)``
+    computes."""
     _check(q, k, v, ab, key_mask, causal)
-    _check_card(q, k, v, ab, key_mask)
+    _check_card(q, k, v, ab, key_mask, causal)
     if sm_scale is None:
         sm_scale = q.shape[-1] ** -0.5
     return _launch_fwd(q, k, v, ab, key_mask, sm_scale, with_lse=True, causal=causal)
@@ -238,10 +263,10 @@ def flash_attention_fwd(q, k, v, ab=None, key_mask=None, sm_scale=None, causal=F
 
 def _check_bwd(q, k, v, ab, key_mask, lse, di, do, causal) -> None:
     _check(q, k, v, ab, key_mask, causal)
-    _check_card(q, k, v, ab, key_mask)
+    _check_card(q, k, v, ab, key_mask, causal)
     b, h, tq, _ = q.shape
-    if do.shape != q.shape or do.dtype != q.dtype:
-        raise ValueError("flash_attention_bwd: do must be like q")
+    if do.shape != (b, h, tq, v.shape[3]) or do.dtype != q.dtype:
+        raise ValueError("flash_attention_bwd: do must be [B, H, Tq, D_v] in q's dtype")
     for name, t in (("lse", lse), ("di", di)):
         if t.shape != (b, h, tq) or t.dtype != torch.float32:
             raise ValueError(f"flash_attention_bwd: {name} must be f32 {(b, h, tq)}")
@@ -256,16 +281,17 @@ def _launch_bwd(name, q, k, v, ab, key_mask, sm_scale, lse, di, do, out_a, out_b
         rc = _bwd_kernel_fn(f"jatts_flash_attn_bwd_{name}")(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(ab), _ptr(key_mask),
             lse.data_ptr(), di.data_ptr(), do.data_ptr(), out_a.data_ptr(), _ptr(out_b),
-            b, h, tq, k.shape[2], d, int(q.dtype == torch.bfloat16), int(causal),
+            b, h, tq, k.shape[2], d, v.shape[3], int(q.dtype == torch.bfloat16), int(causal),
             float(sm_scale), stream,
         )
     if rc != 0:
         raise RuntimeError(f"flash_attn_bwd {name} launch failed with CUDA error {rc}")
-    _count(name, causal)
+    _count(name, causal, d != v.shape[3])
 
 
 def flash_attention_bwd_dkv(q, k, v, ab, key_mask, sm_scale, lse, di, do, causal=False):
-    """K1-bwd's dk/dv kernel (K1b's with ``causal``) on CUDA tensors ->
+    """K1-bwd's dk/dv kernel (K1b's with ``causal``, K1r's when d_qk !=
+    d_v) on CUDA tensors ->
     ``(dk, dv)``; ``di`` is rowsum(o·do) [B, H, Tq] f32."""
     _check_bwd(q, k, v, ab, key_mask, lse, di, do, causal)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
@@ -274,7 +300,8 @@ def flash_attention_bwd_dkv(q, k, v, ab, key_mask, sm_scale, lse, di, do, causal
 
 
 def flash_attention_bwd_dq(q, k, v, ab, key_mask, sm_scale, lse, di, do, with_dab=True, causal=False):
-    """K1-bwd's dq/d(ab) kernel (K1b's with ``causal``) on CUDA tensors ->
+    """K1-bwd's dq/d(ab) kernel (K1b's with ``causal``, K1r's dq when
+    d_qk != d_v) on CUDA tensors ->
     ``(dq, dab)``; ``dab`` is written when ``ab`` is given and ``with_dab``,
     else None."""
     _check_bwd(q, k, v, ab, key_mask, lse, di, do, causal)
@@ -285,13 +312,14 @@ def flash_attention_bwd_dq(q, k, v, ab, key_mask, sm_scale, lse, di, do, with_da
 
 
 def flash_attention_bwd(q, k, v, ab, key_mask, sm_scale, o, lse, do, with_dab=True, causal=False):
-    """K1-bwd (K1b's backward with ``causal``) on CUDA tensors:
+    """K1-bwd (K1b's backward with ``causal``, K1r's when d_qk != d_v) on
+    CUDA tensors:
     ``(dq, dk, dv, dab)`` as :func:`flash_attention_bwd_ref` computes them
     (``dab`` None without a bias or without ``with_dab``).
     ``di = rowsum(o·do)`` is a PyTorch op, as in the JAX VJP; then the dk/dv
     kernel and the dq/d(ab) kernel launch on the current stream."""
-    if o.shape != q.shape or o.dtype != q.dtype:
-        raise ValueError("flash_attention_bwd: o must be like q")
+    if o.shape != do.shape or o.dtype != q.dtype:
+        raise ValueError("flash_attention_bwd: o must be like do, in q's dtype")
     di = (o.float() * do.float()).sum(-1)
     dk, dv = flash_attention_bwd_dkv(q, k, v, ab, key_mask, sm_scale, lse, di, do, causal)
     dq, dab = flash_attention_bwd_dq(q, k, v, ab, key_mask, sm_scale, lse, di, do, with_dab, causal)
@@ -300,8 +328,8 @@ def flash_attention_bwd(q, k, v, ab, key_mask, sm_scale, o, lse, do, with_dab=Tr
 
 class FlashAttention(torch.autograd.Function):
     """K1 forward (with the row log-sum-exp) and K1-bwd backward on CUDA
-    tensors, K1b's with ``causal``. Gradients flow to q, k, v and ab; the
-    mask, the scale and the form take none."""
+    tensors, K1b's with ``causal``, K1r's when d_qk != d_v. Gradients flow
+    to q, k, v and ab; the mask, the scale and the form take none."""
 
     @staticmethod
     def forward(ctx, q, k, v, ab, key_mask, sm_scale, causal=False):
@@ -330,12 +358,13 @@ def flash_attention(
     sm_scale: Optional[float] = None,
     causal: bool = False,
 ) -> torch.Tensor:
-    """K1 (K1b with ``causal``) on CUDA tensors, :func:`flash_attention_ref`
-    on CPU tensors.
+    """K1 (K1b with ``causal``, K1r when d_qk != d_v) on CUDA tensors,
+    :func:`flash_attention_ref` on CPU tensors.
 
     On the card it takes contiguous q/k/v (and ab) of one dtype, f32 or
-    bf16, head dim in ``HEAD_DIMS``, all on one device, and raises on
-    anything else; it launches on the current stream and does not
+    bf16, head dim in ``HEAD_DIMS`` (or (d_qk, d_v) in ``RELPOS_PAIRS``,
+    without bias or causal mask), all on one device, and raises on anything
+    else; it launches on the current stream and does not
     synchronise. When autograd records (grad mode on and an input that
     requires grad) it goes through :class:`FlashAttention`, so the backward
     is K1-bwd."""
@@ -345,7 +374,7 @@ def flash_attention(
     tensors = [t for t in (q, k, v, ab, key_mask) if t is not None]
     if all(t.device.type == "cpu" for t in tensors):
         return flash_attention_ref(q, k, v, ab, key_mask, sm_scale, causal=causal)
-    _check_card(q, k, v, ab, key_mask)
+    _check_card(q, k, v, ab, key_mask, causal)
     if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
         return FlashAttention.apply(q, k, v, ab, key_mask, float(sm_scale), bool(causal))
     return _launch_fwd(q, k, v, ab, key_mask, sm_scale, with_lse=False, causal=causal)[0]

@@ -6,7 +6,9 @@ the acoustic model's mel statistics (and the vocoder's, when given). A
 call pads the requests to the fixed ``batch_size`` and the smallest text
 bucket that fits, runs inference -> denormalise -> (renormalise) ->
 vocoder -> pcm16 (or f32) in one pass, fetches each output once and crops
-every row by its ``olens``.
+every row by its ``olens``. A multi-speaker model (``spk_embed_dim``) takes
+one speaker embedding a request, padded with zero rows to the batch size,
+as the JAX bundle pads them; a request without one gets a zero row.
 """
 
 from __future__ import annotations
@@ -42,6 +44,7 @@ class ServingBundle:
         self.max_frames = int(max_frames)
         self.hop_size = int(vocoder.hop_size)
         self.wav_format = wav_format
+        self.spk_dim = int(getattr(model, "spk_embed_dim", None) or 0)
 
         def stat(x):
             return None if x is None else torch.as_tensor(
@@ -70,11 +73,28 @@ class ServingBundle:
             ilens[i] = len(ids)
         return torch.from_numpy(xs).to(self.device), torch.from_numpy(ilens).to(self.device)
 
+    def prepare_spembs(self, spembs: Optional[np.ndarray]) -> Optional[torch.Tensor]:
+        """<= batch_size speaker embeddings -> [batch_size, spk_dim] float32
+        on the device, zero rows past them (and all zeros for None); None
+        for a single-speaker model."""
+        if not self.spk_dim:
+            return None
+        se = np.zeros((self.batch_size, self.spk_dim), np.float32)
+        if spembs is not None:
+            spembs = np.asarray(spembs, np.float32)
+            if spembs.ndim != 2 or spembs.shape[0] > self.batch_size or spembs.shape[1] != self.spk_dim:
+                raise ValueError(f"spembs {spembs.shape} is not [<= {self.batch_size}, {self.spk_dim}]")
+            se[: len(spembs)] = spembs
+        return torch.from_numpy(se).to(self.device)
+
     @torch.no_grad()
-    def run(self, xs: torch.Tensor, ilens: torch.Tensor) -> Dict[str, torch.Tensor]:
+    def run(
+        self, xs: torch.Tensor, ilens: torch.Tensor, spembs: Optional[torch.Tensor] = None
+    ) -> Dict[str, torch.Tensor]:
         """The fixed-shape program on device tensors: xs [batch_size, bucket],
-        ilens [batch_size] -> {"olens", "wav"} (+ "mel" for f32)."""
-        out = self.model.inference(xs, ilens, self.max_frames)
+        ilens [batch_size] (, spembs [batch_size, spk_dim]) -> {"olens",
+        "wav"} (+ "mel" for f32)."""
+        out = self.model.inference(xs, ilens, self.max_frames, spembs)
         mel = out["feat_gen"].float() * self.mel_scale + self.mel_mean
         v = mel if self.voc_mean is None else (mel - self.voc_mean) / self.voc_scale
         voc_dtype = next(self.vocoder.parameters()).dtype
@@ -87,13 +107,16 @@ class ServingBundle:
             res["wav"] = wav
         return res
 
-    def synthesize(self, token_ids: Sequence[Sequence[int]], seed: int = 0) -> List[Dict[str, Any]]:
-        """token_ids: <= batch_size sequences -> per-utterance dicts with
-        ``wav`` [olens*hop] (int16 or float32) and, for f32, ``mel``
+    def synthesize(
+        self, token_ids: Sequence[Sequence[int]], seed: int = 0, spembs: Optional[np.ndarray] = None
+    ) -> List[Dict[str, Any]]:
+        """token_ids: <= batch_size sequences (and, for a multi-speaker
+        model, ``spembs`` [len(token_ids), spk_dim]) -> per-utterance dicts
+        with ``wav`` [olens*hop] (int16 or float32) and, for f32, ``mel``
         [olens, n_mels]. FastSpeech2 is deterministic: ``seed`` is accepted
         for the serving interface and changes nothing."""
         xs, ilens = self.prepare(token_ids)
-        out = self.run(xs, ilens)
+        out = self.run(xs, ilens, self.prepare_spembs(spembs))
         # one device->host fetch per output, rows sliced on the host
         host = {k: v.cpu().numpy() for k, v in out.items()}
         results = []

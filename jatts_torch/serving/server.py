@@ -14,7 +14,9 @@ Usage:
     server.close()
 
 Requests with different ``seed`` values never share a call (the seed is a
-per-call input), so the batcher groups by seed.
+per-call input), so the batcher groups by seed. A request to a
+multi-speaker bundle may carry ``spemb=[...]`` (its speaker embedding); a
+batch stacks them, with a zero row for a request without one.
 """
 
 from __future__ import annotations
@@ -24,6 +26,8 @@ import time
 from concurrent.futures import Future
 from queue import Empty, Queue
 from typing import Any, Dict, List, Optional
+
+import numpy as np
 
 from jatts_torch.serving.bundle import ServingBundle
 
@@ -58,8 +62,9 @@ class BatchingServer:
         self._thread.start()
 
     def submit(self, seed: int = 0, **fields) -> Future:
-        """Enqueue one utterance (``token_ids=[...]``); returns a Future of
-        the bundle's per-utterance dict."""
+        """Enqueue one utterance (``token_ids=[...]``, and ``spemb=[...]``
+        for a multi-speaker bundle); returns a Future of the bundle's
+        per-utterance dict."""
         if self._closed:
             raise RuntimeError("server is closed")
         if "token_ids" not in fields:
@@ -134,9 +139,14 @@ class BatchingServer:
         self.stats["rows"] += self.batch_size
         self.stats["requests"] += len(batch)
         try:
-            results = self.bundle.synthesize(
-                [r.fields["token_ids"] for r in batch], seed=seed
-            )
+            kwargs: Dict[str, Any] = {"seed": seed}
+            if any("spemb" in r.fields for r in batch):
+                kwargs["spembs"] = np.stack([
+                    np.asarray(r.fields["spemb"], np.float32) if "spemb" in r.fields
+                    else np.zeros((self.bundle.spk_dim,), np.float32)
+                    for r in batch
+                ])
+            results = self.bundle.synthesize([r.fields["token_ids"] for r in batch], **kwargs)
         except Exception as e:  # propagate to every caller in the group
             for r in batch:
                 if not r.future.cancelled():

@@ -15,12 +15,13 @@ from jatts_torch.train.steps_valle import valle_kwargs, valle_loss
 
 
 def fastspeech2_kwargs(batch: Dict[str, Any], model=None) -> Dict[str, Any]:
-    """batch -> ``FastSpeech2.forward`` kwargs (no multi-speaker inputs yet)."""
-    if batch.get("spembs") is not None or batch.get("sids") is not None:
-        raise ValueError("multi-speaker FastSpeech2 is not ported yet")
+    """batch -> ``FastSpeech2.forward`` kwargs, with the speaker embeddings
+    (``spembs``, from the ``spkemb`` dumps) and ids (``sids``) when the
+    batch has them."""
     return dict(
         xs=batch["xs"], ilens=batch["ilens"], ys=batch["ys"], olens=batch["olens"],
         ds=batch["ds"], ps=batch["ps"], es=batch["es"],
+        spembs=batch.get("spembs"), sids=batch.get("sids"),
     )
 
 

@@ -4,10 +4,11 @@ Applied by the trainer right after a model is built, with the model's
 ``init_type``, as the JAX package applies it to its flax tree:
 
 - every ``bias`` -> zeros;
-- embeddings (any parameter under a module path containing "embed", which
-  also covers the pitch/energy embedding convolutions, as in the JAX
-  package), norm scales and other 1-dim parameters, and the running
-  statistics (buffers) -> left alone;
+- embeddings (the tables of ``nn.Embedding`` modules, flax's ``embedding``
+  leaves, such as ``sid_emb``, and any parameter under a module path
+  containing "embed", which also covers the pitch/energy embedding
+  convolutions, as in the JAX package), norm scales and other 1-dim
+  parameters, and the running statistics (buffers) -> left alone;
 - every other parameter with ndim > 1 (linear and conv weights,
   ``pos_bias_u``/``pos_bias_v``) -> drawn from the chosen initializer with
   torch's fan convention on the torch layout ``[out, in, k...]``:
@@ -55,11 +56,12 @@ def initialize(model: nn.Module, init_type: Optional[str], seed: int = 0) -> nn.
     if not init_type or init_type == "none":
         return model
     g = torch.Generator().manual_seed(seed)
+    tables = {id(m.weight) for m in model.modules() if isinstance(m, nn.Embedding)}
     for name, param in model.named_parameters():
         parts = name.split(".")
         if parts[-1] == "bias":
             param.zero_()
-        elif param.ndim <= 1 or any("embed" in p.lower() for p in parts[:-1]):
+        elif param.ndim <= 1 or id(param) in tables or any("embed" in p.lower() for p in parts[:-1]):
             continue
         else:
             param.copy_(_draw(tuple(param.shape), init_type, g).to(param.dtype))

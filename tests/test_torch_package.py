@@ -1,7 +1,8 @@
 """jatts_torch package checks: no JAX anywhere in the port, the K1 wrapper's
 CPU route and input checks, the default device of the entry points, the
 kernel build commands, and (marked ``cuda``, skipped without a card) K1,
-K1-bwd, K1b (their causal form), K2 and K3 against their plain twins."""
+K1-bwd, K1b (their causal form), K1r (their fused rel-pos form, d_qk !=
+d_v), K2 and K3 against their plain twins."""
 
 import ast
 import os
@@ -40,7 +41,8 @@ def test_import_leaves_jax_out_of_sys_modules():
         "jatts_torch.train.schedulers, jatts_torch.losses.basic, jatts_torch.data.dataset, "
         "jatts_torch.data.batcher, jatts_torch.utils.checkpoint, jatts_torch.utils.initialize, "
         "jatts_torch.utils.config, jatts_torch.models.valle, jatts_torch.modules.valle_modules, "
-        "jatts_torch.train.steps_valle\n"
+        "jatts_torch.train.steps_valle, jatts_torch.modules.attention, jatts_torch.modules.conformer, "
+        "jatts_torch.modules.positional, jatts_torch.serving.bundle, jatts_torch.serving.server\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in %r)\n"
         "bad += [m for m in ('h5py', 'yaml', 'triton') if m in sys.modules]\n"
         "print(bad); sys.exit(1 if bad else 0)" % (FORBIDDEN,)
@@ -158,7 +160,9 @@ def test_mas_source_holds_two_global_kernels_and_a_plain_c_interface():
 
 def test_flash_bwd_source_holds_two_global_kernels_and_a_plain_c_interface():
     src = (ROOT / "jatts_torch" / "csrc" / "flash_attn_bwd.cu").read_text()
-    assert src.count("__global__") == 2
+    # the dk/dv and dq kernels, and their K1r (d_qk != d_v) forms
+    assert src.count("__global__") == 4
+    assert "flash_attn_bwd_dkv_relpos_kernel" in src and "flash_attn_bwd_dq_relpos_kernel" in src
     assert 'extern "C" int jatts_flash_attn_bwd_dkv(' in src
     assert 'extern "C" int jatts_flash_attn_bwd_dq(' in src
     assert "torch/" not in src and "#include <ATen" not in src and "atomicAdd" not in src
@@ -324,3 +328,44 @@ def test_k1b_causal_kernels_match_plain_on_card(dtype, tol, t, d, with_bias):
     assert torch.equal(torch.isinf(lse), torch.isinf(lse_k))
     none = torch.isinf(lse)[..., None].expand_as(out)
     assert torch.all(out[none] == 0) and torch.all(got[0][none] == 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.bfloat16, 1e-2)])
+@pytest.mark.parametrize("t,dims", [(100, (192, 64)), (130, (576, 192)), (1, (576, 192))])
+def test_k1r_relpos_kernels_match_plain_on_card(dtype, tol, t, dims):
+    """K1r's forward, dk/dv and dq kernels against flash_attention_ref /
+    flash_attention_bwd_ref at the small pair and the JVS/JSUT width's pair;
+    errors relative to max(1, max |plain|). Key masks: full, ragged, and
+    none valid (that item's output and gradients exactly 0)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    rng = np.random.default_rng(5)
+    b, h = 3, 2
+    d_qk, d_v = dims
+
+    def randn(*shape):
+        return torch.from_numpy(rng.normal(size=shape).astype(np.float32)).cuda().to(dtype)
+
+    q, k = randn(b, h, t, d_qk), randn(b, h, t, d_qk)
+    v, do = randn(b, h, t, d_v), randn(b, h, t, d_v)
+    pos = torch.arange(t)
+    mask = torch.stack([pos < t, pos < max(1, (2 * t) // 3), pos < 0]).cuda()
+    scale = d_v ** -0.5
+    k1.reset_launches()
+    out, lse_k = k1.flash_attention_fwd(q, k, v, None, mask, scale)
+    o, lse = k1.flash_attention_ref(q.float(), k.float(), v.float(), None, mask, scale, return_lse=True)
+    got = k1.flash_attention_bwd(q, k, v, None, mask, scale, o.to(dtype), lse, do)
+    torch.cuda.synchronize()
+    assert (k1.launches_relpos, k1.launches_bwd_dkv_relpos, k1.launches_bwd_dq_relpos) == (1, 1, 1)
+    assert (k1.launches, k1.launches_bwd_dkv, k1.launches_bwd_dq) == (0, 0, 0)
+    want = k1.flash_attention_bwd_ref(q.float(), k.float(), v.float(), None, mask, scale, o, lse, do.float())
+    assert got[3] is None and out.shape == (b, h, t, d_v)
+    for g, w in [(out, o)] + list(zip(got[:3], want[:3])):
+        assert g.shape == w.shape
+        err = (g.float() - w).abs().max().item()
+        assert np.isfinite(err) and err <= tol * max(1.0, w.abs().max().item())
+    assert torch.equal(torch.isinf(lse), torch.isinf(lse_k))
+    assert torch.all(out[2] == 0) and all(torch.all(g[2] == 0) for g in got[:3])
+    with pytest.raises(ValueError, match="d_qk, d_v"):
+        k1.flash_attention(q[..., :64].contiguous(), k[..., :64].contiguous(), v[..., :32].contiguous(), None, mask)
