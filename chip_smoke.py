@@ -6,12 +6,19 @@
 Phases, each of which fails the run with a non-zero exit:
   1. device: name, count and ``nvidia-smi`` name/power limit;
   2. build every hand-written kernel from ``jatts_torch/csrc`` (one ``nvcc``
-     per source, all at once);
+     per source, all at once; each one's seconds and ptxas report printed);
   3. K1 (flash attention) against its plain PyTorch version on the card at
-     the serving path's shapes, f32 (TF32 off) and bf16, error beside
-     tolerance;
-  4. K1's time, its plain version's and one library call's (yardstick only,
-     never used by the port) with CUDA events, beside its bound;
+     the serving path's shapes, f32 (TF32 off, the scalar kernel) and bf16
+     (the tensor-core kernel, ``flash_attn_fwd_tc.cu``), error beside
+     tolerance; then the tensor-core kernel at every (d_qk, d_v) it is built
+     for (K1's head dims with and without bias, K1r's pairs), at a ragged T,
+     at T = 1, at Tq != Tk, with rows that see no key and on the log-sum-exp;
+  4. K1's times with CUDA events (and, for the tensor-core kernel and SDPA,
+     replayed from a CUDA graph, without the host's time between launches)
+     beside their bounds, their plain versions' and one library call's
+     (SDPA, the yardstick, never used by the port):
+     the tensor-core kernel at the serving decoder and encoder shapes (bf16),
+     the scalar kernel at the training decoder shape (f32, with lse);
   5. K2 (MAS forward) and K3 (MAS backtrace), each against its plain twin
      and the pair against the plain search, count of differing elements
      beside the limit 0, at 16x1024x128, at a ragged width, on edge-case
@@ -21,9 +28,9 @@ Phases, each of which fails the run with a non-zero exit:
   7. the serving slice: 16 requests through BatchingServer at the full JSUT
      width (FastSpeech2 adim 384, 4+4 conformer blocks, HiFi-GAN 512 ch,
      hop 300) in bf16 with ``attn_backend="flash"`` and seed-made weights,
-     with the launch counts set to 0 just before and read just after; then
-     the output checks and the slice against the port's eager path on a
-     small f32 input;
+     with the launch counts set to 0 just before and read just after (every
+     K1 launch on the tensor-core kernel); then the output checks and the
+     slice against the port's eager path on a small f32 input;
   8. the aligner slice: a synthetic tone corpus (64 utterances, wavs and
      csvs in a temporary directory) through ``jatts_torch/bin/align.py:run``
      with the JSUT feature settings and the CLI's defaults (adim 256, 2
@@ -44,7 +51,8 @@ Phases, each of which fails the run with a non-zero exit:
      and ``jatts_torch/bin/tts_train.py:run`` trains FastSpeech2 at the full
      JSUT width (egs/jsut/tts1/conf/fastspeech2.v1.yaml, batch 32, f32) with
      ``attn_backend: flash`` for 200 steps (warm-up 50), launch counts set
-     to 0 just before and read just after; then the loss, launch,
+     to 0 just before and read just after (no tensor-core launch: f32 takes
+     the scalar kernels); then the loss, launch,
      checkpoint/resume and inference checks, the time of one step and its
      parts, a profiled step, and the same step under ``attn_backend: xla``;
  11. K1b (the causal form of K1 and K1-bwd: the forward, dk/dv and dq
@@ -78,7 +86,8 @@ Phases, each of which fails the run with a non-zero exit:
      2 heads, 4+4 blocks, ``spk_embed_dim`` 192 ``add``) with
      ``conformer_rel_pos_type: latest`` and ``attn_backend: flash``: 16
      requests with a seed-made unit ``spemb`` each through BatchingServer in
-     bf16 (K1r 8 launches a batch), the same model small in f32 against its
+     bf16 (K1r 8 launches a batch, all on the tensor-core kernel), the same
+     model small in f32 against its
      eager path; then phase 8's corpus with a seed-made 192-d ``spkemb`` an
      utterance (4 synthetic speakers) trains 200 steps through
      ``jatts_torch/bin/tts_train.py:run`` (f32, batch 32, warm-up 50), launch
@@ -139,7 +148,10 @@ def ptxas_entry(line: str) -> str:
             args.append("f32")
             rest = rest[1:]
         elif rest.startswith("Lb"):
-            args.append("causal" if rest[2] == "1" else "non-causal")
+            if name.group(1) == "flash_attn_fwd_tc_kernel":  # <D_QK, D_V, BIAS>
+                args.append("bias" if rest[2] == "1" else "no bias")
+            else:
+                args.append("causal" if rest[2] == "1" else "non-causal")
             rest = rest[4:]
         elif rest.startswith("Li"):
             args.append(rest[2:rest.index("E")])
@@ -184,6 +196,35 @@ def time_ms(fn, iters: int = 20, warmup: int = 3, host_clock: bool = False) -> f
     return start.elapsed_time(end) / iters
 
 
+def graph_ms(fn, iters: int = 20, replays: int = 5) -> float:
+    """Mean ms of a call replayed from a CUDA graph of ``iters`` calls:
+    the device's time for the call's kernels without the host's time
+    between launches, which CUDA events over back-to-back calls also count
+    (the wrapper's Python and ctypes work, ~0.05 ms a call)."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm-up off the capture, as capture asks
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (replays * iters)
+
+
 def k1_inputs(b, h, t, d, dtype, with_bias, seed):
     """Main-path-like K1 inputs: bias at the scale of q·kᵀ, varied key
     lengths (cycled over the batch) including a full row, one key and no
@@ -201,14 +242,141 @@ def k1_inputs(b, h, t, d, dtype, with_bias, seed):
     return q, k, v, ab, key_mask, lens
 
 
-def k1_bound_ms(b, h, t, d, elem_bytes, with_bias, dtype_name):
+def k1_bound_ms(b, h, t, d, elem_bytes, with_bias, dtype_name, with_lse=False):
     io = 4 * b * h * t * d * elem_bytes + b * t  # q, k, v, out, key mask
     if with_bias:
         io += b * h * t * t * elem_bytes
+    if with_lse:
+        io += b * h * t * 4
     flops = 4 * b * h * t * t * d  # every key valid in the timing inputs
     t_bytes = io / PEAK_BYTES_S * 1e3
     t_ops = flops / PEAK_FLOPS_S[dtype_name] * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations"), io, flops
+
+
+def tc_cases():
+    """The tensor-core forward's checks: (name, (B, H, Tq, Tk), (d_qk, d_v),
+    bias, key rows as (first valid key, number of valid keys) cycled over
+    the batch). Every form it is built for; T ends inside a tile (1000 = 15
+    x 64 + 40), T = 1, Tq != Tk with an odd Tk (the bias read pair by pair)
+    and a leading key tile with no valid key (skipped), rows that see no
+    key."""
+    from jatts_torch.ops import flash_attention as k1
+
+    ragged = [(0, 1000), (0, 999), (3, 517), (0, 1), (0, 0), (0, 64), (64, 65), (0, 1000)]
+    cases = [(f"d={d} bias={bias}", (8, 2, 1000, 1000), (d, d), bias, ragged)
+             for d in k1.HEAD_DIMS for bias in (False, True)]
+    cases += [(f"K1r {d_qk},{d_v}", (8, 2, 1000, 1000), (d_qk, d_v), False, ragged)
+              for d_qk, d_v in k1.RELPOS_PAIRS]
+    for d_qk, d_v in ((192, 192), k1.RELPOS_PAIRS[-1]):
+        bias = d_qk == d_v
+        cases += [
+            (f"T=1 {d_qk},{d_v}", (2, 2, 1, 1), (d_qk, d_v), bias, [(0, 1), (0, 0)]),
+            (f"Tq!=Tk {d_qk},{d_v}", (2, 2, 70, 203), (d_qk, d_v), bias, [(0, 203), (64, 65)]),
+        ]
+    return cases
+
+
+def check_tc(seed):
+    """The tensor-core forward (bf16, non-causal) against flash_attention_ref
+    in f32 on the same inputs, with and without the log-sum-exp: K1's forms
+    within TOL["bf16"] absolute, K1r's within TOL_K1R["bf16"] of max(1,
+    max|plain|); lse within 1e-4 of max(1, max|lse|); a row that sees no key
+    exactly 0 with lse +inf. Returns the largest |kernel - plain| of K1's
+    forms and of K1r's."""
+    import torch
+
+    from jatts_torch.ops import flash_attention as k1
+
+    worst = {"k1": 0.0, "k1r": 0.0}
+    for i, (name, (b, h, tq, tk), (d_qk, d_v), bias, rows) in enumerate(tc_cases()):
+        g = torch.Generator(device="cuda").manual_seed(seed + i)
+        q = torch.randn(b, h, tq, d_qk, device="cuda", generator=g).bfloat16()
+        k = torch.randn(b, h, tk, d_qk, device="cuda", generator=g).bfloat16()
+        v = torch.randn(b, h, tk, d_v, device="cuda", generator=g).bfloat16()
+        ab = (torch.randn(b, h, tq, tk, device="cuda", generator=g) * math.sqrt(d_qk)).bfloat16() if bias else None
+        pos = torch.arange(tk, device="cuda")
+        key_mask = torch.stack([(pos >= a) & (pos < a + n) for a, n in (rows * b)[:b]])
+        scale = d_v ** -0.5
+        before = (k1.launches_tc, k1.launches, k1.launches_relpos)
+        out, lse_k = k1.flash_attention_fwd(q, k, v, ab, key_mask, scale)
+        out_nolse = k1.flash_attention(q, k, v, ab, key_mask, scale)
+        torch.cuda.synchronize()
+        after = (k1.launches_tc, k1.launches, k1.launches_relpos)
+        form = 1 if d_qk == d_v else 2
+        check(after[0] - before[0] == 2 and after[form] - before[form] == 2,
+              f"tc {name}: launches {before} -> {after}")
+        want, lse = k1.flash_attention_ref(q.float(), k.float(), v.float(),
+                                           None if ab is None else ab.float(), key_mask, scale, return_lse=True)
+        check(bool(torch.equal(out, out_nolse)), f"tc {name}: the forward with and without lse differ")
+        err = (out.float() - want).abs().max().item()
+        if d_qk == d_v:
+            rel, tol = err, TOL["bf16"]
+        else:
+            rel, tol = err / max(1.0, want.abs().max().item()), TOL_K1R["bf16"]
+        none = torch.isinf(lse)
+        lse_err = (lse_k - lse).masked_fill(none, 0.0).abs().max().item()
+        lse_tol = 1e-4 * max(1.0, lse.masked_fill(none, 0.0).abs().max().item())
+        print(f"tc check {name} B,H,Tq,Tk={b},{h},{tq},{tk}: max_abs_err {err:.3e} "
+              f"({'absolute' if d_qk == d_v else f'{rel:.2e} relative'}; tol {tol:.0e}); lse err {lse_err:.1e} "
+              f"(tol {lse_tol:.1e}); rows that see no key {int(none.sum())}", flush=True)
+        check(math.isfinite(err) and rel <= tol, f"tc {name}: err {rel} > {tol}")
+        check(bool(torch.equal(none, torch.isinf(lse_k))) and bool((lse_k[none] > 0).all()),
+              f"tc {name}: +inf lse rows differ")
+        check(lse_err <= lse_tol, f"tc {name}: lse err {lse_err}")
+        check(bool((out.masked_select(none[..., None]) == 0).all()), f"tc {name}: a row that sees no key is not 0")
+        key = "k1" if d_qk == d_v else "k1r"
+        worst[key] = max(worst[key], err)
+    return worst
+
+
+def time_k1_more(seed, where):
+    """K1 at the serving encoder shape (bf16, the tensor-core kernel) and at
+    the FS2 training decoder shape (f32 with the log-sum-exp, the scalar
+    kernel), each beside SDPA with the bias folded into a float mask (mask =
+    ab·scale: SDPA adds its mask after the scale) and the bound; the
+    training shape also beside the plain version."""
+    import torch
+
+    from jatts_torch.ops import flash_attention as k1
+
+    res = {}
+    for key, (b, h, t, d), dtype, dtype_name in (
+        ("enc", (8, 2, 128, 192), torch.bfloat16, "bf16"),
+        ("train", (32, 2, 1024, 192), torch.float32, "f32"),
+    ):
+        q, k, v, ab, _, _ = k1_inputs(b, h, t, d, dtype, True, seed)
+        full = torch.ones(b, t, dtype=torch.bool, device="cuda")
+        scale = d ** -0.5
+        mask = (ab.float() * scale).to(dtype)
+        if key == "enc":
+            kernel_ms = time_ms(lambda: k1.flash_attention(q, k, v, ab, full, scale))
+            plain = None
+            # the call is host-bound here: graph replays tell the kernels apart
+            res["enc_graph"] = (
+                graph_ms(lambda: k1.flash_attention(q, k, v, ab, full, scale)),
+                graph_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+                    q, k, v, attn_mask=mask, scale=scale)),
+            )
+        else:
+            kernel_ms = time_ms(lambda: k1.flash_attention_fwd(q, k, v, ab, full, scale), iters=5, warmup=1)
+            plain = time_ms(lambda: k1.flash_attention_ref(q, k, v, ab, full, scale, return_lse=True),
+                            iters=3, warmup=1)
+        sdpa = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+            q, k, v, attn_mask=mask, scale=scale), iters=5 if key == "train" else 20)
+        bound = k1_bound_ms(b, h, t, d, 2 if dtype_name == "bf16" else 4, True, dtype_name,
+                            with_lse=key == "train")
+        res[key] = {"ms": kernel_ms, "plain_ms": plain, "sdpa_ms": sdpa, "bound": bound}
+        print(
+            f"K1 time {dtype_name} B,H,T,d={b},{h},{t},{d} ({'serving encoder, tensor-core kernel' if key == 'enc' else 'training decoder with lse, scalar kernel'}): "
+            f"kernel {kernel_ms:.4f} ms, plain {'-' if plain is None else f'{plain:.4f} ms'}, sdpa {sdpa:.4f} ms, "
+            + (f"graph replay: kernel {res['enc_graph'][0]:.4f} ms, sdpa {res['enc_graph'][1]:.4f} ms, "
+               if key == "enc" else "")
+            + f"bound {bound[0]:.4f} ms by {bound[1]} ({bound[2] / 1e6:.1f} MB, {bound[3] / 1e9:.2f} GFLOP); {where}",
+            flush=True,
+        )
+        del q, k, v, ab, mask
+    return res
 
 
 # ---------------------------------------------------------------------------
@@ -1042,13 +1210,17 @@ def time_k1r(seed, where):
     with sdpa_kernel(backend):
         serve["sdpa_fwd_ms"] = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
             q, k, v, attn_mask=mask, scale=scale), iters=10)
+        serve["sdpa_graph_ms"] = graph_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+            q, k, v, attn_mask=mask, scale=scale))
+    serve["graph_ms"] = graph_ms(lambda: k1.flash_attention(q, k, v, None, key_mask, scale))
     serve["sdpa_backend"] = backend.name
     serve["bound"] = k1r_bounds_ms(b, h, t, d_qk, d_v, 2, "bf16", with_lse=False)["fwd"]
     print(
-        f"K1r time bf16 B,H,T={b},{h},{t} d_qk,d_v={d_qk},{d_v} (serving decoder): forward kernel "
-        f"{serve['fwd']:.4f} ms (bound {serve['bound'][0]:.4f} ms by {serve['bound'][1]}: "
-        f"{serve['bound'][2] / 1e6:.1f} MB, {serve['bound'][3] / 1e9:.1f} GFLOP); plain {serve['plain_fwd_ms']:.4f} ms; "
-        f"sdpa ({backend.name}, bool key mask) {serve['sdpa_fwd_ms']:.4f} ms; {where}", flush=True,
+        f"K1r time bf16 B,H,T={b},{h},{t} d_qk,d_v={d_qk},{d_v} (serving decoder, tensor-core kernel): forward "
+        f"{serve['fwd']:.4f} ms (graph replay {serve['graph_ms']:.4f} ms; bound {serve['bound'][0]:.4f} ms by "
+        f"{serve['bound'][1]}: {serve['bound'][2] / 1e6:.1f} MB, {serve['bound'][3] / 1e9:.1f} GFLOP); plain "
+        f"{serve['plain_fwd_ms']:.4f} ms; sdpa ({backend.name}, bool key mask) {serve['sdpa_fwd_ms']:.4f} ms "
+        f"(graph replay {serve['sdpa_graph_ms']:.4f} ms); {where}", flush=True,
     )
     res["serve"] = serve
     return res
@@ -1056,11 +1228,12 @@ def time_k1r(seed, where):
 
 def k1r_phase(seed, where):
     """Phase 13: every K1r case, then the times. Returns the largest errors
-    of the forward and the backward and the times."""
-    fwd_err, bwd_err = 0.0, 0.0
+    of the forward by dtype (bf16 runs the tensor-core kernel, f32 the
+    scalar one) and of the backward, and the times."""
+    fwd_err, bwd_err = {"f32": 0.0, "bf16": 0.0}, 0.0
     for i, (name, shape, dims, dtype_name, rows) in enumerate(k1r_cases()):
         fe, be = check_k1r(name, shape, dims, dtype_name, rows, seed + i, against_autograd=(name == "f32"))
-        fwd_err, bwd_err = max(fwd_err, fe), max(bwd_err, be)
+        fwd_err[dtype_name], bwd_err = max(fwd_err[dtype_name], fe), max(bwd_err, be)
     return fwd_err, bwd_err, time_k1r(seed + 100, where)
 
 
@@ -1113,6 +1286,7 @@ def jvs_serving(seed, where):
           f"K1r launches {launches}, K1 {legacy[0]}", flush=True)
     check(launches == 8 * batches and launches > 0, f"K1r launches {launches} != 8 per batch x {batches}")
     check(legacy == (0, 0, 0), f"a d_qk == d_v kernel launched while serving the latest model: {legacy}")
+    check(k1.launches_tc == launches, f"K1r tensor-core launches {k1.launches_tc} != K1r launches {launches}")
     hop = voc.hop_size
     olens = []
     for i, r in enumerate(results):
@@ -1331,6 +1505,7 @@ def training_slice(root, align_paths, freqs, seed, where, which="jsut"):
     torch.cuda.synchronize()
     run_s = time.perf_counter() - t0
     launches, others = sl["counts"](), sl["others"]()
+    check(k1.launches_tc == 0, f"training ({which}, f32) launched the tensor-core kernel {k1.launches_tc} times")
 
     losses = [h["train/loss"] for h in trainer.history]
     batches = trainer.train_loader.sampler.batches
@@ -1536,6 +1711,7 @@ def valle_slice(root, seed, where):
     run_s = time.perf_counter() - t0
     launches = (k1.launches_causal, k1.launches_bwd_dkv_causal, k1.launches_bwd_dq_causal)
     other = (k1.launches, k1.launches_bwd_dkv, k1.launches_bwd_dq)
+    check(k1.launches_tc == 0, f"VALL-E (causal) launched the tensor-core kernel {k1.launches_tc} times")
     layers = trainer.model.n_layers
     loader = trainer.train_loader
     batches = loader.sampler.batches
@@ -1767,15 +1943,17 @@ def main() -> int:
 
     # 2. build
     t0 = time.perf_counter()
-    reports = build.build([k1.KERNEL, k1.KERNEL_BWD, mas.KERNEL])
-    print(f"build: {k1.KERNEL}, {k1.KERNEL_BWD}, {mas.KERNEL} in {time.perf_counter() - t0:.1f} s",
-          flush=True)
+    nvcc_s = {}
+    reports = build.build([k1.KERNEL, k1.KERNEL_TC, k1.KERNEL_BWD, mas.KERNEL], seconds=nvcc_s)
+    print(f"build: {k1.KERNEL}, {k1.KERNEL_TC}, {k1.KERNEL_BWD}, {mas.KERNEL} in "
+          f"{time.perf_counter() - t0:.1f} s (nvcc each: "
+          + ", ".join(f"{n} {sec:.1f} s" for n, sec in nvcc_s.items()) + ")", flush=True)
     for kernel, report in reports.items():
         entry = ""
         for line in report.splitlines():
             if "Compiling entry function" in line:
                 entry = ptxas_entry(line)
-            elif "registers" in line or "spill" in line:
+            elif ("registers" in line or "spill" in line) and "(C75" not in line:
                 print(f"  ptxas {kernel} {entry}: {line.strip()}", flush=True)
 
     # 3. K1 against its plain version at the main path's shapes
@@ -1788,8 +1966,11 @@ def main() -> int:
             ((2, 2, 1000, 192), True),   # ragged edge with bias
         ):
             q, k, v, ab, key_mask, lens = k1_inputs(b, h, t, d, dtype, with_bias, args.seed)
+            tc_before = k1.launches_tc
             got = k1.flash_attention(q, k, v, ab, key_mask)
             torch.cuda.synchronize()
+            check(k1.launches_tc - tc_before == (dtype == torch.bfloat16),
+                  f"K1 {dtype_name}: bf16 must take the tensor-core kernel, f32 the scalar one")
             want = k1.flash_attention_ref(
                 q.float(), k.float(), v.float(), None if ab is None else ab.float(), key_mask
             )
@@ -1803,8 +1984,9 @@ def main() -> int:
             empty = [i for i, n in enumerate(lens) if n == 0]
             check(all(bool((got[i] == 0).all()) for i in empty), "K1: a row with no valid key is not 0")
             max_err[dtype_name] = max(max_err[dtype_name], err)
+    tc_err = check_tc(args.seed)
 
-    # 4. timing at the decoder shape, bf16
+    # 4. timing at the decoder shape, bf16 (the tensor-core kernel)
     b, h, t, d = 8, 2, 1024, 192
     q, k, v, ab, _, _ = k1_inputs(b, h, t, d, torch.bfloat16, True, args.seed + 1)
     full = torch.ones(b, t, dtype=torch.bool, device="cuda")
@@ -1816,13 +1998,18 @@ def main() -> int:
     library_ms = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
         q, k, v, attn_mask=sdpa_mask, scale=scale))
     bound_ms, bound_by, io, flops = k1_bound_ms(b, h, t, d, 2, True, "bf16")
+    graph_k1_ms = graph_ms(lambda: k1.flash_attention(q, k, v, ab, full, scale))
+    library_graph_ms = graph_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+        q, k, v, attn_mask=sdpa_mask, scale=scale))
     print(
-        f"K1 time bf16 B,H,T,d={b},{h},{t},{d}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-        f"sdpa {library_ms:.4f} ms, bound {bound_ms:.4f} ms by {bound_by} "
+        f"K1 time bf16 B,H,T,d={b},{h},{t},{d} (serving decoder, tensor-core kernel): kernel {ms:.4f} ms "
+        f"(graph replay {graph_k1_ms:.4f} ms), plain {plain_ms:.4f} ms, sdpa {library_ms:.4f} ms (graph replay "
+        f"{library_graph_ms:.4f} ms), bound {bound_ms:.4f} ms by {bound_by} "
         f"({io / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP); {smi_line}", flush=True,
     )
     del q, k, v, ab, sdpa_mask
     where = smi_line
+    k1_more = time_k1_more(args.seed + 4, where)
 
     # 5. K2 and K3 against their plain versions
     cases = mas_cases(args.seed)
@@ -1871,6 +2058,9 @@ def main() -> int:
     )
     check(launches > 0, "K1 was not launched on the main path")
     check(launches == 8 * batches, f"K1 launches {launches} != 8 per batch x {batches}")
+    serve_tc = k1.launches_tc
+    print(f"K1 launches on the tensor-core kernel: {serve_tc} of {launches}", flush=True)
+    check(serve_tc == launches, f"{launches - serve_tc} bf16 K1 launches missed the tensor-core kernel")
 
     hop = voc.hop_size
     olens = []
@@ -2002,19 +2192,54 @@ def main() -> int:
     bwd_row = {"route": "cuda", "source": "jatts_torch/csrc/flash_attn_bwd.cu",
                "max_abs_err": max(bwd_err.values()), "plain_ms": bwd_times["plain_ms"],
                "library_ms": bwd_times["library_ms"]}
+    train_k1 = k1_more["train"]
     record = {"kernels": [{
         "name": k1.KERNEL,
         "route": "cuda",
         "source": "jatts_torch/csrc/flash_attn_fwd.cu",
         "replaces": "jatts_tpu/modules/attention.py:158",
-        "launches": launches + train_launches[0],
-        "launches_by_path": {"serving": launches, "training": train_launches[0]},
-        "max_abs_err": max(max_err.values()),
+        # f32 and causal only now: the bf16 serving launches are the
+        # tensor-core kernel's; timed at the FS2 training decoder (f32, lse)
+        "launches": launches - serve_tc + train_launches[0],
+        "launches_by_path": {"serving": launches - serve_tc, "training": train_launches[0]},
+        "max_abs_err": max_err["f32"],
+        "ms": train_k1["ms"],
+        "plain_ms": train_k1["plain_ms"],
+        "bound_ms": train_k1["bound"][0],
+        "bound_by": train_k1["bound"][1],
+        "library_ms": train_k1["sdpa_ms"],
+    }, {
+        "name": k1.KERNEL_TC,
+        "route": "cuda",
+        "source": "jatts_torch/csrc/flash_attn_fwd_tc.cu",
+        "replaces": "jatts_tpu/modules/attention.py:158",
+        "launches": serve_tc,
+        "max_abs_err": max(max_err["bf16"], tc_err["k1"]),
         "ms": ms,
         "plain_ms": plain_ms,
         "bound_ms": bound_ms,
         "bound_by": bound_by,
         "library_ms": library_ms,
+        # a call replayed from a CUDA graph, without the host's time between launches
+        "graph_ms": graph_k1_ms,
+        "library_graph_ms": library_graph_ms,
+        "encoder": {"ms": k1_more["enc"]["ms"], "graph_ms": k1_more["enc_graph"][0],
+                    "bound_ms": k1_more["enc"]["bound"][0], "library_ms": k1_more["enc"]["sdpa_ms"],
+                    "library_graph_ms": k1_more["enc_graph"][1]},
+    }, {
+        "name": f"{k1.KERNEL_TC}_relpos",
+        "route": "cuda",
+        "source": "jatts_torch/csrc/flash_attn_fwd_tc.cu",
+        "replaces": "jatts_tpu/modules/attention.py:372",
+        "launches": jvs_serve_launches,
+        "max_abs_err": max(k1r_fwd_err["bf16"], tc_err["k1r"]),
+        "ms": k1r_times["serve"]["fwd"],
+        "plain_ms": k1r_times["serve"]["plain_fwd_ms"],
+        "bound_ms": k1r_times["serve"]["bound"][0],
+        "bound_by": k1r_times["serve"]["bound"][1],
+        "library_ms": k1r_times["serve"]["sdpa_fwd_ms"],
+        "graph_ms": k1r_times["serve"]["graph_ms"],
+        "library_graph_ms": k1r_times["serve"]["sdpa_graph_ms"],
     }, {
         "name": "flash_attn_bwd_dkv",
         "replaces": "jax/experimental/pallas/ops/tpu/flash_attention.py:1121",
@@ -2053,7 +2278,8 @@ def main() -> int:
         "bound_ms": k1r_times["bounds"][key][0], "bound_by": k1r_times["bounds"][key][1],
         "library_ms": k1r_times["sdpa_fwd_ms" if key == "fwd" else "sdpa_ms"],
     } for name, src, line, key, n_serve, n_train, err in (
-        ("flash_attn_fwd", "flash_attn_fwd.cu", 758, "fwd", jvs_serve_launches, jvs_launches[0], k1r_fwd_err),
+        # the scalar K1r forward runs f32 only: the bf16 serving launches are the tensor-core kernel's
+        ("flash_attn_fwd", "flash_attn_fwd.cu", 758, "fwd", 0, jvs_launches[0], k1r_fwd_err["f32"]),
         ("flash_attn_bwd_dkv", "flash_attn_bwd.cu", 1121, "dkv", 0, jvs_launches[1], k1r_bwd_err),
         ("flash_attn_bwd_dq", "flash_attn_bwd.cu", 1456, "dq", 0, jvs_launches[2], k1r_bwd_err),
     )]}

@@ -7,7 +7,10 @@
 //     out = softmax((q . k^T + ab) * sm_scale) . v      over valid keys
 //
 // with the bias added BEFORE the scale, as the TPU kernel does. No dropout,
-// f32 accumulation; q/k/v/ab/out in f32 or bf16 (one type).
+// f32 accumulation; q/k/v/ab/out in f32 or bf16 (one type). The bf16
+// non-causal forms of K1 and K1r (the served paths) are no longer built
+// here: flash_attn_fwd_tc.cu runs them on the tensor cores. This file keeps
+// f32 (K1, K1r) and the causal form (K1b, f32 and bf16).
 //
 // Causal form (K1b, the `causal=True` path of the same pallas_call: causal
 // block skip at flash_attention.py:379, element mask :426-434): with Tq ==
@@ -468,19 +471,18 @@ cudaError_t dispatch_relpos(const void* q, const void* k, const void* v, const v
 // valid) or null; lse: [B, H, Tq] f32 or null. All contiguous, one element
 // type (is_bf16 ? bf16 : f32) but lse. Dqk == Dv takes K1 (causal != 0: K1b,
 // which needs Tq == Tk); Dqk != Dv takes K1r, which needs no bias and no
-// causal form and a (Dqk, Dv) pair it was built for. Returns a cudaError_t
-// (0 = launched).
+// causal form and a (Dqk, Dv) pair it was built for. bf16 takes only the
+// causal form here: every bf16 non-causal call is jatts_flash_attn_fwd_tc's
+// (flash_attn_fwd_tc.cu). Returns a cudaError_t (0 = launched).
 extern "C" int jatts_flash_attn_fwd(const void* q, const void* k, const void* v,
                                     const void* ab, const void* key_mask, void* out,
                                     void* lse, int B, int H, int Tq, int Tk, int Dqk, int Dv,
                                     int is_bf16, int causal, float sm_scale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* l = static_cast<float*>(lse);
+  // the bf16 non-causal forms are flash_attn_fwd_tc.cu's (tensor cores)
   if (Dqk != Dv) {
-    if (ab != nullptr || causal) return (int)cudaErrorInvalidValue;
-    if (is_bf16)
-      return (int)dispatch_relpos<__nv_bfloat16>(q, k, v, key_mask, out, l, B, H, Tq, Tk, Dqk,
-                                                 Dv, sm_scale, s);
+    if (ab != nullptr || causal || is_bf16) return (int)cudaErrorInvalidValue;
     return (int)dispatch_relpos<float>(q, k, v, key_mask, out, l, B, H, Tq, Tk, Dqk, Dv,
                                        sm_scale, s);
   }
@@ -490,6 +492,7 @@ extern "C" int jatts_flash_attn_fwd(const void* q, const void* k, const void* v,
     return (int)dispatch_t<true>(q, k, v, ab, key_mask, out, l, B, H, Tq, Tk, D, is_bf16,
                                  sm_scale, s);
   }
-  return (int)dispatch_t<false>(q, k, v, ab, key_mask, out, l, B, H, Tq, Tk, D, is_bf16,
-                                sm_scale, s);
+  if (is_bf16) return (int)cudaErrorInvalidValue;
+  return (int)dispatch_d<float, false>(q, k, v, ab, key_mask, out, l, B, H, Tq, Tk, D, sm_scale,
+                                       s);
 }

@@ -17,8 +17,10 @@ import hashlib
 import os
 import shutil
 import subprocess
+import tempfile
+import time
 from pathlib import Path
-from typing import Dict, Iterable
+from typing import Dict, Iterable, Optional
 
 CSRC_DIR = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
@@ -53,10 +55,11 @@ def nvcc_command(name: str, out: Path) -> list:
     return [nvcc_path(), *NVCC_FLAGS, "-o", str(out), str(CSRC_DIR / f"{name}.cu")]
 
 
-def build(names: Iterable[str]) -> Dict[str, str]:
+def build(names: Iterable[str], seconds: Optional[Dict[str, float]] = None) -> Dict[str, str]:
     """Compile every named kernel that is not built yet, all ``nvcc`` runs
     in parallel. Returns name -> the compiler's report (``-Xptxas -v``:
-    registers, shared memory, spills; empty when the library was cached).
+    registers, shared memory, spills; empty when the library was cached);
+    ``seconds``, when given, gets name -> the wall seconds of its ``nvcc``.
     Raises with the compiler's output if any build fails."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     running = {}
@@ -67,20 +70,26 @@ def build(names: Iterable[str]) -> Dict[str, str]:
             reports[name] = ""
             continue
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        proc = subprocess.Popen(
-            nvcc_command(name, tmp),
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
-        )
-        running[name] = (proc, tmp, out)
+        log = tempfile.TemporaryFile(mode="w+")  # a pipe could fill and stall nvcc
+        proc = subprocess.Popen(nvcc_command(name, tmp), stdout=log, stderr=subprocess.STDOUT, text=True)
+        running[name] = (proc, tmp, out, log, time.perf_counter())
     failed = []
-    for name, (proc, tmp, out) in running.items():
-        log, _ = proc.communicate()
-        reports[name] = log
-        if proc.returncode != 0:
-            failed.append(f"{name}: nvcc exited {proc.returncode}\n{log}")
-            tmp.unlink(missing_ok=True)
-        else:
-            os.replace(tmp, out)  # atomic: a concurrent loader sees all or nothing
+    while running:
+        for name, (proc, tmp, out, log, t0) in list(running.items()):
+            if proc.poll() is None:
+                continue
+            del running[name]
+            if seconds is not None:
+                seconds[name] = time.perf_counter() - t0
+            log.seek(0)
+            reports[name] = log.read()
+            log.close()
+            if proc.returncode != 0:
+                failed.append(f"{name}: nvcc exited {proc.returncode}\n{reports[name]}")
+                tmp.unlink(missing_ok=True)
+            else:
+                os.replace(tmp, out)  # atomic: a concurrent loader sees all or nothing
+        time.sleep(0.05)
     if failed:
         raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
     return reports

@@ -1,6 +1,8 @@
-"""K1 — flash-attention forward (``csrc/flash_attn_fwd.cu``), K1-bwd — its
-backward (``csrc/flash_attn_bwd.cu``), K1b — the causal form of both, K1r —
-the fused rel-pos form of both (d_qk != d_v), and their plain twins.
+"""K1 — flash-attention forward (``csrc/flash_attn_fwd.cu``; its bf16
+non-causal forms on the tensor cores in ``csrc/flash_attn_fwd_tc.cu``),
+K1-bwd — its backward (``csrc/flash_attn_bwd.cu``), K1b — the causal form of
+both, K1r — the fused rel-pos form of both (d_qk != d_v), and their plain
+twins.
 
 Replaces the Pallas TPU flash-attention forward that
 ``jatts_tpu/modules/attention.py:_flash_attend`` drives. Function, per
@@ -31,8 +33,11 @@ then dq and d(ab)), as the JAX package's flash path trains through the
 Pallas custom VJP. ``launches``, ``launches_bwd_dkv`` and ``launches_bwd_dq``
 count the non-causal kernel launches at d_qk == d_v, the ``*_causal``
 counters the causal ones and the ``*_relpos`` counters K1r's (and nothing
-else), so a run can show that it went through the kernels. See the source
-notes in the ``.cu`` files for the bounds.
+else), so a run can show that it went through the kernels. Which forward
+kernel a call takes is :func:`fwd_kernel`'s one rule: bf16 and not causal
+goes to the tensor-core kernel (``launches_tc`` counts it, besides
+``launches`` or ``launches_relpos``), f32 or causal to the scalar one. See
+the source notes in the ``.cu`` files for the bounds.
 """
 
 from __future__ import annotations
@@ -46,6 +51,7 @@ from jatts_torch.ops import build
 
 KERNEL = "flash_attn_fwd"
 KERNEL_BWD = "flash_attn_bwd"
+KERNEL_TC = "flash_attn_fwd_tc"
 HEAD_DIMS = (64, 128, 192, 256)
 # K1r's (d_qk, d_v) = (d_k + n_feat, d_k): 2 heads of 64 (adim 128) and of
 # 192 (adim 384, the JSUT/JVS width)
@@ -61,6 +67,7 @@ launches_causal = 0  # K1b, causal forward
 launches_bwd_dkv_causal = 0  # K1b, causal dk/dv kernel
 launches_bwd_dq_causal = 0  # K1b, causal dq/d(ab) kernel
 launches_relpos = 0  # K1r, d_qk != d_v forward
+launches_tc = 0  # forwards (K1 or K1r) that ran on the tensor-core kernel
 launches_bwd_dkv_relpos = 0  # K1r, dk/dv kernel
 launches_bwd_dq_relpos = 0  # K1r, dq kernel
 
@@ -68,8 +75,8 @@ launches_bwd_dq_relpos = 0  # K1r, dq kernel
 def reset_launches() -> None:
     global launches, launches_bwd_dkv, launches_bwd_dq
     global launches_causal, launches_bwd_dkv_causal, launches_bwd_dq_causal
-    global launches_relpos, launches_bwd_dkv_relpos, launches_bwd_dq_relpos
-    launches = launches_bwd_dkv = launches_bwd_dq = 0
+    global launches_relpos, launches_bwd_dkv_relpos, launches_bwd_dq_relpos, launches_tc
+    launches = launches_bwd_dkv = launches_bwd_dq = launches_tc = 0
     launches_causal = launches_bwd_dkv_causal = launches_bwd_dq_causal = 0
     launches_relpos = launches_bwd_dkv_relpos = launches_bwd_dq_relpos = 0
 
@@ -166,8 +173,16 @@ def flash_attention_bwd_ref(q, k, v, ab, key_mask, sm_scale, o, lse, do, causal=
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), dab
 
 
-def _kernel_fn():
-    fn = build.load(KERNEL).jatts_flash_attn_fwd
+def fwd_kernel(dtype: torch.dtype, causal: bool) -> str:
+    """The library a forward on the card takes: ``KERNEL_TC`` (tensor
+    cores) for bf16 and not causal, at every (d_qk, d_v) the wrapper admits,
+    else ``KERNEL`` (scalar: f32, and the causal form)."""
+    return KERNEL_TC if dtype == torch.bfloat16 and not causal else KERNEL
+
+
+def _kernel_fn(name: str):
+    lib = build.load(name)
+    fn = lib.jatts_flash_attn_fwd_tc if name == KERNEL_TC else lib.jatts_flash_attn_fwd
     fn.restype = ctypes.c_int
     # pointers and the stream as c_void_p: without argtypes ctypes would
     # pass them as 32-bit ints and cut them
@@ -231,11 +246,13 @@ def _ptr(t: Optional[torch.Tensor]):
 
 def _launch_fwd(q, k, v, ab, key_mask, sm_scale, with_lse: bool, causal: bool):
     """K1 (K1b with ``causal``, K1r when d_qk != d_v) on checked card
-    tensors -> (out, lse or None)."""
+    tensors, on the kernel :func:`fwd_kernel` picks -> (out, lse or None)."""
+    global launches_tc
     b, h, tq, d = q.shape
     out = q.new_empty(b, h, tq, v.shape[3])
     lse = torch.empty(b, h, tq, device=q.device, dtype=torch.float32) if with_lse else None
-    fn = _kernel_fn()
+    name = fwd_kernel(q.dtype, causal)
+    fn = _kernel_fn(name)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = fn(
@@ -244,8 +261,9 @@ def _launch_fwd(q, k, v, ab, key_mask, sm_scale, with_lse: bool, causal: bool):
             int(q.dtype == torch.bfloat16), int(causal), float(sm_scale), stream,
         )
     if rc != 0:
-        raise RuntimeError(f"flash_attn_fwd launch failed with CUDA error {rc}")
+        raise RuntimeError(f"{name} launch failed with CUDA error {rc}")
     _count("fwd", causal, d != v.shape[3])
+    launches_tc += name == KERNEL_TC
     return out, lse
 
 

@@ -9,10 +9,19 @@ Applied by the trainer right after a model is built, with the model's
   containing "embed", which also covers the pitch/energy embedding
   convolutions, as in the JAX package), norm scales and other 1-dim
   parameters, and the running statistics (buffers) -> left alone;
-- every other parameter with ndim > 1 (linear and conv weights,
-  ``pos_bias_u``/``pos_bias_v``) -> drawn from the chosen initializer with
-  torch's fan convention on the torch layout ``[out, in, k...]``:
-  ``fan_in = in·receptive``, ``fan_out = out·receptive``.
+- every other parameter with ndim > 1 -> drawn from the chosen initializer
+  with the fans the JAX package reads off the same parameter in flax's
+  layout, ``receptive = prod(shape[:-2])``, ``fan_in = shape[-2]·receptive``,
+  ``fan_out = shape[-1]·receptive``:
+
+  - weights of ``nn.Linear`` and ``nn.Conv{1,2}d`` (torch ``[out, in,
+    k...]``, flax ``[k..., in, out]``) and of ``nn.ConvTranspose{1,2}d``
+    (torch ``[in, out, k...]``, flax ``[k..., out, in]``, the mapping of
+    ``jatts_tpu/vocoder/convert.py:_convT_w``) are read in that flax
+    layout: ``fan_in = shape[1]·receptive``, ``fan_out =
+    shape[0]·receptive`` of the torch shape, torch's own reading;
+  - any other parameter (``pos_bias_u``/``pos_bias_v`` ``[H, d_k]``) is
+    stored as flax stores it and is read as it stands: ``fan_in = H``.
 
 Draws come from a ``torch.Generator`` seeded by the caller; they are not
 jax.random's bits.
@@ -27,13 +36,25 @@ import torch
 from torch import nn
 
 
+# modules whose weight torch keeps in another layout than flax's
+_TORCH_LAYOUT = (nn.Linear, nn.Conv1d, nn.Conv2d, nn.ConvTranspose1d, nn.ConvTranspose2d)
+
+
 def _fans(shape) -> tuple:
-    receptive = math.prod(shape[2:]) if len(shape) > 2 else 1
-    return shape[1] * receptive, shape[0] * receptive
+    """The JAX package's fans of a flax-layout shape ``[k..., in, out]``."""
+    receptive = math.prod(shape[:-2]) if len(shape) > 2 else 1
+    return shape[-2] * receptive, shape[-1] * receptive
 
 
-def _draw(shape, init_type: str, generator: torch.Generator) -> torch.Tensor:
-    fan_in, fan_out = _fans(shape)
+def flax_shape(shape) -> tuple:
+    """A torch Linear/Conv/ConvTranspose weight's shape in flax's layout:
+    ``[a, b, k...]`` -> ``[k..., b, a]`` (Conv ``[out, in, k]`` -> ``[k, in,
+    out]``, ConvTranspose ``[in, out, k]`` -> ``[k, out, in]``)."""
+    return tuple(shape[2:]) + (shape[1], shape[0])
+
+
+def _draw(shape, fan_shape, init_type: str, generator: torch.Generator) -> torch.Tensor:
+    fan_in, fan_out = _fans(fan_shape)
     if init_type == "xavier_uniform":
         bound = math.sqrt(6.0 / (fan_in + fan_out))
         return (torch.rand(shape, generator=generator) * 2.0 - 1.0) * bound
@@ -57,6 +78,7 @@ def initialize(model: nn.Module, init_type: Optional[str], seed: int = 0) -> nn.
         return model
     g = torch.Generator().manual_seed(seed)
     tables = {id(m.weight) for m in model.modules() if isinstance(m, nn.Embedding)}
+    torch_layout = {id(m.weight) for m in model.modules() if isinstance(m, _TORCH_LAYOUT)}
     for name, param in model.named_parameters():
         parts = name.split(".")
         if parts[-1] == "bias":
@@ -64,5 +86,7 @@ def initialize(model: nn.Module, init_type: Optional[str], seed: int = 0) -> nn.
         elif param.ndim <= 1 or id(param) in tables or any("embed" in p.lower() for p in parts[:-1]):
             continue
         else:
-            param.copy_(_draw(tuple(param.shape), init_type, g).to(param.dtype))
+            shape = tuple(param.shape)
+            fan_shape = flax_shape(shape) if id(param) in torch_layout else shape
+            param.copy_(_draw(shape, fan_shape, init_type, g).to(param.dtype))
     return model
