@@ -6,7 +6,8 @@
 Phases, each of which fails the run with a non-zero exit:
   1. device: name, count and ``nvidia-smi`` name/power limit;
   2. build every hand-written kernel from ``jatts_torch/csrc`` (one ``nvcc``
-     per source, all at once; each one's seconds and ptxas report printed);
+     per source, all at once; each one's seconds and ptxas report printed;
+     a register spill in a tensor-core kernel fails the run);
   3. K1 (flash attention) against its plain PyTorch version on the card at
      the serving path's shapes, f32 (TF32 off, the scalar kernel) and bf16
      (the tensor-core kernel, ``flash_attn_fwd_tc.cu``), error beside
@@ -56,18 +57,28 @@ Phases, each of which fails the run with a non-zero exit:
      checkpoint/resume and inference checks, the time of one step and its
      parts, a profiled step, and the same step under ``attn_backend: xla``;
  11. K1b (the causal form of K1 and K1-bwd: the forward, dk/dv and dq
-     kernels) against their plain versions at VALL-E's attention shape in
-     bf16 with a ragged key mask, in f32, at a T that ends inside a diagonal
-     tile, at T = 1, at d = 192 with a bias, and with rows that see no key;
-     then their times at VALL-E's shape beside the plain versions', SDPA's
-     with a boolean causal and key-padding mask (the yardstick, never used
-     by the port) and the bounds;
+     kernels; in bf16 the forward on the tensor cores, ``flash_attn_fwd_tc.cu``,
+     and at d 64 without bias dk/dv too, ``flash_attn_bwd_tc.cu``, each
+     launch checked from the counters) against their plain versions at
+     VALL-E's attention shape in bf16 with a ragged key mask, in f32, at a T
+     that ends inside a diagonal tile, at T = 1, at d = 192 with a bias, and
+     with rows that see no key (bf16 and f32; each output within its
+     tolerance of every batch item's own magnitude; unseen rows and keys
+     exactly 0); FlashAttention forward + backward in bf16 at VALL-E's shape against
+     autograd through the plain forward (the tensor-core lse feeding both
+     backward kernels); then their times at VALL-E's shape by CUDA events
+     and graph replays beside the plain versions', two SDPA yardsticks
+     (never used by the port: a boolean causal and key-padding mask, and
+     ``is_causal`` without a mask; the backend printed) and the bounds, the
+     non-causal forward over 1, 9 and 17 key tiles a block beside the
+     causal one, and the scalar forward and dk/dv, now f32 only, in f32;
  12. the VALL-E AR slice: a synthetic 64-utterance codec corpus (.npz
      dumps) trains through ``jatts_torch/bin/tts_train.py:run`` on
      egs/hificaptain_jp_female/tts3/conf/valle_ar.given.bs32.yaml as it
      stands (d_model 1024, 16 heads, 12 layers, bf16 compute, batch 16 x
      accumulation 2, AdamW) with ``attn_backend: flash`` for 200 steps
-     (warm-up 50), launch counts set to 0 just before and read just after;
+     (warm-up 50), launch counts set to 0 just before and read just after
+     (every K1b forward and dk/dv on the tensor-core kernels, 12 a step);
      then the loss, launch and bitwise-resume checks, the time of a step and
      its parts, a profiled step, K1b at the batch's own shape, the same step
      under ``attn_backend: xla``; then ``ar_generate`` from the trained model
@@ -106,6 +117,7 @@ import argparse
 import json
 import math
 import re
+import statistics
 import subprocess
 import sys
 import tempfile
@@ -148,8 +160,8 @@ def ptxas_entry(line: str) -> str:
             args.append("f32")
             rest = rest[1:]
         elif rest.startswith("Lb"):
-            if name.group(1) == "flash_attn_fwd_tc_kernel":  # <D_QK, D_V, BIAS>
-                args.append("bias" if rest[2] == "1" else "no bias")
+            if name.group(1) == "flash_attn_fwd_tc_kernel" and "bias" not in " ".join(args):
+                args.append("bias" if rest[2] == "1" else "no bias")  # <D_QK, D_V, BIAS, CAUSAL>
             else:
                 args.append("causal" if rest[2] == "1" else "non-causal")
             rest = rest[4:]
@@ -840,11 +852,13 @@ def k1b_cases():
         ("ragged T", (3, 2, 1000, 64), "f32", False, [(0, 1000), (0, 999), (0, 517)]),
         ("ragged T bf16", (3, 2, 1000, 64), "bf16", False, [(0, 1000), (0, 999), (0, 517)]),
         ("T=1", (2, 2, 1, 64), "f32", False, [(0, 1), (0, 0)]),
+        ("T=1 bf16", (2, 2, 1, 64), "bf16", False, [(0, 1), (0, 0)]),
         ("d=192 bias", (2, 2, 300, 192), "f32", True, [(0, 300), (0, 250)]),
         ("d=192 bias bf16", (2, 2, 300, 192), "bf16", True, [(0, 300), (0, 250)]),
         # rows 0..36 of the second item see no valid key (its keys start at 37),
         # the third sees none at all
         ("rows without a key", (3, 2, 200, 64), "f32", False, [(0, 200), (37, 100), (0, 0)]),
+        ("rows without a key bf16", (3, 2, 200, 64), "bf16", False, [(0, 200), (37, 100), (0, 0)]),
     ]
 
 
@@ -860,12 +874,34 @@ def k1b_inputs(shape, dtype, with_bias, rows, seed):
     return q, k, v, ab, key_mask, do
 
 
+def k1b_on_tc(dtype_name, d, with_bias):
+    """Which K1b kernels a form takes on the card: (forward, dk/dv) on the
+    tensor cores — the forward in bf16, dk/dv in VALL-E's form (bf16, d 64,
+    no bias)."""
+    bf16 = dtype_name == "bf16"
+    return bf16, bf16 and d == 64 and not with_bias
+
+
+def item_err(got, want):
+    """The worst batch item's max |got - want| over max(1, max|want|) of
+    that item. Each item is held to its own magnitude: key 0 of an item
+    with one valid key collects every row's dO (|dv| ~ 110 at VALL-E's
+    shape), which a tolerance over the whole tensor would lend to the
+    other items, whose gradients are ~0.1."""
+    err = (got.float() - want.float()).flatten(1).abs().amax(1)
+    return (err / want.float().flatten(1).abs().amax(1).clamp_min(1.0)).max().item()
+
+
 def check_k1b(name, shape, dtype_name, with_bias, rows, seed, against_autograd=False):
     """The three causal kernels against flash_attention_ref /
     flash_attention_bwd_ref(causal=True) on the same inputs (the backward
-    fed the plain forward's o and lse), K1b's lse against the plain one,
-    and rows that see no key 0. Returns the largest |kernel - plain| of
-    the forward and of the backward."""
+    fed the plain forward's o and lse), each output within its tolerance
+    of every batch item's own max(1, max|plain|) (item_err), K1b's lse
+    against the plain one, rows that see no key 0 in the output and dq,
+    keys that no row sees 0 in dk and dv, and each launch on the kernel the
+    dispatch rules give the form (the tensor-core forward for bf16, the
+    tensor-core dk/dv for bf16 at d 64 without bias). Returns the largest
+    |kernel - plain| of each output ("fwd", "dq", "dk", "dv")."""
     import torch
 
     from jatts_torch.ops import flash_attention as k1
@@ -878,66 +914,114 @@ def check_k1b(name, shape, dtype_name, with_bias, rows, seed, against_autograd=F
     def f32(x):
         return None if x is None else x.float()
 
+    before = (k1.launches_tc, k1.launches_bwd_dkv_tc, k1.launches_causal, k1.launches_bwd_dkv_causal)
     out_k, lse_k = k1.flash_attention_fwd(q, k, v, ab, key_mask, scale, causal=True)
     out_nolse = k1.flash_attention(q, k, v, ab, key_mask, scale, causal=True)
     o, lse = k1.flash_attention_ref(f32(q), f32(k), f32(v), f32(ab), key_mask, scale,
                                     return_lse=True, causal=True)
     got = k1.flash_attention_bwd(q, k, v, ab, key_mask, scale, o.to(dtype), lse, do, causal=True)
     torch.cuda.synchronize()
+    ran = tuple(a - b for a, b in zip(
+        (k1.launches_tc, k1.launches_bwd_dkv_tc, k1.launches_causal, k1.launches_bwd_dkv_causal), before))
+    tc_fwd, tc_dkv = k1b_on_tc(dtype_name, d, with_bias)
+    check(ran == (2 * tc_fwd, int(tc_dkv), 2, 1),
+          f"K1b {name}: launches (tc forward, tc dk/dv, causal forward, causal dk/dv) {ran}")
     want = k1.flash_attention_bwd_ref(f32(q), f32(k), f32(v), f32(ab), key_mask, scale, o, lse,
                                       f32(do), causal=True)
     check(bool(torch.equal(out_k, out_nolse)), f"K1b {name}: the forward with and without lse differ")
-    # relative to max(1, max|plain|): a row that sees few keys carries |v| (up to ~5 here)
     fwd_err = (out_k.float() - o).abs().max().item()
-    fwd_tol = TOL[dtype_name] * max(1.0, o.abs().max().item())
-    check(math.isfinite(fwd_err) and fwd_err <= fwd_tol, f"K1b {name} forward err {fwd_err} > {fwd_tol}")
+    rel = {"fwd": item_err(out_k, o)}
+    check(math.isfinite(fwd_err) and rel["fwd"] <= TOL[dtype_name],
+          f"K1b {name} forward err {rel['fwd']} x max(1, max|plain| of its item) > {TOL[dtype_name]}")
     seen_none = torch.isinf(lse)
     check(bool(torch.equal(seen_none, torch.isinf(lse_k))), f"K1b {name}: +inf lse rows differ")
     lse_err = (lse_k - lse).masked_fill(seen_none, 0.0).abs().max().item()
     check(lse_err <= 1e-4 * max(1.0, lse.masked_fill(seen_none, 0).abs().max().item()),
           f"K1b {name} lse err {lse_err}")
     tol = TOL_BWD[dtype_name]
-    errs, mags = {}, {}
+    errs = {"fwd": fwd_err}
     for gname, g_, w in zip(("dq", "dk", "dv", "dab"), got, want):
         if w is None:
             check(g_ is None, "K1b wrote d(ab) without a bias")
             continue
         check(bool(torch.isfinite(g_).all()), f"K1b {name} {gname} not finite")
-        mags[gname] = max(1.0, w.abs().max().item())
         errs[gname] = (g_.float() - w).abs().max().item()
-        check(errs[gname] <= tol * mags[gname],
-              f"K1b {name} {gname} err {errs[gname]} > {tol} x {mags[gname]}")
-    # rows that see no key: output and dq exactly 0
+        rel[gname] = item_err(g_, w)
+        check(rel[gname] <= tol,
+              f"K1b {name} {gname} err {rel[gname]} x max(1, max|plain| of its item) > {tol}")
+    # rows that see no key: output and dq exactly 0; keys that no row sees
+    # (causal: a valid key j is seen by row j, so the masked ones): dk, dv 0
     zero_rows = seen_none[..., None].expand_as(out_k)
     check(bool((out_k[zero_rows] == 0).all()) and bool((got[0][zero_rows] == 0).all()),
           f"K1b {name}: a row that sees no key is not 0")
-    line = ", ".join(f"{n} {errs[n]:.2e}" for n in errs)
+    unseen = ~key_mask[:, None, :, None].expand_as(got[1])
+    check(bool((got[1][unseen] == 0).all()) and bool((got[2][unseen] == 0).all()),
+          f"K1b {name}: dk or dv of a key that no row sees is not 0")
+    line = ", ".join(f"{n} {errs[n]:.2e} ({rel[n]:.2e})" for n in errs)
     print(
-        f"K1b check {name} {dtype_name} B,H,T,d={','.join(map(str, shape))} bias={with_bias}: forward "
-        f"max_abs_err {fwd_err:.2e} (tol {TOL[dtype_name]:.0e} x max(1, max|plain|) = {fwd_tol:.1e}); "
-        f"backward {line} (tol {tol:.0e} x "
-        f"max(1, max|plain|) = {tol * max(mags.values()):.1e}); lse err {lse_err:.1e}; rows that "
-        f"see no key {int(seen_none.sum())}", flush=True,
+        f"K1b check {name} {dtype_name} B,H,T,d={','.join(map(str, shape))} bias={with_bias} (forward on "
+        f"{'tensor cores' if tc_fwd else 'CUDA cores'}, dk/dv on {'tensor cores' if tc_dkv else 'CUDA cores'}): "
+        f"max_abs_err (worst item's over max(1, max|plain| of the item)) {line}; tol {TOL[dtype_name]:.0e} "
+        f"forward, {tol:.0e} backward; lse err {lse_err:.1e}; rows that see no key {int(seen_none.sum())}, "
+        f"keys that no row sees {int((~key_mask).sum()) * shape[1]}", flush=True,
     )
     if against_autograd:
         leaves = [x.float().detach().requires_grad_() for x in (q, k, v)]
         out = k1.flash_attention_ref(*leaves, f32(ab), key_mask, scale, causal=True)
         ag = torch.autograd.grad(out, leaves, do.float())
-        ag_err = max((g_.float() - a).abs().max().item() for g_, a in zip(got, ag))
-        print(f"K1b backward vs autograd through the plain causal forward: max_abs_err {ag_err:.2e} "
-              f"(tol {tol * max(mags.values()):.1e})", flush=True)
-        check(ag_err <= tol * max(mags.values()), "K1b backward disagrees with autograd")
-    return fwd_err, max(errs.values())
+        ag_rel = max(item_err(g_, a) for g_, a in zip(got, ag))
+        print(f"K1b backward vs autograd through the plain causal forward: worst item's max_abs_err over "
+              f"max(1, max|plain| of the item) {ag_rel:.2e} (tol {tol:.0e})", flush=True)
+        check(ag_rel <= tol, "K1b backward disagrees with autograd")
+    return errs
 
 
-def k1b_bounds_ms(b, h, t, d, elem):
-    """Least times of the three causal kernels with every key valid, bf16
-    products at the tensor cores' rate: the forward needs the causal half
-    of 2 products (4·B·H·T²·d/2 FLOP), the backward 2.5x that (dk/dv: the
-    scores again, dp, dv, dk; dq: the scores again, dp, dq; split 4:3 as
-    the two kernels do them). Bytes: each input read once, each output
-    written once (q, k, v, o, do, dq, dk, dv in the working type; lse, di
-    f32; the key mask)."""
+def check_k1b_chain(shape, rows, seed):
+    """The autograd chain of VALL-E's attention in bf16: FlashAttention (the
+    tensor-core forward, whose output and lse feed the tensor-core dk/dv and
+    the scalar dq) forward and backward, against autograd through the plain
+    causal forward in f32 on the same inputs. The output within TOL["bf16"]
+    and each gradient within TOL_BWD["bf16"] of every batch item's own
+    max(1, max|plain|) (item_err). Returns the largest |kernel - plain| of
+    the output and of dq, dk, dv."""
+    import torch
+
+    from jatts_torch.ops import flash_attention as k1
+
+    q, k, v, _, key_mask, do = k1b_inputs(shape, torch.bfloat16, False, rows, seed)
+    scale = shape[3] ** -0.5
+    leaves = [x.detach().requires_grad_() for x in (q, k, v)]
+    before = (k1.launches_tc, k1.launches_bwd_dkv_tc, k1.launches_bwd_dq_causal)
+    out = k1.flash_attention(*leaves, None, key_mask, scale, causal=True)
+    got = torch.autograd.grad(out, leaves, do)
+    torch.cuda.synchronize()
+    ran = tuple(a - b for a, b in zip((k1.launches_tc, k1.launches_bwd_dkv_tc, k1.launches_bwd_dq_causal), before))
+    check(ran == (1, 1, 1), f"K1b autograd chain: launches (tc forward, tc dk/dv, dq) {ran} != (1, 1, 1)")
+    ref_leaves = [x.float().detach().requires_grad_() for x in (q, k, v)]
+    ref = k1.flash_attention_ref(*ref_leaves, None, key_mask, scale, causal=True)
+    want = torch.autograd.grad(ref, ref_leaves, do.float())
+    errs, parts = {}, []
+    for gname, g_, w, tol in zip(("fwd", "dq", "dk", "dv"), (out.detach(), *got), (ref.detach(), *want),
+                                 (TOL["bf16"], *[TOL_BWD["bf16"]] * 3)):
+        errs[gname] = (g_.float() - w).abs().max().item()
+        rel = item_err(g_, w)
+        parts.append(f"{gname} {errs[gname]:.2e} ({rel:.2e}, tol {tol:.0e})")
+        check(math.isfinite(errs[gname]) and rel <= tol,
+              f"K1b autograd chain: {gname} err {rel} x max(1, max|plain| of its item) > {tol}")
+    print(f"K1b autograd chain bf16 B,H,T,d={','.join(map(str, shape))} (FlashAttention forward + backward vs "
+          f"autograd through the plain causal forward in f32): max_abs_err (worst item's over max(1, max|plain| "
+          f"of the item)) " + ", ".join(parts), flush=True)
+    return errs
+
+
+def k1b_bounds_ms(b, h, t, d, elem, dtype_name="bf16"):
+    """Least times of the three causal kernels with every key valid, at the
+    tensor cores' rate for bf16 and the CUDA cores' for f32: the forward
+    needs the causal half of 2 products (4·B·H·T²·d/2 FLOP), the backward
+    2.5x that (dk/dv: the scores again, dp, dv, dk; dq: the scores again,
+    dp, dq; split 4:3 as the two kernels do them). Bytes: each input read
+    once, each output written once (q, k, v, o, do, dq, dk, dv in the
+    working type; lse, di f32; the key mask)."""
     n = b * h * t * d * elem
     rows = b * h * t * 4
     half = b * h * t * t * d  # 2 products' worth over the causal half = 2 * (2·T²·d / 2)
@@ -948,66 +1032,156 @@ def k1b_bounds_ms(b, h, t, d, elem):
         ("dq", 5 * n + 2 * rows + b * t, 3 * half),
     ):
         t_bytes = nbytes / PEAK_BYTES_S * 1e3
-        t_ops = flops / PEAK_FLOPS_S["bf16"] * 1e3
+        t_ops = flops / PEAK_FLOPS_S[dtype_name] * 1e3
         out[name] = (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations", nbytes, flops)
     return out
 
 
+def sdpa_choice(q, k, v, **kwargs):
+    """The name of the SDPA backend PyTorch's dispatcher picks for these
+    inputs, or "unknown" where this PyTorch does not say."""
+    import torch
+    from torch.nn.attention import SDPBackend
+
+    try:
+        return SDPBackend(torch._fused_sdp_choice(q, k, v, **kwargs)).name
+    except Exception:  # a private entry point: its absence only costs the name
+        return "unknown"
+
+
 def time_k1b(seed, where):
-    """The three causal kernels at VALL-E's shape, bf16, every key valid:
-    beside the plain versions, SDPA with a boolean causal ∧ key-padding mask
-    (forward alone and forward+backward; yardsticks only) and the bounds."""
+    """K1b at VALL-E's shape, every key valid. bf16, the main path's
+    kernels (the tensor-core forward and dk/dv, the scalar dq), by CUDA
+    events and (forward, dk/dv) replayed from a CUDA graph; beside the plain
+    versions, two SDPA yardsticks (never used by the port) — a boolean
+    causal ∧ key-padding mask, and ``is_causal=True`` without a mask (the
+    same function with every key valid), each forward alone and forward +
+    backward, with the backend the dispatcher picks — and the bounds. Then
+    the scalar forward and dk/dv, which now run f32 only, in f32 beside
+    their plain versions, SDPA with the boolean mask and the f32 bounds."""
     import torch
 
     from jatts_torch.ops import flash_attention as k1
 
+    sdpa = torch.nn.functional.scaled_dot_product_attention
     b, h, t, d = VALLE_ATTN
     q, k, v, _, key_mask, do = k1b_inputs(VALLE_ATTN, torch.bfloat16, False, [(0, t)], seed)
     scale = d ** -0.5
     o, lse = k1.flash_attention_fwd(q, k, v, None, key_mask, scale, causal=True)
     di = (o.float() * do.float()).sum(-1)
-    fwd_ms = time_ms(lambda: k1.flash_attention_fwd(q, k, v, None, key_mask, scale, causal=True), iters=10)
-    dkv_ms = time_ms(lambda: k1.flash_attention_bwd_dkv(q, k, v, None, key_mask, scale, lse, di, do,
-                                                        causal=True), iters=10)
-    dq_ms = time_ms(lambda: k1.flash_attention_bwd_dq(q, k, v, None, key_mask, scale, lse, di, do,
-                                                      causal=True), iters=10)
-    plain_fwd_ms = time_ms(lambda: k1.flash_attention_ref(q, k, v, None, key_mask, scale, causal=True),
-                           iters=3, warmup=1)
-    plain_bwd_ms = time_ms(lambda: k1.flash_attention_bwd_ref(q, k, v, None, key_mask, scale, o, lse, do,
-                                                              causal=True), iters=3, warmup=1)
+
+    def fwd():
+        return k1.flash_attention_fwd(q, k, v, None, key_mask, scale, causal=True)
+
+    def dkv():
+        return k1.flash_attention_bwd_dkv(q, k, v, None, key_mask, scale, lse, di, do, causal=True)
+
+    res = {"fwd": time_ms(fwd), "fwd_graph": graph_ms(fwd), "dkv": time_ms(dkv), "dkv_graph": graph_ms(dkv)}
+    # the non-causal form on the same queries with the first 64, 576 and all
+    # 1088 keys: 1, 9 and 17 key tiles in every one of the same 17 x B*H
+    # blocks. The causal call does 153 = 17 x 9 tile pairs a head, the 9-tile
+    # call's work over the same blocks: if the causal form were slow only
+    # for its short blocks, the two would take the same time. A line through
+    # the three splits a block's time into a fixed part and a part a tile.
+    res["fwd_tiles_graph"] = {}
+    for n in (1, 9, 17):
+        kk, vv = k[:, :, :64 * n].contiguous(), v[:, :, :64 * n].contiguous()
+        mk = key_mask[:, :64 * n].contiguous()
+        res["fwd_tiles_graph"][n] = graph_ms(lambda: k1.flash_attention_fwd(q, kk, vv, None, mk, scale))  # noqa: B023
+    res["fwd_full_graph"] = res["fwd_tiles_graph"][17]
+    per_tile, fixed = statistics.linear_regression(list(res["fwd_tiles_graph"]),
+                                                   list(res["fwd_tiles_graph"].values()))
+    res["fwd_fit"] = {"fixed_ms": fixed, "per_tile_ms": per_tile}
+    res["dq"] = time_ms(lambda: k1.flash_attention_bwd_dq(q, k, v, None, key_mask, scale, lse, di, do,
+                                                         causal=True), iters=10)
+    res["plain_fwd_ms"] = time_ms(lambda: k1.flash_attention_ref(q, k, v, None, key_mask, scale, causal=True),
+                                  iters=3, warmup=1)
+    res["plain_bwd_ms"] = time_ms(lambda: k1.flash_attention_bwd_ref(q, k, v, None, key_mask, scale, o, lse, do,
+                                                                     causal=True), iters=3, warmup=1)
     mask = torch.ones(t, t, dtype=torch.bool, device="cuda").tril()[None, None] & key_mask[:, None, None, :]
-    sdpa_fwd_ms = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
-        q, k, v, attn_mask=mask, scale=scale), iters=10)
     qs, ks, vs = (x.detach().requires_grad_() for x in (q, k, v))
+    for key, kwargs in (("sdpa_mask", {"attn_mask": mask}), ("sdpa_causal", {"is_causal": True})):
+        res[f"{key}_backend"] = sdpa_choice(q, k, v, scale=scale, **kwargs)
+        res[f"{key}_fwd_ms"] = time_ms(lambda: sdpa(q, k, v, scale=scale, **kwargs))
+        res[f"{key}_fwd_graph_ms"] = graph_ms(lambda: sdpa(q, k, v, scale=scale, **kwargs))
 
-    def sdpa_fwd_bwd():
-        out = torch.nn.functional.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask, scale=scale)
-        torch.autograd.grad(out, (qs, ks, vs), do)
+        def fwd_bwd():
+            torch.autograd.grad(sdpa(qs, ks, vs, scale=scale, **kwargs), (qs, ks, vs), do)
 
-    sdpa_ms = time_ms(sdpa_fwd_bwd, iters=5, warmup=1)
-    bounds = k1b_bounds_ms(b, h, t, d, 2)
+        res[f"{key}_ms"] = time_ms(fwd_bwd, iters=10, warmup=2)
+    res["bounds"] = k1b_bounds_ms(b, h, t, d, 2, "bf16")
     parts = "; ".join(
-        f"{n} kernel {ms:.4f} ms (bound {bounds[n][0]:.4f} ms by {bounds[n][1]}: "
-        f"{bounds[n][2] / 1e6:.1f} MB, {bounds[n][3] / 1e9:.1f} GFLOP)"
-        for n, ms in (("fwd", fwd_ms), ("dkv", dkv_ms), ("dq", dq_ms))
+        f"{n} kernel {res[n]:.4f} ms{graph} (bound {res['bounds'][n][0]:.4f} ms by {res['bounds'][n][1]}: "
+        f"{res['bounds'][n][2] / 1e6:.1f} MB, {res['bounds'][n][3] / 1e9:.1f} GFLOP)"
+        for n, graph in (("fwd", f", graph {res['fwd_graph']:.4f} ms (non-causal on the same queries with "
+                                 + ", ".join(f"{m} key tiles a block {ms:.4f} ms"
+                                             for m, ms in res["fwd_tiles_graph"].items())
+                                 + f": {res['fwd_fit']['fixed_ms']:.4f} ms + {res['fwd_fit']['per_tile_ms']:.5f} "
+                                 f"ms a tile; causal / 9 tiles {res['fwd_graph'] / res['fwd_tiles_graph'][9]:.3f}x"
+                                 "), tensor cores"),
+                         ("dkv", f", graph {res['dkv_graph']:.4f} ms, tensor cores"), ("dq", ", CUDA cores"))
     )
+    yard = "; ".join(
+        f"sdpa {label} ({res[f'{key}_backend']}) forward {res[f'{key}_fwd_ms']:.4f} ms (graph "
+        f"{res[f'{key}_fwd_graph_ms']:.4f} ms), forward+backward {res[f'{key}_ms']:.4f} ms"
+        for key, label in (("sdpa_mask", "bool causal & key mask"), ("sdpa_causal", "is_causal, no mask")))
     print(
         f"K1b time bf16 causal B,H,T,d={b},{h},{t},{d}, every key valid: {parts}; plain forward "
-        f"{plain_fwd_ms:.4f} ms, plain backward {plain_bwd_ms:.4f} ms; sdpa (bool causal & key mask) "
-        f"forward {sdpa_fwd_ms:.4f} ms, forward+backward {sdpa_ms:.4f} ms; {where}", flush=True,
+        f"{res['plain_fwd_ms']:.4f} ms, plain backward {res['plain_bwd_ms']:.4f} ms; {yard}; {where}", flush=True,
     )
-    return {"fwd": fwd_ms, "dkv": dkv_ms, "dq": dq_ms, "plain_fwd_ms": plain_fwd_ms,
-            "plain_bwd_ms": plain_bwd_ms, "sdpa_fwd_ms": sdpa_fwd_ms, "sdpa_ms": sdpa_ms, "bounds": bounds}
+    del q, k, v, do, o, lse, di, qs, ks, vs
+    # the scalar forward and dk/dv, f32 only now
+    q, k, v, _, key_mask, do = k1b_inputs(VALLE_ATTN, torch.float32, False, [(0, t)], seed)
+    o, lse = k1.flash_attention_fwd(q, k, v, None, key_mask, scale, causal=True)
+    di = (o * do).sum(-1)
+    f32 = {"fwd": time_ms(lambda: k1.flash_attention_fwd(q, k, v, None, key_mask, scale, causal=True),
+                          iters=5, warmup=1),
+           "dkv": time_ms(lambda: k1.flash_attention_bwd_dkv(q, k, v, None, key_mask, scale, lse, di, do,
+                                                             causal=True), iters=5, warmup=1)}
+    f32["plain_fwd_ms"] = time_ms(lambda: k1.flash_attention_ref(q, k, v, None, key_mask, scale, causal=True),
+                                  iters=3, warmup=1)
+    f32["plain_bwd_ms"] = time_ms(lambda: k1.flash_attention_bwd_ref(q, k, v, None, key_mask, scale, o, lse, do,
+                                                                     causal=True), iters=3, warmup=1)
+    f32["sdpa_fwd_ms"] = time_ms(lambda: sdpa(q, k, v, attn_mask=mask, scale=scale), iters=5, warmup=1)
+    qs, ks, vs = (x.detach().requires_grad_() for x in (q, k, v))
+    f32["sdpa_ms"] = time_ms(lambda: torch.autograd.grad(sdpa(qs, ks, vs, attn_mask=mask, scale=scale),
+                                                         (qs, ks, vs), do), iters=3, warmup=1)
+    f32["bounds"] = k1b_bounds_ms(b, h, t, d, 4, "f32")
+    print(
+        f"K1b time f32 causal B,H,T,d={b},{h},{t},{d} (the scalar kernels): "
+        + "; ".join(f"{n} kernel {f32[n]:.4f} ms (bound {f32['bounds'][n][0]:.4f} ms by {f32['bounds'][n][1]})"
+                    for n in ("fwd", "dkv"))
+        + f"; plain forward {f32['plain_fwd_ms']:.4f} ms, plain backward {f32['plain_bwd_ms']:.4f} ms; sdpa "
+        f"(bool causal & key mask) forward {f32['sdpa_fwd_ms']:.4f} ms, forward+backward {f32['sdpa_ms']:.4f} ms; "
+        f"{where}", flush=True,
+    )
+    res["f32"] = f32
+    return res
 
 
 def k1b_phase(seed, where):
-    """Phase 11: every K1b case, then the times. Returns the largest errors
-    of the forward and the backward and the times."""
-    fwd_err, bwd_err = 0.0, 0.0
+    """Phase 11: every K1b case, the bf16 autograd chain at VALL-E's shape,
+    then the times. Returns the largest errors of each output, by the
+    kernel that computed it ("fwd_tc", "fwd", "dkv_tc", "dkv", "dq"), and
+    the times."""
+    errs = dict.fromkeys(("fwd_tc", "fwd", "dkv_tc", "dkv", "dq"), 0.0)
     for i, (name, shape, dtype_name, with_bias, rows) in enumerate(k1b_cases()):
-        fe, be = check_k1b(name, shape, dtype_name, with_bias, rows, seed + i, against_autograd=(name == "f32"))
-        fwd_err, bwd_err = max(fwd_err, fe), max(bwd_err, be)
-    return fwd_err, bwd_err, time_k1b(seed + 100, where)
+        e = check_k1b(name, shape, dtype_name, with_bias, rows, seed + i, against_autograd=(name == "f32"))
+        tc_fwd, tc_dkv = k1b_on_tc(dtype_name, shape[3], with_bias)
+        merge_k1b_errs(errs, e, tc_fwd, tc_dkv)
+    b, h, t, d = VALLE_ATTN
+    chain = check_k1b_chain(VALLE_ATTN, [(0, t), (0, t - 1), (0, 900), (0, 611), (0, 1), (0, 64), (0, 65), (0, 1000)],
+                            seed + 50)
+    merge_k1b_errs(errs, chain, True, True)
+    return errs, time_k1b(seed + 100, where)
+
+
+def merge_k1b_errs(errs, e, tc_fwd, tc_dkv):
+    """Fold one check's errors into the per-kernel maxima of k1b_phase."""
+    fk, dk = ("fwd_tc" if tc_fwd else "fwd"), ("dkv_tc" if tc_dkv else "dkv")
+    errs[fk] = max(errs[fk], e["fwd"])
+    errs[dk] = max(errs[dk], e["dk"], e["dv"])
+    errs["dq"] = max(errs["dq"], e["dq"])
 
 
 # ---------------------------------------------------------------------------
@@ -1674,7 +1848,9 @@ def write_codec_corpus(root, seed, n_utts=64, n_phones=40):
 
 def valle_slice(root, seed, where):
     """Phase 12. Returns the K1b launches of the training run (forward,
-    dk/dv, dq), the own-shape check's errors and the numbers PERF.md needs."""
+    dk/dv, dq; every forward and dk/dv on the tensor-core kernels) and of
+    the f32 flash step (the scalar kernels), the own-shape check's errors
+    and the numbers PERF.md needs."""
     import numpy as np
     import torch
     from torch.autograd import DeviceType
@@ -1711,7 +1887,7 @@ def valle_slice(root, seed, where):
     run_s = time.perf_counter() - t0
     launches = (k1.launches_causal, k1.launches_bwd_dkv_causal, k1.launches_bwd_dq_causal)
     other = (k1.launches, k1.launches_bwd_dkv, k1.launches_bwd_dq)
-    check(k1.launches_tc == 0, f"VALL-E (causal) launched the tensor-core kernel {k1.launches_tc} times")
+    tc = (k1.launches_tc, k1.launches_bwd_dkv_tc)
     layers = trainer.model.n_layers
     loader = trainer.train_loader
     batches = loader.sampler.batches
@@ -1719,7 +1895,8 @@ def valle_slice(root, seed, where):
         f"VALL-E training: {len(loader.dataset)} utterances in {len(batches)} batches of <= "
         f"{config['batch_size']}, {trainer.steps} steps ({trainer.updates} updates) in {run_s:.1f} s; "
         f"launches K1b forward {launches[0]}, dk/dv {launches[1]}, dq {launches[2]} ({layers} a step = "
-        f"{layers * VALLE_STEPS}); non-causal K1/K1-bwd {other}", flush=True,
+        f"{layers * VALLE_STEPS}), of them on the tensor cores: forward {tc[0]}, dk/dv {tc[1]}; non-causal "
+        f"K1/K1-bwd {other}", flush=True,
     )
     check(trainer.steps == VALLE_STEPS, f"trained {trainer.steps} steps")
     check(all(math.isfinite(v) for h in trainer.history for v in h.values()), "a training stat is not finite")
@@ -1731,6 +1908,9 @@ def valle_slice(root, seed, where):
     check(min(launches) > 0, "K1b was not launched in VALL-E training")
     check(launches == (layers * VALLE_STEPS,) * 3 and other == (0, 0, 0),
           f"launches {launches} / {other} != {layers} causal a step each")
+    check(tc == (layers * VALLE_STEPS,) * 2,
+          f"tensor-core launches (forward, dk/dv) {tc} != {layers * VALLE_STEPS} each: every bf16 K1b forward "
+          f"and dk/dv of VALL-E must take the tensor-core kernels")
 
     # the checkpoint, and a resumed trainer
     model_params = dict(trainer.config["model_params"])
@@ -1794,7 +1974,9 @@ def valle_slice(root, seed, where):
     busy_ms = sum(e.self_device_time_total for e in events) / 1e3
     check(busy_ms > 0, "profile of one VALL-E step: the profiler saw no device time")
     k_ms = {name: sum(e.self_device_time_total for e in events if name in e.key) / 1e3
-            for name in ("flash_attn_fwd_kernel", "flash_attn_bwd_dkv_kernel", "flash_attn_bwd_dq_kernel")}
+            for name in ("flash_attn_fwd_tc_kernel", "flash_attn_bwd_dkv_tc_kernel", "flash_attn_bwd_dq_kernel",
+                         "flash_attn_fwd_kernel", "flash_attn_bwd_dkv_kernel")}
+    k1b_ms = sum(k_ms.values())
     print(
         f"VALL-E training micro-step bf16, batch {shape} (B, S packed): whole step {step_ms:.1f} ms (host "
         f"clock, peak memory {peak_gb:.1f} GiB); forward+loss {fwd_ms:.1f} ms, backward {bwd_ms:.1f} ms, "
@@ -1803,8 +1985,11 @@ def valle_slice(root, seed, where):
     print(
         f"profile of one VALL-E micro-step: wall {wall_ms:.1f} ms under the profiler, device busy "
         f"{busy_ms:.1f} ms in {sum(e.count for e in events)} kernels, idle share {1 - busy_ms / wall_ms:.3f}; "
-        f"K1b forward {k_ms['flash_attn_fwd_kernel']:.2f} ms, dk/dv {k_ms['flash_attn_bwd_dkv_kernel']:.2f} "
-        f"ms, dq {k_ms['flash_attn_bwd_dq_kernel']:.2f} ms ({layers} launches each)", flush=True,
+        f"K1b forward {k_ms['flash_attn_fwd_tc_kernel']:.2f} ms (tensor cores), dk/dv "
+        f"{k_ms['flash_attn_bwd_dkv_tc_kernel']:.2f} ms (tensor cores), dq {k_ms['flash_attn_bwd_dq_kernel']:.2f} "
+        f"ms ({layers} launches each; scalar forward {k_ms['flash_attn_fwd_kernel']:.2f} ms, scalar dk/dv "
+        f"{k_ms['flash_attn_bwd_dkv_kernel']:.2f} ms); K1b {k1b_ms:.2f} ms = {k1b_ms / busy_ms:.3f} of the "
+        f"device time", flush=True,
     )
     for e in sorted(events, key=lambda e: -e.self_device_time_total)[:8]:
         print(f"  {e.self_device_time_total / 1e3:8.2f} ms  x{e.count:<5d} {e.key[:90]}")
@@ -1833,13 +2018,17 @@ def valle_slice(root, seed, where):
             k1.reset_launches()
             lss = loss_of(m, batch)
             g = torch.autograd.grad(lss, list(m.parameters()))
-            want = (layers,) * 3 if backend == "flash" else (0, 0, 0)
-            check((k1.launches_causal, k1.launches_bwd_dkv_causal, k1.launches_bwd_dq_causal) == want,
-                  f"{backend} step: K1b launches != {want}")
+            # bf16: the forward and dk/dv on the tensor cores; f32: the scalar kernels
+            n_tc = layers if backend == "flash" and dt == torch.bfloat16 else 0
+            want = (layers,) * 3 + (n_tc,) * 2 if backend == "flash" else (0,) * 5
+            got_launches = (k1.launches_causal, k1.launches_bwd_dkv_causal, k1.launches_bwd_dq_causal,
+                            k1.launches_tc, k1.launches_bwd_dkv_tc)
+            check(got_launches == want, f"{backend} step: K1b launches (forward, dk/dv, dq, tc forward, tc dk/dv) "
+                                        f"{got_launches} != {want}")
             ms = host_ms(lambda: torch.autograd.grad(loss_of(m, batch), list(m.parameters()))) if timed else None
-            pair[backend] = (float(lss.detach()), g, ms)
+            pair[backend] = (float(lss.detach()), g, ms, got_launches)
             del m
-        (lf, gf, f_ms), (lx, gx, x_ms) = pair["flash"], pair["xla"]
+        (lf, gf, f_ms, f_launches), (lx, gx, x_ms, _) = pair["flash"], pair["xla"]
         loss_rel = abs(lf - lx) / abs(lx)
         diff = math.sqrt(sum(float((a - b).double().pow(2).sum()) for a, b in zip(gf, gx)))
         norm = math.sqrt(sum(float(b.double().pow(2).sum()) for b in gx))
@@ -1851,10 +2040,10 @@ def valle_slice(root, seed, where):
             f"/ |g_xla| {diff / norm:.2e} (tol {tol_grad:.0e}){times}", flush=True,
         )
         check(loss_rel <= tol_loss and diff / norm <= tol_grad, f"VALL-E flash and xla steps disagree ({name})")
-        return f_ms, x_ms, diff / norm
+        return f_ms, x_ms, diff / norm, f_launches
 
-    flash_ms, xla_ms, rel_bf16 = step_pair(dtype, tb, 1e-2, 5e-2, True)
-    _, _, rel_f32 = step_pair(torch.float32, small, 1e-4, 1e-3, False)
+    flash_ms, xla_ms, rel_bf16, _ = step_pair(dtype, tb, 1e-2, 5e-2, True)
+    _, _, rel_f32, f32_launches = step_pair(torch.float32, small, 1e-4, 1e-3, False)
 
     # decode: ar_generate from the trained model on 4 dev rows
     dev_set = trainer.dev_loader.dataset
@@ -1890,7 +2079,8 @@ def valle_slice(root, seed, where):
     with torch.no_grad():
         logits, _ = f32m.trunk(*args4, codes[..., None], torch.full((rows,), n, device="cuda"),
                                torch.ones(rows, dtype=torch.long, device="cuda"))
-    check(k1.launches_causal == layers, "the teacher-forced trunk did not run K1b")
+    check(k1.launches_causal == layers and k1.launches_tc == 0,
+          "the teacher-forced f32 trunk did not run the scalar K1b forward")
     start = (db["text_lens"] + db["prom_lens"] + 1)[:, None] + torch.arange(n, device="cuda")[None, :]
     trunk = torch.gather(logits, 1, start[..., None].expand(rows, n, logits.shape[-1]))
     kv_err = (forced["logits"] - trunk).abs().max().item()
@@ -1898,8 +2088,9 @@ def valle_slice(root, seed, where):
     print(f"VALL-E KV-cached decode vs the flash trunk, teacher-forced, f32, {rows} x {n} codes: max_abs_err "
           f"{kv_err:.2e} (tol 1e-3 x max(1, max|trunk|) = {kv_tol:.1e})", flush=True)
     check(kv_err <= kv_tol, "the KV-cached logits disagree with the causal trunk")
-    return launches, own, {"step_ms": step_ms, "run_s": run_s, "k_ms": k_ms, "idle": 1 - busy_ms / wall_ms,
-                           "flash_ms": flash_ms, "xla_ms": xla_ms}
+    return launches, f32_launches[:3], own, {
+        "step_ms": step_ms, "run_s": run_s, "k_ms": k_ms, "k1b_share": k1b_ms / busy_ms,
+        "idle": 1 - busy_ms / wall_ms, "flash_ms": flash_ms, "xla_ms": xla_ms}
 
 
 def main() -> int:
@@ -1944,10 +2135,11 @@ def main() -> int:
     # 2. build
     t0 = time.perf_counter()
     nvcc_s = {}
-    reports = build.build([k1.KERNEL, k1.KERNEL_TC, k1.KERNEL_BWD, mas.KERNEL], seconds=nvcc_s)
-    print(f"build: {k1.KERNEL}, {k1.KERNEL_TC}, {k1.KERNEL_BWD}, {mas.KERNEL} in "
-          f"{time.perf_counter() - t0:.1f} s (nvcc each: "
+    kernels = [k1.KERNEL, k1.KERNEL_TC, k1.KERNEL_BWD, k1.KERNEL_BWD_TC, mas.KERNEL]
+    reports = build.build(kernels, seconds=nvcc_s)
+    print(f"build: {', '.join(kernels)} in {time.perf_counter() - t0:.1f} s (nvcc each: "
           + ", ".join(f"{n} {sec:.1f} s" for n, sec in nvcc_s.items()) + ")", flush=True)
+    spills = []
     for kernel, report in reports.items():
         entry = ""
         for line in report.splitlines():
@@ -1955,6 +2147,12 @@ def main() -> int:
                 entry = ptxas_entry(line)
             elif ("registers" in line or "spill" in line) and "(C75" not in line:
                 print(f"  ptxas {kernel} {entry}: {line.strip()}", flush=True)
+                spilled = re.search(r"(\d+) bytes spill stores", line)
+                if kernel in (k1.KERNEL_TC, k1.KERNEL_BWD_TC) and spilled and int(spilled.group(1)):
+                    spills.append(entry)
+    # the tensor-core kernels hold their accumulators in registers: a spill
+    # there is a design fault, not a slowdown to live with
+    check(not spills, f"ptxas spilled registers in {spills}")
 
     # 3. K1 against its plain version at the main path's shapes
     max_err = {"f32": 0.0, "bf16": 0.0}
@@ -2169,10 +2367,10 @@ def main() -> int:
     train_launches, train = training_slice(tmp.name, align_paths, freqs, args.seed, where)
 
     # 11. K1b against its plain version, then its times
-    k1b_fwd_err, k1b_bwd_err, k1b_times = k1b_phase(args.seed, where)
+    k1b_err, k1b_times = k1b_phase(args.seed, where)
 
     # 12. the VALL-E AR slice
-    valle_launches, valle_own, valle = valle_slice(tmp.name, args.seed, where)
+    valle_launches, valle_f32_launches, valle_own, valle = valle_slice(tmp.name, args.seed, where)
 
     # 13. K1r against its plain version, then its times
     k1r_fwd_err, k1r_bwd_err, k1r_times = k1r_phase(args.seed, where)
@@ -2259,16 +2457,39 @@ def main() -> int:
         "mismatches": mas_mismatches[1] + mas_mismatches[2], "max_abs_err": mas_max_err[1], "ms": k3_ms, "plain_ms": k3_plain_ms,
         "bound_ms": k3_bound_ms, **mas_row,
     }] + [{
-        "name": f"{name}_causal", "route": "cuda", "source": f"jatts_torch/csrc/{src}",
+        "name": name, "route": "cuda", "source": f"jatts_torch/csrc/{src}",
         "replaces": f"jax/experimental/pallas/ops/tpu/flash_attention.py:{line}",
-        "launches": n, "max_abs_err": max(err, own_err), "ms": k1b_times[key],
-        "plain_ms": k1b_times["plain_fwd_ms" if key == "fwd" else "plain_bwd_ms"],
-        "bound_ms": k1b_times["bounds"][key][0], "bound_by": k1b_times["bounds"][key][1],
-        "library_ms": k1b_times["sdpa_fwd_ms" if key == "fwd" else "sdpa_ms"],
-    } for name, src, line, key, n, err, own_err in (
-        ("flash_attn_fwd", "flash_attn_fwd.cu", 758, "fwd", valle_launches[0], k1b_fwd_err, valle_own[0]),
-        ("flash_attn_bwd_dkv", "flash_attn_bwd.cu", 1121, "dkv", valle_launches[1], k1b_bwd_err, valle_own[1]),
-        ("flash_attn_bwd_dq", "flash_attn_bwd.cu", 1456, "dq", valle_launches[2], k1b_bwd_err, valle_own[1]),
+        "launches": n, "launches_by_path": by_path, "max_abs_err": err, "ms": times[key],
+        "plain_ms": times["plain_fwd_ms" if key == "fwd" else "plain_bwd_ms"],
+        "bound_ms": times["bounds"][key][0], "bound_by": times["bounds"][key][1],
+        "library_ms": times[library],
+        **extra,
+    } for name, src, line, key, n, by_path, err, times, library, extra in (
+        # VALL-E's bf16 forms: the tensor-core forward and dk/dv, the scalar dq;
+        # the library call is SDPA with is_causal (every key valid in the timing)
+        ("flash_attn_fwd_tc_causal", "flash_attn_fwd_tc.cu", 758, "fwd", valle_launches[0],
+         {"valle_training": valle_launches[0]}, max(k1b_err["fwd_tc"], valle_own["fwd"]), k1b_times,
+         "sdpa_causal_fwd_ms", {"graph_ms": k1b_times["fwd_graph"],
+                                "noncausal_graph_ms_by_key_tiles": k1b_times["fwd_tiles_graph"],
+                                "library_graph_ms": k1b_times["sdpa_causal_fwd_graph_ms"],
+                                "library_backend": k1b_times["sdpa_causal_backend"],
+                                "library_mask_ms": k1b_times["sdpa_mask_fwd_ms"]}),
+        ("flash_attn_bwd_dkv_tc_causal", "flash_attn_bwd_tc.cu", 1121, "dkv", valle_launches[1],
+         {"valle_training": valle_launches[1]}, max(k1b_err["dkv_tc"], valle_own["dk"], valle_own["dv"]),
+         k1b_times, "sdpa_causal_ms", {"graph_ms": k1b_times["dkv_graph"],
+                                       "library_backend": k1b_times["sdpa_causal_backend"],
+                                       "library_mask_ms": k1b_times["sdpa_mask_ms"]}),
+        ("flash_attn_bwd_dq_causal", "flash_attn_bwd.cu", 1456, "dq", valle_launches[2],
+         {"valle_training": valle_launches[2]}, max(k1b_err["dq"], valle_own["dq"]), k1b_times,
+         "sdpa_causal_ms", {"library_mask_ms": k1b_times["sdpa_mask_ms"]}),
+        # the scalar forward and dk/dv run f32 only now: phase 12's f32 flash
+        # step launches them, and they are timed in f32
+        ("flash_attn_fwd_causal", "flash_attn_fwd.cu", 758, "fwd", valle_f32_launches[0],
+         {"valle_training": 0, "valle_step_f32": valle_f32_launches[0]}, k1b_err["fwd"], k1b_times["f32"],
+         "sdpa_fwd_ms", {"timed_dtype": "f32"}),
+        ("flash_attn_bwd_dkv_causal", "flash_attn_bwd.cu", 1121, "dkv", valle_f32_launches[1],
+         {"valle_training": 0, "valle_step_f32": valle_f32_launches[1]}, k1b_err["dkv"], k1b_times["f32"],
+         "sdpa_ms", {"timed_dtype": "f32"}),
     )] + [{
         "name": f"{name}_relpos", "route": "cuda", "source": f"jatts_torch/csrc/{src}",
         "replaces": f"jax/experimental/pallas/ops/tpu/flash_attention.py:{line}",

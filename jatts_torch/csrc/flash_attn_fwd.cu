@@ -7,10 +7,9 @@
 //     out = softmax((q . k^T + ab) * sm_scale) . v      over valid keys
 //
 // with the bias added BEFORE the scale, as the TPU kernel does. No dropout,
-// f32 accumulation; q/k/v/ab/out in f32 or bf16 (one type). The bf16
-// non-causal forms of K1 and K1r (the served paths) are no longer built
-// here: flash_attn_fwd_tc.cu runs them on the tensor cores. This file keeps
-// f32 (K1, K1r) and the causal form (K1b, f32 and bf16).
+// f32 accumulation; q/k/v/ab/out in f32 here. The bf16 forms of K1, K1b
+// and K1r are no longer built here: flash_attn_fwd_tc.cu runs them on the
+// tensor cores. This file keeps the f32 ones (K1, K1b, K1r).
 //
 // Causal form (K1b, the `causal=True` path of the same pallas_call: causal
 // block skip at flash_attention.py:379, element mask :426-434): with Tq ==
@@ -273,17 +272,6 @@ cudaError_t dispatch_d(const void* q, const void* k, const void* v, const void* 
   }
 }
 
-template <bool CAUSAL>
-cudaError_t dispatch_t(const void* q, const void* k, const void* v, const void* ab,
-                       const void* key_mask, void* out, float* lse, int B, int H, int Tq,
-                       int Tk, int D, int is_bf16, float sm_scale, cudaStream_t stream) {
-  if (is_bf16)
-    return dispatch_d<__nv_bfloat16, CAUSAL>(q, k, v, ab, key_mask, out, lse, B, H, Tq, Tk, D,
-                                             sm_scale, stream);
-  return dispatch_d<float, CAUSAL>(q, k, v, ab, key_mask, out, lse, B, H, Tq, Tk, D, sm_scale,
-                                   stream);
-}
-
 // ---------------------------------------------------------------------------
 // K1r: the fused rel-pos form, d_qk != d_v (no bias, key mask, non-causal)
 // ---------------------------------------------------------------------------
@@ -471,28 +459,28 @@ cudaError_t dispatch_relpos(const void* q, const void* k, const void* v, const v
 // valid) or null; lse: [B, H, Tq] f32 or null. All contiguous, one element
 // type (is_bf16 ? bf16 : f32) but lse. Dqk == Dv takes K1 (causal != 0: K1b,
 // which needs Tq == Tk); Dqk != Dv takes K1r, which needs no bias and no
-// causal form and a (Dqk, Dv) pair it was built for. bf16 takes only the
-// causal form here: every bf16 non-causal call is jatts_flash_attn_fwd_tc's
-// (flash_attn_fwd_tc.cu). Returns a cudaError_t (0 = launched).
+// causal form and a (Dqk, Dv) pair it was built for. f32 only here: every
+// bf16 call is jatts_flash_attn_fwd_tc's (flash_attn_fwd_tc.cu). Returns a
+// cudaError_t (0 = launched).
 extern "C" int jatts_flash_attn_fwd(const void* q, const void* k, const void* v,
                                     const void* ab, const void* key_mask, void* out,
                                     void* lse, int B, int H, int Tq, int Tk, int Dqk, int Dv,
                                     int is_bf16, int causal, float sm_scale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* l = static_cast<float*>(lse);
-  // the bf16 non-causal forms are flash_attn_fwd_tc.cu's (tensor cores)
+  // the bf16 forms are flash_attn_fwd_tc.cu's (tensor cores)
+  if (is_bf16) return (int)cudaErrorInvalidValue;
   if (Dqk != Dv) {
-    if (ab != nullptr || causal || is_bf16) return (int)cudaErrorInvalidValue;
+    if (ab != nullptr || causal) return (int)cudaErrorInvalidValue;
     return (int)dispatch_relpos<float>(q, k, v, key_mask, out, l, B, H, Tq, Tk, Dqk, Dv,
                                        sm_scale, s);
   }
   const int D = Dqk;
   if (causal) {
     if (Tq != Tk) return (int)cudaErrorInvalidValue;
-    return (int)dispatch_t<true>(q, k, v, ab, key_mask, out, l, B, H, Tq, Tk, D, is_bf16,
-                                 sm_scale, s);
+    return (int)dispatch_d<float, true>(q, k, v, ab, key_mask, out, l, B, H, Tq, Tk, D, sm_scale,
+                                        s);
   }
-  if (is_bf16) return (int)cudaErrorInvalidValue;
   return (int)dispatch_d<float, false>(q, k, v, ab, key_mask, out, l, B, H, Tq, Tk, D, sm_scale,
                                        s);
 }

@@ -1,10 +1,14 @@
-// K1 and K1r in bf16 on Hopper's tensor cores (sm_90a), plain C interface.
+// K1, K1b and K1r in bf16 on Hopper's tensor cores (sm_90a), plain C
+// interface.
 //
-// Replaces, for bf16 inputs and the non-causal form, the Pallas TPU
-// flash-attention forward (the pallas_call at
-// jax/experimental/pallas/ops/tpu/flash_attention.py:758) as
-// jatts_tpu/modules/attention.py:158 (_flash_attend) drives it, and its
-// fused "latest" rel-pos call (jatts_tpu/modules/attention.py:372-385).
+// Replaces, for bf16 inputs, the Pallas TPU flash-attention forward (the
+// pallas_call at jax/experimental/pallas/ops/tpu/flash_attention.py:758) as
+// jatts_tpu/modules/attention.py:158 (_flash_attend) drives it, its fused
+// "latest" rel-pos call (jatts_tpu/modules/attention.py:372-385), and its
+// causal form (K1b, causal=True: the block skip below_or_on_diag at :325 and
+// :379, the element mask col_ids <= row_ids AND-ed with the segment mask at
+// :426-434), which VALL-E's AR trunk drives
+// (jatts_tpu/modules/valle_modules.py:101).
 // It computes exactly what the scalar kernels of flash_attn_fwd.cu compute,
 // per (b, h):
 //
@@ -12,9 +16,11 @@
 //
 // - the bias [B,H,Tq,Tk] (optional) is added BEFORE the scale;
 // - keys whose key_mask byte is 0, and keys past Tk, are never seen;
+// - causal (K1b; Tq == Tk, d_qk == d_v): query row i sees key j only when
+//   j <= i, AND-ed with the key mask;
 // - a row with no valid key returns exactly 0 and, when lse is asked for,
 //   lse = +inf; otherwise lse = m + log(l) of the scaled scores in f32, which
-//   the backward (flash_attn_bwd.cu) reads.
+//   the backward kernels (flash_attn_bwd.cu, flash_attn_bwd_tc.cu) read.
 // q and k have width D_QK, v and out width D_V (D_QK == D_V for K1's
 // forms; (576, 192) and (192, 64) for K1r's).
 //
@@ -30,9 +36,12 @@
 //   bytes; 12.9 GFLOP -> 0.0130 ms.
 // - K1r at the serving decoder (8,2,1024, d_qk 576, d_v 192, no bias): 25.8
 //   GFLOP -> 0.0261 ms by operations; 50.3 MB -> 0.0150 ms.
-// The scalar kernels ran both on the CUDA cores in f32 (67 TFLOP/s) with
-// bf16 widened to f32 in shared memory and synchronous loads: 43x and 72x
-// off those bounds.
+// - K1b at VALL-E AR's attention (16,16,1088,64, key mask, lse): q, k, v,
+//   out (4 x 35.7 MB), lse (1.1 MB) are 143.7 MB -> 0.0429 ms by bytes; the
+//   causal half of the two products, 38.8 GFLOP -> 0.0392 ms.
+// The scalar kernels ran all three on the CUDA cores in f32 (67 TFLOP/s)
+// with bf16 widened to f32 in shared memory and synchronous loads: 43x, 72x
+// and 44x off those bounds.
 //
 // Design:
 // - One block a 64-row query tile of one (b, h): warps 0-3 are one consumer
@@ -71,6 +80,14 @@
 //   instead, so Tk = 1 or 1001 need no padding copy. Each element is read
 //   once. TMA cannot take it: its row stride Tk*2 bytes is not 16-byte aligned
 //   for odd Tk.
+// - Causal (a compile-time CAUSAL, so the non-causal forms are the code they
+//   were): with BQ = BK = 64 and the top-left alignment, query tile q0
+//   takes key tiles k0 < min(Tk, q0 + 64) only, the producer and the
+//   consumers to the same bound, so the tiles above the diagonal are never
+//   loaded, as the TPU kernel skips them. The one diagonal tile (k0 == q0)
+//   is masked element by element on the S fragment before the row max. The
+//   query tiles are taken in reverse block order, so the heaviest (last)
+//   start first.
 // - A key tile with no valid key (a padded tail of a shorter utterance) is
 //   skipped by the producer and the consumers alike, decided from the key
 //   mask by each: m, l and O stay bit-identical, and its slabs are never
@@ -94,20 +111,9 @@
 // in one block a SM would make the 256 serving blocks two waves; with 4 slabs
 // of lookahead the second resident block fills the first one's waits.
 
-#include <cuda.h>
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
+#include "tc_common.cuh"
 
 namespace {
-
-constexpr int BQ = 64;        // query rows a block (one warpgroup)
-constexpr int BK = 64;        // keys a tile
-constexpr int SLAB = 64 * 64 * 2;  // bytes of a 64 x 64 bf16 slab
-constexpr int NTHREADS = 160;  // 4 consumer warps + 1 producer warp
-constexpr float LOG2E = 1.4426950408889634f;
-constexpr float LN2 = 0.6931471805599453f;
 
 template <int DQK, int DV>
 struct Cfg {
@@ -119,119 +125,6 @@ struct Cfg {
   static constexpr int NB = DQK == DV ? 1 : 0;  // the bias staging slab (K1's forms)
   static constexpr size_t SMEM = (size_t)(NK + R + NB) * SLAB + 1024;  // + alignment slack
 };
-
-// ---------------------------------------------------------------------------
-// PTX wrappers: mbarrier, TMA, wgmma
-// ---------------------------------------------------------------------------
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_u32(bar)), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(smem_u32(bar)) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(smem_u32(bar)), "r"(bytes)
-               : "memory");
-}
-
-// returns once the phase of parity `parity` has completed; the loop stays
-// inside the asm, so the code after it is not a divergent path to ptxas
-// (which would serialise the wgmmas there)
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  asm volatile(
-      "{\n .reg .pred p;\n"
-      "WAIT:\n"
-      " mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
-      " @!p bra WAIT;\n}"
-      ::"r"(smem_u32(bar)), "r"(parity) : "memory");
-}
-
-// the bias pair of one fragment position, global -> shared, 4 bytes
-__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(dst), "l"(src) : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;" ::: "memory"); }
-__device__ __forceinline__ void cp_async_wait_all() { asm volatile("cp.async.wait_group 0;" ::: "memory"); }
-
-// one 64 x 64 box of a 3-d map [BH, T, D] at (column c0, row c1, head c2)
-__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, uint64_t* bar, int c0, int c1,
-                                         int c2) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%2, %3, %4}], [%5];"
-      ::"r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2),
-        "r"(smem_u32(bar))
-      : "memory");
-}
-
-// wgmma shared-memory descriptor of a 128-byte-swizzled 64 x 64 bf16 slab:
-// rows of 128 bytes, 8-row groups 1024 bytes apart. The group stride goes in
-// both offset fields: a K-major operand (Q, K) reads only the stride-dimension
-// one, the MN-major V (64 columns, one swizzle atom wide) only the one along
-// K, whichever field the hardware takes for it.
-__device__ __forceinline__ uint64_t slab_desc(uint32_t addr) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(1024 >> 4) << 16) |
-         ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;" ::: "memory"); }
-__device__ __forceinline__ void wgmma_commit() { asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory"); }
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(N) : "memory");
-}
-
-// keeps the compiler from moving reads of an accumulator across a wait
-__device__ __forceinline__ void fence_acc(float (&d)[32]) {
-#pragma unroll
-  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
-#define WG_D32                                                                                    \
-  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "                       \
-  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}"
-#define WG_OUT32(d)                                                                               \
-  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),             \
-      "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),     \
-      "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),  \
-      "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),  \
-      "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-
-// d (+)= A.B, m64n64k16, A and B K-major in shared memory
-__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da, uint64_t db, int accumulate) {
-  asm volatile(
-      "{\n .reg .pred p;\n setp.ne.b32 p, %34, 0;\n"
-      " wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " WG_D32
-      ", %32, %33, p, 1, 1, 0, 0;\n}"
-      : WG_OUT32(d)
-      : "l"(da), "l"(db), "r"(accumulate));
-}
-
-// d += A.B, m64n64k16, A (4 bf16x2 registers a thread) from registers, B
-// MN-major in shared memory
-__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4], uint64_t db) {
-  asm volatile(
-      "{\n .reg .pred p;\n setp.ne.b32 p, %37, 0;\n"
-      " wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " WG_D32
-      ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}"
-      : WG_OUT32(d)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "n"(1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // .x (low half) = lo
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ float bf16_lo(uint32_t x) { return __uint_as_float(x << 16); }
-__device__ __forceinline__ float bf16_hi(uint32_t x) { return __uint_as_float(x & 0xFFFF0000u); }
 
 // the key columns kc, kc+1 of a bias row (null: a row past Tq) as bf16x2
 // into the shared word dst: by cp.async where the pair is whole and 4-byte
@@ -251,15 +144,11 @@ __device__ __forceinline__ void stage_bias2(uint32_t dst, const __nv_bfloat16* r
   asm volatile("st.shared.b32 [%0], %1;" ::"r"(dst), "r"(lo | (hi << 16)) : "memory");
 }
 
-__device__ __forceinline__ bool key_valid(const uint8_t* mask_b, int kc, int Tk) {
-  return kc < Tk && (mask_b == nullptr || __ldg(mask_b + kc) != 0);
-}
-
 // ---------------------------------------------------------------------------
 // the kernel
 // ---------------------------------------------------------------------------
 
-template <int DQK, int DV, bool BIAS>
+template <int DQK, int DV, bool BIAS, bool CAUSAL>
 __global__ void __launch_bounds__(NTHREADS, Cfg<DQK, DV>::MINB)
 flash_attn_fwd_tc_kernel(const __grid_constant__ CUtensorMap map_q,
                          const __grid_constant__ CUtensorMap map_k,
@@ -270,6 +159,7 @@ flash_attn_fwd_tc_kernel(const __grid_constant__ CUtensorMap map_q,
   using C = Cfg<DQK, DV>;
   constexpr int NK = C::NK, NV = C::NV, R = C::R;
   static_assert(DQK % 64 == 0 && DV % 64 == 0 && DV <= 256, "tc widths");
+  static_assert(!CAUSAL || DQK == DV, "no causal d_qk != d_v form");
 
   extern __shared__ uint8_t smem_raw[];
   __shared__ __align__(8) uint64_t q_full;
@@ -287,9 +177,15 @@ flash_attn_fwd_tc_kernel(const __grid_constant__ CUtensorMap map_q,
   // divergent path
   const int warp = __shfl_sync(0xffffffffu, tid / 32, 0);
   const int lane = tid % 32;
-  const int q0 = blockIdx.x * BQ;
+  // causal: the last query tile (the most key tiles) is scheduled first
+  const int q0 = (CAUSAL ? gridDim.x - 1 - blockIdx.x : blockIdx.x) * BQ;
   const int bh = blockIdx.y;  // b * H + h
   const uint8_t* mask_b = key_mask ? key_mask + (size_t)(bh / H) * Tk : nullptr;
+  // causal (Tq == Tk, top-left aligned): no row of this tile sees a key at
+  // or past q0 + BQ, so the key tiles stop at the diagonal one (k0 == q0).
+  // The producer and the consumers both loop to this bound: a slab the
+  // consumers never take would never be released, and the reverse hangs.
+  const int k_end = CAUSAL ? min(Tk, q0 + BQ) : Tk;
 
   if (tid == 0) {
     mbar_init(&q_full, 1);
@@ -309,7 +205,7 @@ flash_attn_fwd_tc_kernel(const __grid_constant__ CUtensorMap map_q,
     }
     int slot = 0;
     uint32_t phase = 0;
-    for (int k0 = 0; k0 < Tk; k0 += BK) {
+    for (int k0 = 0; k0 < k_end; k0 += BK) {
       const bool any = __any_sync(0xffffffffu, key_valid(mask_b, k0 + lane, Tk) ||
                                                    key_valid(mask_b, k0 + 32 + lane, Tk));
       if (!any) continue;
@@ -359,7 +255,7 @@ flash_attn_fwd_tc_kernel(const __grid_constant__ CUtensorMap map_q,
 
   mbar_wait(&q_full, 0);
 
-  for (int k0 = 0; k0 < Tk; k0 += BK) {
+  for (int k0 = 0; k0 < k_end; k0 += BK) {
     // which of this thread's 16 columns are valid keys (bit 2j + e)
     uint32_t vbits = 0;
 #pragma unroll
@@ -425,6 +321,13 @@ flash_attn_fwd_tc_kernel(const __grid_constant__ CUtensorMap map_q,
           asm volatile("ld.shared.b32 %0, [%1];"
                        : "=r"(bias[h][j]) : "r"(sb_addr + 4 * (128 * (8 * h + j) + tid)) : "memory");
     }
+    // the diagonal tile (causal, k0 == q0): column 8j + cc + e is seen by
+    // row quad_row + 8h when 8j + e <= lim[h]. Written with k0 and q0 so
+    // that the 32 comparisons are not hoisted out of the key loop into 32
+    // registers held across it
+    int lim[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) lim[h] = q0 + quad_row + 8 * h - k0 - cc;
     float mx[2] = {-INFINITY, -INFINITY};
 #pragma unroll
     for (int j = 0; j < 8; ++j)
@@ -434,7 +337,9 @@ flash_attn_fwd_tc_kernel(const __grid_constant__ CUtensorMap map_q,
         for (int e = 0; e < 2; ++e) {
           float x = s[4 * j + 2 * h + e];
           if (BIAS) x += e ? bf16_hi(bias[h][j]) : bf16_lo(bias[h][j]);
-          x = (vbits >> (2 * j + e)) & 1u ? x * scale2 : -INFINITY;
+          bool seen = (vbits >> (2 * j + e)) & 1u;
+          if (CAUSAL && k0 == q0) seen = seen && 8 * j + e <= lim[h];
+          x = seen ? x * scale2 : -INFINITY;
           s[4 * j + 2 * h + e] = x;
           mx[h] = fmaxf(mx[h], x);
         }
@@ -469,13 +374,7 @@ flash_attn_fwd_tc_kernel(const __grid_constant__ CUtensorMap map_q,
     }
     // P as the A operand: k-step kk holds columns 16kk..16kk+15
     uint32_t pa[4][4];
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-      pa[kk][0] = pack_bf16(s[8 * kk + 0], s[8 * kk + 1]);
-      pa[kk][1] = pack_bf16(s[8 * kk + 2], s[8 * kk + 3]);
-      pa[kk][2] = pack_bf16(s[8 * kk + 4], s[8 * kk + 5]);
-      pa[kk][3] = pack_bf16(s[8 * kk + 6], s[8 * kk + 7]);
-    }
+    frag_to_a(s, pa);
 #pragma unroll
     for (int c = 0; c < NV; ++c)
 #pragma unroll
@@ -525,45 +424,7 @@ flash_attn_fwd_tc_kernel(const __grid_constant__ CUtensorMap map_q,
   }
 }
 
-// ---------------------------------------------------------------------------
-// host side: tensor maps through the CUDA driver API's entry point (no -lcuda)
-// ---------------------------------------------------------------------------
-
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
-                                const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
-                                CUtensorMapInterleave, CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_fn() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q;
-#if CUDART_VERSION >= 12050
-    cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                                       cudaEnableDefault, &q);
-#else
-    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
-#endif
-    if (err == cudaSuccess && q == cudaDriverEntryPointSuccess) fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
-// a 3-d map over a contiguous bf16 [BH, T, D] with 64 x 64 boxes, 128-byte swizzle
-bool make_map(CUtensorMap* map, const void* ptr, int BH, int T, int D) {
-  EncodeTiled enc = encode_fn();
-  if (enc == nullptr) return false;
-  const cuuint64_t dims[3] = {(cuuint64_t)D, (cuuint64_t)T, (cuuint64_t)BH};
-  const cuuint64_t strides[2] = {(cuuint64_t)D * 2, (cuuint64_t)T * D * 2};
-  const cuuint32_t box[3] = {64, 64, 1};
-  const cuuint32_t estride[3] = {1, 1, 1};
-  return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims, strides, box,
-             estride, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-             CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
-template <int DQK, int DV, bool BIAS>
+template <int DQK, int DV, bool BIAS, bool CAUSAL = false>
 cudaError_t launch(const void* q, const void* k, const void* v, const void* ab, const void* key_mask,
                    void* out, float* lse, int B, int H, int Tq, int Tk, float sm_scale,
                    cudaStream_t stream) {
@@ -572,19 +433,11 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* ab, 
   if (!make_map(&mq, q, B * H, Tq, DQK) || !make_map(&mk, k, B * H, Tk, DQK) ||
       !make_map(&mv, v, B * H, Tk, DV))
     return cudaErrorInvalidValue;
-  // once per device and instantiation (a race only sets it twice)
   static unsigned long long sized = 0;
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
+  cudaError_t err = size_smem_once(flash_attn_fwd_tc_kernel<DQK, DV, BIAS, CAUSAL>, C::SMEM, sized);
   if (err != cudaSuccess) return err;
-  if (dev >= 64 || !((sized >> dev) & 1ull)) {
-    err = cudaFuncSetAttribute(flash_attn_fwd_tc_kernel<DQK, DV, BIAS>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)C::SMEM);
-    if (err != cudaSuccess) return err;
-    if (dev < 64) sized |= 1ull << dev;
-  }
   const dim3 grid((Tq + BQ - 1) / BQ, B * H);
-  flash_attn_fwd_tc_kernel<DQK, DV, BIAS><<<grid, NTHREADS, C::SMEM, stream>>>(
+  flash_attn_fwd_tc_kernel<DQK, DV, BIAS, CAUSAL><<<grid, NTHREADS, C::SMEM, stream>>>(
       mq, mk, mv, static_cast<const __nv_bfloat16*>(ab), static_cast<const uint8_t*>(key_mask),
       static_cast<__nv_bfloat16*>(out), lse, H, Tq, Tk, sm_scale * LOG2E);
   return cudaGetLastError();
@@ -592,26 +445,30 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* ab, 
 
 template <int D>
 cudaError_t launch_d(const void* q, const void* k, const void* v, const void* ab, const void* key_mask,
-                     void* out, float* lse, int B, int H, int Tq, int Tk, float sm_scale,
+                     void* out, float* lse, int B, int H, int Tq, int Tk, float sm_scale, bool causal,
                      cudaStream_t stream) {
-  if (ab != nullptr)
-    return launch<D, D, true>(q, k, v, ab, key_mask, out, lse, B, H, Tq, Tk, sm_scale, stream);
-  return launch<D, D, false>(q, k, v, ab, key_mask, out, lse, B, H, Tq, Tk, sm_scale, stream);
+  if (ab != nullptr) {
+    if (causal) return launch<D, D, true, true>(q, k, v, ab, key_mask, out, lse, B, H, Tq, Tk, sm_scale, stream);
+    return launch<D, D, true, false>(q, k, v, ab, key_mask, out, lse, B, H, Tq, Tk, sm_scale, stream);
+  }
+  if (causal) return launch<D, D, false, true>(q, k, v, ab, key_mask, out, lse, B, H, Tq, Tk, sm_scale, stream);
+  return launch<D, D, false, false>(q, k, v, ab, key_mask, out, lse, B, H, Tq, Tk, sm_scale, stream);
 }
 
 }  // namespace
 
 // The same arguments and semantics as jatts_flash_attn_fwd (flash_attn_fwd.cu)
-// for the forms this kernel has: bf16 (is_bf16 != 0), non-causal; Dqk == Dv
-// in {64, 128, 192, 256} with or without ab, or (Dqk, Dv) in {(192, 64),
-// (576, 192)} without ab. q, k, v 16-byte aligned, ab 4-byte aligned. Returns
-// a cudaError_t (0 = launched); anything else it refuses with
-// cudaErrorInvalidValue (or cudaErrorMisalignedAddress).
+// for the forms this kernel has: bf16 (is_bf16 != 0); Dqk == Dv in {64, 128,
+// 192, 256} with or without ab, causal (Tq == Tk) or not, or (Dqk, Dv) in
+// {(192, 64), (576, 192)} without ab and not causal. q, k, v 16-byte
+// aligned, ab 4-byte aligned. Returns a cudaError_t (0 = launched); anything
+// else it refuses with cudaErrorInvalidValue (or cudaErrorMisalignedAddress).
 extern "C" int jatts_flash_attn_fwd_tc(const void* q, const void* k, const void* v, const void* ab,
                                        const void* key_mask, void* out, void* lse, int B, int H,
                                        int Tq, int Tk, int Dqk, int Dv, int is_bf16, int causal,
                                        float sm_scale, void* stream) {
-  if (!is_bf16 || causal || Tq <= 0 || Tk <= 0) return (int)cudaErrorInvalidValue;
+  if (!is_bf16 || Tq <= 0 || Tk <= 0 || (causal && (Tq != Tk || Dqk != Dv)))
+    return (int)cudaErrorInvalidValue;
   if (((uintptr_t)q | (uintptr_t)k | (uintptr_t)v) % 16 != 0 || (uintptr_t)ab % 4 != 0)
     return (int)cudaErrorMisalignedAddress;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -624,11 +481,12 @@ extern "C" int jatts_flash_attn_fwd_tc(const void* q, const void* k, const void*
       return (int)launch<576, 192, false>(q, k, v, ab, key_mask, out, l, B, H, Tq, Tk, sm_scale, s);
     return (int)cudaErrorInvalidValue;
   }
+  const bool c = causal != 0;
   switch (Dqk) {
-    case 64: return (int)launch_d<64>(q, k, v, ab, key_mask, out, l, B, H, Tq, Tk, sm_scale, s);
-    case 128: return (int)launch_d<128>(q, k, v, ab, key_mask, out, l, B, H, Tq, Tk, sm_scale, s);
-    case 192: return (int)launch_d<192>(q, k, v, ab, key_mask, out, l, B, H, Tq, Tk, sm_scale, s);
-    case 256: return (int)launch_d<256>(q, k, v, ab, key_mask, out, l, B, H, Tq, Tk, sm_scale, s);
+    case 64: return (int)launch_d<64>(q, k, v, ab, key_mask, out, l, B, H, Tq, Tk, sm_scale, c, s);
+    case 128: return (int)launch_d<128>(q, k, v, ab, key_mask, out, l, B, H, Tq, Tk, sm_scale, c, s);
+    case 192: return (int)launch_d<192>(q, k, v, ab, key_mask, out, l, B, H, Tq, Tk, sm_scale, c, s);
+    case 256: return (int)launch_d<256>(q, k, v, ab, key_mask, out, l, B, H, Tq, Tk, sm_scale, c, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -3,8 +3,9 @@
 Each ``jatts_torch/csrc/<name>.cu`` has a plain C interface and is compiled
 by ``nvcc`` for Hopper (``sm_90a``) into its own shared library, which is
 loaded with ``ctypes``. Libraries go to ``build/kernels/`` beside the
-package (git-ignored), named by a hash of the source and flags, so an edited
-source is rebuilt and an unchanged one is reused. Nothing is built when a
+package (git-ignored), named by a hash of the source, the shared headers
+(``csrc/*.cuh``) and the flags, so an edited source or header is rebuilt and
+an unchanged one is reused. Nothing is built when a
 module is imported: the first launch builds, or a caller that wants every
 kernel up front (``chip_smoke.py``) calls :func:`build` with all the names,
 which starts one ``nvcc`` per source at once.
@@ -46,8 +47,14 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = (CSRC_DIR / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    """``build/kernels/lib<name>_<hash>.so``; the hash covers the source,
+    every header of ``csrc/`` (a source may include any of them) and the
+    flags."""
+    h = hashlib.sha256((CSRC_DIR / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC_DIR.glob("*.cuh")):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    digest = h.hexdigest()[:16]
     return BUILD_DIR / f"lib{name}_{digest}.so"
 
 

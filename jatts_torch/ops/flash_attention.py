@@ -1,8 +1,8 @@
 """K1 — flash-attention forward (``csrc/flash_attn_fwd.cu``; its bf16
-non-causal forms on the tensor cores in ``csrc/flash_attn_fwd_tc.cu``),
-K1-bwd — its backward (``csrc/flash_attn_bwd.cu``), K1b — the causal form of
-both, K1r — the fused rel-pos form of both (d_qk != d_v), and their plain
-twins.
+forms on the tensor cores in ``csrc/flash_attn_fwd_tc.cu``), K1-bwd — its
+backward (``csrc/flash_attn_bwd.cu``; K1b's bf16 dk/dv at d 64 on the tensor
+cores in ``csrc/flash_attn_bwd_tc.cu``), K1b — the causal form of both, K1r
+— the fused rel-pos form of both (d_qk != d_v), and their plain twins.
 
 Replaces the Pallas TPU flash-attention forward that
 ``jatts_tpu/modules/attention.py:_flash_attend`` drives. Function, per
@@ -33,11 +33,15 @@ then dq and d(ab)), as the JAX package's flash path trains through the
 Pallas custom VJP. ``launches``, ``launches_bwd_dkv`` and ``launches_bwd_dq``
 count the non-causal kernel launches at d_qk == d_v, the ``*_causal``
 counters the causal ones and the ``*_relpos`` counters K1r's (and nothing
-else), so a run can show that it went through the kernels. Which forward
-kernel a call takes is :func:`fwd_kernel`'s one rule: bf16 and not causal
-goes to the tensor-core kernel (``launches_tc`` counts it, besides
-``launches`` or ``launches_relpos``), f32 or causal to the scalar one. See
-the source notes in the ``.cu`` files for the bounds.
+else), whichever kernel ran, so a run can show that it went through the
+kernels. Which forward kernel a call takes is :func:`fwd_kernel`'s one
+rule: bf16 goes to the tensor-core kernel (``launches_tc`` counts it,
+besides ``launches``, ``launches_causal`` or ``launches_relpos``), f32 to
+the scalar one. Which dk/dv kernel is :func:`dkv_kernel`'s: VALL-E's form
+(bf16, causal, d 64, no bias) goes to the tensor-core kernel
+(``launches_bwd_dkv_tc`` counts it, besides ``launches_bwd_dkv_causal``),
+every other form to the scalar one. See the source notes in the ``.cu``
+files for the bounds.
 """
 
 from __future__ import annotations
@@ -52,6 +56,7 @@ from jatts_torch.ops import build
 KERNEL = "flash_attn_fwd"
 KERNEL_BWD = "flash_attn_bwd"
 KERNEL_TC = "flash_attn_fwd_tc"
+KERNEL_BWD_TC = "flash_attn_bwd_tc"
 HEAD_DIMS = (64, 128, 192, 256)
 # K1r's (d_qk, d_v) = (d_k + n_feat, d_k): 2 heads of 64 (adim 128) and of
 # 192 (adim 384, the JSUT/JVS width)
@@ -67,7 +72,8 @@ launches_causal = 0  # K1b, causal forward
 launches_bwd_dkv_causal = 0  # K1b, causal dk/dv kernel
 launches_bwd_dq_causal = 0  # K1b, causal dq/d(ab) kernel
 launches_relpos = 0  # K1r, d_qk != d_v forward
-launches_tc = 0  # forwards (K1 or K1r) that ran on the tensor-core kernel
+launches_tc = 0  # forwards (K1, K1b or K1r) that ran on the tensor-core kernel
+launches_bwd_dkv_tc = 0  # dk/dv calls (K1b) that ran on the tensor-core kernel
 launches_bwd_dkv_relpos = 0  # K1r, dk/dv kernel
 launches_bwd_dq_relpos = 0  # K1r, dq kernel
 
@@ -76,7 +82,8 @@ def reset_launches() -> None:
     global launches, launches_bwd_dkv, launches_bwd_dq
     global launches_causal, launches_bwd_dkv_causal, launches_bwd_dq_causal
     global launches_relpos, launches_bwd_dkv_relpos, launches_bwd_dq_relpos, launches_tc
-    launches = launches_bwd_dkv = launches_bwd_dq = launches_tc = 0
+    global launches_bwd_dkv_tc
+    launches = launches_bwd_dkv = launches_bwd_dq = launches_tc = launches_bwd_dkv_tc = 0
     launches_causal = launches_bwd_dkv_causal = launches_bwd_dq_causal = 0
     launches_relpos = launches_bwd_dkv_relpos = launches_bwd_dq_relpos = 0
 
@@ -175,9 +182,17 @@ def flash_attention_bwd_ref(q, k, v, ab, key_mask, sm_scale, o, lse, do, causal=
 
 def fwd_kernel(dtype: torch.dtype, causal: bool) -> str:
     """The library a forward on the card takes: ``KERNEL_TC`` (tensor
-    cores) for bf16 and not causal, at every (d_qk, d_v) the wrapper admits,
-    else ``KERNEL`` (scalar: f32, and the causal form)."""
-    return KERNEL_TC if dtype == torch.bfloat16 and not causal else KERNEL
+    cores) for bf16, causal or not, at every (d_qk, d_v) the wrapper admits,
+    else ``KERNEL`` (scalar: f32)."""
+    return KERNEL_TC if dtype == torch.bfloat16 else KERNEL
+
+
+def dkv_kernel(dtype: torch.dtype, causal: bool, d_qk: int, d_v: int, has_bias: bool) -> str:
+    """The library a dk/dv backward on the card takes: ``KERNEL_BWD_TC``
+    (tensor cores) for VALL-E's form — bf16, causal, d_qk = d_v = 64, no
+    bias — else ``KERNEL_BWD`` (scalar)."""
+    tc = dtype == torch.bfloat16 and causal and d_qk == d_v == 64 and not has_bias
+    return KERNEL_BWD_TC if tc else KERNEL_BWD
 
 
 def _kernel_fn(name: str):
@@ -192,8 +207,8 @@ def _kernel_fn(name: str):
     return fn
 
 
-def _bwd_kernel_fn(name: str):
-    fn = getattr(build.load(KERNEL_BWD), name)
+def _bwd_kernel_fn(lib: str, name: str):
+    fn = getattr(build.load(lib), name)
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 8 + [
         ctypes.c_float, ctypes.c_void_p,
@@ -293,18 +308,26 @@ def _check_bwd(q, k, v, ab, key_mask, lse, di, do, causal) -> None:
 
 
 def _launch_bwd(name, q, k, v, ab, key_mask, sm_scale, lse, di, do, out_a, out_b, causal):
+    """K1-bwd's ``name`` ("dkv" or "dq") kernel on checked card tensors;
+    dk/dv on the library :func:`dkv_kernel` picks."""
+    global launches_bwd_dkv_tc
     b, h, tq, d = q.shape
+    lib = KERNEL_BWD
+    if name == "dkv":
+        lib = dkv_kernel(q.dtype, causal, d, v.shape[3], ab is not None)
+    symbol = f"jatts_flash_attn_bwd_{name}" + ("_tc" if lib == KERNEL_BWD_TC else "")
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = _bwd_kernel_fn(f"jatts_flash_attn_bwd_{name}")(
+        rc = _bwd_kernel_fn(lib, symbol)(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(ab), _ptr(key_mask),
             lse.data_ptr(), di.data_ptr(), do.data_ptr(), out_a.data_ptr(), _ptr(out_b),
             b, h, tq, k.shape[2], d, v.shape[3], int(q.dtype == torch.bfloat16), int(causal),
             float(sm_scale), stream,
         )
     if rc != 0:
-        raise RuntimeError(f"flash_attn_bwd {name} launch failed with CUDA error {rc}")
+        raise RuntimeError(f"{lib} {name} launch failed with CUDA error {rc}")
     _count(name, causal, d != v.shape[3])
+    launches_bwd_dkv_tc += lib == KERNEL_BWD_TC
 
 
 def flash_attention_bwd_dkv(q, k, v, ab, key_mask, sm_scale, lse, di, do, causal=False):

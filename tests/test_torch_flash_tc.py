@@ -1,7 +1,7 @@
 """The tensor-core flash-attention forward (``csrc/flash_attn_fwd_tc.cu``):
 which calls take it (on the CPU), and (marked ``cuda``, skipped without a
 card) the kernel against ``flash_attention_ref`` at every (d_qk, d_v) it is
-built for. Imports no flax, so the card's machine runs it:
+built for, non-causal (its causal forms: ``test_torch_flash_tc_causal.py``). Imports no flax, so the card's machine runs it:
 ``python -m pytest tests/test_torch_flash_tc.py -m cuda``.
 
 Tolerances are ``chip_smoke.py``'s for bf16: 1e-2 absolute on the output
@@ -29,9 +29,9 @@ PAIRS = [(d, d) for d in k1.HEAD_DIMS] + list(k1.RELPOS_PAIRS)
      for d_qk, d_v in PAIRS if not (c and d_qk != d_v)],  # no causal d_qk != d_v form
 )
 def test_forward_dispatch_rule(dtype, causal, d_qk, d_v):
-    """bf16 and not causal -> the tensor-core kernel at every admitted
-    width; f32 or causal -> the scalar kernel."""
-    want = k1.KERNEL_TC if dtype == torch.bfloat16 and not causal else k1.KERNEL
+    """bf16, causal or not -> the tensor-core kernel at every admitted
+    width; f32 -> the scalar kernel."""
+    want = k1.KERNEL_TC if dtype == torch.bfloat16 else k1.KERNEL
     assert k1.fwd_kernel(dtype, causal) == want
 
 
