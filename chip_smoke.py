@@ -58,27 +58,29 @@ Phases, each of which fails the run with a non-zero exit:
      parts, a profiled step, and the same step under ``attn_backend: xla``;
  11. K1b (the causal form of K1 and K1-bwd: the forward, dk/dv and dq
      kernels; in bf16 the forward on the tensor cores, ``flash_attn_fwd_tc.cu``,
-     and at d 64 without bias dk/dv too, ``flash_attn_bwd_tc.cu``, each
-     launch checked from the counters) against their plain versions at
+     and at d 64 without bias dk/dv and dq too, ``flash_attn_bwd_tc.cu``,
+     each launch checked from the counters) against their plain versions at
      VALL-E's attention shape in bf16 with a ragged key mask, in f32, at a T
      that ends inside a diagonal tile, at T = 1, at d = 192 with a bias, and
      with rows that see no key (bf16 and f32; each output within its
      tolerance of every batch item's own magnitude; unseen rows and keys
      exactly 0); FlashAttention forward + backward in bf16 at VALL-E's shape against
      autograd through the plain forward (the tensor-core lse feeding both
-     backward kernels); then their times at VALL-E's shape by CUDA events
-     and graph replays beside the plain versions', two SDPA yardsticks
-     (never used by the port: a boolean causal and key-padding mask, and
-     ``is_causal`` without a mask; the backend printed) and the bounds, the
-     non-causal forward over 1, 9 and 17 key tiles a block beside the
-     causal one, and the scalar forward and dk/dv, now f32 only, in f32;
+     tensor-core backward kernels); then their times at VALL-E's shape by
+     CUDA events and graph replays beside the plain versions', two SDPA
+     yardsticks (never used by the port: a boolean causal and key-padding
+     mask, and ``is_causal`` without a mask; the backend printed) and the
+     bounds, the non-causal forward over 1, 9 and 17 key tiles a block
+     beside the causal one, and the scalar forward, dk/dv and dq, which
+     VALL-E's bf16 form no longer takes, in f32;
  12. the VALL-E AR slice: a synthetic 64-utterance codec corpus (.npz
      dumps) trains through ``jatts_torch/bin/tts_train.py:run`` on
      egs/hificaptain_jp_female/tts3/conf/valle_ar.given.bs32.yaml as it
      stands (d_model 1024, 16 heads, 12 layers, bf16 compute, batch 16 x
      accumulation 2, AdamW) with ``attn_backend: flash`` for 200 steps
      (warm-up 50), launch counts set to 0 just before and read just after
-     (every K1b forward and dk/dv on the tensor-core kernels, 12 a step);
+     (every K1b forward, dk/dv and dq on the tensor-core kernels, 12 a
+     step, no scalar bf16 one);
      then the loss, launch and bitwise-resume checks, the time of a step and
      its parts, a profiled step, K1b at the batch's own shape, the same step
      under ``attn_backend: xla``; then ``ar_generate`` from the trained model
@@ -875,11 +877,12 @@ def k1b_inputs(shape, dtype, with_bias, rows, seed):
 
 
 def k1b_on_tc(dtype_name, d, with_bias):
-    """Which K1b kernels a form takes on the card: (forward, dk/dv) on the
-    tensor cores — the forward in bf16, dk/dv in VALL-E's form (bf16, d 64,
-    no bias)."""
+    """Which K1b kernels a form takes on the card: (forward, dk/dv, dq) on
+    the tensor cores — the forward in bf16, dk/dv and dq in VALL-E's form
+    (bf16, d 64, no bias)."""
     bf16 = dtype_name == "bf16"
-    return bf16, bf16 and d == 64 and not with_bias
+    valle = bf16 and d == 64 and not with_bias
+    return bf16, valle, valle
 
 
 def item_err(got, want):
@@ -900,7 +903,7 @@ def check_k1b(name, shape, dtype_name, with_bias, rows, seed, against_autograd=F
     against the plain one, rows that see no key 0 in the output and dq,
     keys that no row sees 0 in dk and dv, and each launch on the kernel the
     dispatch rules give the form (the tensor-core forward for bf16, the
-    tensor-core dk/dv for bf16 at d 64 without bias). Returns the largest
+    tensor-core dk/dv and dq for bf16 at d 64 without bias). Returns the largest
     |kernel - plain| of each output ("fwd", "dq", "dk", "dv")."""
     import torch
 
@@ -914,18 +917,21 @@ def check_k1b(name, shape, dtype_name, with_bias, rows, seed, against_autograd=F
     def f32(x):
         return None if x is None else x.float()
 
-    before = (k1.launches_tc, k1.launches_bwd_dkv_tc, k1.launches_causal, k1.launches_bwd_dkv_causal)
+    def counts():
+        return (k1.launches_tc, k1.launches_bwd_dkv_tc, k1.launches_bwd_dq_tc, k1.launches_causal,
+                k1.launches_bwd_dkv_causal, k1.launches_bwd_dq_causal)
+
+    before = counts()
     out_k, lse_k = k1.flash_attention_fwd(q, k, v, ab, key_mask, scale, causal=True)
     out_nolse = k1.flash_attention(q, k, v, ab, key_mask, scale, causal=True)
     o, lse = k1.flash_attention_ref(f32(q), f32(k), f32(v), f32(ab), key_mask, scale,
                                     return_lse=True, causal=True)
     got = k1.flash_attention_bwd(q, k, v, ab, key_mask, scale, o.to(dtype), lse, do, causal=True)
     torch.cuda.synchronize()
-    ran = tuple(a - b for a, b in zip(
-        (k1.launches_tc, k1.launches_bwd_dkv_tc, k1.launches_causal, k1.launches_bwd_dkv_causal), before))
-    tc_fwd, tc_dkv = k1b_on_tc(dtype_name, d, with_bias)
-    check(ran == (2 * tc_fwd, int(tc_dkv), 2, 1),
-          f"K1b {name}: launches (tc forward, tc dk/dv, causal forward, causal dk/dv) {ran}")
+    ran = tuple(a - b for a, b in zip(counts(), before))
+    tc_fwd, tc_dkv, tc_dq = k1b_on_tc(dtype_name, d, with_bias)
+    check(ran == (2 * tc_fwd, int(tc_dkv), int(tc_dq), 2, 1, 1),
+          f"K1b {name}: launches (tc forward, tc dk/dv, tc dq, causal forward, causal dk/dv, causal dq) {ran}")
     want = k1.flash_attention_bwd_ref(f32(q), f32(k), f32(v), f32(ab), key_mask, scale, o, lse,
                                       f32(do), causal=True)
     check(bool(torch.equal(out_k, out_nolse)), f"K1b {name}: the forward with and without lse differ")
@@ -960,7 +966,8 @@ def check_k1b(name, shape, dtype_name, with_bias, rows, seed, against_autograd=F
     line = ", ".join(f"{n} {errs[n]:.2e} ({rel[n]:.2e})" for n in errs)
     print(
         f"K1b check {name} {dtype_name} B,H,T,d={','.join(map(str, shape))} bias={with_bias} (forward on "
-        f"{'tensor cores' if tc_fwd else 'CUDA cores'}, dk/dv on {'tensor cores' if tc_dkv else 'CUDA cores'}): "
+        f"{'tensor cores' if tc_fwd else 'CUDA cores'}, dk/dv and dq on "
+        f"{'tensor cores' if tc_dkv else 'CUDA cores'}): "
         f"max_abs_err (worst item's over max(1, max|plain| of the item)) {line}; tol {TOL[dtype_name]:.0e} "
         f"forward, {tol:.0e} backward; lse err {lse_err:.1e}; rows that see no key {int(seen_none.sum())}, "
         f"keys that no row sees {int((~key_mask).sum()) * shape[1]}", flush=True,
@@ -979,7 +986,7 @@ def check_k1b(name, shape, dtype_name, with_bias, rows, seed, against_autograd=F
 def check_k1b_chain(shape, rows, seed):
     """The autograd chain of VALL-E's attention in bf16: FlashAttention (the
     tensor-core forward, whose output and lse feed the tensor-core dk/dv and
-    the scalar dq) forward and backward, against autograd through the plain
+    dq) forward and backward, against autograd through the plain
     causal forward in f32 on the same inputs. The output within TOL["bf16"]
     and each gradient within TOL_BWD["bf16"] of every batch item's own
     max(1, max|plain|) (item_err). Returns the largest |kernel - plain| of
@@ -991,12 +998,12 @@ def check_k1b_chain(shape, rows, seed):
     q, k, v, _, key_mask, do = k1b_inputs(shape, torch.bfloat16, False, rows, seed)
     scale = shape[3] ** -0.5
     leaves = [x.detach().requires_grad_() for x in (q, k, v)]
-    before = (k1.launches_tc, k1.launches_bwd_dkv_tc, k1.launches_bwd_dq_causal)
+    before = (k1.launches_tc, k1.launches_bwd_dkv_tc, k1.launches_bwd_dq_tc)
     out = k1.flash_attention(*leaves, None, key_mask, scale, causal=True)
     got = torch.autograd.grad(out, leaves, do)
     torch.cuda.synchronize()
-    ran = tuple(a - b for a, b in zip((k1.launches_tc, k1.launches_bwd_dkv_tc, k1.launches_bwd_dq_causal), before))
-    check(ran == (1, 1, 1), f"K1b autograd chain: launches (tc forward, tc dk/dv, dq) {ran} != (1, 1, 1)")
+    ran = tuple(a - b for a, b in zip((k1.launches_tc, k1.launches_bwd_dkv_tc, k1.launches_bwd_dq_tc), before))
+    check(ran == (1, 1, 1), f"K1b autograd chain: launches (tc forward, tc dk/dv, tc dq) {ran} != (1, 1, 1)")
     ref_leaves = [x.float().detach().requires_grad_() for x in (q, k, v)]
     ref = k1.flash_attention_ref(*ref_leaves, None, key_mask, scale, causal=True)
     want = torch.autograd.grad(ref, ref_leaves, do.float())
@@ -1051,14 +1058,16 @@ def sdpa_choice(q, k, v, **kwargs):
 
 def time_k1b(seed, where):
     """K1b at VALL-E's shape, every key valid. bf16, the main path's
-    kernels (the tensor-core forward and dk/dv, the scalar dq), by CUDA
-    events and (forward, dk/dv) replayed from a CUDA graph; beside the plain
-    versions, two SDPA yardsticks (never used by the port) — a boolean
-    causal ∧ key-padding mask, and ``is_causal=True`` without a mask (the
-    same function with every key valid), each forward alone and forward +
-    backward, with the backend the dispatcher picks — and the bounds. Then
-    the scalar forward and dk/dv, which now run f32 only, in f32 beside
-    their plain versions, SDPA with the boolean mask and the f32 bounds."""
+    kernels (the tensor-core forward, dk/dv and dq), by CUDA events and
+    replayed from a CUDA graph; beside the plain versions, two SDPA
+    yardsticks (never used by the port) — a boolean causal ∧ key-padding
+    mask, and ``is_causal=True`` without a mask (the same function with
+    every key valid), each forward alone and forward + backward, with the
+    backend the dispatcher picks — the bounds, and the scalar dq's bf16
+    form, which the main path no longer takes, called through its C entry
+    on the same inputs. Then the scalar forward, dk/dv and dq, which VALL-E's
+    bf16 form no longer takes, in f32 beside their plain versions, SDPA with
+    the boolean mask and the f32 bounds."""
     import torch
 
     from jatts_torch.ops import flash_attention as k1
@@ -1076,7 +1085,25 @@ def time_k1b(seed, where):
     def dkv():
         return k1.flash_attention_bwd_dkv(q, k, v, None, key_mask, scale, lse, di, do, causal=True)
 
-    res = {"fwd": time_ms(fwd), "fwd_graph": graph_ms(fwd), "dkv": time_ms(dkv), "dkv_graph": graph_ms(dkv)}
+    def dq():
+        return k1.flash_attention_bwd_dq(q, k, v, None, key_mask, scale, lse, di, do, causal=True)
+
+    res = {"fwd": time_ms(fwd), "fwd_graph": graph_ms(fwd), "dkv": time_ms(dkv), "dkv_graph": graph_ms(dkv),
+           "dq": time_ms(dq), "dq_graph": graph_ms(dq)}
+    # the scalar dq on the same bf16 inputs, the kernel the tensor-core dq
+    # replaced on VALL-E's path (its C entry directly: no wrapper, no count)
+    scalar_dq = k1._bwd_kernel_fn(k1.KERNEL_BWD, "jatts_flash_attn_bwd_dq")
+    dq_scalar_out = torch.empty_like(q)
+
+    def dq_scalar():
+        rc = scalar_dq(q.data_ptr(), k.data_ptr(), v.data_ptr(), None, key_mask.data_ptr(), lse.data_ptr(),
+                       di.data_ptr(), do.data_ptr(), dq_scalar_out.data_ptr(), None, b, h, t, t, d, d, 1, 1,
+                       scale, torch.cuda.current_stream().cuda_stream)
+        check(rc == 0, f"the scalar bf16 dq refused its launch ({rc})")
+
+    res["dq_scalar_bf16"] = time_ms(dq_scalar, iters=10)
+    dq_err = item_err(dq()[0], dq_scalar_out)
+    check(dq_err <= TOL_BWD["bf16"], f"K1b dq: tensor-core and scalar bf16 dq differ by {dq_err}")
     # the non-causal form on the same queries with the first 64, 576 and all
     # 1088 keys: 1, 9 and 17 key tiles in every one of the same 17 x B*H
     # blocks. The causal call does 153 = 17 x 9 tile pairs a head, the 9-tile
@@ -1092,8 +1119,6 @@ def time_k1b(seed, where):
     per_tile, fixed = statistics.linear_regression(list(res["fwd_tiles_graph"]),
                                                    list(res["fwd_tiles_graph"].values()))
     res["fwd_fit"] = {"fixed_ms": fixed, "per_tile_ms": per_tile}
-    res["dq"] = time_ms(lambda: k1.flash_attention_bwd_dq(q, k, v, None, key_mask, scale, lse, di, do,
-                                                         causal=True), iters=10)
     res["plain_fwd_ms"] = time_ms(lambda: k1.flash_attention_ref(q, k, v, None, key_mask, scale, causal=True),
                                   iters=3, warmup=1)
     res["plain_bwd_ms"] = time_ms(lambda: k1.flash_attention_bwd_ref(q, k, v, None, key_mask, scale, o, lse, do,
@@ -1119,7 +1144,9 @@ def time_k1b(seed, where):
                                  + f": {res['fwd_fit']['fixed_ms']:.4f} ms + {res['fwd_fit']['per_tile_ms']:.5f} "
                                  f"ms a tile; causal / 9 tiles {res['fwd_graph'] / res['fwd_tiles_graph'][9]:.3f}x"
                                  "), tensor cores"),
-                         ("dkv", f", graph {res['dkv_graph']:.4f} ms, tensor cores"), ("dq", ", CUDA cores"))
+                         ("dkv", f", graph {res['dkv_graph']:.4f} ms, tensor cores"),
+                         ("dq", f", graph {res['dq_graph']:.4f} ms, tensor cores; the scalar bf16 dq on the same "
+                                f"inputs {res['dq_scalar_bf16']:.4f} ms, worst item's difference {dq_err:.2e}"))
     )
     yard = "; ".join(
         f"sdpa {label} ({res[f'{key}_backend']}) forward {res[f'{key}_fwd_ms']:.4f} ms (graph "
@@ -1129,15 +1156,17 @@ def time_k1b(seed, where):
         f"K1b time bf16 causal B,H,T,d={b},{h},{t},{d}, every key valid: {parts}; plain forward "
         f"{res['plain_fwd_ms']:.4f} ms, plain backward {res['plain_bwd_ms']:.4f} ms; {yard}; {where}", flush=True,
     )
-    del q, k, v, do, o, lse, di, qs, ks, vs
-    # the scalar forward and dk/dv, f32 only now
+    del q, k, v, do, o, lse, di, qs, ks, vs, dq_scalar_out
+    # the scalar forward, dk/dv and dq, f32 only on VALL-E's path now
     q, k, v, _, key_mask, do = k1b_inputs(VALLE_ATTN, torch.float32, False, [(0, t)], seed)
     o, lse = k1.flash_attention_fwd(q, k, v, None, key_mask, scale, causal=True)
     di = (o * do).sum(-1)
     f32 = {"fwd": time_ms(lambda: k1.flash_attention_fwd(q, k, v, None, key_mask, scale, causal=True),
                           iters=5, warmup=1),
            "dkv": time_ms(lambda: k1.flash_attention_bwd_dkv(q, k, v, None, key_mask, scale, lse, di, do,
-                                                             causal=True), iters=5, warmup=1)}
+                                                             causal=True), iters=5, warmup=1),
+           "dq": time_ms(lambda: k1.flash_attention_bwd_dq(q, k, v, None, key_mask, scale, lse, di, do,
+                                                           causal=True), iters=5, warmup=1)}
     f32["plain_fwd_ms"] = time_ms(lambda: k1.flash_attention_ref(q, k, v, None, key_mask, scale, causal=True),
                                   iters=3, warmup=1)
     f32["plain_bwd_ms"] = time_ms(lambda: k1.flash_attention_bwd_ref(q, k, v, None, key_mask, scale, o, lse, do,
@@ -1150,7 +1179,7 @@ def time_k1b(seed, where):
     print(
         f"K1b time f32 causal B,H,T,d={b},{h},{t},{d} (the scalar kernels): "
         + "; ".join(f"{n} kernel {f32[n]:.4f} ms (bound {f32['bounds'][n][0]:.4f} ms by {f32['bounds'][n][1]})"
-                    for n in ("fwd", "dkv"))
+                    for n in ("fwd", "dkv", "dq"))
         + f"; plain forward {f32['plain_fwd_ms']:.4f} ms, plain backward {f32['plain_bwd_ms']:.4f} ms; sdpa "
         f"(bool causal & key mask) forward {f32['sdpa_fwd_ms']:.4f} ms, forward+backward {f32['sdpa_ms']:.4f} ms; "
         f"{where}", flush=True,
@@ -1162,26 +1191,25 @@ def time_k1b(seed, where):
 def k1b_phase(seed, where):
     """Phase 11: every K1b case, the bf16 autograd chain at VALL-E's shape,
     then the times. Returns the largest errors of each output, by the
-    kernel that computed it ("fwd_tc", "fwd", "dkv_tc", "dkv", "dq"), and
-    the times."""
-    errs = dict.fromkeys(("fwd_tc", "fwd", "dkv_tc", "dkv", "dq"), 0.0)
+    kernel that computed it ("fwd_tc", "fwd", "dkv_tc", "dkv", "dq_tc",
+    "dq"), and the times."""
+    errs = dict.fromkeys(("fwd_tc", "fwd", "dkv_tc", "dkv", "dq_tc", "dq"), 0.0)
     for i, (name, shape, dtype_name, with_bias, rows) in enumerate(k1b_cases()):
         e = check_k1b(name, shape, dtype_name, with_bias, rows, seed + i, against_autograd=(name == "f32"))
-        tc_fwd, tc_dkv = k1b_on_tc(dtype_name, shape[3], with_bias)
-        merge_k1b_errs(errs, e, tc_fwd, tc_dkv)
+        merge_k1b_errs(errs, e, *k1b_on_tc(dtype_name, shape[3], with_bias))
     b, h, t, d = VALLE_ATTN
     chain = check_k1b_chain(VALLE_ATTN, [(0, t), (0, t - 1), (0, 900), (0, 611), (0, 1), (0, 64), (0, 65), (0, 1000)],
                             seed + 50)
-    merge_k1b_errs(errs, chain, True, True)
+    merge_k1b_errs(errs, chain, True, True, True)
     return errs, time_k1b(seed + 100, where)
 
 
-def merge_k1b_errs(errs, e, tc_fwd, tc_dkv):
+def merge_k1b_errs(errs, e, tc_fwd, tc_dkv, tc_dq):
     """Fold one check's errors into the per-kernel maxima of k1b_phase."""
-    fk, dk = ("fwd_tc" if tc_fwd else "fwd"), ("dkv_tc" if tc_dkv else "dkv")
+    fk, dk, qk = ("fwd_tc" if tc_fwd else "fwd"), ("dkv_tc" if tc_dkv else "dkv"), ("dq_tc" if tc_dq else "dq")
     errs[fk] = max(errs[fk], e["fwd"])
     errs[dk] = max(errs[dk], e["dk"], e["dv"])
-    errs["dq"] = max(errs["dq"], e["dq"])
+    errs[qk] = max(errs[qk], e["dq"])
 
 
 # ---------------------------------------------------------------------------
@@ -1848,7 +1876,7 @@ def write_codec_corpus(root, seed, n_utts=64, n_phones=40):
 
 def valle_slice(root, seed, where):
     """Phase 12. Returns the K1b launches of the training run (forward,
-    dk/dv, dq; every forward and dk/dv on the tensor-core kernels) and of
+    dk/dv, dq; every one on the tensor-core kernels) and of
     the f32 flash step (the scalar kernels), the own-shape check's errors
     and the numbers PERF.md needs."""
     import numpy as np
@@ -1887,7 +1915,7 @@ def valle_slice(root, seed, where):
     run_s = time.perf_counter() - t0
     launches = (k1.launches_causal, k1.launches_bwd_dkv_causal, k1.launches_bwd_dq_causal)
     other = (k1.launches, k1.launches_bwd_dkv, k1.launches_bwd_dq)
-    tc = (k1.launches_tc, k1.launches_bwd_dkv_tc)
+    tc = (k1.launches_tc, k1.launches_bwd_dkv_tc, k1.launches_bwd_dq_tc)
     layers = trainer.model.n_layers
     loader = trainer.train_loader
     batches = loader.sampler.batches
@@ -1895,8 +1923,8 @@ def valle_slice(root, seed, where):
         f"VALL-E training: {len(loader.dataset)} utterances in {len(batches)} batches of <= "
         f"{config['batch_size']}, {trainer.steps} steps ({trainer.updates} updates) in {run_s:.1f} s; "
         f"launches K1b forward {launches[0]}, dk/dv {launches[1]}, dq {launches[2]} ({layers} a step = "
-        f"{layers * VALLE_STEPS}), of them on the tensor cores: forward {tc[0]}, dk/dv {tc[1]}; non-causal "
-        f"K1/K1-bwd {other}", flush=True,
+        f"{layers * VALLE_STEPS}), of them on the tensor cores: forward {tc[0]}, dk/dv {tc[1]}, dq {tc[2]} "
+        f"(scalar bf16 dq {launches[2] - tc[2]}); non-causal K1/K1-bwd {other}", flush=True,
     )
     check(trainer.steps == VALLE_STEPS, f"trained {trainer.steps} steps")
     check(all(math.isfinite(v) for h in trainer.history for v in h.values()), "a training stat is not finite")
@@ -1908,9 +1936,9 @@ def valle_slice(root, seed, where):
     check(min(launches) > 0, "K1b was not launched in VALL-E training")
     check(launches == (layers * VALLE_STEPS,) * 3 and other == (0, 0, 0),
           f"launches {launches} / {other} != {layers} causal a step each")
-    check(tc == (layers * VALLE_STEPS,) * 2,
-          f"tensor-core launches (forward, dk/dv) {tc} != {layers * VALLE_STEPS} each: every bf16 K1b forward "
-          f"and dk/dv of VALL-E must take the tensor-core kernels")
+    check(tc == (layers * VALLE_STEPS,) * 3 and launches[2] - tc[2] == 0,
+          f"tensor-core launches (forward, dk/dv, dq) {tc} != {layers * VALLE_STEPS} each: every bf16 K1b "
+          f"forward, dk/dv and dq of VALL-E must take the tensor-core kernels, the scalar bf16 dq none")
 
     # the checkpoint, and a resumed trainer
     model_params = dict(trainer.config["model_params"])
@@ -1974,8 +2002,8 @@ def valle_slice(root, seed, where):
     busy_ms = sum(e.self_device_time_total for e in events) / 1e3
     check(busy_ms > 0, "profile of one VALL-E step: the profiler saw no device time")
     k_ms = {name: sum(e.self_device_time_total for e in events if name in e.key) / 1e3
-            for name in ("flash_attn_fwd_tc_kernel", "flash_attn_bwd_dkv_tc_kernel", "flash_attn_bwd_dq_kernel",
-                         "flash_attn_fwd_kernel", "flash_attn_bwd_dkv_kernel")}
+            for name in ("flash_attn_fwd_tc_kernel", "flash_attn_bwd_dkv_tc_kernel", "flash_attn_bwd_dq_tc_kernel",
+                         "flash_attn_fwd_kernel", "flash_attn_bwd_dkv_kernel", "flash_attn_bwd_dq_kernel")}
     k1b_ms = sum(k_ms.values())
     print(
         f"VALL-E training micro-step bf16, batch {shape} (B, S packed): whole step {step_ms:.1f} ms (host "
@@ -1986,9 +2014,10 @@ def valle_slice(root, seed, where):
         f"profile of one VALL-E micro-step: wall {wall_ms:.1f} ms under the profiler, device busy "
         f"{busy_ms:.1f} ms in {sum(e.count for e in events)} kernels, idle share {1 - busy_ms / wall_ms:.3f}; "
         f"K1b forward {k_ms['flash_attn_fwd_tc_kernel']:.2f} ms (tensor cores), dk/dv "
-        f"{k_ms['flash_attn_bwd_dkv_tc_kernel']:.2f} ms (tensor cores), dq {k_ms['flash_attn_bwd_dq_kernel']:.2f} "
-        f"ms ({layers} launches each; scalar forward {k_ms['flash_attn_fwd_kernel']:.2f} ms, scalar dk/dv "
-        f"{k_ms['flash_attn_bwd_dkv_kernel']:.2f} ms); K1b {k1b_ms:.2f} ms = {k1b_ms / busy_ms:.3f} of the "
+        f"{k_ms['flash_attn_bwd_dkv_tc_kernel']:.2f} ms (tensor cores), dq "
+        f"{k_ms['flash_attn_bwd_dq_tc_kernel']:.2f} ms (tensor cores) ({layers} launches each; scalar forward "
+        f"{k_ms['flash_attn_fwd_kernel']:.2f} ms, scalar dk/dv {k_ms['flash_attn_bwd_dkv_kernel']:.2f} ms, scalar "
+        f"dq {k_ms['flash_attn_bwd_dq_kernel']:.2f} ms); K1b {k1b_ms:.2f} ms = {k1b_ms / busy_ms:.3f} of the "
         f"device time", flush=True,
     )
     for e in sorted(events, key=lambda e: -e.self_device_time_total)[:8]:
@@ -2018,13 +2047,13 @@ def valle_slice(root, seed, where):
             k1.reset_launches()
             lss = loss_of(m, batch)
             g = torch.autograd.grad(lss, list(m.parameters()))
-            # bf16: the forward and dk/dv on the tensor cores; f32: the scalar kernels
+            # bf16: the forward, dk/dv and dq on the tensor cores; f32: the scalar kernels
             n_tc = layers if backend == "flash" and dt == torch.bfloat16 else 0
-            want = (layers,) * 3 + (n_tc,) * 2 if backend == "flash" else (0,) * 5
+            want = (layers,) * 3 + (n_tc,) * 3 if backend == "flash" else (0,) * 6
             got_launches = (k1.launches_causal, k1.launches_bwd_dkv_causal, k1.launches_bwd_dq_causal,
-                            k1.launches_tc, k1.launches_bwd_dkv_tc)
-            check(got_launches == want, f"{backend} step: K1b launches (forward, dk/dv, dq, tc forward, tc dk/dv) "
-                                        f"{got_launches} != {want}")
+                            k1.launches_tc, k1.launches_bwd_dkv_tc, k1.launches_bwd_dq_tc)
+            check(got_launches == want, f"{backend} step: K1b launches (forward, dk/dv, dq, tc forward, tc dk/dv, "
+                                        f"tc dq) {got_launches} != {want}")
             ms = host_ms(lambda: torch.autograd.grad(loss_of(m, batch), list(m.parameters()))) if timed else None
             pair[backend] = (float(lss.detach()), g, ms, got_launches)
             del m
@@ -2465,8 +2494,8 @@ def main() -> int:
         "library_ms": times[library],
         **extra,
     } for name, src, line, key, n, by_path, err, times, library, extra in (
-        # VALL-E's bf16 forms: the tensor-core forward and dk/dv, the scalar dq;
-        # the library call is SDPA with is_causal (every key valid in the timing)
+        # VALL-E's bf16 forms: the tensor-core forward, dk/dv and dq; the library
+        # call is SDPA with is_causal (every key valid in the timing)
         ("flash_attn_fwd_tc_causal", "flash_attn_fwd_tc.cu", 758, "fwd", valle_launches[0],
          {"valle_training": valle_launches[0]}, max(k1b_err["fwd_tc"], valle_own["fwd"]), k1b_times,
          "sdpa_causal_fwd_ms", {"graph_ms": k1b_times["fwd_graph"],
@@ -2479,16 +2508,22 @@ def main() -> int:
          k1b_times, "sdpa_causal_ms", {"graph_ms": k1b_times["dkv_graph"],
                                        "library_backend": k1b_times["sdpa_causal_backend"],
                                        "library_mask_ms": k1b_times["sdpa_mask_ms"]}),
-        ("flash_attn_bwd_dq_causal", "flash_attn_bwd.cu", 1456, "dq", valle_launches[2],
-         {"valle_training": valle_launches[2]}, max(k1b_err["dq"], valle_own["dq"]), k1b_times,
-         "sdpa_causal_ms", {"library_mask_ms": k1b_times["sdpa_mask_ms"]}),
-        # the scalar forward and dk/dv run f32 only now: phase 12's f32 flash
-        # step launches them, and they are timed in f32
+        ("flash_attn_bwd_dq_tc_causal", "flash_attn_bwd_tc.cu", 1456, "dq", valle_launches[2],
+         {"valle_training": valle_launches[2]}, max(k1b_err["dq_tc"], valle_own["dq"]), k1b_times,
+         "sdpa_causal_ms", {"graph_ms": k1b_times["dq_graph"],
+                            "scalar_bf16_ms": k1b_times["dq_scalar_bf16"],
+                            "library_backend": k1b_times["sdpa_causal_backend"],
+                            "library_mask_ms": k1b_times["sdpa_mask_ms"]}),
+        # the scalar forward, dk/dv and dq no longer run VALL-E's bf16 form:
+        # phase 12's f32 flash step launches them, and they are timed in f32
         ("flash_attn_fwd_causal", "flash_attn_fwd.cu", 758, "fwd", valle_f32_launches[0],
          {"valle_training": 0, "valle_step_f32": valle_f32_launches[0]}, k1b_err["fwd"], k1b_times["f32"],
          "sdpa_fwd_ms", {"timed_dtype": "f32"}),
         ("flash_attn_bwd_dkv_causal", "flash_attn_bwd.cu", 1121, "dkv", valle_f32_launches[1],
          {"valle_training": 0, "valle_step_f32": valle_f32_launches[1]}, k1b_err["dkv"], k1b_times["f32"],
+         "sdpa_ms", {"timed_dtype": "f32"}),
+        ("flash_attn_bwd_dq_causal", "flash_attn_bwd.cu", 1456, "dq", valle_f32_launches[2],
+         {"valle_training": 0, "valle_step_f32": valle_f32_launches[2]}, k1b_err["dq"], k1b_times["f32"],
          "sdpa_ms", {"timed_dtype": "f32"}),
     )] + [{
         "name": f"{name}_relpos", "route": "cuda", "source": f"jatts_torch/csrc/{src}",

@@ -1,7 +1,7 @@
 """K1 — flash-attention forward (``csrc/flash_attn_fwd.cu``; its bf16
 forms on the tensor cores in ``csrc/flash_attn_fwd_tc.cu``), K1-bwd — its
-backward (``csrc/flash_attn_bwd.cu``; K1b's bf16 dk/dv at d 64 on the tensor
-cores in ``csrc/flash_attn_bwd_tc.cu``), K1b — the causal form of both, K1r
+backward (``csrc/flash_attn_bwd.cu``; K1b's bf16 dk/dv and dq at d 64 on the
+tensor cores in ``csrc/flash_attn_bwd_tc.cu``), K1b — the causal form of both, K1r
 — the fused rel-pos form of both (d_qk != d_v), and their plain twins.
 
 Replaces the Pallas TPU flash-attention forward that
@@ -37,10 +37,11 @@ else), whichever kernel ran, so a run can show that it went through the
 kernels. Which forward kernel a call takes is :func:`fwd_kernel`'s one
 rule: bf16 goes to the tensor-core kernel (``launches_tc`` counts it,
 besides ``launches``, ``launches_causal`` or ``launches_relpos``), f32 to
-the scalar one. Which dk/dv kernel is :func:`dkv_kernel`'s: VALL-E's form
-(bf16, causal, d 64, no bias) goes to the tensor-core kernel
-(``launches_bwd_dkv_tc`` counts it, besides ``launches_bwd_dkv_causal``),
-every other form to the scalar one. See the source notes in the ``.cu``
+the scalar one. Which dk/dv and dq kernels are :func:`dkv_kernel`'s and
+:func:`dq_kernel`'s, one condition: VALL-E's form (bf16, causal, d 64, no
+bias) goes to the tensor-core kernels (``launches_bwd_dkv_tc`` and
+``launches_bwd_dq_tc`` count them, besides ``launches_bwd_dkv_causal`` and
+``launches_bwd_dq_causal``), every other form to the scalar ones. See the source notes in the ``.cu``
 files for the bounds.
 """
 
@@ -74,6 +75,7 @@ launches_bwd_dq_causal = 0  # K1b, causal dq/d(ab) kernel
 launches_relpos = 0  # K1r, d_qk != d_v forward
 launches_tc = 0  # forwards (K1, K1b or K1r) that ran on the tensor-core kernel
 launches_bwd_dkv_tc = 0  # dk/dv calls (K1b) that ran on the tensor-core kernel
+launches_bwd_dq_tc = 0  # dq calls (K1b) that ran on the tensor-core kernel
 launches_bwd_dkv_relpos = 0  # K1r, dk/dv kernel
 launches_bwd_dq_relpos = 0  # K1r, dq kernel
 
@@ -82,8 +84,9 @@ def reset_launches() -> None:
     global launches, launches_bwd_dkv, launches_bwd_dq
     global launches_causal, launches_bwd_dkv_causal, launches_bwd_dq_causal
     global launches_relpos, launches_bwd_dkv_relpos, launches_bwd_dq_relpos, launches_tc
-    global launches_bwd_dkv_tc
-    launches = launches_bwd_dkv = launches_bwd_dq = launches_tc = launches_bwd_dkv_tc = 0
+    global launches_bwd_dkv_tc, launches_bwd_dq_tc
+    launches = launches_bwd_dkv = launches_bwd_dq = launches_tc = 0
+    launches_bwd_dkv_tc = launches_bwd_dq_tc = 0
     launches_causal = launches_bwd_dkv_causal = launches_bwd_dq_causal = 0
     launches_relpos = launches_bwd_dkv_relpos = launches_bwd_dq_relpos = 0
 
@@ -187,12 +190,23 @@ def fwd_kernel(dtype: torch.dtype, causal: bool) -> str:
     return KERNEL_TC if dtype == torch.bfloat16 else KERNEL
 
 
+def _bwd_on_tc(dtype: torch.dtype, causal: bool, d_qk: int, d_v: int, has_bias: bool) -> bool:
+    """VALL-E's form — bf16, causal, d_qk = d_v = 64, no bias — the one
+    form the tensor-core backward kernels take."""
+    return dtype == torch.bfloat16 and causal and d_qk == d_v == 64 and not has_bias
+
+
 def dkv_kernel(dtype: torch.dtype, causal: bool, d_qk: int, d_v: int, has_bias: bool) -> str:
     """The library a dk/dv backward on the card takes: ``KERNEL_BWD_TC``
-    (tensor cores) for VALL-E's form — bf16, causal, d_qk = d_v = 64, no
-    bias — else ``KERNEL_BWD`` (scalar)."""
-    tc = dtype == torch.bfloat16 and causal and d_qk == d_v == 64 and not has_bias
-    return KERNEL_BWD_TC if tc else KERNEL_BWD
+    (tensor cores) for VALL-E's form, else ``KERNEL_BWD`` (scalar)."""
+    return KERNEL_BWD_TC if _bwd_on_tc(dtype, causal, d_qk, d_v, has_bias) else KERNEL_BWD
+
+
+def dq_kernel(dtype: torch.dtype, causal: bool, d_qk: int, d_v: int, has_bias: bool) -> str:
+    """The library a dq backward on the card takes, by :func:`dkv_kernel`'s
+    condition: ``KERNEL_BWD_TC`` for VALL-E's form, else ``KERNEL_BWD``
+    (scalar; it also writes d(ab) when there is a bias)."""
+    return KERNEL_BWD_TC if _bwd_on_tc(dtype, causal, d_qk, d_v, has_bias) else KERNEL_BWD
 
 
 def _kernel_fn(name: str):
@@ -308,13 +322,11 @@ def _check_bwd(q, k, v, ab, key_mask, lse, di, do, causal) -> None:
 
 
 def _launch_bwd(name, q, k, v, ab, key_mask, sm_scale, lse, di, do, out_a, out_b, causal):
-    """K1-bwd's ``name`` ("dkv" or "dq") kernel on checked card tensors;
-    dk/dv on the library :func:`dkv_kernel` picks."""
-    global launches_bwd_dkv_tc
+    """K1-bwd's ``name`` ("dkv" or "dq") kernel on checked card tensors, on
+    the library :func:`dkv_kernel` or :func:`dq_kernel` picks."""
     b, h, tq, d = q.shape
-    lib = KERNEL_BWD
-    if name == "dkv":
-        lib = dkv_kernel(q.dtype, causal, d, v.shape[3], ab is not None)
+    rule = dkv_kernel if name == "dkv" else dq_kernel
+    lib = rule(q.dtype, causal, d, v.shape[3], ab is not None)
     symbol = f"jatts_flash_attn_bwd_{name}" + ("_tc" if lib == KERNEL_BWD_TC else "")
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
@@ -327,7 +339,8 @@ def _launch_bwd(name, q, k, v, ab, key_mask, sm_scale, lse, di, do, out_a, out_b
     if rc != 0:
         raise RuntimeError(f"{lib} {name} launch failed with CUDA error {rc}")
     _count(name, causal, d != v.shape[3])
-    launches_bwd_dkv_tc += lib == KERNEL_BWD_TC
+    if lib == KERNEL_BWD_TC:
+        globals()[f"launches_bwd_{name}_tc"] += 1
 
 
 def flash_attention_bwd_dkv(q, k, v, ab, key_mask, sm_scale, lse, di, do, causal=False):

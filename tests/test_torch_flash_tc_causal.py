@@ -1,12 +1,13 @@
 """K1b — VALL-E's causal flash attention — on the tensor cores: the causal
-forms of ``csrc/flash_attn_fwd_tc.cu`` and the dk/dv kernel of
+forms of ``csrc/flash_attn_fwd_tc.cu`` and the dk/dv and dq kernels of
 ``csrc/flash_attn_bwd_tc.cu``.
 
-On the CPU: which calls take the dk/dv kernel (``dkv_kernel``; the
-forward's rule, ``fwd_kernel``, is ``test_torch_flash_tc.py``'s), what
-their sources hold, that an edited shared header rebuilds the libraries,
-and a plain-torch model of the kernels' arithmetic (64 x 64 tiles, the
-causal tile skip, P and dS rounded to bf16 before their products) held
+On the CPU: which calls take the dk/dv and dq kernels (``dkv_kernel``,
+``dq_kernel``; the forward's rule, ``fwd_kernel``, is
+``test_torch_flash_tc.py``'s), what their sources hold, that an edited
+shared header rebuilds the libraries, and a plain-torch model of the
+kernels' arithmetic (64 x 64 tiles, the causal tile skip, P and dS rounded
+to bf16 before their products) held
 against ``flash_attention_ref`` / ``flash_attention_bwd_ref(causal=True)``
 within ``chip_smoke.py``'s bf16 tolerances, 1e-2 x max(1, max|plain|) of
 each batch item (``chip_smoke.item_err``): the rounding the kernels add
@@ -17,10 +18,11 @@ Marked ``cuda`` (skipped without a card; the card's machine runs them with
 ``python -m pytest tests/test_torch_flash_tc_causal.py -m cuda``): the
 kernels against the plain versions at VALL-E's shape with ragged key rows,
 at a T that ends inside a diagonal tile, at T = 1 and with rows that see no
-key (exactly 0 there, and dk, dv exactly 0 on keys no row sees), the
-forward at every width with and without a bias, a row alone against its
-batched row bit for bit, and the autograd chain through ``FlashAttention``.
-Imports no flax."""
+key (exactly 0 there, dq too, and dk, dv exactly 0 on keys no row sees),
+the forward at every width with and without a bias, a row alone against its
+batched row bit for bit, dq the same bits from run to run, the dq entry
+refusing a bias, and the autograd chain through ``FlashAttention``. Imports
+no flax."""
 
 import importlib.util
 import shutil
@@ -62,6 +64,17 @@ def test_dkv_rule_sends_valle_form_to_the_tensor_cores(dtype, causal, d_qk, d_v,
     assert k1.dkv_kernel(dtype, causal, d_qk, d_v, has_bias) == (k1.KERNEL_BWD_TC if tc else k1.KERNEL_BWD)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("d_qk,d_v", [(64, 64), (128, 128), (192, 192), (256, 256), (192, 64), (576, 192)])
+@pytest.mark.parametrize("has_bias", [False, True])
+def test_dq_rule_sends_valle_form_to_the_tensor_cores(dtype, causal, d_qk, d_v, has_bias):
+    """dq by dk/dv's condition: VALL-E's form on the tensor-core dq; f32, a
+    bias (and its d(ab)), d != 64, non-causal and K1r on the scalar one."""
+    tc = dtype == torch.bfloat16 and causal and (d_qk, d_v) == (64, 64) and not has_bias
+    assert k1.dq_kernel(dtype, causal, d_qk, d_v, has_bias) == (k1.KERNEL_BWD_TC if tc else k1.KERNEL_BWD)
+
+
 def test_sources_hold_the_causal_forms_and_a_plain_c_interface():
     fwd = (CSRC / f"{k1.KERNEL_TC}.cu").read_text()
     bwd = (CSRC / f"{k1.KERNEL_BWD_TC}.cu").read_text()
@@ -70,10 +83,16 @@ def test_sources_hold_the_causal_forms_and_a_plain_c_interface():
     assert "template <int DQK, int DV, bool BIAS, bool CAUSAL>" in fwd
     assert "launch<D, D, true, true>" in fwd and "launch<D, D, false, true>" in fwd
     assert "launch<D, D, true, false>" in fwd and "launch<D, D, false, false>" in fwd
-    # the dk/dv kernel: its own C entry with jatts_flash_attn_bwd_dkv's arguments
+    # the dk/dv and dq kernels: their own C entries with jatts_flash_attn_bwd_dkv's
+    # and jatts_flash_attn_bwd_dq's arguments; dk/dv's causal form a compile-time
+    # flag, dq causal only
     assert 'extern "C" int jatts_flash_attn_bwd_dkv_tc(' in bwd
-    assert "template <bool CAUSAL>" in bwd and "launch<true>" in bwd
-    assert bwd.count("__global__") == 1
+    assert 'extern "C" int jatts_flash_attn_bwd_dq_tc(' in bwd
+    assert "template <bool CAUSAL>" in bwd and "launch_dkv<true>" in bwd and "launch_dq(" in bwd
+    assert bwd.count("__global__") == 2
+    assert "flash_attn_bwd_dkv_tc_kernel(" in bwd and "flash_attn_bwd_dq_tc_kernel(" in bwd
+    # dQ += dS.K from registers against the k slab MN-major, as the forward's P.V
+    assert "wgmma_rs(acc, da[kk], k_desc + 128 * kk)" in bwd
     for src in (fwd, bwd):
         assert '#include "tc_common.cuh"' in src
         assert "torch/" not in src and "#include <ATen" not in src and "atomicAdd" not in src
@@ -108,7 +127,7 @@ def test_cpu_call_launches_no_kernel():
     out = k1.flash_attention(q, k, v, causal=True)
     out.float().sum().backward()
     assert out.dtype == torch.bfloat16 and q.grad is not None
-    assert (k1.launches_tc, k1.launches_bwd_dkv_tc, k1.launches_causal) == (0, 0, 0)
+    assert (k1.launches_tc, k1.launches_bwd_dkv_tc, k1.launches_bwd_dq_tc, k1.launches_causal) == (0, 0, 0, 0)
 
 
 # ---------------------------------------------------------------------------
@@ -178,6 +197,29 @@ def tc_model_dkv(q, k, v, key_mask, scale, lse, di, do):
     return dk.bfloat16(), dv.bfloat16()
 
 
+def tc_model_dq(q, k, v, key_mask, scale, lse, di, do, round_ds=True):
+    """flash_attn_bwd_tc.cu's dq arithmetic: per 64-row query tile, the key
+    tiles up to the diagonal one; P = exp(S scale - lse) in f32 (0 where
+    unseen), dP = dO.V^T, dS = P (dP - di) scale in f32, dQ += bf16(dS).K
+    with f32 accumulation; dq rounded once. ``round_ds=False`` keeps dS in
+    f32: the scalar kernel's arithmetic."""
+    b, h, t, d = q.shape
+    qf, kf, vf, dof = q.float(), k.float(), v.float(), do.float()
+    dq = torch.zeros(b, h, t, d)
+    for q0 in range(0, t, TILE):
+        rows = torch.arange(q0, min(t, q0 + TILE))
+        acc = torch.zeros(b, h, len(rows), d)
+        for k0 in range(0, min(t, q0 + TILE), TILE):  # the causal tile skip
+            cols = torch.arange(k0, min(t, k0 + TILE))
+            s = (qf[:, :, rows] @ kf[:, :, cols].transpose(-1, -2)) * scale
+            p = torch.exp(s - lse[:, :, rows, None]).masked_fill(~_seen(key_mask, rows, cols), 0.0)
+            dp = dof[:, :, rows] @ vf[:, :, cols].transpose(-1, -2)
+            ds = p * (dp - di[:, :, rows, None]) * scale
+            acc += (ds.bfloat16().float() if round_ds else ds) @ kf[:, :, cols]
+        dq[:, :, rows] = acc
+    return dq.bfloat16()
+
+
 def _np_inputs(seed, b, h, t, d, rows):
     """bf16 q, k, v, do from numpy and a bool key mask [B, T] from (first
     valid key, count) per item."""
@@ -215,6 +257,41 @@ def test_cpu_model_of_the_kernels_rounding_stays_inside_the_tolerance():
     assert torch.all(dk_m[unseen] == 0) and torch.all(dv_m[unseen] == 0)
     # and the rounding is visible: the model is not the plain version itself
     assert _item_err(dk_m, dk) > 0 and _item_err(out_m, o) > 0
+
+
+@pytest.mark.parametrize("shape,rows", [
+    ((8, 2, 300, 64), [(0, 300), (0, 299), (0, 211), (0, 131), (0, 1), (0, 64), (0, 65), (0, 250)]),
+    ((3, 2, 200, 64), [(0, 200), (37, 100), (0, 0)]),
+], ids=["valle_rows", "no_key"])
+def test_cpu_model_of_the_dq_kernels_rounding_stays_inside_the_tolerance(shape, rows):
+    """The tensor-core dq (dS rounded to bf16 before dS.K, dq once) held per
+    batch item to the plain backward, as chip_smoke's checks hold it: fed
+    di from the plain output in bf16, as chip_smoke feeds the kernel path,
+    and from the f32 output. The split says where the scalar bf16 dq's error
+    comes from: the rounded output's di alone (an f32 dq from it), dq's own
+    rounding alone, the scalar kernel's arithmetic and the new kernel's."""
+    b, h, t, d = shape
+    q, k, v, do, mask = _np_inputs(11, b, h, t, d, rows)
+    scale = d ** -0.5
+    qf, kf, vf, dof = q.float(), k.float(), v.float(), do.float()
+    o, lse = k1.flash_attention_ref(qf, kf, vf, None, mask, scale, return_lse=True, causal=True)
+    dq = k1.flash_attention_bwd_ref(qf, kf, vf, None, mask, scale, o, lse, dof, causal=True)[0]
+    di32, di16 = (o * dof).sum(-1), (o.bfloat16().float() * dof).sum(-1)
+    o_alone = k1.flash_attention_bwd_ref(qf, kf, vf, None, mask, scale, o.bfloat16().float(), lse, dof,
+                                         causal=True)[0]
+    split = {
+        "o rounded alone": _item_err(o_alone, dq),
+        "dq rounded alone": _item_err(dq.bfloat16(), dq),
+        "scalar, o bf16": _item_err(tc_model_dq(q, k, v, mask, scale, lse, di16, do, round_ds=False), dq),
+        "tc, o f32": _item_err(tc_model_dq(q, k, v, mask, scale, lse, di32, do), dq),
+        "tc, o bf16": _item_err(tc_model_dq(q, k, v, mask, scale, lse, di16, do), dq),
+    }
+    print("dq per-item error over max(1, max|plain| of the item): "
+          + ", ".join(f"{name} {err:.2e}" for name, err in split.items()) + f" (tol {TOL_BF16:.0e})")
+    assert all(0 < err <= TOL_BF16 for err in split.values()), split
+    dq_m = tc_model_dq(q, k, v, mask, scale, lse, di16, do)
+    none = torch.isinf(lse)[..., None].expand_as(dq_m)
+    assert bool(none.any()) == (rows[-1] == (0, 0)) and torch.all(dq_m[none] == 0)
 
 
 def test_item_tolerance_catches_a_wrong_key_tile():
@@ -276,17 +353,21 @@ def test_tc_causal_forward_and_dkv_match_plain_on_card(shape, rows):
     k1.reset_launches()
     out, lse_k = k1.flash_attention_fwd(q, k, v, None, mask, scale, causal=True)
     dk, dv = k1.flash_attention_bwd_dkv(q, k, v, None, mask, scale, lse, di, do, causal=True)
+    dq, dab = k1.flash_attention_bwd_dq(q, k, v, None, mask, scale, lse, di, do, causal=True)
     torch.cuda.synchronize()
     assert (k1.launches_tc, k1.launches_causal, k1.launches_bwd_dkv_tc, k1.launches_bwd_dkv_causal) == (1, 1, 1, 1)
-    _, dk_r, dv_r, _ = k1.flash_attention_bwd_ref(q.float(), k.float(), v.float(), None, mask, scale, o, lse,
-                                                  do.float(), causal=True)
+    assert (k1.launches_bwd_dq_tc, k1.launches_bwd_dq_causal) == (1, 1) and dab is None
+    dq_r, dk_r, dv_r, _ = k1.flash_attention_bwd_ref(q.float(), k.float(), v.float(), None, mask, scale, o, lse,
+                                                     do.float(), causal=True)
     assert _item_err(out, o) <= TOL_BF16
     assert _item_err(dk, dk_r) <= TOL_BF16 and _item_err(dv, dv_r) <= TOL_BF16
+    assert _item_err(dq, dq_r) <= TOL_BF16 and torch.isfinite(dq).all()
     none = torch.isinf(lse)
     assert torch.equal(none, torch.isinf(lse_k)) and bool((lse_k[none] > 0).all())
     assert (lse_k - lse).masked_fill(none, 0).abs().max().item() <= 1e-4 * max(
         1.0, lse.masked_fill(none, 0).abs().max().item())
     assert torch.all(out[none[..., None].expand_as(out)] == 0)
+    assert torch.all(dq[none[..., None].expand_as(dq)] == 0)
     unseen = ~mask[:, None, :, None].expand_as(dk)
     assert torch.all(dk[unseen] == 0) and torch.all(dv[unseen] == 0)
     assert torch.isfinite(dk).all() and torch.isfinite(dv).all()
@@ -324,26 +405,55 @@ def test_tc_causal_forward_matches_plain_at_every_width_on_card(d, with_bias):
 @pytest.mark.cuda
 def test_tc_causal_row_does_not_depend_on_its_batch():
     """An item alone and inside a batch of others gives the same bits:
-    forward, lse, dk and dv."""
+    forward, lse, dk, dv and dq."""
     _card()
     q, k, v, do, mask = _card_inputs((4, 2, 300, 64), [(0, 300), (0, 120), (5, 77), (0, 0)], 22)
     scale = 0.125
     out, lse = k1.flash_attention_fwd(q, k, v, None, mask, scale, causal=True)
     di = (out.float() * do.float()).sum(-1)
     dk, dv = k1.flash_attention_bwd_dkv(q, k, v, None, mask, scale, lse, di, do, causal=True)
+    dq = k1.flash_attention_bwd_dq(q, k, v, None, mask, scale, lse, di, do, causal=True)[0]
     one = [x[2:3].contiguous() for x in (q, k, v, do, mask, lse, di)]
     out1, lse1 = k1.flash_attention_fwd(*one[:3], None, one[4], scale, causal=True)
     dk1, dv1 = k1.flash_attention_bwd_dkv(*one[:3], None, one[4], scale, one[5], one[6], one[3], causal=True)
+    dq1 = k1.flash_attention_bwd_dq(*one[:3], None, one[4], scale, one[5], one[6], one[3], causal=True)[0]
     torch.cuda.synchronize()
     assert torch.equal(out[2:3], out1) and torch.equal(lse[2:3], lse1)
-    assert torch.equal(dk[2:3], dk1) and torch.equal(dv[2:3], dv1)
+    assert torch.equal(dk[2:3], dk1) and torch.equal(dv[2:3], dv1) and torch.equal(dq[2:3], dq1)
+
+
+@pytest.mark.cuda
+def test_tc_dq_same_bits_each_run_and_refuses_a_bias_on_card():
+    """No atomics: two runs of the tensor-core dq give the same bits (the
+    bitwise resume of VALL-E training rests on it). Its C entry refuses
+    what its form does not take: a bias, a d(ab) output, f32."""
+    _card()
+    q, k, v, do, mask = _card_inputs((4, 4, 1088, 64), VALLE_ROWS[:4], 25)
+    scale = 0.125
+    _, lse = k1.flash_attention_fwd(q, k, v, None, mask, scale, causal=True)
+    di = torch.randn(lse.shape, device="cuda")
+    k1.reset_launches()
+    runs = [k1.flash_attention_bwd_dq(q, k, v, None, mask, scale, lse, di, do, causal=True)[0] for _ in range(3)]
+    torch.cuda.synchronize()
+    assert k1.launches_bwd_dq_tc == 3
+    assert all(torch.equal(runs[0], r) for r in runs[1:])
+    fn = k1._bwd_kernel_fn(k1.KERNEL_BWD_TC, "jatts_flash_attn_bwd_dq_tc")
+    ab = torch.zeros(4, 4, 1088, 1088, device="cuda", dtype=torch.bfloat16)
+    stream = torch.cuda.current_stream().cuda_stream
+    ptrs = [q.data_ptr(), k.data_ptr(), v.data_ptr()]
+    rest = [mask.data_ptr(), lse.data_ptr(), di.data_ptr(), do.data_ptr(), runs[0].data_ptr()]
+    for ab_ptr, dab_ptr, is_bf16 in ((ab.data_ptr(), None, 1), (None, ab.data_ptr(), 1), (None, None, 0)):
+        rc = fn(*ptrs, ab_ptr, *rest, dab_ptr, 4, 4, 1088, 1088, 64, 64, is_bf16, 1, scale, stream)
+        assert rc != 0
+    torch.cuda.synchronize()
+    assert torch.equal(runs[0], runs[1])
 
 
 @pytest.mark.cuda
 def test_tc_causal_autograd_chain_matches_plain_on_card():
     """FlashAttention forward + backward (the tensor-core forward's output
-    and lse feeding the tensor-core dk/dv and the scalar dq) against
-    autograd through the plain causal forward in f32."""
+    and lse feeding the tensor-core dk/dv and dq) against autograd through
+    the plain causal forward in f32."""
     _card()
     q, k, v, do, mask = _card_inputs((3, 2, 300, 64), [(0, 300), (0, 211), (37, 100)], 23)
     leaves = [x.detach().requires_grad_() for x in (q, k, v)]
@@ -351,7 +461,7 @@ def test_tc_causal_autograd_chain_matches_plain_on_card():
     out = k1.flash_attention(*leaves, None, mask, causal=True)
     got = torch.autograd.grad(out, leaves, do)
     torch.cuda.synchronize()
-    assert (k1.launches_tc, k1.launches_bwd_dkv_tc, k1.launches_bwd_dq_causal) == (1, 1, 1)
+    assert (k1.launches_tc, k1.launches_bwd_dkv_tc, k1.launches_bwd_dq_tc, k1.launches_bwd_dq_causal) == (1, 1, 1, 1)
     ref_leaves = [x.float().detach().requires_grad_() for x in (q, k, v)]
     ref = k1.flash_attention_ref(*ref_leaves, None, mask, causal=True)
     want = torch.autograd.grad(ref, ref_leaves, do.float())
