@@ -9,17 +9,21 @@ Phases, each of which fails the run with a non-zero exit:
      per source, all at once; each one's seconds and ptxas report printed;
      a register spill in a tensor-core kernel fails the run);
   3. K1 (flash attention) against its plain PyTorch version on the card at
-     the serving path's shapes, f32 (TF32 off, the scalar kernel) and bf16
-     (the tensor-core kernel, ``flash_attn_fwd_tc.cu``), error beside
-     tolerance; then the tensor-core kernel at every (d_qk, d_v) it is built
-     for (K1's head dims with and without bias, K1r's pairs), at a ragged T,
-     at T = 1, at Tq != Tk, with rows that see no key and on the log-sum-exp;
+     the serving path's shapes, f32 (TF32 off; the 3xTF32 tensor-core kernel,
+     ``flash_attn_fwd_tc_f32.cu``) and bf16 (the tensor-core kernel,
+     ``flash_attn_fwd_tc.cu``), error beside tolerance; then each
+     tensor-core kernel at every (d_qk, d_v) it is built for (K1's head dims
+     with and without bias, K1r's pairs), at a ragged T, at T = 1, at Tq !=
+     Tk, with rows that see no key and on the log-sum-exp, in f32 the scalar
+     kernel beside it on the same inputs;
   4. K1's times with CUDA events (and, for the tensor-core kernel and SDPA,
      replayed from a CUDA graph, without the host's time between launches)
      beside their bounds, their plain versions' and one library call's
      (SDPA, the yardstick, never used by the port):
      the tensor-core kernel at the serving decoder and encoder shapes (bf16),
-     the scalar kernel at the training decoder shape (f32, with lse);
+     the 3xTF32 kernel at the training decoder shape (f32, with lse; graph
+     replay too, the scalar kernel on the same inputs beside; the bound on
+     the tensor cores in 3xTF32, the CUDA cores' beside);
   5. K2 (MAS forward) and K3 (MAS backtrace), each against its plain twin
      and the pair against the plain search, count of differing elements
      beside the limit 0, at 16x1024x128, at a ragged width, on edge-case
@@ -52,8 +56,9 @@ Phases, each of which fails the run with a non-zero exit:
      and ``jatts_torch/bin/tts_train.py:run`` trains FastSpeech2 at the full
      JSUT width (egs/jsut/tts1/conf/fastspeech2.v1.yaml, batch 32, f32) with
      ``attn_backend: flash`` for 200 steps (warm-up 50), launch counts set
-     to 0 just before and read just after (no tensor-core launch: f32 takes
-     the scalar kernels); then the loss, launch,
+     to 0 just before and read just after (every forward on the 3xTF32
+     tensor-core kernel, none on the scalar one or the bf16 one; dk/dv and dq
+     scalar); then the loss, launch,
      checkpoint/resume and inference checks, the time of one step and its
      parts, a profiled step, and the same step under ``attn_backend: xla``;
  11. K1b (the causal form of K1 and K1-bwd: the forward, dk/dv and dq
@@ -94,7 +99,9 @@ Phases, each of which fails the run with a non-zero exit:
      their times at the training decoder shape (f32) and the serving
      decoder shape (bf16) beside the plain versions', SDPA's with a boolean
      key mask (the yardstick, never used by the port; its backend printed)
-     and the bounds;
+     and the bounds (the f32 forward on the 3xTF32 kernel, the scalar one
+     beside; f32 bounds on the tensor cores in 3xTF32, the CUDA cores'
+     beside);
  14. the JVS-latest path: egs/jvs/tts1/conf/fastspeech2.v1.yaml (adim 384,
      2 heads, 4+4 blocks, ``spk_embed_dim`` 192 ``add``) with
      ``conformer_rel_pos_type: latest`` and ``attn_backend: flash``: 16
@@ -105,7 +112,8 @@ Phases, each of which fails the run with a non-zero exit:
      utterance (4 synthetic speakers) trains 200 steps through
      ``jatts_torch/bin/tts_train.py:run`` (f32, batch 32, warm-up 50), launch
      counts set to 0 just before and read just after (K1r 8 launches a step
-     each, no K1 or K1-bwd launch); the loss, bitwise resume, a step's time
+     each, every forward on the 3xTF32 kernel, no K1 or K1-bwd launch); the
+     loss, bitwise resume, a step's time
      and parts, a profiled step, and the same step under ``attn_backend:
      xla`` (the eager rel_shift_gather path) on the same weights and batch.
 The line before the last is the kernels' JSON record, the last line
@@ -129,9 +137,25 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 
-# H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s and bf16 tensor FLOP/s
+# H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s; FLOP/s of the bf16
+# and TF32 tensor cores and of f32 on the CUDA cores
 PEAK_BYTES_S = 3.35e12
-PEAK_FLOPS_S = {"bf16": 989e12, "f32": 67e12}
+PEAK_FLOPS_S = {"bf16": 989e12, "tf32": 495e12, "f32": 67e12}
+
+
+def ops_ms(flops, dtype_name):
+    """Least ms of ``flops`` of products on the tensor cores: bf16 at its
+    rate, f32 as 3xTF32 (three TF32 products each, the f32-faithful route
+    the card offers), so every f32 row is held to the same yardstick."""
+    if dtype_name == "f32":
+        return 3 * flops / PEAK_FLOPS_S["tf32"] * 1e3
+    return flops / PEAK_FLOPS_S[dtype_name] * 1e3
+
+
+def cuda_core_ms(flops):
+    """The same products as f32 FMAs on the CUDA cores: the yardstick of the
+    f32 rows before the tensor-core route, printed beside for comparison."""
+    return flops / PEAK_FLOPS_S["f32"] * 1e3
 
 # K1 tolerances on max |kernel - plain|: f32 differs by summation order only;
 # bf16 output is rounded once to bf16 (half an ulp is 2^-8 |o|, |o| < 4 here)
@@ -149,7 +173,7 @@ TOL_K1R = {"f32": 1e-5, "bf16": 1e-2}
 def ptxas_entry(line: str) -> str:
     """``flash_attn_fwd_relpos_kernel<bf16,576,192>`` from the mangled name
     on a ptxas "Compiling entry function" line."""
-    name = re.search(r"\d+([a-z_]+_kernel)", line)
+    name = re.search(r"\d((?:flash_attn|mas)_[a-z0-9_]*?_kernel)(?=[IPEv])", line)
     if name is None:
         return line.strip()
     targs = re.search(r"_kernelI(.+?)EEv", line)  # a template's arguments
@@ -162,8 +186,9 @@ def ptxas_entry(line: str) -> str:
             args.append("f32")
             rest = rest[1:]
         elif rest.startswith("Lb"):
-            if name.group(1) == "flash_attn_fwd_tc_kernel" and "bias" not in " ".join(args):
-                args.append("bias" if rest[2] == "1" else "no bias")  # <D_QK, D_V, BIAS, CAUSAL>
+            if name.group(1) in ("flash_attn_fwd_tc_kernel", "flash_attn_fwd_tc_f32_kernel") and (
+                    "bias" not in " ".join(args)):
+                args.append("bias" if rest[2] == "1" else "no bias")  # <D_QK, D_V, BIAS(, CAUSAL)>
             else:
                 args.append("causal" if rest[2] == "1" else "non-causal")
             rest = rest[4:]
@@ -264,24 +289,26 @@ def k1_bound_ms(b, h, t, d, elem_bytes, with_bias, dtype_name, with_lse=False):
         io += b * h * t * 4
     flops = 4 * b * h * t * t * d  # every key valid in the timing inputs
     t_bytes = io / PEAK_BYTES_S * 1e3
-    t_ops = flops / PEAK_FLOPS_S[dtype_name] * 1e3
+    t_ops = ops_ms(flops, dtype_name)
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations"), io, flops
 
 
-def tc_cases():
-    """The tensor-core forward's checks: (name, (B, H, Tq, Tk), (d_qk, d_v),
+def tc_cases(dtype_name="bf16"):
+    """The tensor-core forwards' checks: (name, (B, H, Tq, Tk), (d_qk, d_v),
     bias, key rows as (first valid key, number of valid keys) cycled over
-    the batch). Every form it is built for; T ends inside a tile (1000 = 15
-    x 64 + 40), T = 1, Tq != Tk with an odd Tk (the bias read pair by pair)
-    and a leading key tile with no valid key (skipped), rows that see no
-    key."""
+    the batch). Every form the kernel of ``dtype_name`` is built for (bf16:
+    flash_attn_fwd_tc.cu, f32: the 3xTF32 flash_attn_fwd_tc_f32.cu); T ends
+    inside a tile (1000 = 15 x 64 + 40), T = 1, Tq != Tk with an odd Tk (the
+    bias read pair by pair) and a leading key tile with no valid key
+    (skipped), rows that see no key."""
     from jatts_torch.ops import flash_attention as k1
 
+    pairs = k1.TC_F32_PAIRS if dtype_name == "f32" else [(d, d) for d in k1.HEAD_DIMS] + list(k1.RELPOS_PAIRS)
     ragged = [(0, 1000), (0, 999), (3, 517), (0, 1), (0, 0), (0, 64), (64, 65), (0, 1000)]
-    cases = [(f"d={d} bias={bias}", (8, 2, 1000, 1000), (d, d), bias, ragged)
-             for d in k1.HEAD_DIMS for bias in (False, True)]
+    cases = [(f"d={d_qk} bias={bias}", (8, 2, 1000, 1000), (d_qk, d_v), bias, ragged)
+             for d_qk, d_v in pairs if d_qk == d_v for bias in (False, True)]
     cases += [(f"K1r {d_qk},{d_v}", (8, 2, 1000, 1000), (d_qk, d_v), False, ragged)
-              for d_qk, d_v in k1.RELPOS_PAIRS]
+              for d_qk, d_v in pairs if d_qk != d_v]
     for d_qk, d_v in ((192, 192), k1.RELPOS_PAIRS[-1]):
         bias = d_qk == d_v
         cases += [
@@ -291,47 +318,52 @@ def tc_cases():
     return cases
 
 
-def check_tc(seed):
-    """The tensor-core forward (bf16, non-causal) against flash_attention_ref
-    in f32 on the same inputs, with and without the log-sum-exp: K1's forms
-    within TOL["bf16"] absolute, K1r's within TOL_K1R["bf16"] of max(1,
+def check_tc(seed, dtype_name="bf16"):
+    """A tensor-core forward (non-causal; bf16: flash_attn_fwd_tc.cu, f32:
+    the 3xTF32 flash_attn_fwd_tc_f32.cu) against flash_attention_ref in f32
+    (TF32 off) on the same inputs, with and without the log-sum-exp: K1's
+    forms within TOL[dtype] absolute, K1r's within TOL_K1R[dtype] of max(1,
     max|plain|); lse within 1e-4 of max(1, max|lse|); a row that sees no key
-    exactly 0 with lse +inf. Returns the largest |kernel - plain| of K1's
-    forms and of K1r's."""
+    exactly 0 with lse +inf. In f32 the scalar kernel, which the forms no
+    longer take, is held the same way on the same inputs. Returns the
+    largest |kernel - plain| of K1's forms and of K1r's (and in f32 the
+    scalar kernel's, "scalar_k1" and "scalar_k1r")."""
     import torch
 
     from jatts_torch.ops import flash_attention as k1
 
-    worst = {"k1": 0.0, "k1r": 0.0}
-    for i, (name, (b, h, tq, tk), (d_qk, d_v), bias, rows) in enumerate(tc_cases()):
+    dtype = {"f32": torch.float32, "bf16": torch.bfloat16}[dtype_name]
+    counter = "launches_tc_f32" if dtype_name == "f32" else "launches_tc"
+    worst = {"k1": 0.0, "k1r": 0.0, "scalar_k1": 0.0, "scalar_k1r": 0.0}
+    for i, (name, (b, h, tq, tk), (d_qk, d_v), bias, rows) in enumerate(tc_cases(dtype_name)):
         g = torch.Generator(device="cuda").manual_seed(seed + i)
-        q = torch.randn(b, h, tq, d_qk, device="cuda", generator=g).bfloat16()
-        k = torch.randn(b, h, tk, d_qk, device="cuda", generator=g).bfloat16()
-        v = torch.randn(b, h, tk, d_v, device="cuda", generator=g).bfloat16()
-        ab = (torch.randn(b, h, tq, tk, device="cuda", generator=g) * math.sqrt(d_qk)).bfloat16() if bias else None
+        q = torch.randn(b, h, tq, d_qk, device="cuda", generator=g).to(dtype)
+        k = torch.randn(b, h, tk, d_qk, device="cuda", generator=g).to(dtype)
+        v = torch.randn(b, h, tk, d_v, device="cuda", generator=g).to(dtype)
+        ab = (torch.randn(b, h, tq, tk, device="cuda", generator=g) * math.sqrt(d_qk)).to(dtype) if bias else None
         pos = torch.arange(tk, device="cuda")
         key_mask = torch.stack([(pos >= a) & (pos < a + n) for a, n in (rows * b)[:b]])
         scale = d_v ** -0.5
-        before = (k1.launches_tc, k1.launches, k1.launches_relpos)
+        before = (getattr(k1, counter), k1.launches, k1.launches_relpos)
         out, lse_k = k1.flash_attention_fwd(q, k, v, ab, key_mask, scale)
         out_nolse = k1.flash_attention(q, k, v, ab, key_mask, scale)
         torch.cuda.synchronize()
-        after = (k1.launches_tc, k1.launches, k1.launches_relpos)
+        after = (getattr(k1, counter), k1.launches, k1.launches_relpos)
         form = 1 if d_qk == d_v else 2
         check(after[0] - before[0] == 2 and after[form] - before[form] == 2,
-              f"tc {name}: launches {before} -> {after}")
+              f"tc {dtype_name} {name}: launches {before} -> {after}")
         want, lse = k1.flash_attention_ref(q.float(), k.float(), v.float(),
                                            None if ab is None else ab.float(), key_mask, scale, return_lse=True)
         check(bool(torch.equal(out, out_nolse)), f"tc {name}: the forward with and without lse differ")
         err = (out.float() - want).abs().max().item()
         if d_qk == d_v:
-            rel, tol = err, TOL["bf16"]
+            rel, tol = err, TOL[dtype_name]
         else:
-            rel, tol = err / max(1.0, want.abs().max().item()), TOL_K1R["bf16"]
+            rel, tol = err / max(1.0, want.abs().max().item()), TOL_K1R[dtype_name]
         none = torch.isinf(lse)
         lse_err = (lse_k - lse).masked_fill(none, 0.0).abs().max().item()
         lse_tol = 1e-4 * max(1.0, lse.masked_fill(none, 0.0).abs().max().item())
-        print(f"tc check {name} B,H,Tq,Tk={b},{h},{tq},{tk}: max_abs_err {err:.3e} "
+        print(f"tc check {dtype_name} {name} B,H,Tq,Tk={b},{h},{tq},{tk}: max_abs_err {err:.3e} "
               f"({'absolute' if d_qk == d_v else f'{rel:.2e} relative'}; tol {tol:.0e}); lse err {lse_err:.1e} "
               f"(tol {lse_tol:.1e}); rows that see no key {int(none.sum())}", flush=True)
         check(math.isfinite(err) and rel <= tol, f"tc {name}: err {rel} > {tol}")
@@ -341,14 +373,28 @@ def check_tc(seed):
         check(bool((out.masked_select(none[..., None]) == 0).all()), f"tc {name}: a row that sees no key is not 0")
         key = "k1" if d_qk == d_v else "k1r"
         worst[key] = max(worst[key], err)
+        if dtype_name == "f32":
+            out_s, lse_s = k1._launch_fwd(q, k, v, ab, key_mask, scale, True, False, _kernel=k1.KERNEL)
+            torch.cuda.synchronize()
+            err_s = (out_s - want).abs().max().item()
+            rel_s = err_s if d_qk == d_v else err_s / max(1.0, want.abs().max().item())
+            lse_err_s = (lse_s - lse).masked_fill(none, 0.0).abs().max().item()
+            print(f"    the scalar kernel on the same inputs: max_abs_err {err_s:.3e}"
+                  + ("" if d_qk == d_v else f" ({rel_s:.2e} relative)") + f"; lse err {lse_err_s:.1e}", flush=True)
+            check(math.isfinite(err_s) and rel_s <= tol and lse_err_s <= lse_tol
+                  and bool(torch.equal(none, torch.isinf(lse_s))), f"tc {name}: the scalar kernel's err {rel_s}")
+            check(bool((out_s.masked_select(none[..., None]) == 0).all()), f"tc {name}: scalar row without key not 0")
+            worst["scalar_" + key] = max(worst["scalar_" + key], err_s)
     return worst
 
 
 def time_k1_more(seed, where):
     """K1 at the serving encoder shape (bf16, the tensor-core kernel) and at
-    the FS2 training decoder shape (f32 with the log-sum-exp, the scalar
-    kernel), each beside SDPA with the bias folded into a float mask (mask =
-    ab·scale: SDPA adds its mask after the scale) and the bound; the
+    the FS2 training decoder shape (f32 with the log-sum-exp, the 3xTF32
+    tensor-core kernel, also replayed from a CUDA graph, beside the scalar
+    kernel on the same inputs), each beside SDPA with the bias folded into a
+    float mask (mask = ab·scale: SDPA adds its mask after the scale) and the
+    bound (f32: on the tensor cores in 3xTF32, the CUDA cores' beside); the
     training shape also beside the plain version."""
     import torch
 
@@ -373,7 +419,11 @@ def time_k1_more(seed, where):
                     q, k, v, attn_mask=mask, scale=scale)),
             )
         else:
-            kernel_ms = time_ms(lambda: k1.flash_attention_fwd(q, k, v, ab, full, scale), iters=5, warmup=1)
+            kernel_ms = time_ms(lambda: k1.flash_attention_fwd(q, k, v, ab, full, scale), iters=10, warmup=2)
+            res["train_graph"] = graph_ms(lambda: k1.flash_attention_fwd(q, k, v, ab, full, scale), iters=10,
+                                          replays=3)
+            res["train_scalar"] = time_ms(lambda: k1._launch_fwd(q, k, v, ab, full, scale, True, False,
+                                                                 _kernel=k1.KERNEL), iters=5, warmup=1)
             plain = time_ms(lambda: k1.flash_attention_ref(q, k, v, ab, full, scale, return_lse=True),
                             iters=3, warmup=1)
         sdpa = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
@@ -382,11 +432,14 @@ def time_k1_more(seed, where):
                             with_lse=key == "train")
         res[key] = {"ms": kernel_ms, "plain_ms": plain, "sdpa_ms": sdpa, "bound": bound}
         print(
-            f"K1 time {dtype_name} B,H,T,d={b},{h},{t},{d} ({'serving encoder, tensor-core kernel' if key == 'enc' else 'training decoder with lse, scalar kernel'}): "
+            f"K1 time {dtype_name} B,H,T,d={b},{h},{t},{d} ({'serving encoder, tensor-core kernel' if key == 'enc' else 'training decoder with lse, 3xTF32 tensor-core kernel'}): "
             f"kernel {kernel_ms:.4f} ms, plain {'-' if plain is None else f'{plain:.4f} ms'}, sdpa {sdpa:.4f} ms, "
             + (f"graph replay: kernel {res['enc_graph'][0]:.4f} ms, sdpa {res['enc_graph'][1]:.4f} ms, "
-               if key == "enc" else "")
-            + f"bound {bound[0]:.4f} ms by {bound[1]} ({bound[2] / 1e6:.1f} MB, {bound[3] / 1e9:.2f} GFLOP); {where}",
+               if key == "enc" else
+               f"graph replay {res['train_graph']:.4f} ms, the scalar kernel on the same inputs "
+               f"{res['train_scalar']:.4f} ms, ")
+            + f"bound {bound[0]:.4f} ms by {bound[1]} ({bound[2] / 1e6:.1f} MB, {bound[3] / 1e9:.2f} GFLOP"
+            + (f"; on the CUDA cores {cuda_core_ms(bound[3]):.4f} ms" if key == "train" else "") + f"); {where}",
             flush=True,
         )
         del q, k, v, ab, mask
@@ -778,8 +831,8 @@ def k1bwd_bounds_ms(b, h, t, d, elem, dtype_name):
     """Least times of the two K1-bwd kernels with a dense bias and every key
     valid: each input read once, each output written once; operations are
     the 2*T*T*d products each kernel does (dkv: scores again, dp, dv, dk;
-    dq: scores again, dp, dq) at the CUDA cores' f32 rate for f32 and the
-    tensor cores' rate for bf16."""
+    dq: scores again, dp, dq) on the tensor cores (:func:`ops_ms`: f32 as
+    3xTF32)."""
     n = b * h * t * d * elem
     bias = b * h * t * t * elem
     rows = 2 * b * h * t * 4 + b * t  # lse, di, key mask
@@ -789,7 +842,7 @@ def k1bwd_bounds_ms(b, h, t, d, elem, dtype_name):
     for nbytes, products in ((dkv_bytes, 4), (dq_bytes, 3)):
         t_bytes = nbytes / PEAK_BYTES_S * 1e3
         flops = 2 * products * b * h * t * t * d
-        t_ops = flops / PEAK_FLOPS_S[dtype_name] * 1e3
+        t_ops = ops_ms(flops, dtype_name)
         out.append((max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations", nbytes, flops))
     return out
 
@@ -824,12 +877,14 @@ def time_k1bwd(seed, where):
         b, h, t, d, 4, "f32")
     print(
         f"K1-bwd time f32 B,H,T,d={b},{h},{t},{d} with bias: dkv kernel {dkv_ms:.4f} ms (bound "
-        f"{dkv_bound:.4f} ms by {dkv_by}: {dkv_bytes / 1e6:.1f} MB, {dkv_flops / 1e9:.1f} GFLOP), dq kernel "
-        f"{dq_ms:.4f} ms (bound {dq_bound:.4f} ms by {dq_by}: {dq_bytes / 1e6:.1f} MB, "
-        f"{dq_flops / 1e9:.1f} GFLOP); plain backward {plain_ms:.4f} ms; sdpa forward+backward "
+        f"{dkv_bound:.4f} ms by {dkv_by}: {dkv_bytes / 1e6:.1f} MB, {dkv_flops / 1e9:.1f} GFLOP; on the CUDA "
+        f"cores {cuda_core_ms(dkv_flops):.4f} ms), dq kernel {dq_ms:.4f} ms (bound {dq_bound:.4f} ms by {dq_by}: "
+        f"{dq_bytes / 1e6:.1f} MB, {dq_flops / 1e9:.1f} GFLOP; on the CUDA cores {cuda_core_ms(dq_flops):.4f} "
+        f"ms); plain backward {plain_ms:.4f} ms; sdpa forward+backward "
         f"{library_ms:.4f} ms; K1 forward with lse {fwd_ms:.4f} ms; {where}", flush=True,
     )
-    return {"dkv": (dkv_ms, dkv_bound, dkv_by), "dq": (dq_ms, dq_bound, dq_by),
+    return {"dkv": (dkv_ms, dkv_bound, dkv_by, cuda_core_ms(dkv_flops)),
+            "dq": (dq_ms, dq_bound, dq_by, cuda_core_ms(dq_flops)),
             "plain_ms": plain_ms, "library_ms": library_ms, "fwd_ms": fwd_ms}
 
 
@@ -1022,8 +1077,8 @@ def check_k1b_chain(shape, rows, seed):
 
 
 def k1b_bounds_ms(b, h, t, d, elem, dtype_name="bf16"):
-    """Least times of the three causal kernels with every key valid, at the
-    tensor cores' rate for bf16 and the CUDA cores' for f32: the forward
+    """Least times of the three causal kernels with every key valid, on the
+    tensor cores (:func:`ops_ms`: f32 as 3xTF32): the forward
     needs the causal half of 2 products (4·B·H·T²·d/2 FLOP), the backward
     2.5x that (dk/dv: the scores again, dp, dv, dk; dq: the scores again,
     dp, dq; split 4:3 as the two kernels do them). Bytes: each input read
@@ -1039,7 +1094,7 @@ def k1b_bounds_ms(b, h, t, d, elem, dtype_name="bf16"):
         ("dq", 5 * n + 2 * rows + b * t, 3 * half),
     ):
         t_bytes = nbytes / PEAK_BYTES_S * 1e3
-        t_ops = flops / PEAK_FLOPS_S[dtype_name] * 1e3
+        t_ops = ops_ms(flops, dtype_name)
         out[name] = (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations", nbytes, flops)
     return out
 
@@ -1178,8 +1233,8 @@ def time_k1b(seed, where):
     f32["bounds"] = k1b_bounds_ms(b, h, t, d, 4, "f32")
     print(
         f"K1b time f32 causal B,H,T,d={b},{h},{t},{d} (the scalar kernels): "
-        + "; ".join(f"{n} kernel {f32[n]:.4f} ms (bound {f32['bounds'][n][0]:.4f} ms by {f32['bounds'][n][1]})"
-                    for n in ("fwd", "dkv", "dq"))
+        + "; ".join(f"{n} kernel {f32[n]:.4f} ms (bound {f32['bounds'][n][0]:.4f} ms by {f32['bounds'][n][1]}; "
+                    f"on the CUDA cores {cuda_core_ms(f32['bounds'][n][3]):.4f} ms)" for n in ("fwd", "dkv", "dq"))
         + f"; plain forward {f32['plain_fwd_ms']:.4f} ms, plain backward {f32['plain_bwd_ms']:.4f} ms; sdpa "
         f"(bool causal & key mask) forward {f32['sdpa_fwd_ms']:.4f} ms, forward+backward {f32['sdpa_ms']:.4f} ms; "
         f"{where}", flush=True,
@@ -1270,12 +1325,15 @@ def check_k1r(name, shape, dims, dtype_name, rows, seed, against_autograd=False)
     q, k, v, key_mask, do = k1r_inputs(shape, dims, dtype, rows, seed)
     scale = dims[1] ** -0.5  # 1/sqrt(d_k), as the attention layer passes it
     before = _legacy_launches()
+    counter = "launches_tc_f32" if dtype_name == "f32" else "launches_tc"
+    tc_before = getattr(k1, counter)
     out_k, lse_k = k1.flash_attention_fwd(q, k, v, None, key_mask, scale)
     out_nolse = k1.flash_attention(q, k, v, None, key_mask, scale)
     o, lse = k1.flash_attention_ref(q.float(), k.float(), v.float(), None, key_mask, scale, return_lse=True)
     got = k1.flash_attention_bwd(q, k, v, None, key_mask, scale, o.to(dtype), lse, do)
     torch.cuda.synchronize()
     check(_legacy_launches() == before, f"K1r {name}: a d_qk == d_v kernel launched")
+    check(getattr(k1, counter) - tc_before == 2, f"K1r {name}: the forward missed its tensor-core kernel ({counter})")
     want = k1.flash_attention_bwd_ref(q.float(), k.float(), v.float(), None, key_mask, scale, o, lse, do.float())
     check(bool(torch.equal(out_k, out_nolse)), f"K1r {name}: the forward with and without lse differ")
     tol = TOL_K1R[dtype_name]
@@ -1314,10 +1372,10 @@ def check_k1r(name, shape, dims, dtype_name, rows, seed, against_autograd=False)
 def k1r_bounds_ms(b, h, t, d_qk, d_v, elem, dtype_name, with_lse):
     """Least times of the three K1r kernels with every key valid: operations
     2·B·H·T²·(sum of the product widths) (forward: s over d_qk, p·v over
-    d_v; dk/dv: s, dp, dv, dk; dq: s, dp, dq) at the f32 CUDA-core rate for
-    f32 and the tensor cores' for bf16; bytes: each input read once, each
+    d_v; dk/dv: s, dp, dv, dk; dq: s, dp, dq); bytes: each input read once, each
     output written once (q, k, dq, dk of width d_qk; v, o, do, dv of width
-    d_v; lse and di f32; the key mask)."""
+    d_v; lse and di f32; the key mask). Operations on the tensor cores
+    (:func:`ops_ms`: f32 as 3xTF32)."""
     nq, nv = b * h * t * d_qk * elem, b * h * t * d_v * elem
     rows, mask = b * h * t * 4, b * t
     sq = 2 * b * h * t * t
@@ -1328,7 +1386,7 @@ def k1r_bounds_ms(b, h, t, d_qk, d_v, elem, dtype_name, with_lse):
         ("dq", 3 * nq + 2 * nv + 2 * rows + mask, sq * (2 * d_qk + d_v)),
     ):
         t_bytes = nbytes / PEAK_BYTES_S * 1e3
-        t_ops = flops / PEAK_FLOPS_S[dtype_name] * 1e3
+        t_ops = ops_ms(flops, dtype_name)
         out[name] = (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations", nbytes, flops)
     return out
 
@@ -1354,10 +1412,13 @@ def sdpa_backend(q, k, v, mask, scale):
 
 
 def time_k1r(seed, where):
-    """The three K1r kernels at the training decoder shape (f32) and the
-    forward at the serving decoder shape (bf16), every key valid, beside
-    the plain versions, SDPA with a boolean key mask (forward, and forward +
-    backward at the training shape; the yardstick only) and the bounds."""
+    """The three K1r kernels at the training decoder shape (f32; the forward
+    on the 3xTF32 tensor-core kernel, also replayed from a CUDA graph, the
+    scalar forward on the same inputs beside) and the forward at the serving
+    decoder shape (bf16), every key valid, beside the plain versions, SDPA
+    with a boolean key mask (forward, and forward + backward at the training
+    shape; the yardstick only) and the bounds (f32: on the tensor cores in
+    3xTF32, the CUDA cores' beside)."""
     import torch
     from torch.nn.attention import sdpa_kernel
 
@@ -1370,7 +1431,10 @@ def time_k1r(seed, where):
     q, k, v, key_mask, do = k1r_inputs(K1R_TRAIN, K1R_DIMS, torch.float32, [(0, t)], seed)
     o, lse = k1.flash_attention_fwd(q, k, v, None, key_mask, scale)
     di = (o * do).sum(-1)
-    res["fwd"] = time_ms(lambda: k1.flash_attention_fwd(q, k, v, None, key_mask, scale), iters=5, warmup=1)
+    res["fwd"] = time_ms(lambda: k1.flash_attention_fwd(q, k, v, None, key_mask, scale), iters=10, warmup=2)
+    res["fwd_graph"] = graph_ms(lambda: k1.flash_attention_fwd(q, k, v, None, key_mask, scale), iters=10, replays=3)
+    res["fwd_scalar"] = time_ms(lambda: k1._launch_fwd(q, k, v, None, key_mask, scale, True, False,
+                                                       _kernel=k1.KERNEL), iters=5, warmup=1)
     res["dkv"] = time_ms(lambda: k1.flash_attention_bwd_dkv(q, k, v, None, key_mask, scale, lse, di, do),
                          iters=5, warmup=1)
     res["dq"] = time_ms(lambda: k1.flash_attention_bwd_dq(q, k, v, None, key_mask, scale, lse, di, do),
@@ -1394,8 +1458,12 @@ def time_k1r(seed, where):
     res["bounds"] = k1r_bounds_ms(b, h, t, d_qk, d_v, 4, "f32", with_lse=True)
     del q, k, v, do, o, lse, di, qs, ks, vs
     parts = "; ".join(
-        f"{n} kernel {res[n]:.4f} ms (bound {res['bounds'][n][0]:.4f} ms by {res['bounds'][n][1]}: "
-        f"{res['bounds'][n][2] / 1e6:.1f} MB, {res['bounds'][n][3] / 1e9:.1f} GFLOP)" for n in ("fwd", "dkv", "dq"))
+        f"{n} kernel {res[n]:.4f} ms{extra} (bound {res['bounds'][n][0]:.4f} ms by {res['bounds'][n][1]}: "
+        f"{res['bounds'][n][2] / 1e6:.1f} MB, {res['bounds'][n][3] / 1e9:.1f} GFLOP; on the CUDA cores "
+        f"{cuda_core_ms(res['bounds'][n][3]):.4f} ms)"
+        for n, extra in (("fwd", f" (3xTF32 tensor cores; graph replay {res['fwd_graph']:.4f} ms; the scalar "
+                                 f"forward on the same inputs {res['fwd_scalar']:.4f} ms)"),
+                         ("dkv", " (scalar)"), ("dq", " (scalar)")))
     print(
         f"K1r time f32 B,H,T={b},{h},{t} d_qk,d_v={d_qk},{d_v}, every key valid: {parts}; plain forward "
         f"{res['plain_fwd_ms']:.4f} ms, plain backward {res['plain_bwd_ms']:.4f} ms; sdpa ({backend.name}, "
@@ -1653,11 +1721,11 @@ def _relpos_launches():
 # rel-pos attention (K1r)
 SLICES = {
     "jsut": dict(conf=JSUT_CONF, tag="fs2", spk_dim=0, latest=False, counts=_legacy_launches,
-                 others=_relpos_launches, names=("K1", "K1-bwd dkv", "dq"),
-                 kernels=("flash_attn_fwd_kernel", "flash_attn_bwd_dkv_kernel", "flash_attn_bwd_dq_kernel")),
+                 others=_relpos_launches, names=("K1 fwd (3xTF32 tc)", "K1-bwd dkv", "dq"),
+                 kernels=("flash_attn_fwd_tc_f32_kernel", "flash_attn_bwd_dkv_kernel", "flash_attn_bwd_dq_kernel")),
     "jvs": dict(conf=JVS_CONF, tag="jvs", spk_dim=192, latest=True, counts=_relpos_launches,
-                others=_legacy_launches, names=("K1r fwd", "K1r dkv", "dq"),
-                kernels=("flash_attn_fwd_relpos_kernel", "flash_attn_bwd_dkv_relpos_kernel",
+                others=_legacy_launches, names=("K1r fwd (3xTF32 tc)", "K1r dkv", "dq"),
+                kernels=("flash_attn_fwd_tc_f32_kernel", "flash_attn_bwd_dkv_relpos_kernel",
                          "flash_attn_bwd_dq_relpos_kernel")),
 }
 
@@ -1707,7 +1775,8 @@ def training_slice(root, align_paths, freqs, seed, where, which="jsut"):
     torch.cuda.synchronize()
     run_s = time.perf_counter() - t0
     launches, others = sl["counts"](), sl["others"]()
-    check(k1.launches_tc == 0, f"training ({which}, f32) launched the tensor-core kernel {k1.launches_tc} times")
+    fwd_tc_f32 = k1.launches_tc_f32
+    check(k1.launches_tc == 0, f"training ({which}, f32) launched the bf16 tensor-core kernel {k1.launches_tc} times")
 
     losses = [h["train/loss"] for h in trainer.history]
     batches = trainer.train_loader.sampler.batches
@@ -1725,6 +1794,9 @@ def training_slice(root, align_paths, freqs, seed, where, which="jsut"):
     check(launches[0] > 0 and launches[1] > 0 and launches[2] > 0, f"{names[0]} not launched in training")
     check(launches == (8 * TRAIN_STEPS,) * 3, f"launches {launches} != 8 a step each")
     check(others == (0, 0, 0), f"the other attention form launched {others} in this training run")
+    print(f"training ({which}): forwards on the 3xTF32 tensor-core kernel {fwd_tc_f32} of {launches[0]}, on the "
+          f"scalar kernel {launches[0] - fwd_tc_f32}", flush=True)
+    check(fwd_tc_f32 == launches[0], f"{launches[0] - fwd_tc_f32} f32 forwards missed the 3xTF32 kernel")
 
     # the checkpoint, and a resumed trainer
     ckpt = find_latest_checkpoint(outdir)
@@ -1810,8 +1882,8 @@ def training_slice(root, align_paths, freqs, seed, where, which="jsut"):
         lss = loss_of(m)
         pair[backend] = (float(lss.detach()), torch.autograd.grad(lss, list(m.parameters())))
         want = (8, 8, 8) if backend == "flash" else (0, 0, 0)
-        check(sl["counts"]() == want and sl["others"]() == (0, 0, 0),
-              f"{backend} step: {names[0]} launches {sl['counts']()} != {want}")
+        check(sl["counts"]() == want and sl["others"]() == (0, 0, 0) and k1.launches_tc_f32 == want[0],
+              f"{backend} step: {names[0]} launches {sl['counts']()} != {want} (3xTF32 {k1.launches_tc_f32})")
         pair[backend] += (host_ms(lambda: torch.autograd.grad(loss_of(m), list(m.parameters()))),)
         del m
     (lf, gf, f_ms), (lx, gx, x_ms) = pair["flash"], pair["xla"]
@@ -1825,7 +1897,7 @@ def training_slice(root, align_paths, freqs, seed, where, which="jsut"):
     )
     check(loss_rel <= 1e-4 and diff / norm <= 1e-3, "flash and xla training steps disagree")
     return launches, {"step_ms": step_ms, "run_s": run_s, "k_ms": k_ms, "idle": 1 - busy_ms / wall_ms,
-                      "flash_ms": f_ms, "xla_ms": x_ms}
+                      "flash_ms": f_ms, "xla_ms": x_ms, "fwd_tc_f32": fwd_tc_f32}
 
 
 # ---------------------------------------------------------------------------
@@ -2164,7 +2236,7 @@ def main() -> int:
     # 2. build
     t0 = time.perf_counter()
     nvcc_s = {}
-    kernels = [k1.KERNEL, k1.KERNEL_TC, k1.KERNEL_BWD, k1.KERNEL_BWD_TC, mas.KERNEL]
+    kernels = [k1.KERNEL, k1.KERNEL_TC, k1.KERNEL_TC_F32, k1.KERNEL_BWD, k1.KERNEL_BWD_TC, mas.KERNEL]
     reports = build.build(kernels, seconds=nvcc_s)
     print(f"build: {', '.join(kernels)} in {time.perf_counter() - t0:.1f} s (nvcc each: "
           + ", ".join(f"{n} {sec:.1f} s" for n, sec in nvcc_s.items()) + ")", flush=True)
@@ -2177,7 +2249,7 @@ def main() -> int:
             elif ("registers" in line or "spill" in line) and "(C75" not in line:
                 print(f"  ptxas {kernel} {entry}: {line.strip()}", flush=True)
                 spilled = re.search(r"(\d+) bytes spill stores", line)
-                if kernel in (k1.KERNEL_TC, k1.KERNEL_BWD_TC) and spilled and int(spilled.group(1)):
+                if kernel in (k1.KERNEL_TC, k1.KERNEL_TC_F32, k1.KERNEL_BWD_TC) and spilled and int(spilled.group(1)):
                     spills.append(entry)
     # the tensor-core kernels hold their accumulators in registers: a spill
     # there is a design fault, not a slowdown to live with
@@ -2193,11 +2265,12 @@ def main() -> int:
             ((2, 2, 1000, 192), True),   # ragged edge with bias
         ):
             q, k, v, ab, key_mask, lens = k1_inputs(b, h, t, d, dtype, with_bias, args.seed)
-            tc_before = k1.launches_tc
+            tc_before = (k1.launches_tc, k1.launches_tc_f32)
             got = k1.flash_attention(q, k, v, ab, key_mask)
             torch.cuda.synchronize()
-            check(k1.launches_tc - tc_before == (dtype == torch.bfloat16),
-                  f"K1 {dtype_name}: bf16 must take the tensor-core kernel, f32 the scalar one")
+            ran = (k1.launches_tc - tc_before[0], k1.launches_tc_f32 - tc_before[1])
+            check(ran == ((1, 0) if dtype == torch.bfloat16 else (0, 1)),
+                  f"K1 {dtype_name}: bf16 must take the tensor-core kernel, f32 the 3xTF32 one; ran {ran}")
             want = k1.flash_attention_ref(
                 q.float(), k.float(), v.float(), None if ab is None else ab.float(), key_mask
             )
@@ -2212,6 +2285,7 @@ def main() -> int:
             check(all(bool((got[i] == 0).all()) for i in empty), "K1: a row with no valid key is not 0")
             max_err[dtype_name] = max(max_err[dtype_name], err)
     tc_err = check_tc(args.seed)
+    tc_f32_err = check_tc(args.seed + 50, "f32")
 
     # 4. timing at the decoder shape, bf16 (the tensor-core kernel)
     b, h, t, d = 8, 2, 1024, 192
@@ -2420,21 +2494,58 @@ def main() -> int:
                "max_abs_err": max(bwd_err.values()), "plain_ms": bwd_times["plain_ms"],
                "library_ms": bwd_times["library_ms"]}
     train_k1 = k1_more["train"]
+    # f32 rows: bound_ms on the tensor cores in 3xTF32, cuda_core_bound_ms the
+    # same products as f32 FMAs (the yardstick before)
+    train_scalar = train_launches[0] - train["fwd_tc_f32"]
     record = {"kernels": [{
         "name": k1.KERNEL,
         "route": "cuda",
         "source": "jatts_torch/csrc/flash_attn_fwd.cu",
         "replaces": "jatts_tpu/modules/attention.py:158",
-        # f32 and causal only now: the bf16 serving launches are the
-        # tensor-core kernel's; timed at the FS2 training decoder (f32, lse)
-        "launches": launches - serve_tc + train_launches[0],
-        "launches_by_path": {"serving": launches - serve_tc, "training": train_launches[0]},
-        "max_abs_err": max_err["f32"],
+        # f32 causal and d 256 only now: the bf16 launches are the tensor-core
+        # kernel's, the f32 non-causal ones the 3xTF32 kernel's; timed at the
+        # FS2 training decoder (f32, lse) on the 3xTF32 kernel's inputs
+        "launches": launches - serve_tc + train_scalar,
+        "launches_by_path": {"serving": launches - serve_tc, "training": train_scalar},
+        "max_abs_err": tc_f32_err["scalar_k1"],
+        "ms": k1_more["train_scalar"],
+        "plain_ms": train_k1["plain_ms"],
+        "bound_ms": train_k1["bound"][0],
+        "bound_by": train_k1["bound"][1],
+        "cuda_core_bound_ms": cuda_core_ms(train_k1["bound"][3]),
+        "library_ms": train_k1["sdpa_ms"],
+    }, {
+        "name": k1.KERNEL_TC_F32,
+        "route": "cuda",
+        "source": "jatts_torch/csrc/flash_attn_fwd_tc_f32.cu",
+        "replaces": "jatts_tpu/modules/attention.py:158",
+        "launches": train["fwd_tc_f32"],
+        "launches_by_path": {"training": train["fwd_tc_f32"]},
+        "max_abs_err": max(max_err["f32"], tc_f32_err["k1"]),
         "ms": train_k1["ms"],
         "plain_ms": train_k1["plain_ms"],
         "bound_ms": train_k1["bound"][0],
         "bound_by": train_k1["bound"][1],
+        "cuda_core_bound_ms": cuda_core_ms(train_k1["bound"][3]),
         "library_ms": train_k1["sdpa_ms"],
+        "graph_ms": k1_more["train_graph"],
+        "scalar_ms": k1_more["train_scalar"],
+    }, {
+        "name": f"{k1.KERNEL_TC_F32}_relpos",
+        "route": "cuda",
+        "source": "jatts_torch/csrc/flash_attn_fwd_tc_f32.cu",
+        "replaces": "jatts_tpu/modules/attention.py:372",
+        "launches": jvs["fwd_tc_f32"],
+        "launches_by_path": {"training": jvs["fwd_tc_f32"]},
+        "max_abs_err": max(k1r_fwd_err["f32"], tc_f32_err["k1r"]),
+        "ms": k1r_times["fwd"],
+        "plain_ms": k1r_times["plain_fwd_ms"],
+        "bound_ms": k1r_times["bounds"]["fwd"][0],
+        "bound_by": k1r_times["bounds"]["fwd"][1],
+        "cuda_core_bound_ms": cuda_core_ms(k1r_times["bounds"]["fwd"][3]),
+        "library_ms": k1r_times["sdpa_fwd_ms"],
+        "graph_ms": k1r_times["fwd_graph"],
+        "scalar_ms": k1r_times["fwd_scalar"],
     }, {
         "name": k1.KERNEL_TC,
         "route": "cuda",
@@ -2471,12 +2582,12 @@ def main() -> int:
         "name": "flash_attn_bwd_dkv",
         "replaces": "jax/experimental/pallas/ops/tpu/flash_attention.py:1121",
         "launches": train_launches[1], "ms": bwd_times["dkv"][0], "bound_ms": bwd_times["dkv"][1],
-        "bound_by": bwd_times["dkv"][2], **bwd_row,
+        "bound_by": bwd_times["dkv"][2], "cuda_core_bound_ms": bwd_times["dkv"][3], **bwd_row,
     }, {
         "name": "flash_attn_bwd_dq",
         "replaces": "jax/experimental/pallas/ops/tpu/flash_attention.py:1456",
         "launches": train_launches[2], "ms": bwd_times["dq"][0], "bound_ms": bwd_times["dq"][1],
-        "bound_by": bwd_times["dq"][2], **bwd_row,
+        "bound_by": bwd_times["dq"][2], "cuda_core_bound_ms": bwd_times["dq"][3], **bwd_row,
     }, {
         "name": "mas_fwd", "replaces": "jatts_tpu/ops/mas_pallas.py:139", "launches": k2_launches,
         "mismatches": mas_mismatches[0] + mas_mismatches[2], "max_abs_err": mas_max_err[0], "ms": k2_ms, "plain_ms": k2_plain_ms,
@@ -2518,24 +2629,27 @@ def main() -> int:
         # phase 12's f32 flash step launches them, and they are timed in f32
         ("flash_attn_fwd_causal", "flash_attn_fwd.cu", 758, "fwd", valle_f32_launches[0],
          {"valle_training": 0, "valle_step_f32": valle_f32_launches[0]}, k1b_err["fwd"], k1b_times["f32"],
-         "sdpa_fwd_ms", {"timed_dtype": "f32"}),
+         "sdpa_fwd_ms", {"timed_dtype": "f32", "cuda_core_bound_ms": cuda_core_ms(k1b_times["f32"]["bounds"]["fwd"][3])}),
         ("flash_attn_bwd_dkv_causal", "flash_attn_bwd.cu", 1121, "dkv", valle_f32_launches[1],
          {"valle_training": 0, "valle_step_f32": valle_f32_launches[1]}, k1b_err["dkv"], k1b_times["f32"],
-         "sdpa_ms", {"timed_dtype": "f32"}),
+         "sdpa_ms", {"timed_dtype": "f32", "cuda_core_bound_ms": cuda_core_ms(k1b_times["f32"]["bounds"]["dkv"][3])}),
         ("flash_attn_bwd_dq_causal", "flash_attn_bwd.cu", 1456, "dq", valle_f32_launches[2],
          {"valle_training": 0, "valle_step_f32": valle_f32_launches[2]}, k1b_err["dq"], k1b_times["f32"],
-         "sdpa_ms", {"timed_dtype": "f32"}),
+         "sdpa_ms", {"timed_dtype": "f32", "cuda_core_bound_ms": cuda_core_ms(k1b_times["f32"]["bounds"]["dq"][3])}),
     )] + [{
         "name": f"{name}_relpos", "route": "cuda", "source": f"jatts_torch/csrc/{src}",
         "replaces": f"jax/experimental/pallas/ops/tpu/flash_attention.py:{line}",
         "launches": n_serve + n_train, "launches_by_path": {"serving": n_serve, "training": n_train},
-        "max_abs_err": err, "ms": k1r_times[key],
+        "max_abs_err": err, "ms": k1r_times["fwd_scalar" if key == "fwd" else key],
         "plain_ms": k1r_times["plain_fwd_ms" if key == "fwd" else "plain_bwd_ms"],
         "bound_ms": k1r_times["bounds"][key][0], "bound_by": k1r_times["bounds"][key][1],
+        "cuda_core_bound_ms": cuda_core_ms(k1r_times["bounds"][key][3]),
         "library_ms": k1r_times["sdpa_fwd_ms" if key == "fwd" else "sdpa_ms"],
     } for name, src, line, key, n_serve, n_train, err in (
-        # the scalar K1r forward runs f32 only: the bf16 serving launches are the tensor-core kernel's
-        ("flash_attn_fwd", "flash_attn_fwd.cu", 758, "fwd", 0, jvs_launches[0], k1r_fwd_err["f32"]),
+        # the scalar K1r forward no longer runs on the main path: bf16 is the
+        # tensor-core kernel's, f32 the 3xTF32 kernel's; timed beside it
+        ("flash_attn_fwd", "flash_attn_fwd.cu", 758, "fwd", 0, jvs_launches[0] - jvs["fwd_tc_f32"],
+         tc_f32_err["scalar_k1r"]),
         ("flash_attn_bwd_dkv", "flash_attn_bwd.cu", 1121, "dkv", 0, jvs_launches[1], k1r_bwd_err),
         ("flash_attn_bwd_dq", "flash_attn_bwd.cu", 1456, "dq", 0, jvs_launches[2], k1r_bwd_err),
     )]}

@@ -1,5 +1,6 @@
 """K1 — flash-attention forward (``csrc/flash_attn_fwd.cu``; its bf16
-forms on the tensor cores in ``csrc/flash_attn_fwd_tc.cu``), K1-bwd — its
+forms on the tensor cores in ``csrc/flash_attn_fwd_tc.cu``, its f32
+non-causal forms in 3xTF32 in ``csrc/flash_attn_fwd_tc_f32.cu``), K1-bwd — its
 backward (``csrc/flash_attn_bwd.cu``; K1b's bf16 dk/dv and dq at d 64 on the
 tensor cores in ``csrc/flash_attn_bwd_tc.cu``), K1b — the causal form of both, K1r
 — the fused rel-pos form of both (d_qk != d_v), and their plain twins.
@@ -35,14 +36,16 @@ count the non-causal kernel launches at d_qk == d_v, the ``*_causal``
 counters the causal ones and the ``*_relpos`` counters K1r's (and nothing
 else), whichever kernel ran, so a run can show that it went through the
 kernels. Which forward kernel a call takes is :func:`fwd_kernel`'s one
-rule: bf16 goes to the tensor-core kernel (``launches_tc`` counts it,
-besides ``launches``, ``launches_causal`` or ``launches_relpos``), f32 to
-the scalar one. Which dk/dv and dq kernels are :func:`dkv_kernel`'s and
-:func:`dq_kernel`'s, one condition: VALL-E's form (bf16, causal, d 64, no
-bias) goes to the tensor-core kernels (``launches_bwd_dkv_tc`` and
-``launches_bwd_dq_tc`` count them, besides ``launches_bwd_dkv_causal`` and
-``launches_bwd_dq_causal``), every other form to the scalar ones. See the source notes in the ``.cu``
-files for the bounds.
+rule over (dtype, causal, d_qk, d_v): bf16 goes to the tensor-core kernel
+(``launches_tc`` counts it, besides ``launches``, ``launches_causal`` or
+``launches_relpos``), f32 non-causal at the (d_qk, d_v) of
+``TC_F32_PAIRS`` to the 3xTF32 tensor-core kernel (``launches_tc_f32``),
+every other form (f32 causal, d 256) to the scalar one. Which dk/dv and dq
+kernels are :func:`dkv_kernel`'s and :func:`dq_kernel`'s, one condition:
+VALL-E's form (bf16, causal, d 64, no bias) goes to the tensor-core kernels
+(``launches_bwd_dkv_tc`` and ``launches_bwd_dq_tc`` count them, besides
+``launches_bwd_dkv_causal`` and ``launches_bwd_dq_causal``), every other form
+to the scalar ones. See the source notes in the ``.cu`` files for the bounds.
 """
 
 from __future__ import annotations
@@ -57,11 +60,15 @@ from jatts_torch.ops import build
 KERNEL = "flash_attn_fwd"
 KERNEL_BWD = "flash_attn_bwd"
 KERNEL_TC = "flash_attn_fwd_tc"
+KERNEL_TC_F32 = "flash_attn_fwd_tc_f32"
 KERNEL_BWD_TC = "flash_attn_bwd_tc"
 HEAD_DIMS = (64, 128, 192, 256)
 # K1r's (d_qk, d_v) = (d_k + n_feat, d_k): 2 heads of 64 (adim 128) and of
 # 192 (adim 384, the JSUT/JVS width)
 RELPOS_PAIRS = ((192, 64), (576, 192))
+# the f32 non-causal (d_qk, d_v) forms of the 3xTF32 forward; d 256 (its 128
+# output accumulators a thread) and the f32 causal form stay scalar
+TC_F32_PAIRS = ((64, 64), (128, 128), (192, 192)) + RELPOS_PAIRS
 DTYPES = (torch.float32, torch.bfloat16)
 _MASK_VAL = -1e9
 
@@ -74,6 +81,7 @@ launches_bwd_dkv_causal = 0  # K1b, causal dk/dv kernel
 launches_bwd_dq_causal = 0  # K1b, causal dq/d(ab) kernel
 launches_relpos = 0  # K1r, d_qk != d_v forward
 launches_tc = 0  # forwards (K1, K1b or K1r) that ran on the tensor-core kernel
+launches_tc_f32 = 0  # f32 forwards (K1 or K1r) that ran on the 3xTF32 tensor-core kernel
 launches_bwd_dkv_tc = 0  # dk/dv calls (K1b) that ran on the tensor-core kernel
 launches_bwd_dq_tc = 0  # dq calls (K1b) that ran on the tensor-core kernel
 launches_bwd_dkv_relpos = 0  # K1r, dk/dv kernel
@@ -84,8 +92,8 @@ def reset_launches() -> None:
     global launches, launches_bwd_dkv, launches_bwd_dq
     global launches_causal, launches_bwd_dkv_causal, launches_bwd_dq_causal
     global launches_relpos, launches_bwd_dkv_relpos, launches_bwd_dq_relpos, launches_tc
-    global launches_bwd_dkv_tc, launches_bwd_dq_tc
-    launches = launches_bwd_dkv = launches_bwd_dq = launches_tc = 0
+    global launches_bwd_dkv_tc, launches_bwd_dq_tc, launches_tc_f32
+    launches = launches_bwd_dkv = launches_bwd_dq = launches_tc = launches_tc_f32 = 0
     launches_bwd_dkv_tc = launches_bwd_dq_tc = 0
     launches_causal = launches_bwd_dkv_causal = launches_bwd_dq_causal = 0
     launches_relpos = launches_bwd_dkv_relpos = launches_bwd_dq_relpos = 0
@@ -183,11 +191,15 @@ def flash_attention_bwd_ref(q, k, v, ab, key_mask, sm_scale, o, lse, do, causal=
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), dab
 
 
-def fwd_kernel(dtype: torch.dtype, causal: bool) -> str:
+def fwd_kernel(dtype: torch.dtype, causal: bool, d_qk: int, d_v: int) -> str:
     """The library a forward on the card takes: ``KERNEL_TC`` (tensor
-    cores) for bf16, causal or not, at every (d_qk, d_v) the wrapper admits,
-    else ``KERNEL`` (scalar: f32)."""
-    return KERNEL_TC if dtype == torch.bfloat16 else KERNEL
+    cores) for bf16, causal or not, at every (d_qk, d_v) the wrapper admits;
+    ``KERNEL_TC_F32`` (tensor cores, 3xTF32) for f32 non-causal at the
+    (d_qk, d_v) of ``TC_F32_PAIRS``; else ``KERNEL`` (scalar: f32 causal, f32
+    at d 256)."""
+    if dtype == torch.bfloat16:
+        return KERNEL_TC
+    return KERNEL_TC_F32 if not causal and (d_qk, d_v) in TC_F32_PAIRS else KERNEL
 
 
 def _bwd_on_tc(dtype: torch.dtype, causal: bool, d_qk: int, d_v: int, has_bias: bool) -> bool:
@@ -210,8 +222,8 @@ def dq_kernel(dtype: torch.dtype, causal: bool, d_qk: int, d_v: int, has_bias: b
 
 
 def _kernel_fn(name: str):
-    lib = build.load(name)
-    fn = lib.jatts_flash_attn_fwd_tc if name == KERNEL_TC else lib.jatts_flash_attn_fwd
+    symbol = {KERNEL_TC: "jatts_flash_attn_fwd_tc", KERNEL_TC_F32: "jatts_flash_attn_fwd_tc_f32"}
+    fn = getattr(build.load(name), symbol.get(name, "jatts_flash_attn_fwd"))
     fn.restype = ctypes.c_int
     # pointers and the stream as c_void_p: without argtypes ctypes would
     # pass them as 32-bit ints and cut them
@@ -273,14 +285,16 @@ def _ptr(t: Optional[torch.Tensor]):
     return None if t is None else t.data_ptr()
 
 
-def _launch_fwd(q, k, v, ab, key_mask, sm_scale, with_lse: bool, causal: bool):
+def _launch_fwd(q, k, v, ab, key_mask, sm_scale, with_lse: bool, causal: bool, _kernel=None):
     """K1 (K1b with ``causal``, K1r when d_qk != d_v) on checked card
-    tensors, on the kernel :func:`fwd_kernel` picks -> (out, lse or None)."""
-    global launches_tc
+    tensors, on the kernel :func:`fwd_kernel` picks -> (out, lse or None).
+    ``_kernel`` names another library that takes the form (``KERNEL``, the
+    scalar one, for a timing beside the kernel the rule picks)."""
+    global launches_tc, launches_tc_f32
     b, h, tq, d = q.shape
     out = q.new_empty(b, h, tq, v.shape[3])
     lse = torch.empty(b, h, tq, device=q.device, dtype=torch.float32) if with_lse else None
-    name = fwd_kernel(q.dtype, causal)
+    name = _kernel or fwd_kernel(q.dtype, causal, d, v.shape[3])
     fn = _kernel_fn(name)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
@@ -293,6 +307,7 @@ def _launch_fwd(q, k, v, ab, key_mask, sm_scale, with_lse: bool, causal: bool):
         raise RuntimeError(f"{name} launch failed with CUDA error {rc}")
     _count("fwd", causal, d != v.shape[3])
     launches_tc += name == KERNEL_TC
+    launches_tc_f32 += name == KERNEL_TC_F32
     return out, lse
 
 

@@ -30,9 +30,15 @@ PAIRS = [(d, d) for d in k1.HEAD_DIMS] + list(k1.RELPOS_PAIRS)
 )
 def test_forward_dispatch_rule(dtype, causal, d_qk, d_v):
     """bf16, causal or not -> the tensor-core kernel at every admitted
-    width; f32 -> the scalar kernel."""
-    want = k1.KERNEL_TC if dtype == torch.bfloat16 else k1.KERNEL
-    assert k1.fwd_kernel(dtype, causal) == want
+    width; f32 non-causal at every width but 256 -> the 3xTF32 tensor-core
+    kernel; f32 causal and f32 at d 256 -> the scalar kernel."""
+    if dtype == torch.bfloat16:
+        want = k1.KERNEL_TC
+    elif not causal and d_qk != 256:
+        want = k1.KERNEL_TC_F32
+    else:
+        want = k1.KERNEL
+    assert k1.fwd_kernel(dtype, causal, d_qk, d_v) == want
 
 
 def test_tc_source_has_every_form_and_a_plain_c_interface():
