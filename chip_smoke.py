@@ -58,7 +58,7 @@ Phases, each of which fails the run with a non-zero exit:
      ``attn_backend: flash`` for 200 steps (warm-up 50), launch counts set
      to 0 just before and read just after (every forward on the 3xTF32
      tensor-core kernel, none on the scalar one or the bf16 one; dk/dv and dq
-     scalar); then the loss, launch,
+     scalar, none on the 3xTF32 backward); then the loss, launch,
      checkpoint/resume and inference checks, the time of one step and its
      parts, a profiled step, and the same step under ``attn_backend: xla``;
  11. K1b (the causal form of K1 and K1-bwd: the forward, dk/dv and dq
@@ -94,14 +94,19 @@ Phases, each of which fails the run with a non-zero exit:
  13. K1r (the fused rel-pos form of K1 and K1-bwd, d_qk != d_v: the
      forward, dk/dv and dq kernels) against their plain versions at the
      JVS/JSUT width's pair (d_qk 576, d_v 192) in bf16 and f32, at the small
-     pair (192, 64), at a ragged T, at T = 1 and with rows that see no key;
+     pair (192, 64), at a ragged T, at T = 1, at Tq != Tk, with rows that see
+     no key and with keys that start inside a tile, each output within its
+     tolerance of every batch item's own max(1, max|plain|); the f32 dk/dv
+     and dq on the 3xTF32 tensor-core kernels (``flash_attn_bwd_tc_f32.cu``,
+     each launch checked from the counters), with the same bits on a second
+     run and for an item alone, the scalar ones checked on the same inputs;
      the backward also against autograd through the plain forward; then
-     their times at the training decoder shape (f32) and the serving
-     decoder shape (bf16) beside the plain versions', SDPA's with a boolean
-     key mask (the yardstick, never used by the port; its backend printed)
-     and the bounds (the f32 forward on the 3xTF32 kernel, the scalar one
-     beside; f32 bounds on the tensor cores in 3xTF32, the CUDA cores'
-     beside);
+     their times at the training decoder shape (f32, by CUDA events and by
+     graph replay, the scalar forward, dk/dv and dq on the same inputs
+     beside) and the serving decoder shape (bf16) beside the plain
+     versions', SDPA's with a boolean key mask (the yardstick, never used by
+     the port; its backend printed) and the bounds (f32 on the tensor cores
+     in 3xTF32, the CUDA cores' beside);
  14. the JVS-latest path: egs/jvs/tts1/conf/fastspeech2.v1.yaml (adim 384,
      2 heads, 4+4 blocks, ``spk_embed_dim`` 192 ``add``) with
      ``conformer_rel_pos_type: latest`` and ``attn_backend: flash``: 16
@@ -112,8 +117,9 @@ Phases, each of which fails the run with a non-zero exit:
      utterance (4 synthetic speakers) trains 200 steps through
      ``jatts_torch/bin/tts_train.py:run`` (f32, batch 32, warm-up 50), launch
      counts set to 0 just before and read just after (K1r 8 launches a step
-     each, every forward on the 3xTF32 kernel, no K1 or K1-bwd launch); the
-     loss, bitwise resume, a step's time
+     each, every forward on the 3xTF32 kernel and every dk/dv and dq on the
+     3xTF32 backward kernels, no K1 or K1-bwd launch); the loss, bitwise
+     resume, a step's time
      and parts, a profiled step, and the same step under ``attn_backend:
      xla`` (the eager rel_shift_gather path) on the same weights and batch.
 The line before the last is the kernels' JSON record, the last line
@@ -186,7 +192,9 @@ def ptxas_entry(line: str) -> str:
             args.append("f32")
             rest = rest[1:]
         elif rest.startswith("Lb"):
-            if name.group(1) in ("flash_attn_fwd_tc_kernel", "flash_attn_fwd_tc_f32_kernel") and (
+            if name.group(1) == "flash_attn_bwd_tc_f32_kernel":  # <D_QK, D_V, DQ>
+                args.append("dq" if rest[2] == "1" else "dk/dv")
+            elif name.group(1) in ("flash_attn_fwd_tc_kernel", "flash_attn_fwd_tc_f32_kernel") and (
                     "bias" not in " ".join(args)):
                 args.append("bias" if rest[2] == "1" else "no bias")  # <D_QK, D_V, BIAS(, CAUSAL)>
             else:
@@ -1279,8 +1287,8 @@ K1R_SERVE = (8, 2, 1024)  # the serving decoder: batch 8, 1024 frames, bf16
 
 
 def k1r_cases():
-    """(name, (B, H, T), (d_qk, d_v), dtype, key mask rows as (first valid
-    key, number of valid keys) cycled over the batch)."""
+    """(name, (B, H, T) or (B, H, Tq, Tk), (d_qk, d_v), dtype, key mask rows
+    as (first valid key, number of valid keys) cycled over the batch)."""
     b, h, t = K1R_SERVE
     ragged = [(0, t), (0, t - 1), (0, 900), (0, 611), (0, 1), (0, 64), (0, 65), (0, 1000)]
     small = [(0, 300), (0, 250), (0, 1), (0, 77)]
@@ -1294,29 +1302,51 @@ def k1r_cases():
         ("T=1", (2, 2, 1), K1R_DIMS, "f32", [(0, 1), (0, 0)]),
         # the second item's keys start at 37, the third has no valid key
         ("rows without a key", (3, 2, 200), K1R_DIMS, "f32", [(0, 200), (37, 100), (0, 0)]),
+        # Tq != Tk both ways, each ending inside a tile
+        ("Tq != Tk", (2, 2, 70, 203), K1R_DIMS, "f32", [(0, 203), (64, 65)]),
+        ("Tq != Tk small pair", (2, 2, 203, 70), (192, 64), "f32", [(0, 70), (5, 40)]),
+        # valid keys from inside a 64-key tile: 100..249 (the first key tile
+        # has none), 70..99
+        ("keys from inside a tile", (3, 2, 300), K1R_DIMS, "f32", [(0, 300), (100, 150), (70, 30)]),
     ]
 
 
 def k1r_inputs(shape, dims, dtype, rows, seed):
     import torch
 
-    b, h, t = shape
+    b, h, tq, tk = shape if len(shape) == 4 else (*shape, shape[-1])
     d_qk, d_v = dims
     g = torch.Generator(device="cuda").manual_seed(seed)
-    q, k = (torch.randn(b, h, t, d_qk, device="cuda", generator=g).to(dtype) for _ in range(2))
-    v, do = (torch.randn(b, h, t, d_v, device="cuda", generator=g).to(dtype) for _ in range(2))
-    pos = torch.arange(t, device="cuda")
+    q = torch.randn(b, h, tq, d_qk, device="cuda", generator=g).to(dtype)
+    k = torch.randn(b, h, tk, d_qk, device="cuda", generator=g).to(dtype)
+    v = torch.randn(b, h, tk, d_v, device="cuda", generator=g).to(dtype)
+    do = torch.randn(b, h, tq, d_v, device="cuda", generator=g).to(dtype)
+    pos = torch.arange(tk, device="cuda")
     key_mask = torch.stack([(pos >= a) & (pos < a + n) for a, n in (rows * b)[:b]])
     return q, k, v, key_mask, do
+
+
+def _tc_f32_bwd_launches():
+    from jatts_torch.ops import flash_attention as k1
+
+    return (k1.launches_bwd_dkv_tc_f32, k1.launches_bwd_dq_tc_f32)
 
 
 def check_k1r(name, shape, dims, dtype_name, rows, seed, against_autograd=False):
     """The three K1r kernels against flash_attention_ref /
     flash_attention_bwd_ref on the same inputs (the backward fed the plain
     forward's o and lse), the kernel's lse against the plain one, rows that
-    see no key exactly 0. Errors are checked relative to max(1, max|plain|);
-    returns the largest |kernel - plain| of the forward and of the
-    backward."""
+    see no key exactly 0 in the output and dq, keys that no row sees exactly
+    0 in dk and dv, each output within its tolerance of every batch item's
+    own max(1, max|plain|) (item_err), and each launch on the kernel the
+    dispatch rules give the form: the forward on the tensor cores (bf16) or
+    the 3xTF32 kernel (f32), the f32 dk/dv and dq on the 3xTF32 tensor-core
+    kernels (each of their counters one up with its ``_relpos`` one), the
+    bf16 ones on the scalar kernels. In f32 also the backward's bits from run
+    to run and for item 1 alone, and the scalar dk/dv and dq on the same
+    inputs. Returns the largest |kernel - plain| of the forward, of the
+    backward, and of the scalar backward (f32; None in bf16, where the
+    backward is the scalar one)."""
     import torch
 
     from jatts_torch.ops import flash_attention as k1
@@ -1326,7 +1356,7 @@ def check_k1r(name, shape, dims, dtype_name, rows, seed, against_autograd=False)
     scale = dims[1] ** -0.5  # 1/sqrt(d_k), as the attention layer passes it
     before = _legacy_launches()
     counter = "launches_tc_f32" if dtype_name == "f32" else "launches_tc"
-    tc_before = getattr(k1, counter)
+    tc_before, relpos_before, bwd_tc_before = getattr(k1, counter), _relpos_launches(), _tc_f32_bwd_launches()
     out_k, lse_k = k1.flash_attention_fwd(q, k, v, None, key_mask, scale)
     out_nolse = k1.flash_attention(q, k, v, None, key_mask, scale)
     o, lse = k1.flash_attention_ref(q.float(), k.float(), v.float(), None, key_mask, scale, return_lse=True)
@@ -1334,18 +1364,24 @@ def check_k1r(name, shape, dims, dtype_name, rows, seed, against_autograd=False)
     torch.cuda.synchronize()
     check(_legacy_launches() == before, f"K1r {name}: a d_qk == d_v kernel launched")
     check(getattr(k1, counter) - tc_before == 2, f"K1r {name}: the forward missed its tensor-core kernel ({counter})")
+    relpos = tuple(a - b for a, b in zip(_relpos_launches(), relpos_before))
+    bwd_tc = tuple(a - b for a, b in zip(_tc_f32_bwd_launches(), bwd_tc_before))
+    on_tc = dtype_name == "f32"
+    check(relpos == (2, 1, 1) and bwd_tc == ((1, 1) if on_tc else (0, 0)),
+          f"K1r {name}: launches (relpos forward, dk/dv, dq) {relpos}, on the 3xTF32 dk/dv and dq {bwd_tc}")
     want = k1.flash_attention_bwd_ref(q.float(), k.float(), v.float(), None, key_mask, scale, o, lse, do.float())
     check(bool(torch.equal(out_k, out_nolse)), f"K1r {name}: the forward with and without lse differ")
     tol = TOL_K1R[dtype_name]
     abs_errs = {"out": (out_k.float() - o).abs().max().item()}
-    errs = {"out": abs_errs["out"] / max(1.0, o.abs().max().item())}
+    errs = {"out": item_err(out_k, o)}
     for gname, g_, w, width in zip(("dq", "dk", "dv"), got, want, (dims[0], dims[0], dims[1])):
         check(g_.shape[-1] == width and bool(torch.isfinite(g_).all()), f"K1r {name} {gname}")
         abs_errs[gname] = (g_.float() - w).abs().max().item()
-        errs[gname] = abs_errs[gname] / max(1.0, w.abs().max().item())
+        errs[gname] = item_err(g_, w)
     check(got[3] is None, f"K1r {name}: a d(ab) without a bias")
     for gname, e in errs.items():
-        check(math.isfinite(e) and e <= tol, f"K1r {name} {dtype_name} {gname} err {e} > {tol}")
+        check(math.isfinite(e) and e <= tol,
+              f"K1r {name} {dtype_name} {gname} err {e} x max(1, max|plain| of its item) > {tol}")
     seen_none = torch.isinf(lse)
     check(bool(torch.equal(seen_none, torch.isinf(lse_k))), f"K1r {name}: +inf lse rows differ")
     lse_err = (lse_k - lse).masked_fill(seen_none, 0.0).abs().max().item()
@@ -1354,19 +1390,49 @@ def check_k1r(name, shape, dims, dtype_name, rows, seed, against_autograd=False)
     zero_rows = seen_none[..., None]
     check(bool((out_k.masked_select(zero_rows) == 0).all()) and bool((got[0].masked_select(zero_rows) == 0).all()),
           f"K1r {name}: a row that sees no key is not 0")
+    unseen = ~key_mask[:, None, :, None]
+    check(bool((got[1].masked_select(unseen) == 0).all()) and bool((got[2].masked_select(unseen) == 0).all()),
+          f"K1r {name}: dk or dv of a key that no row sees is not 0")
+    extra, scalar_err = "", None
+    if on_tc:
+        # no atomics: the same bits on a second run and for item 1 alone
+        di = (o * do.float()).sum(-1)
+        again = (*k1.flash_attention_bwd_dkv(q, k, v, None, key_mask, scale, lse, di, do),
+                 k1.flash_attention_bwd_dq(q, k, v, None, key_mask, scale, lse, di, do)[0])
+        one = [x[1:2].contiguous() for x in (q, k, v, key_mask, lse, di, do)]
+        alone = (*k1.flash_attention_bwd_dkv(*one[:3], None, one[3], scale, *one[4:]),
+                 k1.flash_attention_bwd_dq(*one[:3], None, one[3], scale, *one[4:])[0])
+        # the scalar kernels on the same inputs
+        scalar = (torch.empty_like(k), torch.empty_like(v), torch.empty_like(q))
+        k1._launch_bwd("dkv", q, k, v, None, key_mask, scale, lse, di, do, scalar[0], scalar[1], False,
+                       _lib=k1.KERNEL_BWD)
+        k1._launch_bwd("dq", q, k, v, None, key_mask, scale, lse, di, do, scalar[2], None, False, _lib=k1.KERNEL_BWD)
+        torch.cuda.synchronize()
+        mine = (got[1], got[2], got[0])
+        check(all(torch.equal(a, b) for a, b in zip(again, mine)), f"K1r {name}: dk, dv, dq differ between runs")
+        check(all(torch.equal(a, b[1:2]) for a, b in zip(alone, mine)),
+              f"K1r {name}: item 1 alone differs from item 1 in its batch")
+        scalar_rel = max(item_err(g_, w) for g_, w in zip(scalar, (want[1], want[2], want[0])))
+        scalar_err = max((g_.float() - w).abs().max().item() for g_, w in zip(scalar, (want[1], want[2], want[0])))
+        check(scalar_rel <= tol, f"K1r {name}: the scalar backward on the same inputs err {scalar_rel} > {tol}")
+        extra = (f"; dk/dv and dq on the 3xTF32 tensor-core kernels, the same bits on a second run and for item 1 "
+                 f"alone; the scalar dk/dv and dq on the same inputs {scalar_rel:.2e}")
     print(
-        f"K1r check {name} {dtype_name} B,H,T={','.join(map(str, shape))} d_qk,d_v={dims[0]},{dims[1]}: "
-        + ", ".join(f"{n} {abs_errs[n]:.2e} ({e:.2e} relative)" for n, e in errs.items())
-        + f" (max |kernel - plain|, relative to max(1, max|plain|); tol {tol:.0e}); lse err {lse_err:.1e}; rows "
-        f"that see no key {int(seen_none.sum())}", flush=True,
+        f"K1r check {name} {dtype_name} B,H,Tq,Tk={q.shape[0]},{q.shape[1]},{q.shape[2]},{k.shape[2]} "
+        f"d_qk,d_v={dims[0]},{dims[1]}: "
+        + ", ".join(f"{n} {abs_errs[n]:.2e} ({e:.2e})" for n, e in errs.items())
+        + f" (max |kernel - plain| (worst item's over max(1, max|plain| of the item)); tol {tol:.0e}); lse err "
+        f"{lse_err:.1e}; rows that see no key {int(seen_none.sum())}, keys that no row sees "
+        f"{int((~key_mask).sum()) * q.shape[1]}{extra}", flush=True,
     )
     if against_autograd:
         leaves = [x.float().detach().requires_grad_() for x in (q, k, v)]
         ag = torch.autograd.grad(k1.flash_attention_ref(*leaves, None, key_mask, scale), leaves, do.float())
-        ag_err = max((g_.float() - a).abs().max().item() / max(1.0, a.abs().max().item()) for g_, a in zip(got, ag))
-        print(f"K1r backward vs autograd through the plain forward: {ag_err:.2e} (tol {tol:.0e})", flush=True)
+        ag_err = max(item_err(g_, a) for g_, a in zip(got, ag))
+        print(f"K1r backward vs autograd through the plain forward: worst item's max_abs_err over max(1, max|plain| "
+              f"of the item) {ag_err:.2e} (tol {tol:.0e})", flush=True)
         check(ag_err <= tol, "K1r backward disagrees with autograd")
-    return abs_errs["out"], max(abs_errs["dq"], abs_errs["dk"], abs_errs["dv"])
+    return abs_errs["out"], max(abs_errs["dq"], abs_errs["dk"], abs_errs["dv"]), scalar_err
 
 
 def k1r_bounds_ms(b, h, t, d_qk, d_v, elem, dtype_name, with_lse):
@@ -1412,13 +1478,13 @@ def sdpa_backend(q, k, v, mask, scale):
 
 
 def time_k1r(seed, where):
-    """The three K1r kernels at the training decoder shape (f32; the forward
-    on the 3xTF32 tensor-core kernel, also replayed from a CUDA graph, the
-    scalar forward on the same inputs beside) and the forward at the serving
-    decoder shape (bf16), every key valid, beside the plain versions, SDPA
-    with a boolean key mask (forward, and forward + backward at the training
-    shape; the yardstick only) and the bounds (f32: on the tensor cores in
-    3xTF32, the CUDA cores' beside)."""
+    """The three K1r kernels at the training decoder shape (f32, all on the
+    3xTF32 tensor-core kernels; by CUDA events and replayed from a CUDA
+    graph, the scalar forward, dk/dv and dq on the same inputs beside) and
+    the forward at the serving decoder shape (bf16), every key valid, beside
+    the plain versions, SDPA with a boolean key mask (forward, and forward +
+    backward at the training shape; the yardstick only) and the bounds (f32:
+    on the tensor cores in 3xTF32, the CUDA cores' beside)."""
     import torch
     from torch.nn.attention import sdpa_kernel
 
@@ -1432,16 +1498,40 @@ def time_k1r(seed, where):
     o, lse = k1.flash_attention_fwd(q, k, v, None, key_mask, scale)
     di = (o * do).sum(-1)
     res["fwd"] = time_ms(lambda: k1.flash_attention_fwd(q, k, v, None, key_mask, scale), iters=10, warmup=2)
-    res["fwd_graph"] = graph_ms(lambda: k1.flash_attention_fwd(q, k, v, None, key_mask, scale), iters=10, replays=3)
     res["fwd_scalar"] = time_ms(lambda: k1._launch_fwd(q, k, v, None, key_mask, scale, True, False,
                                                        _kernel=k1.KERNEL), iters=5, warmup=1)
+    res["fwd_graph"] = graph_ms(lambda: k1.flash_attention_fwd(q, k, v, None, key_mask, scale), iters=10, replays=3)
     res["dkv"] = time_ms(lambda: k1.flash_attention_bwd_dkv(q, k, v, None, key_mask, scale, lse, di, do),
-                         iters=5, warmup=1)
+                         iters=10, warmup=2)
     res["dq"] = time_ms(lambda: k1.flash_attention_bwd_dq(q, k, v, None, key_mask, scale, lse, di, do),
-                        iters=5, warmup=1)
+                        iters=10, warmup=2)
+    res["dkv_graph"] = graph_ms(lambda: k1.flash_attention_bwd_dkv(q, k, v, None, key_mask, scale, lse, di, do),
+                                iters=10, replays=3)
+    res["dq_graph"] = graph_ms(lambda: k1.flash_attention_bwd_dq(q, k, v, None, key_mask, scale, lse, di, do),
+                               iters=10, replays=3)
+    dk, dv, dq = torch.empty_like(k), torch.empty_like(v), torch.empty_like(q)
+    res["dkv_scalar"] = time_ms(lambda: k1._launch_bwd("dkv", q, k, v, None, key_mask, scale, lse, di, do, dk, dv,
+                                                       False, _lib=k1.KERNEL_BWD), iters=5, warmup=1)
+    res["dq_scalar"] = time_ms(lambda: k1._launch_bwd("dq", q, k, v, None, key_mask, scale, lse, di, do, dq, None,
+                                                      False, _lib=k1.KERNEL_BWD), iters=5, warmup=1)
     res["plain_fwd_ms"] = time_ms(lambda: k1.flash_attention_ref(q, k, v, None, key_mask, scale), iters=3, warmup=1)
     res["plain_bwd_ms"] = time_ms(lambda: k1.flash_attention_bwd_ref(q, k, v, None, key_mask, scale, o, lse, do),
                                   iters=3, warmup=1)
+    # the backward's precision at this shape: items 0-1 against float64 (the
+    # same lse and o), the 3xTF32 kernels, the scalar ones, the plain f32
+    # backward (cuBLAS, TF32 off); worst item's error over max(1, max|exact|)
+    want = k1.flash_attention_bwd_ref(q, k, v, None, key_mask, scale, o, lse, do)[:3]
+    tc = (k1.flash_attention_bwd_dq(q, k, v, None, key_mask, scale, lse, di, do)[0],
+          *k1.flash_attention_bwd_dkv(q, k, v, None, key_mask, scale, lse, di, do))
+    k1._launch_bwd("dkv", q, k, v, None, key_mask, scale, lse, di, do, dk, dv, False, _lib=k1.KERNEL_BWD)
+    k1._launch_bwd("dq", q, k, v, None, key_mask, scale, lse, di, do, dq, None, False, _lib=k1.KERNEL_BWD)
+    q2, k2, v2, do2 = (x[:2].double() for x in (q, k, v, do))
+    p2 = torch.exp((q2 @ k2.transpose(-1, -2)) * scale - lse[:2].double()[..., None])
+    ds2 = p2 * (do2 @ v2.transpose(-1, -2) - (o[:2].double() * do2).sum(-1)[..., None]) * scale
+    exact = (ds2 @ k2, ds2.transpose(-1, -2) @ q2, p2.transpose(-1, -2) @ do2)
+    res["vs_f64"] = {name: max(item_err(g_[:2], e) for g_, e in zip(got, exact))
+                     for name, got in (("tc_f32", tc), ("scalar", (dq, dk, dv)), ("plain", want))}
+    del want, tc, q2, k2, v2, do2, p2, ds2, exact
     mask = key_mask[:, None, None, :]
     backend = sdpa_backend(q, k, v, mask, scale)
     qs, ks, vs = (x.detach().requires_grad_() for x in (q, k, v))
@@ -1456,20 +1546,23 @@ def time_k1r(seed, where):
         res["sdpa_ms"] = time_ms(sdpa_fwd_bwd, iters=3, warmup=1)
     res["sdpa_backend"] = backend.name
     res["bounds"] = k1r_bounds_ms(b, h, t, d_qk, d_v, 4, "f32", with_lse=True)
-    del q, k, v, do, o, lse, di, qs, ks, vs
+    del q, k, v, do, o, lse, di, qs, ks, vs, dk, dv, dq
     parts = "; ".join(
-        f"{n} kernel {res[n]:.4f} ms{extra} (bound {res['bounds'][n][0]:.4f} ms by {res['bounds'][n][1]}: "
-        f"{res['bounds'][n][2] / 1e6:.1f} MB, {res['bounds'][n][3] / 1e9:.1f} GFLOP; on the CUDA cores "
-        f"{cuda_core_ms(res['bounds'][n][3]):.4f} ms)"
-        for n, extra in (("fwd", f" (3xTF32 tensor cores; graph replay {res['fwd_graph']:.4f} ms; the scalar "
-                                 f"forward on the same inputs {res['fwd_scalar']:.4f} ms)"),
-                         ("dkv", " (scalar)"), ("dq", " (scalar)")))
+        f"{n} kernel {res[n]:.4f} ms (3xTF32 tensor cores; graph replay {res[n + '_graph']:.4f} ms; the scalar "
+        f"{n} on the same inputs {res[n + '_scalar']:.4f} ms) (bound {res['bounds'][n][0]:.4f} ms by "
+        f"{res['bounds'][n][1]}: {res['bounds'][n][2] / 1e6:.1f} MB, {res['bounds'][n][3] / 1e9:.1f} GFLOP; on the "
+        f"CUDA cores {cuda_core_ms(res['bounds'][n][3]):.4f} ms)"
+        for n in ("fwd", "dkv", "dq"))
     print(
         f"K1r time f32 B,H,T={b},{h},{t} d_qk,d_v={d_qk},{d_v}, every key valid: {parts}; plain forward "
         f"{res['plain_fwd_ms']:.4f} ms, plain backward {res['plain_bwd_ms']:.4f} ms; sdpa ({backend.name}, "
         f"bool key mask) forward {res['sdpa_fwd_ms']:.4f} ms, forward+backward {res['sdpa_ms']:.4f} ms; {where}",
         flush=True,
     )
+    print("K1r f32 backward at that shape against float64, items 0-1 (worst item's max |err| over max(1, "
+          "max|exact|) of dq, dk, dv): " + ", ".join(f"{n} {e:.2e}" for n, e in (
+              ("3xTF32 tensor-core kernels", res["vs_f64"]["tc_f32"]), ("scalar kernels", res["vs_f64"]["scalar"]),
+              ("plain f32 backward", res["vs_f64"]["plain"]))), flush=True)
     # the serving decoder, bf16, forward only (no lse)
     b, h, t = K1R_SERVE
     q, k, v, key_mask, _ = k1r_inputs(K1R_SERVE, K1R_DIMS, torch.bfloat16, [(0, t)], seed + 1)
@@ -1499,11 +1592,17 @@ def time_k1r(seed, where):
 def k1r_phase(seed, where):
     """Phase 13: every K1r case, then the times. Returns the largest errors
     of the forward by dtype (bf16 runs the tensor-core kernel, f32 the
-    scalar one) and of the backward, and the times."""
-    fwd_err, bwd_err = {"f32": 0.0, "bf16": 0.0}, 0.0
+    3xTF32 one) and of the backward by kernel ("tc_f32": the f32 dk/dv and
+    dq; "scalar": the bf16 ones and the scalar kernels on the f32 cases'
+    inputs), and the times."""
+    fwd_err, bwd_err = {"f32": 0.0, "bf16": 0.0}, {"tc_f32": 0.0, "scalar": 0.0}
     for i, (name, shape, dims, dtype_name, rows) in enumerate(k1r_cases()):
-        fe, be = check_k1r(name, shape, dims, dtype_name, rows, seed + i, against_autograd=(name == "f32"))
-        fwd_err[dtype_name], bwd_err = max(fwd_err[dtype_name], fe), max(bwd_err, be)
+        fe, be, se = check_k1r(name, shape, dims, dtype_name, rows, seed + i, against_autograd=(name == "f32"))
+        fwd_err[dtype_name] = max(fwd_err[dtype_name], fe)
+        if dtype_name == "f32":
+            bwd_err["tc_f32"], bwd_err["scalar"] = max(bwd_err["tc_f32"], be), max(bwd_err["scalar"], se)
+        else:
+            bwd_err["scalar"] = max(bwd_err["scalar"], be)
     return fwd_err, bwd_err, time_k1r(seed + 100, where)
 
 
@@ -1717,16 +1816,21 @@ def _relpos_launches():
 
 
 # what the training slice runs: phase 10, the JSUT conf (legacy rel-pos, K1
-# and K1-bwd), or phase 14, the JVS conf with speaker embeddings and latest
-# rel-pos attention (K1r)
+# and K1-bwd, the backward scalar), or phase 14, the JVS conf with speaker
+# embeddings and latest rel-pos attention (K1r, the backward on the 3xTF32
+# kernels: bwd_tc_f32 says how many of the dk/dv and dq launches take them).
+# A kernel is named by the substrings of its profiler key, demangled or not
 SLICES = {
     "jsut": dict(conf=JSUT_CONF, tag="fs2", spk_dim=0, latest=False, counts=_legacy_launches,
-                 others=_relpos_launches, names=("K1 fwd (3xTF32 tc)", "K1-bwd dkv", "dq"),
-                 kernels=("flash_attn_fwd_tc_f32_kernel", "flash_attn_bwd_dkv_kernel", "flash_attn_bwd_dq_kernel")),
+                 others=_relpos_launches, names=("K1 fwd (3xTF32 tc)", "K1-bwd dkv", "dq"), bwd_tc_f32=False,
+                 kernels=(("flash_attn_fwd_tc_f32_kernel",), ("flash_attn_bwd_dkv_kernel",),
+                          ("flash_attn_bwd_dq_kernel",))),
     "jvs": dict(conf=JVS_CONF, tag="jvs", spk_dim=192, latest=True, counts=_relpos_launches,
-                others=_legacy_launches, names=("K1r fwd (3xTF32 tc)", "K1r dkv", "dq"),
-                kernels=("flash_attn_fwd_tc_f32_kernel", "flash_attn_bwd_dkv_relpos_kernel",
-                         "flash_attn_bwd_dq_relpos_kernel")),
+                others=_legacy_launches, names=("K1r fwd (3xTF32 tc)", "K1r dkv (3xTF32 tc)", "dq (3xTF32 tc)"),
+                bwd_tc_f32=True,
+                kernels=(("flash_attn_fwd_tc_f32_kernel",),
+                         ("flash_attn_bwd_tc_f32_kernel<576, 192, false>", "flash_attn_bwd_tc_f32_kernelILi576ELi192ELb0E"),
+                         ("flash_attn_bwd_tc_f32_kernel<576, 192, true>", "flash_attn_bwd_tc_f32_kernelILi576ELi192ELb1E"))),
 }
 
 
@@ -1775,7 +1879,7 @@ def training_slice(root, align_paths, freqs, seed, where, which="jsut"):
     torch.cuda.synchronize()
     run_s = time.perf_counter() - t0
     launches, others = sl["counts"](), sl["others"]()
-    fwd_tc_f32 = k1.launches_tc_f32
+    fwd_tc_f32, bwd_tc_f32 = k1.launches_tc_f32, _tc_f32_bwd_launches()
     check(k1.launches_tc == 0, f"training ({which}, f32) launched the bf16 tensor-core kernel {k1.launches_tc} times")
 
     losses = [h["train/loss"] for h in trainer.history]
@@ -1797,6 +1901,10 @@ def training_slice(root, align_paths, freqs, seed, where, which="jsut"):
     print(f"training ({which}): forwards on the 3xTF32 tensor-core kernel {fwd_tc_f32} of {launches[0]}, on the "
           f"scalar kernel {launches[0] - fwd_tc_f32}", flush=True)
     check(fwd_tc_f32 == launches[0], f"{launches[0] - fwd_tc_f32} f32 forwards missed the 3xTF32 kernel")
+    want_bwd = launches[1:] if sl["bwd_tc_f32"] else (0, 0)
+    print(f"training ({which}): dk/dv and dq on the 3xTF32 tensor-core kernels {bwd_tc_f32} of {launches[1:]}",
+          flush=True)
+    check(bwd_tc_f32 == want_bwd, f"training ({which}): dk/dv and dq on the 3xTF32 kernels {bwd_tc_f32} != {want_bwd}")
 
     # the checkpoint, and a resumed trainer
     ckpt = find_latest_checkpoint(outdir)
@@ -1855,7 +1963,9 @@ def training_slice(root, align_paths, freqs, seed, where, which="jsut"):
     busy_ms = sum(e.self_device_time_total for e in events) / 1e3
     check(busy_ms > 0, "profile of one training step: the profiler saw no device time")
     kn = sl["kernels"]
-    k_ms = {name: sum(e.self_device_time_total for e in events if name in e.key) / 1e3 for name in kn}
+    k_ms = {name: sum(e.self_device_time_total for e in events if any(alt in e.key for alt in name)) / 1e3
+            for name in kn}
+    check(all(k_ms[name] > 0 for name in kn), f"profile of one training step: no time for {names} ({k_ms})")
     print(
         f"training step ({which}) f32, batch {shape} (B, T_feats, T_text): whole step {step_ms:.1f} ms "
         f"(host clock); forward+loss {fwd_ms:.1f} ms, backward {bwd_ms:.1f} ms, optimizer {opt_ms:.2f} ms; "
@@ -1882,8 +1992,11 @@ def training_slice(root, align_paths, freqs, seed, where, which="jsut"):
         lss = loss_of(m)
         pair[backend] = (float(lss.detach()), torch.autograd.grad(lss, list(m.parameters())))
         want = (8, 8, 8) if backend == "flash" else (0, 0, 0)
-        check(sl["counts"]() == want and sl["others"]() == (0, 0, 0) and k1.launches_tc_f32 == want[0],
-              f"{backend} step: {names[0]} launches {sl['counts']()} != {want} (3xTF32 {k1.launches_tc_f32})")
+        want_bwd = want[1:] if sl["bwd_tc_f32"] else (0, 0)
+        check(sl["counts"]() == want and sl["others"]() == (0, 0, 0) and k1.launches_tc_f32 == want[0]
+              and _tc_f32_bwd_launches() == want_bwd,
+              f"{backend} step: {names[0]} launches {sl['counts']()} != {want} (3xTF32 {k1.launches_tc_f32}, "
+              f"3xTF32 dk/dv and dq {_tc_f32_bwd_launches()})")
         pair[backend] += (host_ms(lambda: torch.autograd.grad(loss_of(m), list(m.parameters()))),)
         del m
     (lf, gf, f_ms), (lx, gx, x_ms) = pair["flash"], pair["xla"]
@@ -1897,7 +2010,7 @@ def training_slice(root, align_paths, freqs, seed, where, which="jsut"):
     )
     check(loss_rel <= 1e-4 and diff / norm <= 1e-3, "flash and xla training steps disagree")
     return launches, {"step_ms": step_ms, "run_s": run_s, "k_ms": k_ms, "idle": 1 - busy_ms / wall_ms,
-                      "flash_ms": f_ms, "xla_ms": x_ms, "fwd_tc_f32": fwd_tc_f32}
+                      "flash_ms": f_ms, "xla_ms": x_ms, "fwd_tc_f32": fwd_tc_f32, "bwd_tc_f32": bwd_tc_f32}
 
 
 # ---------------------------------------------------------------------------
@@ -2236,7 +2349,8 @@ def main() -> int:
     # 2. build
     t0 = time.perf_counter()
     nvcc_s = {}
-    kernels = [k1.KERNEL, k1.KERNEL_TC, k1.KERNEL_TC_F32, k1.KERNEL_BWD, k1.KERNEL_BWD_TC, mas.KERNEL]
+    kernels = [k1.KERNEL, k1.KERNEL_TC, k1.KERNEL_TC_F32, k1.KERNEL_BWD, k1.KERNEL_BWD_TC, k1.KERNEL_BWD_TC_F32,
+               mas.KERNEL]
     reports = build.build(kernels, seconds=nvcc_s)
     print(f"build: {', '.join(kernels)} in {time.perf_counter() - t0:.1f} s (nvcc each: "
           + ", ".join(f"{n} {sec:.1f} s" for n, sec in nvcc_s.items()) + ")", flush=True)
@@ -2249,7 +2363,8 @@ def main() -> int:
             elif ("registers" in line or "spill" in line) and "(C75" not in line:
                 print(f"  ptxas {kernel} {entry}: {line.strip()}", flush=True)
                 spilled = re.search(r"(\d+) bytes spill stores", line)
-                if kernel in (k1.KERNEL_TC, k1.KERNEL_TC_F32, k1.KERNEL_BWD_TC) and spilled and int(spilled.group(1)):
+                tc = (k1.KERNEL_TC, k1.KERNEL_TC_F32, k1.KERNEL_BWD_TC, k1.KERNEL_BWD_TC_F32)
+                if kernel in tc and spilled and int(spilled.group(1)):
                     spills.append(entry)
     # the tensor-core kernels hold their accumulators in registers: a spill
     # there is a design fault, not a slowdown to live with
@@ -2640,19 +2755,32 @@ def main() -> int:
         "name": f"{name}_relpos", "route": "cuda", "source": f"jatts_torch/csrc/{src}",
         "replaces": f"jax/experimental/pallas/ops/tpu/flash_attention.py:{line}",
         "launches": n_serve + n_train, "launches_by_path": {"serving": n_serve, "training": n_train},
-        "max_abs_err": err, "ms": k1r_times["fwd_scalar" if key == "fwd" else key],
+        "max_abs_err": err, "ms": k1r_times[f"{key}_scalar"],
         "plain_ms": k1r_times["plain_fwd_ms" if key == "fwd" else "plain_bwd_ms"],
         "bound_ms": k1r_times["bounds"][key][0], "bound_by": k1r_times["bounds"][key][1],
         "cuda_core_bound_ms": cuda_core_ms(k1r_times["bounds"][key][3]),
         "library_ms": k1r_times["sdpa_fwd_ms" if key == "fwd" else "sdpa_ms"],
     } for name, src, line, key, n_serve, n_train, err in (
-        # the scalar K1r forward no longer runs on the main path: bf16 is the
-        # tensor-core kernel's, f32 the 3xTF32 kernel's; timed beside it
+        # the scalar K1r forward, dk/dv and dq no longer run on the main path:
+        # bf16 is the tensor-core forward's, f32 the 3xTF32 kernels'; timed
+        # beside them on the same inputs (the bf16 K1r backward stays here)
         ("flash_attn_fwd", "flash_attn_fwd.cu", 758, "fwd", 0, jvs_launches[0] - jvs["fwd_tc_f32"],
          tc_f32_err["scalar_k1r"]),
-        ("flash_attn_bwd_dkv", "flash_attn_bwd.cu", 1121, "dkv", 0, jvs_launches[1], k1r_bwd_err),
-        ("flash_attn_bwd_dq", "flash_attn_bwd.cu", 1456, "dq", 0, jvs_launches[2], k1r_bwd_err),
-    )]}
+        ("flash_attn_bwd_dkv", "flash_attn_bwd.cu", 1121, "dkv", 0, jvs_launches[1] - jvs["bwd_tc_f32"][0],
+         k1r_bwd_err["scalar"]),
+        ("flash_attn_bwd_dq", "flash_attn_bwd.cu", 1456, "dq", 0, jvs_launches[2] - jvs["bwd_tc_f32"][1],
+         k1r_bwd_err["scalar"]),
+    )] + [{
+        # K1r's f32 dk/dv and dq on the tensor cores (3xTF32), JVS-latest training
+        "name": f"{k1.KERNEL_BWD_TC_F32}_{key}", "route": "cuda",
+        "source": f"jatts_torch/csrc/{k1.KERNEL_BWD_TC_F32}.cu",
+        "replaces": f"jax/experimental/pallas/ops/tpu/flash_attention.py:{line}",
+        "launches": n, "launches_by_path": {"training": n}, "max_abs_err": k1r_bwd_err["tc_f32"],
+        "ms": k1r_times[key], "graph_ms": k1r_times[f"{key}_graph"], "scalar_ms": k1r_times[f"{key}_scalar"],
+        "plain_ms": k1r_times["plain_bwd_ms"], "bound_ms": k1r_times["bounds"][key][0],
+        "bound_by": k1r_times["bounds"][key][1], "cuda_core_bound_ms": cuda_core_ms(k1r_times["bounds"][key][3]),
+        "library_ms": k1r_times["sdpa_ms"], "library_backend": k1r_times["sdpa_backend"],
+    } for key, line, n in (("dkv", 1121, jvs["bwd_tc_f32"][0]), ("dq", 1456, jvs["bwd_tc_f32"][1]))]}
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps(record), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": count}}), flush=True)

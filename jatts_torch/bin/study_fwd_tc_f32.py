@@ -3,8 +3,9 @@ on the card, in turns, at the FastSpeech2 training decoders' shapes:
 
     python -m jatts_torch.bin.study_fwd_tc_f32
 
-Each variant is the source with one change, built by ``nvcc`` (all at once)
-into its own library under the git-ignored ``build/study/``:
+Each variant is the source (with the shared header ``csrc/tc_f32_common.cuh``)
+with one change, built by ``nvcc`` (all at once) into its own library under the
+git-ignored ``build/study/``:
 
 - ``final``: the source as it stands;
 - ``cvt_rna``: hi and lo rounded by ``cvt.rna.tf32.f32`` instead of the two
@@ -38,10 +39,26 @@ SHAPES = (
 )
 
 
+SOURCE = "flash_attn_fwd_tc_f32.cu"
+HEADER = "tc_f32_common.cuh"
+
+
 def _sub(src: str, old: str, new: str, count: int = 1) -> str:
     if src.count(old) != count:
         raise ValueError(f"the source no longer has {count} of {old!r}")
     return src.replace(old, new)
+
+
+def _on(name, change):
+    """A variant that changes the file ``name`` of the sources by ``change``."""
+    return lambda files: {**files, name: change(files[name])}
+
+
+def sources(names=(SOURCE, HEADER)):
+    """name -> text of the csrc files a study's variants change."""
+    from jatts_torch.ops import build
+
+    return {name: (build.CSRC_DIR / name).read_text() for name in names}
 
 
 def _cvt_rna(src):
@@ -53,15 +70,18 @@ def _split_unroll1(src):
     return _sub(src, "#pragma unroll 3\n", "#pragma unroll 1\n", count=2)
 
 
-def _hi_hi_only(src):
-    src = _sub(src, "      wgmma_tf32(tmp, qa[kk][0], qa[kk][1], qa[kk][2], qa[kk][3], b_lo + 2 * kk, kk != 0);\n"
-                    "      wgmma_tf32(tmp, qa[kk][4], qa[kk][5], qa[kk][6], qa[kk][7], b_hi + 2 * kk, 1);\n", "")
-    src = _sub(src, "wgmma_tf32(tmp, qa[kk][0], qa[kk][1], qa[kk][2], qa[kk][3], b_hi + 2 * kk, 1);",
-               "wgmma_tf32(tmp, qa[kk][0], qa[kk][1], qa[kk][2], qa[kk][3], b_hi + 2 * kk, kk != 0);")
+def _hi_hi_only_header(src):
     return _sub(src, "  wgmma_tf32(d, a[0], a[1], a[2], a[3], b_lo, accumulate);\n"
                      "  wgmma_tf32(d, a[4], a[5], a[6], a[7], b_hi, 1);\n"
                      "  wgmma_tf32(d, a[0], a[1], a[2], a[3], b_hi, 1);",
                 "  wgmma_tf32(d, a[0], a[1], a[2], a[3], b_hi, accumulate);")
+
+
+def _hi_hi_only(src):
+    src = _sub(src, "      wgmma_tf32(tmp, qa[kk][0], qa[kk][1], qa[kk][2], qa[kk][3], b_lo + 2 * kk, kk != 0);\n"
+                    "      wgmma_tf32(tmp, qa[kk][4], qa[kk][5], qa[kk][6], qa[kk][7], b_hi + 2 * kk, 1);\n", "")
+    return _sub(src, "wgmma_tf32(tmp, qa[kk][0], qa[kk][1], qa[kk][2], qa[kk][3], b_hi + 2 * kk, 1);",
+                "wgmma_tf32(tmp, qa[kk][0], qa[kk][1], qa[kk][2], qa[kk][3], b_hi + 2 * kk, kk != 0);")
 
 
 def _no_split(src):
@@ -80,24 +100,31 @@ def _no_frag_split(src):
     return src
 
 
-VARIANTS = {"final": lambda s: s, "cvt_rna": _cvt_rna, "split_unroll1": _split_unroll1,
-            "hi_hi_only": _hi_hi_only, "no_split": _no_split, "no_frag_split": _no_frag_split}
+VARIANTS = {"final": lambda f: f, "cvt_rna": _on(HEADER, _cvt_rna), "split_unroll1": _on(SOURCE, _split_unroll1),
+            "hi_hi_only": lambda f: _on(HEADER, _hi_hi_only_header)(_on(SOURCE, _hi_hi_only)(f)),
+            "no_split": _on(SOURCE, _no_split), "no_frag_split": _on(SOURCE, _no_frag_split)}
 
 
-def build_variants():
-    """name -> the loaded entry point of each variant's library."""
+def build_variants(variants=None, source=SOURCE, files=None, symbols=("jatts_flash_attn_fwd_tc_f32",),
+                   n_pointers=7, study="study"):
+    """name -> {symbol: the loaded entry point} of each variant's library:
+    ``variants`` (name -> change of ``files``, name -> text) applied to a
+    copy of ``csrc/`` under ``build/<study>/<name>``, ``source`` compiled.
+    Each entry point takes ``n_pointers`` pointers, 8 ints, the scale and the
+    stream."""
     from jatts_torch.ops import build
-    from jatts_torch.ops import flash_attention as k1
 
-    src = (build.CSRC_DIR / f"{k1.KERNEL_TC_F32}.cu").read_text()
-    root = build.BUILD_DIR.parent / "study"
+    variants = VARIANTS if variants is None else variants
+    files = sources() if files is None else files
+    root = build.BUILD_DIR.parent / study
     procs = {}
-    for name, change in VARIANTS.items():
+    for name, change in variants.items():
         d = root / name
         shutil.rmtree(d, ignore_errors=True)
         shutil.copytree(build.CSRC_DIR, d)
-        (d / f"{k1.KERNEL_TC_F32}.cu").write_text(change(src))
-        cmd = [build.nvcc_path(), *build.NVCC_FLAGS, "-o", str(d / "lib.so"), str(d / f"{k1.KERNEL_TC_F32}.cu")]
+        for fname, text in change(files).items():
+            (d / fname).write_text(text)
+        cmd = [build.nvcc_path(), *build.NVCC_FLAGS, "-o", str(d / "lib.so"), str(d / source)]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), d)
     fns = {}
     for name, (proc, d) in procs.items():
@@ -107,10 +134,13 @@ def build_variants():
         spills = sum(int(n) for n in re.findall(r"(\d+) bytes spill stores", report))
         regs = sorted(int(n) for n in re.findall(r"Used (\d+) registers", report))
         print(f"built {name}: registers {regs[0]}-{regs[-1]}, spill stores {spills} bytes", flush=True)
-        fn = ctypes.CDLL(str(d / "lib.so")).jatts_flash_attn_fwd_tc_f32
-        fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_void_p]
-        fns[name] = fn
+        lib = ctypes.CDLL(str(d / "lib.so"))
+        fns[name] = {}
+        for symbol in symbols:
+            fn = getattr(lib, symbol)
+            fn.restype = ctypes.c_int
+            fn.argtypes = [ctypes.c_void_p] * n_pointers + [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_void_p]
+            fns[name][symbol] = fn
     return fns
 
 
@@ -122,7 +152,7 @@ def main() -> int:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60)
     print(f"device: {torch.cuda.get_device_name(0)}; nvidia-smi: {smi.stdout.strip()}", flush=True)
-    fns = build_variants()
+    fns = {name: f["jatts_flash_attn_fwd_tc_f32"] for name, f in build_variants().items()}
     for label, (b, h, t), (d_qk, d_v), bias in SHAPES:
         g = torch.Generator(device="cuda").manual_seed(0)
         q = torch.randn(b, h, t, d_qk, device="cuda", generator=g)

@@ -2,7 +2,8 @@
 forms on the tensor cores in ``csrc/flash_attn_fwd_tc.cu``, its f32
 non-causal forms in 3xTF32 in ``csrc/flash_attn_fwd_tc_f32.cu``), K1-bwd — its
 backward (``csrc/flash_attn_bwd.cu``; K1b's bf16 dk/dv and dq at d 64 on the
-tensor cores in ``csrc/flash_attn_bwd_tc.cu``), K1b — the causal form of both, K1r
+tensor cores in ``csrc/flash_attn_bwd_tc.cu``, K1r's f32 dk/dv and dq in 3xTF32
+in ``csrc/flash_attn_bwd_tc_f32.cu``), K1b — the causal form of both, K1r
 — the fused rel-pos form of both (d_qk != d_v), and their plain twins.
 
 Replaces the Pallas TPU flash-attention forward that
@@ -41,11 +42,15 @@ rule over (dtype, causal, d_qk, d_v): bf16 goes to the tensor-core kernel
 ``launches_relpos``), f32 non-causal at the (d_qk, d_v) of
 ``TC_F32_PAIRS`` to the 3xTF32 tensor-core kernel (``launches_tc_f32``),
 every other form (f32 causal, d 256) to the scalar one. Which dk/dv and dq
-kernels are :func:`dkv_kernel`'s and :func:`dq_kernel`'s, one condition:
-VALL-E's form (bf16, causal, d 64, no bias) goes to the tensor-core kernels
-(``launches_bwd_dkv_tc`` and ``launches_bwd_dq_tc`` count them, besides
-``launches_bwd_dkv_causal`` and ``launches_bwd_dq_causal``), every other form
-to the scalar ones. See the source notes in the ``.cu`` files for the bounds.
+kernels are :func:`dkv_kernel`'s and :func:`dq_kernel`'s, one rule over
+(dtype, causal, d_qk, d_v, bias): VALL-E's form (bf16, causal, d 64, no bias)
+goes to the tensor-core kernels (``launches_bwd_dkv_tc`` and
+``launches_bwd_dq_tc`` count them, besides ``launches_bwd_dkv_causal`` and
+``launches_bwd_dq_causal``), K1r's f32 form (non-causal, the pairs of
+``RELPOS_PAIRS``, no bias) to the 3xTF32 tensor-core kernels
+(``launches_bwd_dkv_tc_f32`` and ``launches_bwd_dq_tc_f32``, besides the
+``*_relpos`` counters), every other form to the scalar ones. See the source
+notes in the ``.cu`` files for the bounds.
 """
 
 from __future__ import annotations
@@ -62,6 +67,7 @@ KERNEL_BWD = "flash_attn_bwd"
 KERNEL_TC = "flash_attn_fwd_tc"
 KERNEL_TC_F32 = "flash_attn_fwd_tc_f32"
 KERNEL_BWD_TC = "flash_attn_bwd_tc"
+KERNEL_BWD_TC_F32 = "flash_attn_bwd_tc_f32"
 HEAD_DIMS = (64, 128, 192, 256)
 # K1r's (d_qk, d_v) = (d_k + n_feat, d_k): 2 heads of 64 (adim 128) and of
 # 192 (adim 384, the JSUT/JVS width)
@@ -86,6 +92,8 @@ launches_bwd_dkv_tc = 0  # dk/dv calls (K1b) that ran on the tensor-core kernel
 launches_bwd_dq_tc = 0  # dq calls (K1b) that ran on the tensor-core kernel
 launches_bwd_dkv_relpos = 0  # K1r, dk/dv kernel
 launches_bwd_dq_relpos = 0  # K1r, dq kernel
+launches_bwd_dkv_tc_f32 = 0  # dk/dv calls (K1r f32) that ran on the 3xTF32 tensor-core kernel
+launches_bwd_dq_tc_f32 = 0  # dq calls (K1r f32) that ran on the 3xTF32 tensor-core kernel
 
 
 def reset_launches() -> None:
@@ -93,8 +101,9 @@ def reset_launches() -> None:
     global launches_causal, launches_bwd_dkv_causal, launches_bwd_dq_causal
     global launches_relpos, launches_bwd_dkv_relpos, launches_bwd_dq_relpos, launches_tc
     global launches_bwd_dkv_tc, launches_bwd_dq_tc, launches_tc_f32
+    global launches_bwd_dkv_tc_f32, launches_bwd_dq_tc_f32
     launches = launches_bwd_dkv = launches_bwd_dq = launches_tc = launches_tc_f32 = 0
-    launches_bwd_dkv_tc = launches_bwd_dq_tc = 0
+    launches_bwd_dkv_tc = launches_bwd_dq_tc = launches_bwd_dkv_tc_f32 = launches_bwd_dq_tc_f32 = 0
     launches_causal = launches_bwd_dkv_causal = launches_bwd_dq_causal = 0
     launches_relpos = launches_bwd_dkv_relpos = launches_bwd_dq_relpos = 0
 
@@ -202,23 +211,32 @@ def fwd_kernel(dtype: torch.dtype, causal: bool, d_qk: int, d_v: int) -> str:
     return KERNEL_TC_F32 if not causal and (d_qk, d_v) in TC_F32_PAIRS else KERNEL
 
 
-def _bwd_on_tc(dtype: torch.dtype, causal: bool, d_qk: int, d_v: int, has_bias: bool) -> bool:
-    """VALL-E's form — bf16, causal, d_qk = d_v = 64, no bias — the one
-    form the tensor-core backward kernels take."""
-    return dtype == torch.bfloat16 and causal and d_qk == d_v == 64 and not has_bias
+def _bwd_kernel(dtype: torch.dtype, causal: bool, d_qk: int, d_v: int, has_bias: bool) -> str:
+    """The backward's one rule: VALL-E's form (bf16, causal, d_qk = d_v =
+    64, no bias) -> ``KERNEL_BWD_TC``; K1r's f32 form (non-causal, (d_qk,
+    d_v) in ``RELPOS_PAIRS``, no bias) -> ``KERNEL_BWD_TC_F32``; every other
+    form (K1-bwd, the bf16 K1r backward, f32 causal) -> ``KERNEL_BWD``."""
+    if dtype == torch.bfloat16 and causal and d_qk == d_v == 64 and not has_bias:
+        return KERNEL_BWD_TC
+    if dtype == torch.float32 and not causal and (d_qk, d_v) in RELPOS_PAIRS and not has_bias:
+        return KERNEL_BWD_TC_F32
+    return KERNEL_BWD
 
 
 def dkv_kernel(dtype: torch.dtype, causal: bool, d_qk: int, d_v: int, has_bias: bool) -> str:
     """The library a dk/dv backward on the card takes: ``KERNEL_BWD_TC``
-    (tensor cores) for VALL-E's form, else ``KERNEL_BWD`` (scalar)."""
-    return KERNEL_BWD_TC if _bwd_on_tc(dtype, causal, d_qk, d_v, has_bias) else KERNEL_BWD
+    (tensor cores) for VALL-E's form, ``KERNEL_BWD_TC_F32`` (tensor cores,
+    3xTF32) for K1r's f32 form, else ``KERNEL_BWD`` (scalar; the bf16 K1r
+    form and K1-bwd with its bias stay there)."""
+    return _bwd_kernel(dtype, causal, d_qk, d_v, has_bias)
 
 
 def dq_kernel(dtype: torch.dtype, causal: bool, d_qk: int, d_v: int, has_bias: bool) -> str:
     """The library a dq backward on the card takes, by :func:`dkv_kernel`'s
-    condition: ``KERNEL_BWD_TC`` for VALL-E's form, else ``KERNEL_BWD``
-    (scalar; it also writes d(ab) when there is a bias)."""
-    return KERNEL_BWD_TC if _bwd_on_tc(dtype, causal, d_qk, d_v, has_bias) else KERNEL_BWD
+    rule: ``KERNEL_BWD_TC`` for VALL-E's form, ``KERNEL_BWD_TC_F32`` for K1r's
+    f32 form, else ``KERNEL_BWD`` (scalar; the bf16 K1r form and K1-bwd stay
+    there, and it also writes d(ab) when there is a bias)."""
+    return _bwd_kernel(dtype, causal, d_qk, d_v, has_bias)
 
 
 def _kernel_fn(name: str):
@@ -336,13 +354,18 @@ def _check_bwd(q, k, v, ab, key_mask, lse, di, do, causal) -> None:
         raise ValueError("flash_attention_bwd: lse, di, do must be contiguous on q's device")
 
 
-def _launch_bwd(name, q, k, v, ab, key_mask, sm_scale, lse, di, do, out_a, out_b, causal):
+_BWD_SUFFIX = {KERNEL_BWD: "", KERNEL_BWD_TC: "_tc", KERNEL_BWD_TC_F32: "_tc_f32"}
+
+
+def _launch_bwd(name, q, k, v, ab, key_mask, sm_scale, lse, di, do, out_a, out_b, causal, _lib=None):
     """K1-bwd's ``name`` ("dkv" or "dq") kernel on checked card tensors, on
-    the library :func:`dkv_kernel` or :func:`dq_kernel` picks."""
+    the library :func:`dkv_kernel` or :func:`dq_kernel` picks. ``_lib``
+    names another library that takes the form (``KERNEL_BWD``, the scalar
+    one, for a timing beside the kernel the rule picks)."""
     b, h, tq, d = q.shape
     rule = dkv_kernel if name == "dkv" else dq_kernel
-    lib = rule(q.dtype, causal, d, v.shape[3], ab is not None)
-    symbol = f"jatts_flash_attn_bwd_{name}" + ("_tc" if lib == KERNEL_BWD_TC else "")
+    lib = _lib or rule(q.dtype, causal, d, v.shape[3], ab is not None)
+    symbol = f"jatts_flash_attn_bwd_{name}" + _BWD_SUFFIX[lib]
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = _bwd_kernel_fn(lib, symbol)(
@@ -354,8 +377,8 @@ def _launch_bwd(name, q, k, v, ab, key_mask, sm_scale, lse, di, do, out_a, out_b
     if rc != 0:
         raise RuntimeError(f"{lib} {name} launch failed with CUDA error {rc}")
     _count(name, causal, d != v.shape[3])
-    if lib == KERNEL_BWD_TC:
-        globals()[f"launches_bwd_{name}_tc"] += 1
+    if lib != KERNEL_BWD:
+        globals()[f"launches_bwd_{name}{_BWD_SUFFIX[lib]}"] += 1
 
 
 def flash_attention_bwd_dkv(q, k, v, ab, key_mask, sm_scale, lse, di, do, causal=False):

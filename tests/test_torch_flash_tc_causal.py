@@ -59,9 +59,13 @@ _item_err = chip_smoke.item_err  # max |got - want| over max(1, max|want|) of ea
 @pytest.mark.parametrize("has_bias", [False, True])
 def test_dkv_rule_sends_valle_form_to_the_tensor_cores(dtype, causal, d_qk, d_v, has_bias):
     """bf16, causal, d_qk = d_v = 64, no bias -> the tensor-core dk/dv;
-    everything else stays on the scalar kernel."""
+    f32, non-causal, a K1r pair, no bias -> the 3xTF32 one
+    (``tests/test_torch_flash_tc_f32_bwd.py``); everything else stays on
+    the scalar kernel."""
     tc = dtype == torch.bfloat16 and causal and (d_qk, d_v) == (64, 64) and not has_bias
-    assert k1.dkv_kernel(dtype, causal, d_qk, d_v, has_bias) == (k1.KERNEL_BWD_TC if tc else k1.KERNEL_BWD)
+    tc_f32 = dtype == torch.float32 and not causal and (d_qk, d_v) in k1.RELPOS_PAIRS and not has_bias
+    want = k1.KERNEL_BWD_TC if tc else k1.KERNEL_BWD_TC_F32 if tc_f32 else k1.KERNEL_BWD
+    assert k1.dkv_kernel(dtype, causal, d_qk, d_v, has_bias) == want
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -69,10 +73,13 @@ def test_dkv_rule_sends_valle_form_to_the_tensor_cores(dtype, causal, d_qk, d_v,
 @pytest.mark.parametrize("d_qk,d_v", [(64, 64), (128, 128), (192, 192), (256, 256), (192, 64), (576, 192)])
 @pytest.mark.parametrize("has_bias", [False, True])
 def test_dq_rule_sends_valle_form_to_the_tensor_cores(dtype, causal, d_qk, d_v, has_bias):
-    """dq by dk/dv's condition: VALL-E's form on the tensor-core dq; f32, a
-    bias (and its d(ab)), d != 64, non-causal and K1r on the scalar one."""
+    """dq by dk/dv's rule: VALL-E's form on the tensor-core dq, K1r's f32
+    form on the 3xTF32 one; a bias (and its d(ab)), d != 64, bf16
+    non-causal and f32 causal on the scalar one."""
     tc = dtype == torch.bfloat16 and causal and (d_qk, d_v) == (64, 64) and not has_bias
-    assert k1.dq_kernel(dtype, causal, d_qk, d_v, has_bias) == (k1.KERNEL_BWD_TC if tc else k1.KERNEL_BWD)
+    tc_f32 = dtype == torch.float32 and not causal and (d_qk, d_v) in k1.RELPOS_PAIRS and not has_bias
+    want = k1.KERNEL_BWD_TC if tc else k1.KERNEL_BWD_TC_F32 if tc_f32 else k1.KERNEL_BWD
+    assert k1.dq_kernel(dtype, causal, d_qk, d_v, has_bias) == want
 
 
 def test_sources_hold_the_causal_forms_and_a_plain_c_interface():

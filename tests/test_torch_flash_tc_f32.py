@@ -401,20 +401,25 @@ def test_f32_forward_rule(causal, d_qk, d_v):
 
 def test_source_is_a_3xtf32_tensor_core_kernel_with_a_plain_c_interface():
     src = (CSRC / f"{k1.KERNEL_TC_F32}.cu").read_text()
+    # the TF32 split, the .tf32 wgmma and the f32 maps, shared with the
+    # backward (flash_attn_bwd_tc_f32.cu), live in tc_f32_common.cuh
+    f32_common = (CSRC / "tc_f32_common.cuh").read_text()
     assert 'extern "C" int jatts_flash_attn_fwd_tc_f32(' in src
-    assert "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32" in src
+    assert "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32" in f32_common
     # hi and lo rounded as cvt.rna.tf32.f32 rounds, in integer arithmetic (tf32_rna above)
-    assert "(__float_as_uint(x) + 0x1000u) & 0xFFFFE000u" in src and "fence.proxy.async.shared::cta" in src
-    assert "cp.async.bulk.tensor" in src and "mbarrier" in src
-    assert '#include "tc_common.cuh"' in src
+    assert "(__float_as_uint(x) + 0x1000u) & 0xFFFFE000u" in f32_common
+    assert "fence.proxy.async.shared::cta" in f32_common and "fence_proxy_async()" in src
+    assert "cp.async.bulk.tensor" in (CSRC / "tc_common.cuh").read_text() and "tma_load(" in src and "mbarrier" in src
+    assert '#include "tc_f32_common.cuh"' in src and '#include "tc_common.cuh"' in f32_common
     assert "torch/" not in src and "#include <ATen" not in src
     assert "atomicAdd" not in src and not re.search(r"\b(atom|red)\.(global|shared|add)", src)
     for d in (64, 128, 192):
         assert f"case {d}: return (int)launch_d<{d}>" in src
     for d_qk, d_v in k1.RELPOS_PAIRS:
         assert f"launch<{d_qk}, {d_v}, false>" in src
-    # the shared helpers come from the header
-    for helper in ("void tma_load(", "void mbar_wait(", "uint64_t slab_desc(", "EncodeTiled encode_fn("):
+    # the shared helpers come from the headers
+    for helper in ("void tma_load(", "void mbar_wait(", "uint64_t slab_desc(", "EncodeTiled encode_fn(",
+                   "uint32_t tf32_rna(", "void wgmma_tf32(", "bool make_map_f32("):
         assert helper not in src, helper
 
 
@@ -431,13 +436,15 @@ def test_an_edited_header_rebuilds_the_library(tmp_path, monkeypatch):
 
 
 def test_study_variants_apply_to_the_source():
-    """``bin/study_fwd_tc_f32.py`` times one-change variants of the source on
-    the card: each change still finds what it changes."""
+    """``bin/study_fwd_tc_f32.py`` times one-change variants of the source
+    (and of the header it shares with the backward) on the card: each change
+    still finds what it changes."""
     from jatts_torch.bin import study_fwd_tc_f32 as study
 
-    src = (CSRC / f"{k1.KERNEL_TC_F32}.cu").read_text()
+    files = study.sources()
+    assert set(files) == {f"{k1.KERNEL_TC_F32}.cu", "tc_f32_common.cuh"}
     for name, change in study.VARIANTS.items():
-        assert (change(src) == src) == (name == "final"), name
+        assert (change(files) == files) == (name == "final"), name
 
 
 def test_cpu_call_launches_no_kernel():
