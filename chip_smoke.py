@@ -45,20 +45,29 @@ Phases, each of which fails the run with a non-zero exit:
      against their twins on the largest batch's lattice, and the time of a
      training step and its parts;
   9. K1-bwd (flash-attention backward: the dk/dv kernel and the dq/d(ab)
-     kernel) against its plain version for each output at the training
-     shapes and at other head dims, in f32 and bf16, with and without bias,
-     at a ragged length and with a row of no valid key; against autograd
-     through K1's plain version; then the kernels' times beside the plain
-     version's, SDPA forward+backward's (the yardstick, never used by the
-     port) and the bound;
+     kernel) against its plain version for each output, per batch item, at
+     the training shapes and at other head dims, in f32 and bf16, with and
+     without bias, at a ragged length, with a masked leading key tile and
+     with rows of no valid key (their dq and d(ab), unseen keys' dk and dv,
+     masked keys' d(ab) exactly 0); the f32 d 192 forms on the 3xTF32
+     tensor-core kernels (``flash_attn_bwd_tc_f32.cu``, each launch checked
+     from the counters; the same bits on a second run; the scalar kernels
+     checked on the same inputs), every other form on the scalar ones;
+     against autograd through K1's plain version; then the kernels' times at
+     the training decoder by CUDA events and graph replay beside the scalar
+     kernels' on the same inputs, the plain version's, SDPA
+     forward+backward's (the yardstick, never used by the port) and the
+     bounds, and their error against float64 beside the scalar kernels' and
+     the plain f32 backward's;
  10. the training slice: phase 8's corpus and durations become .npz dumps
      (log-mel, per-token log tone frequency as pitch, per-token energy),
      and ``jatts_torch/bin/tts_train.py:run`` trains FastSpeech2 at the full
      JSUT width (egs/jsut/tts1/conf/fastspeech2.v1.yaml, batch 32, f32) with
      ``attn_backend: flash`` for 200 steps (warm-up 50), launch counts set
      to 0 just before and read just after (every forward on the 3xTF32
-     tensor-core kernel, none on the scalar one or the bf16 one; dk/dv and dq
-     scalar, none on the 3xTF32 backward); then the loss, launch,
+     tensor-core kernel, none on the scalar one or the bf16 one; every dk/dv
+     and dq on the 3xTF32 backward kernels, none on the scalar ones); then
+     the loss, launch,
      checkpoint/resume and inference checks, the time of one step and its
      parts, a profiled step, and the same step under ``attn_backend: xla``;
  11. K1b (the causal form of K1 and K1-bwd: the forward, dk/dv and dq
@@ -192,8 +201,10 @@ def ptxas_entry(line: str) -> str:
             args.append("f32")
             rest = rest[1:]
         elif rest.startswith("Lb"):
-            if name.group(1) == "flash_attn_bwd_tc_f32_kernel":  # <D_QK, D_V, DQ>
-                args.append("dq" if rest[2] == "1" else "dk/dv")
+            if name.group(1) == "flash_attn_bwd_tc_f32_kernel" and not {"dq", "dk/dv"} & set(args):
+                args.append("dq" if rest[2] == "1" else "dk/dv")  # <D_QK, D_V, DQ, BIAS>
+            elif name.group(1) == "flash_attn_bwd_tc_f32_kernel":
+                args.append("bias" if rest[2] == "1" else "no bias")
             elif name.group(1) in ("flash_attn_fwd_tc_kernel", "flash_attn_fwd_tc_f32_kernel") and (
                     "bias" not in " ".join(args)):
                 args.append("bias" if rest[2] == "1" else "no bias")  # <D_QK, D_V, BIAS(, CAUSAL)>
@@ -778,61 +789,114 @@ def k1bwd_inputs(b, h, t, d, dtype, with_bias, seed):
     return q, k, v, ab, key_mask, do, lens
 
 
-def check_k1bwd(b, h, t, d, dtype_name, with_bias, seed, against_autograd=False):
+def check_k1bwd(b, h, t, d, dtype_name, with_bias, seed, against_autograd=False, rows=None):
     """K1-bwd's four outputs against flash_attention_bwd_ref, both fed the
-    plain forward's o and lse; K1's own lse against the plain one; rows with
-    no valid key 0. Returns the largest |kernel - plain| over the outputs."""
+    plain forward's o and lse, each within TOL_BWD of every batch item's own
+    max(1, max|plain|) (item_err); K1's own lse against the plain one; dq
+    and d(ab) on rows that see no key, dk and dv on keys that no row sees
+    and d(ab) on masked keys exactly 0. The f32 (192, 192) forms must run on
+    the 3xTF32 kernels and every other form on the scalar ones (by the
+    counters); on the 3xTF32 kernels also the same bits on a second run, and
+    the scalar kernels checked on the same inputs. ``rows``: the key mask as
+    (first valid key, count) per item, cycled over the batch, instead of
+    k1_inputs' lengths. Returns the largest |kernel - plain| over the
+    outputs, whether the 3xTF32 kernels ran, and the scalar kernels' largest
+    |kernel - plain| on the same inputs (None where they were the rule's)."""
     import torch
 
     from jatts_torch.ops import flash_attention as k1
 
     dtype = {"f32": torch.float32, "bf16": torch.bfloat16}[dtype_name]
-    q, k, v, ab, key_mask, do, lens = k1bwd_inputs(b, h, t, d, dtype, with_bias, seed)
+    q, k, v, ab, key_mask, do, _ = k1bwd_inputs(b, h, t, d, dtype, with_bias, seed)
+    if rows is not None:
+        pos = torch.arange(t, device="cuda")
+        key_mask = torch.stack([(pos >= a) & (pos < a + n) for a, n in (rows * b)[:b]])
     scale = d ** -0.5
     o, lse = k1.flash_attention_ref(q, k, v, ab, key_mask, scale, return_lse=True)
     _, lse_k = k1.flash_attention_fwd(q, k, v, ab, key_mask, scale)
+    on_tc = k1.dkv_kernel(dtype, False, d, d, with_bias) == k1.KERNEL_BWD_TC_F32
+    check(on_tc == (dtype_name == "f32" and d == 192), f"K1-bwd {dtype_name} d {d}: the rule sends it to {on_tc}")
+    before = _tc_f32_bwd_launches()
     got = k1.flash_attention_bwd(q, k, v, ab, key_mask, scale, o, lse, do)
     torch.cuda.synchronize()
+    ran = tuple(x - y for x, y in zip(_tc_f32_bwd_launches(), before))
+    check(ran == ((1, 1) if on_tc else (0, 0)), f"K1-bwd {dtype_name} d {d}: dk/dv and dq on the 3xTF32 kernels {ran}")
 
     def f32(x):
         return None if x is None else x.float()
 
     want = k1.flash_attention_bwd_ref(f32(q), f32(k), f32(v), f32(ab), key_mask, scale, f32(o), lse, f32(do))
     tol = TOL_BWD[dtype_name]
-    errs, mags = {}, {}
+    errs, rel = {}, {}
     for name, g_, w in zip(("dq", "dk", "dv", "dab"), got, want):
         if w is None:
             check(g_ is None, "K1-bwd wrote d(ab) without a bias")
             continue
         check(bool(torch.isfinite(g_).all()), f"K1-bwd {name} not finite at {(b, h, t, d)}")
-        mags[name] = max(1.0, w.abs().max().item())
         errs[name] = (g_.float() - w).abs().max().item()
-        check(errs[name] <= tol * mags[name],
-              f"K1-bwd {dtype_name} {(b, h, t, d)} {name} err {errs[name]} > {tol} x {mags[name]}")
+        rel[name] = item_err(g_, w)
+        check(rel[name] <= tol,
+              f"K1-bwd {dtype_name} {(b, h, t, d)} {name} err {rel[name]} x max(1, max|plain| of its item) > {tol}")
     both_inf = torch.isinf(lse) & torch.isinf(lse_k)
     check(bool((torch.isinf(lse) == torch.isinf(lse_k)).all()), "K1 lse: +inf rows differ")
     lse_err = (lse_k - lse).masked_fill(both_inf, 0.0).abs().max().item()
     check(lse_err <= 1e-4 * max(1.0, lse.masked_fill(both_inf, 0).abs().max().item()), f"K1 lse err {lse_err}")
-    for i, n in enumerate(lens):
-        if n == 0:
-            check(all(bool((x[i] == 0).all()) for x in got if x is not None),
-                  "K1-bwd: a row with no valid key is not 0")
-    line = ", ".join(f"{n} {errs[n]:.2e}" for n in errs)
+    rows_none, unseen = torch.isinf(lse)[..., None], ~key_mask[:, None, :, None]
+    dq, dk, dv, dab = got
+    zeros = bool((dq.masked_select(rows_none) == 0).all()) and bool((dk.masked_select(unseen) == 0).all())
+    zeros &= bool((dv.masked_select(unseen) == 0).all())
+    if dab is not None:
+        zeros &= bool((dab.masked_select(rows_none) == 0).all())
+        zeros &= bool((dab.masked_select(unseen.transpose(-1, -2)) == 0).all())
+    check(zeros, f"K1-bwd {dtype_name} {(b, h, t, d)}: dq or d(ab) of a row that sees no key, dk or dv of a key "
+                 "that no row sees, or d(ab) of a masked key is not 0")
+    extra, scalar_err = "", None
+    if on_tc:
+        di = (o * do).sum(-1)
+        again = k1.flash_attention_bwd(q, k, v, ab, key_mask, scale, o, lse, do)
+        scalar = (torch.empty_like(q), torch.empty_like(k), torch.empty_like(v), None if ab is None else
+                  torch.empty_like(ab))
+        k1._launch_bwd("dkv", q, k, v, ab, key_mask, scale, lse, di, do, scalar[1], scalar[2], False,
+                       _lib=k1.KERNEL_BWD)
+        k1._launch_bwd("dq", q, k, v, ab, key_mask, scale, lse, di, do, scalar[0], scalar[3], False,
+                       _lib=k1.KERNEL_BWD)
+        torch.cuda.synchronize()
+        check(all(x is None or torch.equal(x, y) for x, y in zip(again, got)), "K1-bwd 3xTF32: bits differ between runs")
+        pairs = [(g_, w) for g_, w in zip(scalar, want) if w is not None]
+        scalar_rel = max(item_err(g_, w) for g_, w in pairs)
+        scalar_err = max((g_ - w).abs().max().item() for g_, w in pairs)
+        check(scalar_rel <= tol, f"K1-bwd: the scalar kernels on the same inputs err {scalar_rel} > {tol}")
+        # the worst item against float64, fed the same o and lse: the kernels'
+        # error and the plain f32 version's, each over max(1, max|exact|)
+        i = max(range(b), key=lambda j: max(item_err(g_[j:j + 1], w[j:j + 1]) for g_, w in zip(got, want)
+                                            if w is not None))
+        q2, k2, v2, do2, o2 = (x[i:i + 1].double() for x in (q, k, v, do, o))
+        s2 = q2 @ k2.transpose(-1, -2) + (0.0 if ab is None else ab[i:i + 1].double())
+        p2 = torch.exp(s2 * scale - lse[i:i + 1].double()[..., None])
+        p2 = p2.masked_fill(~key_mask[i:i + 1, None, None, :], 0.0)
+        ds2 = p2 * (do2 @ v2.transpose(-1, -2) - (o2 * do2).sum(-1)[..., None]) * scale
+        exact = (ds2 @ k2, ds2.transpose(-1, -2) @ q2, p2.transpose(-1, -2) @ do2, ds2)
+        f64 = {name: (item_err(g_[i:i + 1], e), item_err(w[i:i + 1], e))
+               for name, g_, w, e in zip(("dq", "dk", "dv", "dab"), got, want, exact) if w is not None}
+        extra = (f"; on the 3xTF32 tensor-core kernels, the same bits on a second run; the scalar kernels on the same "
+                 f"inputs {scalar_rel:.2e}; the worst item ({int(key_mask[i].sum())} valid keys) against float64, "
+                 f"kernels / plain f32: " + ", ".join(f"{n} {a:.2e} / {c:.2e}" for n, (a, c) in f64.items()))
+    line = ", ".join(f"{n} {errs[n]:.2e} ({rel[n]:.2e})" for n in errs)
     print(
-        f"K1-bwd check {dtype_name} B,H,T,d={b},{h},{t},{d} bias={with_bias}: max_abs_err {line} "
-        f"(tol {tol:.0e} x max(1, max|plain|) = {tol * max(mags.values()):.1e}); "
-        f"K1 lse err {lse_err:.1e}; rows with no valid key: {lens.count(0)}", flush=True,
+        f"K1-bwd check {dtype_name} B,H,T,d={b},{h},{t},{d} bias={with_bias}: max_abs_err {line} (max |kernel - "
+        f"plain| (worst item's over max(1, max|plain| of the item)); tol {tol:.0e}); K1 lse err {lse_err:.1e}; "
+        f"rows that see no key {int(rows_none.sum())}, masked keys {int((~key_mask).sum())}{extra}", flush=True,
     )
     if against_autograd:
         leaves = [x.float().detach().requires_grad_() for x in (q, k, v, ab) if x is not None]
         args = leaves + ([None] if ab is None else [])
         out = k1.flash_attention_ref(*args, key_mask, scale)
         ag = torch.autograd.grad(out, leaves, do.float())
-        ag_err = max((g_.float() - a).abs().max().item() for g_, a in zip(got, ag))
-        print(f"K1-bwd vs autograd through the plain K1: max_abs_err {ag_err:.2e} "
-              f"(tol {tol * max(mags.values()):.1e})", flush=True)
-        check(ag_err <= tol * max(mags.values()), "K1-bwd disagrees with autograd of the plain K1")
-    return max(errs.values())
+        ag_err = max(item_err(g_, a) for g_, a in zip(got, ag))
+        print(f"K1-bwd vs autograd through the plain K1: worst item's max_abs_err over max(1, max|plain| of the "
+              f"item) {ag_err:.2e} (tol {tol:.0e})", flush=True)
+        check(ag_err <= tol, "K1-bwd disagrees with autograd of the plain K1")
+    return max(errs.values()), on_tc, scalar_err
 
 
 def k1bwd_bounds_ms(b, h, t, d, elem, dtype_name):
@@ -856,9 +920,13 @@ def k1bwd_bounds_ms(b, h, t, d, elem, dtype_name):
 
 
 def time_k1bwd(seed, where):
-    """K1-bwd at the training decoder shape: the two kernels, the plain
-    backward, SDPA forward+backward with a float bias that takes a gradient
-    (the library yardstick), K1's forward with the log-sum-exp, bounds."""
+    """K1-bwd at the training decoder shape (f32, a dense bias, every key
+    valid): the two 3xTF32 kernels the rule takes, by CUDA events and
+    replayed from a CUDA graph, the scalar kernels on the same inputs
+    beside; the plain backward, SDPA forward+backward with a float bias that
+    takes a gradient (the library yardstick), K1's forward with the
+    log-sum-exp, the bounds; then the error against float64 (items 0-1) of
+    the 3xTF32 kernels, the scalar ones and the plain f32 backward."""
     import torch
 
     from jatts_torch.ops import flash_attention as k1
@@ -869,10 +937,32 @@ def time_k1bwd(seed, where):
     scale = d ** -0.5
     o, lse = k1.flash_attention_fwd(q, k, v, ab, full, scale)
     di = (o * do).sum(-1)
-    fwd_ms = time_ms(lambda: k1.flash_attention_fwd(q, k, v, ab, full, scale), iters=10)
-    dkv_ms = time_ms(lambda: k1.flash_attention_bwd_dkv(q, k, v, ab, full, scale, lse, di, do), iters=10)
-    dq_ms = time_ms(lambda: k1.flash_attention_bwd_dq(q, k, v, ab, full, scale, lse, di, do), iters=10)
-    plain_ms = time_ms(lambda: k1.flash_attention_bwd_ref(q, k, v, ab, full, scale, o, lse, do), iters=5, warmup=1)
+    res = {"fwd_ms": time_ms(lambda: k1.flash_attention_fwd(q, k, v, ab, full, scale), iters=10)}
+    res["dkv"] = time_ms(lambda: k1.flash_attention_bwd_dkv(q, k, v, ab, full, scale, lse, di, do), iters=10)
+    res["dq"] = time_ms(lambda: k1.flash_attention_bwd_dq(q, k, v, ab, full, scale, lse, di, do), iters=10)
+    res["dkv_graph"] = graph_ms(lambda: k1.flash_attention_bwd_dkv(q, k, v, ab, full, scale, lse, di, do),
+                                iters=10, replays=3)
+    res["dq_graph"] = graph_ms(lambda: k1.flash_attention_bwd_dq(q, k, v, ab, full, scale, lse, di, do),
+                               iters=10, replays=3)
+    sq, sk, sv, sdab = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v), torch.empty_like(ab)
+    res["dkv_scalar"] = time_ms(lambda: k1._launch_bwd("dkv", q, k, v, ab, full, scale, lse, di, do, sk, sv, False,
+                                                       _lib=k1.KERNEL_BWD), iters=5, warmup=1)
+    res["dq_scalar"] = time_ms(lambda: k1._launch_bwd("dq", q, k, v, ab, full, scale, lse, di, do, sq, sdab, False,
+                                                      _lib=k1.KERNEL_BWD), iters=5, warmup=1)
+    res["plain_ms"] = time_ms(lambda: k1.flash_attention_bwd_ref(q, k, v, ab, full, scale, o, lse, do), iters=5,
+                              warmup=1)
+    # the precision at this shape: items 0-1 against float64 (the same lse
+    # and o); worst item's error over max(1, max|exact|) of dq, dk, dv, d(ab)
+    want = k1.flash_attention_bwd_ref(q, k, v, ab, full, scale, o, lse, do)
+    dq, dab = k1.flash_attention_bwd_dq(q, k, v, ab, full, scale, lse, di, do)
+    tc = (dq, *k1.flash_attention_bwd_dkv(q, k, v, ab, full, scale, lse, di, do), dab)
+    q2, k2, v2, ab2, do2 = (x[:2].double() for x in (q, k, v, ab, do))
+    p2 = torch.exp((q2 @ k2.transpose(-1, -2) + ab2) * scale - lse[:2].double()[..., None])
+    ds2 = p2 * (do2 @ v2.transpose(-1, -2) - (o[:2].double() * do2).sum(-1)[..., None]) * scale
+    exact = (ds2 @ k2, ds2.transpose(-1, -2) @ q2, p2.transpose(-1, -2) @ do2, ds2)
+    res["vs_f64"] = {name: max(item_err(g_[:2], e) for g_, e in zip(got, exact))
+                     for name, got in (("tc_f32", tc), ("scalar", (sq, sk, sv, sdab)), ("plain", want))}
+    del want, tc, dq, dab, q2, k2, v2, ab2, do2, p2, ds2, exact, sq, sk, sv, sdab
     qs, ks, vs = (x.detach().requires_grad_() for x in (q, k, v))
     bias = (ab * scale).detach().requires_grad_()  # SDPA adds its mask after the scale
 
@@ -880,20 +970,24 @@ def time_k1bwd(seed, where):
         out = torch.nn.functional.scaled_dot_product_attention(qs, ks, vs, attn_mask=bias, scale=scale)
         torch.autograd.grad(out, (qs, ks, vs, bias), do)
 
-    library_ms = time_ms(sdpa_fwd_bwd, iters=5, warmup=1)
-    (dkv_bound, dkv_by, dkv_bytes, dkv_flops), (dq_bound, dq_by, dq_bytes, dq_flops) = k1bwd_bounds_ms(
-        b, h, t, d, 4, "f32")
+    res["library_ms"] = time_ms(sdpa_fwd_bwd, iters=5, warmup=1)
+    bounds = k1bwd_bounds_ms(b, h, t, d, 4, "f32")
+    res["bounds"] = dict(zip(("dkv", "dq"), bounds))
+    parts = "; ".join(
+        f"{n} kernel {res[n]:.4f} ms (3xTF32 tensor cores; graph replay {res[n + '_graph']:.4f} ms; the scalar {n} "
+        f"on the same inputs {res[n + '_scalar']:.4f} ms) (bound {bound:.4f} ms by {by}: {nbytes / 1e6:.1f} MB, "
+        f"{flops / 1e9:.1f} GFLOP; on the CUDA cores {cuda_core_ms(flops):.4f} ms)"
+        for n, (bound, by, nbytes, flops) in res["bounds"].items())
     print(
-        f"K1-bwd time f32 B,H,T,d={b},{h},{t},{d} with bias: dkv kernel {dkv_ms:.4f} ms (bound "
-        f"{dkv_bound:.4f} ms by {dkv_by}: {dkv_bytes / 1e6:.1f} MB, {dkv_flops / 1e9:.1f} GFLOP; on the CUDA "
-        f"cores {cuda_core_ms(dkv_flops):.4f} ms), dq kernel {dq_ms:.4f} ms (bound {dq_bound:.4f} ms by {dq_by}: "
-        f"{dq_bytes / 1e6:.1f} MB, {dq_flops / 1e9:.1f} GFLOP; on the CUDA cores {cuda_core_ms(dq_flops):.4f} "
-        f"ms); plain backward {plain_ms:.4f} ms; sdpa forward+backward "
-        f"{library_ms:.4f} ms; K1 forward with lse {fwd_ms:.4f} ms; {where}", flush=True,
+        f"K1-bwd time f32 B,H,T,d={b},{h},{t},{d} with bias: {parts}; plain backward {res['plain_ms']:.4f} ms; "
+        f"sdpa forward+backward {res['library_ms']:.4f} ms; K1 forward with lse {res['fwd_ms']:.4f} ms; {where}",
+        flush=True,
     )
-    return {"dkv": (dkv_ms, dkv_bound, dkv_by, cuda_core_ms(dkv_flops)),
-            "dq": (dq_ms, dq_bound, dq_by, cuda_core_ms(dq_flops)),
-            "plain_ms": plain_ms, "library_ms": library_ms, "fwd_ms": fwd_ms}
+    print("K1-bwd f32 backward at that shape against float64, items 0-1 (worst item's max |err| over max(1, "
+          "max|exact|) of dq, dk, dv, d(ab)): " + ", ".join(f"{n} {e:.2e}" for n, e in (
+              ("3xTF32 tensor-core kernels", res["vs_f64"]["tc_f32"]), ("scalar kernels", res["vs_f64"]["scalar"]),
+              ("plain f32 backward", res["vs_f64"]["plain"]))), flush=True)
+    return res
 
 
 # ---------------------------------------------------------------------------
@@ -1816,21 +1910,25 @@ def _relpos_launches():
 
 
 # what the training slice runs: phase 10, the JSUT conf (legacy rel-pos, K1
-# and K1-bwd, the backward scalar), or phase 14, the JVS conf with speaker
-# embeddings and latest rel-pos attention (K1r, the backward on the 3xTF32
-# kernels: bwd_tc_f32 says how many of the dk/dv and dq launches take them).
-# A kernel is named by the substrings of its profiler key, demangled or not
+# and K1-bwd with its bias), or phase 14, the JVS conf with speaker
+# embeddings and latest rel-pos attention (K1r); each backward on the 3xTF32
+# kernels, all of its dk/dv and dq launches. A kernel is named by the
+# substrings of its profiler key, demangled or not
 SLICES = {
     "jsut": dict(conf=JSUT_CONF, tag="fs2", spk_dim=0, latest=False, counts=_legacy_launches,
-                 others=_relpos_launches, names=("K1 fwd (3xTF32 tc)", "K1-bwd dkv", "dq"), bwd_tc_f32=False,
-                 kernels=(("flash_attn_fwd_tc_f32_kernel",), ("flash_attn_bwd_dkv_kernel",),
-                          ("flash_attn_bwd_dq_kernel",))),
+                 others=_relpos_launches, names=("K1 fwd (3xTF32 tc)", "K1-bwd dkv (3xTF32 tc)", "dq (3xTF32 tc)"),
+                 kernels=(("flash_attn_fwd_tc_f32_kernel",),
+                          ("flash_attn_bwd_tc_f32_kernel<192, 192, false, true>",
+                           "flash_attn_bwd_tc_f32_kernelILi192ELi192ELb0ELb1E"),
+                          ("flash_attn_bwd_tc_f32_kernel<192, 192, true, true>",
+                           "flash_attn_bwd_tc_f32_kernelILi192ELi192ELb1ELb1E"))),
     "jvs": dict(conf=JVS_CONF, tag="jvs", spk_dim=192, latest=True, counts=_relpos_launches,
                 others=_legacy_launches, names=("K1r fwd (3xTF32 tc)", "K1r dkv (3xTF32 tc)", "dq (3xTF32 tc)"),
-                bwd_tc_f32=True,
                 kernels=(("flash_attn_fwd_tc_f32_kernel",),
-                         ("flash_attn_bwd_tc_f32_kernel<576, 192, false>", "flash_attn_bwd_tc_f32_kernelILi576ELi192ELb0E"),
-                         ("flash_attn_bwd_tc_f32_kernel<576, 192, true>", "flash_attn_bwd_tc_f32_kernelILi576ELi192ELb1E"))),
+                         ("flash_attn_bwd_tc_f32_kernel<576, 192, false, false>",
+                          "flash_attn_bwd_tc_f32_kernelILi576ELi192ELb0ELb0E"),
+                         ("flash_attn_bwd_tc_f32_kernel<576, 192, true, false>",
+                          "flash_attn_bwd_tc_f32_kernelILi576ELi192ELb1ELb0E"))),
 }
 
 
@@ -1901,10 +1999,10 @@ def training_slice(root, align_paths, freqs, seed, where, which="jsut"):
     print(f"training ({which}): forwards on the 3xTF32 tensor-core kernel {fwd_tc_f32} of {launches[0]}, on the "
           f"scalar kernel {launches[0] - fwd_tc_f32}", flush=True)
     check(fwd_tc_f32 == launches[0], f"{launches[0] - fwd_tc_f32} f32 forwards missed the 3xTF32 kernel")
-    want_bwd = launches[1:] if sl["bwd_tc_f32"] else (0, 0)
     print(f"training ({which}): dk/dv and dq on the 3xTF32 tensor-core kernels {bwd_tc_f32} of {launches[1:]}",
           flush=True)
-    check(bwd_tc_f32 == want_bwd, f"training ({which}): dk/dv and dq on the 3xTF32 kernels {bwd_tc_f32} != {want_bwd}")
+    check(bwd_tc_f32 == launches[1:],
+          f"training ({which}): dk/dv and dq on the 3xTF32 kernels {bwd_tc_f32} != {launches[1:]}")
 
     # the checkpoint, and a resumed trainer
     ckpt = find_latest_checkpoint(outdir)
@@ -1992,9 +2090,8 @@ def training_slice(root, align_paths, freqs, seed, where, which="jsut"):
         lss = loss_of(m)
         pair[backend] = (float(lss.detach()), torch.autograd.grad(lss, list(m.parameters())))
         want = (8, 8, 8) if backend == "flash" else (0, 0, 0)
-        want_bwd = want[1:] if sl["bwd_tc_f32"] else (0, 0)
         check(sl["counts"]() == want and sl["others"]() == (0, 0, 0) and k1.launches_tc_f32 == want[0]
-              and _tc_f32_bwd_launches() == want_bwd,
+              and _tc_f32_bwd_launches() == want[1:],
               f"{backend} step: {names[0]} launches {sl['counts']()} != {want} (3xTF32 {k1.launches_tc_f32}, "
               f"3xTF32 dk/dv and dq {_tc_f32_bwd_launches()})")
         pair[backend] += (host_ms(lambda: torch.autograd.grad(loss_of(m), list(m.parameters()))),)
@@ -2564,21 +2661,29 @@ def main() -> int:
     k2_launches, k3_launches, own_check, align_paths, freqs = aligner_slice(args.seed, where, tmp.name)
     mas_checks.append(own_check)
 
-    # 9. K1-bwd against its plain version, then its times
-    bwd_err = {"f32": 0.0, "bf16": 0.0}
-    for (b, h, t, d), dtype_name, with_bias in (
-        ((32, 2, 1024, 192), "f32", True),   # the training decoder
-        ((32, 2, 112, 192), "f32", True),    # the training encoder
-        ((8, 2, 256, 64), "f32", True),
-        ((8, 2, 256, 128), "f32", True),
-        ((8, 2, 256, 256), "f32", True),
-        ((8, 2, 1024, 192), "bf16", True),
-        ((8, 2, 256, 256), "bf16", True),
-        ((8, 2, 1024, 192), "f32", False),   # MHA form, no bias
-        ((8, 2, 1000, 192), "f32", True),    # ragged edge
+    # 9. K1-bwd against its plain version (f32 d 192 on the 3xTF32 kernels,
+    # the scalar ones beside on the same inputs), then its times
+    bwd_err = {"tc_f32": 0.0, "scalar": 0.0}
+    for (b, h, t, d), dtype_name, with_bias, rows in (
+        ((32, 2, 1024, 192), "f32", True, None),   # the training decoder
+        ((32, 2, 112, 192), "f32", True, None),    # the training encoder
+        ((8, 2, 256, 64), "f32", True, None),
+        ((8, 2, 256, 128), "f32", True, None),
+        ((8, 2, 256, 256), "f32", True, None),
+        ((8, 2, 1024, 192), "bf16", True, None),
+        ((8, 2, 256, 256), "bf16", True, None),
+        ((8, 2, 1024, 192), "f32", False, None),   # MHA form, no bias
+        ((8, 2, 1000, 192), "f32", True, None),    # ragged edge
+        # keys 70..680: a whole masked leading key tile (and trailing ones),
+        # which dq skips and must still write d(ab) = 0 on; an odd T
+        ((4, 2, 999, 192), "f32", True, [(0, 999), (70, 611), (0, 17), (0, 0)]),
     ):
-        err = check_k1bwd(b, h, t, d, dtype_name, with_bias, args.seed, against_autograd=(t == 1024 and b == 32))
-        bwd_err[dtype_name] = max(bwd_err[dtype_name], err)
+        err, on_tc, scalar_err = check_k1bwd(b, h, t, d, dtype_name, with_bias, args.seed,
+                                             against_autograd=(t == 1024 and b == 32), rows=rows)
+        if on_tc:
+            bwd_err["tc_f32"], bwd_err["scalar"] = max(bwd_err["tc_f32"], err), max(bwd_err["scalar"], scalar_err)
+        else:
+            bwd_err["scalar"] = max(bwd_err["scalar"], err)
     bwd_times = time_k1bwd(args.seed + 3, where)
 
     # 10. the training slice
@@ -2606,7 +2711,7 @@ def main() -> int:
     mas_row = {"route": "cuda", "source": "jatts_torch/csrc/mas_viterbi.cu",
                "bound_by": "bytes", "library_ms": None}
     bwd_row = {"route": "cuda", "source": "jatts_torch/csrc/flash_attn_bwd.cu",
-               "max_abs_err": max(bwd_err.values()), "plain_ms": bwd_times["plain_ms"],
+               "max_abs_err": bwd_err["scalar"], "plain_ms": bwd_times["plain_ms"],
                "library_ms": bwd_times["library_ms"]}
     train_k1 = k1_more["train"]
     # f32 rows: bound_ms on the tensor cores in 3xTF32, cuda_core_bound_ms the
@@ -2693,17 +2798,28 @@ def main() -> int:
         "library_ms": k1r_times["serve"]["sdpa_fwd_ms"],
         "graph_ms": k1r_times["serve"]["graph_ms"],
         "library_graph_ms": k1r_times["serve"]["sdpa_graph_ms"],
-    }, {
-        "name": "flash_attn_bwd_dkv",
-        "replaces": "jax/experimental/pallas/ops/tpu/flash_attention.py:1121",
-        "launches": train_launches[1], "ms": bwd_times["dkv"][0], "bound_ms": bwd_times["dkv"][1],
-        "bound_by": bwd_times["dkv"][2], "cuda_core_bound_ms": bwd_times["dkv"][3], **bwd_row,
-    }, {
-        "name": "flash_attn_bwd_dq",
-        "replaces": "jax/experimental/pallas/ops/tpu/flash_attention.py:1456",
-        "launches": train_launches[2], "ms": bwd_times["dq"][0], "bound_ms": bwd_times["dq"][1],
-        "bound_by": bwd_times["dq"][2], "cuda_core_bound_ms": bwd_times["dq"][3], **bwd_row,
-    }, {
+    }] + [{
+        # K1-bwd's scalar kernels: the JSUT training form (f32, d 192, a bias)
+        # is the 3xTF32 kernels'; timed beside them on the same inputs
+        "name": f"flash_attn_bwd_{key}",
+        "replaces": f"jax/experimental/pallas/ops/tpu/flash_attention.py:{line}",
+        "launches": n - n_tc, "launches_by_path": {"training": n - n_tc},
+        "ms": bwd_times[f"{key}_scalar"], "bound_ms": bwd_times["bounds"][key][0],
+        "bound_by": bwd_times["bounds"][key][1], "cuda_core_bound_ms": cuda_core_ms(bwd_times["bounds"][key][3]),
+        **bwd_row,
+    } for key, line, n, n_tc in (("dkv", 1121, train_launches[1], train["bwd_tc_f32"][0]),
+                                 ("dq", 1456, train_launches[2], train["bwd_tc_f32"][1]))] + [{
+        # K1-bwd's f32 dk/dv and dq (d 192, a bias, d(ab)) on the tensor cores
+        # (3xTF32), JSUT training
+        "name": f"{k1.KERNEL_BWD_TC_F32}_{key}_bias", "route": "cuda",
+        "source": f"jatts_torch/csrc/{k1.KERNEL_BWD_TC_F32}.cu",
+        "replaces": f"jax/experimental/pallas/ops/tpu/flash_attention.py:{line}",
+        "launches": n, "launches_by_path": {"training": n}, "max_abs_err": bwd_err["tc_f32"],
+        "ms": bwd_times[key], "graph_ms": bwd_times[f"{key}_graph"], "scalar_ms": bwd_times[f"{key}_scalar"],
+        "plain_ms": bwd_times["plain_ms"], "bound_ms": bwd_times["bounds"][key][0],
+        "bound_by": bwd_times["bounds"][key][1], "cuda_core_bound_ms": cuda_core_ms(bwd_times["bounds"][key][3]),
+        "library_ms": bwd_times["library_ms"],
+    } for key, line, n in (("dkv", 1121, train["bwd_tc_f32"][0]), ("dq", 1456, train["bwd_tc_f32"][1]))] + [{
         "name": "mas_fwd", "replaces": "jatts_tpu/ops/mas_pallas.py:139", "launches": k2_launches,
         "mismatches": mas_mismatches[0] + mas_mismatches[2], "max_abs_err": mas_max_err[0], "ms": k2_ms, "plain_ms": k2_plain_ms,
         "bound_ms": k2_bound_ms, **mas_row,

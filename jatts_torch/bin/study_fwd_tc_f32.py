@@ -133,7 +133,10 @@ def build_variants(variants=None, source=SOURCE, files=None, symbols=("jatts_fla
             raise RuntimeError(f"{name}: nvcc exited {proc.returncode}\n{report}")
         spills = sum(int(n) for n in re.findall(r"(\d+) bytes spill stores", report))
         regs = sorted(int(n) for n in re.findall(r"Used (\d+) registers", report))
-        print(f"built {name}: registers {regs[0]}-{regs[-1]}, spill stores {spills} bytes", flush=True)
+        # each instantiation's template arguments (mangled), registers and spill stores
+        forms = re.findall(r"_kernelI(\w+?)EEv.*?(\d+) bytes spill stores.*?Used (\d+) registers", report, re.S)
+        print(f"built {name}: registers {regs[0]}-{regs[-1]}, spill stores {spills} bytes ("
+              + ", ".join(f"{f} {r} regs, {sp} B spilled" for f, sp, r in forms) + ")", flush=True)
         lib = ctypes.CDLL(str(d / "lib.so"))
         fns[name] = {}
         for symbol in symbols:

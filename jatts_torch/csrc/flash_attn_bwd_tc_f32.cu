@@ -1,27 +1,33 @@
-// K1r's backward in f32 on Hopper's tensor cores (sm_90a), 3xTF32, plain C
-// interface: the dk/dv kernel and the dq kernel.
+// The f32 flash-attention backward on Hopper's tensor cores (sm_90a),
+// 3xTF32, plain C interface: the dk/dv kernel and the dq kernel, for K1r's
+// f32 form and K1-bwd's.
 //
-// Replace, for K1r's f32 form (the fused "latest" rel-pos call of
-// jatts_tpu/modules/attention.py:372-385: q, k of width d_qk, v, do of
-// width d_v, a key mask, no bias, non-causal; FastSpeech2 trains through it
-// in f32 under attn_backend flash), the two Pallas TPU kernels of the
-// flash-attention custom VJP (jax/experimental/pallas/ops/tpu/
-// flash_attention.py): `_flash_attention_dkv_kernel` (:796; pallas_call at
-// :1121) and `_flash_attention_dq_kernel` (:1146; pallas_call at :1456).
-// They compute exactly what the scalar K1r kernels of flash_attn_bwd.cu
-// compute, per (b, h):
+// Replace, for FastSpeech2's f32 training under attn_backend flash, the two
+// Pallas TPU kernels of the flash-attention custom VJP (jax/experimental/
+// pallas/ops/tpu/flash_attention.py): `_flash_attention_dkv_kernel` (:796;
+// pallas_call at :1121) and `_flash_attention_dq_kernel` (:1146; pallas_call
+// at :1456; "dab is just ds", :1477). Two forms, non-causal, with a key mask:
+// - K1r's, the fused "latest" rel-pos call of jatts_tpu/modules/
+//   attention.py:372-385 (JVS-latest): q, k of width d_qk, v, do of width
+//   d_v, (d_qk, d_v) = (576, 192) or (192, 64), no bias;
+// - K1-bwd's, the legacy rel-pos call `_flash_attend(q_u, k, v, matrix_bd,
+//   ...)` of attention.py:334 (the JSUT recipe, adim 384, 2 heads): (d_qk,
+//   d_v) = (192, 192), with or without a dense bias ab [B, H, Tq, Tk] f32.
+// They compute what the scalar kernels of flash_attn_bwd.cu compute, per
+// (b, h):
 //
-//     p = exp(s * sm_scale - lse) on the keys a row sees, 0 elsewhere
+//     p = exp((s + ab) * sm_scale - lse) on the keys a row sees, 0 elsewhere
 //     dv = p^T . do        dp = do . v^T        ds = p * (dp - di) * sm_scale
-//     dk = ds^T . q        dq = ds . k
+//     dk = ds^T . q        dq = ds . k          d(ab) = ds
 //
-// with s = q . k^T, lse the forward's row log-sum-exp (+inf on a row that
-// sees no key) and di = rowsum(o * do), both f32 from the wrapper. Masked
-// keys, keys past Tk, rows past Tq and rows with lse = +inf have p = 0, so a
-// row that sees no key has dq exactly 0 and a key that no row sees has dk
-// and dv exactly 0. Forms: (d_qk, d_v) = (576, 192) and (192, 64), any Tq,
-// Tk >= 1. The bf16 K1r backward and K1-bwd (d_qk = d_v, a bias, d(ab))
-// stay on the scalar kernels.
+// with s = q . k^T, ab 0 without a bias, lse the forward's row log-sum-exp
+// (+inf on a row that sees no key) and di = rowsum(o * do), both f32 from
+// the wrapper. Masked keys, keys past Tk, rows past Tq and rows with lse =
+// +inf have p = 0, so a row that sees no key has dq exactly 0, a key that no
+// row sees has dk and dv exactly 0, and d(ab) is exactly 0 there (written as
+// zeros on a key tile the dq kernel skips). Any Tq, Tk >= 1. The bf16 K1r
+// backward and K1-bwd's other forms (bf16, causal, d 64/128/256) stay on the
+// scalar kernels.
 //
 // Numerics, 3xTF32 as in flash_attn_fwd_tc_f32.cu (tc_f32_common.cuh):
 // every operand split into hi = rna(x) and lo = rna(x - hi), each product
@@ -30,7 +36,8 @@
 // (round to nearest): the scores and dp over one 32-column slab (12
 // wgmmas, the small terms first), dv, dk and dq over one 32-row half of a
 // tile and one 64-column chunk (12 wgmmas). p is formed in the base-2
-// domain (s * sm_scale * log2 e - lse * log2 e, exp2), as the forward.
+// domain ((s + ab) * sm_scale * log2 e - lse * log2 e, exp2), the bias
+// added to s in f32 before the scale, as the forward adds it.
 //
 // Bounds on an H100 SXM (3.35 TB/s; 3xTF32 at 495 / 3 TFLOP/s; the CUDA
 // cores' f32 at 67), at the JVS-latest training decoder (B, H, T = 32, 2,
@@ -38,7 +45,10 @@
 // 2 * B*H*T^2 * (576 + 192 + 192 + 576) = 206.2 GFLOP -> 1.2494 ms (CUDA
 // cores 3.08 ms), reading q, k, v, do, lse, di and writing dk, dv (604.5
 // MB, 0.18 ms); dq does s, dp and dq, 180.4 GFLOP -> 1.0933 ms (2.69 ms).
-// The scalar kernels ran at 5.7x their CUDA-core floor.
+// At the JSUT training decoder (B, H, T = 32, 2, 1024, d 192, a dense bias):
+// dk/dv 103.1 GFLOP -> 0.6247 ms, reading the bias too (571.0 MB, 0.17 ms);
+// dq 77.3 GFLOP -> 0.4685 ms, reading the bias and writing d(ab) (789.1 MB,
+// 0.24 ms). The scalar kernels ran at 5.7x their CUDA-core floor.
 //
 // Design: a thread-block cluster over the widths (the register file cannot
 // hold one warpgroup's dk part of 576 columns: 288 registers a thread).
@@ -48,8 +58,9 @@
 //   and one dp block, rank NQ, owning all d_v columns of v and do. At
 //   (576, 192) every block of the dk/dv kernel does the same products: a
 //   score block the partial s over its 192 columns and dk over them, the dp
-//   block dp over 192 and dv over 192. Grid (CL x tiles, B*H), launched
-//   with a cluster dimension (cudaLaunchKernelEx).
+//   block dp over 192 and dv over 192; so at K1-bwd's (192, 192), a cluster
+//   of 2. Grid (CL x tiles, B*H), launched with a cluster dimension
+//   (cudaLaunchKernelEx).
 // - Per tile of the loop (queries in dk/dv, keys in dq), each block forms
 //   its partial product X.Y^T over its columns (X its resident tile, Y the
 //   streamed one), pushes it into its slot in the shared memory of every
@@ -85,6 +96,23 @@
 //   holds row pi(a) = 2a for a < 4, 2(a - 4) + 1 else), which makes the
 //   accumulator fragment the k8 A fragment as it stands (the forward's
 //   remedy for P.V).
+// - The bias (K1-bwd, one score block: NQ = 1) is added once, by the score
+//   block, to its partial before the push: so the dk/dv dp block receives
+//   s + ab, both blocks form p from the same bits, and the 268 MB bias of
+//   the JSUT decoder is read once. The consumers stage each tile's 64 x 64
+//   bias by cp.async while the partial product runs, in its natural layout
+//   (a query a row, a warp a row at a time: coalesced) in a padded slab, and
+//   after a consumer bar.sync add it from shared memory four values at a
+//   time, as they are pushed (dk/dv) or summed (dq), never holding the tile
+//   in registers (added in one pass first, it took the dq kernel to 255
+//   registers and a spill). The dk/dv kernel works on keys x queries, so it
+//   reads the slab transposed, one float at a time (rows 68 floats apart: a
+//   warp's 32 reads hit 32 banks); the dq kernel reads 8-byte pairs along a
+//   row (rows 72 apart, the same for a half-warp's pairs).
+// - d(ab) = ds: the dq score block stores its ds fragment as it is formed,
+//   before dQ's product, in 8-byte pairs (a warp writes 8 rows x 32 bytes),
+//   and zeros for a key tile that it skips (no valid key): every element of
+//   d(ab) is written, once, so the wrapper's torch.empty needs no fill.
 // - Roles in a block (the forward's): warps 0-3 the consumer warpgroup,
 //   warp 4 the TMA producer (the resident X once, then per tile the Y slabs
 //   and the transposed boxes through a ring of R raw slabs), warps 5-7 the
@@ -99,14 +127,15 @@
 //
 // Shared memory (dynamic, 1024-byte aligned): the resident X 6 slabs (48
 // KB), the raw ring R x 8 KB, the split buffers NSB x 16 KB, the exchange
-// slots (CL - 1) x 16 KB (one 64 x 64 f32 partial a sender), plus 1 KB of
-// slack: one block an SM.
+// slots (CL - 1) x 16 KB (one 64 x 64 f32 partial a sender), with a bias
+// the bias slab (64 rows of 68 or 72 floats, 17 or 18 KB), plus 1 KB of
+// slack: 161 KB (179 KB with a bias) at (192, 192), one block an SM.
 // Registers (a consumer thread, one block of 8 warps: 255 at most): the
 // running output part 96, the partial (or p or ds) 32, the slab's fresh
 // accumulator 32, X's or the A operand's fragments (hi + lo) 32, and at
 // the exchange the scores and dp; the fresh accumulator and the fragments
-// live in their phase only, and dk/dv's lse and di wait in shared memory,
-// so ptxas needs 229-255 registers by form, with no spill.
+// live in their phase only, and dk/dv's lse and di and the bias wait in
+// shared memory, so ptxas needs 229-255 registers by form, with no spill.
 
 #include "tc_f32_common.cuh"
 
@@ -118,11 +147,16 @@ constexpr int NSB_B = 4;         // split buffers (a hi and a lo slab each)
 constexpr int NXS = WS / 32;     // resident X slabs (the widest role)
 constexpr int XSLOT = 64 * 64 * 4;  // one 64 x 64 f32 partial
 
-template <int DQK>
+template <int DQK, bool DQ, bool BIAS>
 struct CfgB {
   static constexpr int NQ = DQK / WS;  // score blocks
   static constexpr int CL = NQ + 1;    // the cluster: the score blocks and the dp block
-  static constexpr size_t SMEM = (size_t)(NXS + R_B + 2 * NSB_B) * FSLAB + (size_t)(CL - 1) * XSLOT + 1024;
+  // the bias slab's row stride in floats: 68 for the transposed reads of
+  // dk/dv, 72 for dq's pairs (conflict-free either way)
+  static constexpr int BLD = DQ ? 72 : 68;
+  static constexpr size_t SMEM = (size_t)(NXS + R_B + 2 * NSB_B) * FSLAB + (size_t)(CL - 1) * XSLOT +
+                                 (BIAS ? (size_t)64 * BLD * 4 : 0) + 1024;
+  static_assert(!BIAS || NQ == 1, "a bias only with one score block (d_qk 192)");
 };
 
 // the block's static shared memory: its mbarriers and (dk/dv) the staged lse and di
@@ -180,6 +214,35 @@ __device__ __forceinline__ float4 ld_shared4(uint32_t addr) {
   return v;
 }
 
+__device__ __forceinline__ float ld_shared1(uint32_t addr) {
+  float v;
+  asm volatile("ld.shared.f32 %0, [%1];" : "=f"(v) : "r"(addr) : "memory");
+  return v;
+}
+
+__device__ __forceinline__ float2 ld_shared2(uint32_t addr) {
+  float2 v;
+  asm volatile("ld.shared.v2.f32 {%0, %1}, [%2];" : "=f"(v.x), "=f"(v.y) : "r"(addr) : "memory");
+  return v;
+}
+
+// K1-bwd's bias tile: ab's 64 x 64 block at (query q0, key k0) of one (b, h)
+// into the slab at `dst` in its natural layout (a query a row, rows LD
+// floats apart), by the 128 consumer threads, a warp a row at a time, 8
+// bytes a thread (stage_bias2_f32: cp.async where the pair is whole and
+// aligned); positions past Tq or Tk read as 0
+template <int LD>
+__device__ __forceinline__ void stage_bias_tile(uint32_t dst, const float* ab_bh, int q0, int k0, int Tq, int Tk,
+                                                bool pairs, int tid) {
+  const int col = 2 * (tid % 32);
+#pragma unroll 4
+  for (int i = 0; i < 16; ++i) {
+    const int r = 4 * i + tid / 32;
+    const float* row = q0 + r < Tq ? ab_bh + (size_t)(q0 + r) * Tk : nullptr;
+    stage_bias2_f32(dst + (r * LD + col) * 4, row, k0 + col, Tk, pairs);
+  }
+}
+
 // 4 bytes into another block's shared memory, counted by its mbarrier `bar`
 // as above: an acknowledgement that costs no fence (an mbarrier arrive with
 // release at cluster scope takes ~2500 cycles on an H100)
@@ -226,13 +289,15 @@ __device__ __forceinline__ int slot_of(int from, int to) { return from < to ? fr
 // for the dp block)
 // ---------------------------------------------------------------------------
 
-template <int DQK, bool DQ, int W, bool SCORE>
+template <int DQK, bool DQ, bool BIAS, int W, bool SCORE>
 __device__ __forceinline__ void run_role(const CUtensorMap* map_x, const CUtensorMap* map_y,
                                          const CUtensorMap* map_w, Ctl& ctl, uint8_t* base, int role,
                                          const uint8_t* mask_b, const float* lse_bh, const float* di_bh,
-                                         float* out, int out_ld, int Tq, int Tk, float scale2, float sm_scale) {
-  using C = CfgB<DQK>;
-  constexpr int NQ = C::NQ, CL = C::CL;
+                                         const float* ab_bh, float* dab_bh, float* out, int out_ld, int Tq,
+                                         int Tk, float scale2, float sm_scale) {
+  using C = CfgB<DQK, DQ, BIAS>;
+  constexpr int NQ = C::NQ, CL = C::CL, BLD = C::BLD;
+  constexpr bool SBIAS = BIAS && SCORE;         // this block adds the bias (and in dq writes d(ab))
   constexpr int NSL = W / 32;                   // X and Y slabs
   constexpr int NCH = W / 64;                   // 64-column chunks of the output part
   constexpr bool OUT = SCORE || !DQ;            // the dq kernel's dp block has no output product
@@ -243,6 +308,7 @@ __device__ __forceinline__ void run_role(const CUtensorMap* map_x, const CUtenso
   uint8_t* ring = sX + NXS * FSLAB;               // R_B raw slabs
   uint8_t* split = ring + R_B * FSLAB;            // NSB_B x (hi slab, lo slab)
   uint8_t* xbuf = split + 2 * NSB_B * FSLAB;      // CL - 1 exchange slots (slot_of)
+  uint8_t* sbias = xbuf + (CL - 1) * XSLOT;       // with a bias: the tile's bias, 64 rows of BLD floats
 
   const int tid = threadIdx.x;
   const int warp = __shfl_sync(0xffffffffu, tid / 32, 0);
@@ -378,7 +444,40 @@ __device__ __forceinline__ void run_role(const CUtensorMap* map_x, const CUtenso
     uint32_t tx = 0;  // tiles exchanged so far
     const uint32_t split_addr = smem_u32(split);
     const uint32_t xbuf_addr = smem_u32(xbuf);
+    const uint32_t bias_addr = smem_u32(sbias);
     const uint8_t* x_row = sX + quad_row * 128;
+    // the bias and d(ab) by 8-byte pairs where Tk and the pointer allow
+    const bool ab_pairs = Tk % 2 == 0 && (reinterpret_cast<uintptr_t>(ab_bh) & 7) == 0;
+    const bool dab_pairs = Tk % 2 == 0 && (reinterpret_cast<uintptr_t>(dab_bh) & 7) == 0;
+    // the bias of fragment positions 4q4 .. 4q4 + 3 (rows quad_row + 8h,
+    // columns 8q4 + cc + e) added to acc from the slab: dk/dv (keys x
+    // queries) reads the query-major slab transposed, one float at a time,
+    // dq reads two 8-byte pairs
+    auto add_bias4 = [&](float (&acc)[32], int q4) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int row = quad_row + 8 * h, col = 8 * q4 + cc;
+        const float2 b = DQ ? ld_shared2(bias_addr + (row * BLD + col) * 4)
+                            : make_float2(ld_shared1(bias_addr + (col * BLD + row) * 4),
+                                          ld_shared1(bias_addr + ((col + 1) * BLD + row) * 4));
+        acc[4 * q4 + 2 * h] += b.x;
+        acc[4 * q4 + 2 * h + 1] += b.y;
+      }
+    };
+    // d(ab) at the fragment position (row r0 + quad_row + 8h, keys c0 + 8j +
+    // cc and + 1; the dq score block): one 8-byte store where the pair is
+    // whole and aligned, else one float at a time (an odd Tk, the ragged edge)
+    auto put_dab2 = [&](int c0, int j, int h, float x, float y) {
+      const int rr = r0 + quad_row + 8 * h, kc = c0 + 8 * j + cc;
+      if (rr >= Tq) return;
+      float* drow = dab_bh + (size_t)rr * Tk;
+      if (dab_pairs && kc + 1 < Tk) {
+        *reinterpret_cast<float2*>(drow + kc) = make_float2(x, y);
+        return;
+      }
+      if (kc < Tk) drow[kc] = x;
+      if (kc + 1 < Tk) drow[kc + 1] = y;
+    };
 
     auto take_split = [&](uint64_t& b_hi, uint64_t& b_lo) {
       mbar_wait(&ctl.ready[sb], sphase);
@@ -464,7 +563,14 @@ __device__ __forceinline__ void run_role(const CUtensorMap* map_x, const CUtenso
         tile_bits |= __shfl_xor_sync(0xffffffffu, tile_bits, 1);
         tile_bits |= __shfl_xor_sync(0xffffffffu, tile_bits, 2);
         tile_bits = __shfl_sync(0xffffffffu, tile_bits, 0);
-        if (tile_bits == 0) continue;  // the producer and the split warps skipped it too
+        if (tile_bits == 0) {  // the producer and the split warps skipped it too
+          if (SBIAS && dab_bh != nullptr)  // d(ab) = 0 there: every element is written
+#pragma unroll
+            for (int j = 0; j < 8; ++j)
+#pragma unroll
+              for (int h = 0; h < 2; ++h) put_dab2(c0, j, h, 0.f, 0.f);
+          continue;
+        }
       }
 
       // this tile's exchange: the bytes every sender will store here (the
@@ -477,6 +583,11 @@ __device__ __forceinline__ void run_role(const CUtensorMap* map_x, const CUtenso
           cp_async4(dst, (tid < 64 ? lse_bh : di_bh) + qc);
         else
           asm volatile("st.shared.f32 [%0], %1;" ::"r"(dst), "f"(tid < 64 ? INFINITY : 0.f) : "memory");
+        cp_async_commit();
+      }
+      // the tile's bias (queries x keys), staged while the partial runs
+      if (SBIAS) {
+        stage_bias_tile<BLD>(bias_addr, ab_bh, DQ ? r0 : c0, DQ ? c0 : r0, Tq, Tk, ab_pairs, tid);
         cp_async_commit();
       }
 
@@ -500,6 +611,13 @@ __device__ __forceinline__ void run_role(const CUtensorMap* map_x, const CUtenso
       for (int i = 0; i < 32; ++i) acc[i] += tmp[i];
       mbar_arrive(&ctl.freed[held]);
 
+      // the bias: added to the scores once, four values at a time as they
+      // are pushed (dk/dv) or summed (dq), once every consumer's staging landed
+      if (SBIAS) {
+        cp_async_wait_all();
+        consumer_sync();
+      }
+
       // push it into its slot in every block that needs it, once they have
       // read the previous tile's
       if (n_receivers<NQ, DQ>(role) > 0) {
@@ -513,8 +631,10 @@ __device__ __forceinline__ void run_role(const CUtensorMap* map_x, const CUtenso
           const uint32_t dst = peer_addr(xbuf_addr + slot_of(role, j) * XSLOT + tid * 16, j);
           const uint32_t bar = peer_addr(smem_u32(&ctl.xfull), j);
 #pragma unroll
-          for (int q4 = 0; q4 < 8; ++q4)
+          for (int q4 = 0; q4 < 8; ++q4) {
+            if (SBIAS) add_bias4(acc, q4);  // the one receiver, the dp block (NQ = 1)
             st_async4(dst + q4 * 128 * 16, acc[4 * q4], acc[4 * q4 + 1], acc[4 * q4 + 2], acc[4 * q4 + 3], bar);
+          }
         }
       }
       if constexpr (OUT) {  // the dq kernel's dp block has nothing more to do
@@ -532,9 +652,10 @@ __device__ __forceinline__ void run_role(const CUtensorMap* map_x, const CUtenso
 #pragma unroll
           for (int i = 0; i < NQ; ++i) {
             float4 t;
-            if (SCORE && i == role)
+            if (SCORE && i == role) {
+              if (DQ && SBIAS) add_bias4(acc, q4);  // dq's score block pushes nothing
               t = make_float4(acc[4 * q4], acc[4 * q4 + 1], acc[4 * q4 + 2], acc[4 * q4 + 3]);
-            else
+            } else
               t = ld_shared4(xbuf_addr + slot_of(i, role) * XSLOT + (q4 * 128 + tid) * 16);
             if (i == 0) {
               sum = t;
@@ -571,6 +692,10 @@ __device__ __forceinline__ void run_role(const CUtensorMap* map_x, const CUtenso
               const float p = seen ? exp2f(__fmaf_rn(s[i], scale2, -lse2)) : 0.f;
               a[i] = SCORE ? __fmul_rn(__fmul_rn(p, __fsub_rn(dp[i], di)), sm_scale) : p;
             }
+          // d(ab) = ds, stored as it is formed (the dq score block)
+          if (DQ && SBIAS && dab_bh != nullptr)
+#pragma unroll
+            for (int h = 0; h < 2; ++h) put_dab2(c0, j, h, a[4 * j + 2 * h], a[4 * j + 2 * h + 1]);
         }
 
         // the output product, one 32-row half of the tile at a time (its A
@@ -633,9 +758,10 @@ __device__ __forceinline__ void run_role(const CUtensorMap* map_x, const CUtenso
 }
 
 // DQ false: the dk/dv kernel (maps x: k, v; y: q, do; w: q, do boxes; outs
-// dk, dv). DQ true: the dq kernel (x: q, do; y: k, v; w: k boxes; out dq).
-// The score blocks take the *_s maps, the dp block the *_p ones.
-template <int DQK, int DV, bool DQ>
+// dk, dv). DQ true: the dq kernel (x: q, do; y: k, v; w: k boxes; out dq,
+// and d(ab) when dab is not null). The score blocks take the *_s maps, the
+// dp block the *_p ones. BIAS: ab [B, H, Tq, Tk] is added to the scores.
+template <int DQK, int DV, bool DQ, bool BIAS>
 __global__ void __launch_bounds__(NTHREADS_F, 1)
 flash_attn_bwd_tc_f32_kernel(const __grid_constant__ CUtensorMap map_x_s,
                              const __grid_constant__ CUtensorMap map_x_p,
@@ -644,9 +770,10 @@ flash_attn_bwd_tc_f32_kernel(const __grid_constant__ CUtensorMap map_x_s,
                              const __grid_constant__ CUtensorMap map_w_s,
                              const __grid_constant__ CUtensorMap map_w_p,
                              const uint8_t* __restrict__ key_mask, const float* __restrict__ lse,
-                             const float* __restrict__ di, float* __restrict__ out_s,
-                             float* __restrict__ out_p, int H, int Tq, int Tk, float scale2, float sm_scale) {
-  using C = CfgB<DQK>;
+                             const float* __restrict__ di, const float* __restrict__ ab,
+                             float* __restrict__ out_s, float* __restrict__ out_p, float* __restrict__ dab, int H,
+                             int Tq, int Tk, float scale2, float sm_scale) {
+  using C = CfgB<DQK, DQ, BIAS>;
   static_assert(DQK % WS == 0 && DV % 64 == 0 && DV <= WS, "tc f32 backward widths");
   extern __shared__ uint8_t smem_raw[];
   __shared__ __align__(16) Ctl ctl;
@@ -678,19 +805,21 @@ flash_attn_bwd_tc_f32_kernel(const __grid_constant__ CUtensorMap map_x_s,
   const uint8_t* mask_b = key_mask ? key_mask + (size_t)(bh / H) * Tk : nullptr;
   const float* lse_bh = lse + (size_t)bh * Tq;
   const float* di_bh = di + (size_t)bh * Tq;
+  const float* ab_bh = BIAS ? ab + (size_t)bh * Tq * Tk : nullptr;
+  float* dab_bh = BIAS && dab != nullptr ? dab + (size_t)bh * Tq * Tk : nullptr;
   if (role < C::NQ)
-    run_role<DQK, DQ, WS, true>(&map_x_s, &map_y_s, &map_w_s, ctl, base, role, mask_b, lse_bh, di_bh, out_s, DQK,
-                                Tq, Tk, scale2, sm_scale);
+    run_role<DQK, DQ, BIAS, WS, true>(&map_x_s, &map_y_s, &map_w_s, ctl, base, role, mask_b, lse_bh, di_bh, ab_bh,
+                                      dab_bh, out_s, DQK, Tq, Tk, scale2, sm_scale);
   else
-    run_role<DQK, DQ, DV, false>(&map_x_p, &map_y_p, &map_w_p, ctl, base, role, mask_b, lse_bh, di_bh, out_p, DV,
-                                 Tq, Tk, scale2, sm_scale);
+    run_role<DQK, DQ, BIAS, DV, false>(&map_x_p, &map_y_p, &map_w_p, ctl, base, role, mask_b, lse_bh, di_bh,
+                                       ab_bh, dab_bh, out_p, DV, Tq, Tk, scale2, sm_scale);
 }
 
-template <int DQK, int DV, bool DQ>
-cudaError_t launch(const void* q, const void* k, const void* v, const void* key_mask, const float* lse,
-                   const float* di, const void* dout, void* out_a, void* out_b, int B, int H, int Tq, int Tk,
-                   float sm_scale, cudaStream_t stream) {
-  using C = CfgB<DQK>;
+template <int DQK, int DV, bool DQ, bool BIAS>
+cudaError_t launch(const void* q, const void* k, const void* v, const void* ab, const void* key_mask,
+                   const float* lse, const float* di, const void* dout, void* out_a, void* out_b, void* dab, int B,
+                   int H, int Tq, int Tk, float sm_scale, cudaStream_t stream) {
+  using C = CfgB<DQK, DQ, BIAS>;
   const int BH = B * H;
   // x, y: 32-column x 64-row boxes, swizzled, as the product reads them;
   // w: 64-column x 32-row boxes, plain, for the split pass to transpose
@@ -705,7 +834,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* key_
       !make_map_f32(&m[4], ys, BH, Ty, DQK, 64, 32, false) ||
       !make_map_f32(&m[5], DQ ? ys : yp, BH, Ty, DQ ? DQK : DV, 64, 32, false))
     return cudaErrorInvalidValue;
-  auto kernel = flash_attn_bwd_tc_f32_kernel<DQK, DV, DQ>;
+  auto kernel = flash_attn_bwd_tc_f32_kernel<DQK, DV, DQ, BIAS>;
   static unsigned long long sized = 0;
   cudaError_t err = size_smem_once(kernel, C::SMEM, sized);
   if (err != cudaSuccess) return err;
@@ -722,64 +851,78 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* key_
   cfg.attrs = attr;
   cfg.numAttrs = 1;
   err = cudaLaunchKernelEx(&cfg, kernel, m[0], m[1], m[2], m[3], m[4], m[5],
-                           static_cast<const uint8_t*>(key_mask), lse, di, static_cast<float*>(out_a),
-                           static_cast<float*>(out_b), H, Tq, Tk, sm_scale * LOG2E, sm_scale);
+                           static_cast<const uint8_t*>(key_mask), lse, di, static_cast<const float*>(ab),
+                           static_cast<float*>(out_a), static_cast<float*>(out_b), static_cast<float*>(dab), H, Tq,
+                           Tk, sm_scale * LOG2E, sm_scale);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
 
 // the forms both kernels take: f32, non-causal, (Dqk, Dv) in {(192, 64),
-// (576, 192)}, no bias; q, k, v, dout 16-byte aligned (TMA), the outputs
-// 8-byte aligned
+// (576, 192)} without a bias, (192, 192) with or without one; q, k, v, dout
+// 16-byte aligned (TMA), the outputs 8-byte aligned, ab and dab 4-byte
 int check_form(const void* q, const void* k, const void* v, const void* ab, const void* dout, const void* out_a,
-               const void* out_b, int B, int H, int Tq, int Tk, int Dqk, int Dv, int is_bf16, int causal) {
-  if (is_bf16 || causal || ab != nullptr || Tq <= 0 || Tk <= 0 || B <= 0 || H <= 0) return (int)cudaErrorInvalidValue;
-  if (!((Dqk == 192 && Dv == 64) || (Dqk == 576 && Dv == 192))) return (int)cudaErrorInvalidValue;
+               const void* out_b, const void* dab, int B, int H, int Tq, int Tk, int Dqk, int Dv, int is_bf16,
+               int causal) {
+  if (is_bf16 || causal || Tq <= 0 || Tk <= 0 || B <= 0 || H <= 0) return (int)cudaErrorInvalidValue;
+  const bool k1_form = Dqk == 192 && Dv == 192;
+  if (!(k1_form || (Dqk == 192 && Dv == 64) || (Dqk == 576 && Dv == 192))) return (int)cudaErrorInvalidValue;
+  if ((ab != nullptr && !k1_form) || (dab != nullptr && ab == nullptr)) return (int)cudaErrorInvalidValue;
   if (((uintptr_t)q | (uintptr_t)k | (uintptr_t)v | (uintptr_t)dout) % 16 != 0 ||
-      ((uintptr_t)out_a | (uintptr_t)out_b) % 8 != 0)
+      ((uintptr_t)out_a | (uintptr_t)out_b) % 8 != 0 || ((uintptr_t)ab | (uintptr_t)dab) % 4 != 0)
     return (int)cudaErrorMisalignedAddress;
   return 0;
 }
 
 template <bool DQ>
-int dispatch(const void* q, const void* k, const void* v, const void* key_mask, const void* lse, const void* di,
-             const void* dout, void* out_a, void* out_b, int B, int H, int Tq, int Tk, int Dqk, float sm_scale,
-             void* stream) {
+int dispatch(const void* q, const void* k, const void* v, const void* ab, const void* key_mask, const void* lse,
+             const void* di, const void* dout, void* out_a, void* out_b, void* dab, int B, int H, int Tq, int Tk,
+             int Dqk, int Dv, float sm_scale, void* stream) {
   const float* l = static_cast<const float*>(lse);
   const float* d = static_cast<const float*>(di);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (Dqk == 576)
-    return (int)launch<576, 192, DQ>(q, k, v, key_mask, l, d, dout, out_a, out_b, B, H, Tq, Tk, sm_scale, s);
-  return (int)launch<192, 64, DQ>(q, k, v, key_mask, l, d, dout, out_a, out_b, B, H, Tq, Tk, sm_scale, s);
+    return (int)launch<576, 192, DQ, false>(q, k, v, ab, key_mask, l, d, dout, out_a, out_b, dab, B, H, Tq, Tk,
+                                            sm_scale, s);
+  if (Dv == 64)
+    return (int)launch<192, 64, DQ, false>(q, k, v, ab, key_mask, l, d, dout, out_a, out_b, dab, B, H, Tq, Tk,
+                                           sm_scale, s);
+  if (ab != nullptr)
+    return (int)launch<192, 192, DQ, true>(q, k, v, ab, key_mask, l, d, dout, out_a, out_b, dab, B, H, Tq, Tk,
+                                           sm_scale, s);
+  return (int)launch<192, 192, DQ, false>(q, k, v, ab, key_mask, l, d, dout, out_a, out_b, dab, B, H, Tq, Tk,
+                                          sm_scale, s);
 }
 
 }  // namespace
 
 // The same arguments and semantics as jatts_flash_attn_bwd_dkv
-// (flash_attn_bwd.cu) for K1r's f32 forms: is_bf16 == 0, causal == 0, ab
-// null, (Dqk, Dv) in {(192, 64), (576, 192)}. q, k, v, dout 16-byte
-// aligned, dk, dv 8-byte aligned. Returns a cudaError_t (0 = launched);
-// anything else it refuses with cudaErrorInvalidValue (or
-// cudaErrorMisalignedAddress).
+// (flash_attn_bwd.cu) for the f32 forms: is_bf16 == 0, causal == 0, (Dqk,
+// Dv) in {(192, 64), (576, 192)} with ab null (K1r), (192, 192) with ab
+// null or f32 [B, H, Tq, Tk] (K1-bwd). q, k, v, dout 16-byte aligned, dk,
+// dv 8-byte aligned. Returns a cudaError_t (0 = launched); anything else it
+// refuses with cudaErrorInvalidValue (or cudaErrorMisalignedAddress).
 extern "C" int jatts_flash_attn_bwd_dkv_tc_f32(const void* q, const void* k, const void* v, const void* ab,
                                                const void* key_mask, const void* lse, const void* di,
                                                const void* dout, void* dk, void* dv, int B, int H, int Tq, int Tk,
                                                int Dqk, int Dv, int is_bf16, int causal, float sm_scale,
                                                void* stream) {
-  const int rc = check_form(q, k, v, ab, dout, dk, dv, B, H, Tq, Tk, Dqk, Dv, is_bf16, causal);
+  const int rc = check_form(q, k, v, ab, dout, dk, dv, nullptr, B, H, Tq, Tk, Dqk, Dv, is_bf16, causal);
   if (rc != 0) return rc;
-  return dispatch<false>(q, k, v, key_mask, lse, di, dout, dk, dv, B, H, Tq, Tk, Dqk, sm_scale, stream);
+  return dispatch<false>(q, k, v, ab, key_mask, lse, di, dout, dk, dv, nullptr, B, H, Tq, Tk, Dqk, Dv, sm_scale,
+                         stream);
 }
 
-// As above for jatts_flash_attn_bwd_dq: no bias, so no d(ab) either (ab and
-// dab null); dq 8-byte aligned.
+// As above for jatts_flash_attn_bwd_dq: dq 8-byte aligned; d(ab) = ds
+// [B, H, Tq, Tk] f32 is written, every element, when dab is not null,
+// which needs a bias (K1-bwd's (192, 192)).
 extern "C" int jatts_flash_attn_bwd_dq_tc_f32(const void* q, const void* k, const void* v, const void* ab,
                                               const void* key_mask, const void* lse, const void* di,
                                               const void* dout, void* dq, void* dab, int B, int H, int Tq, int Tk,
                                               int Dqk, int Dv, int is_bf16, int causal, float sm_scale,
                                               void* stream) {
-  if (dab != nullptr) return (int)cudaErrorInvalidValue;
-  const int rc = check_form(q, k, v, ab, dout, dq, nullptr, B, H, Tq, Tk, Dqk, Dv, is_bf16, causal);
+  const int rc = check_form(q, k, v, ab, dout, dq, nullptr, dab, B, H, Tq, Tk, Dqk, Dv, is_bf16, causal);
   if (rc != 0) return rc;
-  return dispatch<true>(q, k, v, key_mask, lse, di, dout, dq, nullptr, B, H, Tq, Tk, Dqk, sm_scale, stream);
+  return dispatch<true>(q, k, v, ab, key_mask, lse, di, dout, dq, nullptr, dab, B, H, Tq, Tk, Dqk, Dv, sm_scale,
+                        stream);
 }

@@ -139,31 +139,6 @@ struct CfgF {
 };
 
 // ---------------------------------------------------------------------------
-// f32 helpers: the bias staging (the TF32 split and the .tf32 wgmma are
-// tc_f32_common.cuh's)
-// ---------------------------------------------------------------------------
-
-__device__ __forceinline__ void cp_async8(uint32_t dst, const void* src) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;" ::"r"(dst), "l"(src) : "memory");
-}
-
-// the key columns kc, kc+1 of a bias row (null: a row past Tq) into the
-// shared pair dst: by cp.async where the pair is whole and 8-byte aligned,
-// else by plain loads (an odd Tk, the ragged edge)
-__device__ __forceinline__ void stage_bias2_f32(uint32_t dst, const float* row, int kc, int Tk, bool pairs) {
-  if (row != nullptr && pairs && kc + 1 < Tk) {
-    cp_async8(dst, row + kc);
-    return;
-  }
-  float lo = 0.f, hi = 0.f;
-  if (row != nullptr) {
-    lo = kc < Tk ? __ldg(row + kc) : 0.f;
-    hi = kc + 1 < Tk ? __ldg(row + kc + 1) : 0.f;
-  }
-  asm volatile("st.shared.v2.f32 [%0], {%1, %2};" ::"r"(dst), "f"(lo), "f"(hi) : "memory");
-}
-
-// ---------------------------------------------------------------------------
 // the kernel
 // ---------------------------------------------------------------------------
 

@@ -2,8 +2,9 @@
 // (flash_attn_fwd_tc_f32.cu, flash_attn_bwd_tc_f32.cu), on tc_common.cuh:
 // the TF32 split by integer rounding, the .tf32 wgmma, the 64 x 32 f32 slab
 // (one 128-byte swizzle row a row, 8 KB, 1024-byte aligned) and its tensor
-// maps, and the block's three roles (a consumer warpgroup, a TMA producer
-// warp, three split warps). sm_90a only (wgmma).
+// maps, the block's three roles (a consumer warpgroup, a TMA producer warp,
+// three split warps) and the f32 bias's staging by cp.async. sm_90a only
+// (wgmma).
 
 #pragma once
 
@@ -67,6 +68,26 @@ __device__ __forceinline__ void keep_frags(uint32_t (&a)[N][8]) {
 
 __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async8(uint32_t dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;" ::"r"(dst), "l"(src) : "memory");
+}
+
+// the key columns kc, kc+1 of an f32 bias row (null: a row past Tq) into
+// the shared pair dst: by cp.async where the pair is whole and 8-byte
+// aligned, else by plain loads (an odd Tk, the ragged edge; 0 past Tk)
+__device__ __forceinline__ void stage_bias2_f32(uint32_t dst, const float* row, int kc, int Tk, bool pairs) {
+  if (row != nullptr && pairs && kc + 1 < Tk) {
+    cp_async8(dst, row + kc);
+    return;
+  }
+  float lo = 0.f, hi = 0.f;
+  if (row != nullptr) {
+    lo = kc < Tk ? __ldg(row + kc) : 0.f;
+    hi = kc + 1 < Tk ? __ldg(row + kc + 1) : 0.f;
+  }
+  asm volatile("st.shared.v2.f32 [%0], {%1, %2};" ::"r"(dst), "f"(lo), "f"(hi) : "memory");
 }
 
 // byte offset of element (row, col < 32) in a 128-byte-swizzled f32 slab

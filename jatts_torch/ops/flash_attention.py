@@ -2,9 +2,10 @@
 forms on the tensor cores in ``csrc/flash_attn_fwd_tc.cu``, its f32
 non-causal forms in 3xTF32 in ``csrc/flash_attn_fwd_tc_f32.cu``), K1-bwd — its
 backward (``csrc/flash_attn_bwd.cu``; K1b's bf16 dk/dv and dq at d 64 on the
-tensor cores in ``csrc/flash_attn_bwd_tc.cu``, K1r's f32 dk/dv and dq in 3xTF32
-in ``csrc/flash_attn_bwd_tc_f32.cu``), K1b — the causal form of both, K1r
-— the fused rel-pos form of both (d_qk != d_v), and their plain twins.
+tensor cores in ``csrc/flash_attn_bwd_tc.cu``, K1r's and K1-bwd's f32 dk/dv
+and dq in 3xTF32 in ``csrc/flash_attn_bwd_tc_f32.cu``), K1b — the causal form
+of both, K1r — the fused rel-pos form of both (d_qk != d_v), and their plain
+twins.
 
 Replaces the Pallas TPU flash-attention forward that
 ``jatts_tpu/modules/attention.py:_flash_attend`` drives. Function, per
@@ -46,11 +47,12 @@ kernels are :func:`dkv_kernel`'s and :func:`dq_kernel`'s, one rule over
 (dtype, causal, d_qk, d_v, bias): VALL-E's form (bf16, causal, d 64, no bias)
 goes to the tensor-core kernels (``launches_bwd_dkv_tc`` and
 ``launches_bwd_dq_tc`` count them, besides ``launches_bwd_dkv_causal`` and
-``launches_bwd_dq_causal``), K1r's f32 form (non-causal, the pairs of
-``RELPOS_PAIRS``, no bias) to the 3xTF32 tensor-core kernels
-(``launches_bwd_dkv_tc_f32`` and ``launches_bwd_dq_tc_f32``, besides the
-``*_relpos`` counters), every other form to the scalar ones. See the source
-notes in the ``.cu`` files for the bounds.
+``launches_bwd_dq_causal``), the f32 non-causal forms of ``BWD_TC_F32_FORMS``
+(K1r's pairs without a bias, K1-bwd's d 192 with or without one) to the
+3xTF32 tensor-core kernels (``launches_bwd_dkv_tc_f32`` and
+``launches_bwd_dq_tc_f32``, besides the ``*_relpos`` counters or
+``launches_bwd_dkv`` and ``launches_bwd_dq``), every other form to the
+scalar ones. See the source notes in the ``.cu`` files for the bounds.
 """
 
 from __future__ import annotations
@@ -75,6 +77,10 @@ RELPOS_PAIRS = ((192, 64), (576, 192))
 # the f32 non-causal (d_qk, d_v) forms of the 3xTF32 forward; d 256 (its 128
 # output accumulators a thread) and the f32 causal form stay scalar
 TC_F32_PAIRS = ((64, 64), (128, 128), (192, 192)) + RELPOS_PAIRS
+# the f32 non-causal (d_qk, d_v, bias) forms of the 3xTF32 backward: K1r's
+# pairs without a bias, K1-bwd's d 192 (the JSUT width) with or without one;
+# f32 d 64/128/256 and causal stay scalar
+BWD_TC_F32_FORMS = tuple((*pair, False) for pair in RELPOS_PAIRS) + ((192, 192, False), (192, 192, True))
 DTYPES = (torch.float32, torch.bfloat16)
 _MASK_VAL = -1e9
 
@@ -92,8 +98,8 @@ launches_bwd_dkv_tc = 0  # dk/dv calls (K1b) that ran on the tensor-core kernel
 launches_bwd_dq_tc = 0  # dq calls (K1b) that ran on the tensor-core kernel
 launches_bwd_dkv_relpos = 0  # K1r, dk/dv kernel
 launches_bwd_dq_relpos = 0  # K1r, dq kernel
-launches_bwd_dkv_tc_f32 = 0  # dk/dv calls (K1r f32) that ran on the 3xTF32 tensor-core kernel
-launches_bwd_dq_tc_f32 = 0  # dq calls (K1r f32) that ran on the 3xTF32 tensor-core kernel
+launches_bwd_dkv_tc_f32 = 0  # dk/dv calls (K1r or K1-bwd f32) that ran on the 3xTF32 tensor-core kernel
+launches_bwd_dq_tc_f32 = 0  # dq calls (K1r or K1-bwd f32) that ran on the 3xTF32 tensor-core kernel
 
 
 def reset_launches() -> None:
@@ -213,12 +219,13 @@ def fwd_kernel(dtype: torch.dtype, causal: bool, d_qk: int, d_v: int) -> str:
 
 def _bwd_kernel(dtype: torch.dtype, causal: bool, d_qk: int, d_v: int, has_bias: bool) -> str:
     """The backward's one rule: VALL-E's form (bf16, causal, d_qk = d_v =
-    64, no bias) -> ``KERNEL_BWD_TC``; K1r's f32 form (non-causal, (d_qk,
-    d_v) in ``RELPOS_PAIRS``, no bias) -> ``KERNEL_BWD_TC_F32``; every other
-    form (K1-bwd, the bf16 K1r backward, f32 causal) -> ``KERNEL_BWD``."""
+    64, no bias) -> ``KERNEL_BWD_TC``; f32 non-causal at a (d_qk, d_v, bias)
+    of ``BWD_TC_F32_FORMS`` (K1r's, and K1-bwd's at d 192) ->
+    ``KERNEL_BWD_TC_F32``; every other form (K1-bwd at d 64/128/256 or in
+    bf16, the bf16 K1r backward, f32 causal) -> ``KERNEL_BWD``."""
     if dtype == torch.bfloat16 and causal and d_qk == d_v == 64 and not has_bias:
         return KERNEL_BWD_TC
-    if dtype == torch.float32 and not causal and (d_qk, d_v) in RELPOS_PAIRS and not has_bias:
+    if dtype == torch.float32 and not causal and (d_qk, d_v, has_bias) in BWD_TC_F32_FORMS:
         return KERNEL_BWD_TC_F32
     return KERNEL_BWD
 
@@ -226,16 +233,16 @@ def _bwd_kernel(dtype: torch.dtype, causal: bool, d_qk: int, d_v: int, has_bias:
 def dkv_kernel(dtype: torch.dtype, causal: bool, d_qk: int, d_v: int, has_bias: bool) -> str:
     """The library a dk/dv backward on the card takes: ``KERNEL_BWD_TC``
     (tensor cores) for VALL-E's form, ``KERNEL_BWD_TC_F32`` (tensor cores,
-    3xTF32) for K1r's f32 form, else ``KERNEL_BWD`` (scalar; the bf16 K1r
-    form and K1-bwd with its bias stay there)."""
+    3xTF32) for the f32 forms of ``BWD_TC_F32_FORMS``, else ``KERNEL_BWD``
+    (scalar; the bf16 K1r form and K1-bwd's other forms stay there)."""
     return _bwd_kernel(dtype, causal, d_qk, d_v, has_bias)
 
 
 def dq_kernel(dtype: torch.dtype, causal: bool, d_qk: int, d_v: int, has_bias: bool) -> str:
     """The library a dq backward on the card takes, by :func:`dkv_kernel`'s
-    rule: ``KERNEL_BWD_TC`` for VALL-E's form, ``KERNEL_BWD_TC_F32`` for K1r's
-    f32 form, else ``KERNEL_BWD`` (scalar; the bf16 K1r form and K1-bwd stay
-    there, and it also writes d(ab) when there is a bias)."""
+    rule: ``KERNEL_BWD_TC`` for VALL-E's form, ``KERNEL_BWD_TC_F32`` for the
+    f32 forms of ``BWD_TC_F32_FORMS``, else ``KERNEL_BWD`` (scalar). With a
+    bias, the scalar kernel and the 3xTF32 one also write d(ab)."""
     return _bwd_kernel(dtype, causal, d_qk, d_v, has_bias)
 
 

@@ -59,11 +59,12 @@ _item_err = chip_smoke.item_err  # max |got - want| over max(1, max|want|) of ea
 @pytest.mark.parametrize("has_bias", [False, True])
 def test_dkv_rule_sends_valle_form_to_the_tensor_cores(dtype, causal, d_qk, d_v, has_bias):
     """bf16, causal, d_qk = d_v = 64, no bias -> the tensor-core dk/dv;
-    f32, non-causal, a K1r pair, no bias -> the 3xTF32 one
-    (``tests/test_torch_flash_tc_f32_bwd.py``); everything else stays on
-    the scalar kernel."""
+    f32, non-causal, a K1r pair without a bias or K1-bwd's d 192 with or
+    without one -> the 3xTF32 one (``tests/test_torch_flash_tc_f32_bwd.py``);
+    everything else stays on the scalar kernel."""
     tc = dtype == torch.bfloat16 and causal and (d_qk, d_v) == (64, 64) and not has_bias
-    tc_f32 = dtype == torch.float32 and not causal and (d_qk, d_v) in k1.RELPOS_PAIRS and not has_bias
+    tc_f32 = dtype == torch.float32 and not causal and (
+        ((d_qk, d_v) in k1.RELPOS_PAIRS and not has_bias) or (d_qk, d_v) == (192, 192))
     want = k1.KERNEL_BWD_TC if tc else k1.KERNEL_BWD_TC_F32 if tc_f32 else k1.KERNEL_BWD
     assert k1.dkv_kernel(dtype, causal, d_qk, d_v, has_bias) == want
 
@@ -74,10 +75,12 @@ def test_dkv_rule_sends_valle_form_to_the_tensor_cores(dtype, causal, d_qk, d_v,
 @pytest.mark.parametrize("has_bias", [False, True])
 def test_dq_rule_sends_valle_form_to_the_tensor_cores(dtype, causal, d_qk, d_v, has_bias):
     """dq by dk/dv's rule: VALL-E's form on the tensor-core dq, K1r's f32
-    form on the 3xTF32 one; a bias (and its d(ab)), d != 64, bf16
-    non-causal and f32 causal on the scalar one."""
+    form and K1-bwd's f32 d 192 (with a bias, and its d(ab), or without) on
+    the 3xTF32 one; any other bias, d != 64, bf16 non-causal and f32 causal
+    on the scalar one."""
     tc = dtype == torch.bfloat16 and causal and (d_qk, d_v) == (64, 64) and not has_bias
-    tc_f32 = dtype == torch.float32 and not causal and (d_qk, d_v) in k1.RELPOS_PAIRS and not has_bias
+    tc_f32 = dtype == torch.float32 and not causal and (
+        ((d_qk, d_v) in k1.RELPOS_PAIRS and not has_bias) or (d_qk, d_v) == (192, 192))
     want = k1.KERNEL_BWD_TC if tc else k1.KERNEL_BWD_TC_F32 if tc_f32 else k1.KERNEL_BWD
     assert k1.dq_kernel(dtype, causal, d_qk, d_v, has_bias) == want
 

@@ -143,17 +143,26 @@ def _pad(x, n, dim, value=0.0):
     return torch.nn.functional.pad(x, pad, value=value)
 
 
-def bwd_model(q, k, v, key_mask, scale, lse, di, do, perm=PI, w_tiles=None, stale=False, dp_block_order=None):
+def bwd_model(q, k, v, key_mask, scale, lse, di, do, perm=PI, w_tiles=None, stale=False, dp_block_order=None,
+              ab=None, bias_untransposed=False, bias_after_scale=False, dab_unwritten=False):
     """flash_attn_bwd_tc_f32.cu's arithmetic on f32 CPU tensors -> dict of
-    dq, dk, dv, and ``same_s``: whether every block of every cluster held
-    the same scores bit for bit. Rows are padded to 64-row tiles (keys past
-    Tk unseen, queries past Tq with lse = +inf and di = 0). ``perm`` is the
-    row order of the transposed slabs in each group of 8 (the kernel: PI,
-    the A fragment's order); ``w_tiles[t]`` names the query tile whose q and
-    do the dk/dv output product of tile t reads (the kernel: t); ``stale``
-    makes the dk/dv dp block sum score block 1's partial of the tile before;
-    ``dp_block_order`` the order in which the dk/dv dp block sums the
-    score blocks' partials (the kernel: rank order)."""
+    dq, dk, dv, dab (with ``ab``) and ``same_s``: whether every block of
+    every cluster held the same scores bit for bit. Rows are padded to
+    64-row tiles (keys past Tk unseen, queries past Tq with lse = +inf and
+    di = 0). ``perm`` is the row order of the transposed slabs in each group
+    of 8 (the kernel: PI, the A fragment's order); ``w_tiles[t]`` names the
+    query tile whose q and do the dk/dv output product of tile t reads (the
+    kernel: t); ``stale`` makes the dk/dv dp block sum score block 1's
+    partial of the tile before; ``dp_block_order`` the order in which the
+    dk/dv dp block sums the score blocks' partials (the kernel: rank order).
+    ``ab`` [B, H, Tq, Tk] (K1-bwd, one score block) is added to score block
+    0's partial before the push, each tile's 64 x 64 slab staged query-major
+    and read transposed by dk/dv (keys x queries); d(ab) starts as NaN (the
+    wrapper's torch.empty) and the dq kernel writes ds on each key tile and
+    zeros where it skips one (an item's tile with no valid key). Mistakes:
+    ``bias_untransposed`` (dk/dv reads the slab as if key-major),
+    ``bias_after_scale`` (p = exp(s * scale + ab - lse)), ``dab_unwritten``
+    (a skipped tile's d(ab) left as it was)."""
     b, h, tq, d_qk = q.shape
     tk, d_v = k.shape[2], v.shape[3]
     nq = d_qk // WS
@@ -164,6 +173,12 @@ def bwd_model(q, k, v, key_mask, scale, lse, di, do, perm=PI, w_tiles=None, stal
     maskp = _pad(key_mask, tk_p, 1, value=False)
     scale2 = torch.tensor(scale, dtype=torch.float32) * torch.tensor(LOG2E, dtype=torch.float32)
     lse2 = _pad(lse, tq_p, 2, value=float("inf")) * torch.tensor(LOG2E, dtype=torch.float32)
+    abp = None if ab is None else _pad(_pad(ab, tq_p, 2), tk_p, 3)  # the slab's zeros past Tq and Tk
+    early = ab is not None and not bias_after_scale  # the kernel: into the scores, before the scale
+
+    def late(bias):
+        """The mistake's bias after the scale (base 2), else nothing."""
+        return 0.0 if ab is None or early else bias * torch.tensor(LOG2E, dtype=torch.float32)
     dip = _pad(di, tq_p, 2)
     a_pos, b_pos = _positions(PI), _positions(perm)
     halves = [(slice(32 * hf, 32 * hf + 32)) for hf in range(2)]
@@ -179,6 +194,13 @@ def bwd_model(q, k, v, key_mask, scale, lse, di, do, perm=PI, w_tiles=None, stal
         rows = slice(TILE * t, TILE * (t + 1))
         Q, dO = qp[:, :, None, rows], dop[:, :, None, rows]
         parts = [chained(K, Q, slice(WS * r, WS * r + WS)) for r in range(nq)]
+        bias = None
+        if ab is not None:
+            slab = abp[:, :, rows].view(b, h, TILE, n_kt, TILE)  # [query, key tile, key]
+            # element (key r, query c) of key tile kt: slab (c, r); the mistake reads slab (r, c)
+            bias = slab.permute(0, 1, 3, 2, 4) if bias_untransposed else slab.permute(0, 1, 3, 4, 2)
+            if early:
+                parts[0] = parts[0] + bias
         s = _rank_sum(parts, ranks)
         dp_parts = list(parts)
         if stale and nq > 1:
@@ -188,8 +210,8 @@ def bwd_model(q, k, v, key_mask, scale, lse, di, do, perm=PI, w_tiles=None, stal
         prev_parts = parts
         dpt = chained(V, dO, slice(0, d_v))
         cl2, cdi = lse2[:, :, None, None, rows], dip[:, :, None, None, rows]
-        p = torch.where(kvalid, torch.exp2(s * scale2 - cl2), torch.zeros(()))
-        p_dv = torch.where(kvalid, torch.exp2(s_dp * scale2 - cl2), torch.zeros(()))
+        p = torch.where(kvalid, torch.exp2(s * scale2 + late(bias) - cl2), torch.zeros(()))
+        p_dv = torch.where(kvalid, torch.exp2(s_dp * scale2 + late(bias) - cl2), torch.zeros(()))
         ds = p * (dpt - cdi) * scale
         w = t if w_tiles is None else w_tiles[t]
         wrows = slice(TILE * w, TILE * (w + 1))
@@ -204,14 +226,24 @@ def bwd_model(q, k, v, key_mask, scale, lse, di, do, perm=PI, w_tiles=None, stal
     Qr, dOr = qp.view(b, h, n_qt, TILE, d_qk), dop.view(b, h, n_qt, TILE, d_v)
     rl2, rdi = lse2.view(b, h, n_qt, TILE, 1), dip.view(b, h, n_qt, TILE, 1)
     dQ = torch.zeros_like(Qr)
+    dab = None if ab is None else torch.full((b, h, n_qt, TILE, tk_p), float("nan"))
     for t in range(n_kt):
         keys = slice(TILE * t, TILE * (t + 1))
         Kt, Vt = kp[:, :, None, keys], vp[:, :, None, keys]
-        s = _rank_sum([chained(Qr, Kt, slice(WS * r, WS * r + WS)) for r in range(nq)], ranks)
+        parts = [chained(Qr, Kt, slice(WS * r, WS * r + WS)) for r in range(nq)]
+        bias = None if ab is None else abp[..., keys].view(b, h, n_qt, TILE, TILE)  # [query, key]: as it stands
+        if early:
+            parts[0] = parts[0] + bias
+        s = _rank_sum(parts, ranks)
         dpm = chained(dOr, Vt, slice(0, d_v))
         valid = maskp[:, None, None, None, keys]
-        p = torch.where(valid, torch.exp2(s * scale2 - rl2), torch.zeros(()))
+        p = torch.where(valid, torch.exp2(s * scale2 + late(bias) - rl2), torch.zeros(()))
         ds = p * (dpm - rdi) * scale
+        if dab is not None:
+            # an item's tile with no valid key: every consumer skips it, and
+            # the kernel writes zeros there (the mistake: nothing)
+            skipped = ~maskp[:, keys].any(-1)[:, None, None, None, None]
+            dab[..., keys] = torch.where(skipped, dab[..., keys] if dab_unwritten else torch.zeros(()), ds)
         for hs in halves:
             a_idx = [i for i in a_pos if hs.start <= i < hs.stop]
             b_idx = [i for i in b_pos if hs.start <= i < hs.stop]
@@ -220,6 +252,7 @@ def bwd_model(q, k, v, key_mask, scale, lse, di, do, perm=PI, w_tiles=None, stal
         "dq": dQ.view(b, h, tq_p, d_qk)[:, :, :tq],
         "dk": dK.view(b, h, tk_p, d_qk)[:, :, :tk],
         "dv": dV.view(b, h, tk_p, d_v)[:, :, :tk],
+        "dab": None if dab is None else dab.view(b, h, tq_p, tk_p)[:, :, :tq, :tk],
         "same_s": same_s,
     }
 
@@ -244,12 +277,12 @@ def _t(x):
     return torch.from_numpy(x)
 
 
-def _plain(q, k, v, do, mask, scale):
+def _plain(q, k, v, do, mask, scale, ab=None):
     """The plain forward's o and lse, di, and the plain backward."""
-    o, lse = k1.flash_attention_ref(q, k, v, None, mask, scale, return_lse=True)
+    o, lse = k1.flash_attention_ref(q, k, v, ab, mask, scale, return_lse=True)
     di = (o * do).sum(-1)
-    dq, dk, dv, _ = k1.flash_attention_bwd_ref(q, k, v, None, mask, scale, o, lse, do)
-    return o, lse, di, {"dq": dq, "dk": dk, "dv": dv}
+    dq, dk, dv, dab = k1.flash_attention_bwd_ref(q, k, v, ab, mask, scale, o, lse, do)
+    return o, lse, di, {"dq": dq, "dk": dk, "dv": dv, "dab": dab}
 
 
 PAIRS = [(192, 64), (576, 192)]
@@ -343,6 +376,106 @@ def test_mistakes_fail_the_check_by_more_than_10x():
     for name, got in (("swapped", swapped), ("unpermuted", unpermuted), ("reversed", reversed_), ("stale", stale)):
         assert worst(got) > 10 * TOL, name
     assert worst(reordered) <= TOL and not reordered["same_s"]
+
+
+# ---------------------------------------------------------------------------
+# K1-bwd's form: (d_qk, d_v) = (192, 192), a dense bias and d(ab)
+# ---------------------------------------------------------------------------
+
+K1_DIMS = (192, 192)
+# (Tq, Tk), key rows per item: every key; keys 70.. (the first key tile has
+# no valid key, nor has the last); no valid key
+K1_CASES = [((150, 203), [(0, 203), (70, 100), (0, 0)]), ((203, 150), [(0, 150), (70, 60), (0, 0)])]
+DAB_NAMES = ("dq", "dk", "dv", "dab")
+
+
+def _np_bias_inputs(seed, b, h, tq, tk, rows):
+    """``_np_inputs`` at K1-bwd's width plus a dense bias at the scale of
+    q.k^T (N(0, 1) x sqrt(d), as ``chip_smoke.py`` makes it); do zero on an
+    item with no valid key (the JAX reference's rows there attend every
+    key, uniformly) -> q, k, v, ab, do, mask."""
+    q, k, v, do, mask = _np_inputs(seed, b, h, tq, tk, *K1_DIMS, rows)
+    rng = np.random.default_rng(seed + 1)
+    ab = (rng.normal(size=(b, h, tq, tk)) * math.sqrt(K1_DIMS[0])).astype(np.float32)
+    do = do * mask.any(-1)[:, None, None, None]
+    return q, k, v, ab, do, mask
+
+
+def _jax_bwd_bias(q, k, v, ab, mask, do, scale):
+    """``jax.vjp`` of the installed ``mha_reference`` with a bias, segment
+    ids 1 on every query and on the valid keys, 0 on the masked ones (a
+    query sees its item's valid keys); q and ab pre-scaled, as the
+    reference's VJP takes sm_scale = 1 only ((q.k^T + ab) * scale =
+    (q * scale).k^T + ab * scale) -> [dq, dk, dv, dab]."""
+    ids = SegmentIds(q=jnp.ones((q.shape[0], q.shape[2]), jnp.int32), kv=jnp.asarray(mask.astype(np.int32)))
+
+    def f(q, k, v, ab):
+        return mha_reference(q * scale, k, v, ab * scale, ids, sm_scale=1.0)
+
+    _, pullback = vjp(f, *(jnp.asarray(x) for x in (q, k, v, ab)))
+    return [torch.from_numpy(np.array(g)) for g in pullback(jnp.asarray(do))]
+
+
+def _finite_err(got, want):
+    """``item_err``, a NaN read as an infinite error (the card's checks
+    require finite outputs)."""
+    err = item_err(got, want)
+    return err if math.isfinite(err) else math.inf
+
+
+@pytest.mark.parametrize("shape,rows", K1_CASES, ids=["Tq150_Tk203", "Tq203_Tk150"])
+def test_cpu_model_with_a_bias_matches_the_plain_version_and_the_jax_reference(shape, rows):
+    """K1-bwd's form (192, 192) with a bias: the model's dq, dk, dv and
+    d(ab) per item within 1e-5 of ``flash_attention_bwd_ref`` and of the
+    VJP of the installed Pallas kernel's reference; d(ab) written on every
+    element (no NaN of the empty buffer left), exactly 0 on masked keys
+    (the skipped leading tile too) and on rows that see no key, dk and dv
+    exactly 0 on keys that no row sees."""
+    tq, tk = shape
+    q, k, v, ab, do, mask = _np_bias_inputs(11, 3, 2, tq, tk, rows)
+    scale = K1_DIMS[0] ** -0.5
+    jax_want = dict(zip(DAB_NAMES, _jax_bwd_bias(q, k, v, ab, mask, do, scale)))
+    tq_, tk_, tv, tab, tdo, tmask = (_t(x) for x in (q, k, v, ab, do, mask))
+    _, lse, di, want = _plain(tq_, tk_, tv, tdo, tmask, scale, tab)
+    with _one_thread():
+        got = bwd_model(tq_, tk_, tv, tmask, scale, lse, di, tdo, ab=tab)
+    for name in DAB_NAMES:
+        err, err_jax = _finite_err(got[name], want[name]), _finite_err(got[name], jax_want[name])
+        assert 0 < err <= TOL and err_jax <= TOL, (name, err, err_jax)
+    assert got["same_s"]
+    unseen = ~tmask[:, None, None, :]
+    assert torch.all(got["dab"].masked_select(unseen) == 0)
+    assert torch.all(got["dab"].masked_select(torch.isinf(lse)[..., None]) == 0)
+    assert torch.all(got["dk"].masked_select(unseen.transpose(-1, -2)) == 0)
+    assert torch.all(got["dv"].masked_select(unseen.transpose(-1, -2)) == 0)
+    assert all(torch.all(got[n][2] == 0) for n in DAB_NAMES)
+
+
+def test_bias_mistakes_fail_the_check_by_more_than_10x():
+    """Held as the card holds the kernels (per item, 1e-5; a NaN fails):
+    dk/dv reading the query-major bias slab without transposing it, the bias
+    added after the scale, and d(ab) left unwritten (the empty buffer's NaN)
+    on a key tile that dq skips, each fail by more than 10x."""
+    (tq, tk), rows = K1_CASES[0]
+    q, k, v, ab, do, mask = (_t(x) for x in _np_bias_inputs(12, 3, 2, tq, tk, rows))
+    scale = K1_DIMS[0] ** -0.5
+    _, lse, di, want = _plain(q, k, v, do, mask, scale, ab)
+
+    def worst(got):
+        return max(_finite_err(got[n], want[n]) for n in DAB_NAMES)
+
+    with _one_thread():
+        assert worst(bwd_model(q, k, v, mask, scale, lse, di, do, ab=ab)) <= TOL
+        untransposed = bwd_model(q, k, v, mask, scale, lse, di, do, ab=ab, bias_untransposed=True)
+        after = bwd_model(q, k, v, mask, scale, lse, di, do, ab=ab, bias_after_scale=True)
+        unwritten = bwd_model(q, k, v, mask, scale, lse, di, do, ab=ab, dab_unwritten=True)
+    print("k1-bwd bias mistakes, worst item's error: " + ", ".join(
+        f"{name} {worst(got):.2e}" for name, got in (("untransposed", untransposed), ("after the scale", after),
+                                                     ("unwritten", unwritten))) + f" (tol {TOL:.0e})")
+    for name, got in (("untransposed", untransposed), ("after the scale", after), ("unwritten", unwritten)):
+        assert worst(got) > 10 * TOL, name
+    # the first two are wrong in their values, the last only on the skipped tiles
+    assert math.isfinite(worst(untransposed)) and math.isfinite(worst(after)) and worst(unwritten) == math.inf
 
 
 def _exact64(q, k, v, do, mask, scale):
@@ -443,9 +576,11 @@ def test_truncating_sums_need_the_kernels_short_chains():
 @pytest.mark.parametrize("d_qk,d_v", [(64, 64), (192, 192), (256, 256), (192, 64), (576, 192)])
 @pytest.mark.parametrize("has_bias", [False, True])
 def test_bwd_rule_sends_k1r_f32_to_the_3xtf32_kernels(dtype, causal, d_qk, d_v, has_bias):
-    """f32, non-causal, a K1r pair, no bias -> the 3xTF32 dk/dv and dq; the
-    bf16 K1r backward and K1-bwd stay scalar (VALL-E's form aside)."""
-    f32_tc = dtype == torch.float32 and not causal and (d_qk, d_v) in k1.RELPOS_PAIRS and not has_bias
+    """f32, non-causal, a K1r pair without a bias or K1-bwd's (192, 192)
+    with or without one -> the 3xTF32 dk/dv and dq; the bf16 K1r backward
+    and K1-bwd's other forms stay scalar (VALL-E's form aside)."""
+    f32_tc = dtype == torch.float32 and not causal and (
+        ((d_qk, d_v) in k1.RELPOS_PAIRS and not has_bias) or (d_qk, d_v) == (192, 192))
     valle = dtype == torch.bfloat16 and causal and (d_qk, d_v) == (64, 64) and not has_bias
     want = k1.KERNEL_BWD_TC_F32 if f32_tc else k1.KERNEL_BWD_TC if valle else k1.KERNEL_BWD
     assert k1.dkv_kernel(dtype, causal, d_qk, d_v, has_bias) == want
@@ -469,10 +604,19 @@ def test_source_is_a_cluster_3xtf32_kernel_with_a_plain_c_interface():
     assert "cp.async.bulk.tensor" in (CSRC / "tc_common.cuh").read_text() and "tma_load(" in src
     assert "torch/" not in src and "#include <ATen" not in src
     assert "atomicAdd" not in src and not re.search(r"\b(atom|red)\.(global|shared|add)", src)
-    for d_qk, d_v in k1.RELPOS_PAIRS:
-        assert f"launch<{d_qk}, {d_v}, DQ>" in src
+    # every form of BWD_TC_F32_FORMS instantiated: K1r's pairs without a bias,
+    # K1-bwd's (192, 192) with and without one
+    assert "template <int DQK, int DV, bool DQ, bool BIAS>" in src
+    for d_qk, d_v, bias in k1.BWD_TC_F32_FORMS:
+        assert f"launch<{d_qk}, {d_v}, DQ, {str(bias).lower()}>" in src
+    # the bias: each tile staged by cp.async in its natural layout (the
+    # header's pair staging), added to the scores before the push; d(ab)
+    # stored by the dq score block, zeros on a skipped tile
+    assert "stage_bias_tile<BLD>(" in src and "void stage_bias2_f32(" in header and "cp.async" in header
+    assert "put_dab2(c0, j, h, 0.f, 0.f)" in src and "put_dab2(c0, j, h, a[4 * j + 2 * h]" in src
     # the shared helpers live once, in the headers
-    for helper in ("uint32_t tf32_rna(", "void wgmma_tf32(", "bool make_map_f32(", "void tma_load(", "void mbar_wait("):
+    for helper in ("uint32_t tf32_rna(", "void wgmma_tf32(", "bool make_map_f32(", "void tma_load(", "void mbar_wait(",
+                   "void stage_bias2_f32(", "void cp_async8("):
         assert helper not in src, helper
     assert src.count("__global__") == 1  # one template: the dk/dv kernel (DQ false) and the dq kernel
 
@@ -582,13 +726,13 @@ def test_tc_f32_bwd_same_bits_each_run_and_alone_on_card(d_qk, d_v):
 
 @pytest.mark.cuda
 def test_tc_f32_bwd_c_entries_refuse_other_forms_on_card():
-    """bf16, causal, a bias, a d(ab) output and d_qk == d_v are not these
-    kernels'."""
+    """bf16, causal, a bias anywhere but at (192, 192), d_qk == d_v other
+    than 192, and a d(ab) output without a bias are not these kernels'."""
     _card()
     lib = build.load(k1.KERNEL_BWD_TC_F32)
     stream = torch.cuda.current_stream().cuda_stream
     x = torch.zeros(2, 2, 64, 576, device="cuda")
-    ab = torch.zeros(2, 2, 64, 64, device="cuda")
+    ab = torch.zeros(2, 2, 64, 64, device="cuda").data_ptr()
     rows = torch.zeros(2, 2, 64, device="cuda")
     out = torch.empty(2, 2, 64, 576, device="cuda")
     for name in ("dkv", "dq"):
@@ -596,12 +740,15 @@ def test_tc_f32_bwd_c_entries_refuse_other_forms_on_card():
         assert getattr(lib, f"jatts_flash_attn_bwd_{name}_tc_f32") is not None
         p = [x.data_ptr()] * 3
         for ab_ptr, d_qk, d_v, is_bf16, causal in ((None, 576, 192, 1, 0), (None, 576, 192, 0, 1),
-                                                   (ab.data_ptr(), 576, 192, 0, 0), (None, 192, 192, 0, 0)):
+                                                   (ab, 576, 192, 0, 0), (ab, 192, 64, 0, 0), (None, 128, 128, 0, 0),
+                                                   (ab, 128, 128, 0, 0), (ab, 192, 192, 1, 0), (ab, 192, 192, 0, 1)):
             assert fn(*p, ab_ptr, None, rows.data_ptr(), rows.data_ptr(), x.data_ptr(), out.data_ptr(),
-                      out.data_ptr(), 2, 2, 64, 64, d_qk, d_v, is_bf16, causal, 0.1, stream) != 0
+                      out.data_ptr() if name == "dkv" else None, 2, 2, 64, 64, d_qk, d_v, is_bf16, causal, 0.1,
+                      stream) != 0, (name, ab_ptr is not None, d_qk, d_v, is_bf16, causal)
     fn = k1._bwd_kernel_fn(k1.KERNEL_BWD_TC_F32, "jatts_flash_attn_bwd_dq_tc_f32")
-    assert fn(*[x.data_ptr()] * 3, None, None, rows.data_ptr(), rows.data_ptr(), x.data_ptr(), out.data_ptr(),
-              ab.data_ptr(), 2, 2, 64, 64, 576, 192, 0, 0, 0.1, stream) != 0
+    for d_qk, d_v in ((576, 192), (192, 192)):
+        assert fn(*[x.data_ptr()] * 3, None, None, rows.data_ptr(), rows.data_ptr(), x.data_ptr(), out.data_ptr(),
+                  ab, 2, 2, 64, 64, d_qk, d_v, 0, 0, 0.1, stream) != 0
 
 
 @pytest.mark.cuda
@@ -623,3 +770,111 @@ def test_tc_f32_bwd_autograd_chain_matches_plain_on_card():
     want = torch.autograd.grad(k1.flash_attention_ref(*ref_leaves, None, mask, scale), ref_leaves, do)
     for g, w in zip(got, want):
         assert item_err(g, w) <= TOL
+
+
+# K1-bwd's form on the card: (B, H, Tq, Tk), key rows per item
+K1_CARD_CASES = [
+    # T ends inside a tile; keys 70.. (a masked leading key tile, trailing ones); no valid key
+    ((3, 2, 1000, 1000), [(0, 1000), (70, 611), (0, 0)]),
+    ((2, 2, 1, 1), [(0, 1), (0, 0)]),
+    ((2, 2, 70, 203), [(0, 203), (64, 65)]),
+    ((2, 2, 203, 70), [(0, 70), (5, 40)]),
+    # an odd Tk: the bias and d(ab) go one float at a time
+    ((3, 2, 131, 131), [(0, 131), (0, 77), (0, 0)]),
+]
+
+
+def _k1_card_inputs(seed, shape, rows, with_bias=True):
+    b, h, tq, tk = shape
+    q, k, v, ab, do, mask = (_t(x).cuda() for x in _np_bias_inputs(seed, b, h, tq, tk, rows))
+    return q, k, v, ab if with_bias else None, do, mask
+
+
+def _k1_zeros(lse, mask, dq, dk, dv, dab):
+    """Exact zeros: dq and d(ab) on rows that see no key, dk and dv on keys
+    that no row sees, d(ab) on masked keys (skipped key tiles too)."""
+    rows_none = torch.isinf(lse)[..., None]
+    unseen = ~mask[:, None, :, None]
+    ok = bool((dq.masked_select(rows_none) == 0).all())
+    ok &= bool((dk.masked_select(unseen) == 0).all()) and bool((dv.masked_select(unseen) == 0).all())
+    if dab is not None:
+        ok &= bool((dab.masked_select(rows_none) == 0).all())
+        ok &= bool((dab.masked_select(unseen.transpose(-1, -2)) == 0).all())
+    return ok
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,rows", K1_CARD_CASES, ids=["T1000", "T1", "Tq70_Tk203", "Tq203_Tk70", "T131"])
+@pytest.mark.parametrize("with_bias", [True, False])
+def test_k1bwd_tc_f32_matches_plain_on_card(shape, rows, with_bias):
+    """K1-bwd's (192, 192) on the 3xTF32 kernels (counted besides
+    ``launches_bwd_dkv`` / ``_dq``), each output per item within 1e-5 of
+    the plain version, the exact zeros of ``_k1_zeros``."""
+    _card()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    q, k, v, ab, do, mask = _k1_card_inputs(13, shape, rows, with_bias)
+    scale = K1_DIMS[0] ** -0.5
+    _, lse, di, want = _plain(q, k, v, do, mask, scale, ab)
+    k1.reset_launches()
+    dk, dv = k1.flash_attention_bwd_dkv(q, k, v, ab, mask, scale, lse, di, do)
+    dq, dab = k1.flash_attention_bwd_dq(q, k, v, ab, mask, scale, lse, di, do)
+    torch.cuda.synchronize()
+    assert (k1.launches_bwd_dkv_tc_f32, k1.launches_bwd_dq_tc_f32, k1.launches_bwd_dkv, k1.launches_bwd_dq) == (
+        1, 1, 1, 1)
+    assert (dab is None) == (ab is None)
+    for name, got in zip(DAB_NAMES, (dq, dk, dv, dab)):
+        if got is not None:
+            err = item_err(got, want[name])
+            assert math.isfinite(err) and err <= TOL, (name, err)
+    assert _k1_zeros(lse, mask, dq, dk, dv, dab)
+
+
+@pytest.mark.cuda
+def test_k1bwd_tc_f32_same_bits_each_run_and_alone_on_card():
+    """With a bias: three runs give the same bits, an item alone the bits it
+    has inside its batch, and d(ab) into a NaN-filled buffer leaves no NaN
+    (every element written, zeros on the skipped key tiles)."""
+    _card()
+    q, k, v, ab, do, mask = _k1_card_inputs(14, (4, 2, 300, 300), [(0, 300), (0, 120), (70, 77), (0, 0)])
+    scale = K1_DIMS[0] ** -0.5
+    _, lse, di, _ = _plain(q, k, v, do, mask, scale, ab)
+
+    def run(*xs):
+        q, k, v, ab, do, mask, lse, di = xs
+        return (*k1.flash_attention_bwd_dkv(q, k, v, ab, mask, scale, lse, di, do),
+                *k1.flash_attention_bwd_dq(q, k, v, ab, mask, scale, lse, di, do))
+
+    xs = (q, k, v, ab, do, mask, lse, di)
+    runs = [run(*xs) for _ in range(3)]
+    alone = run(*(x[1:2].contiguous() for x in xs))
+    dq, dab = torch.empty_like(q), torch.full_like(ab, float("nan"))
+    k1._launch_bwd("dq", q, k, v, ab, mask, scale, lse, di, do, dq, dab, False)
+    torch.cuda.synchronize()
+    for other in runs[1:]:
+        assert all(torch.equal(a, b) for a, b in zip(other, runs[0]))
+    assert all(torch.equal(a, b[1:2]) for a, b in zip(alone, runs[0]))
+    assert torch.equal(dab, runs[0][3]) and torch.equal(dq, runs[0][2])
+    dk_, dv_, dq_, dab_ = runs[0]
+    assert _k1_zeros(lse, mask, dq_, dk_, dv_, dab_)
+
+
+@pytest.mark.cuda
+def test_k1bwd_tc_f32_autograd_chain_matches_plain_on_card():
+    """FlashAttention in f32 at K1-bwd's (192, 192) with a bias that takes a
+    gradient (the 3xTF32 forward's output and lse feeding the 3xTF32 dk/dv
+    and dq, which writes d(ab)) against autograd through the plain forward,
+    each gradient per item within 1e-5."""
+    _card()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    q, k, v, ab, do, mask = _k1_card_inputs(15, (3, 2, 200, 200), [(0, 200), (0, 131), (70, 100)])
+    scale = K1_DIMS[0] ** -0.5
+    leaves = [x.detach().requires_grad_() for x in (q, k, v, ab)]
+    k1.reset_launches()
+    out = k1.flash_attention(*leaves, mask, scale)
+    got = torch.autograd.grad(out, leaves, do)
+    torch.cuda.synchronize()
+    assert (k1.launches_tc_f32, k1.launches_bwd_dkv_tc_f32, k1.launches_bwd_dq_tc_f32) == (1, 1, 1)
+    ref_leaves = [x.detach().requires_grad_() for x in (q, k, v, ab)]
+    want = torch.autograd.grad(k1.flash_attention_ref(*ref_leaves, mask, scale), ref_leaves, do)
+    for name, g, w in zip(DAB_NAMES, got, want):
+        assert item_err(g, w) <= TOL, name
