@@ -7,7 +7,8 @@ Phases, each of which fails the run with a non-zero exit:
   1. device: name, count and ``nvidia-smi`` name/power limit;
   2. build every hand-written kernel from ``jatts_torch/csrc`` (one ``nvcc``
      per source, all at once; each one's seconds and ptxas report printed;
-     a register spill in a tensor-core kernel fails the run);
+     a register spill in a tensor-core kernel or in the fused MAS search,
+     ``mas_path.cu``, fails the run);
   3. K1 (flash attention) against its plain PyTorch version on the card at
      the serving path's shapes, f32 (TF32 off; the 3xTF32 tensor-core kernel,
      ``flash_attn_fwd_tc_f32.cu``) and bf16 (the tensor-core kernel,
@@ -24,12 +25,20 @@ Phases, each of which fails the run with a non-zero exit:
      the 3xTF32 kernel at the training decoder shape (f32, with lse; graph
      replay too, the scalar kernel on the same inputs beside; the bound on
      the tensor cores in 3xTF32, the CUDA cores' beside);
-  5. K2 (MAS forward) and K3 (MAS backtrace), each against its plain twin
-     and the pair against the plain search, count of differing elements
-     beside the limit 0, at 16x1024x128, at a ragged width, on edge-case
-     lengths, on a quantised input full of ties, at the widest block and
-     over more frames than K3 stages at once;
-  6. K2's and K3's times at 16x1024x128, the plain versions' and the bound;
+  5. the fused MAS search (``mas_path.cu``, K2 and K3 in one launch: its
+     path against the plain search, its ``bits_out`` against the packed
+     plain decisions, with the bits in shared memory where they fit and
+     through device memory at a capacity of 4 frames, each route printed),
+     K2 (MAS forward) and K3 (MAS backtrace) each against its plain twin and
+     the pair against the plain search, count of differing elements beside
+     the limit 0, at 16x1024x128, at a ragged width, on edge-case lengths,
+     on a quantised input full of ties, at the widest block (its bits past
+     shared memory) and over more frames than K3 stages at once;
+  6. at 16x1024x128: the fused search's time by CUDA events and by graph
+     replay beside the K2+K3 pair's on the same inputs, the plain search's,
+     the byte bound and the chain floor (``jatts_torch/bin/study_mas.py``'s
+     bare max+add recurrence, measured here, times the longest utterance's
+     frames); K2's and K3's own times, plain versions and bounds;
   7. the serving slice: 16 requests through BatchingServer at the full JSUT
      width (FastSpeech2 adim 384, 4+4 conformer blocks, HiFi-GAN 512 ch,
      hop 300) in bf16 with ``attn_backend="flash"`` and seed-made weights,
@@ -40,10 +49,12 @@ Phases, each of which fails the run with a non-zero exit:
      csvs in a temporary directory) through ``jatts_torch/bin/align.py:run``
      with the JSUT feature settings and the CLI's defaults (adim 256, 2
      layers, batch 16, f32), launch counts set to 0 just before and read
-     just after; then the duration invariants, the accuracy against the
-     known alignment, the same dump with ``mas_backend="scan"``, K2 and K3
-     against their twins on the largest batch's lattice, and the time of a
-     training step and its parts;
+     just after (every search on the fused kernel, steps + dump batches
+     launches, none of K2 or K3); then the duration invariants, the
+     accuracy against the known alignment, the same dump with
+     ``mas_backend="scan"`` (0 durations differ, no kernel launched), the
+     MAS kernels against their twins and phase 6's times on the largest
+     batch's lattice, and the time of a training step and its parts;
   9. K1-bwd (flash-attention backward: the dk/dv kernel and the dq/d(ab)
      kernel) against its plain version for each output, per batch item, at
      the training shapes and at other head dims, in f32 and bf16, with and
@@ -205,6 +216,8 @@ def ptxas_entry(line: str) -> str:
                 args.append("dq" if rest[2] == "1" else "dk/dv")  # <D_QK, D_V, DQ, BIAS>
             elif name.group(1) == "flash_attn_bwd_tc_f32_kernel":
                 args.append("bias" if rest[2] == "1" else "no bias")
+            elif name.group(1) == "mas_path_kernel":
+                args.append("halo" if rest[2] == "1" else "one warp")  # <R, HALO>
             elif name.group(1) in ("flash_attn_fwd_tc_kernel", "flash_attn_fwd_tc_f32_kernel") and (
                     "bias" not in " ".join(args)):
                 args.append("bias" if rest[2] == "1" else "no bias")  # <D_QK, D_V, BIAS(, CAUSAL)>
@@ -504,10 +517,14 @@ def mas_cases(seed):
 
 def check_mas(name, lp, tl, fl):
     """K2 against mas_decisions_ref, K3 (fed the twin's bits) against
-    mas_backtrace_ref, the pair against mas_path_ref. Returns the three
-    counts of differing elements and the largest |kernel - twin| of K2's
-    decisions (0 or 1 a bit) and of K3's token indices; fails the run
-    unless every count is 0."""
+    mas_backtrace_ref, the pair against mas_path_ref, and the fused search
+    (``csrc/mas_path.cu``: its path, and its ``bits_out`` against the packed
+    twin bits) with the bits in shared memory where they fit and through
+    device memory (a capacity of 4 frames' words). Returns the five counts
+    of differing elements (K2 words, K3 frames, pair frames, fused frames,
+    fused words), the largest |kernel - twin| of K2's decisions (0 or 1 a
+    bit), of K3's token indices and of the fused path's, and the fused
+    search's routes; fails the run unless every count is 0."""
     import torch
 
     from jatts_torch.ops import mas
@@ -526,37 +543,61 @@ def check_mas(name, lp, tl, fl):
     err_k3 = int((path - path_ref).abs().max())
     pair = mas.mas_path_cuda(lp, tl, fl)
     torch.cuda.synchronize()
-    n_pair = int((pair != mas.mas_path_ref(lp, tl, fl)).sum())
+    search_ref = mas.mas_path_ref(lp, tl, fl)
+    n_pair = int((pair != search_ref).sum())
+    n_fused = n_fused_bits = err_fused = 0
+    routes = []
+    for capacity in (mas.SMEM_BITS_BYTES, 4 * 4 * ((t_text + 31) // 32)):
+        before = dict(mas.path_routes)
+        fused = mas.mas_path_fused(lp, tl, fl, smem_bits_bytes=capacity)
+        fused_b, fused_bits = mas.mas_path_fused(lp, tl, fl, return_bits=True, smem_bits_bytes=capacity)
+        torch.cuda.synchronize()
+        routes.append(next(r for r in mas.path_routes if mas.path_routes[r] > before[r]))
+        n_fused += int((fused != search_ref).sum()) + int((fused_b != search_ref).sum())
+        err_fused = max(err_fused, int((fused - search_ref).abs().max()), int((fused_b - search_ref).abs().max()))
+        n_fused_bits += int((fused_bits != bits_ref).sum())
     print(
         f"K2/K3 check {name} (B,T_feats,T_text={tuple(lp.shape)}): K2 {n_k2} of {bits.numel()} "
         f"words differ, K3 {n_k3} of {path.numel()} frames, pair {n_pair} of {pair.numel()} "
-        f"frames (limit 0)", flush=True,
+        f"frames; fused search (routes {'+'.join(routes)}) {n_fused} of {2 * 2 * pair.numel()} frames, "
+        f"bits_out {n_fused_bits} of {2 * bits.numel()} words (limit 0)", flush=True,
     )
     check(n_k2 == 0 and n_k3 == 0 and n_pair == 0, f"MAS kernels disagree with their twins at {name}")
-    return (n_k2, n_k3, n_pair), (err_k2, err_k3)
+    check(n_fused == 0 and n_fused_bits == 0, f"the fused MAS search disagrees with the plain version at {name}")
+    return (n_k2, n_k3, n_pair, n_fused, n_fused_bits), (err_k2, err_k3, err_fused), routes
 
 
 def mas_bounds_ms(tl, fl, t_feats, t_text):
-    """Least time for K2 and K3 by bytes, for these lengths. K2 needs lp
-    only at tokens below text_len (the rest is masked) and writes every
-    packed word; K3 needs the bits only of frames below feats_len (the
-    rest is pinned) and writes every frame's index. The operations (a max,
-    an add and a compare a needed cell) are far below."""
+    """Least time for K2, K3 and the fused search by bytes, for these
+    lengths. K2 needs lp only at tokens below text_len (the rest is masked)
+    and writes every packed word; K3 needs the bits only of frames below
+    feats_len (the rest is pinned) and writes every frame's index. The fused
+    search reads lp at tokens below text_len of frames below feats_len, the
+    lengths, and writes the path: no bits. The operations (a max, an add and
+    a compare a needed cell, f32 on the CUDA cores) are far below."""
     b = tl.numel()
     n_words = (t_text + 31) // 32
     cells = int(tl.clamp(0, t_text).sum()) * t_feats
     frames = int(fl.clamp(0, t_feats).sum())
+    fused_cells = int((tl.clamp(0, t_text) * fl.clamp(0, t_feats)).sum())
     k2_bytes = cells * 4 + b * 4 + b * t_feats * n_words * 4
     k3_bytes = frames * n_words * 4 + 2 * b * 4 + b * t_feats * 4
+    fused_bytes = fused_cells * 4 + 2 * b * 4 + b * t_feats * 4
     k2_ops_ms = 3 * cells / PEAK_FLOPS_S["f32"] * 1e3
+    fused_ops_ms = 3 * fused_cells / PEAK_FLOPS_S["f32"] * 1e3
     k2_ms, k3_ms = k2_bytes / PEAK_BYTES_S * 1e3, k3_bytes / PEAK_BYTES_S * 1e3
-    check(k2_ops_ms < k2_ms, "K2 bound: operations above bytes")
-    return k2_ms, k2_bytes, k3_ms, k3_bytes
+    fused_ms = fused_bytes / PEAK_BYTES_S * 1e3
+    check(k2_ops_ms < k2_ms and fused_ops_ms < fused_ms, "MAS bounds: operations above bytes")
+    return k2_ms, k2_bytes, k3_ms, k3_bytes, fused_ms, fused_bytes
 
 
-def time_mas(lp, tl, fl, where):
-    """(K2 ms, K3 ms, plain K2 ms, plain K3 ms, K2 bound ms, K3 bound ms),
-    the times by CUDA events."""
+def time_mas(lp, tl, fl, where, floors):
+    """K2's and K3's times, their plain versions' and bounds, and the fused
+    search's by CUDA events and by graph replay beside the K2 then K3 pair
+    on the same inputs, the plain search, the byte bound and the chain
+    floor (``floors``: ``study_mas.floors()``'s ns a step of the bare
+    recurrence, times the longest utterance's T_feats - 1 steps). Returns a
+    dict of ms."""
     from jatts_torch.ops import mas
 
     t_text = lp.shape[2]
@@ -567,7 +608,7 @@ def time_mas(lp, tl, fl, where):
     k2_plain = time_ms(lambda: mas.mas_decisions_ref(lp, tl), iters=2, warmup=1)
     k3_plain = time_ms(lambda: mas.mas_backtrace_ref(d_ref, tl, fl), iters=2, warmup=1)
     b, t_feats, _ = lp.shape
-    k2_bound, k2_bytes, k3_bound, k3_bytes = mas_bounds_ms(tl, fl, t_feats, t_text)
+    k2_bound, k2_bytes, k3_bound, k3_bytes, fused_bound, fused_bytes = mas_bounds_ms(tl, fl, t_feats, t_text)
     steps = max(t_feats - 1, 1)
     print(
         f"K2 time f32 {b}x{t_feats}x{t_text}: kernel {k2_ms:.4f} ms ({k2_ms * 1e6 / steps:.1f} ns "
@@ -579,7 +620,23 @@ def time_mas(lp, tl, fl, where):
         f"per frame step), plain {k3_plain:.2f} ms, bound {k3_bound:.5f} ms by bytes "
         f"({k3_bytes / 1e6:.2f} MB at these lengths); {where}", flush=True,
     )
-    return k2_ms, k3_ms, k2_plain, k3_plain, k2_bound, k3_bound
+    ms = time_ms(lambda: mas.mas_path_fused(lp, tl, fl))
+    gms = graph_ms(lambda: mas.mas_path_fused(lp, tl, fl))
+    pair_ms = time_ms(lambda: mas.mas_path_cuda(lp, tl, fl))
+    pair_gms = graph_ms(lambda: mas.mas_path_cuda(lp, tl, fl))
+    plain_ms = time_ms(lambda: mas.mas_path_ref(lp, tl, fl), iters=2, warmup=1)
+    walk = max(int(fl.clamp(1, t_feats).max()) - 1, 1)
+    floor_ms = walk * floors["max_add"][1] / 1e6
+    print(
+        f"fused MAS search f32 {b}x{t_feats}x{t_text}: kernel {ms:.4f} ms (graph replay {gms:.4f} ms, "
+        f"{gms * 1e6 / walk:.1f} ns per frame of the longest utterance's {walk}), K2+K3 pair {pair_ms:.4f} ms "
+        f"(graph replay {pair_gms:.4f} ms), plain {plain_ms:.2f} ms, bound {fused_bound:.5f} ms by bytes "
+        f"({fused_bytes / 1e6:.2f} MB at these lengths), chain floor {floor_ms:.5f} ms ({walk} dependent "
+        f"max+add at {floors['max_add'][1]:.3f} ns, {floors['max_add'][0]:.2f} cycles); {where}", flush=True,
+    )
+    return {"k2_ms": k2_ms, "k3_ms": k3_ms, "k2_plain": k2_plain, "k3_plain": k3_plain, "k2_bound": k2_bound,
+            "k3_bound": k3_bound, "ms": ms, "graph_ms": gms, "pair_ms": pair_ms, "pair_graph_ms": pair_gms,
+            "plain_ms": plain_ms, "bound_ms": fused_bound, "chain_floor_ms": floor_ms}
 
 
 # ---------------------------------------------------------------------------
@@ -642,11 +699,11 @@ def frame_accuracy(ds, durs):
     return float(np.mean(pred[:n] == true[:n]))
 
 
-def aligner_slice(seed, where, root):
+def aligner_slice(seed, where, root, floors):
     """Phase 8, on a corpus written under ``root`` (kept for phase 10).
-    Returns (K2 launches, K3 launches) of the main-path run, what check_mas
-    found on the run's own largest lattice, the csv paths and the phones'
-    tone frequencies."""
+    Returns the (fused search, K2, K3) launches of the main-path run, what
+    check_mas found on the run's own largest lattice, the MAS times there
+    (time_mas), the csv paths and the phones' tone frequencies."""
     import numpy as np
     import torch
 
@@ -663,7 +720,8 @@ def aligner_slice(seed, where, root):
     out = align_cli.run(paths, ALIGN_CONFIG, str(Path(root) / "exp"), steps=ALIGN_STEPS, seed=seed)
     torch.cuda.synchronize()
     run_s = time.perf_counter() - t0
-    k2_launches, k3_launches = mas.fwd_launches, mas.backtrace_launches
+    launches = (mas.path_launches, mas.fwd_launches, mas.backtrace_launches)
+    routes = dict(mas.path_routes)
     check((Path(root) / "exp" / "aligner.pt").exists(), "aligner.pt was not saved")
 
     rows = [r for p in paths for r in read_csv(p, dict_reader=True)[0]]
@@ -684,13 +742,14 @@ def aligner_slice(seed, where, root):
     shapes = sorted({(b["xs"].shape[0], b["ys"].shape[1], b["xs"].shape[1]) for b in batches})
     print(
         f"aligner: {len(items)} utterances in {n_batches} batches {shapes} (B, T_feats, T_text), "
-        f"{ALIGN_STEPS} steps, whole run {run_s:.1f} s; K2 launches {k2_launches}, K3 launches "
-        f"{k3_launches} (steps + dump batches = {ALIGN_STEPS + n_batches})", flush=True,
+        f"{ALIGN_STEPS} steps, whole run {run_s:.1f} s; fused MAS search launches {launches[0]} (routes "
+        f"{routes}), K2 launches {launches[1]}, K3 launches {launches[2]} (steps + dump batches = "
+        f"{ALIGN_STEPS + n_batches})", flush=True,
     )
     check(len(rows) == len(items) == 64 and out["n_skipped"] == 0, "rows were skipped")
-    check(k2_launches > 0 and k3_launches > 0, "K2/K3 were not launched on the aligner path")
-    check(k2_launches == ALIGN_STEPS + n_batches, f"K2 launches {k2_launches} != steps + dump batches")
-    check(k3_launches == ALIGN_STEPS + n_batches, f"K3 launches {k3_launches} != steps + dump batches")
+    check(launches[0] > 0, "the fused MAS search was not launched on the aligner path")
+    check(launches[0] == ALIGN_STEPS + n_batches, f"fused MAS launches {launches[0]} != steps + dump batches")
+    check(launches[1:] == (0, 0), f"K2/K3 launched on the aligner path: {launches[1:]}")
     check(all(math.isfinite(x) for x in out["history"]["loss"]), "a training loss is not finite")
     first, last = float(np.mean(fsum_hist[:4])), float(np.mean(fsum_hist[-4:]))
     print(f"aligner ForwardSum loss: first 4 steps {first:.4f}, last 4 steps {last:.4f}", flush=True)
@@ -706,16 +765,16 @@ def aligner_slice(seed, where, root):
     n_diff = sum(int((a != b).sum()) for a, b in zip(out["durations"], scan_durations))
     print(f"aligner dump, kernels vs mas_backend='scan': {n_diff} durations differ (limit 0)", flush=True)
     check(n_diff == 0, "durations differ between the kernels and the plain search")
-    check((mas.fwd_launches, mas.backtrace_launches) == (k2_launches, k3_launches),
+    check((mas.path_launches, mas.fwd_launches, mas.backtrace_launches) == launches,
           "the plain search launched a kernel")
 
-    # K2 and K3 against their twins at the main path's own largest shape
+    # the MAS kernels against their twins at the main path's own largest shape
     big = max(batches, key=lambda b: b["ys"].shape[1] * b["xs"].shape[1])
     xs, ilens, ys, olens = aligner._batch_tensors(big, torch.device("cuda"))
     with torch.no_grad():
         lp = model(xs, ilens, ys, olens)["log_p_attn"]
     own_check = check_mas("aligner's largest batch", lp, ilens, olens)
-    time_mas(lp, ilens, olens, where)
+    times = time_mas(lp, ilens, olens, where, floors)
 
     # times: a dump batch, a training step, and the step's parts (each part
     # is timed on the host's clock; the optimizer runs at lr 0 so the weights stay)
@@ -728,7 +787,7 @@ def aligner_slice(seed, where, root):
     model.train()
     fwd_ms = host_ms(lambda: model(xs, ilens, ys, olens))
     fwd_out = model(xs, ilens, ys, olens)
-    mas_ms = time_ms(lambda: mas.mas_path_cuda(fwd_out["log_p_attn"].detach(), ilens, olens))
+    mas_ms = time_ms(lambda: mas.mas_path_fused(fwd_out["log_p_attn"].detach(), ilens, olens))
 
     def ctc_loss():
         return fsum(fwd_out["log_p_attn"], ilens, olens) + fwd_out["bin_loss"]
@@ -750,7 +809,7 @@ def aligner_slice(seed, where, root):
     print(
         f"aligner f32 adim 256, batch {tuple(ys.shape[:2])} frames x {xs.shape[1]} tokens: "
         f"training step {step_ms:.1f} ms = encoder+lattice+MAS forward {fwd_ms:.2f} ms "
-        f"(K2+K3 {mas_ms:.4f} ms) + CTC loop forward {ctc_ms:.1f} ms + backward {bwd_ms:.1f} ms "
+        f"(fused MAS search {mas_ms:.4f} ms) + CTC loop forward {ctc_ms:.1f} ms + backward {bwd_ms:.1f} ms "
         f"+ optimizer {opt_ms:.2f} ms; dump {dump_ms / n_batches:.2f} ms per batch "
         f"({n_batches} batches); {where}", flush=True,
     )
@@ -772,7 +831,7 @@ def aligner_slice(seed, where, root):
         f"{busy_ms:.2f} ms in {sum(e.count for e in events)} kernels, idle share "
         f"{1 - busy_ms / wall_ms:.3f}", flush=True,
     )
-    return k2_launches, k3_launches, own_check, paths, freqs
+    return launches, own_check, times, paths, freqs
 
 
 # ---------------------------------------------------------------------------
@@ -2447,7 +2506,7 @@ def main() -> int:
     t0 = time.perf_counter()
     nvcc_s = {}
     kernels = [k1.KERNEL, k1.KERNEL_TC, k1.KERNEL_TC_F32, k1.KERNEL_BWD, k1.KERNEL_BWD_TC, k1.KERNEL_BWD_TC_F32,
-               mas.KERNEL]
+               mas.KERNEL, mas.KERNEL_PATH]
     reports = build.build(kernels, seconds=nvcc_s)
     print(f"build: {', '.join(kernels)} in {time.perf_counter() - t0:.1f} s (nvcc each: "
           + ", ".join(f"{n} {sec:.1f} s" for n, sec in nvcc_s.items()) + ")", flush=True)
@@ -2460,11 +2519,12 @@ def main() -> int:
             elif ("registers" in line or "spill" in line) and "(C75" not in line:
                 print(f"  ptxas {kernel} {entry}: {line.strip()}", flush=True)
                 spilled = re.search(r"(\d+) bytes spill stores", line)
-                tc = (k1.KERNEL_TC, k1.KERNEL_TC_F32, k1.KERNEL_BWD_TC, k1.KERNEL_BWD_TC_F32)
-                if kernel in tc and spilled and int(spilled.group(1)):
+                no_spill = (k1.KERNEL_TC, k1.KERNEL_TC_F32, k1.KERNEL_BWD_TC, k1.KERNEL_BWD_TC_F32, mas.KERNEL_PATH)
+                if kernel in no_spill and spilled and int(spilled.group(1)):
                     spills.append(entry)
-    # the tensor-core kernels hold their accumulators in registers: a spill
-    # there is a design fault, not a slowdown to live with
+    # the tensor-core kernels hold their accumulators in registers, the
+    # fused MAS search its chain's state: a spill there is a design fault,
+    # not a slowdown to live with
     check(not spills, f"ptxas spilled registers in {spills}")
 
     # 3. K1 against its plain version at the main path's shapes
@@ -2524,13 +2584,17 @@ def main() -> int:
     where = smi_line
     k1_more = time_k1_more(args.seed + 4, where)
 
-    # 5. K2 and K3 against their plain versions
+    # 5. the fused MAS search, K2 and K3 against their plain versions
     cases = mas_cases(args.seed)
     mas_checks = [check_mas(case, lp, tl, fl) for case, (lp, tl, fl) in cases.items()]
 
-    # 6. their times at 16x1024x128
-    k2_ms, k3_ms, k2_plain_ms, k3_plain_ms, k2_bound_ms, k3_bound_ms = time_mas(
-        *cases["16x1024x128"], where)
+    # 6. their times at 16x1024x128, beside the chain floor
+    from jatts_torch.bin import study_mas
+
+    floors = study_mas.floors()
+    print("MAS chain floors, one warp, no memory (jatts_torch/bin/study_mas.py): " + "; ".join(
+        f"{n} {c:.2f} cycles ({ns:.3f} ns) a step" for n, (c, ns) in floors.items()) + f"; {where}", flush=True)
+    mas_times = time_mas(*cases["16x1024x128"], where, floors)
     del cases
 
     # 7. the serving slice, at the full JSUT width, bf16, K1 on
@@ -2658,7 +2722,7 @@ def main() -> int:
 
     # 8. the aligner slice; its corpus and durations feed phase 10
     tmp = tempfile.TemporaryDirectory(prefix="jatts_smoke_")
-    k2_launches, k3_launches, own_check, align_paths, freqs = aligner_slice(args.seed, where, tmp.name)
+    mas_launches, own_check, mas_align_times, align_paths, freqs = aligner_slice(args.seed, where, tmp.name, floors)
     mas_checks.append(own_check)
 
     # 9. K1-bwd against its plain version (f32 d 192 on the 3xTF32 kernels,
@@ -2703,10 +2767,12 @@ def main() -> int:
     jvs_serve_launches, jvs_serve = jvs_serving(args.seed, where)
     jvs_launches, jvs = training_slice(tmp.name, align_paths, freqs, args.seed, where, which="jvs")
     tmp.cleanup()
-    # K2, K3, pair: differing elements over every case and the run's own
-    # lattice; K2, K3: the largest |kernel - twin| seen there
-    mas_mismatches = [sum(counts[i] for counts, _ in mas_checks) for i in range(3)]
-    mas_max_err = [max(errs[i] for _, errs in mas_checks) for i in range(2)]
+    # K2, K3, pair, fused path, fused bits: differing elements over every
+    # case and the run's own lattice; K2, K3, fused: the largest |kernel -
+    # twin| seen there
+    mas_mismatches = [sum(counts[i] for counts, _, _ in mas_checks) for i in range(5)]
+    mas_max_err = [max(errs[i] for _, errs, _ in mas_checks) for i in range(3)]
+    mas_routes = sorted({r for _, _, routes in mas_checks for r in routes})
 
     mas_row = {"route": "cuda", "source": "jatts_torch/csrc/mas_viterbi.cu",
                "bound_by": "bytes", "library_ms": None}
@@ -2820,13 +2886,27 @@ def main() -> int:
         "bound_by": bwd_times["bounds"][key][1], "cuda_core_bound_ms": cuda_core_ms(bwd_times["bounds"][key][3]),
         "library_ms": bwd_times["library_ms"],
     } for key, line, n in (("dkv", 1121, train["bwd_tc_f32"][0]), ("dq", 1456, train["bwd_tc_f32"][1]))] + [{
-        "name": "mas_fwd", "replaces": "jatts_tpu/ops/mas_pallas.py:139", "launches": k2_launches,
-        "mismatches": mas_mismatches[0] + mas_mismatches[2], "max_abs_err": mas_max_err[0], "ms": k2_ms, "plain_ms": k2_plain_ms,
-        "bound_ms": k2_bound_ms, **mas_row,
+        # off the main path since the fused search; timed at 16x1024x128
+        "name": "mas_fwd", "replaces": "jatts_tpu/ops/mas_pallas.py:139", "launches": mas_launches[1],
+        "mismatches": mas_mismatches[0] + mas_mismatches[2], "max_abs_err": mas_max_err[0],
+        "ms": mas_times["k2_ms"], "plain_ms": mas_times["k2_plain"], "bound_ms": mas_times["k2_bound"], **mas_row,
     }, {
-        "name": "mas_backtrace", "replaces": "jatts_tpu/ops/mas_pallas.py:161", "launches": k3_launches,
-        "mismatches": mas_mismatches[1] + mas_mismatches[2], "max_abs_err": mas_max_err[1], "ms": k3_ms, "plain_ms": k3_plain_ms,
-        "bound_ms": k3_bound_ms, **mas_row,
+        "name": "mas_backtrace", "replaces": "jatts_tpu/ops/mas_pallas.py:161", "launches": mas_launches[2],
+        "mismatches": mas_mismatches[1] + mas_mismatches[2], "max_abs_err": mas_max_err[1],
+        "ms": mas_times["k3_ms"], "plain_ms": mas_times["k3_plain"], "bound_ms": mas_times["k3_bound"], **mas_row,
+    }, {
+        # K2 and K3 in one launch, the aligner's main path; timed at
+        # 16x1024x128 (``aligner``: at the aligner run's largest batch)
+        "name": "mas_path", "route": "cuda", "source": "jatts_torch/csrc/mas_path.cu",
+        "replaces": "jatts_tpu/ops/mas_pallas.py:139", "replaces_also": "jatts_tpu/ops/mas_pallas.py:161",
+        "launches": mas_launches[0], "launches_by_path": {"aligner": mas_launches[0]},
+        "mismatches": mas_mismatches[3] + mas_mismatches[4], "max_abs_err": mas_max_err[2], "routes": mas_routes,
+        "ms": mas_times["ms"], "graph_ms": mas_times["graph_ms"], "pair_ms": mas_times["pair_ms"],
+        "pair_graph_ms": mas_times["pair_graph_ms"], "plain_ms": mas_times["plain_ms"],
+        "bound_ms": mas_times["bound_ms"], "bound_by": "bytes", "chain_floor_ms": mas_times["chain_floor_ms"],
+        "library_ms": None,
+        "aligner": {k: mas_align_times[k] for k in ("ms", "graph_ms", "pair_ms", "pair_graph_ms", "plain_ms",
+                                                     "bound_ms", "chain_floor_ms")},
     }] + [{
         "name": name, "route": "cuda", "source": f"jatts_torch/csrc/{src}",
         "replaces": f"jax/experimental/pallas/ops/tpu/flash_attention.py:{line}",

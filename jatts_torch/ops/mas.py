@@ -1,5 +1,6 @@
-"""Monotonic Alignment Search: K2 and K3 (``csrc/mas_viterbi.cu``), their
-plain twins, the backend selector and ``viterbi_decode``.
+"""Monotonic Alignment Search: the fused search (``csrc/mas_path.cu``), K2
+and K3 (``csrc/mas_viterbi.cu``), their plain twins, the backend selector
+and ``viterbi_decode``.
 
 Counterpart of ``jatts_tpu/ops/mas.py`` and ``jatts_tpu/ops/mas_pallas.py``.
 The whole batch's Viterbi search over the alignment lattice runs on the
@@ -9,9 +10,15 @@ device, with no host round trip:
   decision bits ``d[j, i] = (Q[j-1, i-1] >= Q[j-1, i])`` (the diagonal wins
   a tie), packed 32 tokens to an int32 word.
 * K3, :func:`mas_backtrace`: walks those bits backward into the int32 path.
+* The fused search, :func:`mas_path_fused`: K2's forward and K3's
+  backtrace in one launch, the bits kept in shared memory between them
+  (or, when they do not fit, in a device-memory scratch staged back). The
+  backends ``auto`` and ``cuda`` send CUDA tensors here;
+  :func:`mas_path_cuda` keeps the K2 then K3 pair.
 
 On CUDA tensors each wrapper launches its kernel, counts the launch
-(``fwd_launches``, ``backtrace_launches``) and raises on what the kernel
+(``fwd_launches``, ``backtrace_launches``, ``path_launches`` and the fused
+search's storage route in ``path_routes``) and raises on what the kernel
 does not take; it takes its plain twin only for CPU tensors. The twins
 (:func:`mas_decisions_ref`, :func:`mas_backtrace_ref`, and the whole search
 with the Q lattice kept, :func:`mas_path_ref`) are Python loops over
@@ -32,18 +39,29 @@ from jatts_torch.ops import build
 from jatts_torch.ops.masks import sequence_mask
 
 KERNEL = "mas_viterbi"
-MAX_T_TEXT = 1024  # one thread per token, one block per utterance
+KERNEL_PATH = "mas_path"
+MAX_T_TEXT = 1024  # one block per utterance, at most 32 words of bits a frame
+# decision bits the fused search keeps in shared memory (T_feats x
+# ceil(T_text / 32) words); more go through a device-memory scratch
+SMEM_BITS_BYTES = 163840
+# the most dynamic shared memory a block may ask for, less the largest
+# mbarriers, lp ring and halo exchange of a block (csrc/mas_path.cu)
+MAX_SMEM_BITS_BYTES = 232448 - 65600
 _NEG = -1e9
 
 # kernel launches since the last reset_launches(); plain ints, host side
 fwd_launches = 0
 backtrace_launches = 0
+path_launches = 0
+path_routes = {"smem": 0, "global": 0}  # the fused search's launches by where its bits lay
 
 
 def reset_launches() -> None:
-    global fwd_launches, backtrace_launches
+    global fwd_launches, backtrace_launches, path_launches
     fwd_launches = 0
     backtrace_launches = 0
+    path_launches = 0
+    path_routes["smem"] = path_routes["global"] = 0
 
 
 # --------------------------------------------------------------------------
@@ -165,6 +183,13 @@ def _kernel_fns():
     return fwd, bwd
 
 
+def _path_fn():
+    fn = build.load(KERNEL_PATH).jatts_mas_path
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    return fn
+
+
 def _check_lengths(name: str, lengths: torch.Tensor, b: int) -> None:
     if lengths.shape != (b,) or lengths.dtype.is_floating_point or lengths.dtype == torch.bool:
         raise ValueError(f"{name} must be an integer tensor of shape [{b}], got "
@@ -259,29 +284,97 @@ def mas_backtrace(
 def mas_path_cuda(
     log_p_attn: torch.Tensor, text_lengths: torch.Tensor, feats_lengths: torch.Tensor
 ) -> torch.Tensor:
-    """K2 then K3, back to back on the current stream. CUDA tensors only."""
+    """K2 then K3, two launches back to back on the current stream, the
+    bits through device memory between them. CUDA tensors only. No backend
+    takes it since the fused search (:func:`mas_path_fused`); it is kept to
+    be held and timed beside that."""
     if log_p_attn.device.type != "cuda":
-        raise ValueError("mas_backend='cuda' needs CUDA tensors; use 'scan' or 'auto' on the CPU")
+        raise ValueError("mas_path_cuda (K2 then K3) needs CUDA tensors")
     bits = mas_decisions(log_p_attn, text_lengths)
     return mas_backtrace(bits, text_lengths, feats_lengths, log_p_attn.shape[2])
 
 
-def _mas_path_auto(log_p_attn, text_lengths, feats_lengths):
-    if log_p_attn.device.type == "cpu":
-        return mas_path_ref(log_p_attn, text_lengths, feats_lengths)
-    return mas_path_cuda(log_p_attn, text_lengths, feats_lengths)
+def mas_path_fused(
+    log_p_attn: torch.Tensor,
+    text_lengths: torch.Tensor,
+    feats_lengths: torch.Tensor,
+    return_bits: bool = False,
+    smem_bits_bytes: int = SMEM_BITS_BYTES,
+):
+    """The whole search in one launch (``csrc/mas_path.cu``) on CUDA tensors,
+    :func:`mas_path_ref` on CPU tensors: the int32 path ``[B, T_feats]``.
+
+    With ``return_bits`` it returns ``(path, bits)``, ``bits`` every frame's
+    decisions as K2 packs them (``pack_bits(mas_decisions_ref(...))``).
+    On the card it takes what :func:`mas_decisions` takes (bf16 is cast to
+    f32 first) and raises on anything else; the bits stay in shared memory
+    when ``T_feats * ceil(T_text / 32) * 4 <= smem_bits_bytes`` (route
+    ``smem``) and otherwise go through device memory (``global``), which a
+    smaller ``smem_bits_bytes`` forces. It launches on the current stream
+    and does not synchronise."""
+    if log_p_attn.dim() != 3:
+        raise ValueError("log_p_attn must be [B, T_feats, T_text]")
+    b, t_feats, t_text = log_p_attn.shape
+    _check_lengths("text_lengths", text_lengths, b)
+    _check_lengths("feats_lengths", feats_lengths, b)
+    if _on_cpu("mas_path_fused", log_p_attn, text_lengths, feats_lengths):
+        path = mas_path_ref(log_p_attn, text_lengths, feats_lengths)
+        if return_bits:
+            return path, pack_bits(mas_decisions_ref(log_p_attn, text_lengths))
+        return path
+    if log_p_attn.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"mas_path_fused: log_p_attn must be f32 or bf16, got {log_p_attn.dtype}")
+    if not log_p_attn.is_contiguous():
+        raise ValueError("mas_path_fused: log_p_attn must be contiguous")
+    if t_feats < 1 or not 1 <= t_text <= MAX_T_TEXT:
+        raise ValueError(f"mas_path_fused: unsupported sizes T_feats={t_feats}, T_text={t_text} "
+                         f"(T_text <= {MAX_T_TEXT})")
+    n_words = (t_text + 31) // 32
+    if not n_words * 4 <= smem_bits_bytes <= MAX_SMEM_BITS_BYTES:
+        raise ValueError(f"mas_path_fused: smem_bits_bytes={smem_bits_bytes} must hold a frame's "
+                         f"{n_words * 4} bytes and be at most {MAX_SMEM_BITS_BYTES}")
+    route = "smem" if t_feats * n_words * 4 <= smem_bits_bytes else "global"
+    device = log_p_attn.device
+    path = torch.empty(b, t_feats, dtype=torch.int32, device=device)
+    bits = scratch = None
+    if return_bits:
+        bits = torch.empty(b, t_feats, n_words, dtype=torch.int32, device=device)
+    elif route == "global":
+        scratch = torch.empty(b, t_feats, n_words, dtype=torch.int32, device=device)
+    if b > 0:
+        lp = log_p_attn.float()
+        tl = _lengths_i32(text_lengths)
+        fl = _lengths_i32(feats_lengths)
+        with torch.cuda.device(device):
+            rc = _path_fn()(lp.data_ptr(), tl.data_ptr(), fl.data_ptr(), path.data_ptr(),
+                            None if bits is None else bits.data_ptr(),
+                            None if scratch is None else scratch.data_ptr(),
+                            b, t_feats, t_text, smem_bits_bytes, torch.cuda.current_stream(device).cuda_stream)
+        if rc != 0:
+            raise RuntimeError(f"{KERNEL_PATH} launch failed with CUDA error {rc}")
+        global path_launches
+        path_launches += 1
+        path_routes[route] += 1
+    return (path, bits) if return_bits else path
+
+
+def _mas_path_kernel(log_p_attn, text_lengths, feats_lengths):
+    if log_p_attn.device.type != "cuda":
+        raise ValueError("mas_backend='cuda' needs CUDA tensors; use 'scan' or 'auto' on the CPU")
+    return mas_path_fused(log_p_attn, text_lengths, feats_lengths)
 
 
 def select_mas(backend: str) -> Callable[..., torch.Tensor]:
-    """``auto``: the kernels for CUDA tensors, the plain version for CPU
+    """``auto``: the fused search for CUDA tensors, the plain version for CPU
     tensors. ``scan``: the plain version wherever the tensors lie. ``cuda``:
-    the kernels, and an error on CPU tensors."""
+    the fused search, and an error on CPU tensors. (:func:`mas_path_cuda`,
+    the K2 then K3 pair, is no backend: it is timed beside.)"""
     if backend == "auto":
-        return _mas_path_auto
+        return mas_path_fused
     if backend == "scan":
         return mas_path_ref
     if backend == "cuda":
-        return mas_path_cuda
+        return _mas_path_kernel
     raise ValueError(f"unknown MAS backend: {backend}")
 
 
