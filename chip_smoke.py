@@ -141,7 +141,20 @@ Phases, each of which fails the run with a non-zero exit:
      3xTF32 backward kernels, no K1 or K1-bwd launch); the loss, bitwise
      resume, a step's time
      and parts, a profiled step, and the same step under ``attn_backend:
-     xla`` (the eager rel_shift_gather path) on the same weights and batch.
+     xla`` (the eager rel_shift_gather path) on the same weights and batch;
+ 15. the tts1 recipe, stages 1-4, through the port's CLIs on phase 8's
+     aligned corpus (egs/jsut/tts1/conf/fastspeech2.v1.yaml): stage 1
+     (``bin/preprocess.py``: log-mel, NCCF pitch and energy on the card,
+     ``.npz`` dumps; timed, profiled, 4 utterances held against the same
+     CLI on the CPU), ``Dio``'s f0 on the card against known-truth glottal
+     pulse trains, stages 1b and 2 (``bin/compute_statistics.py``,
+     ``bin/generate_token_list.py``), stage 3 (``bin/tts_train.main`` with
+     ``--attn-backend flash``, 50 steps on those dumps) and stage 4
+     (``bin/tts_decode.main``, batch 8, 2048 frames, with a seed-made
+     HiFi-GAN checkpoint in parallel_wavegan's layout and again with
+     ``--vocoder griffin_lim``; every K1 launch on the 3xTF32 kernel, 8 a
+     batch; the mels against ``FastSpeech2.inference``, the wavs against
+     the generator on torch-folded weights and Griffin-Lim on the CPU).
 The line before the last is the kernels' JSON record, the last line
 ``{"ok": true, "device": {...}}``. Exits 2 without a CUDA device or
 without the jatts_torch package beside this file.
@@ -2463,6 +2476,386 @@ def valle_slice(root, seed, where):
         "idle": 1 - busy_ms / wall_ms, "flash_ms": flash_ms, "xla_ms": xla_ms}
 
 
+# ---------------------------------------------------------------------------
+# the tts1 recipe, stages 1-4
+# ---------------------------------------------------------------------------
+
+RECIPE_STEPS = 50  # stage 3 of phase 15: the conf's train_max_steps is 100000
+RECIPE_WARMUP = 10  # the conf's warmup_steps is 4000
+RECIPE_BATCH = 8  # tts_decode's default batch
+HIFIGAN = dict(in_channels=80, out_channels=1, channels=512, kernel_size=7, upsample_scales=[5, 5, 4, 3],
+               upsample_kernel_sizes=[10, 10, 8, 6], resblock_kernel_sizes=[3, 7, 11],
+               resblock_dilations=[[1, 3, 5]] * 3, use_additional_convs=True)
+
+
+def glottal_pulses(f0_contour, sr, seed, shimmer=0.05, snr_db=25):
+    """The known-truth signal of tests/test_f0_accuracy.py: a glottal pulse
+    train at the per-sample f0, a glottal resonator, three formants and
+    noise at ``snr_db``."""
+    import numpy as np
+    from scipy.signal import lfilter
+
+    rng = np.random.default_rng(seed)
+    onsets = np.where(np.diff(np.floor(np.cumsum(f0_contour / sr))) > 0)[0]
+    x = np.zeros(len(f0_contour))
+    x[onsets] = 1.0 + shimmer * rng.standard_normal(len(onsets))
+    x = lfilter([1.0], [1, -1.95, 0.9506], x)
+    for fc, bw in ((700, 130), (1220, 150), (2600, 200)):
+        r = np.exp(-np.pi * bw / sr)
+        x = lfilter([1.0], [1, -2 * r * np.cos(2 * np.pi * fc / sr), r * r], x)
+    x = x / (np.abs(x).max() + 1e-9)
+    noise = rng.standard_normal(len(x))
+    noise *= np.sqrt((x**2).mean()) / np.sqrt((noise**2).mean()) * 10 ** (-snr_db / 20)
+    return (x + noise).astype(np.float32)
+
+
+def f0_truth_on_card(where):
+    """Dio on the card (the raw f0: no interpolation, no log, no token
+    means) on glottal pulse trains at 24 kHz, flat and with 5 Hz vibrato,
+    at three pitches; held to the JAX op's bounds in tests/test_f0_accuracy.py:
+    no gross errors (> 20% off), fine RMSE < 5 Hz, voicing errors < 0.02."""
+    import numpy as np
+
+    from jatts_torch.features.extractors import Dio
+
+    sr, hop = 24000, 300
+    dio = Dio(fs=sr, n_fft=2048, hop_length=hop, f0min=70.0, f0max=600.0, use_token_averaged_f0=False,
+              use_continuous_f0=False, use_log_f0=False, device="cuda")
+    for kind in ("flat", "vibrato"):
+        for base in (90, 160, 300):
+            t = np.arange(sr) / sr
+            c = np.full(sr, float(base)) if kind == "flat" else base * 1.5 + 0.06 * base * np.sin(2 * np.pi * 5 * t)
+            f0 = dio(glottal_pulses(c, sr, seed=base))
+            truth = c[np.clip(np.arange(len(f0)) * hop, 0, sr - 1)]
+            tv, ev = truth > 0, f0 > 0
+            vde = float((tv != ev).mean())
+            both = tv & ev
+            err = np.abs(f0[both] - truth[both])
+            rel = err / truth[both]
+            gross = float((rel > 0.2).mean()) if both.any() else 1.0
+            fine = err[rel <= 0.2]
+            rmse = float(np.sqrt((fine**2).mean())) if len(fine) else float("inf")
+            print(f"f0 truth on the card, {kind} {base} Hz: gross {gross:.3f} (limit 0), fine RMSE {rmse:.3f} Hz "
+                  f"(limit 5), voicing errors {vde:.4f} (limit 0.02); {where}", flush=True)
+            check(gross == 0.0 and rmse < 5.0 and vde < 0.02, f"f0 truth on the card: {kind} {base} Hz")
+
+
+def write_pwg_checkpoint(root, seed, stats):
+    """A seed-made HiFi-GAN in parallel_wavegan's layout: the generator's
+    state_dict with every conv weight as a weight_g/weight_v pair, under
+    ``{"model": {"generator": ...}}``; its config yaml and its own mel stats
+    (``mean``/``scale`` near the acoustic model's). Returns (checkpoint,
+    config, stats) paths and the pairs."""
+    import numpy as np
+    import torch
+    import yaml
+
+    from jatts_torch.vocoder.hifigan import HiFiGANGenerator
+
+    torch.manual_seed(seed)
+    gen = HiFiGANGenerator(**HIFIGAN, device="cpu")
+    rng = np.random.default_rng(seed)
+    sd = {}
+    for k, w in gen.state_dict().items():
+        if k.endswith(".weight") and w.dim() == 3:
+            base = k[: -len("weight")]
+            v = w * torch.from_numpy(rng.uniform(0.5, 2.0, (w.shape[0], 1, 1)).astype(np.float32))
+            sd[base + "weight_v"] = v
+            sd[base + "weight_g"] = w.flatten(1).norm(dim=1).reshape(-1, 1, 1)
+        else:
+            sd[k] = w
+    ckpt = str(Path(root) / "hifigan" / "checkpoint-0steps.pkl")
+    Path(ckpt).parent.mkdir(parents=True, exist_ok=True)
+    torch.save({"model": {"generator": sd}, "steps": 0}, ckpt)
+    conf = str(Path(root) / "hifigan" / "config.yml")
+    with open(conf, "w") as f:
+        yaml.dump({"sampling_rate": 24000, "generator_params": HIFIGAN}, f)
+    voc_stats = str(Path(root) / "hifigan" / "stats.npz")
+    with np.load(stats) as st:
+        np.savez(voc_stats, mean=(st["mel_mean"] + rng.normal(0, 0.1, 80)).astype(np.float32),
+                 scale=(st["mel_scale"] * rng.uniform(0.8, 1.2, 80)).astype(np.float32))
+    return ckpt, conf, voc_stats, sd
+
+
+def recipe_slice(root, align_paths, seed, where):
+    """Phase 15: tts1 stages 1-4 through the port's CLIs on phase 8's
+    aligned corpus. Returns the two decode runs' K1 launches (all on the
+    3xTF32 tensor-core kernel)."""
+    import numpy as np
+    import torch
+    import yaml
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from jatts_torch.bin import compute_statistics, generate_token_list, preprocess, tts_decode, tts_train
+    from jatts_torch.data.batcher import round_up
+    from jatts_torch.data.dataset import TTSDataset
+    from jatts_torch.models.fastspeech2 import FastSpeech2
+    from jatts_torch.ops import flash_attention as k1
+    from jatts_torch.ops.dsp import _stft_complex, mel_filterbank
+    from jatts_torch.utils.checkpoint import find_latest_checkpoint, restore_checkpoint
+    from jatts_torch.utils.config import load_config
+    from jatts_torch.utils.io import read_audio, read_csv, write_csv
+    from jatts_torch.vocoder.hifigan import HiFiGANGenerator
+    from jatts_torch.vocoder.vocoder import GriffinLimVocoder
+
+    t_phase = time.perf_counter()
+    root = Path(root) / "recipe"
+    conf = load_config(str(JSUT_CONF))
+    sr, hop = conf["sampling_rate"], conf["hop_size"]
+
+    # stage 1 on the card, train and dev, .npz dumps
+    csvs = {split: str(root / f"{split}.csv") for split in ("train", "dev")}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    audio_s = 0.0
+    for split, src in zip(("train", "dev"), align_paths):
+        audio_s += preprocess.run(src, conf, str(root / "dump" / split), out_csv=csvs[split], device="cuda",
+                                  dump_format="npz")
+    torch.cuda.synchronize()
+    stage1_s = time.perf_counter() - t0
+    rows = {split: read_csv(csvs[split], dict_reader=True)[0] for split in csvs}
+    n_utts = sum(len(r) for r in rows.values())
+    print(f"stage 1 (preprocess, mel + pitch + energy, .npz, JSUT feature settings): {n_utts} utterances, "
+          f"{audio_s:.2f} s of audio; {where}", flush=True)
+    print(f"stage 1 wall: {stage1_s:.2f} s; {where}", flush=True)
+    print(f"stage 1 seconds per hour of audio: {stage1_s / audio_s * 3600:.2f} s; {where}", flush=True)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        preprocess.run(align_paths[1], conf, str(root / "dump_profiled"), out_csv=str(root / "profiled.csv"),
+                       device="cuda", dump_format="npz")
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    busy_ms = sum(e.self_device_time_total for e in events) / 1e3
+    check(busy_ms > 0, "profile of stage 1: the profiler saw no device time")
+    stage1_busy = busy_ms / wall_ms
+    print(f"stage 1 profiled on the dev rows: wall {wall_ms:.1f} ms, device busy {busy_ms:.2f} ms in "
+          f"{sum(e.count for e in events)} kernels; {where}", flush=True)
+    print(f"stage 1 device busy share: {stage1_busy:.4f}; {where}", flush=True)
+
+    # 4 utterances' dumps against the same CLI on the CPU
+    four = str(root / "four.csv")
+    write_csv(read_csv(align_paths[1], dict_reader=True)[0][:4], four)
+    preprocess.run(four, conf, str(root / "dump_cpu"), out_csv=str(root / "four_cpu.csv"), device="cpu",
+                   dump_format="npz")
+    errs = {"mel": 0.0, "mel_linear": 0.0, "mel_all": (0.0, 0.0), "pitch": 0.0, "energy": 0.0}
+    for cpu_row, row in zip(read_csv(str(root / "four_cpu.csv"), dict_reader=True)[0], rows["dev"]):
+        check(cpu_row["sample_id"] == row["sample_id"], "stage 1 rows out of order")
+        with np.load(cpu_row["feat_path"]) as want, np.load(row["feat_path"]) as got:
+            check(sorted(got.files) == sorted(want.files) == ["energy", "mel", "pitch", "wave"],
+                  f"stage 1 keys {got.files}")
+            check(np.array_equal(got["wave"], want["wave"]), "stage 1 waves differ")
+            check(np.array_equal(got["pitch"] > 0, want["pitch"] > 0), f"{row['sample_id']}: voicing differs")
+            # the mel to 2e-6 of the utterance's peak in the linear domain
+            # (the |STFT| tolerance); the log-mel to 5e-5 where the mel is
+            # within 2% of the peak: below, two FFTs' rounding noise (~1e-7
+            # of the peak) is a large share of a quiet bin
+            lin_got, lin_want = 10.0 ** got["mel"].astype(np.float64), 10.0 ** want["mel"].astype(np.float64)
+            peak = lin_want.max()
+            log_err = np.abs(got["mel"] - want["mel"])
+            loud = lin_want >= 0.02 * peak
+            errs["mel"] = max(errs["mel"], float(log_err[loud].max()))
+            errs["mel_linear"] = max(errs["mel_linear"], float(np.abs(lin_got - lin_want).max() / peak))
+            worst = np.unravel_index(log_err.argmax(), log_err.shape)
+            if log_err[worst] > errs["mel_all"][0]:
+                errs["mel_all"] = (float(log_err[worst]), float(lin_want[worst] / peak))
+            errs["pitch"] = max(errs["pitch"], float(np.abs(got["pitch"] - want["pitch"]).max()))
+            errs["energy"] = max(errs["energy"], float(
+                (np.abs(got["energy"] - want["energy"]) / (1e-4 * np.abs(want["energy"]) + 1e-5)).max()))
+    print(f"stage 1, card vs CPU on 4 dev utterances: mel max_abs_err {errs['mel_linear']:.2e} of the peak "
+          f"(tol 2e-6), log-mel {errs['mel']:.2e} where the mel is >= 2% of the peak (tol 5e-5; over every bin "
+          f"{errs['mel_all'][0]:.2e}, at {errs['mel_all'][1]:.1e} of the peak), log-f0 {errs['pitch']:.2e} (tol "
+          f"1e-3, same voicing), energy {errs['energy']:.3f} of its tolerance (1e-4 relative + 1e-5)", flush=True)
+    check(errs["mel_linear"] <= 2e-6 and errs["mel"] <= 5e-5 and errs["pitch"] <= 1e-3 and errs["energy"] <= 1.0,
+          "stage 1 card vs CPU")
+
+    f0_truth_on_card(where)
+
+    # stages 1b and 2
+    stats = str(root / "stats.npz")
+    compute_statistics.run(csvs["train"], conf, stats)
+    tokens = str(root / "tokens.txt")
+    vocab = generate_token_list.run([csvs["train"], csvs["dev"]], tokens)
+    with np.load(stats) as st:
+        check(sorted(st.files) == sorted(f"{f}_{s}" for f in ("mel", "pitch", "energy") for s in ("mean", "scale"))
+              and st["mel_mean"].shape == (80,) and st["pitch_mean"].shape == (1,), f"stats {st.files}")
+    check(len(vocab) == 43, f"{len(vocab)} tokens, want 40 phones + 3")
+
+    # stage 3 through the CLI's main
+    reduced = dict(conf, train_max_steps=RECIPE_STEPS,
+                   scheduler_params={**conf["scheduler_params"], "warmup_steps": RECIPE_WARMUP})
+    conf_path = str(root / "fastspeech2.yaml")
+    with open(conf_path, "w") as f:
+        yaml.dump(reduced, f)
+    print(f"stage 3 config {JSUT_CONF.relative_to(ROOT)} with --attn-backend flash; reductions: train_max_steps "
+          f"{conf['train_max_steps']} -> {RECIPE_STEPS}, warmup_steps {conf['scheduler_params']['warmup_steps']} "
+          f"-> {RECIPE_WARMUP}", flush=True)
+    expdir = str(root / "exp")
+    t0 = time.perf_counter()
+    trainer = tts_train.main(["--train-csv", csvs["train"], "--dev-csv", csvs["dev"], "--stats", stats,
+                              "--token-list", tokens, "--config", conf_path, "--outdir", expdir,
+                              "--attn-backend", "flash", "--seed", str(seed), "--verbose", "0"])
+    torch.cuda.synchronize()
+    stage3_s = time.perf_counter() - t0
+    losses = [h["train/loss"] for h in trainer.history]
+    first, last = float(np.mean(losses[:10])), float(np.mean(losses[-10:]))
+    print(f"stage 3: {trainer.steps} steps in {stage3_s:.1f} s on the stage-1 dumps; loss mean of the first 10 "
+          f"steps {first:.4f}, of the last 10 {last:.4f}; {where}", flush=True)
+    check(trainer.steps == RECIPE_STEPS and all(math.isfinite(v) for v in losses), "stage 3 training")
+    check(last < first, "stage 3: the training loss did not fall")
+    del trainer
+
+    # stage 4: the dev rows, then the same rows under other ids, so that a
+    # second batch of the same shape gives the CLI's steady-state RTF
+    dev_rows = rows["dev"]
+    decode_csv = str(root / "decode.csv")
+    write_csv(dev_rows + [dict(r, sample_id=r["sample_id"] + "_again") for r in dev_rows], decode_csv)
+    ckpt, voc_conf, voc_stats, pairs = write_pwg_checkpoint(root, seed, stats)
+    exp_conf = load_config(str(Path(expdir) / "config.yml"))
+    check(exp_conf["model_params"]["attn_backend"] == "flash", "config.yml lost the attention backend")
+    exp_conf["vocoder"] = {"checkpoint": ckpt, "config": voc_conf, "stats": voc_stats}
+    exp_conf_path = str(root / "exp_config.yml")
+    with open(exp_conf_path, "w") as f:
+        yaml.dump(exp_conf, f)
+    n_batches = -(-len(dev_rows) * 2 // RECIPE_BATCH)
+    decoded = {}
+    for name, extra in (("hifigan", []), ("griffin_lim", ["--vocoder", "griffin_lim"])):
+        k1.reset_launches()
+        t0 = time.perf_counter()
+        decoded[name] = tts_decode.main([
+            "--csv", decode_csv, "--stats", stats, "--token-list", tokens, "--expdir", expdir,
+            "--config", exp_conf_path, "--outdir", str(root / f"decode_{name}"),
+            "--batch-size", str(RECIPE_BATCH), "--max-frames", "2048", "--verbose", "0", *extra])
+        torch.cuda.synchronize()
+        decoded[name]["wall_s"] = time.perf_counter() - t0
+        decoded[name]["k1"] = (k1.launches, k1.launches_tc_f32, k1.launches - k1.launches_tc_f32,
+                               k1.launches_tc + k1.launches_relpos + k1.launches_causal)
+        n, tc, scalar, other = decoded[name]["k1"]
+        print(f"stage 4 ({name}): {len(decoded[name]['olens'])} utterances in {n_batches} batches of "
+              f"{RECIPE_BATCH}, vocoder {decoded[name]['vocoder']}; K1 launches {n}, on the 3xTF32 tensor-core "
+              f"kernel {tc}, on the scalar kernel {scalar}, other forms {other} (8 a batch = {8 * n_batches})",
+              flush=True)
+        check(tc == 8 * n_batches and scalar == 0 and other == 0, f"stage 4 ({name}): K1 launches {decoded[name]['k1']}")
+    hg, gl = decoded["hifigan"], decoded["griffin_lim"]
+    check(hg["vocoder"] == "Vocoder" and gl["vocoder"] == "GriffinLimVocoder", "stage 4 vocoder choice")
+    check(hg["olens"] == gl["olens"], "the two decode runs predicted different lengths")
+    min_frames = conf["fft_size"] // hop + 1
+    olens = hg["olens"]
+    check(len(olens) == 2 * len(dev_rows) and min(olens.values()) >= min_frames,
+          f"stage 4: degenerate or missing predictions {olens}")
+    wavs = {}
+    for name in decoded:
+        for utt, olen in olens.items():
+            wav, wav_sr = read_audio(str(root / f"decode_{name}" / "wav" / f"{utt}.wav"))
+            check(wav_sr == sr and len(wav) == olen * hop and bool(np.isfinite(wav).all()),
+                  f"stage 4 ({name}) {utt}: {len(wav)} samples, want {olen * hop}")
+            wavs[(name, utt)] = wav
+    print(f"stage 4: one wav per row in each run, olens * {hop} samples (olens {min(olens.values())}-"
+          f"{max(olens.values())} frames)", flush=True)
+
+    # the mels against FastSpeech2.inference on the same batch
+    mp = dict(exp_conf["model_params"])
+    model = FastSpeech2(**mp, device="cuda")
+    model.load_state_dict(restore_checkpoint(find_latest_checkpoint(expdir), map_location="cuda")["model"])
+    model.eval()
+    ds = TTSDataset(decode_csv, stats, conf["feat_list"], tokens, is_inference=True)
+    items = [ds[i] for i in range(len(ds))]
+    mel_err, mel_max = 0.0, 0.0
+    for i in range(0, len(items), RECIPE_BATCH):
+        chunk = items[i : i + RECIPE_BATCH]
+        xs = torch.zeros((len(chunk), round_up(max(len(it["x"]) for it in chunk), 16)), dtype=torch.long)
+        for j, it in enumerate(chunk):
+            xs[j, : len(it["x"])] = torch.from_numpy(it["x"])
+        ilens = torch.tensor([len(it["x"]) for it in chunk])
+        with torch.no_grad():
+            want = model.inference(xs.cuda(), ilens.cuda(), 2048)
+        for j, it in enumerate(chunk):
+            olen = int(want["olens"][j])
+            ref = want["feat_gen"][j, :olen].cpu().numpy()
+            for name in decoded:
+                got = np.load(str(root / f"decode_{name}" / "wav" / f"{it['utt_id']}_mel.npy"))
+                check(got.shape == ref.shape, f"{it['utt_id']}: mel {got.shape} vs {ref.shape}")
+                mel_err = max(mel_err, float(np.abs(got - ref).max()))
+            mel_max = max(mel_max, float(np.abs(ref).max()))
+    print(f"stage 4 _mel.npy vs FastSpeech2.inference on the same batches: max_abs_err {mel_err:.2e} "
+          f"(tol 1e-5; max |mel| {mel_max:.2f})", flush=True)
+    check(mel_err <= 1e-5, "stage 4 mels differ from FastSpeech2.inference")
+
+    # the HiFi-GAN wavs against the generator on weights folded by torch
+    gen = HiFiGANGenerator(**HIFIGAN, device="cuda")
+    folded = {}
+    for k, v in pairs.items():
+        if k.endswith("weight_v"):
+            folded[k[: -len("_v")]] = torch._weight_norm(v, pairs[k[: -1] + "g"], 0)
+        elif not k.endswith("weight_g"):
+            folded[k] = v
+    gen.load_state_dict(folded, strict=True)
+    with np.load(stats) as st, np.load(voc_stats) as vs:
+        m_mean, m_scale, v_mean, v_scale = st["mel_mean"], st["mel_scale"], vs["mean"], vs["scale"]
+    hg_err = 0.0
+    for utt in olens:
+        mel = np.load(str(root / "decode_hifigan" / "wav" / f"{utt}_mel.npy"))
+        x = ((mel * m_scale + m_mean) - v_mean) / v_scale
+        x = np.pad(x.astype(np.float32), ((0, -(-len(x) // 64) * 64 - len(x)), (0, 0)))
+        with torch.no_grad():
+            ref = gen(torch.from_numpy(x)[None].cuda())[0, : len(mel) * hop, 0].cpu().numpy()
+        hg_err = max(hg_err, float(np.abs(wavs[("hifigan", utt)] - np.clip(ref, -1, 1)).max()))
+    print(f"stage 4 HiFi-GAN wavs vs the generator on torch-folded weights: max_abs_err {hg_err:.2e} "
+          f"(tol 1e-4: the wav's 16-bit rounding is 1.5e-5)", flush=True)
+    check(hg_err <= 1e-4, "stage 4 HiFi-GAN wavs differ from the folded generator")
+
+    # one Griffin-Lim wav against the same call on the CPU (and the card's).
+    # The iteration is chaotic where the spectrum is sparse (these tones):
+    # a bin near zero takes its phase from rounding noise, so after 32
+    # iterations two FFT libraries' waveforms part ways (the port and the
+    # JAX package on one CPU do too) while each fits the target magnitude
+    # as well. So the two are held by that fit, the spectral convergence
+    # ||STFT(wav)| - M| / |M| that Griffin-Lim lowers, M the magnitude it
+    # inverts: within 2% of each other, and below the fit it starts from
+    utt = dev_rows[0]["sample_id"]
+    gl_conf = {k: conf[k] for k in ("sampling_rate", "fft_size", "hop_size", "num_mels", "fmin", "fmax")}
+    mel = np.load(str(root / "decode_griffin_lim" / "wav" / f"{utt}_mel.npy"))
+    on_card = GriffinLimVocoder(gl_conf, device="cuda").decode(mel, m_mean, m_scale)
+    on_cpu = GriffinLimVocoder(gl_conf, device="cpu").decode(mel, m_mean, m_scale)
+    start_wav = GriffinLimVocoder(gl_conf, n_iter=0, device="cuda").decode(mel, m_mean, m_scale)
+    basis = mel_filterbank(sr, conf["fft_size"], conf["num_mels"], conf["fmin"], conf["fmax"]).astype(np.float32)
+    target = np.maximum((10.0 ** (mel * m_scale + m_mean).astype(np.float64)) @ np.linalg.pinv(basis).T, 0.0)
+
+    def fit(wav):
+        mag = _stft_complex(torch.from_numpy(wav), conf["fft_size"], hop).abs().double().numpy()[: len(target)]
+        return float(np.linalg.norm(mag - target) / np.linalg.norm(target))
+
+    sc_card, sc_cpu, sc_start = fit(on_card), fit(on_cpu), fit(start_wav)
+    wav_diff = float(np.abs(on_card - on_cpu).max() / np.abs(on_cpu).max())
+    file_err = float(np.abs(wavs[("griffin_lim", utt)] - np.clip(on_card, -1, 1)).max())
+    print(f"stage 4 Griffin-Lim {utt}, 32 iterations: spectral convergence card {sc_card:.4f}, CPU {sc_cpu:.4f} "
+          f"(within 2% of each other), from {sc_start:.4f} before the iterations; the waveforms differ by "
+          f"{wav_diff:.2e} of max|wav| (phase noise in near-empty bins); the CLI's wav vs the card's call "
+          f"{file_err:.2e} (tol 1e-4)", flush=True)
+    check(abs(sc_card - sc_cpu) <= 0.02 * sc_cpu and sc_card < sc_start and file_err <= 1e-4,
+          "stage 4 Griffin-Lim")
+
+    first = hg["batches"][0]
+    steady = [b for b in hg["batches"] if not b["first_of_shape"]]
+    check(len(steady) >= 1 and hg["rtf"] is not None, "stage 4: no steady-state batch")
+    decode_ms = 1e3 * sum(b["seconds"] for b in steady) / len(steady)
+    gl_ms = 1e3 * float(np.mean(gl["vocoder_s"]))
+    hg_ms = 1e3 * float(np.mean(hg["vocoder_s"]))
+    audio_dec = sum(olens.values()) * hop / sr
+    print(f"stage 4 decode batch shape {first['shape']} (B, T_text), max_frames 2048: first batch "
+          f"{1e3 * first['seconds']:.1f} ms; {where}", flush=True)
+    print(f"stage 4 decode ms per batch (steady state, FastSpeech2 to the host): {decode_ms:.2f} ms; {where}",
+          flush=True)
+    print(f"stage 4 decode RTF (steady state, the CLI's): {hg['rtf']:.6f}; {where}", flush=True)
+    print(f"stage 4 HiFi-GAN ms per utterance (f32, 512 ch): {hg_ms:.2f} ms; {where}", flush=True)
+    print(f"stage 4 Griffin-Lim ms per utterance (32 iterations): {gl_ms:.2f} ms; {where}", flush=True)
+    print(f"stage 4 whole CLI: HiFi-GAN run {hg['wall_s']:.2f} s, Griffin-Lim run {gl['wall_s']:.2f} s for "
+          f"{audio_dec:.1f} s of audio; {where}", flush=True)
+    print(f"phase 15 (stages 1-4 and their checks): {time.perf_counter() - t_phase:.1f} s; {where}", flush=True)
+    return hg["k1"][1] + gl["k1"][1]
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2766,6 +3159,9 @@ def main() -> int:
     # with speaker embeddings
     jvs_serve_launches, jvs_serve = jvs_serving(args.seed, where)
     jvs_launches, jvs = training_slice(tmp.name, align_paths, freqs, args.seed, where, which="jvs")
+
+    # 15. the tts1 recipe, stages 1-4, through the port's CLIs on phase 8's corpus
+    decode_tc_f32 = recipe_slice(tmp.name, align_paths, args.seed, where)
     tmp.cleanup()
     # K2, K3, pair, fused path, fused bits: differing elements over every
     # case and the run's own lattice; K2, K3, fused: the largest |kernel -
@@ -2805,8 +3201,8 @@ def main() -> int:
         "route": "cuda",
         "source": "jatts_torch/csrc/flash_attn_fwd_tc_f32.cu",
         "replaces": "jatts_tpu/modules/attention.py:158",
-        "launches": train["fwd_tc_f32"],
-        "launches_by_path": {"training": train["fwd_tc_f32"]},
+        "launches": train["fwd_tc_f32"] + decode_tc_f32,
+        "launches_by_path": {"training": train["fwd_tc_f32"], "decode": decode_tc_f32},
         "max_abs_err": max(max_err["f32"], tc_f32_err["k1"]),
         "ms": train_k1["ms"],
         "plain_ms": train_k1["plain_ms"],

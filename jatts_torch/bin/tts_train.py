@@ -174,7 +174,7 @@ def run(
     return trainer
 
 
-def main(argv: Optional[Sequence[str]] = None) -> None:
+def main(argv: Optional[Sequence[str]] = None) -> Trainer:
     parser = argparse.ArgumentParser(description="Train a TTS model (stage 3).")
     parser.add_argument("--train-csv", required=True)
     parser.add_argument("--dev-csv", required=True)
@@ -202,7 +202,7 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
         raise SystemExit("--multihost is not ported: the port trains on one GPU")
     config = load_config(args.config)
     config["verbose"] = args.verbose
-    run(
+    return run(
         args.train_csv, args.dev_csv, args.stats, args.token_list, config, args.outdir,
         resume=args.resume, pretrain=args.pretrain, seed=args.seed, device=args.device,
         attn_backend=args.attn_backend,

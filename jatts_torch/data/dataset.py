@@ -36,6 +36,10 @@ class Scaler:
             return x
         return (x - self.mean[feat]) / self.scale[feat]
 
+    def inverse(self, feat: str, x: np.ndarray) -> np.ndarray:
+        if feat not in self.mean:
+            return x
+        return x * self.scale[feat] + self.mean[feat]
 
 
 class TTSDataset:
@@ -43,8 +47,11 @@ class TTSDataset:
     (int64), ``durations`` (int64) when the csv has them, and the
     normalized features of ``feat_list`` (float32; pitch/energy as
     ``[T, 1]``; codec codes ``encodec*`` as stored, integer ``[T, 8]``, and
-    never normalized). Training items only: the inference mode of the JAX
-    dataset and the VALL-E prompt strategies (``prompt_strategy``) are not
+    never normalized). With ``is_inference`` a row's features are loaded
+    only where it has a ``feat_path``, and a feature missing from the dump
+    is skipped instead of raising (a decode csv may carry only reference
+    features, e.g. ``spkemb``); ``return_utt_id`` False leaves out
+    ``utt_id``. The VALL-E prompt strategies (``prompt_strategy``) are not
     ported yet."""
 
     def __init__(
@@ -54,10 +61,12 @@ class TTSDataset:
         feat_list: Sequence[str],
         token_list_path: str,
         phoneme_column: str = "phonemes",
+        is_inference: bool = False,
         prompt_strategy: Optional[str] = None,
         hop_size: int = 300,
         sampling_rate: int = 24000,
         allow_cache: bool = False,
+        return_utt_id: bool = True,
     ):
         if prompt_strategy is not None:
             raise ValueError("prompt_strategy (VALL-E prompts) is not ported yet")
@@ -65,6 +74,8 @@ class TTSDataset:
         self.feat_list = list(feat_list)
         self.token_converter = TokenIDConverter(token_list_path)
         self.phoneme_column = phoneme_column
+        self.is_inference = is_inference
+        self.return_utt_id = return_utt_id
         self.hop_size = hop_size
         self.sampling_rate = sampling_rate
         self.scaler = (
@@ -94,9 +105,14 @@ class TTSDataset:
         tokens = row[self.phoneme_column].split(" ")
         return np.asarray(self.token_converter.tokens2ids(tokens), dtype=np.int64)
 
-    def _load_feats(self, feat_path: str, items: Dict[str, Any]) -> None:
+    def _load_feats(self, feat_path: str, items: Dict[str, Any], lenient: bool = False) -> None:
         for feat in self.feat_list:
-            x = np.asarray(read_array(feat_path, feat))
+            try:
+                x = np.asarray(read_array(feat_path, feat))
+            except (FileNotFoundError, KeyError, OSError):
+                if lenient:
+                    continue
+                raise
             if self.scaler is not None:
                 x = self.scaler.transform(feat, x)
             if feat in ("pitch", "energy") and x.ndim == 1:
@@ -109,14 +125,19 @@ class TTSDataset:
         if self.allow_cache and idx in self._cache:
             return self._cache[idx]
         row = self.data[idx]
-        items: Dict[str, Any] = {"utt_id": row.get("sample_id", str(idx))}
+        items: Dict[str, Any] = {}
+        if self.return_utt_id:
+            items["utt_id"] = row.get("sample_id", str(idx))
         items["spk"] = row.get("spk", "")
         items["x"] = self._tokenize(row)
         if row.get("durations"):
             items["durations"] = np.asarray(
                 [int(d) for d in row["durations"].split()], dtype=np.int64
             )
-        self._load_feats(row["feat_path"], items)
+        if not self.is_inference:
+            self._load_feats(row["feat_path"], items)
+        elif row.get("feat_path"):
+            self._load_feats(row["feat_path"], items, lenient=True)
         for k in ("ref_wav_path", "wav_path", "original_text"):
             if row.get(k):
                 items[k] = row[k]

@@ -16,6 +16,7 @@ becomes anything else.
 from __future__ import annotations
 
 import csv
+import fnmatch
 import logging
 import os
 from typing import Any, Dict, List, Optional, Sequence, Tuple
@@ -23,6 +24,18 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import scipy.io.wavfile
 import scipy.signal
+
+
+def find_files(root_dir: str, query: str = "*.wav", include_root_dir: bool = True) -> List[str]:
+    """Files under ``root_dir`` (recursively, following links) whose name
+    matches the glob ``query``."""
+    files = []
+    for root, _, filenames in os.walk(root_dir, followlinks=True):
+        for filename in fnmatch.filter(filenames, query):
+            files.append(os.path.join(root, filename))
+    if not include_root_dir:
+        files = [f.replace(root_dir + "/", "") for f in files]
+    return files
 
 
 def read_csv(path: str, dict_reader: bool = False) -> Tuple[Any, List[str]]:
