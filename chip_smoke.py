@@ -154,7 +154,24 @@ Phases, each of which fails the run with a non-zero exit:
      HiFi-GAN checkpoint in parallel_wavegan's layout and again with
      ``--vocoder griffin_lim``; every K1 launch on the 3xTF32 kernel, 8 a
      batch; the mels against ``FastSpeech2.inference``, the wavs against
-     the generator on torch-folded weights and Griffin-Lim on the CPU).
+     the generator on torch-folded weights and Griffin-Lim on the CPU);
+ 16. the Matcha family at the JSUT width (f32, TF32 off): 16 requests
+     through BatchingServer on egs/jsut/tts1/conf/matcha_tts.v1.prior.steplr.large.yaml
+     as it stands (seed-made weights, phase 7's HiFi-GAN, 10 ODE steps),
+     with every launch count at 0 just before and read just after (none:
+     Matcha's attention runs eager, as in the JAX package), the seed (same
+     bits; another seed, other audio) and the served mel against
+     ``MatchaTTS.inference`` on the same noise; then phase 8's corpus as
+     mel-only dumps trains Matcha-TTS (tts1, 50 steps, batch 32) and
+     Matcha-TTS+MAS (egs/jsut/tts2/conf/matcha_tts.mas.v1.yaml, 50 steps,
+     batch 16, its gates cut to 20 and 30 steps) through
+     ``jatts_torch/bin/tts_train.py:run``, launch counts set to 0 just
+     before and read just after (tts2: one fused MAS search a step, no K2 or
+     K3, no flash; tts1: none); the falling loss, each gate, the last two
+     steps replayed bitwise from the interval checkpoint (deterministic
+     cuDNN), the tts2 step's own lattice through the MAS checks, the same
+     step under ``mas_backend: scan`` (identical durations and losses), a
+     step's time and parts, the CTC loop's and the fused search's shares.
 The line before the last is the kernels' JSON record, the last line
 ``{"ok": true, "device": {...}}``. Exits 2 without a CUDA device or
 without the jatts_torch package beside this file.
@@ -1889,13 +1906,14 @@ TRAIN_STEPS = 200  # the conf's train_max_steps is 100000
 TRAIN_WARMUP = 50  # the conf's warmup_steps is 4000
 
 
-def write_fs2_corpus(root, align_paths, freqs, tag="fs2", spk_dim=0, seed=0):
+def write_fs2_corpus(root, align_paths, freqs, tag="fs2", spk_dim=0, seed=0, mel_only=False):
     """Phase 8's rows (cropped by start/end, with durations) as FastSpeech2
     training data: per utterance an .npz with the log-mel at the JSUT
     settings cropped to the durations' sum (as jatts_tpu/bin/preprocess.py
-    crops it), the per-token pitch (log of the phone's tone frequency) and
-    the per-token energy (the STFT-magnitude energy of ops/dsp.py averaged
-    over the token's frames, as the JAX Energy extractor averages it), and
+    crops it), unless ``mel_only`` (Matcha's dumps) the per-token pitch (log
+    of the phone's tone frequency) and the per-token energy (the
+    STFT-magnitude energy of ops/dsp.py averaged over the token's frames, as
+    the JAX Energy extractor averages it), and
     with ``spk_dim`` a ``spkemb`` of that width (one of 4 seed-made unit
     speaker vectors plus a little per-utterance noise, as x-vectors of one
     speaker vary); the stats (``<feat>_mean``/``_scale`` over the train rows,
@@ -1932,16 +1950,17 @@ def write_fs2_corpus(root, align_paths, freqs, tag="fs2", spk_dim=0, seed=0):
             mel = mel_ex(wav)
             check(abs(len(mel) - int(ds.sum())) <= 3, f"{row['sample_id']}: mel frames != sum(durations)")
             mel = mel[: int(ds.sum())]
-            e = energy(torch.from_numpy(wav).cuda(), c["fft_size"], hop).cpu().numpy()[: len(mel)]
-            bounds = np.concatenate([[0], np.cumsum(ds)])
-            e_tok = np.asarray([
-                seg[seg > 0].mean() if (seg > 0).any() else 0.0
-                for seg in (e[a:z] for a, z in zip(bounds[:-1], bounds[1:]))
-            ], np.float32)
-            p_tok = np.log([freqs[p] for p in row["phonemes"].split()]).astype(np.float32)
             feat_path = str(Path(root) / f"dump_{tag}" / f"{row['sample_id']}.npz")
             Path(feat_path).parent.mkdir(parents=True, exist_ok=True)
-            feats = {"mel": mel.astype(np.float32), "pitch": p_tok, "energy": e_tok}
+            feats = {"mel": mel.astype(np.float32)}
+            if not mel_only:
+                e = energy(torch.from_numpy(wav).cuda(), c["fft_size"], hop).cpu().numpy()[: len(mel)]
+                bounds = np.concatenate([[0], np.cumsum(ds)])
+                feats["pitch"] = np.log([freqs[p] for p in row["phonemes"].split()]).astype(np.float32)
+                feats["energy"] = np.asarray([
+                    seg[seg > 0].mean() if (seg > 0).any() else 0.0
+                    for seg in (e[a:z] for a, z in zip(bounds[:-1], bounds[1:]))
+                ], np.float32)
             if spk_dim:
                 spk = n_utt % JVS_SPEAKERS
                 row["spk"] = f"spk{spk}"
@@ -2856,6 +2875,353 @@ def recipe_slice(root, align_paths, seed, where):
     return hg["k1"][1] + gl["k1"][1]
 
 
+# ---------------------------------------------------------------------------
+# the Matcha family: serving, tts1 training, tts2 (MAS) training
+# ---------------------------------------------------------------------------
+
+MATCHA_CONF = ROOT / "egs" / "jsut" / "tts1" / "conf" / "matcha_tts.v1.prior.steplr.large.yaml"
+MATCHA_MAS_CONF = ROOT / "egs" / "jsut" / "tts2" / "conf" / "matcha_tts.mas.v1.yaml"
+MATCHA_STEPS = 50  # both confs' train_max_steps is 100000
+MATCHA_RESUME = 48  # an interval checkpoint: steps 48 and 49 are replayed from it
+MAS_GATES = {"dp_train_start_steps": 20, "bin_loss_start_steps": 30}  # the conf's 10000 and 15000
+
+
+def launch_counts():
+    """Every kernel's launch counter: K1's forms and the MAS search's."""
+    from jatts_torch.ops import flash_attention as k1
+    from jatts_torch.ops import mas
+
+    counts = {f"k1.{n}": v for n, v in vars(k1).items() if n.startswith("launches") and isinstance(v, int)}
+    counts.update({"mas.path": mas.path_launches, "mas.fwd": mas.fwd_launches,
+                   "mas.backtrace": mas.backtrace_launches})
+    return counts
+
+
+def reset_all_launches():
+    from jatts_torch.ops import flash_attention as k1
+    from jatts_torch.ops import mas
+
+    k1.reset_launches()
+    mas.reset_launches()
+
+
+def profile_ms(fn):
+    """Wall ms of one call under the profiler, device busy ms and the CUDA
+    events (kernels only: op-level entries carry their kernels' time again)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    busy_ms = sum(e.self_device_time_total for e in events) / 1e3
+    check(busy_ms > 0, "profile: the profiler saw no device time")
+    return wall_ms, busy_ms, events
+
+
+def matcha_serving(seed, where):
+    """Phase 16, serving: the JSUT Matcha-TTS conf as it stands, f32, seed-made
+    weights, phase 7's HiFi-GAN; 16 requests through BatchingServer."""
+    import numpy as np
+    import torch
+
+    from jatts_torch.models.matchatts import MatchaTTS
+    from jatts_torch.serving import BatchingServer, ServingBundle
+    from jatts_torch.serving.bundle import inference_kwargs
+    from jatts_torch.utils.config import load_config
+    from jatts_torch.vocoder.hifigan import HiFiGANGenerator
+
+    config = load_config(str(MATCHA_CONF))
+    kw = inference_kwargs(config)
+    sr, max_frames, bucket, batch = config["sampling_rate"], 1024, 128, 8
+    torch.manual_seed(seed)
+    model = MatchaTTS(idim=64, **config["model_params"], device="cuda").eval()
+    voc = HiFiGANGenerator(device="cuda", dtype=torch.bfloat16)
+    with torch.no_grad():
+        # as phase 7: centre the random durations on max_frames / bucket frames a token
+        model.duration_predictor.linear.weight.mul_(0.1)
+        model.duration_predictor.linear.bias.fill_(math.log(1.0 + max_frames / bucket))
+    rng = np.random.default_rng(seed)
+    mel_mean = rng.normal(-4.0, 1.0, 80).astype(np.float32)
+    mel_scale = rng.uniform(0.5, 2.0, 80).astype(np.float32)
+    requests = [rng.integers(1, 64, size=int(n)).tolist() for n in rng.integers(40, bucket + 1, size=16)]
+    requests[0] = rng.integers(1, 64, size=bucket).tolist()
+    bundle = ServingBundle(model, voc, mel_mean, mel_scale, batch_size=batch, buckets=[bucket],
+                           max_frames=max_frames, wav_format="f32", infer_kwargs=kw)
+    print(f"Matcha serving: {MATCHA_CONF.relative_to(ROOT)} as it stands (adim 384, 4 conformer blocks, U-Net "
+          f"{config['model_params']['decoder_channels']}, {kw['n_timesteps']} ODE steps, temperature "
+          f"{kw['temperature']}), f32, TF32 off; HiFi-GAN 512 ch bf16", flush=True)
+    bundle.synthesize(requests[:batch])  # warm-up (cuDNN/cuBLAS plans)
+    torch.cuda.synchronize()
+
+    reset_all_launches()
+    t0 = time.perf_counter()
+    with BatchingServer(bundle, max_delay_ms=20.0) as server:
+        futures = [server.submit(token_ids=ids) for ids in requests]
+        results = [f.result(timeout=600) for f in futures]
+    served_s = time.perf_counter() - t0
+    counts = launch_counts()
+    print(f"Matcha served {len(results)} requests in {server.stats['batches']} batches, {served_s:.3f} s; "
+          f"kernel launches {sum(counts.values())} (flash {sum(v for k, v in counts.items() if k.startswith('k1'))},"
+          f" MAS {counts['mas.path'] + counts['mas.fwd'] + counts['mas.backtrace']}; limit 0)", flush=True)
+    check(sum(counts.values()) == 0, f"Matcha serving launched a kernel: {counts}")
+    hop = voc.hop_size
+    for i, r in enumerate(results):
+        n = r["mel"].shape[0]
+        check(0 < n <= max_frames and n % 2 == 0, f"Matcha request {i}: olens {n}")
+        check(r["wav"].shape == (n * hop,), f"Matcha request {i}: wav {r['wav'].shape} != olens*hop")
+        check(bool(np.isfinite(r["wav"]).all() and np.isfinite(r["mel"]).all()), f"Matcha request {i}: not finite")
+
+    # the seed reaches the ODE noise
+    full = requests[:batch]
+    a, b, c = (bundle.synthesize(full, seed=s) for s in (0, 0, 1))
+    same = all(np.array_equal(x["wav"], y["wav"]) and np.array_equal(x["mel"], y["mel"]) for x, y in zip(a, b))
+    other = max(float(np.abs(x["mel"] - y["mel"]).max()) for x, y in zip(a, c))
+    print(f"Matcha seed: seed 0 twice bitwise equal {same}; seed 1 vs 0 max |mel diff| {other:.3e} "
+          f"(limit > 1e-3)", flush=True)
+    check(same and other > 1e-3, "the serving seed does not fix (or does not reach) the ODE noise")
+    # the served mel against MatchaTTS.inference on the same noise
+    xs, ilens = bundle.prepare(full)
+    with torch.no_grad():
+        ref = model.inference(xs, ilens, max_frames, generator=torch.Generator(device="cuda").manual_seed(0), **kw)
+    ref_mel = (ref["feat_gen"].float() * bundle.mel_scale + bundle.mel_mean).cpu().numpy()
+    ref_olens = ref["olens"].tolist()
+    check([r["mel"].shape[0] for r in a] == ref_olens, "served olens != MatchaTTS.inference olens")
+    mel_err = max(float(np.abs(r["mel"] - ref_mel[i, :n]).max()) for i, (r, n) in enumerate(zip(a, ref_olens)))
+    mel_top = max(1.0, float(np.abs(ref_mel).max()))
+    print(f"Matcha served mel vs MatchaTTS.inference on the same noise: max |diff| {mel_err:.3e} "
+          f"(tol 1e-5 x {mel_top:.2f})", flush=True)
+    check(mel_err <= 1e-5 * mel_top, "the served mel differs from MatchaTTS.inference")
+
+    # times: a pcm16 batch, the U-Net an ODE step, HiFi-GAN, a profiled batch
+    pcm = ServingBundle(model, voc, mel_mean, mel_scale, batch_size=batch, buckets=[bucket],
+                        max_frames=max_frames, infer_kwargs=kw)
+    batch_ms = time_ms(lambda: pcm.synthesize(full), iters=3, warmup=1)
+    audio_s = sum(ref_olens) * hop / sr
+    mask = torch.ones(batch, max_frames, device="cuda")
+    x = torch.randn(batch, max_frames, 80, device="cuda")
+    mu = torch.randn(batch, max_frames, 80, device="cuda")
+    t = torch.full((batch,), 0.5, device="cuda")
+    with torch.no_grad():
+        unet_ms = time_ms(lambda: model.decoder.estimator(x, mask, mu, t), iters=5, warmup=1)
+        mel_b = torch.from_numpy(ref_mel).cuda().to(torch.bfloat16)
+        voc_ms = time_ms(lambda: voc(mel_b), iters=5, warmup=1)
+        acoustic_ms = time_ms(lambda: model.inference(xs, ilens, max_frames, **kw), iters=3, warmup=1)
+    wall_ms, busy_ms, events = profile_ms(lambda: pcm.synthesize(full))
+    print(
+        f"Matcha serving f32 pcm16 B={batch} bucket={bucket} max_frames={max_frames}: {batch_ms:.2f} ms per batch, "
+        f"RTF {batch_ms / 1e3 / audio_s:.5f} ({audio_s:.2f} s of audio); MatchaTTS.inference {acoustic_ms:.2f} ms "
+        f"(U-Net {unet_ms:.2f} ms an ODE step x {kw['n_timesteps']}), HiFi-GAN {voc_ms:.2f} ms; profiled batch: "
+        f"wall {wall_ms:.2f} ms, device busy {busy_ms:.2f} ms, idle share {1 - busy_ms / wall_ms:.3f}; {where}",
+        flush=True,
+    )
+    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:6]:
+        print(f"  {e.self_device_time_total / 1e3:8.2f} ms  x{e.count:<5d} {e.key[:90]}")
+    return {"batch_ms": batch_ms, "rtf": batch_ms / 1e3 / audio_s, "unet_ms": unet_ms, "voc_ms": voc_ms,
+            "acoustic_ms": acoustic_ms, "idle": 1 - busy_ms / wall_ms}
+
+
+def _batch_at(loader, step):
+    """The batch a run took at ``step``: epoch step // n, position step % n
+    of that epoch's shuffled order (every epoch holds the sampler's n batches)."""
+    n = len(loader.sampler)
+    epoch, pos = divmod(step, n)
+    loader.sampler.set_epoch(epoch)
+    return loader._make(list(loader.sampler)[pos])
+
+
+def matcha_training(root, csvs, seed, where, which):
+    """Phase 16, training: ``which`` "tts1" (MatchaTTS on the csv's
+    durations) or "tts2" (MatchaTTS_MAS, the fused MAS search on every
+    step). Returns the MAS search's launches in the run and the numbers the
+    record and PERF.md need."""
+    import numpy as np
+    import torch
+
+    from jatts_torch.bin import tts_train
+    from jatts_torch.modules.cfm import set_noise_generator
+    from jatts_torch.modules.dropout import set_dropout_rate
+    from jatts_torch.ops import mas
+    from jatts_torch.train.steps_matcha import matchatts_kwargs
+    from jatts_torch.train.trainer import Trainer
+    from jatts_torch.utils.config import load_config
+
+    mas_run = which == "tts2"
+    conf = MATCHA_MAS_CONF if mas_run else MATCHA_CONF
+    config = load_config(str(conf))
+    cuts = [f"train_max_steps {config['train_max_steps']} -> {MATCHA_STEPS}",
+            f"save_interval_steps {config['save_interval_steps']} -> {MATCHA_RESUME}"]
+    config.update(train_max_steps=MATCHA_STEPS, save_interval_steps=MATCHA_RESUME)
+    if mas_run:
+        cuts += [f"{k} {config[k]} -> {v}" for k, v in MAS_GATES.items()]
+        config.update(MAS_GATES)
+    print(f"Matcha training ({which}): {conf.relative_to(ROOT)} (batch {config['batch_size']}, "
+          f"{config['optimizer_type']} {config['optimizer_params']['lr']}, {config['scheduler_type']}, grad_norm "
+          f"{config['grad_norm']}), f32; reductions: {', '.join(cuts)}", flush=True)
+    outdir = str(Path(root) / f"exp_matcha_{which}")
+    # deterministic cuDNN for the run, the replay and the backend comparison,
+    # so that equal inputs give equal bits; the times below are taken without it
+    torch.backends.cudnn.deterministic = True
+    reset_all_launches()
+    t0 = time.perf_counter()
+    trainer = tts_train.run(*csvs, config, outdir, seed=seed, device="cuda")
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    counts = launch_counts()
+    hist = trainer.history
+    loader = trainer.train_loader
+    n_mas = counts["mas.path"]
+    print(f"Matcha training ({which}): {len(loader.dataset)} utterances in {len(loader.sampler)} batches, "
+          f"{trainer.steps} steps in {run_s:.1f} s; launches: fused MAS search {n_mas} (limit "
+          f"{MATCHA_STEPS if mas_run else 0}), K2 {counts['mas.fwd']}, K3 {counts['mas.backtrace']}, flash "
+          f"{sum(v for k, v in counts.items() if k.startswith('k1'))} (limit 0)", flush=True)
+    check(trainer.steps == MATCHA_STEPS, f"trained {trainer.steps} steps")
+    check(all(math.isfinite(v) for h in hist for v in h.values()), "a Matcha training stat is not finite")
+    check(all(v == 0 for k, v in counts.items() if k != "mas.path"), f"Matcha training launched {counts}")
+    check(n_mas == (MATCHA_STEPS if mas_run else 0), f"fused MAS search launches {n_mas}")
+    # the ungated part of the loss must fall (the gates move the rest)
+    core = [h["train/cfm_loss"] + h["train/encoder_prior_loss"] for h in hist]
+    first, last = float(np.mean(core[:10])), float(np.mean(core[-10:]))
+    print(f"Matcha training ({which}): cfm + prior loss, mean of the first 10 steps {first:.4f}, of the last 10 "
+          f"{last:.4f}; whole loss {hist[0]['train/loss']:.4f} -> {hist[-1]['train/loss']:.4f}", flush=True)
+    check(last < first, "the Matcha loss did not fall")
+    if mas_run:
+        gated = ("train/forward_sum_loss", "train/duration_loss", "train/binary_loss")
+        on = [tuple(h[k] != 0.0 for k in gated) for h in hist]
+        want = [(s < 20, s > 20, s > 30) for s in range(MATCHA_STEPS)]
+        print(f"Matcha-MAS gates: forward-sum on {sum(o[0] for o in on)} steps, duration {sum(o[1] for o in on)}, "
+              f"bin {sum(o[2] for o in on)} (20, 29, 19)", flush=True)
+        check(on == want, "a Matcha-MAS loss gate opened at the wrong step")
+
+    # resume from the interval checkpoint and replay the last two steps
+    model2 = tts_train.MODELS[config["model_type"]](**trainer.config["model_params"], device="cuda")
+    resumed = Trainer(trainer.config, model2, trainer.criterions, trainer.loss_fn, loader,
+                      outdir=outdir + "_resumed", seed=seed)
+    resumed.init_state()
+    resumed.load_checkpoint(str(Path(outdir) / f"checkpoint-{MATCHA_RESUME}steps"))
+    replay = [resumed.train_step(_batch_at(loader, s)) for s in range(MATCHA_RESUME, MATCHA_STEPS)]
+    same_stats = replay == hist[MATCHA_RESUME:]
+    same = all(torch.equal(model2.state_dict()[k], v) for k, v in trainer.model.state_dict().items())
+    print(f"Matcha resume ({which}) from checkpoint-{MATCHA_RESUME}steps, steps {MATCHA_RESUME}-{MATCHA_STEPS - 1} "
+          f"replayed: stats bitwise equal {same_stats}, parameters bitwise equal {same}", flush=True)
+    check(same_stats and same, "the resumed Matcha trainer differs")
+    del resumed, model2
+
+    model, params, crit = trainer.model, trainer.params, trainer.criterions
+    big = max(loader.sampler.batches, key=lambda idx: sum(loader.dataset.get_frame_len(i) for i in idx))
+    tb = trainer.to_device(loader._make(big))
+    shape = (tb["ys"].shape[0], tb["ys"].shape[1], tb["xs"].shape[1])
+    out = {"run_s": run_s, "launches": n_mas}
+    if mas_run:
+        # on the step's own lattice: the kernels against the plain search
+        with torch.no_grad():
+            lp = model(**matchatts_kwargs(tb, model))["log_p_attn"].detach()
+        out["own_check"] = check_mas("Matcha-MAS step's lattice", lp, tb["ilens"], tb["olens"])
+        out["mas_ms"] = time_ms(lambda: mas.mas_path_fused(lp, tb["ilens"], tb["olens"]))
+        # the same step under mas_backend scan: identical durations and losses
+        m = tts_train.MODELS[config["model_type"]](**trainer.config["model_params"], device="cuda")
+        m.load_state_dict(model.state_dict())
+        set_dropout_rate(m, 0.0)
+        m.train()
+        res = {}
+        before = mas.path_launches
+        for backend in ("auto", "scan"):
+            m.mas_backend = backend
+            rows = []
+            for step in (0, 40):
+                set_noise_generator(m, torch.Generator(device="cuda").manual_seed(seed + 7))
+                with torch.no_grad():
+                    fwd = m(**matchatts_kwargs(tb, m))
+                    set_noise_generator(m, torch.Generator(device="cuda").manual_seed(seed + 7))
+                    loss, stats = trainer.loss_fn(m, tb, crit, trainer.config, step)
+                rows.append((fwd["ds"], float(loss), {k: float(v) for k, v in stats.items()}))
+            res[backend] = rows
+        check(mas.path_launches - before == 4, f"auto launched the fused search {mas.path_launches - before} "
+              "times in 4 forwards, scan must launch none")
+        same_ds = all(torch.equal(a[0], s[0]) for a, s in zip(res["auto"], res["scan"]))
+        same_loss = all(a[1:] == s[1:] for a, s in zip(res["auto"], res["scan"]))
+        print(f"Matcha-MAS step at batch {shape}, mas_backend auto vs scan (dropout 0, the same noise): ds "
+              f"identical {same_ds} ({int(res['auto'][0][0].sum())} frames), losses and stats identical at steps 0 "
+              f"and 40 {same_loss} (loss {res['auto'][0][1]:.6f}, {res['auto'][1][1]:.6f})", flush=True)
+        check(same_ds and same_loss, "mas_backend auto and scan disagree on the Matcha-MAS step")
+        del m
+
+    torch.backends.cudnn.deterministic = False
+
+    # one step at the largest batch and its parts (host clock)
+    def host_ms(fn, iters=3):
+        return time_ms(fn, iters=iters, warmup=1, host_clock=True)
+
+    def loss_at(step):
+        return trainer.loss_fn(model, tb, crit, trainer.config, step)[0]
+
+    def step_at(step):
+        grads = torch.autograd.grad(loss_at(step), params, allow_unused=True)
+        for p, g in zip(params, grads):
+            p.grad = g
+        trainer.optimizer.step()
+        for p in params:
+            p.grad = None
+
+    model.train()
+    t_gate = 0 if mas_run else 1  # tts2: forward-sum on; tts1: the duration loss on
+    fwd_ms = host_ms(lambda: loss_at(t_gate))
+    loss = loss_at(t_gate)
+    bwd_ms = host_ms(lambda: torch.autograd.grad(loss, params, retain_graph=True, allow_unused=True))
+    step_ms = host_ms(lambda: step_at(t_gate))
+    wall_ms, busy_ms, events = profile_ms(lambda: step_at(t_gate))
+    mas_dev = sum(e.self_device_time_total for e in events if "mas_path_kernel" in e.key) / 1e3
+    out.update(step_ms=step_ms, fwd_ms=fwd_ms, bwd_ms=bwd_ms, idle=1 - busy_ms / wall_ms, shape=shape)
+    line = (f"Matcha training step ({which}) f32, batch {shape} (B, T_feats, T_text), gates of step {t_gate}: "
+            f"whole step {step_ms:.1f} ms (host clock); forward+loss {fwd_ms:.1f} ms, backward {bwd_ms:.1f} ms")
+    if mas_run:
+        from jatts_torch.losses.align import ForwardSumLoss
+
+        lpg = model(**matchatts_kwargs(tb, model))["log_p_attn"]
+        fsum = ForwardSumLoss()
+        ctc_fwd = host_ms(lambda: fsum(lpg, tb["ilens"], tb["olens"]))
+        ctc_bwd = host_ms(lambda: torch.autograd.grad(fsum(lpg, tb["ilens"], tb["olens"]), lpg))
+        step_late = host_ms(lambda: step_at(40))
+        out.update(ctc_ms=ctc_bwd, ctc_share=ctc_bwd / step_ms, step_late_ms=step_late, mas_dev_ms=mas_dev)
+        line += (f"; the CTC loop forward {ctc_fwd:.1f} ms, forward+backward {ctc_bwd:.1f} ms = "
+                 f"{ctc_bwd / step_ms:.3f} of the step; the step at 40 (no forward-sum) {step_late:.1f} ms; the "
+                 f"fused MAS search {out['mas_ms']:.4f} ms alone, {mas_dev:.4f} ms of device time in the profiled "
+                 f"step = {mas_dev / step_ms:.5f} of the step")
+    print(line + f"; {where}", flush=True)
+    print(f"profile of one Matcha step ({which}): wall {wall_ms:.1f} ms under the profiler, device busy "
+          f"{busy_ms:.1f} ms in {sum(e.count for e in events)} kernels, idle share {1 - busy_ms / wall_ms:.3f}",
+          flush=True)
+    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:6]:
+        print(f"  {e.self_device_time_total / 1e3:8.2f} ms  x{e.count:<5d} {e.key[:90]}")
+    return out
+
+
+def matcha_slice(root, align_paths, freqs, seed, where):
+    """Phase 16. Returns the serving numbers and both trainings'."""
+    from jatts_torch.utils.io import read_csv, write_csv
+
+    t_phase = time.perf_counter()
+    serve = matcha_serving(seed, where)
+    train_csv, dev_csv, stats, tokens = write_fs2_corpus(root, align_paths, freqs, tag="matcha", seed=seed,
+                                                         mel_only=True)
+    tts1 = matcha_training(root, (train_csv, dev_csv, stats, tokens), seed, where, "tts1")
+    # tts2 finds its own durations: the same rows without the durations column
+    mas_csvs = []
+    for path in (train_csv, dev_csv):
+        rows, _ = read_csv(path, dict_reader=True)
+        out = path.replace(".csv", "_nodur.csv")
+        write_csv([{k: v for k, v in r.items() if k != "durations"} for r in rows], out)
+        mas_csvs.append(out)
+    tts2 = matcha_training(root, (*mas_csvs, stats, tokens), seed, where, "tts2")
+    print(f"phase 16 (Matcha serving, tts1 and tts2 training): {time.perf_counter() - t_phase:.1f} s; {where}",
+          flush=True)
+    return serve, tts1, tts2
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3162,6 +3528,10 @@ def main() -> int:
 
     # 15. the tts1 recipe, stages 1-4, through the port's CLIs on phase 8's corpus
     decode_tc_f32 = recipe_slice(tmp.name, align_paths, args.seed, where)
+
+    # 16. the Matcha family: serving, then tts1 and tts2 (MAS) training on phase 8's corpus
+    matcha_serve, matcha_tts1, matcha_tts2 = matcha_slice(tmp.name, align_paths, freqs, args.seed, where)
+    mas_checks.append(matcha_tts2["own_check"])
     tmp.cleanup()
     # K2, K3, pair, fused path, fused bits: differing elements over every
     # case and the run's own lattice; K2, K3, fused: the largest |kernel -
@@ -3291,11 +3661,13 @@ def main() -> int:
         "mismatches": mas_mismatches[1] + mas_mismatches[2], "max_abs_err": mas_max_err[1],
         "ms": mas_times["k3_ms"], "plain_ms": mas_times["k3_plain"], "bound_ms": mas_times["k3_bound"], **mas_row,
     }, {
-        # K2 and K3 in one launch, the aligner's main path; timed at
-        # 16x1024x128 (``aligner``: at the aligner run's largest batch)
+        # K2 and K3 in one launch, the aligner's and Matcha-MAS training's
+        # search; timed at 16x1024x128 (``aligner``: at the aligner run's
+        # largest batch; ``matcha_mas_training``: at that run's largest)
         "name": "mas_path", "route": "cuda", "source": "jatts_torch/csrc/mas_path.cu",
         "replaces": "jatts_tpu/ops/mas_pallas.py:139", "replaces_also": "jatts_tpu/ops/mas_pallas.py:161",
-        "launches": mas_launches[0], "launches_by_path": {"aligner": mas_launches[0]},
+        "launches": mas_launches[0] + matcha_tts2["launches"],
+        "launches_by_path": {"aligner": mas_launches[0], "matcha_mas_training": matcha_tts2["launches"]},
         "mismatches": mas_mismatches[3] + mas_mismatches[4], "max_abs_err": mas_max_err[2], "routes": mas_routes,
         "ms": mas_times["ms"], "graph_ms": mas_times["graph_ms"], "pair_ms": mas_times["pair_ms"],
         "pair_graph_ms": mas_times["pair_graph_ms"], "plain_ms": mas_times["plain_ms"],
@@ -3303,6 +3675,8 @@ def main() -> int:
         "library_ms": None,
         "aligner": {k: mas_align_times[k] for k in ("ms", "graph_ms", "pair_ms", "pair_graph_ms", "plain_ms",
                                                      "bound_ms", "chain_floor_ms")},
+        "matcha_mas_training": {"ms": matcha_tts2["mas_ms"], "step_device_ms": matcha_tts2["mas_dev_ms"],
+                                "step_ms": matcha_tts2["step_ms"]},
     }] + [{
         "name": name, "route": "cuda", "source": f"jatts_torch/csrc/{src}",
         "replaces": f"jax/experimental/pallas/ops/tpu/flash_attention.py:{line}",

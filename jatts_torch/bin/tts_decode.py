@@ -9,9 +9,12 @@ each utterance and writes ``outdir/wav/<utt>.wav`` and ``<utt>_mel.npy``:
         --token-list data/tokens.txt --expdir exp/fastspeech2 \\
         --config exp/fastspeech2/config.yml --outdir exp/fastspeech2/decode
 
-It runs on the CUDA card unless ``--device cpu`` is given. The model is
+It runs on the CUDA card unless ``--device cpu`` is given. The models are
 FastSpeech2 (multi-speaker too: with ``spk_embed_dim`` each batch carries
-the rows' ``spkemb``). ``--vocoder auto`` loads the config's ``vocoder``
+the rows' ``spkemb``) and Matcha-TTS (``MatchaTTS``, ``MatchaTTS_MAS``:
+``ode_steps`` Euler steps from noise scaled by ``temperature``, drawn from a
+generator seeded by the batch's first row index, where the JAX CLI takes
+``jax.random.key(i)``). ``--vocoder auto`` loads the config's ``vocoder``
 checkpoint (a parallel_wavegan HiFi-GAN pickle) and falls back to
 Griffin-Lim with a warning when that file is missing; ``--vocoder
 griffin_lim`` always inverts with Griffin-Lim. The log's inference speed
@@ -39,10 +42,13 @@ from jatts_torch.bin.tts_train import DTYPES, MODELS
 from jatts_torch.data.batcher import round_up
 from jatts_torch.data.dataset import TTSDataset
 from jatts_torch.device import resolve_device
+from jatts_torch.serving.bundle import inference_kwargs
 from jatts_torch.utils.checkpoint import find_latest_checkpoint, restore_checkpoint
 from jatts_torch.utils.config import load_config
 from jatts_torch.utils.io import read_array, write_audio
 from jatts_torch.vocoder.vocoder import GriffinLimVocoder, Vocoder
+
+DECODES = ("FastSpeech2", "MatchaTTS", "MatchaTTS_MAS")  # the mel models of the JAX CLI, but VITS
 
 
 def run(
@@ -68,8 +74,8 @@ def run(
     without a second batch of a shape)."""
     dev = resolve_device(device)
     model_type = config["model_type"]
-    if model_type != "FastSpeech2":
-        raise ValueError(f"model_type {model_type!r} is not ported yet")
+    if model_type not in DECODES:
+        raise ValueError(f"model_type {model_type!r} is not ported yet (still to come: VITS)")
     with open(token_list, encoding="utf-8") as f:
         n_vocab = len([line for line in f if line.strip()])
     model_params = dict(config["model_params"])
@@ -102,6 +108,7 @@ def run(
             )
         voc = GriffinLimVocoder(config, device=dev)
 
+    infer_kwargs = inference_kwargs(config)
     # multi-speaker: without spembs the model would decode every row with
     # no speaker identity
     use_spembs = bool((config.get("model_params") or {}).get("spk_embed_dim"))
@@ -133,10 +140,13 @@ def run(
             spembs = torch.from_numpy(np.stack([
                 np.asarray(it["spkemb"], np.float32).reshape(-1) for it in chunk
             ])).to(dev)
+        kwargs = dict(infer_kwargs)
+        if getattr(model, "samples_noise", False):
+            kwargs["generator"] = torch.Generator(device=dev).manual_seed(i)
         start = time.time()
         with torch.no_grad():
             out = model.inference(torch.from_numpy(xs).to(dev), torch.from_numpy(ilens).to(dev),
-                                  max_frames, spembs)
+                                  max_frames, spembs, **kwargs)
         feats = out["feat_gen"].float().cpu().numpy()
         olens = out["olens"].cpu().numpy()
         elapsed = time.time() - start

@@ -16,8 +16,10 @@ may be ``.h5`` (needs h5py) or ``.npz`` with the same keys. The models are
 FastSpeech2 (multi-speaker too: with ``spkemb`` in ``feat_list`` and
 ``spk_embed_dim`` in ``model_params``, as egs/jvs/tts1/conf/fastspeech2.v1.yaml
 has them, each batch carries its ``spembs``; ``conformer_rel_pos_type:
-latest`` with ``flash`` trains through K1r) and the VALL-E AR (``VALLEAR``,
-tts3 stage 3, e.g.
+latest`` with ``flash`` trains through K1r), Matcha-TTS (``MatchaTTS`` on
+the csv's durations, tts1, and ``MatchaTTS_MAS``, tts2, which searches its
+own with the fused MAS kernel; mel-only ``feat_list``; no ``attn_backend``)
+and the VALL-E AR (``VALLEAR``, tts3 stage 3, e.g.
 ``--config egs/hificaptain_jp_female/tts3/conf/valle_ar.given.bs32.yaml``);
 ``model_params.dtype`` is passed to the model as its ``dtype`` (for VALL-E
 the compute dtype: parameters stay float32). ``--multihost`` is not ported.
@@ -43,12 +45,15 @@ from jatts_torch.data.dataset import TTSDataset
 from jatts_torch.device import resolve_device
 from jatts_torch.losses.basic import LOSS_REGISTRY
 from jatts_torch.models.fastspeech2 import FastSpeech2
+from jatts_torch.models.matchatts import MatchaTTS
+from jatts_torch.models.matchatts_mas import MatchaTTS_MAS
 from jatts_torch.models.valle import VALLEAR
 from jatts_torch.train.steps import get_loss_fn
 from jatts_torch.train.trainer import Trainer
 from jatts_torch.utils.config import dump_config, load_config
 
-MODELS = {"FastSpeech2": FastSpeech2, "VALLEAR": VALLEAR}
+MODELS = {"FastSpeech2": FastSpeech2, "MatchaTTS": MatchaTTS, "MatchaTTS_MAS": MatchaTTS_MAS, "VALLEAR": VALLEAR}
+NOT_PORTED = ("VITS", "VALLENAR", "E2TTS")  # the JAX package's other model types
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
@@ -89,7 +94,7 @@ def run(
     )
     model_type = config.get("model_type", "FastSpeech2")
     if model_type not in MODELS:
-        raise ValueError(f"model_type {model_type!r} is not ported yet")
+        raise ValueError(f"model_type {model_type!r} is not ported yet (still to come: {', '.join(NOT_PORTED)})")
     if config.get("batch_size_per_gpu"):
         raise ValueError("frame-budget batching (batch_size_per_gpu) is not ported yet")
 
@@ -98,6 +103,9 @@ def run(
     model_params = dict(config.get("model_params") or {})
     model_params["idim"] = n_vocab
     if attn_backend is not None:
+        if model_type.startswith("MatchaTTS"):
+            # as in the JAX package: Matcha's attention never takes the kernel
+            raise ValueError(f"{model_type} has no attn_backend: its attention runs eager")
         model_params["attn_backend"] = attn_backend
     config["model_params"] = dict(model_params)
     dtype = DTYPES[model_params.pop("dtype", "float32")]

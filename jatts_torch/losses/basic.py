@@ -11,6 +11,7 @@ from typing import Optional
 import torch
 
 from jatts_torch.losses.align import BinLoss, ForwardSumLoss
+from jatts_torch.losses.flow_matching import CFMLoss, EncoderPriorLoss
 from jatts_torch.ops.masks import sequence_mask
 
 
@@ -106,4 +107,6 @@ LOSS_REGISTRY = {
     "EnergyLoss": EnergyLoss,
     "ForwardSumLoss": ForwardSumLoss,
     "BinLoss": BinLoss,
+    "CFMLoss": CFMLoss,
+    "EncoderPriorLoss": EncoderPriorLoss,
 }

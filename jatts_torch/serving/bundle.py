@@ -1,14 +1,18 @@
 """In-process serving bundle (counterpart of ``build_infer_fn`` plus
 ``ServingBundle`` in jatts_tpu/serving/export.py, without ``jax.export``).
 
-The bundle holds FastSpeech2 and a HiFi-GAN vocoder on their device with
-the acoustic model's mel statistics (and the vocoder's, when given). A
-call pads the requests to the fixed ``batch_size`` and the smallest text
-bucket that fits, runs inference -> denormalise -> (renormalise) ->
-vocoder -> pcm16 (or f32) in one pass, fetches each output once and crops
-every row by its ``olens``. A multi-speaker model (``spk_embed_dim``) takes
-one speaker embedding a request, padded with zero rows to the batch size,
-as the JAX bundle pads them; a request without one gets a zero row.
+The bundle holds an acoustic model (FastSpeech2, MatchaTTS or
+MatchaTTS_MAS) and a HiFi-GAN vocoder on their device with the acoustic
+model's mel statistics (and the vocoder's, when given). A call pads the
+requests to the fixed ``batch_size`` and the smallest text bucket that
+fits, runs inference -> denormalise -> (renormalise) -> vocoder -> pcm16
+(or f32) in one pass, fetches each output once and crops every row by its
+``olens``. A multi-speaker model (``spk_embed_dim``) takes one speaker
+embedding a request, padded with zero rows to the batch size, as the JAX
+bundle pads them; a request without one gets a zero row. Matcha's
+inference keywords (``ode_steps``, ``temperature``) come from
+:func:`inference_kwargs`, and its ODE noise from a generator seeded by the
+call's ``seed``.
 """
 
 from __future__ import annotations
@@ -17,6 +21,17 @@ from typing import Any, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
+
+
+def inference_kwargs(config: Dict[str, Any]) -> Dict[str, Any]:
+    """The per-family inference keywords of a recipe config, as the JAX
+    package's ``build_infer_fn`` and decode CLI set them."""
+    if config["model_type"].startswith("MatchaTTS"):
+        return dict(
+            n_timesteps=int(config.get("ode_steps", 10)),
+            temperature=float(config.get("temperature", 0.667)),
+        )
+    return {}
 
 
 class ServingBundle:
@@ -33,6 +48,7 @@ class ServingBundle:
         voc_mean: Optional[np.ndarray] = None,
         voc_scale: Optional[np.ndarray] = None,
         wav_format: str = "pcm16",
+        infer_kwargs: Optional[Dict[str, Any]] = None,
     ):
         if wav_format not in ("pcm16", "f32"):
             raise ValueError(f"wav_format must be 'pcm16' or 'f32', not {wav_format!r}")
@@ -45,6 +61,7 @@ class ServingBundle:
         self.hop_size = int(vocoder.hop_size)
         self.wav_format = wav_format
         self.spk_dim = int(getattr(model, "spk_embed_dim", None) or 0)
+        self.infer_kwargs = dict(infer_kwargs or {})
 
         def stat(x):
             return None if x is None else torch.as_tensor(
@@ -89,12 +106,16 @@ class ServingBundle:
 
     @torch.no_grad()
     def run(
-        self, xs: torch.Tensor, ilens: torch.Tensor, spembs: Optional[torch.Tensor] = None
+        self, xs: torch.Tensor, ilens: torch.Tensor, spembs: Optional[torch.Tensor] = None, seed: int = 0
     ) -> Dict[str, torch.Tensor]:
         """The fixed-shape program on device tensors: xs [batch_size, bucket],
         ilens [batch_size] (, spembs [batch_size, spk_dim]) -> {"olens",
-        "wav"} (+ "mel" for f32)."""
-        out = self.model.inference(xs, ilens, self.max_frames, spembs)
+        "wav"} (+ "mel" for f32). A model that samples noise (Matcha) draws
+        it from a generator seeded by ``seed``."""
+        kwargs = dict(self.infer_kwargs)
+        if getattr(self.model, "samples_noise", False):
+            kwargs["generator"] = torch.Generator(device=self.device).manual_seed(int(seed))
+        out = self.model.inference(xs, ilens, self.max_frames, spembs, **kwargs)
         mel = out["feat_gen"].float() * self.mel_scale + self.mel_mean
         v = mel if self.voc_mean is None else (mel - self.voc_mean) / self.voc_scale
         voc_dtype = next(self.vocoder.parameters()).dtype
@@ -113,10 +134,11 @@ class ServingBundle:
         """token_ids: <= batch_size sequences (and, for a multi-speaker
         model, ``spembs`` [len(token_ids), spk_dim]) -> per-utterance dicts
         with ``wav`` [olens*hop] (int16 or float32) and, for f32, ``mel``
-        [olens, n_mels]. FastSpeech2 is deterministic: ``seed`` is accepted
-        for the serving interface and changes nothing."""
+        [olens, n_mels]. ``seed`` seeds Matcha's ODE noise: the same seed
+        gives the same bits, another seed other audio; FastSpeech2 is
+        deterministic and ignores it."""
         xs, ilens = self.prepare(token_ids)
-        out = self.run(xs, ilens, self.prepare_spembs(spembs))
+        out = self.run(xs, ilens, self.prepare_spembs(spembs), seed)
         # one device->host fetch per output, rows sliced on the host
         host = {k: v.cpu().numpy() for k, v in out.items()}
         results = []

@@ -11,6 +11,7 @@ from __future__ import annotations
 
 from typing import Any, Dict
 
+from jatts_torch.train.steps_matcha import matchatts_kwargs, matchatts_loss
 from jatts_torch.train.steps_valle import valle_kwargs, valle_loss
 
 
@@ -47,21 +48,30 @@ def fastspeech2_loss(model, batch: Dict[str, Any], criterions, config, step):
 
 LOSS_FN_REGISTRY = {
     "FastSpeech2Trainer": fastspeech2_loss,
+    "MatchaTTSTrainer": matchatts_loss,
     "VALLETrainer": valle_loss,
 }
 KWARGS_REGISTRY = {
     "FastSpeech2Trainer": fastspeech2_kwargs,
+    "MatchaTTSTrainer": matchatts_kwargs,
     "VALLETrainer": valle_kwargs,
 }
 
 
+NOT_PORTED = ("VITSTrainer", "E2TTSTrainer")  # the JAX package's other trainer types
+
+
+def _refuse(trainer_type: str):
+    raise ValueError(f"trainer_type {trainer_type!r} is not ported yet (still to come: {', '.join(NOT_PORTED)})")
+
+
 def get_loss_fn(trainer_type: str):
     if trainer_type not in LOSS_FN_REGISTRY:
-        raise ValueError(f"trainer_type {trainer_type!r} is not ported yet")
+        _refuse(trainer_type)
     return LOSS_FN_REGISTRY[trainer_type]
 
 
 def get_kwargs_fn(trainer_type: str):
     if trainer_type not in KWARGS_REGISTRY:
-        raise ValueError(f"trainer_type {trainer_type!r} is not ported yet")
+        _refuse(trainer_type)
     return KWARGS_REGISTRY[trainer_type]

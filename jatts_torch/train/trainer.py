@@ -12,7 +12,9 @@ as they do there.
 Dropout masks come from one ``torch.Generator`` that the trainer re-seeds
 from ``(seed, step)`` before each step, in the role of the JAX trainer's
 ``fold_in(rng, step)``: the masks of a step do not depend on how the run got
-there, so a resumed run draws what an uninterrupted one would.
+there, so a resumed run draws what an uninterrupted one would. The CFM's
+noise (Matcha's t and z, the JAX package's "noise" stream) comes from a
+second generator, re-seeded the same way from its own stream.
 
 ``run()`` keeps the JAX loop's boundary-crossing rule for the log, eval and
 save intervals and its deferred stop (``request_stop``, set by the CLI's
@@ -39,10 +41,14 @@ from typing import Any, Callable, Dict, List, Optional
 import numpy as np
 import torch
 
+from jatts_torch.modules.cfm import set_noise_generator
 from jatts_torch.modules.dropout import set_dropout_generator
 from jatts_torch.train.schedulers import build_optimizer, build_schedule, clip_by_global_norm, global_norm
 from jatts_torch.utils.checkpoint import find_latest_checkpoint, restore_checkpoint, save_checkpoint
 from jatts_torch.utils.initialize import initialize
+
+# the noise generator's seeds: the dropout seeds with the top bit set
+NOISE_STREAM = 1 << 63
 
 LossFn = Callable[..., Any]
 # signature: (model, batch, criterions, config, step) -> (loss, stats_dict)
@@ -92,6 +98,8 @@ class Trainer:
             logging.info(f"rng_impl={config['rng_impl']} has no effect: dropout draws from a torch.Generator")
         self.generator = torch.Generator(device=self.device)
         set_dropout_generator(model, self.generator)
+        self.noise_generator = torch.Generator(device=self.device)
+        set_noise_generator(model, self.noise_generator)
         self.names: List[str] = [n for n, _ in model.named_parameters()]
         self.params: List[torch.nn.Parameter] = list(model.parameters())
         self.optimizer: Optional[torch.optim.Optimizer] = None
@@ -137,6 +145,7 @@ class Trainer:
         tb = batch if all(isinstance(v, torch.Tensor) for v in batch.values()) else self.to_device(batch)
         self.model.train()
         self.generator.manual_seed((self.seed << 32) + self.steps)
+        self.noise_generator.manual_seed(((self.seed << 32) + self.steps) | NOISE_STREAM)
         loss, stats = self.loss_fn(self.model, tb, self.criterions, self.config, self.steps)
         grads = torch.autograd.grad(loss, self.params, allow_unused=True)
         grads = [torch.zeros_like(p) if g is None else g for p, g in zip(self.params, grads)]

@@ -137,3 +137,47 @@ def valle_state_dict_from_jax(variables: Mapping[str, Any], n_layers: int) -> Di
     if found != set(range(n_layers)):
         raise ValueError(f"expected blocks 0..{n_layers - 1}, found {sorted(found)}")
     return sd
+
+
+_EST = "decoder/estimator"
+_BLOCK = r"(down|mid|up)_resnet_(\d+)"
+_TF = r"(down|mid|up)_tf_(\d+)_(\d+)"
+
+
+def matcha_estimator_renames(n_channels: int):
+    """The U-Net estimator's flax module paths -> the reference's (the
+    Decoder of matchatts/decoder.py with diffusers' BasicTransformerBlock
+    inside), for ``n_channels`` scales: the last down- and upsampling are
+    plain convs (``down_blocks.{n-1}.2``, ``up_blocks.{n-1}.2``), the others
+    wrap theirs (``.2.conv``; upsampling is a ConvTranspose)."""
+    last = n_channels - 1
+    return (
+        (rf"^{_EST}/downsample_{last}$", f"{_EST}/down_blocks/{last}/2"),
+        (rf"^{_EST}/upsample_{last}$", f"{_EST}/up_blocks/{last}/2"),
+        (rf"^{_EST}/downsample_(\d+)$", rf"{_EST}/down_blocks/\1/2/conv"),
+        (rf"^{_EST}/upsample_(\d+)$", rf"{_EST}/up_blocks/\1/2/conv"),
+        (rf"^{_EST}/{_BLOCK}/(block[12])/conv$", rf"{_EST}/\1_blocks/\2/0/\3/block/0"),
+        (rf"^{_EST}/{_BLOCK}/(block[12])/norm$", rf"{_EST}/\1_blocks/\2/0/\3/block/1"),
+        (rf"^{_EST}/{_BLOCK}/mlp$", rf"{_EST}/\1_blocks/\2/0/mlp/1"),
+        (rf"^{_EST}/{_BLOCK}/res_conv$", rf"{_EST}/\1_blocks/\2/0/res_conv"),
+        (rf"^{_EST}/{_TF}/to_(q|k|v)$", rf"{_EST}/\1_blocks/\2/1/\3/attn1/to_\4"),
+        (rf"^{_EST}/{_TF}/to_out$", rf"{_EST}/\1_blocks/\2/1/\3/attn1/to_out/0"),
+        (rf"^{_EST}/{_TF}/ff/proj$", rf"{_EST}/\1_blocks/\2/1/\3/ff/net/0/proj"),
+        (rf"^{_EST}/{_TF}/ff/out$", rf"{_EST}/\1_blocks/\2/1/\3/ff/net/2"),
+        (rf"^{_EST}/{_TF}/ff$", rf"{_EST}/\1_blocks/\2/1/\3/ff/net/0"),  # alpha, beta
+        (rf"^{_EST}/{_TF}/(norm[13])$", rf"{_EST}/\1_blocks/\2/1/\3/\4"),
+        (rf"^{_EST}/final_block/conv$", rf"{_EST}/final_block/block/0"),
+        (rf"^{_EST}/final_block/norm$", rf"{_EST}/final_block/block/1"),
+    )
+
+
+def matchatts_state_dict_from_jax(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """MatchaTTS or MatchaTTS_MAS flax variables -> the port's (and the
+    reference's) state_dict: the inverse of
+    ``jatts_tpu.utils.torch_import.convert_matchatts`` and
+    ``convert_matcha_estimator``. The encoder and the duration predictor
+    are named as FastSpeech2's; ``alignment_module`` and ``projection`` keep
+    their names; ConvTranspose kernels become ``[in, out, k]``."""
+    est = variables["params"]["decoder"]["estimator"]
+    n = sum(1 for k in est if k.startswith("down_resnet_"))
+    return flax_to_state_dict(variables, matcha_estimator_renames(n) + FASTSPEECH2_RENAMES)
