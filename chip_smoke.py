@@ -171,7 +171,27 @@ Phases, each of which fails the run with a non-zero exit:
      steps replayed bitwise from the interval checkpoint (deterministic
      cuDNN), the tts2 step's own lattice through the MAS checks, the same
      step under ``mas_backend: scan`` (identical durations and losses), a
-     step's time and parts, the CTC loop's and the fused search's shares.
+     step's time and parts, the CTC loop's and the fused search's shares;
+ 17. mel-VITS at the JSUT width (egs/jsut/tts2/conf/vits.v1.bs32.yaml as it
+     stands: adim 384, a 6-block text encoder, a 16-layer posterior
+     WaveNet, 4 couplings x 4 layers, a 4-block decoder of 1536 units; f32,
+     TF32 off; seed-made weights, the flows' projections non-zero): 16
+     requests through BatchingServer with phase 7's HiFi-GAN and
+     ``noise_scale`` 0.667 (0 launches; the seed; the served mel against
+     ``VITS.inference`` on the same generator; the inverse flow's and the
+     decoder's times); then phase 8's corpus as mel-only dumps trains 50
+     micro-steps through ``jatts_torch/bin/tts_train.py:run`` (batch 8,
+     accumulation 4, the gates cut to 20 and 30 steps), launch counts set
+     to 0 just before and read just after (one fused MAS search a
+     micro-step, each held against the plain search on its own lattice as
+     the run goes; no K2, K3 or flash), the gates, the mel and KL losses on
+     a fixed batch before and after, the last two micro-steps replayed
+     bitwise from ``checkpoint-48steps``, the largest lattice through the
+     MAS checks, a micro-step's time with and without the forward-sum loss,
+     the CTC loop's and the fused search's shares; then ``bin/tts_decode.py``
+     on the trained checkpoint (its duration bias centred) with phase 15's
+     HiFi-GAN checkpoint and with Griffin-Lim, the mels against
+     ``VITS.inference``.
 The line before the last is the kernels' JSON record, the last line
 ``{"ok": true, "device": {...}}``. Exits 2 without a CUDA device or
 without the jatts_torch package beside this file.
@@ -3043,7 +3063,7 @@ def matcha_training(root, csvs, seed, where, which):
     import torch
 
     from jatts_torch.bin import tts_train
-    from jatts_torch.modules.cfm import set_noise_generator
+    from jatts_torch.modules.noise import set_noise_generator
     from jatts_torch.modules.dropout import set_dropout_rate
     from jatts_torch.ops import mas
     from jatts_torch.train.steps_matcha import matchatts_kwargs
@@ -3202,24 +3222,461 @@ def matcha_training(root, csvs, seed, where, which):
 
 def matcha_slice(root, align_paths, freqs, seed, where):
     """Phase 16. Returns the serving numbers and both trainings'."""
-    from jatts_torch.utils.io import read_csv, write_csv
-
     t_phase = time.perf_counter()
     serve = matcha_serving(seed, where)
     train_csv, dev_csv, stats, tokens = write_fs2_corpus(root, align_paths, freqs, tag="matcha", seed=seed,
                                                          mel_only=True)
     tts1 = matcha_training(root, (train_csv, dev_csv, stats, tokens), seed, where, "tts1")
     # tts2 finds its own durations: the same rows without the durations column
-    mas_csvs = []
-    for path in (train_csv, dev_csv):
-        rows, _ = read_csv(path, dict_reader=True)
-        out = path.replace(".csv", "_nodur.csv")
-        write_csv([{k: v for k, v in r.items() if k != "durations"} for r in rows], out)
-        mas_csvs.append(out)
-    tts2 = matcha_training(root, (*mas_csvs, stats, tokens), seed, where, "tts2")
+    tts2 = matcha_training(root, (*mel_only_csvs(train_csv, dev_csv), stats, tokens), seed, where, "tts2")
     print(f"phase 16 (Matcha serving, tts1 and tts2 training): {time.perf_counter() - t_phase:.1f} s; {where}",
           flush=True)
     return serve, tts1, tts2
+
+
+
+# ---------------------------------------------------------------------------
+# phase 17: mel-VITS (serving, tts2 training with the fused MAS search on
+# every micro-step, decode)
+# ---------------------------------------------------------------------------
+
+VITS_CONF = ROOT / "egs" / "jsut" / "tts2" / "conf" / "vits.v1.bs32.yaml"
+VITS_STEPS = 50  # the conf's train_max_steps is 100000
+VITS_RESUME = 48  # an interval checkpoint at an accumulation boundary: steps 48 and 49 are replayed
+
+
+def randomize_flow_projections(model, seed):
+    """Seed-made values for the flows' zero-initialised projections (the
+    couplings' and the conv flows' ``proj``), so that no flow is the identity."""
+    import torch
+
+    g = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if "flows." in name and ".proj." in name:
+                p.copy_((torch.randn(p.shape, generator=g) * 0.02).to(p.device))
+
+
+def vits_serving(seed, where):
+    """Phase 17, serving: the JSUT mel-VITS conf as it stands, f32, seed-made
+    weights (the flows' projections non-zero), phase 7's HiFi-GAN,
+    ``noise_scale`` 0.667; 16 requests through BatchingServer."""
+    import numpy as np
+    import torch
+
+    from jatts_torch.models.vits import VITS
+    from jatts_torch.serving import BatchingServer, ServingBundle
+    from jatts_torch.serving.bundle import inference_kwargs
+    from jatts_torch.utils.config import load_config
+    from jatts_torch.vocoder.hifigan import HiFiGANGenerator
+
+    config = load_config(str(VITS_CONF))
+    kw = inference_kwargs(config)
+    sr, max_frames, bucket, batch = config["sampling_rate"], 1024, 128, 8
+    torch.manual_seed(seed)
+    model = VITS(idim=64, **config["model_params"], device="cuda").eval()
+    randomize_flow_projections(model, seed)
+    voc = HiFiGANGenerator(device="cuda", dtype=torch.bfloat16)
+    with torch.no_grad():
+        # as phase 7: centre the random durations on max_frames / bucket frames a token
+        model.duration_predictor.linear.weight.mul_(0.1)
+        model.duration_predictor.linear.bias.fill_(math.log(1.0 + max_frames / bucket))
+    rng = np.random.default_rng(seed)
+    mel_mean = rng.normal(-4.0, 1.0, 80).astype(np.float32)
+    mel_scale = rng.uniform(0.5, 2.0, 80).astype(np.float32)
+    requests = [rng.integers(1, 64, size=int(n)).tolist() for n in rng.integers(40, bucket + 1, size=16)]
+    requests[0] = rng.integers(1, 64, size=bucket).tolist()
+    bundle = ServingBundle(model, voc, mel_mean, mel_scale, batch_size=batch, buckets=[bucket],
+                           max_frames=max_frames, wav_format="f32", infer_kwargs=kw)
+    mp = config["model_params"]
+    print(f"VITS serving: {VITS_CONF.relative_to(ROOT)} as it stands (adim {mp['adim']}, {mp['aheads']} heads, "
+          f"{len(model.text_encoder.encoder.encoders)}-block text encoder, "
+          f"{len(model.posterior_encoder.encoder.conv_layers)}-layer posterior WaveNet, "
+          f"{len(model.flow.flows) // 2} couplings x {len(model.flow.flows[0].encoder.conv_layers)} layers, decoder "
+          f"{mp['dlayers']} blocks of {mp['dunits']} units, kernel {mp['conformer_dec_kernel_size']}; noise_scale "
+          f"{kw['noise_scale']}), f32, TF32 off; HiFi-GAN 512 ch bf16", flush=True)
+    bundle.synthesize(requests[:batch])  # warm-up (cuDNN/cuBLAS plans)
+    torch.cuda.synchronize()
+
+    reset_all_launches()
+    t0 = time.perf_counter()
+    with BatchingServer(bundle, max_delay_ms=20.0) as server:
+        futures = [server.submit(token_ids=ids) for ids in requests]
+        results = [f.result(timeout=600) for f in futures]
+    served_s = time.perf_counter() - t0
+    counts = launch_counts()
+    print(f"VITS served {len(results)} requests in {server.stats['batches']} batches, {served_s:.3f} s; "
+          f"kernel launches {sum(counts.values())} (limit 0: no attention kernel, no search at inference)",
+          flush=True)
+    check(sum(counts.values()) == 0, f"VITS serving launched a kernel: {counts}")
+    hop = voc.hop_size
+    for i, r in enumerate(results):
+        n = r["mel"].shape[0]
+        check(0 < n <= max_frames, f"VITS request {i}: olens {n}")
+        check(r["wav"].shape == (n * hop,), f"VITS request {i}: wav {r['wav'].shape} != olens*hop")
+        check(bool(np.isfinite(r["wav"]).all() and np.isfinite(r["mel"]).all()), f"VITS request {i}: not finite")
+
+    # the seed reaches the prior's noise
+    full = requests[:batch]
+    a, b, c = (bundle.synthesize(full, seed=s) for s in (0, 0, 1))
+    same = all(np.array_equal(x["wav"], y["wav"]) and np.array_equal(x["mel"], y["mel"]) for x, y in zip(a, b))
+    other = max(float(np.abs(x["mel"] - y["mel"]).max()) for x, y in zip(a, c))
+    print(f"VITS seed: seed 0 twice bitwise equal {same}; seed 1 vs 0 max |mel diff| {other:.3e} "
+          f"(limit > 1e-3)", flush=True)
+    check(same and other > 1e-3, "the serving seed does not fix (or does not reach) the VITS noise")
+    xs, ilens = bundle.prepare(full)
+    with torch.no_grad():
+        ref = model.inference(xs, ilens, max_frames, generator=torch.Generator(device="cuda").manual_seed(0), **kw)
+    ref_mel = (ref["feat_gen"].float() * bundle.mel_scale + bundle.mel_mean).cpu().numpy()
+    ref_olens = ref["olens"].tolist()
+    check([r["mel"].shape[0] for r in a] == ref_olens, "served olens != VITS.inference olens")
+    mel_err = max(float(np.abs(r["mel"] - ref_mel[i, :n]).max()) for i, (r, n) in enumerate(zip(a, ref_olens)))
+    mel_top = max(1.0, float(np.abs(ref_mel).max()))
+    print(f"VITS served mel vs VITS.inference on the same generator: max |diff| {mel_err:.3e} "
+          f"(tol 1e-5 x {mel_top:.2f})", flush=True)
+    check(mel_err <= 1e-5 * mel_top, "the served mel differs from VITS.inference")
+
+    # times: a pcm16 batch, VITS.inference, its inverse flow and decoder at
+    # the full capacity, HiFi-GAN, a profiled batch
+    pcm = ServingBundle(model, voc, mel_mean, mel_scale, batch_size=batch, buckets=[bucket],
+                        max_frames=max_frames, infer_kwargs=kw)
+    batch_ms = time_ms(lambda: pcm.synthesize(full), iters=3, warmup=1)
+    audio_s = sum(ref_olens) * hop / sr
+    adim = mp["adim"]
+    y_mask = torch.ones(batch, max_frames, 1, device="cuda")
+    z_p = torch.randn(batch, max_frames, adim, device="cuda")
+    full_lens = torch.full((batch,), max_frames, device="cuda")
+    with torch.no_grad():
+        flow_ms = time_ms(lambda: model.flow(z_p, y_mask, inverse=True), iters=5, warmup=1)
+        dec_ms = time_ms(lambda: model._decode(z_p, full_lens, max_frames), iters=5, warmup=1)
+        mel_b = torch.from_numpy(ref_mel).cuda().to(torch.bfloat16)
+        voc_ms = time_ms(lambda: voc(mel_b), iters=5, warmup=1)
+        acoustic_ms = time_ms(lambda: model.inference(xs, ilens, max_frames, **kw), iters=3, warmup=1)
+    wall_ms, busy_ms, events = profile_ms(lambda: pcm.synthesize(full))
+    print(
+        f"VITS serving f32 pcm16 B={batch} bucket={bucket} max_frames={max_frames}: {batch_ms:.2f} ms per batch, "
+        f"RTF {batch_ms / 1e3 / audio_s:.5f} ({audio_s:.2f} s of audio, olens {min(ref_olens)}-{max(ref_olens)}); "
+        f"VITS.inference {acoustic_ms:.2f} ms (at {batch} x {max_frames}: the inverse flow {flow_ms:.2f} ms, the "
+        f"decoder {dec_ms:.2f} ms), HiFi-GAN {voc_ms:.2f} ms; profiled batch: wall {wall_ms:.2f} ms, device busy "
+        f"{busy_ms:.2f} ms, idle share {1 - busy_ms / wall_ms:.3f}; {where}",
+        flush=True,
+    )
+    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:6]:
+        print(f"  {e.self_device_time_total / 1e3:8.2f} ms  x{e.count:<5d} {e.key[:90]}")
+    return {"batch_ms": batch_ms, "rtf": batch_ms / 1e3 / audio_s, "acoustic_ms": acoustic_ms, "flow_ms": flow_ms,
+            "decoder_ms": dec_ms, "voc_ms": voc_ms, "idle": 1 - busy_ms / wall_ms}
+
+
+def vits_training(root, csvs, seed, where):
+    """Phase 17, training: ``bin/tts_train.py:run`` on the JSUT conf (batch
+    8, accumulation 4, Adam, StepLR, grad norm 1), the gates cut to 20 and
+    30 steps. Every micro-step's search (the fused kernel) is held against
+    the plain search on the same lattice as it runs. Returns the numbers
+    the record and PERF.md need."""
+    import numpy as np
+    import torch
+
+    from jatts_torch.bin import tts_train
+    from jatts_torch.losses.align import ForwardSumLoss
+    from jatts_torch.modules.noise import set_noise_generator
+    from jatts_torch.ops import mas
+    from jatts_torch.train.steps_vits import vits_kwargs
+    from jatts_torch.train.trainer import Trainer
+    from jatts_torch.utils.config import load_config
+
+    config = load_config(str(VITS_CONF))
+    cuts = [f"train_max_steps {config['train_max_steps']} -> {VITS_STEPS}",
+            f"save_interval_steps {config['save_interval_steps']} -> {VITS_RESUME}"]
+    cuts += [f"{k} {config[k]} -> {v}" for k, v in MAS_GATES.items()]
+    config.update(train_max_steps=VITS_STEPS, save_interval_steps=VITS_RESUME, **MAS_GATES)
+    accum = int(config["gradient_accumulate_steps"])
+    print(f"VITS training: {VITS_CONF.relative_to(ROOT)} (batch {config['batch_size']}, accumulation {accum}, "
+          f"{config['optimizer_type']} {config['optimizer_params']['lr']}, {config['scheduler_type']}, grad_norm "
+          f"{config['grad_norm']}, lambda_mel {config['lambda_mel']}, lambda_align {config['lambda_align']}), f32; "
+          f"reductions: {', '.join(cuts)}", flush=True)
+    outdir = str(Path(root) / "exp_vits")
+
+    # every search the run makes, against the plain search on its lattice;
+    # the initial weights, for the losses on a fixed batch
+    real_fused, real_init = mas.mas_path_fused, Trainer.init_state
+    searched = {"calls": 0, "cells": 0, "differ": 0}
+    initial = {}
+
+    def checked(lp, tl, fl):
+        path = real_fused(lp, tl, fl)
+        ref = mas.mas_path_ref(lp, tl, fl)
+        searched["calls"] += 1
+        searched["cells"] += path.numel()
+        searched["differ"] += int((path != ref).sum())
+        return path
+
+    def init_and_keep(self):
+        real_init(self)
+        initial.update({k: v.detach().clone() for k, v in self.model.state_dict().items()})
+
+    torch.backends.cudnn.deterministic = True
+    mas.mas_path_fused, Trainer.init_state = checked, init_and_keep
+    try:
+        reset_all_launches()
+        t0 = time.perf_counter()
+        trainer = tts_train.run(*csvs, config, outdir, seed=seed, device="cuda")
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        counts = launch_counts()
+    finally:
+        mas.mas_path_fused, Trainer.init_state = real_fused, real_init
+    hist = trainer.history
+    loader = trainer.train_loader
+    n_mas = counts["mas.path"]
+    print(f"VITS training: {len(loader.dataset)} utterances in {len(loader.sampler)} batches, {trainer.steps} "
+          f"steps in {run_s:.1f} s; the trainer's step count counts micro-steps: {trainer.steps} micro-steps, "
+          f"{trainer.updates} optimizer updates (accumulation {accum}); launches: fused MAS search {n_mas} (limit "
+          f"{VITS_STEPS}: one a micro-step, {accum} an update), K2 {counts['mas.fwd']}, K3 "
+          f"{counts['mas.backtrace']}, flash {sum(v for k, v in counts.items() if k.startswith('k1'))} (limit 0); "
+          f"every micro-step's search against the plain search on its lattice: {searched['calls']} searches, "
+          f"{searched['differ']} of {searched['cells']} frames differ (limit 0)", flush=True)
+    check(trainer.steps == VITS_STEPS and trainer.updates == VITS_STEPS // accum,
+          f"trained {trainer.steps} micro-steps, {trainer.updates} updates")
+    check(all(math.isfinite(v) for h in hist for v in h.values()), "a VITS training stat is not finite")
+    check(all(v == 0 for k, v in counts.items() if k != "mas.path"), f"VITS training launched {counts}")
+    check(n_mas == VITS_STEPS and searched["calls"] == VITS_STEPS, f"fused MAS search launches {n_mas}")
+    check(searched["differ"] == 0, "the fused search disagrees with the plain search on a VITS micro-step")
+    gated = ("train/forward_sum_loss", "train/duration_loss", "train/binary_loss")
+    on = [tuple(h[k] != 0.0 for k in gated) for h in hist]
+    dp, bn = MAS_GATES["dp_train_start_steps"], MAS_GATES["bin_loss_start_steps"]
+    want = [(s < dp, s > dp, s > bn) for s in range(VITS_STEPS)]
+    print(f"VITS gates: forward-sum on {sum(o[0] for o in on)} steps, duration {sum(o[1] for o in on)}, "
+          f"bin {sum(o[2] for o in on)} ({tuple(map(sum, zip(*want)))})", flush=True)
+    check(on == want, "a VITS loss gate opened at the wrong step")
+
+    # the mel and KL losses on a fixed batch (the largest), eval mode, the
+    # same noise: the initial weights against the trained ones
+    model, params, crit = trainer.model, trainer.params, trainer.criterions
+    big = max(loader.sampler.batches, key=lambda idx: sum(loader.dataset.get_frame_len(i) for i in idx))
+    tb = trainer.to_device(loader._make(big))
+    shape = (tb["ys"].shape[0], tb["ys"].shape[1], tb["xs"].shape[1])
+    m0 = tts_train.MODELS["VITS"](**trainer.config["model_params"], device="cuda")
+    m0.load_state_dict(initial)
+    fixed = {}
+    for name, m in (("initial", m0), ("trained", model)):
+        set_noise_generator(m, torch.Generator(device="cuda").manual_seed(seed + 7))
+        with torch.no_grad():
+            _, st = trainer.loss_fn(m.eval(), tb, crit, trainer.config, VITS_STEPS)
+        fixed[name] = (float(st["train/mel_loss"]), float(st["train/kl_loss"]))
+    set_noise_generator(model, trainer.noise_generator)
+    del m0
+    print(f"VITS losses on the largest batch {shape} (B, T_feats, T_text), eval mode, the same noise: mel "
+          f"{fixed['initial'][0]:.4f} -> {fixed['trained'][0]:.4f}, KL {fixed['initial'][1]:.4f} -> "
+          f"{fixed['trained'][1]:.4f} (initial -> after {trainer.updates} updates); in the run's stats: mel "
+          f"{np.mean([h['train/mel_loss'] for h in hist[:10]]):.4f} -> "
+          f"{np.mean([h['train/mel_loss'] for h in hist[-10:]]):.4f}, KL "
+          f"{np.mean([h['train/kl_loss'] for h in hist[:10]]):.4f} -> "
+          f"{np.mean([h['train/kl_loss'] for h in hist[-10:]]):.4f} (means of the first and last 10 micro-steps)",
+          flush=True)
+    check(fixed["trained"][0] < fixed["initial"][0] and fixed["trained"][1] < fixed["initial"][1],
+          "the VITS mel and KL losses did not fall")
+
+    # resume from the interval checkpoint and replay the last two micro-steps
+    model2 = tts_train.MODELS["VITS"](**trainer.config["model_params"], device="cuda")
+    resumed = Trainer(trainer.config, model2, crit, trainer.loss_fn, loader, outdir=outdir + "_resumed", seed=seed)
+    resumed.init_state()
+    resumed.load_checkpoint(str(Path(outdir) / f"checkpoint-{VITS_RESUME}steps"))
+    replay = [resumed.train_step(_batch_at(loader, s)) for s in range(VITS_RESUME, VITS_STEPS)]
+    same_stats = replay == hist[VITS_RESUME:]
+    same = all(torch.equal(model2.state_dict()[k], v) for k, v in model.state_dict().items())
+    same_acc = all(torch.equal(a, b) for a, b in zip(resumed.acc_grads, trainer.acc_grads))
+    print(f"VITS resume from checkpoint-{VITS_RESUME}steps, micro-steps {VITS_RESUME}-{VITS_STEPS - 1} replayed: "
+          f"stats bitwise equal {same_stats}, parameters bitwise equal {same}, accumulated gradients bitwise "
+          f"equal {same_acc}", flush=True)
+    check(same_stats and same and same_acc, "the resumed VITS trainer differs")
+    del resumed, model2
+
+    # on the largest batch's lattice: the kernels against the plain search, and their time
+    model.train()
+    with torch.no_grad():
+        lp = model(**vits_kwargs(tb, model))["log_p_attn"].detach()
+    out = {"run_s": run_s, "launches": n_mas, "updates": trainer.updates, "fixed": fixed, "shape": shape,
+           "searched": dict(searched)}
+    out["own_check"] = check_mas("VITS step's lattice", lp, tb["ilens"], tb["olens"])
+    out["mas_ms"] = time_ms(lambda: mas.mas_path_fused(lp, tb["ilens"], tb["olens"]))
+    torch.backends.cudnn.deterministic = False
+
+    # one micro-step (forward, loss, backward) at the largest batch, with
+    # and without the forward-sum loss, and its parts (host clock)
+    def host_ms(fn, iters=3):
+        return time_ms(fn, iters=iters, warmup=1, host_clock=True)
+
+    def loss_at(step):
+        return trainer.loss_fn(model, tb, crit, trainer.config, step)[0]
+
+    def micro_at(step):
+        torch.autograd.grad(loss_at(step), params, allow_unused=True)
+
+    fwd_ms = host_ms(lambda: loss_at(0))
+    loss = loss_at(0)
+    bwd_ms = host_ms(lambda: torch.autograd.grad(loss, params, retain_graph=True, allow_unused=True))
+    del loss
+    step_ms = host_ms(lambda: micro_at(0))
+    step_late = host_ms(lambda: micro_at(40))
+    lpg = model(**vits_kwargs(tb, model))["log_p_attn"]
+    fsum = ForwardSumLoss()
+    ctc_fwd = host_ms(lambda: fsum(lpg, tb["ilens"], tb["olens"]))
+    ctc_ms = host_ms(lambda: torch.autograd.grad(fsum(lpg, tb["ilens"], tb["olens"]), lpg))
+    del lpg
+    wall_ms, busy_ms, events = profile_ms(lambda: micro_at(40))
+    mas_dev = sum(e.self_device_time_total for e in events if "mas_path_kernel" in e.key) / 1e3
+    wall0, busy0, _ = profile_ms(lambda: micro_at(0))
+    out.update(step_ms=step_ms, step_late_ms=step_late, fwd_ms=fwd_ms, bwd_ms=bwd_ms, ctc_ms=ctc_ms,
+               ctc_share=ctc_ms / step_ms, mas_dev_ms=mas_dev, mas_share=mas_dev / step_late,
+               idle=1 - busy_ms / wall_ms, idle_fsum=1 - busy0 / wall0)
+    print(f"VITS micro-step f32 (forward, loss, backward), batch {shape} (B, T_feats, T_text): with the "
+          f"forward-sum loss (step 0) {step_ms:.1f} ms (forward+loss {fwd_ms:.1f}, backward {bwd_ms:.1f}), the CTC "
+          f"loop's forward {ctc_fwd:.1f} ms, forward+backward {ctc_ms:.1f} ms = {ctc_ms / step_ms:.3f} of it, idle "
+          f"share {1 - busy0 / wall0:.3f}; without it (step 40) {step_late:.1f} ms, idle share "
+          f"{1 - busy_ms / wall_ms:.3f}; the fused MAS search {out['mas_ms']:.4f} ms alone, {mas_dev:.4f} ms of "
+          f"device time in the profiled micro-step = {mas_dev / step_late:.5f} of it (host clock; {accum} "
+          f"micro-steps and one Adam update an optimizer step); {where}", flush=True)
+    print(f"profile of one VITS micro-step (step 40): wall {wall_ms:.1f} ms under the profiler, device busy "
+          f"{busy_ms:.1f} ms in {sum(e.count for e in events)} kernels", flush=True)
+    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:6]:
+        print(f"  {e.self_device_time_total / 1e3:8.2f} ms  x{e.count:<5d} {e.key[:90]}")
+    return out, outdir
+
+
+def vits_decode(root, expdir, csvs, dur_csv, stats, tokens, seed, where):
+    """Phase 17, decode: ``bin/tts_decode.py`` with the trained checkpoint,
+    phase 15's seed-made HiFi-GAN checkpoint and Griffin-Lim, the dev rows
+    twice (a second batch of a shape gives the steady state); the mels
+    against ``VITS.inference`` on the generator of each batch. The run's 12
+    updates at lr 1e-4 leave the duration predictor near its initial 0
+    frames a token, so its output bias is set to the corpus's mean
+    log(1 + frames) (from ``dur_csv``'s durations) in a copy of the
+    checkpoint, as phase 7 centres its random durations."""
+    import numpy as np
+    import torch
+    import yaml
+
+    from jatts_torch.bin import tts_decode
+    from jatts_torch.data.batcher import round_up
+    from jatts_torch.data.dataset import TTSDataset
+    from jatts_torch.models.vits import VITS
+    from jatts_torch.utils.checkpoint import checkpoint_steps, find_latest_checkpoint, restore_checkpoint, save_checkpoint
+    from jatts_torch.utils.config import load_config
+    from jatts_torch.utils.io import read_audio, read_csv, write_csv
+
+    train_expdir = expdir
+    dur_rows, _ = read_csv(dur_csv, dict_reader=True)
+    log_d = float(np.mean([np.log1p(float(d)) for r in dur_rows for d in r["durations"].split()]))
+    src = find_latest_checkpoint(train_expdir)
+    state = restore_checkpoint(src, map_location="cpu")
+    state["model"]["duration_predictor.linear.bias"].fill_(log_d)
+    expdir = str(Path(root) / "exp_vits_decode")
+    save_checkpoint(expdir, checkpoint_steps(src), state)
+    print(f"VITS decode: the trained checkpoint with the duration predictor's output bias set to the corpus's "
+          f"mean log(1 + frames) {log_d:.4f}", flush=True)
+    # one full batch of dev rows, then the same rows under other ids: the
+    # second batch has the first one's shape
+    dev_rows, _ = read_csv(csvs[1], dict_reader=True)
+    base = [dict(dev_rows[i % len(dev_rows)], sample_id=f"{dev_rows[i % len(dev_rows)]['sample_id']}_{i}")
+            for i in range(RECIPE_BATCH)]
+    decode_csv = str(Path(root) / "vits_decode.csv")
+    write_csv(base + [dict(r, sample_id=r["sample_id"] + "_again") for r in base], decode_csv)
+    ckpt, voc_conf, voc_stats, _ = write_pwg_checkpoint(root, seed, stats)
+    exp_conf = load_config(str(Path(train_expdir) / "config.yml"))
+    exp_conf["vocoder"] = {"checkpoint": ckpt, "config": voc_conf, "stats": voc_stats}
+    exp_conf_path = str(Path(root) / "vits_exp_config.yml")
+    with open(exp_conf_path, "w") as f:
+        yaml.dump(exp_conf, f)
+    hop, sr = int(exp_conf["hop_size"]), int(exp_conf["sampling_rate"])
+    decoded = {}
+    for name, extra in (("hifigan", []), ("griffin_lim", ["--vocoder", "griffin_lim"])):
+        reset_all_launches()
+        t0 = time.perf_counter()
+        decoded[name] = tts_decode.main([
+            "--csv", decode_csv, "--stats", stats, "--token-list", tokens, "--expdir", expdir,
+            "--config", exp_conf_path, "--outdir", str(Path(root) / f"vits_decode_{name}"),
+            "--batch-size", str(RECIPE_BATCH), "--max-frames", "2048", "--verbose", "0", *extra])
+        torch.cuda.synchronize()
+        decoded[name]["wall_s"] = time.perf_counter() - t0
+        check(sum(launch_counts().values()) == 0, f"VITS decode ({name}) launched a kernel")
+    hg, gl = decoded["hifigan"], decoded["griffin_lim"]
+    check(hg["vocoder"] == "Vocoder" and gl["vocoder"] == "GriffinLimVocoder", "VITS decode vocoder choice")
+    check(hg["olens"] == gl["olens"], "the two VITS decode runs predicted different lengths")
+    olens = hg["olens"]
+    min_frames = int(exp_conf.get("fft_size", 2048)) // hop + 1
+    check(len(olens) == 2 * RECIPE_BATCH and min(olens.values()) >= min_frames,
+          f"VITS decode: degenerate or missing predictions {olens}")
+    for name in decoded:
+        for utt, olen in olens.items():
+            wav, wav_sr = read_audio(str(Path(root) / f"vits_decode_{name}" / "wav" / f"{utt}.wav"))
+            check(wav_sr == sr and len(wav) == olen * hop and bool(np.isfinite(wav).all()),
+                  f"VITS decode ({name}) {utt}: {len(wav)} samples, want {olen * hop}")
+
+    model = VITS(**exp_conf["model_params"], device="cuda")
+    model.load_state_dict(restore_checkpoint(find_latest_checkpoint(expdir), map_location="cuda")["model"])
+    model.eval()
+    ds = TTSDataset(decode_csv, stats, exp_conf["feat_list"], tokens, is_inference=True)
+    items = [ds[i] for i in range(len(ds))]
+    mel_err, mel_max = 0.0, 0.0
+    for i in range(0, len(items), RECIPE_BATCH):
+        chunk = items[i : i + RECIPE_BATCH]
+        xs = torch.zeros((len(chunk), round_up(max(len(it["x"]) for it in chunk), 16)), dtype=torch.long)
+        for j, it in enumerate(chunk):
+            xs[j, : len(it["x"])] = torch.from_numpy(it["x"])
+        ilens = torch.tensor([len(it["x"]) for it in chunk])
+        with torch.no_grad():
+            want = model.inference(xs.cuda(), ilens.cuda(), 2048, noise_scale=float(exp_conf["noise_scale"]),
+                                   generator=torch.Generator(device="cuda").manual_seed(i))
+        for j, it in enumerate(chunk):
+            olen = int(want["olens"][j])
+            ref = want["feat_gen"][j, :olen].cpu().numpy()
+            check(olens[it["utt_id"]] == olen, f"{it['utt_id']}: olens {olens[it['utt_id']]} vs {olen}")
+            for name in decoded:
+                got = np.load(str(Path(root) / f"vits_decode_{name}" / "wav" / f"{it['utt_id']}_mel.npy"))
+                mel_err = max(mel_err, float(np.abs(got - ref).max()))
+            mel_max = max(mel_max, float(np.abs(ref).max()))
+    tol = 1e-5 * max(1.0, mel_max)
+    steady = {name: [b["seconds"] * 1e3 for b in d["batches"] if not b["first_of_shape"]] for name, d in decoded.items()}
+    first = {name: [b["seconds"] * 1e3 for b in d["batches"] if b["first_of_shape"]] for name, d in decoded.items()}
+    print(f"VITS decode: {len(olens)} utterances (olens {min(olens.values())}-{max(olens.values())} frames) in "
+          f"batches of {RECIPE_BATCH} at 2048 frames; _mel.npy vs VITS.inference on each batch's generator: max "
+          f"|diff| {mel_err:.2e} (tol {tol:.2e}); " + "; ".join(
+              f"{name}: first batch {first[name][0]:.2f} ms, steady {statistics.median(steady[name]):.2f} ms, RTF "
+              f"{decoded[name]['rtf']:.6f}, vocoder {1e3 * statistics.median(decoded[name]['vocoder_s']):.2f} ms an "
+              f"utterance, wall {decoded[name]['wall_s']:.1f} s" for name in decoded) + f"; {where}", flush=True)
+    check(mel_err <= tol, "the decoded VITS mels differ from VITS.inference")
+    check(all(steady[name] for name in decoded), "VITS decode: no steady-state batch")
+    return {name: {"first_ms": first[name][0], "steady_ms": statistics.median(steady[name]),
+                   "rtf": decoded[name]["rtf"], "vocoder_ms": 1e3 * statistics.median(decoded[name]["vocoder_s"])}
+            for name in decoded}
+
+
+def mel_only_csvs(train_csv, dev_csv):
+    """The rows of a corpus without their durations column: a model that
+    searches its own (tts2)."""
+    from jatts_torch.utils.io import read_csv, write_csv
+
+    out = []
+    for path in (train_csv, dev_csv):
+        rows, _ = read_csv(path, dict_reader=True)
+        path_out = path.replace(".csv", "_nodur.csv")
+        write_csv([{k: v for k, v in r.items() if k != "durations"} for r in rows], path_out)
+        out.append(path_out)
+    return out
+
+
+def vits_slice(root, align_paths, freqs, seed, where):
+    """Phase 17. Returns the serving, training and decode numbers."""
+    t_phase = time.perf_counter()
+    serve = vits_serving(seed, where)
+    train_csv, dev_csv, stats, tokens = write_fs2_corpus(root, align_paths, freqs, tag="vits", seed=seed,
+                                                         mel_only=True)
+    csvs = mel_only_csvs(train_csv, dev_csv)
+    train, expdir = vits_training(root, (*csvs, stats, tokens), seed, where)
+    decode = vits_decode(root, expdir, csvs, train_csv, stats, tokens, seed, where)
+    print(f"phase 17 (VITS serving, tts2 training, decode): {time.perf_counter() - t_phase:.1f} s; {where}",
+          flush=True)
+    return serve, train, decode
 
 
 def main() -> int:
@@ -3532,6 +3989,11 @@ def main() -> int:
     # 16. the Matcha family: serving, then tts1 and tts2 (MAS) training on phase 8's corpus
     matcha_serve, matcha_tts1, matcha_tts2 = matcha_slice(tmp.name, align_paths, freqs, args.seed, where)
     mas_checks.append(matcha_tts2["own_check"])
+
+    # 17. mel-VITS: serving, then tts2 training on phase 8's corpus (the
+    # fused MAS search on every micro-step), then decode
+    vits_serve, vits_train, vits_dec = vits_slice(tmp.name, align_paths, freqs, args.seed, where)
+    mas_checks.append(vits_train["own_check"])
     tmp.cleanup()
     # K2, K3, pair, fused path, fused bits: differing elements over every
     # case and the run's own lattice; K2, K3, fused: the largest |kernel -
@@ -3666,8 +4128,9 @@ def main() -> int:
         # largest batch; ``matcha_mas_training``: at that run's largest)
         "name": "mas_path", "route": "cuda", "source": "jatts_torch/csrc/mas_path.cu",
         "replaces": "jatts_tpu/ops/mas_pallas.py:139", "replaces_also": "jatts_tpu/ops/mas_pallas.py:161",
-        "launches": mas_launches[0] + matcha_tts2["launches"],
-        "launches_by_path": {"aligner": mas_launches[0], "matcha_mas_training": matcha_tts2["launches"]},
+        "launches": mas_launches[0] + matcha_tts2["launches"] + vits_train["launches"],
+        "launches_by_path": {"aligner": mas_launches[0], "matcha_mas_training": matcha_tts2["launches"],
+                             "vits_training": vits_train["launches"]},
         "mismatches": mas_mismatches[3] + mas_mismatches[4], "max_abs_err": mas_max_err[2], "routes": mas_routes,
         "ms": mas_times["ms"], "graph_ms": mas_times["graph_ms"], "pair_ms": mas_times["pair_ms"],
         "pair_graph_ms": mas_times["pair_graph_ms"], "plain_ms": mas_times["plain_ms"],
@@ -3677,6 +4140,10 @@ def main() -> int:
                                                      "bound_ms", "chain_floor_ms")},
         "matcha_mas_training": {"ms": matcha_tts2["mas_ms"], "step_device_ms": matcha_tts2["mas_dev_ms"],
                                 "step_ms": matcha_tts2["step_ms"]},
+        "vits_training": {"ms": vits_train["mas_ms"], "step_device_ms": vits_train["mas_dev_ms"],
+                          "micro_step_ms": vits_train["step_late_ms"], "share": vits_train["mas_share"],
+                          "shape": list(vits_train["shape"]), "micro_steps_checked": vits_train["searched"]["calls"],
+                          "frames_differing": vits_train["searched"]["differ"]},
     }] + [{
         "name": name, "route": "cuda", "source": f"jatts_torch/csrc/{src}",
         "replaces": f"jax/experimental/pallas/ops/tpu/flash_attention.py:{line}",

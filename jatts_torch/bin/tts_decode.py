@@ -14,7 +14,8 @@ FastSpeech2 (multi-speaker too: with ``spk_embed_dim`` each batch carries
 the rows' ``spkemb``) and Matcha-TTS (``MatchaTTS``, ``MatchaTTS_MAS``:
 ``ode_steps`` Euler steps from noise scaled by ``temperature``, drawn from a
 generator seeded by the batch's first row index, where the JAX CLI takes
-``jax.random.key(i)``). ``--vocoder auto`` loads the config's ``vocoder``
+``jax.random.key(i)``) and mel-VITS (``VITS``: the prior's noise scaled by
+``noise_scale``, from the same generator). ``--vocoder auto`` loads the config's ``vocoder``
 checkpoint (a parallel_wavegan HiFi-GAN pickle) and falls back to
 Griffin-Lim with a warning when that file is missing; ``--vocoder
 griffin_lim`` always inverts with Griffin-Lim. The log's inference speed
@@ -48,7 +49,7 @@ from jatts_torch.utils.config import load_config
 from jatts_torch.utils.io import read_array, write_audio
 from jatts_torch.vocoder.vocoder import GriffinLimVocoder, Vocoder
 
-DECODES = ("FastSpeech2", "MatchaTTS", "MatchaTTS_MAS")  # the mel models of the JAX CLI, but VITS
+DECODES = ("FastSpeech2", "MatchaTTS", "MatchaTTS_MAS", "VITS")  # the mel models of the JAX CLI
 
 
 def run(
@@ -75,7 +76,7 @@ def run(
     dev = resolve_device(device)
     model_type = config["model_type"]
     if model_type not in DECODES:
-        raise ValueError(f"model_type {model_type!r} is not ported yet (still to come: VITS)")
+        raise ValueError(f"model_type {model_type!r} is not ported yet: this CLI decodes {', '.join(DECODES)}")
     with open(token_list, encoding="utf-8") as f:
         n_vocab = len([line for line in f if line.strip()])
     model_params = dict(config["model_params"])

@@ -18,7 +18,9 @@ FastSpeech2 (multi-speaker too: with ``spkemb`` in ``feat_list`` and
 has them, each batch carries its ``spembs``; ``conformer_rel_pos_type:
 latest`` with ``flash`` trains through K1r), Matcha-TTS (``MatchaTTS`` on
 the csv's durations, tts1, and ``MatchaTTS_MAS``, tts2, which searches its
-own with the fused MAS kernel; mel-only ``feat_list``; no ``attn_backend``)
+own with the fused MAS kernel; mel-only ``feat_list``; no ``attn_backend``),
+mel-VITS (``VITS``, tts2, e.g. ``--config egs/jsut/tts2/conf/vits.v1.bs32.yaml``:
+the fused MAS search on every micro-step; mel-only; no ``attn_backend``)
 and the VALL-E AR (``VALLEAR``, tts3 stage 3, e.g.
 ``--config egs/hificaptain_jp_female/tts3/conf/valle_ar.given.bs32.yaml``);
 ``model_params.dtype`` is passed to the model as its ``dtype`` (for VALL-E
@@ -48,12 +50,18 @@ from jatts_torch.models.fastspeech2 import FastSpeech2
 from jatts_torch.models.matchatts import MatchaTTS
 from jatts_torch.models.matchatts_mas import MatchaTTS_MAS
 from jatts_torch.models.valle import VALLEAR
+from jatts_torch.models.vits import VITS
 from jatts_torch.train.steps import get_loss_fn
 from jatts_torch.train.trainer import Trainer
 from jatts_torch.utils.config import dump_config, load_config
 
-MODELS = {"FastSpeech2": FastSpeech2, "MatchaTTS": MatchaTTS, "MatchaTTS_MAS": MatchaTTS_MAS, "VALLEAR": VALLEAR}
-NOT_PORTED = ("VITS", "VALLENAR", "E2TTS")  # the JAX package's other model types
+MODELS = {
+    "FastSpeech2": FastSpeech2, "MatchaTTS": MatchaTTS, "MatchaTTS_MAS": MatchaTTS_MAS, "VITS": VITS,
+    "VALLEAR": VALLEAR,
+}
+NOT_PORTED = ("VALLENAR", "E2TTS")  # the JAX package's other model types
+# as in the JAX package: their attention never takes the kernel
+EAGER_ATTENTION = ("MatchaTTS", "MatchaTTS_MAS", "VITS")
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
@@ -103,8 +111,7 @@ def run(
     model_params = dict(config.get("model_params") or {})
     model_params["idim"] = n_vocab
     if attn_backend is not None:
-        if model_type.startswith("MatchaTTS"):
-            # as in the JAX package: Matcha's attention never takes the kernel
+        if model_type in EAGER_ATTENTION:
             raise ValueError(f"{model_type} has no attn_backend: its attention runs eager")
         model_params["attn_backend"] = attn_backend
     config["model_params"] = dict(model_params)

@@ -12,6 +12,7 @@ import torch
 
 from jatts_torch.losses.align import BinLoss, ForwardSumLoss
 from jatts_torch.losses.flow_matching import CFMLoss, EncoderPriorLoss
+from jatts_torch.losses.kl import KLDivergenceLoss, KLDivergenceLossWithoutFlow
 from jatts_torch.ops.masks import sequence_mask
 
 
@@ -109,4 +110,6 @@ LOSS_REGISTRY = {
     "BinLoss": BinLoss,
     "CFMLoss": CFMLoss,
     "EncoderPriorLoss": EncoderPriorLoss,
+    "KLDivergenceLoss": KLDivergenceLoss,
+    "KLDivergenceLossWithoutFlow": KLDivergenceLossWithoutFlow,
 }

@@ -8,7 +8,7 @@ here; ``nn.scan`` there is packaging, not semantics). Feature-last: x1, mu
 
 Noise (the loss's t and z, the sampler's z) comes from ``noise_generator``
 (``None``: torch's default generator for the device), which a trainer sets
-with :func:`set_noise_generator` and re-seeds each step, or from the
+with ``modules/noise.py:set_noise_generator`` and re-seeds each step, or from the
 ``generator`` argument of :meth:`CFM.inference`; t and z may also be
 injected. The draws are not jax.random's bits, so a parity test injects
 them on both sides.
@@ -96,9 +96,3 @@ class CFM(nn.Module):
             x = x + dt * dphi
         return x
 
-
-def set_noise_generator(model: nn.Module, generator: Optional[torch.Generator]) -> None:
-    """Every :class:`CFM` of ``model`` draws its noise from ``generator``."""
-    for m in model.modules():
-        if isinstance(m, CFM):
-            m.noise_generator = generator

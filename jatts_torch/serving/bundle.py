@@ -1,8 +1,8 @@
 """In-process serving bundle (counterpart of ``build_infer_fn`` plus
 ``ServingBundle`` in jatts_tpu/serving/export.py, without ``jax.export``).
 
-The bundle holds an acoustic model (FastSpeech2, MatchaTTS or
-MatchaTTS_MAS) and a HiFi-GAN vocoder on their device with the acoustic
+The bundle holds an acoustic model (FastSpeech2, MatchaTTS,
+MatchaTTS_MAS or VITS) and a HiFi-GAN vocoder on their device with the acoustic
 model's mel statistics (and the vocoder's, when given). A call pads the
 requests to the fixed ``batch_size`` and the smallest text bucket that
 fits, runs inference -> denormalise -> (renormalise) -> vocoder -> pcm16
@@ -10,9 +10,9 @@ fits, runs inference -> denormalise -> (renormalise) -> vocoder -> pcm16
 ``olens``. A multi-speaker model (``spk_embed_dim``) takes one speaker
 embedding a request, padded with zero rows to the batch size, as the JAX
 bundle pads them; a request without one gets a zero row. Matcha's
-inference keywords (``ode_steps``, ``temperature``) come from
-:func:`inference_kwargs`, and its ODE noise from a generator seeded by the
-call's ``seed``.
+inference keywords (``ode_steps``, ``temperature``) and VITS's
+(``noise_scale``) come from :func:`inference_kwargs`, and their noise (the
+ODE's, the prior's) from a generator seeded by the call's ``seed``.
 """
 
 from __future__ import annotations
@@ -31,6 +31,8 @@ def inference_kwargs(config: Dict[str, Any]) -> Dict[str, Any]:
             n_timesteps=int(config.get("ode_steps", 10)),
             temperature=float(config.get("temperature", 0.667)),
         )
+    if config["model_type"] == "VITS":
+        return dict(noise_scale=float(config.get("noise_scale", 0.667)))
     return {}
 
 
@@ -110,7 +112,7 @@ class ServingBundle:
     ) -> Dict[str, torch.Tensor]:
         """The fixed-shape program on device tensors: xs [batch_size, bucket],
         ilens [batch_size] (, spembs [batch_size, spk_dim]) -> {"olens",
-        "wav"} (+ "mel" for f32). A model that samples noise (Matcha) draws
+        "wav"} (+ "mel" for f32). A model that samples noise (Matcha, VITS) draws
         it from a generator seeded by ``seed``."""
         kwargs = dict(self.infer_kwargs)
         if getattr(self.model, "samples_noise", False):
@@ -134,7 +136,7 @@ class ServingBundle:
         """token_ids: <= batch_size sequences (and, for a multi-speaker
         model, ``spembs`` [len(token_ids), spk_dim]) -> per-utterance dicts
         with ``wav`` [olens*hop] (int16 or float32) and, for f32, ``mel``
-        [olens, n_mels]. ``seed`` seeds Matcha's ODE noise: the same seed
+        [olens, n_mels]. ``seed`` seeds Matcha's ODE noise and VITS's prior noise: the same seed
         gives the same bits, another seed other audio; FastSpeech2 is
         deterministic and ignores it."""
         xs, ilens = self.prepare(token_ids)

@@ -13,6 +13,7 @@ from typing import Any, Dict
 
 from jatts_torch.train.steps_matcha import matchatts_kwargs, matchatts_loss
 from jatts_torch.train.steps_valle import valle_kwargs, valle_loss
+from jatts_torch.train.steps_vits import vits_kwargs, vits_loss
 
 
 def fastspeech2_kwargs(batch: Dict[str, Any], model=None) -> Dict[str, Any]:
@@ -50,15 +51,17 @@ LOSS_FN_REGISTRY = {
     "FastSpeech2Trainer": fastspeech2_loss,
     "MatchaTTSTrainer": matchatts_loss,
     "VALLETrainer": valle_loss,
+    "VITSTrainer": vits_loss,
 }
 KWARGS_REGISTRY = {
     "FastSpeech2Trainer": fastspeech2_kwargs,
     "MatchaTTSTrainer": matchatts_kwargs,
     "VALLETrainer": valle_kwargs,
+    "VITSTrainer": vits_kwargs,
 }
 
 
-NOT_PORTED = ("VITSTrainer", "E2TTSTrainer")  # the JAX package's other trainer types
+NOT_PORTED = ("E2TTSTrainer",)  # the JAX package's other trainer type
 
 
 def _refuse(trainer_type: str):

@@ -12,9 +12,11 @@ as they do there.
 Dropout masks come from one ``torch.Generator`` that the trainer re-seeds
 from ``(seed, step)`` before each step, in the role of the JAX trainer's
 ``fold_in(rng, step)``: the masks of a step do not depend on how the run got
-there, so a resumed run draws what an uninterrupted one would. The CFM's
-noise (Matcha's t and z, the JAX package's "noise" stream) comes from a
-second generator, re-seeded the same way from its own stream.
+there, so a resumed run draws what an uninterrupted one would. The training
+noise (the JAX package's "noise" stream: Matcha's t and z, VITS's eps and
+the stochastic duration predictor's e_q) comes from a second generator,
+re-seeded the same way from its own stream and handed to every module with
+a ``noise_generator`` (``modules/noise.py``).
 
 ``run()`` keeps the JAX loop's boundary-crossing rule for the log, eval and
 save intervals and its deferred stop (``request_stop``, set by the CLI's
@@ -41,8 +43,8 @@ from typing import Any, Callable, Dict, List, Optional
 import numpy as np
 import torch
 
-from jatts_torch.modules.cfm import set_noise_generator
 from jatts_torch.modules.dropout import set_dropout_generator
+from jatts_torch.modules.noise import set_noise_generator
 from jatts_torch.train.schedulers import build_optimizer, build_schedule, clip_by_global_norm, global_norm
 from jatts_torch.utils.checkpoint import find_latest_checkpoint, restore_checkpoint, save_checkpoint
 from jatts_torch.utils.initialize import initialize

@@ -76,17 +76,20 @@ def _leaf(name: str, arr: np.ndarray) -> Tuple[str, np.ndarray]:
 
 
 def flax_to_state_dict(
-    variables: Mapping[str, Any], renames=()
+    variables: Mapping[str, Any], renames=(), every=(), leaf=_leaf
 ) -> Dict[str, torch.Tensor]:
     """Generic converter: walks ``params`` and ``batch_stats``, renames each
-    module path by ``renames`` and converts each leaf by its name. BatchNorm
-    modules also get ``num_batches_tracked``, which ``load_state_dict``
-    expects."""
+    module path by the first match of ``renames``, then by every pattern
+    of ``every`` in turn, and converts each leaf by its name (``leaf``).
+    BatchNorm modules also get ``num_batches_tracked``, which
+    ``load_state_dict`` expects."""
     sd: Dict[str, torch.Tensor] = {}
     for collection in ("params", "batch_stats"):
         for path, arr in _flatten(variables.get(collection, {})):
             module = _rename("/".join(path[:-1]), renames)
-            name, arr = _leaf(path[-1], arr)
+            for pattern, repl in every:
+                module = re.sub(pattern, repl, module)
+            name, arr = leaf(path[-1], arr)
             key = ".".join(p for p in module.split("/") + [name] if p)
             sd[key] = torch.from_numpy(np.array(arr, dtype=np.float32))
             if name == "running_mean":
@@ -171,13 +174,45 @@ def matcha_estimator_renames(n_channels: int):
     )
 
 
+# flax's numbered submodules -> torch ModuleList indices: the WaveNets'
+# layers, the flows, the text encoder's blocks, the stochastic duration
+# predictor's convolutions and flows
+LIST_RENAMES = (
+    (r"(^|/)(conv_layers|flows|post_flows|encoders|dw|norm1|pw|norm2)_(\d+)(?=/|$)", r"\1\2/\3"),
+)
+
+
 def matchatts_state_dict_from_jax(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     """MatchaTTS or MatchaTTS_MAS flax variables -> the port's (and the
     reference's) state_dict: the inverse of
     ``jatts_tpu.utils.torch_import.convert_matchatts`` and
     ``convert_matcha_estimator``. The encoder and the duration predictor
     are named as FastSpeech2's; ``alignment_module`` and ``projection`` keep
-    their names; ConvTranspose kernels become ``[in, out, k]``."""
+    their names; ConvTranspose kernels become ``[in, out, k]``; the
+    stochastic duration predictor ``sdp`` gets the port's own keys
+    (``modules/flows.py``)."""
     est = variables["params"]["decoder"]["estimator"]
     n = sum(1 for k in est if k.startswith("down_resnet_"))
-    return flax_to_state_dict(variables, matcha_estimator_renames(n) + FASTSPEECH2_RENAMES)
+    return flax_to_state_dict(variables, matcha_estimator_renames(n) + FASTSPEECH2_RENAMES, LIST_RENAMES)
+
+
+def _wn_leaf(name: str, arr: np.ndarray) -> Tuple[str, np.ndarray]:
+    """WaveNet's weight-normed convolutions: v ``[k, in, out]`` -> weight_v
+    ``[out, in, k]``, g ``[out]`` -> weight_g ``[out, 1, 1]``, b -> bias;
+    every other leaf as ``_leaf``."""
+    if name == "v":
+        return "weight_v", np.transpose(arr, (2, 1, 0))
+    if name == "g":
+        return "weight_g", arr.reshape(-1, 1, 1)
+    if name == "b":
+        return "bias", arr
+    return _leaf(name, arr)
+
+
+def vits_state_dict_from_jax(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """VITS flax variables -> the port's state_dict: for the deterministic
+    duration predictor the reference's keys, the inverse of
+    ``jatts_tpu.utils.torch_import.convert_vits`` (couplings at
+    ``flow.flows.{0,2,..}``, ``conv_layers.{i}`` with ``weight_g``/``weight_v``);
+    the stochastic one's are the port's own (``modules/flows.py``)."""
+    return flax_to_state_dict(variables, FASTSPEECH2_RENAMES, LIST_RENAMES, leaf=_wn_leaf)

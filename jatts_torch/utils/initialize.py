@@ -21,7 +21,12 @@ Applied by the trainer right after a model is built, with the model's
     layout: ``fan_in = shape[1]·receptive``, ``fan_out =
     shape[0]·receptive`` of the torch shape, torch's own reading;
   - any other parameter (``pos_bias_u``/``pos_bias_v`` ``[H, d_k]``) is
-    stored as flax stores it and is read as it stands: ``fan_in = H``.
+    stored as flax stores it and is read as it stands: ``fan_in = H``;
+  - a module may name its own parameters in ``INIT_RULES``:
+    ``"torch_layout"`` reads one as a Conv weight, ``"keep"`` leaves one
+    alone (the weight-normed convolutions of ``modules/wavenet.py``: ``v``
+    ``[out, in, k]`` is drawn, the scale ``g``, a 1-dim leaf in flax kept
+    as ``[out, 1, 1]``, is not).
 
 Draws come from a ``torch.Generator`` seeded by the caller; they are not
 jax.random's bits.
@@ -79,11 +84,18 @@ def initialize(model: nn.Module, init_type: Optional[str], seed: int = 0) -> nn.
     g = torch.Generator().manual_seed(seed)
     tables = {id(m.weight) for m in model.modules() if isinstance(m, nn.Embedding)}
     torch_layout = {id(m.weight) for m in model.modules() if isinstance(m, _TORCH_LAYOUT)}
+    keep = set()
+    for m in model.modules():
+        for pname, rule in getattr(m, "INIT_RULES", {}).items():
+            param = getattr(m, pname, None)
+            if isinstance(param, nn.Parameter):
+                (torch_layout if rule == "torch_layout" else keep).add(id(param))
     for name, param in model.named_parameters():
         parts = name.split(".")
         if parts[-1] == "bias":
             param.zero_()
-        elif param.ndim <= 1 or id(param) in tables or any("embed" in p.lower() for p in parts[:-1]):
+        elif (param.ndim <= 1 or id(param) in tables or id(param) in keep
+              or any("embed" in p.lower() for p in parts[:-1])):
             continue
         else:
             shape = tuple(param.shape)

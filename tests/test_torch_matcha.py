@@ -416,8 +416,13 @@ def test_matchatts_mas_training_forward_matches_jax(jbackend):
 
 
 def test_mas_refuses_the_stochastic_duration_predictor():
-    with pytest.raises(ValueError, match="modules/flows.py"):
-        MatchaTTS_MAS(**TINY, duration_predictor_type="stochastic", device="cpu")
+    """The stochastic predictor is ported (``modules/flows.py``, held to
+    JAX in tests/test_torch_flows.py): it replaces the conv predictor as
+    ``sdp``; only an unknown duration_predictor_type is refused."""
+    port = MatchaTTS_MAS(**TINY, duration_predictor_type="stochastic", device="cpu")
+    assert hasattr(port, "sdp") and not hasattr(port, "duration_predictor")
+    with pytest.raises(ValueError, match="duration_predictor_type"):
+        MatchaTTS_MAS(**TINY, duration_predictor_type="flow", device="cpu")
 
 
 # ---------------------------------------------------------------------------

@@ -16,7 +16,7 @@ torch = pytest.importorskip("torch")
 
 from jatts_torch.models.matchatts import MatchaTTS  # noqa: E402
 from jatts_torch.models.matchatts_mas import MatchaTTS_MAS  # noqa: E402
-from jatts_torch.modules.cfm import set_noise_generator  # noqa: E402
+from jatts_torch.modules.noise import set_noise_generator  # noqa: E402
 from jatts_torch.ops import mas  # noqa: E402
 from jatts_torch.serving import ServingBundle  # noqa: E402
 from jatts_torch.vocoder.hifigan import HiFiGANGenerator  # noqa: E402

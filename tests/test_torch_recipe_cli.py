@@ -288,7 +288,7 @@ def test_tts_decode_matches_jax_inference(stages, experiment, tmp_path):
 def test_tts_decode_vocoder_choice_and_refusals(stages, experiment, tmp_path, caplog):
     """--vocoder auto with a configured checkpoint that is missing falls
     back to Griffin-Lim with a warning; --save-anasyn vocodes the row's
-    own mel too; a model type other than FastSpeech2 is refused; a missing
+    own mel too; a model type the CLI does not decode is refused; a missing
     checkpoint raises."""
     config = dict(experiment["config"], vocoder={"checkpoint": str(tmp_path / "none.pkl"), "config": "x.yml"})
     rows, _ = tio.read_csv(os.path.join(stages["port"], "data.csv"), dict_reader=True)
@@ -302,7 +302,7 @@ def test_tts_decode_vocoder_choice_and_refusals(stages, experiment, tmp_path, ca
     wav, _ = tio.read_audio(str(tmp_path / "a" / "wav_anasyn" / f"{rows[0]['sample_id']}.wav"))
     assert len(wav) == sum(int(d) for d in rows[0]["durations"].split()) * HOP
     with pytest.raises(ValueError, match="not ported yet"):
-        tdecode.run(*args, dict(config, model_type="VITS"), str(tmp_path / "b"), expdir=experiment["expdir"],
+        tdecode.run(*args, dict(config, model_type="E2TTS"), str(tmp_path / "b"), expdir=experiment["expdir"],
                     device="cpu")
     with pytest.raises(FileNotFoundError):
         tdecode.run(*args, config, str(tmp_path / "c"), expdir=str(tmp_path / "empty"), device="cpu")
