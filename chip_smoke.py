@@ -191,7 +191,30 @@ Phases, each of which fails the run with a non-zero exit:
      the CTC loop's and the fused search's shares; then ``bin/tts_decode.py``
      on the trained checkpoint (its duration bias centred) with phase 15's
      HiFi-GAN checkpoint and with Griffin-Lim, the mels against
-     ``VITS.inference``.
+     ``VITS.inference``;
+ 18. the VALL-E NAR: phase 12's codec corpus trains 200 micro-steps through
+     ``jatts_torch/bin/tts_train.py:run`` on
+     egs/hificaptain_jp_female/tts3/conf/valle_nar.given.bs32.yaml as it
+     stands (d_model 1024, 16 heads, 12 layers, 7 levels, bf16 compute,
+     batch 16 x accumulation 2, AdamW, warm-up 50) with ``attn_backend:
+     flash``, launch counts set to 0 just before and read just after (every
+     forward on the tensor-core kernel, every dk/dv and dq on the
+     non-causal tensor-core forms of ``flash_attn_bwd_tc.cu``, 12 a
+     micro-step, nothing else); the falling loss, micro-steps 198-199
+     replayed bitwise from ``checkpoint-198steps`` with the same levels
+     drawn, a micro-step's time and a profiled one, the same step under
+     ``attn_backend: xla`` (bf16, then f32 on 4 rows); the non-causal dk/dv
+     and dq against the plain backward at the run's largest batch and on
+     ragged forms (a row with one valid key, one with none, S = 1, Tq !=
+     Tk), their bits on a second run, the scalar kernels on the same
+     inputs, the autograd chain; their times by CUDA events and graph
+     replay beside the scalar kernels', the plain versions', SDPA's with a
+     boolean key mask (the yardstick, never used by the port) and the
+     bounds; then ``bin/ttslm_decode.py`` on 4 dev rows with phase 12's AR
+     and this NAR (bf16 parameters, 256 steps): codes [T, 8] in the
+     codebook, level 0 the AR's output (row 0 also against ``ar_generate``
+     called directly), every fill against ``nar_generate`` called directly
+     with the CLI's generator.
 The line before the last is the kernels' JSON record, the last line
 ``{"ok": true, "device": {...}}``. Exits 2 without a CUDA device or
 without the jatts_torch package beside this file.
@@ -2512,7 +2535,8 @@ def valle_slice(root, seed, where):
     check(kv_err <= kv_tol, "the KV-cached logits disagree with the causal trunk")
     return launches, f32_launches[:3], own, {
         "step_ms": step_ms, "run_s": run_s, "k_ms": k_ms, "k1b_share": k1b_ms / busy_ms,
-        "idle": 1 - busy_ms / wall_ms, "flash_ms": flash_ms, "xla_ms": xla_ms}
+        "idle": 1 - busy_ms / wall_ms, "flash_ms": flash_ms, "xla_ms": xla_ms,
+        "corpus": (train_csv, dev_csv, stats, tokens), "outdir": outdir}
 
 
 # ---------------------------------------------------------------------------
@@ -3679,6 +3703,529 @@ def vits_slice(root, align_paths, freqs, seed, where):
     return serve, train, decode
 
 
+# ---------------------------------------------------------------------------
+# phase 18: the VALL-E NAR (training with the non-causal bf16 backward on the
+# tensor cores, the 7-level fill, the tts3 decode CLI)
+# ---------------------------------------------------------------------------
+
+NAR_CONF = ROOT / "egs" / "hificaptain_jp_female" / "tts3" / "conf" / "valle_nar.given.bs32.yaml"
+NAR_STEPS = 200  # the conf's train_max_steps is 400000
+NAR_WARMUP = 50  # the conf's warmup_steps is 8000
+NAR_RESUME = 198  # an interval checkpoint at an accumulation boundary: micro-steps 198 and 199 are replayed
+NAR_DECODE_STEPS = 256  # the decode CLI's --max-steps (the AR's capacity, which the NAR fills)
+# the launches of one non-causal bf16 backward at d 64: dk/dv and dq on the
+# tensor cores, counted apart from the causal ones, and nothing else
+NAR_BWD_LAUNCH = {"k1.launches_bwd_dkv": 1, "k1.launches_bwd_dq": 1, "k1.launches_bwd_dkv_tc_noncausal": 1,
+                  "k1.launches_bwd_dq_tc_noncausal": 1}
+
+
+def launches_since(before):
+    """The counters of :func:`launch_counts` that moved since ``before``, by how much."""
+    return {k: v - before[k] for k, v in launch_counts().items() if v != before[k]}
+
+
+def nar_cases(b, h, s):
+    """(name, (B, H, Tq, Tk, d), key mask rows as (first valid key, number
+    of valid keys) cycled over the batch): the NAR's own largest attention
+    with ragged rows (one with a single valid key, one with none), S = 1,
+    Tq < Tk, Tq > Tk and a T that ends inside a tile."""
+    ragged = [(0, s), (0, s - 1), (0, min(s, 611)), (0, 1), (0, 0), (0, min(s, 65)), (37, s // 2), (0, s // 3)]
+    return [
+        ("the NAR's largest batch", (b, h, s, s, 64), ragged),
+        ("S=1", (2, 2, 1, 1, 64), [(0, 1), (0, 0)]),
+        ("Tq < Tk", (3, 2, 200, 333, 64), [(0, 333), (37, 100), (0, 0)]),
+        ("Tq > Tk", (3, 2, 517, 130, 64), [(0, 130), (0, 1), (64, 66)]),
+        ("ragged T", (3, 2, 1000, 1000, 64), [(0, 1000), (0, 999), (0, 517)]),
+    ]
+
+
+def nar_inputs(shape, rows, seed):
+    import torch
+
+    b, h, tq, tk, d = shape
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    q, do = (torch.randn(b, h, tq, d, device="cuda", generator=g).bfloat16() for _ in range(2))
+    k, v = (torch.randn(b, h, tk, d, device="cuda", generator=g).bfloat16() for _ in range(2))
+    pos = torch.arange(tk, device="cuda")
+    key_mask = torch.stack([(pos >= a) & (pos < a + n) for a, n in (rows * b)[:b]])
+    return q, k, v, key_mask, do
+
+
+def check_nar_bwd(name, shape, rows, seed):
+    """The non-causal bf16 dk/dv and dq at d 64 (``launch_dkv<false>``,
+    ``launch_dq<false>`` of ``flash_attn_bwd_tc.cu``) against
+    ``flash_attention_bwd_ref`` on the same inputs (both fed the plain
+    forward's lse and its output rounded to bf16), each output within
+    TOL_BWD["bf16"] of every batch item's own max(1, max|plain|)
+    (``item_err``); dq 0 on rows that see no key, dk and dv 0 on masked keys;
+    one launch each on the non-causal tensor-core counters and none on the
+    causal ones; the same bits on a second run; the scalar kernels
+    (``flash_attn_bwd.cu``, the form's kernels before) on the same inputs.
+    Returns the largest |kernel - plain| of each of dq, dk, dv and the
+    scalar kernels' largest over the three."""
+    import torch
+
+    from jatts_torch.ops import flash_attention as k1
+
+    q, k, v, key_mask, do = nar_inputs(shape, rows, seed)
+    scale = shape[4] ** -0.5
+    o, lse = k1.flash_attention_ref(q.float(), k.float(), v.float(), None, key_mask, scale, return_lse=True)
+    o = o.bfloat16()
+    before = launch_counts()
+    got = k1.flash_attention_bwd(q, k, v, None, key_mask, scale, o, lse, do)
+    torch.cuda.synchronize()
+    ran = launches_since(before)
+    check(ran == NAR_BWD_LAUNCH, f"NAR backward {name}: launches {ran} != {NAR_BWD_LAUNCH}")
+    again = k1.flash_attention_bwd(q, k, v, None, key_mask, scale, o, lse, do)
+    want = k1.flash_attention_bwd_ref(q.float(), k.float(), v.float(), None, key_mask, scale, o.float(), lse,
+                                      do.float())
+    di = (o.float() * do.float()).sum(-1)
+    scalar = (torch.empty_like(q), torch.empty_like(k), torch.empty_like(v))
+    k1._launch_bwd("dkv", q, k, v, None, key_mask, scale, lse, di, do, scalar[1], scalar[2], False, _lib=k1.KERNEL_BWD)
+    k1._launch_bwd("dq", q, k, v, None, key_mask, scale, lse, di, do, scalar[0], None, False, _lib=k1.KERNEL_BWD)
+    torch.cuda.synchronize()
+    check(all(torch.equal(a, b) for a, b in zip(got[:3], again[:3])), f"NAR backward {name}: bits differ between runs")
+    check(got[3] is None, "the NAR backward wrote d(ab) without a bias")
+    tol = TOL_BWD["bf16"]
+    errs, rel, scalar_rel = {}, {}, 0.0
+    scalar_err = 0.0
+    for gname, g_, w, s_ in zip(("dq", "dk", "dv"), got, want, scalar):
+        check(bool(torch.isfinite(g_).all()), f"NAR backward {name} {gname} not finite")
+        errs[gname] = (g_.float() - w).abs().max().item()
+        rel[gname] = item_err(g_, w)
+        check(rel[gname] <= tol, f"NAR backward {name} {gname} err {rel[gname]} x max(1, max|plain| of its item) > {tol}")
+        scalar_rel = max(scalar_rel, item_err(s_, w))
+        scalar_err = max(scalar_err, (s_.float() - w).abs().max().item())
+    check(scalar_rel <= tol, f"NAR backward {name}: the scalar kernels on the same inputs err {scalar_rel} > {tol}")
+    rows_none = torch.isinf(lse)[..., None].expand_as(got[0])
+    unseen = ~key_mask[:, None, :, None].expand_as(got[1])
+    check(bool((got[0][rows_none] == 0).all()) and bool((got[1][unseen] == 0).all())
+          and bool((got[2][unseen] == 0).all()),
+          f"NAR backward {name}: dq of a row that sees no key, or dk/dv of a masked key, is not 0")
+    b, h, tq, tk, d = shape
+    print(f"NAR backward check bf16 non-causal B,H,Tq,Tk,d={b},{h},{tq},{tk},{d} (dk/dv and dq on the tensor cores): "
+          f"max_abs_err " + ", ".join(f"{n} {errs[n]:.2e} ({rel[n]:.2e})" for n in errs)
+          + f" (max |kernel - plain| (worst item's over max(1, max|plain| of the item)); tol {tol:.0e}); the same "
+          f"bits on a second run; the scalar kernels on the same inputs {scalar_rel:.2e}; rows that see no key "
+          f"{int(torch.isinf(lse).sum())}, masked keys {int((~key_mask).sum())}", flush=True)
+    return errs, scalar_err
+
+
+def check_nar_chain(shape, rows, seed):
+    """The NAR's attention autograd chain in bf16: FlashAttention (the
+    tensor-core forward, whose output and lse feed the non-causal
+    tensor-core dk/dv and dq) against autograd through the plain forward in
+    f32 on the same inputs; the output within TOL["bf16"], each gradient
+    within TOL_BWD["bf16"] of every item's own max(1, max|plain|). Returns
+    the largest |kernel - plain| of the output and of the gradients."""
+    import torch
+
+    from jatts_torch.ops import flash_attention as k1
+
+    q, k, v, key_mask, do = nar_inputs(shape, rows, seed)
+    scale = shape[4] ** -0.5
+    leaves = [x.detach().requires_grad_() for x in (q, k, v)]
+    before = launch_counts()
+    out = k1.flash_attention(*leaves, None, key_mask, scale)
+    got = torch.autograd.grad(out, leaves, do)
+    torch.cuda.synchronize()
+    ran = launches_since(before)
+    want = {**NAR_BWD_LAUNCH, "k1.launches": 1, "k1.launches_tc": 1}
+    check(ran == want, f"NAR autograd chain: launches {ran} != {want}")
+    ref_leaves = [x.float().detach().requires_grad_() for x in (q, k, v)]
+    ref = k1.flash_attention_ref(*ref_leaves, None, key_mask, scale)
+    want = torch.autograd.grad(ref, ref_leaves, do.float())
+    errs, parts = {}, []
+    for gname, g_, w, tol in zip(("fwd", "dq", "dk", "dv"), (out.detach(), *got), (ref.detach(), *want),
+                                 (TOL["bf16"], *[TOL_BWD["bf16"]] * 3)):
+        errs[gname] = (g_.float() - w).abs().max().item()
+        rel = item_err(g_, w)
+        parts.append(f"{gname} {errs[gname]:.2e} ({rel:.2e}, tol {tol:.0e})")
+        check(math.isfinite(errs[gname]) and rel <= tol,
+              f"NAR autograd chain: {gname} err {rel} x max(1, max|plain| of its item) > {tol}")
+    print(f"NAR autograd chain bf16 B,H,T,d={shape[0]},{shape[1]},{shape[2]},{shape[4]} (FlashAttention forward + "
+          f"backward vs autograd through the plain forward in f32): max_abs_err (worst item's over max(1, "
+          f"max|plain| of the item)) " + ", ".join(parts), flush=True)
+    return errs
+
+
+def nar_bounds_ms(b, h, tq, tk, d):
+    """Least times of the three non-causal bf16 kernels with every key
+    valid: operations on the bf16 tensor cores (the forward's 2 products,
+    4·B·H·Tq·Tk·d FLOP; dk/dv's 4: the scores again, dp, dv, dk; dq's 3:
+    the scores again, dp, dq), bytes each input read once and each output
+    written once (q, k, v, o, do, dq, dk, dv in bf16; lse, di f32; the key
+    mask)."""
+    nq, nk = b * h * tq * d * 2, b * h * tk * d * 2
+    rows, mask = b * h * tq * 4, b * tk
+    pair = 2 * b * h * tq * tk * d  # one product
+    out = {}
+    for name, nbytes, flops in (("fwd", 2 * nq + 2 * nk + rows + mask, 2 * pair),
+                                ("dkv", 2 * nq + 4 * nk + 2 * rows + mask, 4 * pair),
+                                ("dq", 3 * nq + 2 * nk + 2 * rows + mask, 3 * pair)):
+        t_bytes = nbytes / PEAK_BYTES_S * 1e3
+        t_ops = ops_ms(flops, "bf16")
+        out[name] = (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations", nbytes, flops)
+    return out
+
+
+def time_nar_attn(shape, seed, where):
+    """The NAR's attention at ``shape`` (B, H, S, d), every key valid, bf16
+    non-causal: the tensor-core forward, dk/dv and dq by CUDA events and
+    replayed from a CUDA graph; beside them the scalar dk/dv and dq
+    (``flash_attn_bwd.cu``) on the same inputs, the plain forward and
+    backward, SDPA with the boolean key mask (forward, and forward +
+    backward: the yardstick, never used by the port; its backend printed)
+    and the bounds."""
+    import torch
+
+    from jatts_torch.ops import flash_attention as k1
+
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    b, h, s, d = shape
+    q, k, v, key_mask, do = nar_inputs((b, h, s, s, d), [(0, s)], seed)
+    scale = d ** -0.5
+    o, lse = k1.flash_attention_fwd(q, k, v, None, key_mask, scale)
+    di = (o.float() * do.float()).sum(-1)
+
+    def fwd():
+        return k1.flash_attention_fwd(q, k, v, None, key_mask, scale)
+
+    def dkv():
+        return k1.flash_attention_bwd_dkv(q, k, v, None, key_mask, scale, lse, di, do)
+
+    def dq():
+        return k1.flash_attention_bwd_dq(q, k, v, None, key_mask, scale, lse, di, do)
+
+    res = {"fwd": time_ms(fwd), "fwd_graph": graph_ms(fwd), "dkv": time_ms(dkv), "dkv_graph": graph_ms(dkv),
+           "dq": time_ms(dq), "dq_graph": graph_ms(dq)}
+    sq, sk, sv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    res["dkv_scalar"] = time_ms(lambda: k1._launch_bwd("dkv", q, k, v, None, key_mask, scale, lse, di, do, sk, sv,
+                                                       False, _lib=k1.KERNEL_BWD), iters=3, warmup=1)
+    res["dq_scalar"] = time_ms(lambda: k1._launch_bwd("dq", q, k, v, None, key_mask, scale, lse, di, do, sq, None,
+                                                      False, _lib=k1.KERNEL_BWD), iters=3, warmup=1)
+    res["plain_fwd_ms"] = time_ms(lambda: k1.flash_attention_ref(q, k, v, None, key_mask, scale), iters=3, warmup=1)
+    res["plain_bwd_ms"] = time_ms(lambda: k1.flash_attention_bwd_ref(q, k, v, None, key_mask, scale, o, lse, do),
+                                  iters=3, warmup=1)
+    mask = key_mask[:, None, None, :]
+    res["sdpa_backend"] = sdpa_choice(q, k, v, attn_mask=mask, scale=scale)
+    res["sdpa_fwd_ms"] = time_ms(lambda: sdpa(q, k, v, attn_mask=mask, scale=scale))
+    res["sdpa_fwd_graph_ms"] = graph_ms(lambda: sdpa(q, k, v, attn_mask=mask, scale=scale))
+    qs, ks, vs = (x.detach().requires_grad_() for x in (q, k, v))
+    res["sdpa_ms"] = time_ms(lambda: torch.autograd.grad(sdpa(qs, ks, vs, attn_mask=mask, scale=scale),
+                                                         (qs, ks, vs), do), iters=10, warmup=2)
+    res["bounds"] = nar_bounds_ms(b, h, s, s, d)
+    res["shape"] = shape
+    parts = "; ".join(
+        f"{n} kernel {res[n]:.4f} ms (graph replay {res[n + '_graph']:.4f} ms{extra}) (bound {bd[0]:.4f} ms by "
+        f"{bd[1]}: {bd[2] / 1e6:.1f} MB, {bd[3] / 1e9:.1f} GFLOP)"
+        for n, bd, extra in (("fwd", res["bounds"]["fwd"], ""),
+                             ("dkv", res["bounds"]["dkv"], f"; the scalar dk/dv on the same inputs "
+                                                           f"{res['dkv_scalar']:.4f} ms"),
+                             ("dq", res["bounds"]["dq"], f"; the scalar dq on the same inputs {res['dq_scalar']:.4f} ms")))
+    print(f"NAR attention time bf16 non-causal B,H,S,d={b},{h},{s},{d}, every key valid, tensor cores: {parts}; plain "
+          f"forward {res['plain_fwd_ms']:.4f} ms, plain backward {res['plain_bwd_ms']:.4f} ms; sdpa (bool key mask, "
+          f"{res['sdpa_backend']}) forward {res['sdpa_fwd_ms']:.4f} ms (graph {res['sdpa_fwd_graph_ms']:.4f} ms), "
+          f"forward+backward {res['sdpa_ms']:.4f} ms; backward kernels dk/dv + dq {res['dkv'] + res['dq']:.4f} ms = "
+          f"{(res['dkv'] + res['dq']) / res['sdpa_ms']:.3f} x sdpa's forward+backward; {where}", flush=True)
+    return res
+
+
+def nar_training(corpus, outdir, seed, where):
+    """Phase 18, training: ``bin/tts_train.py:run`` on the NAR conf as it
+    stands (d_model 1024, 16 heads, 12 layers, bf16, batch 16 x accumulation
+    2, AdamW) with ``attn_backend: flash`` on phase 12's codec corpus, launch
+    counts set to 0 just before and read just after; the falling loss, the
+    last two micro-steps replayed bitwise from an interval checkpoint with
+    the same levels drawn, one step under ``flash`` against one under
+    ``xla`` (dropout 0), a micro-step's time and a profiled one. Returns the
+    trainer, the launches and the numbers the record and PERF.md need."""
+    import numpy as np
+    import torch
+
+    from jatts_torch.bin import tts_train
+    from jatts_torch.models.valle import VALLENAR
+    from jatts_torch.modules.dropout import set_dropout_rate
+    from jatts_torch.train.steps_valle import valle_kwargs
+    from jatts_torch.train.trainer import Trainer
+    from jatts_torch.utils.config import load_config
+
+    config = load_config(str(NAR_CONF))
+    mp = config["model_params"]
+    cuts = [f"train_max_steps {config['train_max_steps']} -> {NAR_STEPS}",
+            f"warmup_steps {config['scheduler_params']['warmup_steps']} -> {NAR_WARMUP}",
+            f"save_interval_steps {config['save_interval_steps']} -> {NAR_RESUME}"]
+    print(f"VALL-E NAR config {NAR_CONF.relative_to(ROOT)} (d_model {mp['d_model']}, {mp['n_heads']} heads, "
+          f"{mp['n_layers']} layers, {mp['n_resp_levels']} levels, dtype {mp['dtype']}, batch {config['batch_size']} "
+          f"x accumulation {config['gradient_accumulate_steps']}, {config['optimizer_type']}) with attn_backend flash; "
+          f"reductions: {', '.join(cuts)}; phase 12's 64-utterance synthetic codec corpus", flush=True)
+    config.update(train_max_steps=NAR_STEPS, save_interval_steps=NAR_RESUME)
+    config["scheduler_params"] = {**config["scheduler_params"], "warmup_steps": NAR_WARMUP}
+
+    # the batches of the steps to be replayed, and every step's levels: the
+    # wrapper draws them as the model does (one randint from its noise
+    # generator) and hands them in
+    real_step, real_fwd = Trainer.train_step, VALLENAR.forward
+    kept, levels = {}, []
+
+    def keep_step(self, batch):
+        if self.steps >= NAR_RESUME:
+            kept[self.steps] = batch
+        return real_step(self, batch)
+
+    def drawn_fwd(self, text, *args, quant_levels=None, **kwargs):
+        if quant_levels is None and self.training:
+            quant_levels = torch.randint(0, self.n_resp_levels, (text.shape[0],), generator=self.noise_generator,
+                                         device=text.device)
+            levels.append(quant_levels.tolist())
+        return real_fwd(self, text, *args, quant_levels=quant_levels, **kwargs)
+
+    Trainer.train_step, VALLENAR.forward = keep_step, drawn_fwd
+    try:
+        reset_all_launches()
+        t0 = time.perf_counter()
+        trainer = tts_train.run(*corpus, config, outdir, seed=seed, device="cuda", attn_backend="flash")
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        counts = launch_counts()
+    finally:
+        Trainer.train_step, VALLENAR.forward = real_step, real_fwd
+    run_levels = list(levels)
+    layers = trainer.model.n_layers
+    loader = trainer.train_loader
+    n = layers * NAR_STEPS
+    want = {"k1.launches": n, "k1.launches_tc": n, "k1.launches_bwd_dkv": n, "k1.launches_bwd_dq": n,
+            "k1.launches_bwd_dkv_tc_noncausal": n, "k1.launches_bwd_dq_tc_noncausal": n}
+    print(f"VALL-E NAR training: {len(loader.dataset)} utterances in {len(loader.sampler)} batches of <= "
+          f"{config['batch_size']}, {trainer.steps} micro-steps ({trainer.updates} updates) in {run_s:.1f} s; launches: "
+          f"forward {counts['k1.launches']} (tensor cores {counts['k1.launches_tc']}), dk/dv "
+          f"{counts['k1.launches_bwd_dkv']} (non-causal tensor cores {counts['k1.launches_bwd_dkv_tc_noncausal']}), "
+          f"dq {counts['k1.launches_bwd_dq']} (non-causal tensor cores {counts['k1.launches_bwd_dq_tc_noncausal']}); "
+          f"limit {layers} a micro-step each = {n}, every other counter 0 (the causal ones "
+          f"{[counts[k] for k in ('k1.launches_causal', 'k1.launches_bwd_dkv_tc', 'k1.launches_bwd_dq_tc')]}); levels "
+          f"drawn in the first 4 micro-steps {run_levels[:4]}", flush=True)
+    check(trainer.steps == NAR_STEPS, f"trained {trainer.steps} NAR micro-steps")
+    check(all(math.isfinite(v) for h in trainer.history for v in h.values()), "a NAR training stat is not finite")
+    check(all(counts[k] == want.get(k, 0) for k in counts),
+          f"NAR training launches {counts}: every forward, dk/dv and dq must take the tensor-core kernels (the "
+          f"non-causal backward), {layers} a micro-step, and nothing else may launch")
+    losses = [h["train/loss_ce"] for h in trainer.history]
+    first, last = float(np.mean(losses[:10])), float(np.mean(losses[-10:]))
+    print(f"VALL-E NAR loss_ce: mean of the first 10 micro-steps {first:.4f}, of the last 10 {last:.4f} (limit: at "
+          f"most 0.9 x the first)", flush=True)
+    check(last <= 0.9 * first, "the NAR loss did not fall by 10%")
+
+    # resume from the interval checkpoint and replay the last two micro-steps
+    model_params = dict(trainer.config["model_params"])
+    dtype = tts_train.DTYPES[model_params.pop("dtype")]
+    model2 = VALLENAR(**model_params, device="cuda", dtype=dtype)
+    resumed = Trainer(trainer.config, model2, trainer.criterions, trainer.loss_fn, loader, outdir=outdir + "_resumed",
+                      seed=seed)
+    resumed.init_state()
+    resumed.load_checkpoint(str(Path(outdir) / f"checkpoint-{NAR_RESUME}steps"))
+    levels.clear()
+    VALLENAR.forward = drawn_fwd
+    try:
+        replay = [resumed.train_step(kept[s]) for s in range(NAR_RESUME, NAR_STEPS)]
+    finally:
+        VALLENAR.forward = real_fwd
+    same_levels = levels == run_levels[NAR_RESUME:NAR_STEPS]
+    same_stats = replay == trainer.history[NAR_RESUME:]
+    same = all(torch.equal(model2.state_dict()[k], v) for k, v in trainer.model.state_dict().items())
+    print(f"VALL-E NAR resume from checkpoint-{NAR_RESUME}steps, micro-steps {NAR_RESUME}-{NAR_STEPS - 1} replayed: "
+          f"levels drawn {levels} (the run's {run_levels[NAR_RESUME:NAR_STEPS]}), stats bitwise equal {same_stats}, "
+          f"parameters bitwise equal {same}", flush=True)
+    check(same_levels and same_stats and same, "the resumed NAR trainer differs")
+    del resumed, model2
+
+    # one micro-step at the largest batch, its parts and a profile
+    model, params = trainer.model, trainer.params
+    big = max(loader.sampler.batches, key=lambda idx: sum(loader.dataset.get_frame_len(i) for i in idx))
+    tb = trainer.to_device(loader._make(big))
+    s_len = tb["text"].shape[1] + tb["proms"].shape[1] + tb["resps"].shape[1] + 2
+    shape = (tb["text"].shape[0], s_len)
+    fixed = torch.arange(shape[0], device="cuda") % model.n_resp_levels  # every level, the same in every call
+
+    def host_ms(fn, iters=3):
+        return time_ms(fn, iters=iters, warmup=1, host_clock=True)
+
+    def loss_of(m, b=tb):
+        return m(**valle_kwargs(b, m), quant_levels=fixed[:b["text"].shape[0]])["loss"]
+
+    model.train()
+    fwd_ms = host_ms(lambda: loss_of(model))
+    loss = loss_of(model)
+    bwd_ms = host_ms(lambda: torch.autograd.grad(loss, params, retain_graph=True))
+    del loss
+    micro_ms = host_ms(lambda: torch.autograd.grad(loss_of(model), params))
+    torch.cuda.reset_peak_memory_stats()
+    torch.autograd.grad(loss_of(model), params)
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    wall_ms, busy_ms, events = profile_ms(lambda: torch.autograd.grad(loss_of(model), params))
+    names = ("flash_attn_fwd_tc_kernel", "flash_attn_bwd_dkv_tc_kernel", "flash_attn_bwd_dq_tc_kernel",
+             "flash_attn_bwd_dkv_kernel", "flash_attn_bwd_dq_kernel")
+    k_ms = {nm: sum(e.self_device_time_total for e in events if nm in e.key) / 1e3 for nm in names}
+    attn_ms = sum(k_ms.values())
+    print(f"VALL-E NAR micro-step bf16 (forward, loss, backward; the optimizer aside), batch {shape} (B, S packed): "
+          f"{micro_ms:.1f} ms (host clock, peak memory {peak_gb:.1f} GiB); forward+loss {fwd_ms:.1f} ms, backward "
+          f"{bwd_ms:.1f} ms; {where}", flush=True)
+    print(f"profile of one NAR micro-step: wall {wall_ms:.1f} ms under the profiler, device busy {busy_ms:.1f} ms in "
+          f"{sum(e.count for e in events)} kernels, idle share {1 - busy_ms / wall_ms:.3f}; attention: forward "
+          f"{k_ms[names[0]]:.2f} ms, dk/dv {k_ms[names[1]]:.2f} ms, dq {k_ms[names[2]]:.2f} ms (tensor cores, "
+          f"{layers} launches each; the scalar dk/dv {k_ms[names[3]]:.2f} ms, dq {k_ms[names[4]]:.2f} ms) = "
+          f"{attn_ms / busy_ms:.3f} of the device time", flush=True)
+    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:8]:
+        print(f"  {e.self_device_time_total / 1e3:8.2f} ms  x{e.count:<5d} {e.key[:90]}")
+    check(k_ms[names[1]] > 0 and k_ms[names[2]] > 0 and k_ms[names[3]] == 0 and k_ms[names[4]] == 0,
+          "the profiled NAR micro-step did not run its backward on the tensor-core kernels")
+
+    # the same step under attn_backend xla, dropout 0, the same levels: bf16
+    # as trained (loose bound: the two round to bf16 at other places), then
+    # f32 on 4 rows (tight)
+    state = {k: v.clone() for k, v in model.state_dict().items()}
+    small = {k: v[:4] for k, v in tb.items()}
+
+    def step_pair(dt, batch, tol_loss, tol_grad):
+        pair = {}
+        for backend in ("flash", "xla"):
+            m = VALLENAR(**{**model_params, "attn_backend": backend}, device="cuda", dtype=dt)
+            m.load_state_dict(state)
+            set_dropout_rate(m, 0.0)
+            m.train()
+            reset_all_launches()
+            lss = loss_of(m, batch)
+            g = torch.autograd.grad(lss, list(m.parameters()))
+            counts_now = launch_counts()
+            got = tuple(counts_now[f"k1.launches{k}"] for k in ("", "_bwd_dkv", "_bwd_dq"))
+            check(got == ((layers,) * 3 if backend == "flash" else (0, 0, 0)),
+                  f"NAR {backend} step: launches (forward, dk/dv, dq) {got}")
+            pair[backend] = (float(lss.detach()), g)
+            del m
+        (lf, gf), (lx, gx) = pair["flash"], pair["xla"]
+        loss_rel = abs(lf - lx) / abs(lx)
+        diff = math.sqrt(sum(float((a - b).double().pow(2).sum()) for a, b in zip(gf, gx)))
+        norm = math.sqrt(sum(float(b.double().pow(2).sum()) for b in gx))
+        name = {torch.bfloat16: "bf16", torch.float32: "f32"}[dt]
+        print(f"VALL-E NAR flash vs xla, {name}, batch {tuple(batch['text'].shape[:1]) + (s_len,)}, dropout 0, levels "
+              f"{fixed[:batch['text'].shape[0]].tolist()}: loss {lf:.6f} vs {lx:.6f} (rel diff {loss_rel:.2e}, tol "
+              f"{tol_loss:.0e}), gradients |g_flash - g_xla| / |g_xla| {diff / norm:.2e} (tol {tol_grad:.0e})",
+              flush=True)
+        check(loss_rel <= tol_loss and diff / norm <= tol_grad, f"NAR flash and xla steps disagree ({name})")
+        return diff / norm
+
+    rel_bf16 = step_pair(dtype, tb, 1e-2, 5e-2)
+    rel_f32 = step_pair(torch.float32, small, 1e-4, 1e-3)
+    return trainer, counts, {"run_s": run_s, "micro_ms": micro_ms, "fwd_ms": fwd_ms, "bwd_ms": bwd_ms,
+                             "peak_gb": peak_gb, "idle": 1 - busy_ms / wall_ms, "busy_ms": busy_ms,
+                             "wall_ms": wall_ms, "k_ms": k_ms, "attn_share": attn_ms / busy_ms, "shape": shape,
+                             "loss": (first, last), "rel_bf16": rel_bf16, "rel_f32": rel_f32}
+
+
+def nar_decode(root, corpus, ar_outdir, nar_outdir, seed, where):
+    """Phase 18, decode: ``bin/ttslm_decode.py`` on 4 dev rows (each its own
+    codes as the prompt) with phase 12's trained AR and this phase's NAR
+    (bf16 parameters, ``--max-steps`` NAR_DECODE_STEPS); the codes [T, 8]
+    in the codebook, level 0 the AR's output (for row 0 also against
+    ``ar_generate`` called directly with the CLI's generator), every row's
+    fill against ``nar_generate`` called directly with the CLI's generator
+    on the CLI's padded inputs."""
+    import numpy as np
+    import torch
+
+    from jatts_torch.bin import ttslm_decode
+    from jatts_torch.data.batcher import round_up
+    from jatts_torch.data.token_id_converter import TokenIDConverter
+    from jatts_torch.models.valle import VALLEAR, VALLENAR, ar_generate, nar_generate
+    from jatts_torch.utils.config import load_config
+    from jatts_torch.utils.io import read_csv, write_csv
+
+    _, dev_csv, _, tokens = corpus
+    rows = read_csv(dev_csv, dict_reader=True)[0][:4]
+    csv = str(Path(root) / "decode_nar.csv")
+    write_csv([{**r, "prompt_feat_path": r["feat_path"]} for r in rows], csv)
+    outdir = str(Path(root) / "decode_nar")
+    cfg = {name: str(Path(d) / "config.yml") for name, d in (("ar", ar_outdir), ("nar", nar_outdir))}
+    argv = ["--csv", csv, "--token-list", tokens, "--ar-expdir", ar_outdir, "--ar-config", cfg["ar"],
+            "--nar-expdir", nar_outdir, "--nar-config", cfg["nar"], "--outdir", outdir,
+            "--max-steps", str(NAR_DECODE_STEPS), "--device", "cuda", "--verbose", "0"]
+    t0 = time.perf_counter()
+    out = ttslm_decode.main(argv)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    got = out["rows"]
+    check(len(got) == len(rows), f"the decode CLI wrote {len(got)} of {len(rows)} rows")
+    with open(tokens, encoding="utf-8") as f:
+        n_vocab = len([line for line in f if line.strip()])
+    ar = ttslm_decode.load_model(VALLEAR, load_config(cfg["ar"]), n_vocab, torch.bfloat16, None, ar_outdir, "cuda")
+    nar = ttslm_decode.load_model(VALLENAR, load_config(cfg["nar"]), n_vocab, torch.bfloat16, None, nar_outdir,
+                                  "cuda")
+    conv = TokenIDConverter(tokens)
+    tp_cap = ar.prompt_max_frame_length
+    differ = 0
+    for i, (row, res) in enumerate(zip(rows, got)):
+        codes = np.load(str(Path(outdir) / "codes" / f"{row['sample_id']}.npy"))
+        check(codes.shape == (res["n_gen"], 8) and codes.dtype == np.int32, f"codes {codes.shape} {codes.dtype}")
+        check(int(codes.min()) >= 0 and int(codes.max()) < nar.n_tokens, "a decoded code out of the codebook")
+        # the CLI's padded inputs, built here again
+        ids = conv.tokens2ids(row["phonemes"].split(" "))
+        prom = np.load(row["feat_path"])["encodec"][:tp_cap]
+        xs = torch.zeros(1, round_up(len(ids), 16), dtype=torch.long, device="cuda")
+        xs[0, :len(ids)] = torch.tensor(ids, device="cuda")
+        proms = torch.zeros(1, tp_cap, 8, dtype=torch.long, device="cuda")
+        proms[0, :len(prom)] = torch.from_numpy(prom).cuda()
+        args = (xs, torch.tensor([len(ids)], device="cuda"), proms, torch.tensor([len(prom)], device="cuda"))
+        level0 = torch.from_numpy(res["level0"]).cuda()[None]
+        check(np.array_equal(codes[:, 0], res["level0"][:res["n_gen"]]), f"row {i}: level 0 is not the AR's output")
+        if i == 0:
+            direct = ar_generate(ar, *args, max_steps=NAR_DECODE_STEPS,
+                                 generator=torch.Generator(device="cuda").manual_seed(i))
+            check(torch.equal(direct["codes"], level0), "row 0: the CLI's AR output differs from ar_generate's")
+        fill = nar_generate(nar, *args, level0, torch.tensor([res["n_gen"]], device="cuda"),
+                            generator=torch.Generator(device="cuda").manual_seed(1000 + i))
+        differ += int((fill[0, :res["n_gen"]].cpu().numpy() != codes).sum())
+    n_codes = sum(r["n_gen"] for r in got) * 8
+    ar_s, nar_s = sum(r["ar_s"] for r in got), sum(r["nar_s"] for r in got)
+    level_ms = nar_s / len(got) / nar.n_resp_levels * 1e3
+    step_ms = ar_s / len(got) / (NAR_DECODE_STEPS - 1) * 1e3
+    print(f"VALL-E decode CLI (bin/ttslm_decode.py, bf16 parameters) on {len(got)} dev rows, --max-steps "
+          f"{NAR_DECODE_STEPS}: frames {[r['n_gen'] for r in got]}; AR {step_ms:.2f} ms a step, NAR {level_ms:.2f} ms "
+          f"a level (7 levels a row at the full capacity), {n_codes} codes in {ar_s + nar_s:.2f} s = "
+          f"{n_codes / (ar_s + nar_s):.0f} codes/s (the CLI's wall {wall_s:.1f} s with loading); codes [T, 8] in "
+          f"[0, {nar.n_tokens}); level 0 the AR's output; the fill against nar_generate called directly: {differ} of "
+          f"{n_codes} codes differ (limit 0); {where}", flush=True)
+    check(differ == 0, "the decode CLI's NAR fill differs from nar_generate's")
+    return {"step_ms": step_ms, "level_ms": level_ms, "codes_s": n_codes / (ar_s + nar_s), "rows": len(got),
+            "frames": [r["n_gen"] for r in got]}
+
+
+def nar_slice(root, corpus, ar_outdir, seed, where):
+    """Phase 18: the VALL-E NAR's training on phase 12's corpus, its
+    attention kernels against their plain versions at its own largest
+    shape and on ragged forms, their times, then the tts3 decode CLI with
+    phase 12's AR. Returns the training launches and the numbers the record
+    and PERF.md need."""
+    t_phase = time.perf_counter()
+    outdir = str(Path(root) / "exp_valle_nar")
+    trainer, counts, train = nar_training(corpus, outdir, seed, where)
+    b, s = train["shape"]
+    h = trainer.model.n_heads
+    del trainer
+    errs = {"dkv": 0.0, "dq": 0.0, "scalar": 0.0}
+    for i, (name, shape, rows) in enumerate(nar_cases(b, h, s)):
+        e, scalar_err = check_nar_bwd(name, shape, rows, seed + 60 + i)
+        errs["dkv"] = max(errs["dkv"], e["dk"], e["dv"])
+        errs["dq"], errs["scalar"] = max(errs["dq"], e["dq"]), max(errs["scalar"], scalar_err)
+    chain = check_nar_chain((b, h, s, s, 64), nar_cases(b, h, s)[0][2], seed + 70)
+    errs["fwd"] = chain["fwd"]
+    errs["dkv"] = max(errs["dkv"], chain["dk"], chain["dv"])
+    errs["dq"] = max(errs["dq"], chain["dq"])
+    times = time_nar_attn((b, h, s, 64), seed + 80, where)
+    decode = nar_decode(root, corpus, ar_outdir, outdir, seed, where)
+    print(f"phase 18 (VALL-E NAR training, kernels, decode): {time.perf_counter() - t_phase:.1f} s; {where}",
+          flush=True)
+    return counts, {"train": train, "errs": errs, "times": times, "decode": decode}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3994,6 +4541,11 @@ def main() -> int:
     # fused MAS search on every micro-step), then decode
     vits_serve, vits_train, vits_dec = vits_slice(tmp.name, align_paths, freqs, args.seed, where)
     mas_checks.append(vits_train["own_check"])
+
+    # 18. the VALL-E NAR: training on phase 12's codec corpus, its attention
+    # kernels (the non-causal bf16 backward on the tensor cores), then the
+    # tts3 decode CLI with phase 12's AR
+    nar_launches, nar = nar_slice(tmp.name, valle["corpus"], valle["outdir"], args.seed, where)
     tmp.cleanup()
     # K2, K3, pair, fused path, fused bits: differing elements over every
     # case and the run's own lattice; K2, K3, fused: the largest |kernel -
@@ -4065,7 +4617,8 @@ def main() -> int:
         "route": "cuda",
         "source": "jatts_torch/csrc/flash_attn_fwd_tc.cu",
         "replaces": "jatts_tpu/modules/attention.py:158",
-        "launches": serve_tc,
+        "launches": serve_tc + nar_launches["k1.launches_tc"],
+        "launches_by_path": {"serving": serve_tc, "valle_nar_training": nar_launches["k1.launches_tc"]},
         "max_abs_err": max(max_err["bf16"], tc_err["k1"]),
         "ms": ms,
         "plain_ms": plain_ms,
@@ -4078,6 +4631,11 @@ def main() -> int:
         "encoder": {"ms": k1_more["enc"]["ms"], "graph_ms": k1_more["enc_graph"][0],
                     "bound_ms": k1_more["enc"]["bound"][0], "library_ms": k1_more["enc"]["sdpa_ms"],
                     "library_graph_ms": k1_more["enc_graph"][1]},
+        # the VALL-E NAR's training forward (d 64, a key mask), timed at its largest batch
+        "valle_nar": {"shape": list(nar["times"]["shape"]), "ms": nar["times"]["fwd"],
+                      "graph_ms": nar["times"]["fwd_graph"], "plain_ms": nar["times"]["plain_fwd_ms"],
+                      "bound_ms": nar["times"]["bounds"]["fwd"][0], "bound_by": nar["times"]["bounds"]["fwd"][1],
+                      "library_ms": nar["times"]["sdpa_fwd_ms"], "max_abs_err": nar["errs"]["fwd"]},
     }, {
         "name": f"{k1.KERNEL_TC}_relpos",
         "route": "cuda",
@@ -4213,7 +4771,21 @@ def main() -> int:
         "plain_ms": k1r_times["plain_bwd_ms"], "bound_ms": k1r_times["bounds"][key][0],
         "bound_by": k1r_times["bounds"][key][1], "cuda_core_bound_ms": cuda_core_ms(k1r_times["bounds"][key][3]),
         "library_ms": k1r_times["sdpa_ms"], "library_backend": k1r_times["sdpa_backend"],
-    } for key, line, n in (("dkv", 1121, jvs["bwd_tc_f32"][0]), ("dq", 1456, jvs["bwd_tc_f32"][1]))]}
+    } for key, line, n in (("dkv", 1121, jvs["bwd_tc_f32"][0]), ("dq", 1456, jvs["bwd_tc_f32"][1]))] + [{
+        # the VALL-E NAR's bf16 non-causal dk/dv and dq (d 64, a key mask) on
+        # the tensor cores; timed at its largest batch with every key valid,
+        # the scalar kernels (the form's before) on the same inputs beside
+        "name": f"flash_attn_bwd_{key}_tc_noncausal", "route": "cuda",
+        "source": "jatts_torch/csrc/flash_attn_bwd_tc.cu",
+        "replaces": f"jax/experimental/pallas/ops/tpu/flash_attention.py:{line}",
+        "launches": nar_launches[f"k1.launches_bwd_{key}_tc_noncausal"],
+        "launches_by_path": {"valle_nar_training": nar_launches[f"k1.launches_bwd_{key}_tc_noncausal"]},
+        "max_abs_err": nar["errs"][key], "ms": nar["times"][key], "graph_ms": nar["times"][f"{key}_graph"],
+        "scalar_ms": nar["times"][f"{key}_scalar"], "scalar_max_abs_err": nar["errs"]["scalar"],
+        "plain_ms": nar["times"]["plain_bwd_ms"], "bound_ms": nar["times"]["bounds"][key][0],
+        "bound_by": nar["times"]["bounds"][key][1], "library_ms": nar["times"]["sdpa_ms"],
+        "library_backend": nar["times"]["sdpa_backend"], "shape": list(nar["times"]["shape"]),
+    } for key, line in (("dkv", 1121), ("dq", 1456))]}
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps(record), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": count}}), flush=True)

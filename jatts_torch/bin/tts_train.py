@@ -21,8 +21,11 @@ the csv's durations, tts1, and ``MatchaTTS_MAS``, tts2, which searches its
 own with the fused MAS kernel; mel-only ``feat_list``; no ``attn_backend``),
 mel-VITS (``VITS``, tts2, e.g. ``--config egs/jsut/tts2/conf/vits.v1.bs32.yaml``:
 the fused MAS search on every micro-step; mel-only; no ``attn_backend``)
-and the VALL-E AR (``VALLEAR``, tts3 stage 3, e.g.
-``--config egs/hificaptain_jp_female/tts3/conf/valle_ar.given.bs32.yaml``);
+the VALL-E AR (``VALLEAR``, tts3 stage 3, e.g.
+``--config egs/hificaptain_jp_female/tts3/conf/valle_ar.given.bs32.yaml``)
+and NAR (``VALLENAR``, tts3 stage 4, e.g.
+``--config egs/hificaptain_jp_female/tts3/conf/valle_nar.given.bs32.yaml``:
+``attn_backend: flash`` trains through the non-causal tensor-core kernels);
 ``model_params.dtype`` is passed to the model as its ``dtype`` (for VALL-E
 the compute dtype: parameters stay float32). ``--multihost`` is not ported.
 """
@@ -49,7 +52,7 @@ from jatts_torch.losses.basic import LOSS_REGISTRY
 from jatts_torch.models.fastspeech2 import FastSpeech2
 from jatts_torch.models.matchatts import MatchaTTS
 from jatts_torch.models.matchatts_mas import MatchaTTS_MAS
-from jatts_torch.models.valle import VALLEAR
+from jatts_torch.models.valle import VALLEAR, VALLENAR
 from jatts_torch.models.vits import VITS
 from jatts_torch.train.steps import get_loss_fn
 from jatts_torch.train.trainer import Trainer
@@ -57,9 +60,9 @@ from jatts_torch.utils.config import dump_config, load_config
 
 MODELS = {
     "FastSpeech2": FastSpeech2, "MatchaTTS": MatchaTTS, "MatchaTTS_MAS": MatchaTTS_MAS, "VITS": VITS,
-    "VALLEAR": VALLEAR,
+    "VALLEAR": VALLEAR, "VALLENAR": VALLENAR,
 }
-NOT_PORTED = ("VALLENAR", "E2TTS")  # the JAX package's other model types
+NOT_PORTED = ("E2TTS",)  # the JAX package's other model types
 # as in the JAX package: their attention never takes the kernel
 EAGER_ATTENTION = ("MatchaTTS", "MatchaTTS_MAS", "VITS")
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}

@@ -1,19 +1,22 @@
-// K1b's backward in bf16 on Hopper's tensor cores (sm_90a), plain C
-// interface: the dk/dv kernel and the dq kernel.
+// K1's backward in bf16 at d 64 on Hopper's tensor cores (sm_90a), plain C
+// interface: the dk/dv kernel and the dq kernel, each in a causal and a
+// non-causal form (a compile-time CAUSAL).
 //
-// Replace, for VALL-E AR's form (bf16, causal, d_qk = d_v = 64, a key mask,
-// no bias), the two Pallas TPU kernels of the flash-attention custom VJP
-// (jax/experimental/pallas/ops/tpu/flash_attention.py) with causal=True:
-// `_flash_attention_dkv_kernel` (:796; pallas_call at :1121; the element
-// mask at :877-885 and the block skip at :924) and
+// Replace, for VALL-E's forms (bf16, d_qk = d_v = 64, a key mask, no bias;
+// causal for the AR, K1b, non-causal for the NAR), the two Pallas TPU kernels
+// of the flash-attention custom VJP
+// (jax/experimental/pallas/ops/tpu/flash_attention.py):
+// `_flash_attention_dkv_kernel` (:796; pallas_call at :1121; the causal
+// element mask at :877-885 and block skip at :924) and
 // `_flash_attention_dq_kernel` (:1146; pallas_call at :1456, wrapper
-// `_flash_attention_bwd_dq` :1287; the element mask at :1213-1220, ds at
-// :1243-1248, dq summed in a scratch accumulator at :1257-1261 and written
-// once at :1281-1284, the blocks above the diagonal skipped at :1263-1277).
-// VALL-E's AR trunk drives them (jatts_tpu/modules/valle_modules.py:101)
-// through the custom VJP of jatts_tpu/modules/attention.py:_flash_attend.
-// They compute exactly what flash_attn_bwd_dkv_kernel<bf16, 64, true> and
-// flash_attn_bwd_dq_kernel<bf16, 64, true> (flash_attn_bwd.cu) compute, per
+// `_flash_attention_bwd_dq` :1287; the causal element mask at :1213-1220, ds
+// at :1243-1248, dq summed in a scratch accumulator at :1257-1261 and written
+// once at :1281-1284, the causal blocks above the diagonal skipped at
+// :1263-1277). VALL-E's trunks drive them (jatts_tpu/modules/valle_modules.py:101,
+// causal=True in the AR, False in the NAR) through the custom VJP of
+// jatts_tpu/modules/attention.py:_flash_attend. They compute exactly what
+// flash_attn_bwd_dkv_kernel<bf16, 64, CAUSAL> and
+// flash_attn_bwd_dq_kernel<bf16, 64, CAUSAL> (flash_attn_bwd.cu) compute, per
 // (b, h):
 //
 //     p = exp(s - lse) on the keys a row sees, 0 elsewhere
@@ -22,8 +25,15 @@
 //
 // with s = q . k^T * sm_scale, lse the forward's row log-sum-exp (+inf on a
 // row that sees no key, so its p is 0) and di = rowsum(o * do), both f32 from
-// the wrapper. Query row i sees key j when j <= i (Tq == Tk, top-left
-// aligned) and the key's mask byte is nonzero; keys past Tk are never seen.
+// the wrapper. Query row i sees key j when the key's mask byte is nonzero
+// and, in the causal form, j <= i (Tq == Tk, top-left aligned); keys past Tk
+// are never seen. The non-causal form takes any Tq, Tk >= 1.
+//
+// The non-causal form at the VALL-E NAR's attention (B,H,T,d =
+// 16,16,1088,64, every key valid) does every tile pair: dk/dv's four
+// products are 155.2 GFLOP -> 0.157 ms, dq's three 116.4 GFLOP -> 0.118 ms on
+// the bf16 tensor cores; the bytes are the causal form's (below). Its blocks
+// are all equally heavy, so the block order does not matter.
 //
 // ---- the dk/dv kernel ----
 //
@@ -33,7 +43,7 @@
 // bf16 only as the A operands of their products, where the scalar kernel
 // keeps them in f32: the one difference. dk and dv are rounded once to bf16.
 //
-// Bound on an H100 SXM (3.35 TB/s, 989 TFLOP/s bf16), at VALL-E AR's
+// Bound on an H100 SXM (3.35 TB/s, 989 TFLOP/s bf16), causal, at VALL-E AR's
 // attention (B,H,T,d = 16,16,1088,64, every key valid): reading q, k, v, do
 // and writing dk, dv (6 x 35.7 MB), lse and di (2 x 1.1 MB) is 216.2 MB ->
 // 0.0645 ms; the causal half of four products (s again, dp, dv, dk) is 77.6
@@ -46,7 +56,8 @@
 // - One block a 64-key tile of one (b, h): warps 0-3 are one consumer
 //   warpgroup, warp 4 the producer. Grid (ceil(Tk/64), B*H). Causal: key
 //   tile k0 loops over the query tiles q0 = k0, k0 + 64, ... < Tq (no earlier
-//   row sees its keys), so tile 0 is the heaviest and already comes first.
+//   row sees its keys), so tile 0 is the heaviest and already comes first;
+//   non-causal: over every query tile from 0.
 // - The k and v tiles stay resident (one TMA'd 64 x 64 slab each). The q and
 //   do tiles of each query tile stream through a ring of R stages (a q slab
 //   and a do slab, 16 KB) with a full and an empty mbarrier each; the
@@ -67,8 +78,8 @@
 //   product retires.
 // - Masks on the fragments: p = 0 on masked keys and keys past Tk (decided
 //   once a block, a thread holds 2 key rows), past Tq (lse = +inf there), on
-//   a row that sees no key (lse = +inf), and on the diagonal tile (q0 == k0)
-//   above the diagonal. dk and dv accumulate in f32 registers (32 + 32 a
+//   a row that sees no key (lse = +inf), and, causal, on the diagonal tile
+//   (q0 == k0) above the diagonal. dk and dv accumulate in f32 registers (32 + 32 a
 //   thread) and are written once as bf16: a block owns its keys, no atomics.
 //   A key tile with no valid key loads nothing and writes zeros.
 //
@@ -84,8 +95,8 @@
 // rounded to bf16 as the A operand of dQ += dS.K, where the scalar kernel
 // keeps it in f32. dq is rounded once to bf16.
 //
-// Bound on an H100 SXM, at VALL-E AR's attention (16,16,1088,64, every key
-// valid): reading q, k, v, do and writing dq (5 x 35.7 MB), lse and di (2 x
+// Bound on an H100 SXM, causal, at VALL-E AR's attention (16,16,1088,64,
+// every key valid): reading q, k, v, do and writing dq (5 x 35.7 MB), lse and di (2 x
 // 1.1 MB) is 180.5 MB -> 0.0539 ms; the causal half of three products (s
 // again, dp, dq) is 58.2 GFLOP -> 0.0588 ms, so operations bound it. The
 // scalar kernel did them as f32 FMAs on the CUDA cores on 32-key tiles
@@ -112,7 +123,8 @@
 //   memory and used in both majors from shared memory. The stage is
 //   released when dQ's product retires.
 // - The causal bound: query tile q0 takes key tiles k0 < min(Tk, q0 + 64)
-//   only, the producer and the consumers from one variable (a slab the
+//   only (non-causal: every key tile < Tk), the producer and the consumers
+//   from one variable (a slab the
 //   consumers never take would never be released, and the reverse hangs).
 //   The diagonal tile (k0 == q0) is masked on the S fragment.
 // - Masks: p = 0 on masked keys and keys past Tk, on the diagonal tile above
@@ -335,6 +347,7 @@ flash_attn_bwd_dkv_tc_kernel(const __grid_constant__ CUtensorMap map_q,
   }
 }
 
+template <bool CAUSAL>
 __global__ void __launch_bounds__(NTHREADS, 2)
 flash_attn_bwd_dq_tc_kernel(const __grid_constant__ CUtensorMap map_q,
                             const __grid_constant__ CUtensorMap map_k,
@@ -364,8 +377,9 @@ flash_attn_bwd_dq_tc_kernel(const __grid_constant__ CUtensorMap map_q,
   const int bh = blockIdx.y;  // b * H + h
   const uint8_t* mask_b = key_mask ? key_mask + (size_t)(bh / H) * Tk : nullptr;
   // causal (Tq == Tk, top-left aligned): no row of this tile sees a key at
-  // or past q0 + BQ. The producer and the consumers both loop to this bound.
-  const int k_end = min(Tk, q0 + BQ);
+  // or past q0 + BQ; non-causal: every key tile. The producer and the
+  // consumers both loop to this bound.
+  const int k_end = CAUSAL ? min(Tk, q0 + BQ) : Tk;
 
   if (tid == 0) {
     mbar_init(&qdo_full, 1);
@@ -469,7 +483,7 @@ flash_attn_bwd_dq_tc_kernel(const __grid_constant__ CUtensorMap map_q,
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
           bool seen = (vbits >> (2 * j + e)) & 1u;
-          if (k0 == q0) seen = seen && 8 * j + e <= lim[h];
+          if (CAUSAL && k0 == q0) seen = seen && 8 * j + e <= lim[h];
           float& x = s[4 * j + 2 * h + e];
           x = seen ? exp2f(x * scale2 - lse2[h]) : 0.f;
         }
@@ -534,26 +548,28 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v, const void* 
   return cudaGetLastError();
 }
 
+template <bool CAUSAL>
 cudaError_t launch_dq(const void* q, const void* k, const void* v, const void* key_mask, const float* lse,
                       const float* di, const void* dout, void* dq, int B, int H, int Tq, int Tk,
                       float sm_scale, cudaStream_t stream) {
   CUtensorMap m[4];
   if (!make_maps(m, q, k, v, dout, B * H, Tq, Tk)) return cudaErrorInvalidValue;
   static unsigned long long sized = 0;
-  cudaError_t err = size_smem_once(flash_attn_bwd_dq_tc_kernel, SMEM, sized);
+  cudaError_t err = size_smem_once(flash_attn_bwd_dq_tc_kernel<CAUSAL>, SMEM, sized);
   if (err != cudaSuccess) return err;
   const dim3 grid((Tq + BQ - 1) / BQ, B * H);
-  flash_attn_bwd_dq_tc_kernel<<<grid, NTHREADS, SMEM, stream>>>(
+  flash_attn_bwd_dq_tc_kernel<CAUSAL><<<grid, NTHREADS, SMEM, stream>>>(
       m[0], m[1], m[2], m[3], static_cast<const uint8_t*>(key_mask), lse, di,
       static_cast<__nv_bfloat16*>(dq), H, Tq, Tk, sm_scale * LOG2E, sm_scale);
   return cudaGetLastError();
 }
 
-// the one form both kernels take: bf16, causal (Tq == Tk), d_qk = d_v = 64,
-// no bias; q, k, v, dout 16-byte aligned (TMA), the outputs 4-byte aligned
+// the forms both kernels take: bf16, d_qk = d_v = 64, no bias, causal (Tq ==
+// Tk) or not (any Tq, Tk >= 1); q, k, v, dout 16-byte aligned (TMA), the
+// outputs 4-byte aligned
 int check_form(const void* q, const void* k, const void* v, const void* ab, const void* dout, const void* out_a,
                const void* out_b, int Tq, int Tk, int Dqk, int Dv, int is_bf16, int causal) {
-  if (!is_bf16 || !causal || ab != nullptr || Dqk != 64 || Dv != 64 || Tq != Tk || Tq <= 0)
+  if (!is_bf16 || ab != nullptr || Dqk != 64 || Dv != 64 || Tq <= 0 || Tk <= 0 || (causal && Tq != Tk))
     return (int)cudaErrorInvalidValue;
   if (((uintptr_t)q | (uintptr_t)k | (uintptr_t)v | (uintptr_t)dout) % 16 != 0 ||
       ((uintptr_t)out_a | (uintptr_t)out_b) % 4 != 0)
@@ -564,11 +580,11 @@ int check_form(const void* q, const void* k, const void* v, const void* ab, cons
 }  // namespace
 
 // The same arguments and semantics as jatts_flash_attn_bwd_dkv
-// (flash_attn_bwd.cu) for the one form this kernel has: bf16 (is_bf16 != 0),
-// causal (Tq == Tk), Dqk == Dv == 64, no bias (ab null). q, k, v, dout
-// 16-byte aligned, dk, dv 4-byte aligned. Returns a cudaError_t (0 =
-// launched); anything else it refuses with cudaErrorInvalidValue (or
-// cudaErrorMisalignedAddress).
+// (flash_attn_bwd.cu) for the forms this kernel has: bf16 (is_bf16 != 0),
+// Dqk == Dv == 64, no bias (ab null), causal (Tq == Tk) or not (any Tq, Tk).
+// q, k, v, dout 16-byte aligned, dk, dv 4-byte aligned. Returns a
+// cudaError_t (0 = launched); anything else it refuses with
+// cudaErrorInvalidValue (or cudaErrorMisalignedAddress).
 extern "C" int jatts_flash_attn_bwd_dkv_tc(const void* q, const void* k, const void* v,
                                            const void* ab, const void* key_mask, const void* lse,
                                            const void* di, const void* dout, void* dk, void* dv,
@@ -576,14 +592,14 @@ extern "C" int jatts_flash_attn_bwd_dkv_tc(const void* q, const void* k, const v
                                            int is_bf16, int causal, float sm_scale, void* stream) {
   const int rc = check_form(q, k, v, ab, dout, dk, dv, Tq, Tk, Dqk, Dv, is_bf16, causal);
   if (rc != 0) return rc;
-  return (int)launch_dkv<true>(q, k, v, key_mask, static_cast<const float*>(lse),
-                               static_cast<const float*>(di), dout, dk, dv, B, H, Tq, Tk, sm_scale,
-                               static_cast<cudaStream_t>(stream));
+  auto launch = causal ? launch_dkv<true> : launch_dkv<false>;
+  return (int)launch(q, k, v, key_mask, static_cast<const float*>(lse), static_cast<const float*>(di), dout, dk,
+                     dv, B, H, Tq, Tk, sm_scale, static_cast<cudaStream_t>(stream));
 }
 
 // The same arguments and semantics as jatts_flash_attn_bwd_dq
-// (flash_attn_bwd.cu) for the same one form: no bias, so no d(ab) either
-// (ab and dab null). dq 4-byte aligned. Returns a cudaError_t as above.
+// (flash_attn_bwd.cu) for the same forms: no bias, so no d(ab) either (ab
+// and dab null). dq 4-byte aligned. Returns a cudaError_t as above.
 extern "C" int jatts_flash_attn_bwd_dq_tc(const void* q, const void* k, const void* v,
                                           const void* ab, const void* key_mask, const void* lse,
                                           const void* di, const void* dout, void* dq, void* dab,
@@ -592,7 +608,7 @@ extern "C" int jatts_flash_attn_bwd_dq_tc(const void* q, const void* k, const vo
   if (dab != nullptr) return (int)cudaErrorInvalidValue;
   const int rc = check_form(q, k, v, ab, dout, dq, nullptr, Tq, Tk, Dqk, Dv, is_bf16, causal);
   if (rc != 0) return rc;
-  return (int)launch_dq(q, k, v, key_mask, static_cast<const float*>(lse),
-                              static_cast<const float*>(di), dout, dq, B, H, Tq, Tk, sm_scale,
-                              static_cast<cudaStream_t>(stream));
+  auto launch = causal ? launch_dq<true> : launch_dq<false>;
+  return (int)launch(q, k, v, key_mask, static_cast<const float*>(lse), static_cast<const float*>(di), dout, dq,
+                     B, H, Tq, Tk, sm_scale, static_cast<cudaStream_t>(stream));
 }

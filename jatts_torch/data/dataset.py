@@ -51,8 +51,12 @@ class TTSDataset:
     only where it has a ``feat_path``, and a feature missing from the dump
     is skipped instead of raising (a decode csv may carry only reference
     features, e.g. ``spkemb``); ``return_utt_id`` False leaves out
-    ``utt_id``. The VALL-E prompt strategies (``prompt_strategy``) are not
-    ported yet."""
+    ``utt_id``. ``prompt_strategy`` (VALL-E's prompts) adds
+    ``prompt_<feat>`` for each feature of ``feat_list`` that it finds, as
+    stored: ``same`` reads ``<feat>`` from the row's ``feat_path``; ``given``
+    (or any other value, as in the JAX package) reads ``prompt_<feat>``
+    from its ``prompt_feat_path`` (else its ``feat_path``); a row with
+    ``prompt_phonemes`` also gets their ids as ``prompt_x``."""
 
     def __init__(
         self,
@@ -68,13 +72,12 @@ class TTSDataset:
         allow_cache: bool = False,
         return_utt_id: bool = True,
     ):
-        if prompt_strategy is not None:
-            raise ValueError("prompt_strategy (VALL-E prompts) is not ported yet")
         self.data, self.fieldnames = read_csv(csv_path, dict_reader=True)
         self.feat_list = list(feat_list)
         self.token_converter = TokenIDConverter(token_list_path)
         self.phoneme_column = phoneme_column
         self.is_inference = is_inference
+        self.prompt_strategy = prompt_strategy
         self.return_utt_id = return_utt_id
         self.hop_size = hop_size
         self.sampling_rate = sampling_rate
@@ -138,9 +141,28 @@ class TTSDataset:
             self._load_feats(row["feat_path"], items)
         elif row.get("feat_path"):
             self._load_feats(row["feat_path"], items, lenient=True)
+        if self.prompt_strategy is not None:
+            self._load_prompt(row, items)
         for k in ("ref_wav_path", "wav_path", "original_text"):
             if row.get(k):
                 items[k] = row[k]
         if self.allow_cache:
             self._cache[idx] = items
         return items
+
+    def _load_prompt(self, row: Dict[str, str], items: Dict[str, Any]) -> None:
+        """The prompt of ``prompt_strategy`` ``same`` or ``given``: a
+        feature the file lacks (or a file that is missing) is skipped."""
+        if self.prompt_strategy == "same":
+            path, prefix = row["feat_path"], ""
+        else:
+            path, prefix = row.get("prompt_feat_path") or row["feat_path"], "prompt_"
+        for feat in self.feat_list:
+            try:
+                items[f"prompt_{feat}"] = np.asarray(read_array(path, prefix + feat))
+            except (KeyError, OSError):
+                continue
+        if row.get("prompt_phonemes"):
+            items["prompt_x"] = np.asarray(
+                self.token_converter.tokens2ids(row["prompt_phonemes"].split(" ")), dtype=np.int64
+            )

@@ -1,18 +1,20 @@
-"""VALL-E AR neural-codec LM (counterpart of jatts_tpu/models/valle.py).
+"""VALL-E AR and NAR neural-codec LMs (counterpart of jatts_tpu/models/valle.py).
 
 The reference's lists of variable-length tensors are packed padded arrays:
 each sample's ``[text | sep | prompt | sep | response]`` sequence lies
 contiguously from position 0 (:func:`pack_three`, :func:`pack_ids`).
 :class:`VALLEAR` trains by next-token cross-entropy over the packed sequence
-(``forward``, the JAX ``__call__``) and decodes with a KV cache
+(``forward``, the JAX ``__call__``) and decodes codec level 0 with a KV cache
 (:func:`ar_generate`: ``prefix_forward`` once, then ``decode_one`` a
-token). Parameters carry the reference state_dict keys that
-``jatts_tpu.utils.torch_import.convert_valle`` reads; ``dtype`` is the
-compute dtype in flax's sense (parameters stay float32, logits are float32),
-see ``modules/valle_modules.py``. Dropout follows ``self.training``.
+token). :class:`VALLENAR` (AdaLN blocks, non-causal attention) trains on a
+random level per sample and fills levels 1-7 from level 0 one level after
+another (:func:`nar_generate`). Parameters carry the reference state_dict
+keys that ``jatts_tpu.utils.torch_import.convert_valle`` reads; ``dtype`` is
+the compute dtype in flax's sense (parameters stay float32, logits are
+float32), see ``modules/valle_modules.py``. Dropout follows
+``self.training``.
 
-Not ported yet: ``VALLENAR`` (AdaLN blocks, ``nar_generate``), activation
-checkpointing (``use_remat``).
+Not ported: activation checkpointing (``use_remat``).
 """
 
 from __future__ import annotations
@@ -320,8 +322,104 @@ def ar_generate(
         model.train(was_training)
 
 
+def categorical(logits: torch.Tensor, generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """One draw from ``softmax(logits)`` over the last axis for every row of
+    ``logits`` [..., V], from ``generator``; int64 [...]."""
+    probs = torch.softmax(logits.float(), dim=-1)
+    flat = probs.reshape(-1, probs.shape[-1])
+    return torch.multinomial(flat, 1, generator=generator).reshape(probs.shape[:-1])
+
+
 class VALLENAR(VALLEBase):
-    """Not ported yet (AdaLN blocks, ``nar_generate``)."""
+    """The non-autoregressive stage: non-causal blocks normalised by AdaLN
+    over ``n_resp_levels`` levels, no stop token. ``noise_generator`` (set
+    by the trainer, ``modules/noise.py``) draws the training levels."""
+
+    causal = False
+    use_stop_token = False
+    norm_type = "adaln"
 
     def __init__(self, *args, **kwargs):
-        raise NotImplementedError("VALLENAR is not ported yet")
+        super().__init__(*args, **kwargs)
+        self.noise_generator: Optional[torch.Generator] = None
+
+    def forward(
+        self, text, text_lens, proms, prom_lens, resps, resp_lens, quant_levels=None,
+    ) -> Dict[str, torch.Tensor]:
+        """Training: each sample predicts codec level ``q + 1`` from levels
+        0..q, ``q = quant_levels[b]`` in [0, n_resp_levels) (drawn uniformly
+        from ``noise_generator`` when not given). text [B, Tx]; proms
+        [B, Tp, 8]; resps [B, Tr, 8], all levels. The loss is the mean NLL of
+        the level-q+1 codes at the response positions, on f32 logits."""
+        b = text.shape[0]
+        tp = proms.shape[1]
+        if quant_levels is None:
+            quant_levels = torch.randint(0, self.n_resp_levels, (b,), generator=self.noise_generator,
+                                         device=text.device)
+        quant_levels = quant_levels.long()
+        logits, total = self.trunk(
+            text, text_lens, proms, prom_lens, resps, resp_lens, quant_levels + 1, quant_levels,
+        )
+        targ = torch.gather(resps.long(), 2, (quant_levels + 1)[:, None, None].expand(b, resps.shape[1], 1))[..., 0]
+        y = pack_ids(torch.full_like(text, IGNORE), text_lens, tp, prom_lens, targ, resp_lens)
+        pos = torch.arange(y.shape[1], device=y.device)[None, :]
+        y = torch.where(pos >= total[:, None], torch.full_like(y, IGNORE), y)
+        valid = y != IGNORE
+        logp = torch.log_softmax(logits, dim=-1)
+        nll = -torch.gather(logp, -1, torch.where(valid, y, 0)[..., None])[..., 0]
+        loss = (nll * valid).sum() / valid.sum().clamp(min=1)
+        return {"loss": loss, "logits": logits}
+
+    @torch.no_grad()
+    def generate(
+        self, text, text_lens, proms, prom_lens, level0, resp_lens,
+        sampling_temperature: float = 0.2, generator: Optional[torch.Generator] = None,
+    ) -> torch.Tensor:
+        """Fill levels 1..n_resp_levels from ``level0`` [B, Tr] one level
+        after another (level q + 1 sees every code <= q): per level the
+        trunk's hidden rows of the response region (gathered at
+        ``clip(arange(Tr) + lx + lp + 2, 0, S - 1)``), the classifier on
+        them, the logits zeroed past ``resp_lens`` (so padded rows draw from
+        uniform logits, as the JAX package's do) and one draw a row from
+        ``softmax(logits / sampling_temperature)`` with ``generator``.
+        Returns int64 [B, Tr, n_resp_levels + 1]. Runs in eval mode; the mode
+        is restored."""
+        was_training = self.training
+        self.eval()
+        try:
+            b, tr = level0.shape
+            dev = level0.device
+            codes = torch.zeros(b, tr, self.n_resp_levels + 1, dtype=torch.long, device=dev)
+            codes[:, :, 0] = level0
+            start = (text_lens + prom_lens + 2)[:, None]
+            valid = (torch.arange(tr, device=dev)[None, :] < resp_lens[:, None])[..., None]
+            for level in range(self.n_resp_levels):
+                q = torch.full((b,), level, dtype=torch.long, device=dev)
+                hidden, _ = self.trunk(text, text_lens, proms, prom_lens, codes, resp_lens, q + 1, q,
+                                       return_hidden=True)
+                pos = (torch.arange(tr, device=dev)[None, :] + start).clamp(0, hidden.shape[1] - 1)
+                resp_h = torch.gather(hidden, 1, pos[..., None].expand(b, tr, hidden.shape[-1]))
+                logits = (self.classifier(resp_h) * valid.to(resp_h.dtype)).float()
+                codes[:, :, level + 1] = categorical(logits / sampling_temperature, generator)
+            return codes
+        finally:
+            self.train(was_training)
+
+
+def nar_generate(
+    model: VALLENAR,
+    text, text_lens, proms, prom_lens,
+    level0: torch.Tensor,
+    resp_lens: torch.Tensor,
+    sampling_temperature: float = 0.2,
+    generator: Optional[torch.Generator] = None,
+) -> torch.Tensor:
+    """The NAR fill at a fixed capacity (pairs with :func:`ar_generate`):
+    ``level0`` [B, Tr] straight from the AR carries the stop token
+    (``n_tokens``, out of the NAR's table) at and past each row's stop, so
+    it is clamped into the codebook and zeroed past ``resp_lens`` first.
+    Returns [B, Tr, n_resp_levels + 1] codes."""
+    tr = level0.shape[1]
+    valid = torch.arange(tr, device=level0.device)[None, :] < resp_lens[:, None]
+    level0 = torch.where(valid, level0.long().clamp(0, model.n_tokens - 1), 0)
+    return model.generate(text, text_lens, proms, prom_lens, level0, resp_lens, sampling_temperature, generator)

@@ -13,12 +13,14 @@ dtype. The casts are explicit, not ``torch.autocast``, whose per-op policy
 is not flax's.
 
 Attention: ``attn_backend`` ``flash`` runs the hand-written kernels
-(``ops/flash_attention.py``: K1b, the causal form, for the AR), ``xla`` the
+(``ops/flash_attention.py``: K1b, the causal form, for the AR; the
+non-causal form for the NAR), ``xla`` the
 eager path below (named after the JAX package's option), ``auto`` the
 kernels only beyond ``FLASH_AUTO_MIN_LEN`` keys. The kernels mask their own
 ragged edge, so the JAX path's padding to a multiple of 128 does not carry
 over. ``prefill`` and ``decode_step`` are always eager, as in the JAX
-package. ``AdaLN`` (the NAR's level-conditioned norm) is not ported yet.
+package. The NAR's blocks (``norm_type: adaln``) normalise with
+:class:`AdaLN`, conditioned on the codec level a sample predicts.
 """
 
 from __future__ import annotations
@@ -72,8 +74,36 @@ class LayerNorm(nn.LayerNorm):
         self.compute_dtype = compute_dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = F.layer_norm(x.float(), self.normalized_shape, self.weight, self.bias, self.eps)
+        # float32 statistics and affine, whatever the parameters' dtype (the
+        # decode CLI's bf16 weights)
+        y = F.layer_norm(x.float(), self.normalized_shape, self.weight.float(), self.bias.float(), self.eps)
         return y.to(self.compute_dtype)
+
+
+class AdaLN(nn.Module):
+    """The NAR's level-conditioned norm (flax ``AdaLN``): a LayerNorm
+    without scale or bias (float32 statistics, output in the compute dtype),
+    then ``h = c·(1 − (k·h).detach())·h`` and ``exp(log_gamma)·h + beta``,
+    where ``[log_gamma | beta]`` is row ``level[b]`` of ``emb``
+    (``nn.Embedding(n_levels, 2·d)``, zero-initialised, key ``emb.weight``)."""
+
+    eps, k, c = 1e-5, 0.1, 2.0
+
+    def __init__(self, d_model: int, n_levels: int, compute_dtype=torch.float32, device=None):
+        super().__init__()
+        self.d_model = d_model
+        self.compute_dtype = compute_dtype
+        self.emb = nn.Embedding(n_levels, 2 * d_model, device=device)
+        with torch.no_grad():
+            self.emb.weight.zero_()
+
+    def forward(self, x: torch.Tensor, level: torch.Tensor) -> torch.Tensor:
+        """x [B, T, D]; level [B] int -> [B, T, D] in the compute dtype."""
+        dt = self.compute_dtype
+        log_gamma, beta = self.emb.weight.to(dt)[level.long()][:, None, :].chunk(2, dim=-1)
+        h = F.layer_norm(x.float(), (self.d_model,), None, None, self.eps).to(dt)
+        h = self.c * (1.0 - (self.k * h).detach()) * h
+        return torch.exp(log_gamma) * h + beta
 
 
 class SinusoidalEmbedding(nn.Module):
@@ -184,7 +214,9 @@ class PreNorm(nn.Module):
 
 
 class VALLEBlock(nn.Module):
-    """Pre-norm attention + FFN block (``norm_type: ln``)."""
+    """Pre-norm attention + FFN block; ``norm_type`` ``ln`` (the AR) or
+    ``adaln`` (the NAR: both norms :class:`AdaLN` over ``n_levels``
+    levels, conditioned on ``forward``'s ``level``)."""
 
     def __init__(
         self, d_model: int, n_heads: int, p_dropout: float, causal: bool, norm_type: str = "ln",
@@ -192,15 +224,18 @@ class VALLEBlock(nn.Module):
         device=None,
     ):
         super().__init__()
-        if norm_type != "ln":
-            raise NotImplementedError(f"norm_type {norm_type!r} (AdaLN, the NAR's) is not ported yet")
+        self.norm_type = norm_type
         cd = dict(compute_dtype=compute_dtype, device=device)
+
+        def norm():
+            return AdaLN(d_model, n_levels, **cd) if norm_type == "adaln" else LayerNorm(d_model, **cd)
+
         self.attn = PreNorm(
-            LayerNorm(d_model, **cd),
+            norm(),
             VALLEAttention(d_model, n_heads, causal, attn_backend=attn_backend, **cd),
         )
         self.ffn = PreNorm(
-            LayerNorm(d_model, **cd),
+            norm(),
             nn.Sequential(
                 Dense(d_model, 4 * d_model, **cd), nn.GELU(), Dropout(p_dropout),
                 Dense(4 * d_model, d_model, **cd),
@@ -208,11 +243,15 @@ class VALLEBlock(nn.Module):
         )
         self.drop = Dropout(p_dropout)
 
+    def _norm(self, norm: nn.Module, x: torch.Tensor, level) -> torch.Tensor:
+        return norm(x, level) if self.norm_type == "adaln" else norm(x)
+
     def forward(self, x: torch.Tensor, m: torch.Tensor, level=None) -> torch.Tensor:
-        """Dropout follows ``self.training`` (the JAX call's ``deterministic``)."""
-        h = self.attn.block(self.attn.norm(x) * m, m)
+        """Dropout follows ``self.training`` (the JAX call's
+        ``deterministic``); ``level`` [B] is the AdaLN levels (``adaln``)."""
+        h = self.attn.block(self._norm(self.attn.norm, x, level) * m, m)
         x = (x + self.drop(h)) * m
-        h = self.ffn.block(self.ffn.norm(x) * m)
+        h = self.ffn.block(self._norm(self.ffn.norm, x, level) * m)
         return (x + self.drop(h)) * m
 
     def _ffn_deterministic(self, h: torch.Tensor) -> torch.Tensor:

@@ -44,10 +44,13 @@ rule over (dtype, causal, d_qk, d_v): bf16 goes to the tensor-core kernel
 ``TC_F32_PAIRS`` to the 3xTF32 tensor-core kernel (``launches_tc_f32``),
 every other form (f32 causal, d 256) to the scalar one. Which dk/dv and dq
 kernels are :func:`dkv_kernel`'s and :func:`dq_kernel`'s, one rule over
-(dtype, causal, d_qk, d_v, bias): VALL-E's form (bf16, causal, d 64, no bias)
-goes to the tensor-core kernels (``launches_bwd_dkv_tc`` and
-``launches_bwd_dq_tc`` count them, besides ``launches_bwd_dkv_causal`` and
-``launches_bwd_dq_causal``), the f32 non-causal forms of ``BWD_TC_F32_FORMS``
+(dtype, causal, d_qk, d_v, bias): VALL-E's forms (bf16, d 64, no bias;
+causal for the AR, non-causal for the NAR) go to the tensor-core kernels
+(``launches_bwd_dkv_tc`` and ``launches_bwd_dq_tc`` count the causal ones,
+besides ``launches_bwd_dkv_causal`` and ``launches_bwd_dq_causal``;
+``launches_bwd_dkv_tc_noncausal`` and ``launches_bwd_dq_tc_noncausal`` the
+non-causal ones, besides ``launches_bwd_dkv`` and ``launches_bwd_dq``), the
+f32 non-causal forms of ``BWD_TC_F32_FORMS``
 (K1r's pairs without a bias, K1-bwd's d 192 with or without one) to the
 3xTF32 tensor-core kernels (``launches_bwd_dkv_tc_f32`` and
 ``launches_bwd_dq_tc_f32``, besides the ``*_relpos`` counters or
@@ -94,8 +97,10 @@ launches_bwd_dq_causal = 0  # K1b, causal dq/d(ab) kernel
 launches_relpos = 0  # K1r, d_qk != d_v forward
 launches_tc = 0  # forwards (K1, K1b or K1r) that ran on the tensor-core kernel
 launches_tc_f32 = 0  # f32 forwards (K1 or K1r) that ran on the 3xTF32 tensor-core kernel
-launches_bwd_dkv_tc = 0  # dk/dv calls (K1b) that ran on the tensor-core kernel
-launches_bwd_dq_tc = 0  # dq calls (K1b) that ran on the tensor-core kernel
+launches_bwd_dkv_tc = 0  # causal dk/dv calls (K1b) that ran on the tensor-core kernel
+launches_bwd_dq_tc = 0  # causal dq calls (K1b) that ran on the tensor-core kernel
+launches_bwd_dkv_tc_noncausal = 0  # non-causal bf16 dk/dv calls that ran on the tensor-core kernel
+launches_bwd_dq_tc_noncausal = 0  # non-causal bf16 dq calls that ran on the tensor-core kernel
 launches_bwd_dkv_relpos = 0  # K1r, dk/dv kernel
 launches_bwd_dq_relpos = 0  # K1r, dq kernel
 launches_bwd_dkv_tc_f32 = 0  # dk/dv calls (K1r or K1-bwd f32) that ran on the 3xTF32 tensor-core kernel
@@ -108,8 +113,10 @@ def reset_launches() -> None:
     global launches_relpos, launches_bwd_dkv_relpos, launches_bwd_dq_relpos, launches_tc
     global launches_bwd_dkv_tc, launches_bwd_dq_tc, launches_tc_f32
     global launches_bwd_dkv_tc_f32, launches_bwd_dq_tc_f32
+    global launches_bwd_dkv_tc_noncausal, launches_bwd_dq_tc_noncausal
     launches = launches_bwd_dkv = launches_bwd_dq = launches_tc = launches_tc_f32 = 0
     launches_bwd_dkv_tc = launches_bwd_dq_tc = launches_bwd_dkv_tc_f32 = launches_bwd_dq_tc_f32 = 0
+    launches_bwd_dkv_tc_noncausal = launches_bwd_dq_tc_noncausal = 0
     launches_causal = launches_bwd_dkv_causal = launches_bwd_dq_causal = 0
     launches_relpos = launches_bwd_dkv_relpos = launches_bwd_dq_relpos = 0
 
@@ -218,12 +225,13 @@ def fwd_kernel(dtype: torch.dtype, causal: bool, d_qk: int, d_v: int) -> str:
 
 
 def _bwd_kernel(dtype: torch.dtype, causal: bool, d_qk: int, d_v: int, has_bias: bool) -> str:
-    """The backward's one rule: VALL-E's form (bf16, causal, d_qk = d_v =
-    64, no bias) -> ``KERNEL_BWD_TC``; f32 non-causal at a (d_qk, d_v, bias)
-    of ``BWD_TC_F32_FORMS`` (K1r's, and K1-bwd's at d 192) ->
-    ``KERNEL_BWD_TC_F32``; every other form (K1-bwd at d 64/128/256 or in
-    bf16, the bf16 K1r backward, f32 causal) -> ``KERNEL_BWD``."""
-    if dtype == torch.bfloat16 and causal and d_qk == d_v == 64 and not has_bias:
+    """The backward's one rule: VALL-E's forms (bf16, d_qk = d_v = 64, no
+    bias, causal or not) -> ``KERNEL_BWD_TC``; f32 non-causal at a (d_qk,
+    d_v, bias) of ``BWD_TC_F32_FORMS`` (K1r's, and K1-bwd's at d 192) ->
+    ``KERNEL_BWD_TC_F32``; every other form (K1-bwd at d 64/128/256, bf16 at
+    d != 64 or with a bias, the bf16 K1r backward, f32 causal) ->
+    ``KERNEL_BWD``."""
+    if dtype == torch.bfloat16 and d_qk == d_v == 64 and not has_bias:
         return KERNEL_BWD_TC
     if dtype == torch.float32 and not causal and (d_qk, d_v, has_bias) in BWD_TC_F32_FORMS:
         return KERNEL_BWD_TC_F32
@@ -232,17 +240,20 @@ def _bwd_kernel(dtype: torch.dtype, causal: bool, d_qk: int, d_v: int, has_bias:
 
 def dkv_kernel(dtype: torch.dtype, causal: bool, d_qk: int, d_v: int, has_bias: bool) -> str:
     """The library a dk/dv backward on the card takes: ``KERNEL_BWD_TC``
-    (tensor cores) for VALL-E's form, ``KERNEL_BWD_TC_F32`` (tensor cores,
-    3xTF32) for the f32 forms of ``BWD_TC_F32_FORMS``, else ``KERNEL_BWD``
-    (scalar; the bf16 K1r form and K1-bwd's other forms stay there)."""
+    (tensor cores) for VALL-E's forms (bf16, d 64, no bias; the AR's causal
+    one, ``launch_dkv<true>``, and the NAR's non-causal one,
+    ``launch_dkv<false>``), ``KERNEL_BWD_TC_F32`` (tensor cores, 3xTF32) for
+    the f32 forms of ``BWD_TC_F32_FORMS``, else ``KERNEL_BWD`` (scalar; the
+    bf16 K1r form and K1-bwd's other forms stay there)."""
     return _bwd_kernel(dtype, causal, d_qk, d_v, has_bias)
 
 
 def dq_kernel(dtype: torch.dtype, causal: bool, d_qk: int, d_v: int, has_bias: bool) -> str:
     """The library a dq backward on the card takes, by :func:`dkv_kernel`'s
-    rule: ``KERNEL_BWD_TC`` for VALL-E's form, ``KERNEL_BWD_TC_F32`` for the
-    f32 forms of ``BWD_TC_F32_FORMS``, else ``KERNEL_BWD`` (scalar). With a
-    bias, the scalar kernel and the 3xTF32 one also write d(ab)."""
+    rule: ``KERNEL_BWD_TC`` for VALL-E's forms (``launch_dq<true>`` causal,
+    ``launch_dq<false>`` not), ``KERNEL_BWD_TC_F32`` for the f32 forms of
+    ``BWD_TC_F32_FORMS``, else ``KERNEL_BWD`` (scalar). With a bias, the
+    scalar kernel and the 3xTF32 one also write d(ab)."""
     return _bwd_kernel(dtype, causal, d_qk, d_v, has_bias)
 
 
@@ -385,7 +396,8 @@ def _launch_bwd(name, q, k, v, ab, key_mask, sm_scale, lse, di, do, out_a, out_b
         raise RuntimeError(f"{lib} {name} launch failed with CUDA error {rc}")
     _count(name, causal, d != v.shape[3])
     if lib != KERNEL_BWD:
-        globals()[f"launches_bwd_{name}{_BWD_SUFFIX[lib]}"] += 1
+        noncausal = "_noncausal" if lib == KERNEL_BWD_TC and not causal else ""
+        globals()[f"launches_bwd_{name}{_BWD_SUFFIX[lib]}{noncausal}"] += 1
 
 
 def flash_attention_bwd_dkv(q, k, v, ab, key_mask, sm_scale, lse, di, do, causal=False):

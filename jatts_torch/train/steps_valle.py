@@ -1,5 +1,6 @@
 """VALL-E loss assembly (counterpart of jatts_tpu/train/steps_valle.py): the
-model's own cross-entropy, reported as ``train/loss_ce``."""
+model's own cross-entropy, reported as ``train/loss_ce``, for the AR and the
+NAR alike (the NAR draws its training levels itself)."""
 
 from __future__ import annotations
 
@@ -8,7 +9,7 @@ from typing import Any, Dict
 
 def valle_kwargs(batch: Dict[str, Any], model=None) -> Dict[str, Any]:
     """batch -> the model's ``forward`` kwargs; the AR takes codec level 0
-    of ``resps``."""
+    of ``resps``, the NAR all 8 levels."""
     resps = batch["resps"]
     if model is not None and type(model).__name__ == "VALLEAR" and resps.dim() == 3:
         resps = resps[:, :, 0]

@@ -119,20 +119,22 @@ def hifigan_state_dict_from_jax(variables: Mapping[str, Any]) -> Dict[str, torch
 
 
 VALLE_RENAMES = (
-    (r"^blocks_(\d+)/norm_attn$", r"blocks/\1/attn/norm"),
+    (r"^blocks_(\d+)/norm_attn(/emb)?$", r"blocks/\1/attn/norm\2"),
     (r"^blocks_(\d+)/attn/(to_qkv|to_out)$", r"blocks/\1/attn/block/\2"),
-    (r"^blocks_(\d+)/norm_ffn$", r"blocks/\1/ffn/norm"),
+    (r"^blocks_(\d+)/norm_ffn(/emb)?$", r"blocks/\1/ffn/norm\2"),
     (r"^blocks_(\d+)/ffn_in$", r"blocks/\1/ffn/block/0"),
     (r"^blocks_(\d+)/ffn_out$", r"blocks/\1/ffn/block/3"),
 )
 
 
 def valle_state_dict_from_jax(variables: Mapping[str, Any], n_layers: int) -> Dict[str, torch.Tensor]:
-    """VALL-E AR flax variables -> the port's (and the reference's)
+    """VALL-E AR or NAR flax variables -> the port's (and the reference's)
     state_dict: the inverse of ``jatts_tpu.utils.torch_import.convert_valle``.
-    The raw tables ``proms_emb``/``resps_emb`` become ``<name>.weight``;
-    ``sep`` keeps its name. Raises unless every one of the ``n_layers``
-    blocks was found."""
+    The raw tables ``proms_emb``/``resps_emb`` become ``<name>.weight`` (the
+    NAR's ``resps_emb`` holds its 7 levels and no stop row); ``sep`` keeps
+    its name; an AdaLN's ``norm_attn/emb`` (``norm_ffn/emb``) becomes
+    ``blocks.N.attn.norm.emb.weight`` (``ffn``). Raises unless every one of
+    the ``n_layers`` blocks was found."""
     sd = flax_to_state_dict(variables, VALLE_RENAMES)
     for name in ("proms_emb", "resps_emb"):
         sd[f"{name}.weight"] = sd.pop(name)

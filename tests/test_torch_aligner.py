@@ -22,6 +22,20 @@ from jatts_torch.utils.convert import aligner_state_dict_from_jax, flax_to_state
 HOP = 300
 
 
+@pytest.fixture
+def one_thread():
+    """Torch's intra-op threads capped at 1 for the test (restored after):
+    the test's many small ops gain nothing from a thread pool, and under the
+    suite's parallel workers one pool a worker costs them most of their
+    time."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(n)
+
+
 def _synthetic_items(rng, n_utts=12, n_vocab=6, odim=20):
     """Utterances whose mel is a per-token signature + noise; truth known
     (the corpus of tests/test_aligner.py)."""
@@ -217,7 +231,7 @@ def test_row_updates_equal_jax(edge_sil, ds):
     assert len(durs) == (2 if edge_sil else 4) and min(durs) >= 1
 
 
-def test_port_recovers_synthetic_alignment():
+def test_port_recovers_synthetic_alignment(one_thread):
     """The recovery test of tests/test_aligner.py on the port alone."""
     items, truths = _synthetic_items(np.random.default_rng(0))
     taligner.normalize_mels(items)

@@ -22,6 +22,20 @@ SR, HOP = 24000, 300
 JSUT = dict(sampling_rate=SR, fft_size=2048, hop_size=HOP, num_mels=80, fmin=80, fmax=7600)
 
 
+@pytest.fixture
+def one_thread():
+    """Torch's intra-op threads capped at 1 for the test (restored after):
+    the test's many small ops gain nothing from a thread pool, and under the
+    suite's parallel workers one pool a worker costs them most of their
+    time."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(n)
+
+
 def _wave(seed, n):
     rng = np.random.default_rng(seed)
     t = np.arange(n) / SR
@@ -212,7 +226,7 @@ def _frame_accuracy(ds, durs):
     return float(np.mean(pred[:n] == true[:n]))
 
 
-def test_align_run_on_a_tone_corpus(tmp_path):
+def test_align_run_on_a_tone_corpus(tmp_path, one_thread):
     """bin/align.py:run on the CPU: 6 utterances of pure tones, one tone a
     phone, with 60 ms of edge silence. The csvs gain durations and a crop
     that meet the stage-1 frame-count contract, and the alignment beats

@@ -58,11 +58,12 @@ _item_err = chip_smoke.item_err  # max |got - want| over max(1, max|want|) of ea
 @pytest.mark.parametrize("d_qk,d_v", [(64, 64), (128, 128), (192, 192), (256, 256), (192, 64), (576, 192)])
 @pytest.mark.parametrize("has_bias", [False, True])
 def test_dkv_rule_sends_valle_form_to_the_tensor_cores(dtype, causal, d_qk, d_v, has_bias):
-    """bf16, causal, d_qk = d_v = 64, no bias -> the tensor-core dk/dv;
+    """bf16, d_qk = d_v = 64, no bias, causal (the AR) or not (the NAR,
+    ``tests/test_torch_flash_tc_noncausal.py``) -> the tensor-core dk/dv;
     f32, non-causal, a K1r pair without a bias or K1-bwd's d 192 with or
     without one -> the 3xTF32 one (``tests/test_torch_flash_tc_f32_bwd.py``);
     everything else stays on the scalar kernel."""
-    tc = dtype == torch.bfloat16 and causal and (d_qk, d_v) == (64, 64) and not has_bias
+    tc = dtype == torch.bfloat16 and (d_qk, d_v) == (64, 64) and not has_bias
     tc_f32 = dtype == torch.float32 and not causal and (
         ((d_qk, d_v) in k1.RELPOS_PAIRS and not has_bias) or (d_qk, d_v) == (192, 192))
     want = k1.KERNEL_BWD_TC if tc else k1.KERNEL_BWD_TC_F32 if tc_f32 else k1.KERNEL_BWD
@@ -74,11 +75,11 @@ def test_dkv_rule_sends_valle_form_to_the_tensor_cores(dtype, causal, d_qk, d_v,
 @pytest.mark.parametrize("d_qk,d_v", [(64, 64), (128, 128), (192, 192), (256, 256), (192, 64), (576, 192)])
 @pytest.mark.parametrize("has_bias", [False, True])
 def test_dq_rule_sends_valle_form_to_the_tensor_cores(dtype, causal, d_qk, d_v, has_bias):
-    """dq by dk/dv's rule: VALL-E's form on the tensor-core dq, K1r's f32
-    form and K1-bwd's f32 d 192 (with a bias, and its d(ab), or without) on
-    the 3xTF32 one; any other bias, d != 64, bf16 non-causal and f32 causal
-    on the scalar one."""
-    tc = dtype == torch.bfloat16 and causal and (d_qk, d_v) == (64, 64) and not has_bias
+    """dq by dk/dv's rule: VALL-E's forms (causal or not) on the tensor-core
+    dq, K1r's f32 form and K1-bwd's f32 d 192 (with a bias, and its d(ab), or
+    without) on the 3xTF32 one; any other bias, d != 64 and f32 causal on
+    the scalar one."""
+    tc = dtype == torch.bfloat16 and (d_qk, d_v) == (64, 64) and not has_bias
     tc_f32 = dtype == torch.float32 and not causal and (
         ((d_qk, d_v) in k1.RELPOS_PAIRS and not has_bias) or (d_qk, d_v) == (192, 192))
     want = k1.KERNEL_BWD_TC if tc else k1.KERNEL_BWD_TC_F32 if tc_f32 else k1.KERNEL_BWD
@@ -94,11 +95,11 @@ def test_sources_hold_the_causal_forms_and_a_plain_c_interface():
     assert "launch<D, D, true, true>" in fwd and "launch<D, D, false, true>" in fwd
     assert "launch<D, D, true, false>" in fwd and "launch<D, D, false, false>" in fwd
     # the dk/dv and dq kernels: their own C entries with jatts_flash_attn_bwd_dkv's
-    # and jatts_flash_attn_bwd_dq's arguments; dk/dv's causal form a compile-time
-    # flag, dq causal only
+    # and jatts_flash_attn_bwd_dq's arguments; the causal form a compile-time
+    # flag of both (the non-causal ones: tests/test_torch_flash_tc_noncausal.py)
     assert 'extern "C" int jatts_flash_attn_bwd_dkv_tc(' in bwd
     assert 'extern "C" int jatts_flash_attn_bwd_dq_tc(' in bwd
-    assert "template <bool CAUSAL>" in bwd and "launch_dkv<true>" in bwd and "launch_dq(" in bwd
+    assert "template <bool CAUSAL>" in bwd and "launch_dkv<true>" in bwd and "launch_dq<true>" in bwd
     assert bwd.count("__global__") == 2
     assert "flash_attn_bwd_dkv_tc_kernel(" in bwd and "flash_attn_bwd_dq_tc_kernel(" in bwd
     # dQ += dS.K from registers against the k slab MN-major, as the forward's P.V

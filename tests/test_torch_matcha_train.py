@@ -219,7 +219,7 @@ def test_training_cli_four_steps_and_bitwise_resume(tmp_path, monkeypatch, model
 
 def test_refusals_name_what_is_left(tmp_path):
     csv, stats, tokens = write_mel_corpus(str(tmp_path / "corpus"))
-    with pytest.raises(ValueError, match="still to come: VALLENAR, E2TTS"):
+    with pytest.raises(ValueError, match="still to come: E2TTS"):
         tts_train.run(csv, csv, stats, tokens, _conf("E2TTS"), str(tmp_path / "a"), device="cpu")
     with pytest.raises(ValueError, match="not ported yet: this CLI decodes FastSpeech2, MatchaTTS, MatchaTTS_MAS, VITS"):
         tts_decode.run(csv, stats, tokens, _conf("E2TTS"), str(tmp_path / "b"), device="cpu")

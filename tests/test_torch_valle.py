@@ -257,8 +257,3 @@ def test_ar_generate_stop_bookkeeping():
     assert torch.equal(drawn["codes"], again["codes"])
     assert int(drawn["codes"].min()) >= 0 and int(drawn["codes"].max()) <= stop
     assert bool((drawn["resp_lens"] <= n).all())
-
-
-def test_nar_and_adaln_are_not_ported():
-    with pytest.raises(NotImplementedError):
-        valle.VALLENAR(**CFG, device="cpu")
