@@ -74,7 +74,7 @@ Phases, each of which fails the run with a non-zero exit:
      (log-mel, per-token log tone frequency as pitch, per-token energy),
      and ``jatts_torch/bin/tts_train.py:run`` trains FastSpeech2 at the full
      JSUT width (egs/jsut/tts1/conf/fastspeech2.v1.yaml, batch 32, f32) with
-     ``attn_backend: flash`` for 200 steps (warm-up 50), launch counts set
+     ``attn_backend: flash`` for 100 steps (warm-up 50), launch counts set
      to 0 just before and read just after (every forward on the 3xTF32
      tensor-core kernel, none on the scalar one or the bf16 one; every dk/dv
      and dq on the 3xTF32 backward kernels, none on the scalar ones); then
@@ -102,7 +102,7 @@ Phases, each of which fails the run with a non-zero exit:
      dumps) trains through ``jatts_torch/bin/tts_train.py:run`` on
      egs/hificaptain_jp_female/tts3/conf/valle_ar.given.bs32.yaml as it
      stands (d_model 1024, 16 heads, 12 layers, bf16 compute, batch 16 x
-     accumulation 2, AdamW) with ``attn_backend: flash`` for 200 steps
+     accumulation 2, AdamW) with ``attn_backend: flash`` for 100 steps
      (warm-up 50), launch counts set to 0 just before and read just after
      (every K1b forward, dk/dv and dq on the tensor-core kernels, 12 a
      step, no scalar bf16 one);
@@ -134,7 +134,7 @@ Phases, each of which fails the run with a non-zero exit:
      bf16 (K1r 8 launches a batch, all on the tensor-core kernel), the same
      model small in f32 against its
      eager path; then phase 8's corpus with a seed-made 192-d ``spkemb`` an
-     utterance (4 synthetic speakers) trains 200 steps through
+     utterance (4 synthetic speakers) trains 100 steps through
      ``jatts_torch/bin/tts_train.py:run`` (f32, batch 32, warm-up 50), launch
      counts set to 0 just before and read just after (K1r 8 launches a step
      each, every forward on the 3xTF32 kernel and every dk/dv and dq on the
@@ -192,7 +192,7 @@ Phases, each of which fails the run with a non-zero exit:
      on the trained checkpoint (its duration bias centred) with phase 15's
      HiFi-GAN checkpoint and with Griffin-Lim, the mels against
      ``VITS.inference``;
- 18. the VALL-E NAR: phase 12's codec corpus trains 200 micro-steps through
+ 18. the VALL-E NAR: phase 12's codec corpus trains 100 micro-steps through
      ``jatts_torch/bin/tts_train.py:run`` on
      egs/hificaptain_jp_female/tts3/conf/valle_nar.given.bs32.yaml as it
      stands (d_model 1024, 16 heads, 12 layers, 7 levels, bf16 compute,
@@ -200,8 +200,8 @@ Phases, each of which fails the run with a non-zero exit:
      flash``, launch counts set to 0 just before and read just after (every
      forward on the tensor-core kernel, every dk/dv and dq on the
      non-causal tensor-core forms of ``flash_attn_bwd_tc.cu``, 12 a
-     micro-step, nothing else); the falling loss, micro-steps 198-199
-     replayed bitwise from ``checkpoint-198steps`` with the same levels
+     micro-step, nothing else); the falling loss, micro-steps 98-99
+     replayed bitwise from ``checkpoint-98steps`` with the same levels
      drawn, a micro-step's time and a profiled one, the same step under
      ``attn_backend: xla`` (bf16, then f32 on 4 rows); the non-causal dk/dv
      and dq against the plain backward at the run's largest batch and on
@@ -214,7 +214,31 @@ Phases, each of which fails the run with a non-zero exit:
      and this NAR (bf16 parameters, 256 steps): codes [T, 8] in the
      codebook, level 0 the AR's output (row 0 also against ``ar_generate``
      called directly), every fill against ``nar_generate`` called directly
-     with the CLI's generator.
+     with the CLI's generator;
+ 19. E2-TTS: a 64-utterance 48 kHz tone corpus (3-12 s, each row's prompt
+     the next utterance) through stages 1, 1b and 2 at the features of
+     egs/hificaptain_jp_female/tts2/conf/e2tts.v1.yaml; 8 requests served
+     through BatchingServer on an ``E2ttsServingBundle`` at the conf's
+     width (dim 1024, depth 24, 16 heads of d 64, bf16, flash, seed-made
+     weights; 32 ODE steps with CFG 2 as one doubled-batch forward, sway
+     -1, capacity 3000 frames; batch 4, text buckets 64/128/256), launch
+     counts set to 0 just before and read just after (24 tensor-core
+     forwards an ODE step, nothing else), every served mel against
+     ``E2TTS.inference`` on the same generator bit for bit, another seed
+     another mel; the conf as it stands trains 200 micro-steps through
+     ``bin/tts_train.py:run`` (frame budget 8640, max_samples 32,
+     accumulation 4, AdamW, ``e2tts_sequentiallr`` with warm-up 50, EMA,
+     flash; every forward on the tensor-core kernel and every dk/dv and dq
+     on the non-causal tensor-core forms, 24 a micro-step, nothing else),
+     the falling loss, micro-steps 198-199 replayed bitwise from
+     ``checkpoint-198steps`` with the same draws, a micro-step's time and a
+     profiled one, the same step under ``xla`` (bf16, then f32 on 2 rows),
+     the kernels per item against their plain versions at the run's largest
+     batch and their times beside the bounds and SDPA; the served forward
+     at (8, 16, 3001, 64) and the decode's at (2, 16, 3001, 64) against
+     their plain versions and timed; then ``bin/e2tts_decode.py`` on 4 dev
+     rows with the trained checkpoint's EMA weights and Griffin-Lim, each
+     mel against ``E2TTS.inference`` with the CLI's generator.
 The line before the last is the kernels' JSON record, the last line
 ``{"ok": true, "device": {...}}``. Exits 2 without a CUDA device or
 without the jatts_torch package beside this file.
@@ -1945,7 +1969,7 @@ def jvs_serving(seed, where):
 JSUT_CONF = ROOT / "egs" / "jsut" / "tts1" / "conf" / "fastspeech2.v1.yaml"
 JVS_CONF = ROOT / "egs" / "jvs" / "tts1" / "conf" / "fastspeech2.v1.yaml"
 JVS_SPEAKERS = 4  # synthetic speakers of phase 14's corpus
-TRAIN_STEPS = 200  # the conf's train_max_steps is 100000
+TRAIN_STEPS = 100  # the conf's train_max_steps is 100000 (200 before phase 19 needed the run's time)
 TRAIN_WARMUP = 50  # the conf's warmup_steps is 4000
 
 
@@ -2249,7 +2273,7 @@ def training_slice(root, align_paths, freqs, seed, where, which="jsut"):
 # ---------------------------------------------------------------------------
 
 TTS3_CONF = ROOT / "egs" / "hificaptain_jp_female" / "tts3" / "conf" / "valle_ar.given.bs32.yaml"
-VALLE_STEPS = 200  # the conf's train_max_steps is 400000
+VALLE_STEPS = 100  # the conf's train_max_steps is 400000 (200 before phase 19 needed the run's time)
 VALLE_WARMUP = 50  # the conf's warmup_steps is 8000
 CODEC_HOP = 320  # EnCodec at 24 kHz: 75 frames a second
 
@@ -3709,9 +3733,9 @@ def vits_slice(root, align_paths, freqs, seed, where):
 # ---------------------------------------------------------------------------
 
 NAR_CONF = ROOT / "egs" / "hificaptain_jp_female" / "tts3" / "conf" / "valle_nar.given.bs32.yaml"
-NAR_STEPS = 200  # the conf's train_max_steps is 400000
+NAR_STEPS = 100  # the conf's train_max_steps is 400000 (200 before phase 19 needed the run's time)
 NAR_WARMUP = 50  # the conf's warmup_steps is 8000
-NAR_RESUME = 198  # an interval checkpoint at an accumulation boundary: micro-steps 198 and 199 are replayed
+NAR_RESUME = 98  # an interval checkpoint at an accumulation boundary: micro-steps 98 and 99 are replayed
 NAR_DECODE_STEPS = 256  # the decode CLI's --max-steps (the AR's capacity, which the NAR fills)
 # the launches of one non-causal bf16 backward at d 64: dk/dv and dq on the
 # tensor cores, counted apart from the causal ones, and nothing else
@@ -3751,7 +3775,7 @@ def nar_inputs(shape, rows, seed):
     return q, k, v, key_mask, do
 
 
-def check_nar_bwd(name, shape, rows, seed):
+def check_nar_bwd(name, shape, rows, seed, label="NAR"):
     """The non-causal bf16 dk/dv and dq at d 64 (``launch_dkv<false>``,
     ``launch_dq<false>`` of ``flash_attn_bwd_tc.cu``) against
     ``flash_attention_bwd_ref`` on the same inputs (both fed the plain
@@ -3775,7 +3799,7 @@ def check_nar_bwd(name, shape, rows, seed):
     got = k1.flash_attention_bwd(q, k, v, None, key_mask, scale, o, lse, do)
     torch.cuda.synchronize()
     ran = launches_since(before)
-    check(ran == NAR_BWD_LAUNCH, f"NAR backward {name}: launches {ran} != {NAR_BWD_LAUNCH}")
+    check(ran == NAR_BWD_LAUNCH, f"{label} backward {name}: launches {ran} != {NAR_BWD_LAUNCH}")
     again = k1.flash_attention_bwd(q, k, v, None, key_mask, scale, o, lse, do)
     want = k1.flash_attention_bwd_ref(q.float(), k.float(), v.float(), None, key_mask, scale, o.float(), lse,
                                       do.float())
@@ -3784,26 +3808,26 @@ def check_nar_bwd(name, shape, rows, seed):
     k1._launch_bwd("dkv", q, k, v, None, key_mask, scale, lse, di, do, scalar[1], scalar[2], False, _lib=k1.KERNEL_BWD)
     k1._launch_bwd("dq", q, k, v, None, key_mask, scale, lse, di, do, scalar[0], None, False, _lib=k1.KERNEL_BWD)
     torch.cuda.synchronize()
-    check(all(torch.equal(a, b) for a, b in zip(got[:3], again[:3])), f"NAR backward {name}: bits differ between runs")
-    check(got[3] is None, "the NAR backward wrote d(ab) without a bias")
+    check(all(torch.equal(a, b) for a, b in zip(got[:3], again[:3])), f"{label} backward {name}: bits differ between runs")
+    check(got[3] is None, f"the {label} backward wrote d(ab) without a bias")
     tol = TOL_BWD["bf16"]
     errs, rel, scalar_rel = {}, {}, 0.0
     scalar_err = 0.0
     for gname, g_, w, s_ in zip(("dq", "dk", "dv"), got, want, scalar):
-        check(bool(torch.isfinite(g_).all()), f"NAR backward {name} {gname} not finite")
+        check(bool(torch.isfinite(g_).all()), f"{label} backward {name} {gname} not finite")
         errs[gname] = (g_.float() - w).abs().max().item()
         rel[gname] = item_err(g_, w)
-        check(rel[gname] <= tol, f"NAR backward {name} {gname} err {rel[gname]} x max(1, max|plain| of its item) > {tol}")
+        check(rel[gname] <= tol, f"{label} backward {name} {gname} err {rel[gname]} x max(1, max|plain| of its item) > {tol}")
         scalar_rel = max(scalar_rel, item_err(s_, w))
         scalar_err = max(scalar_err, (s_.float() - w).abs().max().item())
-    check(scalar_rel <= tol, f"NAR backward {name}: the scalar kernels on the same inputs err {scalar_rel} > {tol}")
+    check(scalar_rel <= tol, f"{label} backward {name}: the scalar kernels on the same inputs err {scalar_rel} > {tol}")
     rows_none = torch.isinf(lse)[..., None].expand_as(got[0])
     unseen = ~key_mask[:, None, :, None].expand_as(got[1])
     check(bool((got[0][rows_none] == 0).all()) and bool((got[1][unseen] == 0).all())
           and bool((got[2][unseen] == 0).all()),
-          f"NAR backward {name}: dq of a row that sees no key, or dk/dv of a masked key, is not 0")
+          f"{label} backward {name}: dq of a row that sees no key, or dk/dv of a masked key, is not 0")
     b, h, tq, tk, d = shape
-    print(f"NAR backward check bf16 non-causal B,H,Tq,Tk,d={b},{h},{tq},{tk},{d} (dk/dv and dq on the tensor cores): "
+    print(f"{label} backward check bf16 non-causal B,H,Tq,Tk,d={b},{h},{tq},{tk},{d} (dk/dv and dq on the tensor cores): "
           f"max_abs_err " + ", ".join(f"{n} {errs[n]:.2e} ({rel[n]:.2e})" for n in errs)
           + f" (max |kernel - plain| (worst item's over max(1, max|plain| of the item)); tol {tol:.0e}); the same "
           f"bits on a second run; the scalar kernels on the same inputs {scalar_rel:.2e}; rows that see no key "
@@ -3811,7 +3835,7 @@ def check_nar_bwd(name, shape, rows, seed):
     return errs, scalar_err
 
 
-def check_nar_chain(shape, rows, seed):
+def check_nar_chain(shape, rows, seed, label="NAR"):
     """The NAR's attention autograd chain in bf16: FlashAttention (the
     tensor-core forward, whose output and lse feed the non-causal
     tensor-core dk/dv and dq) against autograd through the plain forward in
@@ -3831,7 +3855,7 @@ def check_nar_chain(shape, rows, seed):
     torch.cuda.synchronize()
     ran = launches_since(before)
     want = {**NAR_BWD_LAUNCH, "k1.launches": 1, "k1.launches_tc": 1}
-    check(ran == want, f"NAR autograd chain: launches {ran} != {want}")
+    check(ran == want, f"{label} autograd chain: launches {ran} != {want}")
     ref_leaves = [x.float().detach().requires_grad_() for x in (q, k, v)]
     ref = k1.flash_attention_ref(*ref_leaves, None, key_mask, scale)
     want = torch.autograd.grad(ref, ref_leaves, do.float())
@@ -3842,8 +3866,8 @@ def check_nar_chain(shape, rows, seed):
         rel = item_err(g_, w)
         parts.append(f"{gname} {errs[gname]:.2e} ({rel:.2e}, tol {tol:.0e})")
         check(math.isfinite(errs[gname]) and rel <= tol,
-              f"NAR autograd chain: {gname} err {rel} x max(1, max|plain| of its item) > {tol}")
-    print(f"NAR autograd chain bf16 B,H,T,d={shape[0]},{shape[1]},{shape[2]},{shape[4]} (FlashAttention forward + "
+              f"{label} autograd chain: {gname} err {rel} x max(1, max|plain| of its item) > {tol}")
+    print(f"{label} autograd chain bf16 B,H,T,d={shape[0]},{shape[1]},{shape[2]},{shape[4]} (FlashAttention forward + "
           f"backward vs autograd through the plain forward in f32): max_abs_err (worst item's over max(1, "
           f"max|plain| of the item)) " + ", ".join(parts), flush=True)
     return errs
@@ -3869,7 +3893,7 @@ def nar_bounds_ms(b, h, tq, tk, d):
     return out
 
 
-def time_nar_attn(shape, seed, where):
+def time_nar_attn(shape, seed, where, label="NAR"):
     """The NAR's attention at ``shape`` (B, H, S, d), every key valid, bf16
     non-causal: the tensor-core forward, dk/dv and dq by CUDA events and
     replayed from a CUDA graph; beside them the scalar dk/dv and dq
@@ -3923,7 +3947,7 @@ def time_nar_attn(shape, seed, where):
                              ("dkv", res["bounds"]["dkv"], f"; the scalar dk/dv on the same inputs "
                                                            f"{res['dkv_scalar']:.4f} ms"),
                              ("dq", res["bounds"]["dq"], f"; the scalar dq on the same inputs {res['dq_scalar']:.4f} ms")))
-    print(f"NAR attention time bf16 non-causal B,H,S,d={b},{h},{s},{d}, every key valid, tensor cores: {parts}; plain "
+    print(f"{label} attention time bf16 non-causal B,H,S,d={b},{h},{s},{d}, every key valid, tensor cores: {parts}; plain "
           f"forward {res['plain_fwd_ms']:.4f} ms, plain backward {res['plain_bwd_ms']:.4f} ms; sdpa (bool key mask, "
           f"{res['sdpa_backend']}) forward {res['sdpa_fwd_ms']:.4f} ms (graph {res['sdpa_fwd_graph_ms']:.4f} ms), "
           f"forward+backward {res['sdpa_ms']:.4f} ms; backward kernels dk/dv + dq {res['dkv'] + res['dq']:.4f} ms = "
@@ -4224,6 +4248,596 @@ def nar_slice(root, corpus, ar_outdir, seed, where):
     print(f"phase 18 (VALL-E NAR training, kernels, decode): {time.perf_counter() - t_phase:.1f} s; {where}",
           flush=True)
     return counts, {"train": train, "errs": errs, "times": times, "decode": decode}
+
+
+# ---------------------------------------------------------------------------
+# phase 19: E2-TTS (the tts2 features, CFG infill serving, frame-budget
+# training on the bf16 tensor-core forward and non-causal backward, the
+# stage-4 decode CLI)
+# ---------------------------------------------------------------------------
+
+E2_CONF = ROOT / "egs" / "hificaptain_jp_female" / "tts2" / "conf" / "e2tts.v1.yaml"
+E2_STEPS = 200  # the conf's train_max_steps is 1000000
+E2_WARMUP = 50  # the conf's warmup_steps is 20000
+E2_RESUME = 198  # an interval checkpoint at an accumulation boundary: micro-steps 198 and 199 are replayed
+E2_BUCKETS = (64, 128, 256)  # the serving bundle's text buckets
+E2_SERVE_BATCH = 4
+E2_REQUESTS = 8
+E2_DECODE_ROWS = 4
+E2_FRAMES_PER_PHONE = 12  # bin/e2tts_decode.py's --frames-per-phone
+
+
+def write_e2_corpus(root, conf, seed, n_utts=64, n_phones=40):
+    """Tones as write_tone_corpus makes them, at the E2 conf's feature
+    settings (48 kHz, hop 512, fft 2048, 80 mels from 0 Hz): each phone the
+    centre of every second mel filter, 4-12 frames a phone, 3-12 s an
+    utterance with 60 ms of silence at both ends; start and end in the csv
+    (the frame counts the frame-budget batcher sorts by); each row's prompt
+    is the next utterance's wav and phonemes. Returns (csv paths, {utt:
+    (phones, frames per phone)})."""
+    import numpy as np
+
+    from jatts_torch.ops.dsp import mel_filterbank
+    from jatts_torch.utils.io import write_audio, write_csv
+
+    sr, hop, n_fft = (int(conf[k]) for k in ("sampling_rate", "hop_size", "fft_size"))
+    fmin = float(conf.get("fmin") or 0.0)
+    fmax = float(conf.get("fmax") or sr / 2)
+    bank = mel_filterbank(sr, n_fft, conf["num_mels"], fmin, fmax)
+    centres = np.linspace(0.0, sr / 2.0, n_fft // 2 + 1)[bank.argmax(axis=1)]
+    rng = np.random.default_rng(seed)
+    phones = [f"p{i:02d}" for i in range(n_phones)]
+    freqs = dict(zip(phones, centres[1::2]))
+    sil = np.zeros(int(0.06 * sr), np.float32)
+    utts, truth = [], {}
+    for i in range(n_utts):
+        utt = f"E{i:03d}"
+        target = rng.uniform(3.0, 12.0) * sr - 2 * len(sil)
+        ph, durs = [], []
+        while sum(durs) * hop < target:
+            ph.append(str(rng.choice(phones)))
+            durs.append(int(rng.integers(4, 13)))
+        wav = np.concatenate([sil] + [
+            0.4 * np.sin(2 * np.pi * freqs[p] * np.arange(d * hop) / sr).astype(np.float32) for p, d in zip(ph, durs)
+        ] + [sil])
+        wav_path = str(Path(root) / "wav" / f"{utt}.wav")
+        write_audio(wav_path, wav, sr)
+        utts.append((utt, wav_path, len(wav) / sr, " ".join(ph)))
+        truth[utt] = (ph, durs)
+    rows = [{"sample_id": utt, "spk": "syn", "wav_path": path, "start": "0.0", "end": f"{secs:.6f}",
+             "original_text": "x", "phonemes": ph, "prompt_wav_path": utts[(i + 1) % n_utts][1],
+             "prompt_phonemes": utts[(i + 1) % n_utts][3]}
+            for i, (utt, path, secs, ph) in enumerate(utts)]
+    n_dev = n_utts // 8
+    paths = [str(Path(root) / "train_src.csv"), str(Path(root) / "dev_src.csv")]
+    write_csv(rows[n_dev:], paths[0])
+    write_csv(rows[:n_dev], paths[1])
+    return paths, truth
+
+
+def e2_features(root, seed, where):
+    """Phase 19, stages 1, 1b and 2 through the port's CLIs at the E2 conf's
+    feature settings: mel-only .npz dumps on the card, the mel statistics,
+    the token list. Returns (train csv, dev csv, stats, tokens), the conf and
+    the corpus's phones and durations."""
+    import numpy as np
+    import torch
+
+    from jatts_torch.bin import compute_statistics, generate_token_list, preprocess
+    from jatts_torch.utils.config import load_config
+    from jatts_torch.utils.io import read_csv
+
+    conf = load_config(str(E2_CONF))
+    src, truth = write_e2_corpus(root, conf, seed)
+    csvs = [str(Path(root) / "train.csv"), str(Path(root) / "dev.csv")]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    audio_s = sum(preprocess.run(s_, conf, str(Path(root) / "dump"), out_csv=c, device="cuda", dump_format="npz")
+                  for s_, c in zip(src, csvs))
+    torch.cuda.synchronize()
+    stage1_s = time.perf_counter() - t0
+    stats = str(Path(root) / "stats.npz")
+    compute_statistics.run(csvs[0], conf, stats)
+    tokens = str(Path(root) / "tokens.txt")
+    vocab = generate_token_list.run(csvs, tokens)
+    rows = read_csv(csvs[0], dict_reader=True)[0] + read_csv(csvs[1], dict_reader=True)[0]
+    frames = []
+    for row in rows:
+        with np.load(row["feat_path"]) as f:
+            check(sorted(f.files) == ["mel", "wave"] and f["mel"].shape[1] == conf["num_mels"], f"E2 dump {f.files}")
+            n_truth = sum(truth[row["sample_id"]][1])
+            check(abs(f["mel"].shape[0] - n_truth - 0.12 * conf["sampling_rate"] / conf["hop_size"]) <= 2,
+                  f"{row['sample_id']}: {f['mel'].shape[0]} frames for {n_truth} frames of tones")
+            frames.append(f["mel"].shape[0])
+    with np.load(stats) as st:
+        check(sorted(st.files) == ["mel_mean", "mel_scale"] and st["mel_mean"].shape == (80,), f"stats {st.files}")
+    check(len(vocab) == 43 and "<blank>" in vocab, f"{len(vocab)} tokens, want 40 phones + 3 with <blank>")
+    print(f"E2-TTS stages 1, 1b, 2 ({E2_CONF.relative_to(ROOT)} features: {conf['sampling_rate']} Hz, fft "
+          f"{conf['fft_size']}, hop {conf['hop_size']}, {conf['num_mels']} mels, mel only, .npz on the card): "
+          f"{len(rows)} utterances, {audio_s:.1f} s of audio, {min(frames)}-{max(frames)} frames, stage 1 "
+          f"{stage1_s:.2f} s; {len(vocab)} tokens; {where}", flush=True)
+    return (csvs[0], csvs[1], stats, tokens), conf, truth
+
+
+def e2_model(conf, n_vocab, seed, backend="flash", dtype_name=None):
+    """E2TTS at the conf's width with weights made from ``seed`` (flax's
+    default initialisers, as the trainer starts from them)."""
+    import torch
+
+    from jatts_torch.bin.tts_train import DTYPES
+    from jatts_torch.models.e2tts import E2TTS
+
+    mp = dict(conf["model_params"])
+    dtype = DTYPES[dtype_name or mp.pop("dtype")]
+    mp.pop("dtype", None)
+    torch.manual_seed(seed)
+    return E2TTS(**mp, idim=n_vocab, attn_backend=backend, device="cuda", dtype=dtype)
+
+
+def e2_fwd_bound_ms(b, h, tq, d, valid, with_lse=False):
+    """Least time of the bf16 non-causal forward whose key rows hold
+    ``valid`` [B] valid keys (the kernel skips a key tile with none, so the
+    products count the valid keys): 4·H·Tq·d·Σvalid FLOP on the bf16 tensor
+    cores; bytes q and o, k and v of the valid keys, the key mask (and the
+    lse)."""
+    n_valid = sum(valid)
+    nbytes = 2 * (2 * b * h * tq * d) + 2 * (2 * h * n_valid * d) + b * tq + (b * h * tq * 4 if with_lse else 0)
+    flops = 4 * h * tq * d * n_valid
+    t_bytes, t_ops = nbytes / PEAK_BYTES_S * 1e3, ops_ms(flops, "bf16")
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations", nbytes, flops
+
+
+def time_e2_fwd(name, b, valid, tq, seed, where):
+    """E2's served forward (no lse) at [B, 16, Tq, 64] with ``valid`` keys a
+    row: the tensor-core kernel held per item against the plain version
+    (TOL["bf16"] of the item's max(1, max|plain|)), timed by CUDA events and
+    by graph replay beside the plain version, SDPA with the boolean key
+    mask (the yardstick, never used by the port) and the bound."""
+    import torch
+
+    from jatts_torch.ops import flash_attention as k1
+
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    h, d = 16, 64
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    q, k, v = (torch.randn(b, h, tq, d, device="cuda", generator=g).bfloat16() for _ in range(3))
+    key_mask = torch.arange(tq, device="cuda")[None] < torch.tensor(valid, device="cuda")[:, None]
+    scale = d ** -0.5
+
+    def fwd():
+        with torch.no_grad():
+            return k1.flash_attention(q, k, v, None, key_mask, scale)
+
+    before = launch_counts()
+    got = fwd()
+    torch.cuda.synchronize()
+    ran = launches_since(before)
+    check(ran == {"k1.launches": 1, "k1.launches_tc": 1}, f"E2 forward {name}: launches {ran}")
+    want = k1.flash_attention_ref(q, k, v, None, key_mask, scale)
+    err, rel = (got.float() - want.float()).abs().max().item(), item_err(got, want)
+    check(rel <= TOL["bf16"], f"E2 forward {name}: err {rel} x max(1, max|plain| of its item) > {TOL['bf16']}")
+    mask = key_mask[:, None, None, :]
+    res = {"shape": [b, h, tq, d], "valid": list(valid), "max_abs_err": err, "ms": time_ms(fwd, iters=10),
+           "graph_ms": graph_ms(fwd, iters=10, replays=3),
+           "plain_ms": time_ms(lambda: k1.flash_attention_ref(q, k, v, None, key_mask, scale), iters=2, warmup=1),
+           "library_backend": sdpa_choice(q, k, v, attn_mask=mask, scale=scale),
+           "library_ms": time_ms(lambda: sdpa(q, k, v, attn_mask=mask, scale=scale), iters=10),
+           "bound": e2_fwd_bound_ms(b, h, tq, d, valid)}
+    bd = res["bound"]
+    print(f"E2 forward {name} bf16 non-causal B,H,T,d={b},{h},{tq},{d}, valid keys {valid}: max_abs_err {err:.2e} "
+          f"({rel:.2e} of the item's max(1, max|plain|), tol {TOL['bf16']:.0e}); kernel {res['ms']:.4f} ms (graph "
+          f"replay {res['graph_ms']:.4f} ms) (bound {bd[0]:.4f} ms by {bd[1]}: {bd[2] / 1e6:.1f} MB, "
+          f"{bd[3] / 1e9:.1f} GFLOP); plain {res['plain_ms']:.2f} ms; sdpa (bool key mask, "
+          f"{res['library_backend']}) {res['library_ms']:.4f} ms; {where}", flush=True)
+    return res
+
+
+def e2_step_profile(model, cond, text, ref_lens, duration, kw, name, where):
+    """One ODE step of ``E2TTS.inference`` (``steps`` 1, with the text
+    embedding and the noise) under the profiler: its wall and device-busy
+    ms and kernel count, the share the host holds the card idle."""
+    import torch
+
+    args = dict(kw, steps=1)
+    wall_ms, busy_ms, events = profile_ms(lambda: model.inference(
+        cond, text, ref_lens, duration, generator=torch.Generator(device="cuda").manual_seed(0), **args))
+    n = sum(e.count for e in events)
+    print(f"profile of {name} first ODE step (B={cond.shape[0]}, CFG doubles it): wall {wall_ms:.1f} ms under the "
+          f"profiler, device busy {busy_ms:.1f} ms in {n} kernels, idle share {1 - busy_ms / wall_ms:.3f}; {where}",
+          flush=True)
+    return {"wall_ms": wall_ms, "busy_ms": busy_ms, "kernels": n, "idle": 1 - busy_ms / wall_ms}
+
+
+def e2_serving(corpus, conf, truth, seed, where):
+    """Phase 19, serving: E2ttsServingBundle at the conf's width (bf16,
+    flash, seed-made weights, ``nfe_step`` 32, CFG 2, sway -1, capacity
+    ``max_duration`` frames, batch 4, text buckets 64/128/256) behind
+    BatchingServer; 8 requests of a 200-400-frame prompt cut at a phone
+    boundary from another utterance's dump and 20-80 target phones,
+    ``gen_frames`` 12 a phone. Launch counts set to 0 just before and read
+    just after; every served mel against ``E2TTS.inference`` on the bundle's
+    inputs and a generator of the same seed, bit for bit; another seed,
+    another mel."""
+    import numpy as np
+    import torch
+
+    from jatts_torch.data.token_id_converter import TokenIDConverter
+    from jatts_torch.serving import BatchingServer, E2ttsServingBundle
+    from jatts_torch.serving.bundle import inference_kwargs
+    from jatts_torch.utils.io import read_csv
+
+    train_csv, dev_csv, stats, tokens = corpus
+    conv = TokenIDConverter(tokens)
+    with np.load(stats) as st:
+        mean, scale = st["mel_mean"], st["mel_scale"]
+    model = e2_model(conf, len(conv.token_list), seed).eval()
+    kw = inference_kwargs(conf)
+    max_frames = int(conf["max_duration"])
+    bundle = E2ttsServingBundle(model, mean, scale, batch_size=E2_SERVE_BATCH, buckets=E2_BUCKETS,
+                                max_frames=max_frames, infer_kwargs=kw)
+    rows = read_csv(train_csv, dict_reader=True)[0]
+    rng = np.random.default_rng(seed + 19)
+    sil = round(0.06 * conf["sampling_rate"] / conf["hop_size"])
+    reqs = []
+    for j in range(E2_REQUESTS):
+        prom_row, tgt_row = rows[2 * j], rows[2 * j + 1]
+        ph, durs = truth[prom_row["sample_id"]]
+        cut = int(np.searchsorted(np.cumsum(durs), int(rng.integers(200, 401)) - sil, side="right"))
+        with np.load(prom_row["feat_path"]) as f:
+            prompt = f["mel"][: sil + sum(durs[:cut])]
+        target = tgt_row["phonemes"].split(" ")[: int(rng.integers(20, 81))]
+        ids = conv.tokens2ids(ph[:cut] + ["<blank>"] + target)
+        reqs.append({"token_ids": ids, "prompt_mels": prompt, "gen_frames": E2_FRAMES_PER_PHONE * len(target)})
+    check(all(200 <= len(r["prompt_mels"]) <= 400 for r in reqs), "an E2 prompt outside 200-400 frames")
+    reset_all_launches()
+    t0 = time.perf_counter()
+    with BatchingServer(bundle, max_delay_ms=50) as server:
+        futs = [server.submit(seed=seed, **r) for r in reqs]
+        served = [f.result(timeout=600) for f in futs]
+        batches = server.stats["batches"]
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    counts = launch_counts()
+    n_tc = model.backbone.depth * kw["steps"] * batches
+    check(batches == E2_REQUESTS // E2_SERVE_BATCH, f"E2 server ran {batches} batches")
+    check(all(counts[c] == (n_tc if c in ("k1.launches", "k1.launches_tc") else 0) for c in counts),
+          f"E2 serving launches {counts}: want {n_tc} on the tensor-core forward and nothing else")
+    for r, mel in zip(reqs, served):
+        check(mel.shape == (r["gen_frames"], 80) and bool(np.isfinite(mel).all()), f"E2 served mel {mel.shape}")
+    # each served batch again through E2TTS.inference on the bundle's inputs
+    batch_ms, differ = [], 0
+    for k in range(batches):
+        part = reqs[k * E2_SERVE_BATCH:(k + 1) * E2_SERVE_BATCH]
+        cond, text, ref_lens, duration = bundle.prepare(*[[r[f] for r in part] for f in
+                                                          ("token_ids", "prompt_mels", "gen_frames")])
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        out = model.inference((cond - bundle.mel_mean) / bundle.mel_scale, text, ref_lens, duration,
+                              generator=torch.Generator(device="cuda").manual_seed(seed), **kw)["feat_gen"]
+        mel = out.float() * bundle.mel_scale + bundle.mel_mean
+        host = mel.cpu().numpy()
+        batch_ms.append((time.perf_counter() - t1) * 1e3)
+        for i, r in enumerate(part):
+            got = served[k * E2_SERVE_BATCH + i]
+            differ += int((host[i, int(ref_lens[i]):int(duration[i])] != got).sum())
+        durations = (duration + 1).tolist()  # the time token, then the frames: the keys each row sees
+    step_prof = e2_step_profile(model, (cond - bundle.mel_mean) / bundle.mel_scale, text, ref_lens, duration, kw,
+                                "a served batch's", where)
+    other = bundle.synthesize(*[[r[f] for r in reqs[:E2_SERVE_BATCH]] for f in
+                                ("token_ids", "prompt_mels", "gen_frames")], seed=seed + 1)
+    moved = max(float(np.abs(a - b).max()) for a, b in zip(other, served))
+    buckets = sorted({min(b for b in E2_BUCKETS if b >= len(r["token_ids"])) for r in reqs})
+    print(f"E2-TTS serving ({E2_CONF.relative_to(ROOT)}: dim {conf['model_params']['dim']}, depth "
+          f"{model.backbone.depth}, bf16, flash, seed-made weights; nfe_step {kw['steps']}, cfg {kw['cfg_strength']}, "
+          f"sway {kw['sway_sampling_coef']}; capacity {max_frames} frames): {E2_REQUESTS} requests through "
+          f"BatchingServer in {batches} batches of {E2_SERVE_BATCH} (text buckets used {buckets}), prompts "
+          f"{[len(r['prompt_mels']) for r in reqs]} frames, gen_frames {[r['gen_frames'] for r in reqs]}; wall "
+          f"{wall_s:.2f} s; launches: forward {counts['k1.launches']} (tensor cores {counts['k1.launches_tc']}), "
+          f"limit {model.backbone.depth} x {kw['steps']} = {model.backbone.depth * kw['steps']} a batch, every other "
+          f"counter 0; a served batch through E2TTS.inference again: {', '.join(f'{m:.1f}' for m in batch_ms)} ms "
+          f"(host clock, to the fetch), {differ} values differ from the served mels (limit 0); seed {seed + 1} moves "
+          f"the mel by up to {moved:.3f} (limit > 1e-3); {where}", flush=True)
+    check(differ == 0, "the served E2 mels differ from E2TTS.inference on the same generator")
+    check(moved > 1e-3, "another seed gave the same E2 mel")
+    fwd = time_e2_fwd("served batch", 2 * E2_SERVE_BATCH, durations * 2, max_frames + 1, seed + 91, where)
+    del bundle, model
+    torch.cuda.empty_cache()
+    return counts["k1.launches_tc"], {"batch_ms": batch_ms, "wall_s": wall_s, "fwd": fwd, "batches": batches,
+                                      "step": step_prof}
+
+
+def e2_training(corpus, conf, outdir, seed, where):
+    """Phase 19, training: ``bin/tts_train.py:run`` on the E2 conf as it
+    stands (dim 1024, depth 24, 16 heads of d 64, bf16, frame budget 8640 x
+    max_samples 32, accumulation 4, AdamW, e2tts_sequentiallr, EMA, clip 1)
+    with ``attn_backend: flash`` on phase 19's corpus, launch counts set to 0
+    just before and read just after; the falling loss; micro-steps 198-199
+    replayed bitwise from checkpoint-198steps with the same draws; a
+    micro-step's time and a profiled one; the same step under ``xla`` (bf16
+    at the largest batch, then f32 on 2 rows); the kernels per item against
+    their plain versions at the largest batch and their times."""
+    import numpy as np
+    import torch
+
+    from jatts_torch.bin import tts_train
+    from jatts_torch.models.e2tts import E2TTS
+    from jatts_torch.modules.dropout import set_dropout_rate
+    from jatts_torch.modules.noise import set_noise_generator
+    from jatts_torch.train.steps_e2tts import e2tts_kwargs
+    from jatts_torch.train.trainer import Trainer
+
+    config = dict(conf)
+    mp = config["model_params"]
+    cuts = [f"train_max_steps {config['train_max_steps']} -> {E2_STEPS}",
+            f"warmup_steps {config['scheduler_params']['warmup_steps']} -> {E2_WARMUP}",
+            f"save_interval_steps {config['save_interval_steps']} -> {E2_RESUME}"]
+    print(f"E2-TTS config {E2_CONF.relative_to(ROOT)} (dim {mp['dim']}, depth {mp['depth']}, {mp['heads']} heads, "
+          f"ff_mult {mp['ff_mult']}, dtype {mp['dtype']}, frame budget {config['batch_size_per_gpu']} x max_samples "
+          f"{config['max_samples']}, accumulation {config['gradient_accumulate_steps']}, {config['optimizer_type']}, "
+          f"{config['scheduler']}, ema {config['ema_decay']}) with attn_backend flash; reductions: {', '.join(cuts)}; "
+          f"phase 19's 64-utterance synthetic 48 kHz corpus", flush=True)
+    config.update(train_max_steps=E2_STEPS, save_interval_steps=E2_RESUME)
+    config["scheduler_params"] = {**config["scheduler_params"], "warmup_steps": E2_WARMUP}
+
+    real_step = Trainer.train_step
+    kept = {}
+
+    def keep_step(self, batch):
+        if self.steps >= E2_RESUME:
+            kept[self.steps] = batch
+        return real_step(self, batch)
+
+    # deterministic cuDNN (the position convolutions) for the run and the replay
+    torch.backends.cudnn.deterministic = True
+    Trainer.train_step = keep_step
+    try:
+        reset_all_launches()
+        t0 = time.perf_counter()
+        trainer = tts_train.run(*corpus, config, outdir, seed=seed, device="cuda", attn_backend="flash")
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        counts = launch_counts()
+    finally:
+        Trainer.train_step = real_step
+    depth = trainer.model.backbone.depth
+    loader = trainer.train_loader
+    n = depth * E2_STEPS
+    want = {"k1.launches": n, "k1.launches_tc": n, "k1.launches_bwd_dkv": n, "k1.launches_bwd_dq": n,
+            "k1.launches_bwd_dkv_tc_noncausal": n, "k1.launches_bwd_dq_tc_noncausal": n}
+    sizes = [len(b) for b in loader.sampler.batches]
+    frames = [sum(loader.dataset.get_frame_len(i) for i in b) for b in loader.sampler.batches]
+    n_params = sum(p.numel() for p in trainer.params)
+    print(f"E2-TTS training ({n_params:,} parameters, f32): {len(loader.dataset)} utterances in "
+          f"{len(loader.sampler)} frame-budget batches "
+          f"(utterances {sizes}, frames {frames}; dropped {loader.sampler.n_dropped}), {trainer.steps} micro-steps "
+          f"({trainer.updates} updates) in {run_s:.1f} s; launches: forward {counts['k1.launches']} (tensor cores "
+          f"{counts['k1.launches_tc']}), dk/dv {counts['k1.launches_bwd_dkv']} (non-causal tensor cores "
+          f"{counts['k1.launches_bwd_dkv_tc_noncausal']}), dq {counts['k1.launches_bwd_dq']} (non-causal tensor cores "
+          f"{counts['k1.launches_bwd_dq_tc_noncausal']}); limit {depth} a micro-step each = {n}, every other counter "
+          f"0", flush=True)
+    check(trainer.steps == E2_STEPS, f"trained {trainer.steps} E2 micro-steps")
+    check(all(math.isfinite(v) for h in trainer.history for v in h.values()), "an E2 training stat is not finite")
+    check(all(counts[k] == want.get(k, 0) for k in counts),
+          f"E2 training launches {counts}: every forward, dk/dv and dq must take the tensor-core kernels (the "
+          f"non-causal backward), {depth} a micro-step, and nothing else may launch")
+    losses = [h["train/cfm_loss"] for h in trainer.history]
+    first, last = float(np.mean(losses[:20])), float(np.mean(losses[-20:]))
+    print(f"E2-TTS cfm_loss: mean of the first 20 micro-steps {first:.4f}, of the last 20 {last:.4f} (limit: at most "
+          f"0.9 x the first)", flush=True)
+    check(last <= 0.9 * first, "the E2 loss did not fall by 10%")
+
+    # resume from the interval checkpoint and replay the last two micro-steps
+    model_params = dict(trainer.config["model_params"])
+    dtype = tts_train.DTYPES[model_params.pop("dtype")]
+    model2 = E2TTS(**model_params, device="cuda", dtype=dtype)
+    resumed = Trainer(trainer.config, model2, trainer.criterions, trainer.loss_fn, loader, outdir=outdir + "_resumed",
+                      seed=seed)
+    resumed.init_state()
+    resumed.load_checkpoint(str(Path(outdir) / f"checkpoint-{E2_RESUME}steps"))
+    replay = [resumed.train_step(kept[s]) for s in range(E2_RESUME, E2_STEPS)]
+    torch.backends.cudnn.deterministic = False
+    same_stats = replay == trainer.history[E2_RESUME:]
+    same = all(torch.equal(model2.state_dict()[k], v) for k, v in trainer.model.state_dict().items())
+    same_ema = all(torch.equal(a, b) for a, b in zip(resumed.ema, trainer.ema))
+    print(f"E2-TTS resume from checkpoint-{E2_RESUME}steps, micro-steps {E2_RESUME}-{E2_STEPS - 1} replayed with the "
+          f"same draws: stats bitwise equal {same_stats}, parameters bitwise equal {same}, EMA bitwise equal "
+          f"{same_ema}", flush=True)
+    check(same_stats and same and same_ema, "the resumed E2 trainer differs")
+    del resumed, model2
+    torch.cuda.empty_cache()
+
+    # one micro-step at the largest batch, its parts and a profile
+    model, params = trainer.model, trainer.params
+    big = max(loader.sampler.batches, key=lambda idx: sum(loader.dataset.get_frame_len(i) for i in idx))
+    tb = trainer.to_device(loader._make(big))
+    b, s_len = tb["ys"].shape[0], tb["ys"].shape[1] + 1
+
+    def host_ms(fn, iters=3):
+        return time_ms(fn, iters=iters, warmup=1, host_clock=True)
+
+    def loss_of(m, bt=tb, draw_seed=7):
+        set_noise_generator(m, torch.Generator(device="cuda").manual_seed(draw_seed))
+        return m(**e2tts_kwargs(bt, m))["loss"]
+
+    model.train()
+    fwd_ms = host_ms(lambda: loss_of(model))
+    loss = loss_of(model)
+    bwd_ms = host_ms(lambda: torch.autograd.grad(loss, params, retain_graph=True))
+    del loss
+    micro_ms = host_ms(lambda: torch.autograd.grad(loss_of(model), params))
+    torch.cuda.reset_peak_memory_stats()
+    torch.autograd.grad(loss_of(model), params)
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    wall_ms, busy_ms, events = profile_ms(lambda: torch.autograd.grad(loss_of(model), params))
+    names = ("flash_attn_fwd_tc_kernel", "flash_attn_bwd_dkv_tc_kernel", "flash_attn_bwd_dq_tc_kernel",
+             "flash_attn_bwd_dkv_kernel", "flash_attn_bwd_dq_kernel")
+    k_ms = {nm: sum(e.self_device_time_total for e in events if nm in e.key) / 1e3 for nm in names}
+    attn_ms = sum(k_ms.values())
+    frames = int(tb["olens"].sum())
+    print(f"E2-TTS micro-step bf16 (forward, loss, backward; the optimizer aside), largest batch B={b}, S={s_len} "
+          f"({frames} frames): {micro_ms:.1f} ms (host clock, peak memory {peak_gb:.1f} GiB); forward+loss "
+          f"{fwd_ms:.1f} ms, backward {bwd_ms:.1f} ms; {where}", flush=True)
+    print(f"profile of one E2 micro-step: wall {wall_ms:.1f} ms under the profiler, device busy {busy_ms:.1f} ms in "
+          f"{sum(e.count for e in events)} kernels, idle share {1 - busy_ms / wall_ms:.3f}; attention: forward "
+          f"{k_ms[names[0]]:.2f} ms, dk/dv {k_ms[names[1]]:.2f} ms, dq {k_ms[names[2]]:.2f} ms (tensor cores, "
+          f"{depth} launches each; the scalar dk/dv {k_ms[names[3]]:.2f} ms, dq {k_ms[names[4]]:.2f} ms) = "
+          f"{attn_ms / busy_ms:.3f} of the device time", flush=True)
+    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:8]:
+        print(f"  {e.self_device_time_total / 1e3:8.2f} ms  x{e.count:<5d} {e.key[:90]}")
+    check(k_ms[names[1]] > 0 and k_ms[names[2]] > 0 and k_ms[names[3]] == 0 and k_ms[names[4]] == 0,
+          "the profiled E2 micro-step did not run its backward on the tensor-core kernels")
+
+    # the same step under attn_backend xla, dropout 0, the same draws: bf16
+    # as trained (loose bound: the two round to bf16 at other places), then
+    # f32 on 2 rows (tight)
+    state = {k: v.clone() for k, v in model.state_dict().items()}
+    small = {k: v[:2] for k, v in tb.items()}
+
+    def step_pair(dt, batch, tol_loss, tol_grad):
+        pair = {}
+        for backend in ("flash", "xla"):
+            m = E2TTS(**{**model_params, "attn_backend": backend}, device="cuda", dtype=dt)
+            m.load_state_dict(state)
+            set_dropout_rate(m, 0.0)
+            m.train()
+            reset_all_launches()
+            lss = loss_of(m, batch)
+            g = torch.autograd.grad(lss, list(m.parameters()))
+            counts_now = launch_counts()
+            got = tuple(counts_now[f"k1.launches{k}"] for k in ("", "_bwd_dkv", "_bwd_dq"))
+            check(got == ((depth,) * 3 if backend == "flash" else (0, 0, 0)),
+                  f"E2 {backend} step: launches (forward, dk/dv, dq) {got}")
+            pair[backend] = (float(lss.detach()), g)
+            del m
+        (lf, gf), (lx, gx) = pair["flash"], pair["xla"]
+        loss_rel = abs(lf - lx) / abs(lx)
+        diff = math.sqrt(sum(float((a - b_).double().pow(2).sum()) for a, b_ in zip(gf, gx)))
+        norm = math.sqrt(sum(float(b_.double().pow(2).sum()) for b_ in gx))
+        name = {torch.bfloat16: "bf16", torch.float32: "f32"}[dt]
+        print(f"E2-TTS flash vs xla, {name}, batch B={batch['ys'].shape[0]}, S={s_len}, dropout 0, the same draws: "
+              f"loss {lf:.6f} vs {lx:.6f} (rel diff {loss_rel:.2e}, tol {tol_loss:.0e}), gradients |g_flash - g_xla| "
+              f"/ |g_xla| {diff / norm:.2e} (tol {tol_grad:.0e})", flush=True)
+        check(loss_rel <= tol_loss and diff / norm <= tol_grad, f"E2 flash and xla steps disagree ({name})")
+        return diff / norm
+
+    rel_bf16 = step_pair(dtype, tb, 1e-2, 5e-2)
+    rel_f32 = step_pair(torch.float32, small, 1e-4, 1e-3)
+    del state
+    torch.cuda.empty_cache()
+
+    # the kernels per item at the largest batch (each row's valid keys: the
+    # time token and its frames), then their times with every key valid
+    rows = [(0, 1 + int(x)) for x in tb["olens"]]
+    shape = (b, 16, s_len, s_len, 64)
+    e, scalar_err = check_nar_bwd("E2's largest batch", shape, rows, seed + 92, label="E2")
+    chain = check_nar_chain(shape, rows, seed + 93, label="E2")
+    errs = {"fwd": chain["fwd"], "dkv": max(e["dk"], e["dv"], chain["dk"], chain["dv"]),
+            "dq": max(e["dq"], chain["dq"]), "scalar": scalar_err}
+    times = time_nar_attn((b, 16, s_len, 64), seed + 94, where, label="E2")
+    return trainer, counts, {"run_s": run_s, "micro_ms": micro_ms, "fwd_ms": fwd_ms, "bwd_ms": bwd_ms,
+                             "peak_gb": peak_gb, "idle": 1 - busy_ms / wall_ms, "busy_ms": busy_ms,
+                             "wall_ms": wall_ms, "k_ms": k_ms, "attn_share": attn_ms / busy_ms,
+                             "shape": (b, s_len), "frames": frames, "loss": (first, last), "rel_bf16": rel_bf16,
+                             "rel_f32": rel_f32, "errs": errs, "times": times}
+
+
+def e2_decode(root, corpus, conf, expdir, seed, where):
+    """Phase 19, stage 4: ``bin/e2tts_decode.py`` on 4 dev rows with the
+    trained checkpoint (its EMA weights) at ``--max-frames`` 3000 with
+    ``--vocoder griffin_lim``; launch counts set to 0 just before and read
+    just after (one tensor-core forward a layer an ODE step, nothing
+    else); each row's mel against ``E2TTS.inference`` on the CLI's inputs
+    with its generator, bit for bit; the wavs finite and gen frames x hop
+    samples long."""
+    import numpy as np
+    import torch
+
+    from jatts_torch.bin import e2tts_decode
+    from jatts_torch.serving.bundle import inference_kwargs
+    from jatts_torch.utils.config import load_config
+    from jatts_torch.utils.io import read_audio, read_csv, write_csv
+
+    _, dev_csv, stats, tokens = corpus
+    rows = read_csv(dev_csv, dict_reader=True)[0][:E2_DECODE_ROWS]
+    csv = str(Path(root) / "decode_e2.csv")
+    write_csv(rows, csv)
+    cfg = str(Path(expdir) / "config.yml")  # the training run's, attn_backend flash
+    outdir = Path(root) / "decode_e2"
+    max_frames = int(conf["max_duration"])
+    reset_all_launches()
+    t0 = time.perf_counter()
+    out = e2tts_decode.main(["--csv", csv, "--stats", stats, "--token-list", tokens, "--expdir", expdir,
+                             "--config", cfg, "--outdir", str(outdir), "--vocoder", "griffin_lim",
+                             "--max-frames", str(max_frames), "--device", "cuda", "--verbose", "0"])
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    counts = launch_counts()
+    with open(tokens, encoding="utf-8") as f:
+        n_vocab = len([line for line in f if line.strip()])
+    model = e2tts_decode.load_model(load_config(cfg), n_vocab, None, expdir, "cuda")
+    kw = inference_kwargs(conf)
+    n_fwd = model.backbone.depth * kw["steps"] * len(rows)
+    check(out["vocoder"] == "GriffinLimVocoder" and len(out["rows"]) == len(rows), f"E2 decode {out['vocoder']}")
+    check(all(counts[c] == (n_fwd if c in ("k1.launches", "k1.launches_tc") else 0) for c in counts),
+          f"E2 decode launches {counts}: want {n_fwd} on the tensor-core forward and nothing else")
+    conv = e2tts_decode.TokenIDConverter(tokens)
+    ex = e2tts_decode.LogMelExtractor(conf["sampling_rate"], conf["fft_size"], conf["hop_size"],
+                                      num_mels=conf["num_mels"], fmin=conf.get("fmin"), fmax=conf.get("fmax"),
+                                      device="cuda")
+    with np.load(stats) as st:
+        mean, scale = st["mel_mean"], st["mel_scale"]
+    differ, lens = 0, []
+    for i, (row, res) in enumerate(zip(rows, out["rows"])):
+        prompt = (ex(read_audio(row["prompt_wav_path"], conf["sampling_rate"])[0]) - mean) / scale
+        cond = torch.zeros(1, max_frames, conf["num_mels"], device="cuda")
+        cond[0, :res["n_prompt"]] = torch.from_numpy(prompt[:res["n_prompt"]].astype(np.float32)).cuda()
+        ids = conv.tokens2ids(row["prompt_phonemes"].split(" ") + ["<blank>"] + row["phonemes"].split(" "))
+        want = model.inference(cond, torch.tensor([ids], device="cuda"), torch.tensor([res["n_prompt"]], device="cuda"),
+                               torch.tensor([res["duration"]], device="cuda"),
+                               generator=torch.Generator(device="cuda").manual_seed(i), **kw)["feat_gen"]
+        mel = np.load(str(outdir / "wav" / f"{row['sample_id']}_mel.npy"))
+        differ += int((want[0, res["n_prompt"]:res["duration"]].float().cpu().numpy() != mel).sum())
+        wav, _ = read_audio(str(outdir / "wav" / f"{row['sample_id']}.wav"))
+        check(len(wav) == res["gen"] * conf["hop_size"] and bool(np.isfinite(wav).all()),
+              f"E2 decode wav {len(wav)} samples for {res['gen']} frames")
+        lens.append((res["n_prompt"], res["gen"]))
+    step_prof = e2_step_profile(model, cond, torch.tensor([ids], device="cuda"),
+                                torch.tensor([res["n_prompt"]], device="cuda"),
+                                torch.tensor([res["duration"]], device="cuda"), kw, "a decode row's", where)
+    row_ms = [r["seconds"] * 1e3 for r in out["rows"]]
+    print(f"E2-TTS decode CLI (bin/e2tts_decode.py, EMA weights, --max-frames {max_frames}, --vocoder griffin_lim) on "
+          f"{len(rows)} dev rows: (prompt, generated) frames {lens}; the model {', '.join(f'{m:.1f}' for m in row_ms)} "
+          f"ms a row (host clock, to the fetch) (the CLI's wall "
+          f"{wall_s:.1f} s with loading and Griffin-Lim); launches: forward {counts['k1.launches']} (tensor cores "
+          f"{counts['k1.launches_tc']}), limit {model.backbone.depth} x {kw['steps']} x {len(rows)} = {n_fwd}; the "
+          f"mels against E2TTS.inference with the CLI's generator: {differ} values differ (limit 0); {where}",
+          flush=True)
+    check(differ == 0, "the E2 decode CLI's mels differ from E2TTS.inference on the same generator")
+    valid = [res["duration"] + 1 for res in out["rows"]]
+    fwd = time_e2_fwd("decode row", 2, valid[:1] * 2, max_frames + 1, seed + 95, where)
+    del model
+    torch.cuda.empty_cache()
+    return counts["k1.launches_tc"], {"row_ms": row_ms, "wall_s": wall_s, "fwd": fwd, "step": step_prof}
+
+
+def e2_slice(root, seed, where):
+    """Phase 19: E2-TTS's features, serving, training and decode. Returns
+    the launches of each path and the numbers the record and PERF.md need."""
+    import torch
+
+    t_phase = time.perf_counter()
+    root = Path(root) / "e2tts"
+    corpus, conf, truth = e2_features(root, seed, where)
+    serve_tc, serve = e2_serving(corpus, conf, truth, seed, where)
+    outdir = str(root / "exp")
+    trainer, counts, train = e2_training(corpus, conf, outdir, seed, where)
+    del trainer
+    torch.cuda.empty_cache()
+    decode_tc, decode = e2_decode(root, corpus, conf, outdir, seed, where)
+    print(f"phase 19 (E2-TTS features, serving, training, kernels, decode): {time.perf_counter() - t_phase:.1f} s; "
+          f"{where}", flush=True)
+    return {"serve_tc": serve_tc, "train": counts, "decode_tc": decode_tc}, {"serve": serve, "train": train,
+                                                                               "decode": decode}
 
 
 def main() -> int:
@@ -4546,7 +5160,14 @@ def main() -> int:
     # kernels (the non-causal bf16 backward on the tensor cores), then the
     # tts3 decode CLI with phase 12's AR
     nar_launches, nar = nar_slice(tmp.name, valle["corpus"], valle["outdir"], args.seed, where)
+
+    # 19. E2-TTS: its features, CFG infill serving, frame-budget training
+    # (the bf16 tensor-core forward and the non-causal backward), decode
+    e2_launches, e2 = e2_slice(tmp.name, args.seed, where)
     tmp.cleanup()
+    e2_tc = {"e2tts_serving": e2_launches["serve_tc"], "e2tts_training": e2_launches["train"]["k1.launches_tc"],
+             "e2tts_decode": e2_launches["decode_tc"]}
+    e2_times = e2["train"]["times"]
     # K2, K3, pair, fused path, fused bits: differing elements over every
     # case and the run's own lattice; K2, K3, fused: the largest |kernel -
     # twin| seen there
@@ -4617,9 +5238,10 @@ def main() -> int:
         "route": "cuda",
         "source": "jatts_torch/csrc/flash_attn_fwd_tc.cu",
         "replaces": "jatts_tpu/modules/attention.py:158",
-        "launches": serve_tc + nar_launches["k1.launches_tc"],
-        "launches_by_path": {"serving": serve_tc, "valle_nar_training": nar_launches["k1.launches_tc"]},
-        "max_abs_err": max(max_err["bf16"], tc_err["k1"]),
+        "launches": serve_tc + nar_launches["k1.launches_tc"] + sum(e2_tc.values()),
+        "launches_by_path": {"serving": serve_tc, "valle_nar_training": nar_launches["k1.launches_tc"], **e2_tc},
+        "max_abs_err": max(max_err["bf16"], tc_err["k1"], e2["train"]["errs"]["fwd"], e2["serve"]["fwd"]["max_abs_err"],
+                           e2["decode"]["fwd"]["max_abs_err"]),
         "ms": ms,
         "plain_ms": plain_ms,
         "bound_ms": bound_ms,
@@ -4636,6 +5258,21 @@ def main() -> int:
                       "graph_ms": nar["times"]["fwd_graph"], "plain_ms": nar["times"]["plain_fwd_ms"],
                       "bound_ms": nar["times"]["bounds"]["fwd"][0], "bound_by": nar["times"]["bounds"]["fwd"][1],
                       "library_ms": nar["times"]["sdpa_fwd_ms"], "max_abs_err": nar["errs"]["fwd"]},
+        # E2-TTS's forward (d 64, a key mask): its training forward at the
+        # run's largest batch (lse written, every key valid), its served CFG
+        # batch and a decode row at the capacity of 3001 (no lse, the keys of
+        # each row's duration valid: the kernel skips a key tile with none)
+        "e2tts": {
+            "training": {"shape": list(e2_times["shape"]), "ms": e2_times["fwd"], "graph_ms": e2_times["fwd_graph"],
+                         "plain_ms": e2_times["plain_fwd_ms"], "bound_ms": e2_times["bounds"]["fwd"][0],
+                         "bound_by": e2_times["bounds"]["fwd"][1], "library_ms": e2_times["sdpa_fwd_ms"],
+                         "max_abs_err": e2["train"]["errs"]["fwd"]},
+            **{path: {"shape": t_["shape"], "valid_keys": t_["valid"], "ms": t_["ms"], "graph_ms": t_["graph_ms"],
+                      "plain_ms": t_["plain_ms"], "bound_ms": t_["bound"][0], "bound_by": t_["bound"][1],
+                      "library_ms": t_["library_ms"], "library_backend": t_["library_backend"],
+                      "max_abs_err": t_["max_abs_err"]}
+               for path, t_ in (("serving", e2["serve"]["fwd"]), ("decode", e2["decode"]["fwd"]))},
+        },
     }, {
         "name": f"{k1.KERNEL_TC}_relpos",
         "route": "cuda",
@@ -4778,13 +5415,22 @@ def main() -> int:
         "name": f"flash_attn_bwd_{key}_tc_noncausal", "route": "cuda",
         "source": "jatts_torch/csrc/flash_attn_bwd_tc.cu",
         "replaces": f"jax/experimental/pallas/ops/tpu/flash_attention.py:{line}",
-        "launches": nar_launches[f"k1.launches_bwd_{key}_tc_noncausal"],
-        "launches_by_path": {"valle_nar_training": nar_launches[f"k1.launches_bwd_{key}_tc_noncausal"]},
-        "max_abs_err": nar["errs"][key], "ms": nar["times"][key], "graph_ms": nar["times"][f"{key}_graph"],
+        "launches": nar_launches[f"k1.launches_bwd_{key}_tc_noncausal"]
+        + e2_launches["train"][f"k1.launches_bwd_{key}_tc_noncausal"],
+        "launches_by_path": {"valle_nar_training": nar_launches[f"k1.launches_bwd_{key}_tc_noncausal"],
+                             "e2tts_training": e2_launches["train"][f"k1.launches_bwd_{key}_tc_noncausal"]},
+        "max_abs_err": max(nar["errs"][key], e2["train"]["errs"][key]), "ms": nar["times"][key],
+        "graph_ms": nar["times"][f"{key}_graph"],
         "scalar_ms": nar["times"][f"{key}_scalar"], "scalar_max_abs_err": nar["errs"]["scalar"],
         "plain_ms": nar["times"]["plain_bwd_ms"], "bound_ms": nar["times"]["bounds"][key][0],
         "bound_by": nar["times"]["bounds"][key][1], "library_ms": nar["times"]["sdpa_ms"],
         "library_backend": nar["times"]["sdpa_backend"], "shape": list(nar["times"]["shape"]),
+        # E2-TTS's training backward at its largest batch, every key valid
+        "e2tts": {"shape": list(e2_times["shape"]), "ms": e2_times[key], "graph_ms": e2_times[f"{key}_graph"],
+                  "scalar_ms": e2_times[f"{key}_scalar"], "plain_ms": e2_times["plain_bwd_ms"],
+                  "bound_ms": e2_times["bounds"][key][0], "bound_by": e2_times["bounds"][key][1],
+                  "library_ms": e2_times["sdpa_ms"], "library_backend": e2_times["sdpa_backend"],
+                  "max_abs_err": e2["train"]["errs"][key]},
     } for key, line in (("dkv", 1121), ("dq", 1456))]}
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps(record), flush=True)

@@ -52,6 +52,17 @@ from jatts_torch.vocoder.vocoder import GriffinLimVocoder, Vocoder
 DECODES = ("FastSpeech2", "MatchaTTS", "MatchaTTS_MAS", "VITS")  # the mel models of the JAX CLI
 
 
+def select_vocoder(config: Dict[str, Any], vocoder: str, device) -> Any:
+    """``auto``: the config's ``vocoder`` checkpoint when the file exists,
+    else Griffin-Lim with a warning; ``griffin_lim``: always Griffin-Lim."""
+    voc_cfg = config.get("vocoder") or {}
+    if vocoder != "griffin_lim" and voc_cfg.get("checkpoint") and os.path.exists(voc_cfg["checkpoint"]):
+        return Vocoder(voc_cfg["checkpoint"], voc_cfg["config"], voc_cfg.get("stats"), device=device)
+    if vocoder != "griffin_lim" and voc_cfg.get("checkpoint"):
+        logging.warning(f"vocoder checkpoint {voc_cfg['checkpoint']} not found; falling back to Griffin-Lim")
+    return GriffinLimVocoder(config, device=device)
+
+
 def run(
     csv: str,
     stats: str,
@@ -76,7 +87,10 @@ def run(
     dev = resolve_device(device)
     model_type = config["model_type"]
     if model_type not in DECODES:
-        raise ValueError(f"model_type {model_type!r} is not ported yet: this CLI decodes {', '.join(DECODES)}")
+        raise ValueError(
+            f"model_type {model_type!r} is not decoded by this CLI: it decodes {', '.join(DECODES)} (E2TTS: "
+            "bin/e2tts_decode.py; VALL-E: bin/ttslm_decode.py)"
+        )
     with open(token_list, encoding="utf-8") as f:
         n_vocab = len([line for line in f if line.strip()])
     model_params = dict(config["model_params"])
@@ -99,15 +113,7 @@ def run(
     mel_mean = np.asarray(read_array(stats, "mel_mean"))
     mel_scale = np.asarray(read_array(stats, "mel_scale"))
 
-    voc_cfg = config.get("vocoder") or {}
-    if vocoder != "griffin_lim" and voc_cfg.get("checkpoint") and os.path.exists(voc_cfg["checkpoint"]):
-        voc = Vocoder(voc_cfg["checkpoint"], voc_cfg["config"], voc_cfg.get("stats"), device=dev)
-    else:
-        if vocoder != "griffin_lim" and voc_cfg.get("checkpoint"):
-            logging.warning(
-                f"vocoder checkpoint {voc_cfg['checkpoint']} not found; falling back to Griffin-Lim"
-            )
-        voc = GriffinLimVocoder(config, device=dev)
+    voc = select_vocoder(config, vocoder, dev)
 
     infer_kwargs = inference_kwargs(config)
     # multi-speaker: without spembs the model would decode every row with

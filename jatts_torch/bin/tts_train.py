@@ -25,9 +25,16 @@ the VALL-E AR (``VALLEAR``, tts3 stage 3, e.g.
 ``--config egs/hificaptain_jp_female/tts3/conf/valle_ar.given.bs32.yaml``)
 and NAR (``VALLENAR``, tts3 stage 4, e.g.
 ``--config egs/hificaptain_jp_female/tts3/conf/valle_nar.given.bs32.yaml``:
-``attn_backend: flash`` trains through the non-causal tensor-core kernels);
-``model_params.dtype`` is passed to the model as its ``dtype`` (for VALL-E
-the compute dtype: parameters stay float32). ``--multihost`` is not ported.
+``attn_backend: flash`` trains through the non-causal tensor-core kernels)
+and E2-TTS (``E2TTS``, tts2, e.g.
+``--config egs/hificaptain_jp_female/tts2/conf/e2tts.v1.yaml``: mel-only;
+``attn_backend: flash`` runs its bf16 attention forward and backward on the
+tensor cores); ``batch_size_per_gpu`` selects frame-budget batching
+(``DynamicBatchSampler``, capped at ``max_samples`` utterances, shuffled
+from ``sampler_random_seed``); ``model_params.dtype`` is passed to the
+model as its ``dtype`` (for VALL-E and E2-TTS the compute dtype: parameters
+stay float32). ``--multihost`` is not ported, nor are the multi-GPU confs
+(``n_data_devices``, ``mesh``), which raise.
 """
 
 from __future__ import annotations
@@ -45,10 +52,11 @@ from typing import Any, Dict, Optional, Sequence
 
 import torch
 
-from jatts_torch.data.batcher import COLLATER_REGISTRY, BatchSampler, DataLoader
+from jatts_torch.data.batcher import COLLATER_REGISTRY, BatchSampler, DataLoader, DynamicBatchSampler
 from jatts_torch.data.dataset import TTSDataset
 from jatts_torch.device import resolve_device
 from jatts_torch.losses.basic import LOSS_REGISTRY
+from jatts_torch.models.e2tts import E2TTS
 from jatts_torch.models.fastspeech2 import FastSpeech2
 from jatts_torch.models.matchatts import MatchaTTS
 from jatts_torch.models.matchatts_mas import MatchaTTS_MAS
@@ -60,9 +68,9 @@ from jatts_torch.utils.config import dump_config, load_config
 
 MODELS = {
     "FastSpeech2": FastSpeech2, "MatchaTTS": MatchaTTS, "MatchaTTS_MAS": MatchaTTS_MAS, "VITS": VITS,
-    "VALLEAR": VALLEAR, "VALLENAR": VALLENAR,
+    "VALLEAR": VALLEAR, "VALLENAR": VALLENAR, "E2TTS": E2TTS,
 }
-NOT_PORTED = ("E2TTS",)  # the JAX package's other model types
+NOT_PORTED = ()  # every model type of the JAX package is ported
 # as in the JAX package: their attention never takes the kernel
 EAGER_ATTENTION = ("MatchaTTS", "MatchaTTS_MAS", "VITS")
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -105,9 +113,12 @@ def run(
     )
     model_type = config.get("model_type", "FastSpeech2")
     if model_type not in MODELS:
-        raise ValueError(f"model_type {model_type!r} is not ported yet (still to come: {', '.join(NOT_PORTED)})")
-    if config.get("batch_size_per_gpu"):
-        raise ValueError("frame-budget batching (batch_size_per_gpu) is not ported yet")
+        raise ValueError(f"unknown model_type {model_type!r} (the port trains {', '.join(MODELS)})")
+    if int(config.get("n_data_devices", 1) or 1) > 1 or config.get("mesh"):
+        raise ValueError(
+            "multi-GPU training (n_data_devices, mesh) is not ported yet (ROADMAP section 1 item 6): "
+            "the port trains on one GPU"
+        )
 
     with open(token_list, encoding="utf-8") as f:
         n_vocab = len([line for line in f if line.strip()])
@@ -135,7 +146,13 @@ def run(
     train_set = TTSDataset(train_csv, **ds_kwargs)
     dev_set = TTSDataset(dev_csv, **ds_kwargs)
     lengths = [train_set.get_frame_len(i) for i in range(len(train_set))]
-    sampler = BatchSampler(lengths, int(config.get("batch_size", 16)), seed=seed)
+    if config.get("batch_size_per_gpu"):  # frame-budget batching (E2-TTS)
+        sampler = DynamicBatchSampler(
+            lengths, int(config["batch_size_per_gpu"]), max_samples=int(config.get("max_samples", 0)),
+            seed=config.get("sampler_random_seed", seed),
+        )
+    else:
+        sampler = BatchSampler(lengths, int(config.get("batch_size", 16)), seed=seed)
     collater_kwargs = {"out_feat_type": config.get("out_feat_type", "mel")}
     collater_kwargs.update(config.get("collater_params") or {})
     if (

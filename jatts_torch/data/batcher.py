@@ -10,6 +10,7 @@ order is the JAX package's, so both visit the batches in the same order.
 
 from __future__ import annotations
 
+import logging
 import math
 import queue
 import threading
@@ -41,6 +42,63 @@ class BatchSampler:
         self.batches: List[List[int]] = [
             list(order[i : i + batch_size]) for i in range(0, len(order), batch_size)
         ]
+        self.epoch = 0
+
+    def set_epoch(self, epoch: int) -> None:
+        self.epoch = epoch
+
+    def __len__(self) -> int:
+        return len(self.batches)
+
+    def __iter__(self) -> Iterator[List[int]]:
+        batches = list(self.batches)
+        if self.shuffle:
+            np.random.default_rng(self.seed + self.epoch).shuffle(batches)
+        return iter(batches)
+
+
+class DynamicBatchSampler:
+    """Frame-budget batching (E2-TTS's ``batch_size_per_gpu``): sort by
+    length (stable), pack greedily until the next utterance would pass
+    ``frames_threshold`` frames or the batch holds ``max_samples``
+    utterances (0: no cap); an utterance longer than the threshold is
+    dropped, counted in ``n_dropped`` and logged. The batches are those of
+    the JAX package's sampler, integer for integer, and so is the seeded
+    per-epoch shuffle of their order."""
+
+    def __init__(
+        self,
+        lengths: Sequence[int],
+        frames_threshold: int,
+        max_samples: int = 0,
+        shuffle: bool = True,
+        seed: int = 0,
+    ):
+        order = np.argsort(np.asarray(lengths), kind="stable")
+        self.batches: List[List[int]] = []
+        self.n_dropped = 0
+        batch: List[int] = []
+        frames = 0
+        for idx in order:
+            n = lengths[idx]
+            if n > frames_threshold:
+                self.n_dropped += 1
+                continue
+            if frames + n > frames_threshold or (max_samples and len(batch) == max_samples):
+                if batch:
+                    self.batches.append(batch)
+                batch, frames = [], 0
+            batch.append(int(idx))
+            frames += n
+        if batch:
+            self.batches.append(batch)
+        if self.n_dropped:
+            logging.warning(
+                f"DynamicBatchSampler: dropped {self.n_dropped}/{len(lengths)} utterances over the "
+                f"{frames_threshold}-frame threshold"
+            )
+        self.shuffle = shuffle
+        self.seed = seed
         self.epoch = 0
 
     def set_epoch(self, epoch: int) -> None:

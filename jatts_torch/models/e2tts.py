@@ -1,0 +1,188 @@
+"""E2-TTS, the non-autoregressive flow-matching infill model (counterpart
+of jatts_tpu/models/e2tts.py).
+
+``forward`` is the training call (the JAX ``__call__``): a random span of
+each utterance (0.7-1.0 of its frames) is hidden from the condition,
+``phi_t = (1 - t)·x0 + t·x1`` is fed to the :class:`UNetT` backbone with
+per-sample classifier-free-guidance drops (audio 0.3, both 0.2), and the
+loss is the MSE of the predicted flow over the span. ``inference`` runs the
+Euler ODE with sway-sampled timesteps and classifier-free guidance as one
+doubled-batch forward a step, the text embedding computed once before the
+loop. Parameters carry the reference state_dict keys under ``backbone.``,
+so ``jatts_tpu.utils.torch_import.convert_e2tts`` reads ``state_dict()`` as
+it stands; ``dtype`` is the compute dtype (parameters stay float32, the
+flow is float32), see ``modules/e2tts_backbone.py``.
+
+Every random draw goes through the module-level :func:`draw`: in training
+from ``noise_generator`` (the trainer's noise stream, ``modules/noise.py``),
+so a resumed run draws what an uninterrupted one would; in inference from
+the caller's ``generator``. Not ported: activation checkpointing
+(``use_remat``), which raises.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional, Sequence, Union
+
+import torch
+from torch import nn
+
+from jatts_torch.device import resolve_device
+from jatts_torch.modules.e2tts_backbone import UNetT
+from jatts_torch.ops.masks import sequence_mask
+
+
+def draw(kind: str, shape, generator: Optional[torch.Generator], device, low: float = 0.0,
+         high: float = 1.0) -> torch.Tensor:
+    """One float32 draw from ``generator``: ``normal`` N(0, 1), or
+    ``uniform`` on [low, high) (``u·(high - low) + low``, at least ``low``,
+    as ``jax.random.uniform`` scales its draws)."""
+    if kind == "normal":
+        return torch.randn(shape, generator=generator, device=device)
+    u = torch.rand(shape, generator=generator, device=device)
+    return torch.clamp(u * (high - low) + low, min=low)
+
+
+def mask_from_frac_lengths(seq_len: torch.Tensor, frac_min: float, frac_max: float, t_max: int,
+                           generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """A random contiguous span of ``frac`` ~ U[frac_min, frac_max) of each
+    utterance's frames: [B, t_max] bool. ``frac·seq_len`` and
+    ``(seq_len - length)·u`` are taken in float32 before the integer cast,
+    so the spans are the JAX package's integers for the same draws."""
+    frac = draw("uniform", seq_len.shape, generator, seq_len.device, frac_min, frac_max)
+    lengths = (frac * seq_len.float()).int()
+    max_start = seq_len.int() - lengths
+    start = (max_start.float() * draw("uniform", seq_len.shape, generator, seq_len.device)).int().clamp(min=0)
+    end = start + lengths
+    pos = torch.arange(t_max, device=seq_len.device)[None, :]
+    return (pos >= start[:, None]) & (pos < end[:, None])
+
+
+class E2TTS(nn.Module):
+    samples_noise = True  # inference draws its initial noise: callers hand in a generator
+
+    def __init__(
+        self,
+        idim: int,
+        odim: int = 80,
+        backbone: str = "UNetT",
+        dim: int = 1024,
+        depth: int = 24,
+        heads: int = 16,
+        ff_mult: int = 4,
+        text_mask_padding: bool = False,
+        pe_attn_head: Optional[int] = 1,
+        sigma: float = 0.0,
+        audio_drop_prob: float = 0.3,
+        cond_drop_prob: float = 0.2,
+        frac_lengths_mask: Sequence[float] = (0.7, 1.0),
+        attn_backend: str = "xla",
+        use_remat: bool = False,
+        remat_policy: Optional[str] = None,
+        device: Optional[Union[str, torch.device]] = None,
+        dtype: torch.dtype = torch.float32,
+    ):
+        super().__init__()
+        if backbone != "UNetT":
+            raise ValueError(f"Unsupported backbone: {backbone}")
+        if use_remat:
+            raise NotImplementedError(
+                "use_remat (activation checkpointing) is not ported: train E2TTS without it"
+            )
+        del remat_policy, sigma  # remat is refused above; sigma is unused, as in the JAX model
+        dev = resolve_device(device)
+        self.odim = odim
+        self.audio_drop_prob = audio_drop_prob
+        self.cond_drop_prob = cond_drop_prob
+        self.frac_lengths_mask = tuple(frac_lengths_mask)
+        self.dtype = dtype
+        self.noise_generator: Optional[torch.Generator] = None
+        self.backbone = UNetT(
+            text_num_embeds=idim, mel_dim=odim, dim=dim, depth=depth, heads=heads, ff_mult=ff_mult,
+            text_mask_padding=text_mask_padding, pe_attn_head=pe_attn_head, attn_backend=attn_backend,
+            compute_dtype=dtype, device=dev,
+        )
+
+    def forward(self, text: torch.Tensor, feats: torch.Tensor, feats_lengths: torch.Tensor) -> Dict[str, torch.Tensor]:
+        """Training: text [B, N_t] ids (pad -1), feats [B, N, odim], lengths
+        [B] -> {"loss", "cond", "pred"}. The draws, in the JAX model's order:
+        the span (two uniforms), x0, t, the audio and the both-drop flags."""
+        g = self.noise_generator
+        b, n, _ = feats.shape
+        dev = feats.device
+        span = mask_from_frac_lengths(feats_lengths, *self.frac_lengths_mask, n, generator=g)
+        x1 = feats.float()
+        x0 = draw("normal", x1.shape, g, dev)
+        time = draw("uniform", (b,), g, dev)
+        t = time[:, None, None]
+        phi = (1.0 - t) * x0 + t * x1
+        flow = x1 - x0
+        cond = x1.masked_fill(span[..., None], 0.0)
+        drop_audio = draw("uniform", (b,), g, dev) < self.audio_drop_prob
+        drop_both = draw("uniform", (b,), g, dev) < self.cond_drop_prob
+        drop_audio = drop_audio | drop_both
+        mask = sequence_mask(feats_lengths, n)
+        pred = self.backbone(phi, cond, text, time, drop_audio, drop_both, mask)
+        err = (pred - flow) ** 2
+        sel = span[..., None].to(err.dtype)
+        loss = (err * sel).sum() / torch.clamp(sel.sum() * self.odim, min=1.0)
+        return {"loss": loss, "cond": cond, "pred": pred}
+
+    @torch.no_grad()
+    def inference(
+        self,
+        cond: torch.Tensor,
+        text: torch.Tensor,
+        ref_lens: torch.Tensor,
+        duration: torch.Tensor,
+        steps: int = 32,
+        cfg_strength: float = 1.0,
+        sway_sampling_coef: Optional[float] = None,
+        generator: Optional[torch.Generator] = None,
+    ) -> Dict[str, torch.Tensor]:
+        """Euler ODE from noise drawn from ``generator``: cond [B, T_max,
+        odim] the (normalised) prompt mel, zero-padded, ``T_max`` the static
+        capacity; text [B, N_t] ids of prompt and target (pad -1); ref_lens
+        [B] prompt frames; duration [B] total frames, clipped to [1, T_max].
+        With ``cfg_strength`` >= 1e-5 each step is one forward over
+        ``[cond; uncond]`` and ``pred + (pred - null)·cfg_strength``. Returns
+        ``feat_gen`` [B, T_max, odim] (the prompt frames kept, zero past
+        ``duration``) and ``olens`` (the clipped durations). Runs in eval
+        mode; the mode is restored."""
+        was_training = self.training
+        self.eval()
+        try:
+            net = self.backbone
+            b, t_max, _ = cond.shape
+            dev = cond.device
+            duration = torch.clamp(duration, 1, t_max)
+            cond_mask = sequence_mask(ref_lens, t_max)[..., None]
+            step_cond = cond.masked_fill(~cond_mask, 0.0)
+            mask = sequence_mask(duration, t_max)
+            y = draw("normal", (b, t_max, self.odim), generator, dev).to(cond.dtype)
+            ts = torch.linspace(0.0, 1.0, steps + 1, dtype=torch.float32, device=dev)
+            if sway_sampling_coef is not None:
+                ts = ts + sway_sampling_coef * (torch.cos(torch.pi / 2 * ts) - 1 + ts)
+            # guided: rows [cond; uncond], the second half with the audio
+            # and the text dropped
+            guided = cfg_strength >= 1e-5
+            drop = torch.zeros(b, dtype=torch.bool, device=dev)
+            if guided:
+                step_cond, text, mask = (torch.cat([x, x]) for x in (step_cond, text, mask))
+                drop = torch.cat([drop, ~drop])
+            rows = step_cond.shape[0]
+            te = net(step_cond, step_cond, text, torch.zeros(rows, device=dev), drop, drop, mask,
+                     return_text_embed=True)
+            for i in range(steps):
+                t_i, dt = ts[i], ts[i + 1] - ts[i]
+                out = net(torch.cat([y, y]) if guided else y, step_cond, text, t_i.expand(rows), drop, drop, mask,
+                          text_embed=te)
+                if guided:
+                    pred, null = out[:b], out[b:]
+                    out = pred + (pred - null) * cfg_strength
+                y = y + dt * out
+            mask = mask[:b]
+            out = torch.where(cond_mask, cond, y) * mask[..., None]
+            return {"feat_gen": out, "olens": duration}
+        finally:
+            self.train(was_training)

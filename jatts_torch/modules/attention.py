@@ -75,16 +75,20 @@ def _attend(
 def _flash_ok(backend: str, mask: Optional[torch.Tensor], t_k: int) -> bool:
     """Whether the attention core is K1: ``flash`` always, ``auto`` above
     ``FLASH_AUTO_MIN_LEN`` keys, ``xla`` never; and only for a per-key
-    padding mask (K1 takes no [B, T_q, T_k] mask)."""
+    padding mask, [B, 1, T_k] or [B, T_k] as the JAX gate takes them (K1
+    takes no [B, T_q, T_k] mask)."""
     if backend not in ("xla", "flash", "auto"):
         raise ValueError(f"unknown attn_backend {backend!r}")
     if backend == "xla" or (backend == "auto" and t_k <= FLASH_AUTO_MIN_LEN):
         return False
-    return mask is None or (mask.dim() == 3 and mask.shape[1] == 1)
+    return mask is None or mask.dim() == 2 or (mask.dim() == 3 and mask.shape[1] == 1)
 
 
 def _key_mask(mask: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
-    return None if mask is None else mask[:, 0].contiguous()
+    """A per-key mask, [B, 1, T_k] or [B, T_k], as K1's [B, T_k]."""
+    if mask is None:
+        return None
+    return (mask if mask.dim() == 2 else mask[:, 0]).contiguous()
 
 
 class MultiHeadedAttention(nn.Module):

@@ -13,6 +13,13 @@ bundle pads them; a request without one gets a zero row. Matcha's
 inference keywords (``ode_steps``, ``temperature``) and VITS's
 (``noise_scale``) come from :func:`inference_kwargs`, and their noise (the
 ODE's, the prior's) from a generator seeded by the call's ``seed``.
+
+:class:`E2ttsServingBundle` (counterpart of ``build_e2tts_fn`` plus
+``E2ttsServingBundle`` there) serves E2-TTS's prompt-conditioned infill: a
+raw prompt log-mel and token ids (prompt, separator, target) in, the
+generated mel out, normalised by the model's statistics inside and
+denormalised on the way out. It carries no vocoder, as the JAX artifact
+does not.
 """
 
 from __future__ import annotations
@@ -33,6 +40,13 @@ def inference_kwargs(config: Dict[str, Any]) -> Dict[str, Any]:
         )
     if config["model_type"] == "VITS":
         return dict(noise_scale=float(config.get("noise_scale", 0.667)))
+    if config["model_type"] == "E2TTS":
+        sway = config.get("sway_sampling_coef")
+        return dict(
+            steps=int(config.get("nfe_step", 32)),
+            cfg_strength=float(config.get("cfg_strength", 1.0)),
+            sway_sampling_coef=None if sway is None else float(sway),
+        )
     return {}
 
 
@@ -151,3 +165,82 @@ class ServingBundle:
                 r["mel"] = host["mel"][i, :n]
             results.append(r)
         return results
+
+
+class E2ttsServingBundle:
+    """E2-TTS at a fixed batch size, text buckets and frame capacity
+    ``max_frames``. A call pads the token ids with -1 (the backbone's filler)
+    to the smallest bucket that fits, clamps each prompt to
+    ``max_frames - gen_frames`` frames so that generation keeps its room,
+    pads the rows to ``batch_size``, runs ``E2TTS.inference`` with noise from
+    a generator seeded by ``seed``, and crops each row to its generated
+    frames ``[ref_len, duration)``."""
+
+    def __init__(
+        self,
+        model,
+        mel_mean: np.ndarray,
+        mel_scale: np.ndarray,
+        *,
+        batch_size: int,
+        buckets: Sequence[int],
+        max_frames: int,
+        infer_kwargs: Optional[Dict[str, Any]] = None,
+    ):
+        self.model = model
+        self.device = next(model.parameters()).device
+        self.batch_size = int(batch_size)
+        self.buckets = sorted(int(t) for t in buckets)
+        self.max_frames = int(max_frames)
+        self.num_mels = int(model.odim)
+        self.infer_kwargs = dict(infer_kwargs or {})
+        self.mel_mean = torch.as_tensor(np.asarray(mel_mean, np.float32), device=self.device)
+        self.mel_scale = torch.as_tensor(np.asarray(mel_scale, np.float32), device=self.device)
+
+    def prepare(
+        self, token_ids: Sequence[Sequence[int]], prompt_mels: Sequence[np.ndarray], gen_frames: Sequence[int]
+    ):
+        """<= batch_size requests -> (cond_raw [batch_size, max_frames,
+        num_mels] f32, text [batch_size, bucket] (pad -1), ref_lens,
+        duration [batch_size]) on the device; padded rows have no prompt and
+        one frame."""
+        n = len(token_ids)
+        if n > self.batch_size:
+            raise ValueError(f"batch {n} > bundle batch {self.batch_size}")
+        longest = max(len(t) for t in token_ids)
+        fit = [b for b in self.buckets if b >= longest]
+        if not fit:
+            raise ValueError(f"text length {longest} exceeds largest bucket {self.buckets[-1]}")
+        text = np.full((self.batch_size, fit[0]), -1, np.int64)
+        cond = np.zeros((self.batch_size, self.max_frames, self.num_mels), np.float32)
+        ref_lens = np.zeros((self.batch_size,), np.int64)
+        duration = np.ones((self.batch_size,), np.int64)
+        for i, (ids, pm, g) in enumerate(zip(token_ids, prompt_mels, gen_frames)):
+            text[i, : len(ids)] = np.asarray(ids, np.int64)
+            pm = np.asarray(pm, np.float32)
+            n_prompt = min(len(pm), max(self.max_frames - int(g), 0))
+            cond[i, :n_prompt] = pm[:n_prompt]
+            ref_lens[i] = n_prompt
+            duration[i] = min(n_prompt + int(g), self.max_frames)
+        return tuple(torch.from_numpy(a).to(self.device) for a in (cond, text, ref_lens, duration))
+
+    def synthesize(
+        self,
+        token_ids: Sequence[Sequence[int]],
+        prompt_mels: Sequence[np.ndarray],
+        gen_frames: Sequence[int],
+        seed: int = 0,
+    ) -> List[np.ndarray]:
+        """token_ids (prompt + separator + target ids, composed by the caller
+        as ``bin/e2tts_decode.py`` does), raw prompt log-mels [Tp_i,
+        num_mels] and frames to generate -> each row's generated mel
+        [frames, num_mels]. The same seed gives the same bits."""
+        cond_raw, text, ref_lens, duration = self.prepare(token_ids, prompt_mels, gen_frames)
+        generator = torch.Generator(device=self.device).manual_seed(int(seed))
+        with torch.no_grad():
+            out = self.model.inference((cond_raw - self.mel_mean) / self.mel_scale, text, ref_lens, duration,
+                                       generator=generator, **self.infer_kwargs)
+        # one fetch, rows cropped on the host
+        mel = (out["feat_gen"].float() * self.mel_scale + self.mel_mean).cpu().numpy()
+        ref, dur = ref_lens.cpu().numpy(), duration.cpu().numpy()
+        return [mel[i, ref[i]: dur[i]] for i in range(len(token_ids))]

@@ -1,5 +1,6 @@
-"""Micro-batching request server over the port's ServingBundle
-(counterpart of jatts_tpu/serving/server.py; streaming is a later slice).
+"""Micro-batching request server over the port's ServingBundle or
+E2ttsServingBundle (counterpart of jatts_tpu/serving/server.py; streaming
+is a later slice).
 
 The bundle runs at a fixed batch size, but requests arrive one utterance
 at a time. A background thread groups up to ``bundle.batch_size`` queued
@@ -16,7 +17,9 @@ Usage:
 Requests with different ``seed`` values never share a call (the seed is a
 per-call input), so the batcher groups by seed. A request to a
 multi-speaker bundle may carry ``spemb=[...]`` (its speaker embedding); a
-batch stacks them, with a zero row for a request without one.
+batch stacks them, with a zero row for a request without one. A request to
+an E2-TTS bundle carries ``token_ids``, ``prompt_mels`` (its raw prompt
+log-mel) and ``gen_frames``, and gets back its generated mel.
 """
 
 from __future__ import annotations
@@ -29,7 +32,7 @@ from typing import Any, Dict, List, Optional
 
 import numpy as np
 
-from jatts_torch.serving.bundle import ServingBundle
+from jatts_torch.serving.bundle import E2ttsServingBundle, ServingBundle
 
 
 class _Request:
@@ -48,8 +51,15 @@ class BatchingServer:
     (or a full batch is available, whichever is first), every queued request
     with the same seed, up to ``bundle.batch_size``, runs as one call."""
 
-    def __init__(self, bundle: ServingBundle, max_delay_ms: float = 5.0):
+    # per-bundle-kind request fields, in the order of bundle.synthesize
+    _FIELDS = {
+        ServingBundle: ("token_ids",),
+        E2ttsServingBundle: ("token_ids", "prompt_mels", "gen_frames"),
+    }
+
+    def __init__(self, bundle, max_delay_ms: float = 5.0):
         self.bundle = bundle
+        self._required = self._FIELDS[type(bundle)]
         self.batch_size = int(bundle.batch_size)
         self.max_delay = float(max_delay_ms) / 1000.0
         self._queue: "Queue[Optional[_Request]]" = Queue()
@@ -63,12 +73,14 @@ class BatchingServer:
 
     def submit(self, seed: int = 0, **fields) -> Future:
         """Enqueue one utterance (``token_ids=[...]``, and ``spemb=[...]``
-        for a multi-speaker bundle); returns a Future of the bundle's
-        per-utterance dict."""
+        for a multi-speaker bundle; ``token_ids``, ``prompt_mels`` and
+        ``gen_frames`` for an E2-TTS bundle); returns a Future of the
+        bundle's per-utterance result."""
         if self._closed:
             raise RuntimeError("server is closed")
-        if "token_ids" not in fields:
-            raise TypeError("missing request field: token_ids")
+        missing = [k for k in self._required if k not in fields]
+        if missing:
+            raise TypeError(f"missing request fields: {missing}")
         # fail fast at submit so a bad request cannot poison its batch-mates
         longest = self.bundle.buckets[-1]
         if len(fields["token_ids"]) > longest:
@@ -139,14 +151,15 @@ class BatchingServer:
         self.stats["rows"] += self.batch_size
         self.stats["requests"] += len(batch)
         try:
+            args = [[r.fields[k] for r in batch] for k in self._required]
             kwargs: Dict[str, Any] = {"seed": seed}
-            if any("spemb" in r.fields for r in batch):
+            if isinstance(self.bundle, ServingBundle) and any("spemb" in r.fields for r in batch):
                 kwargs["spembs"] = np.stack([
                     np.asarray(r.fields["spemb"], np.float32) if "spemb" in r.fields
                     else np.zeros((self.bundle.spk_dim,), np.float32)
                     for r in batch
                 ])
-            results = self.bundle.synthesize([r.fields["token_ids"] for r in batch], **kwargs)
+            results = self.bundle.synthesize(*args, **kwargs)
         except Exception as e:  # propagate to every caller in the group
             for r in batch:
                 if not r.future.cancelled():

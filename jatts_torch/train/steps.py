@@ -11,6 +11,7 @@ from __future__ import annotations
 
 from typing import Any, Dict
 
+from jatts_torch.train.steps_e2tts import e2tts_kwargs, e2tts_loss
 from jatts_torch.train.steps_matcha import matchatts_kwargs, matchatts_loss
 from jatts_torch.train.steps_valle import valle_kwargs, valle_loss
 from jatts_torch.train.steps_vits import vits_kwargs, vits_loss
@@ -52,20 +53,21 @@ LOSS_FN_REGISTRY = {
     "MatchaTTSTrainer": matchatts_loss,
     "VALLETrainer": valle_loss,
     "VITSTrainer": vits_loss,
+    "E2TTSTrainer": e2tts_loss,
 }
 KWARGS_REGISTRY = {
     "FastSpeech2Trainer": fastspeech2_kwargs,
     "MatchaTTSTrainer": matchatts_kwargs,
     "VALLETrainer": valle_kwargs,
     "VITSTrainer": vits_kwargs,
+    "E2TTSTrainer": e2tts_kwargs,
 }
 
-
-NOT_PORTED = ("E2TTSTrainer",)  # the JAX package's other trainer type
+NOT_PORTED = ()  # every trainer type of the JAX package is ported
 
 
 def _refuse(trainer_type: str):
-    raise ValueError(f"trainer_type {trainer_type!r} is not ported yet (still to come: {', '.join(NOT_PORTED)})")
+    raise ValueError(f"unknown trainer_type {trainer_type!r} (the port trains {', '.join(LOSS_FN_REGISTRY)})")
 
 
 def get_loss_fn(trainer_type: str):

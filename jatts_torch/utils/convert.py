@@ -218,3 +218,33 @@ def vits_state_dict_from_jax(variables: Mapping[str, Any]) -> Dict[str, torch.Te
     ``flow.flows.{0,2,..}``, ``conv_layers.{i}`` with ``weight_g``/``weight_v``);
     the stochastic one's are the port's own (``modules/flows.py``)."""
     return flax_to_state_dict(variables, FASTSPEECH2_RENAMES, LIST_RENAMES, leaf=_wn_leaf)
+
+
+E2TTS_RENAMES = (
+    (r"^backbone/time_embed/mlp1$", "backbone/time_embed/time_mlp/0"),
+    (r"^backbone/time_embed/mlp2$", "backbone/time_embed/time_mlp/2"),
+    (r"^backbone/text_embed$", "backbone/text_embed/text_embed"),
+    (r"^backbone/input_proj$", "backbone/input_embed/proj"),
+    (r"^backbone/conv_pos_embed/conv1$", "backbone/input_embed/conv_pos_embed/conv1d/0"),
+    (r"^backbone/conv_pos_embed/conv2$", "backbone/input_embed/conv_pos_embed/conv1d/2"),
+    (r"^backbone/skip_proj_(\d+)$", r"backbone/layers/\1/0"),
+    (r"^backbone/attn_norm_(\d+)$", r"backbone/layers/\1/1"),
+    (r"^backbone/attn_(\d+)/to_out$", r"backbone/layers/\1/2/to_out/0"),
+    (r"^backbone/attn_(\d+)/", r"backbone/layers/\1/2/"),
+    (r"^backbone/ff_norm_(\d+)$", r"backbone/layers/\1/3"),
+    (r"^backbone/ff_(\d+)/proj_in$", r"backbone/layers/\1/4/ff/0/0"),
+    (r"^backbone/ff_(\d+)/proj_out$", r"backbone/layers/\1/4/ff/2"),
+)
+
+
+def e2tts_state_dict_from_jax(variables: Mapping[str, Any], depth: int) -> Dict[str, torch.Tensor]:
+    """E2TTS flax variables -> the port's (and the reference's) state_dict:
+    the inverse of ``jatts_tpu.utils.torch_import.convert_e2tts``. The
+    RMSNorm scales keep the leaf name ``weight``; the grouped convolutions'
+    kernels ``[k, C/groups, C]`` become ``[C, C/groups, k]``. Raises unless
+    every one of the ``depth`` layers was found."""
+    sd = flax_to_state_dict(variables, E2TTS_RENAMES)
+    found = {int(k.split(".")[2]) for k in sd if k.startswith("backbone.layers.")}
+    if found != set(range(depth)):
+        raise ValueError(f"expected layers 0..{depth - 1}, found {sorted(found)}")
+    return sd

@@ -218,13 +218,18 @@ def test_training_cli_four_steps_and_bitwise_resume(tmp_path, monkeypatch, model
 
 
 def test_refusals_name_what_is_left(tmp_path):
+    """Every model and trainer type is ported: an unknown one is refused
+    with the list of those the port trains; the tts1 decode CLI names the
+    CLI that decodes E2TTS."""
     csv, stats, tokens = write_mel_corpus(str(tmp_path / "corpus"))
-    with pytest.raises(ValueError, match="still to come: E2TTS"):
-        tts_train.run(csv, csv, stats, tokens, _conf("E2TTS"), str(tmp_path / "a"), device="cpu")
-    with pytest.raises(ValueError, match="not ported yet: this CLI decodes FastSpeech2, MatchaTTS, MatchaTTS_MAS, VITS"):
+    with pytest.raises(ValueError, match="unknown model_type 'E2'.*MatchaTTS_MAS.*E2TTS"):
+        tts_train.run(csv, csv, stats, tokens, _conf("E2"), str(tmp_path / "a"), device="cpu")
+    with pytest.raises(ValueError, match="this CLI: it decodes FastSpeech2, MatchaTTS, MatchaTTS_MAS, VITS .E2TTS: "
+                                         "bin/e2tts_decode.py"):
         tts_decode.run(csv, stats, tokens, _conf("E2TTS"), str(tmp_path / "b"), device="cpu")
-    with pytest.raises(ValueError, match="still to come: E2TTSTrainer"):
-        get_loss_fn("E2TTSTrainer")
+    with pytest.raises(ValueError, match="unknown trainer_type 'E2'.*E2TTSTrainer"):
+        get_loss_fn("E2")
+    assert get_loss_fn("E2TTSTrainer").__name__ == "e2tts_loss"
 
 
 def _seeded_model(cls=MatchaTTS, idim=TINY["idim"]):

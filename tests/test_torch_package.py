@@ -45,7 +45,9 @@ def test_import_leaves_jax_out_of_sys_modules():
         "jatts_torch.modules.positional, jatts_torch.serving.bundle, jatts_torch.serving.server, "
         "jatts_torch.models.vits, jatts_torch.modules.flows, jatts_torch.modules.wavenet, "
         "jatts_torch.modules.vits_modules, jatts_torch.modules.noise, jatts_torch.losses.kl, "
-        "jatts_torch.train.steps_vits, jatts_torch.bin.ttslm_decode\n"
+        "jatts_torch.train.steps_vits, jatts_torch.bin.ttslm_decode, jatts_torch.models.e2tts, "
+        "jatts_torch.modules.e2tts_backbone, jatts_torch.train.steps_e2tts, jatts_torch.bin.e2tts_decode, "
+        "jatts_torch.bin.e2tts_train\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in %r)\n"
         "bad += [m for m in ('h5py', 'yaml', 'triton') if m in sys.modules]\n"
         "print(bad); sys.exit(1 if bad else 0)" % (FORBIDDEN,)

@@ -301,7 +301,7 @@ def test_tts_decode_vocoder_choice_and_refusals(stages, experiment, tmp_path, ca
     assert out["vocoder"] == "GriffinLimVocoder" and "falling back to Griffin-Lim" in caplog.text
     wav, _ = tio.read_audio(str(tmp_path / "a" / "wav_anasyn" / f"{rows[0]['sample_id']}.wav"))
     assert len(wav) == sum(int(d) for d in rows[0]["durations"].split()) * HOP
-    with pytest.raises(ValueError, match="not ported yet"):
+    with pytest.raises(ValueError, match="not decoded by this CLI"):
         tdecode.run(*args, dict(config, model_type="E2TTS"), str(tmp_path / "b"), expdir=experiment["expdir"],
                     device="cpu")
     with pytest.raises(FileNotFoundError):

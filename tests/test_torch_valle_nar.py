@@ -455,7 +455,7 @@ def test_tts3_nar_cli_four_steps_and_bitwise_resume(tmp_path, monkeypatch):
     and 3 replayed from checkpoint-2steps give the same stats and weights
     bit for bit (the same levels drawn). The prompt crop (64 frames) is past
     every utterance's length, so the collater draws nothing."""
-    assert tts_train.NOT_PORTED == ("E2TTS",) and tts_train.MODELS["VALLENAR"] is valle.VALLENAR
+    assert tts_train.NOT_PORTED == () and tts_train.MODELS["VALLENAR"] is valle.VALLENAR
     csv, stats, tokens = write_codec_corpus(str(tmp_path / "corpus"), "npz")
     conf_path = tmp_path / "conf.yaml"
     conf_path.write_text(yaml.safe_dump(_nar_conf()))
