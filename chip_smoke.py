@@ -238,7 +238,26 @@ Phases, each of which fails the run with a non-zero exit:
      at (8, 16, 3001, 64) and the decode's at (2, 16, 3001, 64) against
      their plain versions and timed; then ``bin/e2tts_decode.py`` on 4 dev
      rows with the trained checkpoint's EMA weights and Griffin-Lim, each
-     mel against ``E2TTS.inference`` with the CLI's generator.
+     mel against ``E2TTS.inference`` with the CLI's generator;
+ 20. the serving artifact (``jatts_torch/serving/export.py``): FastSpeech2
+     at the JSUT conf's width (bf16, flash, seed-made weights) + HiFi-GAN
+     exported as a pcm16 wav artifact and as a mel artifact with a stream
+     step (chunk 128), B=8, text buckets 32/64/128, 1024 frames, each loaded
+     on the card (one CUDA graph a bucket and one of the stream step; the
+     artifact's MiB, the load-and-capture seconds and the graph pool's
+     bytes printed); each bucket's replay against the eager program bit for
+     bit (wav, olens) with 8 K1 tc launches a replay; 10 batches eager and
+     replayed in turns (median ms, RTF); time to first audio and ms a chunk,
+     the chunks against the wav artifact within 1 LSB (the differing samples
+     counted); 16 requests through BatchingServer, 8 streamed and 8 whole;
+     the fused VALL-E AR+NAR program at the tts3 confs' width (bf16
+     parameters, 4 rows, max_steps 256; the prefix, one AR step and the NAR
+     fill as graphs) against the eager program on the same seed code for
+     code, ms an AR step replayed and eager; the E2-TTS artifact (the conf as
+     it stands, 4 requests, capacity 3000, 32 steps; one graph of the whole
+     CFG Euler loop) against the in-process bundle bit for bit. The kernels'
+     counters count Python calls, once at a capture: the record counts a
+     replayed program's launches as launches a replay times replays.
 The line before the last is the kernels' JSON record, the last line
 ``{"ok": true, "device": {...}}``. Exits 2 without a CUDA device or
 without the jatts_torch package beside this file.
@@ -249,6 +268,7 @@ from __future__ import annotations
 import argparse
 import json
 import math
+import os
 import re
 import statistics
 import subprocess
@@ -4840,6 +4860,430 @@ def e2_slice(root, seed, where):
                                                                                "decode": decode}
 
 
+ART_BUCKETS = (32, 64, 128)  # the JSUT artifact's text buckets
+ART_BATCH = 8
+ART_FRAMES = 1024
+ART_CHUNK = 128  # the stream step's mel frames a chunk
+ART_TIMED = 10  # batches timed eagerly and replayed, in turns
+ART_SERVED = 16  # requests through BatchingServer, half of them streamed
+VALLE_ART_ROWS = 4
+VALLE_ART_STEPS = 256  # the fused program's max_steps
+VALLE_ART_BUCKET = 64
+E2_ART_REQUESTS = 4
+E2_ART_BUCKET = 128
+ART_VOCAB = 64
+
+
+def pool_bytes():
+    """Bytes held by private memory pools (the CUDA graphs'): the segments
+    of the allocator's snapshot outside the default pool."""
+    import torch
+
+    segs = torch.cuda.memory._snapshot()["segments"]
+    return sum(s["total_size"] for s in segs if tuple(s.get("segment_pool_id", (0, 0))) != (0, 0))
+
+
+def _load(path, where, label):
+    """load_bundle on the card, timed (rebuild, eager warm-ups, captures),
+    and the pool bytes its captures added."""
+    import torch
+
+    from jatts_torch.serving import load_bundle
+
+    torch.cuda.synchronize()
+    before = pool_bytes()
+    t0 = time.perf_counter()
+    bundle = load_bundle(path)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    pool = pool_bytes() - before
+    print(f"artifact {label}: {os.path.getsize(path) / 2**20:.1f} MiB; load and capture {load_s:.2f} s, graph pool "
+          f"{pool} bytes ({pool / 2**20:.1f} MiB); {where}", flush=True)
+    return bundle, {"mib": os.path.getsize(path) / 2**20, "load_s": load_s, "pool_bytes": pool}
+
+
+def _tc_a_replay(call):
+    return call.launches.get("flash_attention.launches_tc", 0)
+
+
+def artifact_jsut(root, seed, where):
+    """Phase 20, the JSUT artifacts: FastSpeech2 at the conf's width (bf16,
+    flash, seed-made weights) + HiFi-GAN, B=8, buckets 32/64/128, 1024
+    frames, exported three times and each loaded on the card (one graph a
+    bucket, the stream step's): a pcm16 wav artifact with phase 7's bf16
+    HiFi-GAN, and a pcm16 wav artifact and a mel artifact with a stream step
+    (chunk 128) with the f32 HiFi-GAN ``vocoder/vocoder.py:Vocoder`` builds.
+    Each bucket's replay against the eager program bit for bit; 10 batches
+    eager and replayed in turns; time to first audio and ms a chunk, the
+    chunks against the f32 wav artifact; 16 requests, half streamed, through
+    BatchingServer. The stream pair's vocoder is f32 because a chunk equals
+    the whole call's samples only where the convolutions' arithmetic does:
+    cuDNN picks its algorithm by length, and bf16 activations turn another
+    summation order into whole-ulp differences (32 LSB on an H100 with a
+    bf16 generator, PERF.md)."""
+    from types import SimpleNamespace
+
+    import numpy as np
+    import torch
+
+    from jatts_torch.models.fastspeech2 import FastSpeech2
+    from jatts_torch.serving import BatchingServer, build_infer_fn, export_bundle
+    from jatts_torch.serving.export import build_stream_step_fn
+    from jatts_torch.utils.config import load_config
+    from jatts_torch.vocoder.hifigan import HiFiGANGenerator
+
+    conf = load_config(str(JSUT_CONF))
+    mp = dict(conf["model_params"], idim=ART_VOCAB, attn_backend="flash")
+    torch.manual_seed(seed)
+    fs2 = FastSpeech2(**mp, device="cuda", dtype=torch.bfloat16)
+    voc16 = HiFiGANGenerator(**HIFIGAN, device="cuda", dtype=torch.bfloat16)
+    voc32 = HiFiGANGenerator(**HIFIGAN, device="cuda")
+    voc32.load_state_dict(voc16.state_dict())
+    with torch.no_grad():
+        # durations centred on max_frames / bucket frames a token, as in phase 7
+        fs2.duration_predictor.linear.weight.mul_(0.1)
+        fs2.duration_predictor.linear.bias.fill_(math.log(1.0 + ART_FRAMES / ART_BUCKETS[-1]))
+    rng = np.random.default_rng(seed + 20)
+    mean, scale = rng.normal(-4.0, 1.0, 80).astype(np.float32), rng.uniform(0.5, 2.0, 80).astype(np.float32)
+    config = {"model_type": "FastSpeech2", "model_params": mp}
+    meta = {"model_type": "FastSpeech2", "model_params": mp, "num_mels": 80, "sampling_rate": 24000,
+            "hop_size": voc16.hop_size, "max_frames": ART_FRAMES}
+    paths = {}
+    for name, voc in (("wav_bf16_voc", voc16), ("wav", voc32)):
+        fn, w = build_infer_fn(config, fs2, mean, scale, ART_FRAMES, vocoder=SimpleNamespace(model=voc, mean=None,
+                                                                                             scale=None))
+        paths[name] = export_bundle(str(root / f"jsut_{name}.npz"), fn, ART_BATCH, ART_BUCKETS,
+                                    dict(meta, output="wav", wav_format="pcm16"), weights=w)
+    fn, w = build_infer_fn(config, fs2, mean, scale, ART_FRAMES)
+    stream = build_stream_step_fn(SimpleNamespace(model=voc32, mean=None, scale=None), ART_FRAMES, 80, chunk=ART_CHUNK)
+    paths["mel"] = export_bundle(str(root / "jsut_mel_stream.npz"), fn, ART_BATCH, ART_BUCKETS,
+                                 dict(meta, output="mel"), weights=w, stream=stream)
+    del fs2, voc16, voc32, fn, w, stream
+    torch.cuda.empty_cache()
+    wav_b, wav_load = _load(paths["wav_bf16_voc"], where, "JSUT wav pcm16, bf16 HiFi-GAN")
+    ref_b, ref_load = _load(paths["wav"], where, "JSUT wav pcm16, f32 HiFi-GAN")
+    mel_b, mel_load = _load(paths["mel"], where, f"JSUT mel + stream step (chunk {ART_CHUNK}), f32 HiFi-GAN")
+    check(all(sorted(b.graphs) == list(ART_BUCKETS) for b in (wav_b, ref_b, mel_b))
+          and mel_b.stream_graph is not None, "a bucket or the stream step was not captured")
+    tc = {b: _tc_a_replay(g) for b, g in wav_b.graphs.items()}
+    check(all(n == 8 for n in tc.values()), f"K1 tc launches a replay {tc}, want 8 a bucket")
+
+    # each bucket: 8 requests of lengths inside it, the replay against the
+    # eager program on the same inputs
+    lo = 1
+    per_bucket = {}
+    for b in ART_BUCKETS:
+        reqs = [rng.integers(1, ART_VOCAB, size=int(n)).tolist() for n in rng.integers(lo, b + 1, size=ART_BATCH)]
+        reqs[0] = rng.integers(1, ART_VOCAB, size=b).tolist()
+        per_bucket[b], lo = reqs, b + 1
+        xs, ilens = wav_b.prepare(reqs)
+        eager = {k: v.clone() for k, v in wav_b.program(xs, ilens, None, wav_b.generator).items()}
+        replay = wav_b.run(xs, ilens)
+        differ = int((eager["wav"] != replay["wav"]).sum()) + int((eager["olens"] != replay["olens"]).sum())
+        print(f"artifact JSUT bucket {b}: replay vs eager program, {differ} values differ (wav {tuple(replay['wav'].shape)}"
+              f" int16, olens {replay['olens'].tolist()}; limit 0); K1 tc launches a replay {tc[b]}", flush=True)
+        check(differ == 0, f"bucket {b}: the graph replay differs from the eager program")
+
+    # 10 batches at bucket 128, eager and replayed in turns (host clock, to the fetch)
+    full = per_bucket[ART_BUCKETS[-1]]
+    graphs = wav_b.graphs
+    times = {"eager": [], "replay": []}
+    for i in range(ART_TIMED):
+        for mode in (("eager", "replay") if i % 2 == 0 else ("replay", "eager")):
+            wav_b.graphs = {} if mode == "eager" else graphs
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = wav_b.synthesize(full)
+            times[mode].append((time.perf_counter() - t0) * 1e3)
+    wav_b.graphs = graphs
+    med = {k: statistics.median(v) for k, v in times.items()}
+    audio_s = sum(len(r["wav"]) for r in out) / 24000
+    print(f"artifact JSUT served batch (B={ART_BATCH}, bucket {ART_BUCKETS[-1]}, {ART_FRAMES} frames, pcm16, bf16 "
+          f"HiFi-GAN): median of "
+          f"{ART_TIMED} eager {med['eager']:.2f} ms (min {min(times['eager']):.2f}), replayed {med['replay']:.2f} ms "
+          f"(min {min(times['replay']):.2f}); RTF eager {med['eager'] / 1e3 / audio_s:.5f}, replayed "
+          f"{med['replay'] / 1e3 / audio_s:.5f} ({audio_s:.2f} s of audio); {where}", flush=True)
+
+    # streaming: time to first audio, ms a chunk, the chunks against the f32 wav artifact
+    ref = ref_b.synthesize(full)
+    list(mel_b.synthesize_streaming(full))  # one pass before the timed one
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    it = mel_b.synthesize_streaming(full)
+    rows = [next(it)]
+    ttfa_ms = (time.perf_counter() - t0) * 1e3
+    chunk_ms = []
+    while True:
+        t1 = time.perf_counter()
+        try:
+            rows.append(next(it))
+        except StopIteration:
+            break
+        chunk_ms.append((time.perf_counter() - t1) * 1e3)
+    worst, n_diff = 0, 0
+    for i, r in enumerate(ref):
+        got = np.concatenate([row[i]["wav"] for row in rows])
+        check(got.dtype == np.int16 and got.shape == r["wav"].shape, f"stream row {i}: {got.shape} vs {r['wav'].shape}")
+        d = np.abs(got.astype(np.int32) - r["wav"].astype(np.int32))
+        worst, n_diff = max(worst, int(d.max(initial=0))), n_diff + int((d > 0).sum())
+    n_samples = sum(len(r["wav"]) for r in ref)
+    print(f"artifact JSUT streaming (f32 HiFi-GAN, chunk {ART_CHUNK} frames, window {mel_b.stream.window}, context "
+          f"{mel_b.stream.context}): time to first audio {ttfa_ms:.2f} ms, {len(chunk_ms)} more chunks at median "
+          f"{statistics.median(chunk_ms):.2f} ms; chunks vs the f32 wav artifact: max |diff| {worst} LSB (limit 1), "
+          f"{n_diff} of {n_samples} samples differ; {where}", flush=True)
+    check(worst <= 1, "the streamed chunks differ from the wav artifact by more than 1 LSB")
+
+    # BatchingServer: 8 streamed requests (bucket 128) and 8 whole ones (bucket 64)
+    streamed_reqs, whole_reqs = per_bucket[ART_BUCKETS[-1]], per_bucket[ART_BUCKETS[-2]]
+    t0 = time.perf_counter()
+    with BatchingServer(mel_b, max_delay_ms=50) as server:
+        handles = [server.submit_stream(token_ids=r) for r in streamed_reqs]
+        futs = [server.submit(token_ids=r) for r in whole_reqs]
+        streamed = [np.concatenate([c["wav"] for c in h]) for h in handles]
+        whole = [f.result(timeout=600) for f in futs]
+    served_s = time.perf_counter() - t0
+    check(server.stats["requests"] == ART_SERVED and server.stats["batches"] == 2,
+          f"server stats {server.stats}: want {ART_SERVED} requests in 2 batches")
+    s_worst = max(int(np.abs(s.astype(np.int32) - r["wav"].astype(np.int32)).max(initial=0))
+                  for s, r in zip(streamed, ref))
+    check(s_worst <= 1 and all(len(s) == len(r["wav"]) for s, r in zip(streamed, ref)),
+          "the served streams differ from the wav artifact")
+    check(all(r["mel"].ndim == 2 and r["mel"].shape[1] == 80 and bool(np.isfinite(r["mel"]).all()) for r in whole),
+          "a whole request's mel is not [olens, 80] and finite")
+    print(f"artifact JSUT BatchingServer: {ART_SERVED} requests ({len(streamed_reqs)} streamed, {len(whole_reqs)} "
+          f"whole) in {server.stats['batches']} batches, {served_s:.3f} s; the streams vs the wav artifact max "
+          f"|diff| {s_worst} LSB; {where}", flush=True)
+    replayed = {}
+    for b in (wav_b, ref_b, mel_b):
+        for k, v in b.graph_launches().items():
+            replayed[k] = replayed.get(k, 0) + v
+    out = {"load": {"wav_bf16_voc": wav_load, "wav": ref_load, "mel": mel_load}, "batch_ms": med, "ttfa_ms": ttfa_ms,
+           "chunk_ms": statistics.median(chunk_ms), "stream_worst_lsb": worst, "stream_differ": n_diff,
+           "replayed": replayed}
+    del wav_b, ref_b, mel_b
+    torch.cuda.empty_cache()
+    return out
+
+
+def artifact_valle(root, seed, where):
+    """Phase 20, the fused VALL-E program: the AR and NAR confs as they
+    stand (d_model 1024, 12 layers, bf16 compute and parameters, flash,
+    seed-made weights), 4 rows, max_steps 256, one text bucket; loaded on
+    the card (the prefix, one AR step and the NAR fill as graphs). The
+    replay against the eager program on the same seed, code for code; ms an
+    AR step replayed and eager."""
+    import numpy as np
+    import torch
+
+    from jatts_torch.bin.tts_train import DTYPES
+    from jatts_torch.models.valle import VALLEAR, VALLENAR
+    from jatts_torch.serving import build_valle_fn, export_valle_bundle
+    from jatts_torch.utils.config import load_config
+
+    def build(cls, conf_path):
+        params = dict(load_config(str(conf_path))["model_params"], idim=ART_VOCAB, attn_backend="flash")
+        ctor = dict(params)
+        dtype = DTYPES[ctor.pop("dtype")]
+        torch.manual_seed(seed)
+        model = cls(**ctor, device="cuda", dtype=dtype)
+        return model.to(torch.bfloat16).eval(), params  # bf16 parameters, as bin/export_serving.py makes them
+
+    (ar, ar_params), (nar, nar_params) = build(VALLEAR, TTS3_CONF), build(VALLENAR, NAR_CONF)
+    fn, w = build_valle_fn(ar, nar, VALLE_ART_STEPS)
+    path = export_valle_bundle(str(root / "valle.npz"), fn, VALLE_ART_ROWS, [VALLE_ART_BUCKET],
+                               prompt_frames=ar.prompt_max_frame_length, n_prom_levels=ar.n_prom_levels,
+                               meta={"model_type": "VALLE", "sampling_rate": 24000, "max_steps": VALLE_ART_STEPS,
+                                     "ar_params": ar_params, "nar_params": nar_params}, weights=w)
+    del ar, nar, fn, w
+    torch.cuda.empty_cache()
+    vb, load = _load(path, where, f"VALL-E AR+NAR ({VALLE_ART_ROWS} rows, max_steps {VALLE_ART_STEPS})")
+    rng = np.random.default_rng(seed + 21)
+    tok = [rng.integers(0, ART_VOCAB, size=int(n)).tolist() for n in rng.integers(30, VALLE_ART_BUCKET + 1,
+                                                                                  size=VALLE_ART_ROWS)]
+    prom = [rng.integers(0, 1024, size=(int(n), 8)) for n in rng.integers(75, vb.prompt_frames + 1,
+                                                                         size=VALLE_ART_ROWS)]
+    args = vb.prepare(tok, prom)
+    start, step, fill = vb.graphs[VALLE_ART_BUCKET]
+    results = {}
+    for mode in ("eager", "replay"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = vb.program(*args, generator=torch.Generator(device="cuda").manual_seed(seed)) if mode == "eager" \
+            else vb.run(*args, seed=seed)
+        results[mode] = ({k: v.cpu() for k, v in out.items()}, (time.perf_counter() - t0) * 1e3)
+    (want, eager_ms), (got, replay_ms) = results["eager"], results["replay"]
+    differ = int((want["codes"] != got["codes"]).sum()) + int((want["resp_lens"] != got["resp_lens"]).sum())
+    # an AR step alone: eager on the program's state, and the step graph's replay
+    p, steps = vb.program, VALLE_ART_STEPS - 1
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    state = p.start(*args, gen)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        p.step(state, gen)
+    torch.cuda.synchronize()
+    eager_step_ms = (time.perf_counter() - t0) * 1e3 / steps
+    vb.generator.manual_seed(seed)
+    start(*args)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        step()
+    torch.cuda.synchronize()
+    replay_step_ms = (time.perf_counter() - t0) * 1e3 / steps
+    tc = _tc_a_replay(fill)
+    print(f"artifact VALL-E fused program (ar and nar confs as they stand: d_model {p.ar.d_model}, {p.ar.n_layers} "
+          f"layers, bf16 parameters, flash; {VALLE_ART_ROWS} rows, bucket {VALLE_ART_BUCKET}, max_steps "
+          f"{VALLE_ART_STEPS}): replay vs eager program on seed {seed}, {differ} codes and lengths differ (limit 0), "
+          f"resp_lens {got['resp_lens'].tolist()}; the whole call eager {eager_ms:.1f} ms, replayed {replay_ms:.1f} ms; "
+          f"an AR step eager {eager_step_ms:.3f} ms, replayed {replay_step_ms:.3f} ms; K1 tc launches a fill replay "
+          f"{tc} ({p.nar.n_layers} x {p.nar.n_resp_levels}); {where}", flush=True)
+    check(differ == 0, "the replayed VALL-E program differs from the eager one")
+    check(tc == p.nar.n_layers * p.nar.n_resp_levels, f"K1 tc launches a fill replay {tc}")
+    check(bool(((got["codes"] >= 0) & (got["codes"] <= 1024)).all()), "a VALL-E code out of range")
+    out = {"load": load, "eager_ms": eager_ms, "replay_ms": replay_ms, "eager_step_ms": eager_step_ms,
+           "replay_step_ms": replay_step_ms, "replayed": vb.graph_launches()}
+    del vb, state
+    torch.cuda.empty_cache()
+    return out
+
+
+def artifact_e2(root, seed, where):
+    """Phase 20, the E2-TTS artifact: the conf as it stands (bf16, flash,
+    seed-made weights, 32 steps, CFG, sway), 4 requests at a capacity of
+    ``max_duration`` frames, one text bucket; loaded on the card (one graph
+    of the whole CFG Euler loop) and held to the in-process bundle on the
+    same seed, bit for bit."""
+    import numpy as np
+    import torch
+
+    from jatts_torch.serving import E2ttsServingBundle
+    from jatts_torch.serving.bundle import inference_kwargs
+    from jatts_torch.serving.export import build_e2tts_bundle_cli
+    from jatts_torch.utils.config import load_config
+
+    conf = load_config(str(E2_CONF))
+    model = e2_model(conf, ART_VOCAB, seed).eval()
+    rng = np.random.default_rng(seed + 22)
+    mean, scale = rng.normal(-4.0, 1.0, 80).astype(np.float32), rng.uniform(0.5, 2.0, 80).astype(np.float32)
+    max_frames = int(conf["max_duration"])
+    config = dict(conf, model_params=dict(conf["model_params"], idim=ART_VOCAB, attn_backend="flash"))
+    path = build_e2tts_bundle_cli(str(root / "e2tts"), config, model, mean, scale, E2_ART_REQUESTS, [E2_ART_BUCKET],
+                                  max_frames, ["cuda"])
+    inproc = E2ttsServingBundle(model, mean, scale, batch_size=E2_ART_REQUESTS, buckets=[E2_ART_BUCKET],
+                                max_frames=max_frames, infer_kwargs=inference_kwargs(conf))
+    loaded, load = _load(path, where, f"E2-TTS ({E2_ART_REQUESTS} requests, capacity {max_frames})")
+    fields = [[rng.integers(0, ART_VOCAB, size=int(n)).tolist() for n in rng.integers(60, E2_ART_BUCKET + 1,
+                                                                                      size=E2_ART_REQUESTS)],
+              [(rng.normal(size=(int(n), 80)) * scale + mean).astype(np.float32)
+               for n in rng.integers(200, 401, size=E2_ART_REQUESTS)],
+              [12 * int(n) for n in rng.integers(20, 81, size=E2_ART_REQUESTS)]]
+    results = {}
+    for label, bundle in (("in-process", inproc), ("artifact", loaded)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        results[label] = (bundle.synthesize(*fields, seed=seed), (time.perf_counter() - t0) * 1e3)
+    (want, eager_ms), (got, replay_ms) = results["in-process"], results["artifact"]
+    differ = sum(int((a != b).sum()) for a, b in zip(got, want))
+    tc = _tc_a_replay(loaded.graphs[E2_ART_BUCKET])
+    steps = loaded.program.infer_kwargs["steps"]
+    print(f"artifact E2-TTS ({E2_CONF.relative_to(ROOT)} as it stands, bf16, flash; {steps} steps, CFG, sway): "
+          f"replayed vs the in-process bundle on seed {seed}, {differ} values differ (limit 0), mels "
+          f"{[g.shape[0] for g in got]} frames; a batch in process {eager_ms:.1f} ms, replayed {replay_ms:.1f} ms; "
+          f"K1 tc launches a replay {tc} ({model.backbone.depth} x {steps}); {where}", flush=True)
+    check(differ == 0, "the E2 artifact's replay differs from the in-process bundle")
+    check(all(g.shape == (n, 80) and bool(np.isfinite(g).all()) for g, n in zip(got, fields[2])),
+          "an E2 mel is not [gen_frames, 80] and finite")
+    check(tc == model.backbone.depth * steps, f"K1 tc launches a replay {tc}")
+    out = {"load": load, "eager_ms": eager_ms, "replay_ms": replay_ms, "replayed": loaded.graph_launches()}
+    del loaded, inproc, model
+    torch.cuda.empty_cache()
+    return out
+
+
+def artifact_noise_models(root, seed, where):
+    """Phase 20, Matcha-TTS and mel-VITS mel artifacts (the JSUT confs as
+    they stand, f32, TF32 off, seed-made weights as phases 16 and 17 make
+    them; B=8, bucket 128, 1024 frames): the graph's replay against the
+    eager program on the same seed bit for bit (mel, olens), another seed
+    other mels; the noise drawn inside the graph from the bundle's
+    registered generator."""
+    import numpy as np
+    import torch
+
+    from jatts_torch.models.matchatts import MatchaTTS
+    from jatts_torch.models.vits import VITS
+    from jatts_torch.serving import build_infer_fn, export_bundle
+    from jatts_torch.utils.config import load_config
+
+    out = {}
+    for name, cls, conf_path in (("matcha", MatchaTTS, MATCHA_CONF), ("vits", VITS, VITS_CONF)):
+        config = load_config(str(conf_path))
+        mp = dict(config["model_params"], idim=ART_VOCAB)
+        torch.manual_seed(seed)
+        model = cls(**mp, device="cuda").eval()
+        with torch.no_grad():
+            model.duration_predictor.linear.weight.mul_(0.1)
+            model.duration_predictor.linear.bias.fill_(math.log(1.0 + ART_FRAMES / ART_BUCKETS[-1]))
+        if cls is VITS:
+            randomize_flow_projections(model, seed)
+        rng = np.random.default_rng(seed + 23)
+        mean, scale = rng.normal(-4.0, 1.0, 80).astype(np.float32), rng.uniform(0.5, 2.0, 80).astype(np.float32)
+        fn, w = build_infer_fn(config, model, mean, scale, ART_FRAMES)
+        path = export_bundle(str(root / f"{name}.npz"), fn, ART_BATCH, ART_BUCKETS[-1:],
+                             {"model_type": config["model_type"], "model_params": mp, "num_mels": 80,
+                              "sampling_rate": 24000, "hop_size": 300, "max_frames": ART_FRAMES, "output": "mel"},
+                             weights=w)
+        del model, fn, w
+        torch.cuda.empty_cache()
+        bundle, load = _load(path, where, f"{cls.__name__} mel (f32)")
+        reqs = [rng.integers(1, ART_VOCAB, size=int(n)).tolist() for n in rng.integers(40, 129, size=ART_BATCH)]
+        xs, ilens = bundle.prepare(reqs)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eager = {k: v.cpu() for k, v in bundle.program(xs, ilens, None,
+                                                       torch.Generator(device="cuda").manual_seed(seed)).items()}
+        eager_ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        replay = {k: v.cpu() for k, v in bundle.run(xs, ilens, seed=seed).items()}
+        replay_ms = (time.perf_counter() - t0) * 1e3
+        other = bundle.run(xs, ilens, seed=seed + 1)["mel"].cpu()
+        differ = int((eager["mel"] != replay["mel"]).sum()) + int((eager["olens"] != replay["olens"]).sum())
+        moved = float((other - replay["mel"]).abs().max())
+        print(f"artifact {cls.__name__} ({conf_path.relative_to(ROOT)} as it stands, f32, {bundle.program.infer_kwargs})"
+              f": replay vs eager program on seed {seed}, {differ} values differ (limit 0), olens "
+              f"{replay['olens'].tolist()}; seed {seed + 1} moves the mel by up to {moved:.3f} (limit > 1e-3); a batch "
+              f"eager {eager_ms:.1f} ms, replayed {replay_ms:.1f} ms; {where}", flush=True)
+        check(differ == 0, f"the {cls.__name__} replay differs from the eager program")
+        check(moved > 1e-3, f"another seed gave the same {cls.__name__} mel")
+        out[name] = {"load": load, "eager_ms": eager_ms, "replay_ms": replay_ms}
+        del bundle
+        torch.cuda.empty_cache()
+    return out
+
+
+def artifact_slice(root, seed, where):
+    """Phase 20: the serving artifact. Returns the kernels' launches made by
+    graph replays on each path, and the numbers PERF.md needs."""
+    t_phase = time.perf_counter()
+    root = Path(root) / "artifact"
+    root.mkdir(parents=True, exist_ok=True)
+    reset_all_launches()
+    jsut = artifact_jsut(root, seed, where)
+    noise = artifact_noise_models(root, seed, where)
+    valle = artifact_valle(root, seed, where)
+    e2 = artifact_e2(root, seed, where)
+    eager = launch_counts()
+    replayed = {path: out["replayed"].get("flash_attention.launches_tc", 0)
+                for path, out in (("served_artifact", jsut), ("valle_fused", valle), ("e2tts_artifact", e2))}
+    print(f"phase 20 (the serving artifact): K1 tc launches replayed {replayed}; launched eagerly (the warm-ups "
+          f"before each capture, the captures and the eager references) {eager['k1.launches_tc']}; every other counter "
+          f"{ {k: v for k, v in eager.items() if v and k not in ('k1.launches', 'k1.launches_tc')} }; "
+          f"{time.perf_counter() - t_phase:.1f} s; {where}", flush=True)
+    check(all(n > 0 for n in replayed.values()), f"a served program replayed no K1 tc launch: {replayed}")
+    return replayed, {"jsut": jsut, "noise": noise, "valle": valle, "e2": e2}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -5164,6 +5608,11 @@ def main() -> int:
     # 19. E2-TTS: its features, CFG infill serving, frame-budget training
     # (the bf16 tensor-core forward and the non-causal backward), decode
     e2_launches, e2 = e2_slice(tmp.name, args.seed, where)
+
+    # 20. the serving artifact: export, load with one CUDA graph a bucket,
+    # replays against the eager programs, streaming, the fused VALL-E
+    # program and the E2 artifact
+    art_tc, art = artifact_slice(tmp.name, args.seed, where)
     tmp.cleanup()
     e2_tc = {"e2tts_serving": e2_launches["serve_tc"], "e2tts_training": e2_launches["train"]["k1.launches_tc"],
              "e2tts_decode": e2_launches["decode_tc"]}
@@ -5238,8 +5687,11 @@ def main() -> int:
         "route": "cuda",
         "source": "jatts_torch/csrc/flash_attn_fwd_tc.cu",
         "replaces": "jatts_tpu/modules/attention.py:158",
-        "launches": serve_tc + nar_launches["k1.launches_tc"] + sum(e2_tc.values()),
-        "launches_by_path": {"serving": serve_tc, "valle_nar_training": nar_launches["k1.launches_tc"], **e2_tc},
+        # the served programs' launches (phase 20) are their graphs' replays:
+        # launches a replay times replays
+        "launches": serve_tc + nar_launches["k1.launches_tc"] + sum(e2_tc.values()) + sum(art_tc.values()),
+        "launches_by_path": {"serving": serve_tc, "valle_nar_training": nar_launches["k1.launches_tc"], **e2_tc,
+                             **art_tc},
         "max_abs_err": max(max_err["bf16"], tc_err["k1"], e2["train"]["errs"]["fwd"], e2["serve"]["fwd"]["max_abs_err"],
                            e2["decode"]["fwd"]["max_abs_err"]),
         "ms": ms,

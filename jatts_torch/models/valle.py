@@ -243,18 +243,89 @@ class VALLEAR(VALLEBase):
         last = self.classifier(last_h).float()[:, 0]
         return last, prefix_len, ks, vs
 
-    def decode_one(self, tok, pos, step: int, prefix_len, prefix_k, prefix_v, caches_k, caches_v):
-        """One KV-cached step, deterministic: token [B] at absolute positions
-        ``pos`` [B] (the sinusoid's), cache slot ``step`` (the same for
-        every row) -> logits [B, V] f32. ``caches_k/v``: per layer
-        [B, S_max, H, Dh], written in place."""
+    def decode_one(self, tok, pos, slot: torch.Tensor, prefix_len, prefix_k, prefix_v, caches_k, caches_v):
+        """One KV-cached step, deterministic, at a fixed shape: token [B] at
+        absolute positions ``pos`` [B] (the sinusoid's), cache slot ``slot``
+        (int64 [1] on the device, the same for every row) -> logits [B, V]
+        f32. ``caches_k/v``: per layer [B, S_max, H, Dh], written in place."""
         e = self.resps_emb.weight[0][tok.long().clamp(0, self.n_resp_tokens - 1)]
         h = e[:, None] + self.sin_emb.table(pos)[:, None].to(e.dtype)
         sp = prefix_k[0].shape[1]
         pvalid = torch.arange(sp, device=tok.device)[None, :] < prefix_len[:, None]
         for i, block in enumerate(self.blocks):
-            h = block.decode_step(h, prefix_k[i], prefix_v[i], caches_k[i], caches_v[i], step, pvalid)
+            h = block.decode_step(h, prefix_k[i], prefix_v[i], caches_k[i], caches_v[i], slot, pvalid)
         return self.classifier(h)[:, 0].float()
+
+
+def _pick(logits, sampling_temperature, generator, forced, index):
+    """The code a row takes: ``forced[:, index]`` when teacher forcing, else
+    one draw from ``softmax(logits / sampling_temperature)``."""
+    if forced is not None:
+        return forced.index_select(1, index)[:, 0].long()
+    probs = torch.softmax(logits / sampling_temperature, dim=-1)
+    return torch.multinomial(probs, 1, generator=generator)[:, 0]
+
+
+@torch.no_grad()
+def ar_start(
+    model: VALLEAR, text, text_lens, proms, prom_lens, max_steps: int,
+    sampling_temperature: float = 1.0, generator: Optional[torch.Generator] = None,
+    forced: Optional[torch.Tensor] = None,
+) -> Dict[str, torch.Tensor]:
+    """The AR decode's first part: the prefix once, its last position's code
+    drawn, and the decode state :func:`ar_step` advances in place: the prefix
+    K/V, a ``[B, max(max_steps - 1, 1), H, Dh]`` decode cache a layer,
+    ``codes`` [B, max_steps] (column 0 set), the current token, its
+    positions, the cache slot (int64 [1]) and the rows that have stopped;
+    ``last`` holds the prefix's logits. No host synchronisation: a CUDA graph
+    captures it. The model must be in eval mode."""
+    last, prefix_len, pk, pv = model.prefix_forward(text, text_lens, proms, prom_lens)
+    b = text.shape[0]
+    slot = torch.zeros(1, dtype=torch.long, device=text.device)
+    tok = _pick(last, sampling_temperature, generator, forced, slot)
+    codes = torch.zeros(b, max_steps, dtype=torch.long, device=text.device)
+    codes[:, 0] = tok
+    steps = max(max_steps - 1, 1)
+    return {
+        "prefix_len": prefix_len, "pk": pk, "pv": pv,
+        "ck": [k.new_zeros(b, steps, *k.shape[2:]) for k in pk],
+        "cv": [v.new_zeros(b, steps, *v.shape[2:]) for v in pv],
+        "codes": codes, "tok": tok, "pos": prefix_len.clone(), "slot": slot,
+        "stopped": torch.zeros(b, dtype=torch.bool, device=text.device), "last": last,
+    }
+
+
+@torch.no_grad()
+def ar_step(
+    model: VALLEAR, state: Dict[str, torch.Tensor], sampling_temperature: float = 1.0,
+    generator: Optional[torch.Generator] = None, forced: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """One decode step on :func:`ar_start`'s state, in place: the current
+    token at its positions through the cache slot, the next code drawn (the
+    stop token again once a row has emitted it) and written to ``codes``,
+    positions and slot advanced. Returns the step's logits [B, V]. The
+    shapes never change, so one CUDA graph replays every step."""
+    slot, tok = state["slot"], state["tok"]
+    logits = model.decode_one(tok, state["pos"], slot, state["prefix_len"], state["pk"], state["pv"],
+                              state["ck"], state["cv"])
+    stop = model.stop_token
+    state["stopped"] |= tok == stop
+    nxt = torch.where(state["stopped"], torch.full_like(tok, stop),
+                      _pick(logits, sampling_temperature, generator, forced, slot + 1))
+    state["codes"].index_copy_(1, slot + 1, nxt[:, None])
+    tok.copy_(nxt)
+    state["pos"] += 1
+    slot += 1
+    return logits
+
+
+def ar_finish(model: VALLEAR, codes: torch.Tensor) -> torch.Tensor:
+    """``resp_lens`` [B] of the AR's codes: the first stop's index, else
+    ``max_steps``."""
+    is_stop = codes == model.stop_token
+    return torch.where(
+        is_stop.any(dim=1), is_stop.int().argmax(dim=1), torch.full_like(codes[:, 0], codes.shape[1])
+    )
 
 
 @torch.no_grad()
@@ -267,10 +338,11 @@ def ar_generate(
     generator: Optional[torch.Generator] = None,
     forced: Optional[torch.Tensor] = None,
 ) -> Dict[str, torch.Tensor]:
-    """KV-cached AR decode: the prefix once, then ``max_steps - 1`` steps
-    of one token, each attending the prefix cache and a preallocated
-    ``[B, max_steps - 1, H, Dh]`` decode cache per layer written at the
-    batch-uniform slot ``step``. Tokens are drawn from
+    """KV-cached AR decode: :func:`ar_start` (the prefix once), then
+    ``max_steps - 1`` :func:`ar_step` calls of one token, each attending the
+    prefix cache and every slot up to its own of a preallocated
+    ``[B, max_steps - 1, H, Dh]`` decode cache per layer, written at the
+    batch-uniform slot. Tokens are drawn from
     ``softmax(logits / sampling_temperature)`` with ``generator``; once a
     row has emitted the stop token it keeps emitting it. Returns ``codes``
     [B, max_steps] and ``resp_lens`` [B] (the first stop's index, else
@@ -285,36 +357,13 @@ def ar_generate(
     was_training = model.training
     model.eval()
     try:
-        last, prefix_len, pk, pv = model.prefix_forward(text, text_lens, proms, prom_lens)
-        b = text.shape[0]
-        stop = model.stop_token
-        steps = max_steps - 1
-
-        def pick(logits, i):
-            if forced is not None:
-                return forced[:, i].long()
-            probs = torch.softmax(logits / sampling_temperature, dim=-1)
-            return torch.multinomial(probs, 1, generator=generator)[:, 0]
-
-        ck = [k.new_zeros(b, max(steps, 1), *k.shape[2:]) for k in pk]
-        cv = [v.new_zeros(b, max(steps, 1), *v.shape[2:]) for v in pv]
-        tok = pick(last, 0)
-        toks, all_logits = [tok], [last]
-        pos = prefix_len.clone()
-        stopped = torch.zeros(b, dtype=torch.bool, device=tok.device)
-        for step in range(steps):
-            logits = model.decode_one(tok, pos, step, prefix_len, pk, pv, ck, cv)
-            stopped = stopped | (tok == stop)
-            tok = torch.where(stopped, torch.full_like(tok, stop), pick(logits, step + 1))
-            toks.append(tok)
-            all_logits.append(logits)
-            pos = pos + 1
-        codes = torch.stack(toks, dim=1)
-        is_stop = codes == stop
-        first = torch.where(
-            is_stop.any(dim=1), is_stop.int().argmax(dim=1), torch.full_like(codes[:, 0], max_steps)
-        )
-        out = {"codes": codes, "resp_lens": first}
+        state = ar_start(model, text, text_lens, proms, prom_lens, max_steps, sampling_temperature, generator,
+                         forced)
+        all_logits = [state["last"]]
+        for _ in range(max_steps - 1):
+            all_logits.append(ar_step(model, state, sampling_temperature, generator, forced))
+        codes = state["codes"]
+        out = {"codes": codes, "resp_lens": ar_finish(model, codes)}
         if forced is not None:
             out["logits"] = torch.stack(all_logits, dim=1)
         return out

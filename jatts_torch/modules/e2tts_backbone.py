@@ -28,6 +28,7 @@ attention's output is multiplied by the mask, so the two agree.
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Optional
 
@@ -63,9 +64,12 @@ def rotary_freqs(seq_len: int, dim_head: int, theta: float = 10000.0) -> np.ndar
     return np.outer(np.arange(seq_len, dtype=np.float64), inv)
 
 
+@functools.lru_cache(maxsize=32)
 def rope_tables(seq_len: int, dim_head: int, dtype: torch.dtype, device) -> tuple:
     """cos and sin of :func:`rotary_freqs` taken in float32, then cast to
-    ``dtype``: [N, dim_head // 2] each."""
+    ``dtype``: [N, dim_head // 2] each; built once per shape (a table copied
+    from pageable host memory on every call also breaks a CUDA graph
+    capture), so callers must not write to them."""
     freqs = torch.from_numpy(rotary_freqs(seq_len, dim_head).astype(np.float32)).to(device)
     return torch.cos(freqs).to(dtype), torch.sin(freqs).to(dtype)
 
@@ -200,8 +204,9 @@ class E2Attention(nn.Module):
             out = flash_attention(q.contiguous(), k.contiguous(), v.contiguous(), None,
                                   None if mask is None else mask.contiguous(), 1.0 / math.sqrt(self.dim_head))
         else:
+            # the divisor made on the device: no host copy inside a CUDA graph capture
             scores = torch.matmul(q, k.transpose(-1, -2)) / torch.sqrt(
-                torch.tensor(float(self.dim_head), dtype=q.dtype, device=q.device))
+                torch.full((), float(self.dim_head), dtype=q.dtype, device=q.device))
             if mask is not None:
                 scores = scores.masked_fill(~mask[:, None, None, :], _MASK_VAL)
             out = torch.matmul(torch.softmax(scores, dim=-1), v)

@@ -49,6 +49,15 @@ def _table(table: np.ndarray, like: torch.Tensor) -> torch.Tensor:
 
 
 @functools.lru_cache(maxsize=32)
+def abs_table(t: int, d_model: int, device: torch.device, dtype: torch.dtype) -> torch.Tensor:
+    """``sinusoid_table(t, d_model)`` on ``device`` in ``dtype``, built once
+    per shape, as :func:`rel_table` is (a table copied from pageable host
+    memory on every call also breaks a CUDA graph capture). Callers must not
+    write to it."""
+    return torch.from_numpy(np.ascontiguousarray(sinusoid_table(t, d_model))).to(device, dtype)
+
+
+@functools.lru_cache(maxsize=32)
 def rel_table(t: int, d_model: int, device: torch.device, dtype: torch.dtype) -> torch.Tensor:
     """``rel_sinusoid_table(t, d_model)`` on ``device`` in ``dtype``, built
     once per shape, as the JAX package folds it into its traced program: a
@@ -67,7 +76,7 @@ class PositionalEncoding(nn.Module):
         self.dropout = Dropout(dropout_rate)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        pe = _table(sinusoid_table(x.shape[1], self.d_model), x)
+        pe = abs_table(x.shape[1], self.d_model, x.device, x.dtype)
         return self.dropout(x * math.sqrt(self.d_model) + pe[None])
 
 
@@ -81,7 +90,7 @@ class ScaledPositionalEncoding(nn.Module):
         self.dropout = Dropout(dropout_rate)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        pe = _table(sinusoid_table(x.shape[1], self.d_model), x)
+        pe = abs_table(x.shape[1], self.d_model, x.device, x.dtype)
         return self.dropout(x + self.alpha.to(x.dtype) * pe[None])
 
 

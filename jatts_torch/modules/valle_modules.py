@@ -181,24 +181,28 @@ class VALLEAttention(nn.Module):
         o = self._eager(q, k, v, m[:, :, 0] > 0)
         return self.to_out(o.reshape(x.shape)) * m, k, v
 
-    def decode_step(self, x_t, pk, pv, ck, cv, step: int, pvalid):
-        """One causal token: x_t [B, 1, D] at cache slot ``step`` (the same
-        slot for every row). pk/pv: [B, Sp, H, Dh] prefix K/V, of which row
-        b may attend the slots ``pvalid[b]`` ([B, Sp] bool); ck/cv:
-        [B, S_max, H, Dh] decode caches, written IN PLACE at slot ``step``;
-        slots 0..step are attended. Returns out [B, 1, D]."""
+    def decode_step(self, x_t, pk, pv, ck, cv, slot: torch.Tensor, pvalid):
+        """One causal token at a fixed shape: x_t [B, 1, D] at the decode
+        cache slot ``slot`` (int64 [1] on the device, the same slot for every
+        row, as in the JAX package). pk/pv: [B, Sp, H, Dh] prefix K/V, of
+        which row b may attend the slots ``pvalid[b]`` ([B, Sp] bool); ck/cv:
+        [B, S_max, H, Dh] decode caches, this token's K/V written IN PLACE at
+        ``slot`` (``index_copy_``). Every slot is attended under the mask
+        ``slot' <= slot``, so each step has the same shapes and one CUDA graph
+        replays it. Returns out [B, 1, D]."""
         q, k, v = self._qkv(x_t)
-        ck[:, step] = k[:, 0]
-        cv[:, step] = v[:, 0]
-        dk, dv = ck[:, : step + 1], cv[:, : step + 1]
+        ck.index_copy_(1, slot, k)
+        cv.index_copy_(1, slot, v)
         scale = q.shape[-1] ** -0.5
         ep = torch.einsum("bqhd,bjhd->bhqj", q, pk) * scale
         ep = ep.masked_fill(~pvalid[:, None, None, :], _MASK_VAL)
-        ed = torch.einsum("bqhd,bjhd->bhqj", q, dk) * scale
+        dvalid = torch.arange(ck.shape[1], device=slot.device) <= slot
+        ed = torch.einsum("bqhd,bjhd->bhqj", q, ck) * scale
+        ed = ed.masked_fill(~dvalid, _MASK_VAL)
         a = torch.softmax(torch.cat([ep, ed], dim=-1), dim=-1)
         sp = pk.shape[1]
         o = torch.einsum("bhqj,bjhd->bqhd", a[..., :sp], pv) + torch.einsum(
-            "bhqj,bjhd->bqhd", a[..., sp:], dv
+            "bhqj,bjhd->bqhd", a[..., sp:], cv
         )
         return self.to_out(o.reshape(x_t.shape))
 
@@ -265,7 +269,7 @@ class VALLEBlock(nn.Module):
         x = (x + self._ffn_deterministic(self.ffn.norm(x) * m)) * m
         return x, k, v
 
-    def decode_step(self, x_t, pk, pv, ck, cv, step: int, pvalid):
+    def decode_step(self, x_t, pk, pv, ck, cv, slot: torch.Tensor, pvalid):
         """Deterministic; see :meth:`VALLEAttention.decode_step`."""
-        x_t = x_t + self.attn.block.decode_step(self.attn.norm(x_t), pk, pv, ck, cv, step, pvalid)
+        x_t = x_t + self.attn.block.decode_step(self.attn.norm(x_t), pk, pv, ck, cv, slot, pvalid)
         return x_t + self._ffn_deterministic(self.ffn.norm(x_t))

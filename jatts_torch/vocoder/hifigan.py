@@ -71,7 +71,19 @@ class HiFiGANGenerator(nn.Module):
         dtype: torch.dtype = torch.float32,
     ):
         super().__init__()
+        # the hyperparameters, as the JAX module's fields: the streaming
+        # vocoder reads its receptive field from them, and a serving
+        # artifact rebuilds the generator from them
+        self.in_channels = in_channels
+        self.out_channels = out_channels
+        self.channels = channels
+        self.kernel_size = kernel_size
         self.upsample_scales = tuple(upsample_scales)
+        self.upsample_kernel_sizes = tuple(upsample_kernel_sizes)
+        self.resblock_kernel_sizes = tuple(resblock_kernel_sizes)
+        self.resblock_dilations = tuple(tuple(d) for d in resblock_dilations)
+        self.use_additional_convs = use_additional_convs
+        self.alpha = alpha
         self.num_blocks = len(resblock_kernel_sizes)
         self.input_conv = nn.Conv1d(in_channels, channels, kernel_size, padding="same")
         self.upsamples = nn.ModuleList()
@@ -105,6 +117,17 @@ class HiFiGANGenerator(nn.Module):
     @property
     def hop_size(self) -> int:
         return math.prod(self.upsample_scales)
+
+    def hparams(self) -> dict:
+        """The constructor's keywords (device and dtype aside), JSON-safe."""
+        return dict(
+            in_channels=self.in_channels, out_channels=self.out_channels, channels=self.channels,
+            kernel_size=self.kernel_size, upsample_scales=list(self.upsample_scales),
+            upsample_kernel_sizes=list(self.upsample_kernel_sizes),
+            resblock_kernel_sizes=list(self.resblock_kernel_sizes),
+            resblock_dilations=[list(d) for d in self.resblock_dilations],
+            use_additional_convs=self.use_additional_convs, alpha=self.alpha,
+        )
 
     def forward(self, c: torch.Tensor) -> torch.Tensor:
         """c: [B, T, in_channels] normalized log-mel -> [B, T*hop, out_channels]."""

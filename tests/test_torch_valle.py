@@ -257,3 +257,56 @@ def test_ar_generate_stop_bookkeeping():
     assert torch.equal(drawn["codes"], again["codes"])
     assert int(drawn["codes"].min()) >= 0 and int(drawn["codes"].max()) <= stop
     assert bool((drawn["resp_lens"] <= n).all())
+
+
+def _sliced_decode_one(m, tok, pos, step, prefix_len, pk, pv, ck, cv):
+    """The decode step before it took a fixed shape: the caches sliced to
+    ``[:step + 1]`` by a Python ``step``, so each step had its own shapes."""
+    e = m.resps_emb.weight[0][tok.long().clamp(0, m.n_resp_tokens - 1)]
+    h = e[:, None] + m.sin_emb.table(pos)[:, None].to(e.dtype)
+    pvalid = torch.arange(pk[0].shape[1])[None, :] < prefix_len[:, None]
+    for i, block in enumerate(m.blocks):
+        attn = block.attn.block
+        q, k, v = attn._qkv(block.attn.norm(h))
+        ck[i][:, step] = k[:, 0]
+        cv[i][:, step] = v[:, 0]
+        dk, dv = ck[i][:, : step + 1], cv[i][:, : step + 1]
+        scale = q.shape[-1] ** -0.5
+        ep = torch.einsum("bqhd,bjhd->bhqj", q, pk[i]) * scale
+        ep = ep.masked_fill(~pvalid[:, None, None, :], -1e9)
+        ed = torch.einsum("bqhd,bjhd->bhqj", q, dk) * scale
+        a = torch.softmax(torch.cat([ep, ed], dim=-1), dim=-1)
+        sp = pk[i].shape[1]
+        o = torch.einsum("bhqj,bjhd->bqhd", a[..., :sp], pv[i]) + torch.einsum("bhqj,bjhd->bqhd", a[..., sp:], dv)
+        h = h + attn.to_out(o.reshape(h.shape))
+        h = h + block._ffn_deterministic(block.ffn.norm(h))
+    return m.classifier(h)[:, 0].float()
+
+
+def test_fixed_shape_step_gives_the_sliced_steps_logits(weights):
+    """The AR step at a fixed shape (the slot a device tensor, K/V written by
+    ``index_copy_``, every slot attended under ``slot <= step``) gives the
+    teacher-forced logits of the sliced step it replaced, in f32, and the
+    same cache contents (layer 0's bit for bit; later layers' K/V sum their
+    inputs in another order)."""
+    _, sd = weights
+    m = port_model(sd)
+    n = 10
+    toks = torch.from_numpy(np.random.default_rng(6).integers(0, 64, (B, n)))
+    args = _targs(make_batch(6))[:4]
+    with torch.no_grad():
+        state = valle.ar_start(m, *args, max_steps=n, forced=toks)
+        ck = [torch.zeros_like(c) for c in state["ck"]]
+        cv = [torch.zeros_like(c) for c in state["cv"]]
+        pos = state["prefix_len"].clone()
+        for step in range(n - 1):
+            want = _sliced_decode_one(m, toks[:, step], pos, step, state["prefix_len"], state["pk"], state["pv"],
+                                      ck, cv)
+            got = valle.ar_step(m, state, forced=toks)
+            np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=0, atol=1e-5)
+            pos = pos + 1
+            assert int(state["slot"]) == step + 1 and torch.equal(state["pos"], pos)
+        assert torch.equal(state["ck"][0], ck[0]) and torch.equal(state["cv"][0], cv[0])
+        for a, b in zip(state["ck"] + state["cv"], ck + cv):
+            np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=0, atol=1e-5)
+    assert torch.equal(state["codes"], toks)
