@@ -74,7 +74,7 @@ Phases, each of which fails the run with a non-zero exit:
      (log-mel, per-token log tone frequency as pitch, per-token energy),
      and ``jatts_torch/bin/tts_train.py:run`` trains FastSpeech2 at the full
      JSUT width (egs/jsut/tts1/conf/fastspeech2.v1.yaml, batch 32, f32) with
-     ``attn_backend: flash`` for 100 steps (warm-up 50), launch counts set
+     ``attn_backend: flash`` for 50 steps (warm-up 25), launch counts set
      to 0 just before and read just after (every forward on the 3xTF32
      tensor-core kernel, none on the scalar one or the bf16 one; every dk/dv
      and dq on the 3xTF32 backward kernels, none on the scalar ones); then
@@ -102,8 +102,8 @@ Phases, each of which fails the run with a non-zero exit:
      dumps) trains through ``jatts_torch/bin/tts_train.py:run`` on
      egs/hificaptain_jp_female/tts3/conf/valle_ar.given.bs32.yaml as it
      stands (d_model 1024, 16 heads, 12 layers, bf16 compute, batch 16 x
-     accumulation 2, AdamW) with ``attn_backend: flash`` for 100 steps
-     (warm-up 50), launch counts set to 0 just before and read just after
+     accumulation 2, AdamW) with ``attn_backend: flash`` for 50 steps
+     (warm-up 25), launch counts set to 0 just before and read just after
      (every K1b forward, dk/dv and dq on the tensor-core kernels, 12 a
      step, no scalar bf16 one);
      then the loss, launch and bitwise-resume checks, the time of a step and
@@ -134,8 +134,8 @@ Phases, each of which fails the run with a non-zero exit:
      bf16 (K1r 8 launches a batch, all on the tensor-core kernel), the same
      model small in f32 against its
      eager path; then phase 8's corpus with a seed-made 192-d ``spkemb`` an
-     utterance (4 synthetic speakers) trains 100 steps through
-     ``jatts_torch/bin/tts_train.py:run`` (f32, batch 32, warm-up 50), launch
+     utterance (4 synthetic speakers) trains 50 steps through
+     ``jatts_torch/bin/tts_train.py:run`` (f32, batch 32, warm-up 25), launch
      counts set to 0 just before and read just after (K1r 8 launches a step
      each, every forward on the 3xTF32 kernel and every dk/dv and dq on the
      3xTF32 backward kernels, no K1 or K1-bwd launch); the loss, bitwise
@@ -225,13 +225,13 @@ Phases, each of which fails the run with a non-zero exit:
      counts set to 0 just before and read just after (24 tensor-core
      forwards an ODE step, nothing else), every served mel against
      ``E2TTS.inference`` on the same generator bit for bit, another seed
-     another mel; the conf as it stands trains 200 micro-steps through
+     another mel; the conf as it stands trains 100 micro-steps through
      ``bin/tts_train.py:run`` (frame budget 8640, max_samples 32,
-     accumulation 4, AdamW, ``e2tts_sequentiallr`` with warm-up 50, EMA,
+     accumulation 4, AdamW, ``e2tts_sequentiallr`` with warm-up 25, EMA,
      flash; every forward on the tensor-core kernel and every dk/dv and dq
      on the non-causal tensor-core forms, 24 a micro-step, nothing else),
-     the falling loss, micro-steps 198-199 replayed bitwise from
-     ``checkpoint-198steps`` with the same draws, a micro-step's time and a
+     the falling loss, micro-steps 98-99 replayed bitwise from
+     ``checkpoint-98steps`` with the same draws, a micro-step's time and a
      profiled one, the same step under ``xla`` (bf16, then f32 on 2 rows),
      the kernels per item against their plain versions at the run's largest
      batch and their times beside the bounds and SDPA; the served forward
@@ -257,7 +257,24 @@ Phases, each of which fails the run with a non-zero exit:
      it stands, 4 requests, capacity 3000, 32 steps; one graph of the whole
      CFG Euler loop) against the in-process bundle bit for bit. The kernels'
      counters count Python calls, once at a capture: the record counts a
-     replayed program's launches as launches a replay times replays.
+     replayed program's launches as launches a replay times replays;
+ 21. mixed precision (``model_params.dtype`` as flax's compute dtype): the
+     JSUT and JVS-latest FastSpeech2 steps at 24 x 896 x 112 on seed-made
+     weights at the confs' widths, f32 and bf16 compute under ``xla`` and
+     ``flash`` (median ms of 10 steps after 2, device-busy ms of a profiled
+     step, peak GiB, the launches of each forward and backward route, held
+     to the dispatch rules; the two dtypes' first-step losses within 2e-2);
+     the scalar bf16 backwards a bf16 flash step takes (K1-bwd with the
+     ``matrix_bd`` bias at d 192, K1r's (576, 192)) against their plain
+     twins at the step's shapes, timed beside the plain backward and SDPA;
+     Matcha-TTS's tts1 step at 16 x 704 x 96 and a VITS micro-step at 8 x
+     896 x 112 past ``dp_train_start_steps``, f32 and bf16 alternating in 3
+     rounds of 20 steps, each dtype's host profile (op events, casts and
+     the host ms inside them); then
+     ``bin/tts_train.py`` on the JSUT conf with ``dtype: bfloat16`` and
+     flash for 4 steps over two eval intervals: the intermediate hook's
+     files (valid PNGs) and the event file read back by
+     ``jatts_torch/utils/events.py`` with every CRC checked and ``mem/*``.
 The line before the last is the kernels' JSON record, the last line
 ``{"ok": true, "device": {...}}``. Exits 2 without a CUDA device or
 without the jatts_torch package beside this file.
@@ -764,7 +781,7 @@ ALIGN_CONFIG = {  # egs/jsut/tts1/conf/fastspeech2.v1.yaml, the feature settings
     "sampling_rate": 24000, "fft_size": 2048, "hop_size": 300, "win_length": None,
     "num_mels": 80, "fmin": 80, "fmax": 7600,
 }
-ALIGN_STEPS = 300
+ALIGN_STEPS = 200  # the CLI's default is 2000 (300 before phase 21 needed the run's time)
 
 
 def write_tone_corpus(root, seed, n_utts=64, n_phones=40):
@@ -1894,7 +1911,8 @@ def jvs_serving(seed, where):
     mp = {**load_config(str(JVS_CONF))["model_params"], "conformer_rel_pos_type": "latest"}
     spk_dim = int(mp["spk_embed_dim"])
     torch.manual_seed(seed)
-    fs2 = FastSpeech2(idim=64, **{**mp, "attn_backend": "flash"}, device="cuda", dtype=torch.bfloat16)
+    # bf16 parameters, no compute cast: the served program as it was built before the compute dtype
+    fs2 = FastSpeech2(idim=64, **{**mp, "attn_backend": "flash"}, device="cuda", dtype=None).to(torch.bfloat16)
     voc = HiFiGANGenerator(device="cuda", dtype=torch.bfloat16)
     with torch.no_grad():
         # as phase 7: centre the random durations on max_frames / bucket frames a token
@@ -1989,8 +2007,8 @@ def jvs_serving(seed, where):
 JSUT_CONF = ROOT / "egs" / "jsut" / "tts1" / "conf" / "fastspeech2.v1.yaml"
 JVS_CONF = ROOT / "egs" / "jvs" / "tts1" / "conf" / "fastspeech2.v1.yaml"
 JVS_SPEAKERS = 4  # synthetic speakers of phase 14's corpus
-TRAIN_STEPS = 100  # the conf's train_max_steps is 100000 (200 before phase 19 needed the run's time)
-TRAIN_WARMUP = 50  # the conf's warmup_steps is 4000
+TRAIN_STEPS = 50  # the conf's train_max_steps is 100000 (200, then 100, before phases 19 and 21 needed the run's time)
+TRAIN_WARMUP = 25  # the conf's warmup_steps is 4000 (50 at 100 steps)
 
 
 def write_fs2_corpus(root, align_paths, freqs, tag="fs2", spk_dim=0, seed=0, mel_only=False):
@@ -2293,8 +2311,8 @@ def training_slice(root, align_paths, freqs, seed, where, which="jsut"):
 # ---------------------------------------------------------------------------
 
 TTS3_CONF = ROOT / "egs" / "hificaptain_jp_female" / "tts3" / "conf" / "valle_ar.given.bs32.yaml"
-VALLE_STEPS = 100  # the conf's train_max_steps is 400000 (200 before phase 19 needed the run's time)
-VALLE_WARMUP = 50  # the conf's warmup_steps is 8000
+VALLE_STEPS = 50  # the conf's train_max_steps is 400000 (200, then 100, before phases 19 and 21 needed the run's time)
+VALLE_WARMUP = 25  # the conf's warmup_steps is 8000 (50 at 100 steps)
 CODEC_HOP = 320  # EnCodec at 24 kHz: 75 frames a second
 
 
@@ -4277,9 +4295,9 @@ def nar_slice(root, corpus, ar_outdir, seed, where):
 # ---------------------------------------------------------------------------
 
 E2_CONF = ROOT / "egs" / "hificaptain_jp_female" / "tts2" / "conf" / "e2tts.v1.yaml"
-E2_STEPS = 200  # the conf's train_max_steps is 1000000
-E2_WARMUP = 50  # the conf's warmup_steps is 20000
-E2_RESUME = 198  # an interval checkpoint at an accumulation boundary: micro-steps 198 and 199 are replayed
+E2_STEPS = 100  # the conf's train_max_steps is 1000000 (200 before phase 21 needed the run's time)
+E2_WARMUP = 25  # the conf's warmup_steps is 20000 (50 at 200 micro-steps)
+E2_RESUME = 98  # an interval checkpoint at an accumulation boundary: micro-steps 98 and 99 are replayed
 E2_BUCKETS = (64, 128, 256)  # the serving bundle's text buckets
 E2_SERVE_BATCH = 4
 E2_REQUESTS = 8
@@ -4571,8 +4589,8 @@ def e2_training(corpus, conf, outdir, seed, where):
     stands (dim 1024, depth 24, 16 heads of d 64, bf16, frame budget 8640 x
     max_samples 32, accumulation 4, AdamW, e2tts_sequentiallr, EMA, clip 1)
     with ``attn_backend: flash`` on phase 19's corpus, launch counts set to 0
-    just before and read just after; the falling loss; micro-steps 198-199
-    replayed bitwise from checkpoint-198steps with the same draws; a
+    just before and read just after; the falling loss; micro-steps 98-99
+    replayed bitwise from checkpoint-98steps with the same draws; a
     micro-step's time and a profiled one; the same step under ``xla`` (bf16
     at the largest batch, then f32 on 2 rows); the kernels per item against
     their plain versions at the largest batch and their times."""
@@ -4935,7 +4953,7 @@ def artifact_jsut(root, seed, where):
     conf = load_config(str(JSUT_CONF))
     mp = dict(conf["model_params"], idim=ART_VOCAB, attn_backend="flash")
     torch.manual_seed(seed)
-    fs2 = FastSpeech2(**mp, device="cuda", dtype=torch.bfloat16)
+    fs2 = FastSpeech2(**mp, device="cuda", dtype=None).to(torch.bfloat16)
     voc16 = HiFiGANGenerator(**HIFIGAN, device="cuda", dtype=torch.bfloat16)
     voc32 = HiFiGANGenerator(**HIFIGAN, device="cuda")
     voc32.load_state_dict(voc16.state_dict())
@@ -5284,6 +5302,462 @@ def artifact_slice(root, seed, where):
     return replayed, {"jsut": jsut, "noise": noise, "valle": valle, "e2": e2}
 
 
+# ---------------------------------------------------------------------------
+# phase 21: mixed precision (flax's compute dtype) on the mel families
+# ---------------------------------------------------------------------------
+
+MP_FS2 = (24, 896, 112)  # a FastSpeech2 step's batch: B, T_feats, T_text (phases 10 and 14's largest)
+MP_MATCHA = (16, 704, 96)  # Matcha-TTS's tts1 step (phase 16's largest)
+MP_VITS = (8, 896, 112)  # a VITS micro-step (phase 17's largest)
+MP_TIMED = 10  # steps timed after MP_WARM warm-up steps
+MP_WARM = 2
+MP_SMALL_TIMED = 20  # the Matcha and VITS steps: timed steps a round
+MP_SMALL_ROUNDS = 3  # rounds, f32 and bf16 alternating in each
+MP_CLI_STEPS = 4  # the bf16 CLI run: an eval interval at 2 and 4
+# the backward routes a FastSpeech2 step can take, by the counters of ops/flash_attention.py
+MP_ROUTES = ("launches", "launches_relpos", "launches_tc", "launches_tc_f32", "launches_bwd_dkv", "launches_bwd_dq",
+             "launches_bwd_dkv_relpos", "launches_bwd_dq_relpos", "launches_bwd_dkv_tc_f32", "launches_bwd_dq_tc_f32")
+
+
+def mp_batch(shape, odim, seed, spk_dim=0, pitch=True):
+    """A padded numpy batch as the collaters make it: the first row at full
+    length, the others 60-100% of it; integer durations summing to each
+    row's frames."""
+    import numpy as np
+
+    b, t_feats, t_text = shape
+    rng = np.random.default_rng(seed)
+    ilens = np.concatenate([[t_text], rng.integers(int(0.6 * t_text), t_text + 1, b - 1)]).astype(np.int64)
+    olens = np.concatenate([[t_feats], rng.integers(int(0.6 * t_feats), t_feats + 1, b - 1)]).astype(np.int64)
+    olens = olens - olens % 2  # the Matcha U-Net's even frames; harmless for the others
+    ds = np.zeros((b, t_text), np.int64)
+    for i in range(b):
+        cut = np.sort(rng.choice(np.arange(1, olens[i]), ilens[i] - 1, replace=False))
+        ds[i, : ilens[i]] = np.diff(np.concatenate([[0], cut, [olens[i]]]))
+    text_mask = np.arange(t_text)[None] < ilens[:, None]
+    feat_mask = (np.arange(t_feats)[None] < olens[:, None])[..., None]
+    batch = {
+        "xs": (rng.integers(1, 64, (b, t_text)) * text_mask).astype(np.int64), "ilens": ilens,
+        "ys": (rng.normal(size=(b, t_feats, odim)) * feat_mask).astype(np.float32), "olens": olens, "ds": ds,
+    }
+    if pitch:
+        batch["ps"] = (rng.normal(size=(b, t_text, 1)) * text_mask[..., None]).astype(np.float32)
+        batch["es"] = (rng.normal(size=(b, t_text, 1)) * text_mask[..., None]).astype(np.float32)
+    if spk_dim:
+        batch["spembs"] = rng.normal(size=(b, spk_dim)).astype(np.float32)
+    return batch
+
+
+class _NoLoader:
+    sampler = None
+
+    def __iter__(self):
+        return iter(())
+
+
+def mp_trainer(config, model_type, dtype_name, seed, outdir, **extra):
+    """A Trainer on a seed-made model of the conf's published widths, the
+    compute dtype ``dtype_name``."""
+    import torch
+
+    from jatts_torch.bin import tts_train
+    from jatts_torch.train.steps import get_loss_fn
+    from jatts_torch.train.trainer import Trainer
+
+    torch.manual_seed(seed)
+    dtype = {"f32": torch.float32, "bf16": torch.bfloat16}[dtype_name]
+    mp = {k: v for k, v in config["model_params"].items() if k != "dtype"}
+    model = tts_train.MODELS[model_type](idim=64, **{**mp, **extra}, device="cuda", dtype=dtype)
+    check({p.dtype for p in model.parameters()} == {torch.float32}, f"{model_type} {dtype_name}: parameters not f32")
+    trainer = Trainer(config, model, tts_train.build_criterions(config), get_loss_fn(config["trainer_type"]),
+                      _NoLoader(), outdir=outdir, seed=seed)
+    trainer.init_state()
+    return trainer
+
+
+def device_busy_ms(fn):
+    """Wall ms of one call and the device's busy ms in it, from a profile of
+    the CUDA activity alone (kernels and copies; a CPU trace would cost the
+    phase seconds a call)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    busy_ms = sum(e.self_device_time_total for e in prof.key_averages() if e.device_type == DeviceType.CUDA) / 1e3
+    check(busy_ms > 0, "profile: the profiler saw no device time")
+    return wall_ms, busy_ms
+
+
+def mp_time_steps(trainer, tb, warm, timed, label, where, busy=True):
+    """Median ms of ``timed`` steps after ``warm`` (host clock, each ending in
+    a synchronise), device-busy ms of one profiled step (``busy``), peak GiB,
+    and the flash counters' launches over the timed steps."""
+    import statistics
+
+    import torch
+
+    from jatts_torch.ops import flash_attention as k1
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    first = trainer.train_step(tb)
+    for _ in range(warm - 1):
+        trainer.train_step(tb)
+    torch.cuda.synchronize()
+    k1.reset_launches()
+    ms = []
+    for _ in range(timed):
+        t0 = time.perf_counter()
+        trainer.train_step(tb)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    launches = {n: getattr(k1, n) for n in MP_ROUTES}
+    wall_ms, busy_ms = device_busy_ms(lambda: trainer.train_step(tb)) if busy else (None, None)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    check(all(math.isfinite(v) for v in first.values()), f"{label}: a stat is not finite")
+    res = {"ms": statistics.median(ms), "ms_all": ms, "busy_ms": busy_ms, "wall_ms": wall_ms, "peak_gib": peak,
+           "launches": launches, "loss0": first["train/loss"]}
+    busy_text = f"one profiled step busy {busy_ms:.1f} of {wall_ms:.1f} ms; " if busy else ""
+    print(f"{label}: median {res['ms']:.1f} ms of {timed} steps after {warm} (min {min(ms):.1f}, max {max(ms):.1f}); "
+          f"{busy_text}peak {peak:.2f} GiB; launches over the "
+          f"timed steps " + ", ".join(f"{n[9:] or 'K1'} {v}" for n, v in launches.items() if v) + f"; {where}",
+          flush=True)
+    return res
+
+
+def mp_fs2_steps(root, seed, where):
+    """The JSUT and JVS-latest FastSpeech2 steps at 24 x 896 in f32 and in
+    bf16 compute, under ``xla`` and ``flash``, side by side on the same
+    seed-made weights and batch; the launches each step takes, checked
+    against the dispatch rules (bf16 + flash: the tensor-core forward and
+    the scalar backward; f32 + flash: the 3xTF32 kernels; xla: none), and
+    each dtype's first-step loss against the other's."""
+    from jatts_torch.utils.config import load_config
+
+    out = {}
+    for which, conf, extra, spk in (("jsut", JSUT_CONF, {}, 0),
+                                    ("jvs_latest", JVS_CONF, {"conformer_rel_pos_type": "latest"}, 192)):
+        config = load_config(str(conf))
+        b, t_feats, t_text = MP_FS2
+        batch = mp_batch(MP_FS2, int(config["num_mels"]), seed, spk_dim=spk)
+        rel = which == "jvs_latest"
+        for backend in ("xla", "flash"):
+            for dtype_name in ("f32", "bf16"):
+                label = f"mixed precision, {which} FastSpeech2 step {dtype_name} {backend} at {b} x {t_feats} x {t_text}"
+                tr = mp_trainer(config, "FastSpeech2", dtype_name, seed, str(Path(root) / f"mp_{which}"),
+                                attn_backend=backend, **extra)
+                res = mp_time_steps(tr, tr.to_device(batch), MP_WARM, MP_TIMED, label, where)
+                n = res["launches"]
+                steps = MP_TIMED
+                fwd = n["launches_relpos"] if rel else n["launches"]
+                dkv, dq = ((n["launches_bwd_dkv_relpos"], n["launches_bwd_dq_relpos"]) if rel
+                           else (n["launches_bwd_dkv"], n["launches_bwd_dq"]))
+                if backend == "xla":
+                    check(all(v == 0 for v in n.values()), f"{label}: xla launched {n}")
+                else:
+                    check(fwd == dkv == dq == 8 * steps, f"{label}: forward, dk/dv, dq launches {fwd, dkv, dq}")
+                    tc = (n["launches_tc"], n["launches_tc_f32"], n["launches_bwd_dkv_tc_f32"],
+                          n["launches_bwd_dq_tc_f32"])
+                    want = (8 * steps, 0, 0, 0) if dtype_name == "bf16" else (0, 8 * steps, 8 * steps, 8 * steps)
+                    check(tc == want, f"{label}: tensor-core routes {tc} != {want}")
+                res["scalar_bwd"] = (dkv, dq) if dtype_name == "bf16" and backend == "flash" else (0, 0)
+                out[(which, backend, dtype_name)] = res
+                del tr
+        for backend in ("xla", "flash"):
+            l32, l16 = out[(which, backend, "f32")]["loss0"], out[(which, backend, "bf16")]["loss0"]
+            rel_d = abs(l16 - l32) / abs(l32)
+            print(f"mixed precision, {which} {backend}: first-step loss bf16 {l16:.5f} vs f32 {l32:.5f} (rel "
+                  f"{rel_d:.2e}, tol 2e-2)", flush=True)
+            check(rel_d <= 2e-2, f"{which} {backend}: the bf16 step's loss is {rel_d:.2e} from the f32 one's")
+    return out
+
+
+def check_mp_bwd(seed, where):
+    """The scalar bf16 backwards a bf16 ``flash`` step launches, each against
+    its plain twin at the step's shapes (K1-bwd with the ``matrix_bd`` bias
+    at d 192, JSUT; K1r's (576, 192), JVS-latest), then timed with every key
+    valid beside the plain backward and SDPA's forward+backward."""
+    import torch
+
+    from jatts_torch.ops import flash_attention as k1
+
+    b, t = MP_FS2[0], MP_FS2[1]
+    res = {}
+    # K1-bwd: bf16 with a bias goes to the scalar kernels (ops/flash_attention.py:_bwd_kernel)
+    check(k1.dkv_kernel(torch.bfloat16, False, 192, 192, True) == k1.KERNEL_BWD, "K1-bwd bf16 bias: not scalar")
+    err, on_tc, _ = check_k1bwd(b, 2, t, 192, "bf16", True, seed)
+    check(not on_tc, "K1-bwd bf16 ran on the 3xTF32 kernels")
+    q, k, v, ab, _, do, _ = k1bwd_inputs(b, 2, t, 192, torch.bfloat16, True, seed + 1)
+    full = torch.ones(b, t, dtype=torch.bool, device="cuda")
+    scale = 192 ** -0.5
+    o, lse = k1.flash_attention_fwd(q, k, v, ab, full, scale)
+    di = (o.float() * do.float()).sum(-1)
+    r = {"dkv": time_ms(lambda: k1.flash_attention_bwd_dkv(q, k, v, ab, full, scale, lse, di, do), iters=5,
+                        warmup=1),
+         "dq": time_ms(lambda: k1.flash_attention_bwd_dq(q, k, v, ab, full, scale, lse, di, do), iters=5, warmup=1),
+         "plain_ms": time_ms(lambda: k1.flash_attention_bwd_ref(q, k, v, ab, full, scale, o, lse, do), iters=3,
+                             warmup=1),
+         "max_abs_err": err, "shape": [b, 2, t, 192]}
+    qs, ks, vs = (x.detach().requires_grad_() for x in (q, k, v))
+    bias = (ab * scale).detach().requires_grad_()
+
+    def sdpa_fwd_bwd():
+        out_ = torch.nn.functional.scaled_dot_product_attention(qs, ks, vs, attn_mask=bias, scale=scale)
+        torch.autograd.grad(out_, (qs, ks, vs, bias), do)
+
+    r["library_ms"] = time_ms(sdpa_fwd_bwd, iters=3, warmup=1)
+    r["bounds"] = dict(zip(("dkv", "dq"), k1bwd_bounds_ms(b, 2, t, 192, 2, "bf16")))
+    res["k1"] = r
+    del q, k, v, ab, do, o, lse, di, qs, ks, vs, bias
+    # K1r: the bf16 (576, 192) form
+    _, rerr, _ = check_k1r("JVS-latest step, bf16", (b, 2, t), K1R_DIMS, "bf16", [(0, t), (0, t - 101)], seed)
+    q, k, v, _, do = k1r_inputs((b, 2, t), K1R_DIMS, torch.bfloat16, [(0, t)], seed + 2)
+    scale = 192 ** -0.5  # d_k of the model; the features ride in d_qk
+    o, lse = k1.flash_attention_fwd(q, k, v, None, full, scale)
+    di = (o.float() * do.float()).sum(-1)
+    r = {"dkv": time_ms(lambda: k1.flash_attention_bwd_dkv(q, k, v, None, full, scale, lse, di, do), iters=3,
+                        warmup=1),
+         "dq": time_ms(lambda: k1.flash_attention_bwd_dq(q, k, v, None, full, scale, lse, di, do), iters=3,
+                       warmup=1),
+         "plain_ms": time_ms(lambda: k1.flash_attention_bwd_ref(q, k, v, None, full, scale, o, lse, do), iters=3,
+                             warmup=1),
+         "max_abs_err": rerr, "shape": [b, 2, t, *K1R_DIMS]}
+    qs, ks, vs = (x.detach().requires_grad_() for x in (q, k, v))
+
+    def sdpa_r():
+        out_ = torch.nn.functional.scaled_dot_product_attention(qs, ks, vs, scale=scale)
+        torch.autograd.grad(out_, (qs, ks, vs), do)
+
+    r["library_ms"] = time_ms(sdpa_r, iters=3, warmup=1)
+    r["bounds"] = {n: v for n, v in k1r_bounds_ms(b, 2, t, *K1R_DIMS, 2, "bf16", True).items() if n != "fwd"}
+    res["k1r"] = r
+    for name, r in res.items():
+        print(f"mixed precision, the scalar bf16 backward ({name}, B,H,T,d={r['shape']}, every key valid): dk/dv "
+              f"{r['dkv']:.4f} ms (bound {r['bounds']['dkv'][0]:.4f} by {r['bounds']['dkv'][1]}), dq {r['dq']:.4f} "
+              f"ms (bound {r['bounds']['dq'][0]:.4f} by {r['bounds']['dq'][1]}); plain backward {r['plain_ms']:.4f} "
+              f"ms; sdpa forward+backward {r['library_ms']:.4f} ms; max_abs_err {r['max_abs_err']:.2e}; {where}",
+              flush=True)
+    return res
+
+
+def host_profile(fn):
+    """One call under torch.profiler's CPU activity: the host's op events,
+    the casts among them (``aten::_to_copy``, what ``.to`` dispatches to)
+    with the host ms inside them, and the ops' own host ms (the sum of
+    their self times; the rest of the wall time is Python)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    ka = prof.key_averages()
+    ops = [e for e in ka if e.key.startswith("aten::")]
+    casts = [e for e in ops if e.key == "aten::_to_copy"]
+    return {"wall_ms": wall_ms, "ops": sum(e.count for e in ops), "casts": sum(e.count for e in casts),
+            "cast_ms": sum(e.cpu_time_total for e in casts) / 1e3,
+            "op_self_ms": sum(e.self_cpu_time_total for e in ops) / 1e3}
+
+
+def mp_small_steps(root, seed, where):
+    """Matcha-TTS's tts1 step and a VITS micro-step past
+    ``dp_train_start_steps`` (no forward-sum loss), f32 against bf16
+    compute, on seed-made weights at the JSUT confs' widths: MP_SMALL_ROUNDS
+    rounds of MP_SMALL_TIMED steps, the two dtypes alternating within each
+    round (the device-busy profile in the first round only); then one
+    host-profiled step of each."""
+    import statistics
+
+    import torch
+
+    from jatts_torch.ops import mas
+    from jatts_torch.utils.config import load_config
+
+    out = {}
+    for family, conf, shape, model_type in (("matcha_tts1", MATCHA_CONF, MP_MATCHA, "MatchaTTS"),
+                                            ("vits", VITS_CONF, MP_VITS, "VITS")):
+        config = load_config(str(conf))
+        batch = mp_batch(shape, int(config["num_mels"]), seed, pitch=False)
+        if family == "vits":
+            batch.pop("ds")
+        trainers = {}
+        for dtype_name in ("f32", "bf16"):
+            tr = trainers[dtype_name] = mp_trainer(config, model_type, dtype_name, seed,
+                                                   str(Path(root) / f"mp_{family}_{dtype_name}"))
+            tr.steps = int(config.get("dp_train_start_steps", 0) or 0) + 1
+            out[(family, dtype_name)] = {"rounds": [], "mas_launches": 0, "steps": 0}
+        tbs = {d: tr.to_device(batch) for d, tr in trainers.items()}
+        for r in range(MP_SMALL_ROUNDS):
+            warm = MP_WARM if r == 0 else 1
+            for dtype_name, tr in trainers.items():
+                label = f"mixed precision, {family} {'micro-' if family == 'vits' else ''}step {dtype_name} at " \
+                        f"{' x '.join(map(str, shape))}, round {r + 1} of {MP_SMALL_ROUNDS}"
+                before = mas.path_launches
+                res = mp_time_steps(tr, tbs[dtype_name], warm, MP_SMALL_TIMED, label, where, busy=r == 0)
+                check("train/forward_sum_loss" not in tr.history[-1]
+                      or tr.history[-1]["train/forward_sum_loss"] == 0.0, f"{label}: the forward-sum loss ran")
+                o = out[(family, dtype_name)]
+                o["mas_launches"] += mas.path_launches - before
+                o["steps"] += warm + MP_SMALL_TIMED + (r == 0)
+                o["rounds"].append(res)
+        for dtype_name, tr in trainers.items():
+            o = out[(family, dtype_name)]
+            before = mas.path_launches
+            o["host"] = h = host_profile(lambda: tr.train_step(tbs[dtype_name]))
+            o["mas_launches"] += mas.path_launches - before
+            o["steps"] += 1
+            check(o["mas_launches"] == (o["steps"] if family == "vits" else 0),
+                  f"{family} {dtype_name}: fused MAS search launched {o['mas_launches']} in {o['steps']} steps")
+            rounds = o["rounds"]
+            o.update(ms=statistics.median(x["ms"] for x in rounds), round_ms=[x["ms"] for x in rounds],
+                     busy_ms=rounds[0]["busy_ms"],
+                     peak_gib=max(x["peak_gib"] for x in rounds), loss0=rounds[0]["loss0"])
+            print(f"mixed precision, {family} {dtype_name}: medians of the {MP_SMALL_ROUNDS} rounds "
+                  + ", ".join(f"{x:.1f}" for x in o["round_ms"]) + f" ms (median {o['ms']:.1f}); device busy "
+                  f"{o['busy_ms']:.1f} ms a step (round 1); peak {o['peak_gib']:.2f} GiB with both dtypes' trainers "
+                  f"resident; a host-profiled step: {h['ops']} aten op events, {h['casts']} of "
+                  f"them casts (aten::_to_copy) with {h['cast_ms']:.1f} ms of host time inside them, the ops' own "
+                  f"host time {h['op_self_ms']:.1f} ms, wall {h['wall_ms']:.1f} ms under the profiler; {where}",
+                  flush=True)
+        f32, bf16 = out[(family, "f32")], out[(family, "bf16")]
+        faster = [b < a for a, b in zip(f32["round_ms"], bf16["round_ms"])]
+        verdict = ("bf16 faster in every round" if all(faster) else
+                   "bf16 slower in every round" if not any(faster) else "unresolved: the rounds disagree")
+        bf16["verdict"] = verdict
+        print(f"mixed precision, {family}: bf16 against f32 step, round by round: "
+              + ", ".join(f"{b:.1f} vs {a:.1f}" for a, b in zip(f32["round_ms"], bf16["round_ms"]))
+              + f" ms; {verdict}; {where}", flush=True)
+        l32, l16 = f32["loss0"], bf16["loss0"]
+        print(f"mixed precision, {family}: first-step loss bf16 {l16:.5f} vs f32 {l32:.5f} (rel "
+              f"{abs(l16 - l32) / abs(l32):.2e}, tol 2e-2)", flush=True)
+        check(abs(l16 - l32) <= 2e-2 * abs(l32), f"{family}: bf16 and f32 first-step losses disagree")
+        del trainers, tbs, tr
+    torch.cuda.empty_cache()
+    return out
+
+
+def png_ok(path):
+    """The PNG signature and a positive IHDR size."""
+    import struct
+
+    data = Path(path).read_bytes()
+    if data[:8] != b"\x89PNG\r\n\x1a\n" or data[12:16] != b"IHDR":
+        return False
+    w, h = struct.unpack(">II", data[16:24])
+    return w > 0 and h > 0
+
+
+def mp_cli_run(root, align_paths, freqs, seed, where):
+    """``bin/tts_train.py`` on the JSUT conf with ``dtype: bfloat16`` and
+    ``attn_backend: flash`` on phase 8's aligned corpus: 4 steps over 2 eval
+    intervals, the hook's files, the event file read back by
+    ``utils/events.py`` (every CRC checked) with its ``mem/*``."""
+    import csv as csv_mod
+
+    import torch
+
+    from jatts_torch.bin import tts_train
+    from jatts_torch.ops import flash_attention as k1
+    from jatts_torch.utils.config import load_config
+    from jatts_torch.utils.events import read_scalars
+
+    train_csv, dev_csv, stats, tokens = write_fs2_corpus(root, align_paths, freqs, tag="mp", seed=seed)
+    with open(dev_csv, encoding="utf-8") as f:
+        dev_ids = [row["sample_id"] for row in csv_mod.DictReader(f)][:2]
+    config = load_config(str(JSUT_CONF))
+    config["model_params"] = {**config["model_params"], "dtype": "bfloat16"}
+    config.update(train_max_steps=MP_CLI_STEPS, eval_interval_steps=2, log_interval_steps=2,
+                  save_interval_steps=MP_CLI_STEPS, batch_size=8, num_save_intermediate_results=2,
+                  eval_max_frames=1024)
+    outdir = Path(root) / "mp_cli"
+    k1.reset_launches()
+    t0 = time.perf_counter()
+    trainer = tts_train.run(train_csv, dev_csv, stats, tokens, config, str(outdir), seed=seed, device="cuda",
+                            attn_backend="flash")
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches = {n: getattr(k1, n) for n in MP_ROUTES}
+    check(trainer.steps == MP_CLI_STEPS and trainer.model.compute_dtype == torch.bfloat16,
+          "the bf16 CLI run: steps or compute dtype")
+    check({p.dtype for p in trainer.model.parameters()} == {torch.float32}, "the bf16 CLI run: parameters not f32")
+    files = {}
+    for steps in (2, 4):
+        d = outdir / "predictions" / f"{steps}steps"
+        names = sorted(p.name for p in d.iterdir()) if d.is_dir() else []
+        files[steps] = names
+        want = sorted(f"{u}{s}" for u in dev_ids for s in (".png", "_dur.txt", "_pitch.png"))
+        check(names == want, f"the hook at {steps} steps wrote {names}")
+        check(all(png_ok(d / n) for n in names if n.endswith(".png")), f"an invalid PNG under {d}")
+    scalars = read_scalars(str(outdir))
+    tags = {(t, s) for s, t, _ in scalars}
+    want_tags = {(t, s) for s in (2, 4) for t in ("train/loss", "train/lr", "train/grad_norm", "eval/loss",
+                                                  "mem/bytes_in_use_gb", "mem/peak_bytes_gb")}
+    check(want_tags <= tags, f"the event file lacks {sorted(want_tags - tags)}")
+    peak = max(v for _, t, v in scalars if t == "mem/peak_bytes_gb")
+    check(0.0 < peak < 80.0 and all(math.isfinite(v) for _, _, v in scalars), "the event file's values")
+    check(launches["launches_tc"] > 0 and launches["launches_bwd_dkv"] > 0 and launches["launches_tc_f32"] == 0
+          and launches["launches_bwd_dkv_tc_f32"] == 0, f"the bf16 CLI run's launches {launches}")
+    print(f"mixed precision CLI (bin/tts_train.py, JSUT conf, dtype bfloat16, flash): {MP_CLI_STEPS} steps in "
+          f"{run_s:.1f} s; predictions at 2 and 4 steps: {len(files[2])} + {len(files[4])} files, PNGs valid; "
+          f"event file {len(scalars)} scalars, every CRC checked, mem/peak_bytes_gb {peak:.2f}; launches "
+          + ", ".join(f"{n[9:] or 'K1'} {v}" for n, v in launches.items() if v) + f"; {where}", flush=True)
+    return {"run_s": run_s, "launches": launches, "scalars": len(scalars)}
+
+
+def mp_bwd_entry(r, key):
+    """A scalar bf16 backward kernel's numbers at a phase-21 step's shape,
+    for the record."""
+    return {"shape": r["shape"], "ms": r[key], "plain_ms": r["plain_ms"], "library_ms": r["library_ms"],
+            "bound_ms": r["bounds"][key][0], "bound_by": r["bounds"][key][1], "max_abs_err": r["max_abs_err"]}
+
+
+def mixed_precision_slice(root, align_paths, freqs, seed, where):
+    """Phase 21 (its CLI run on phase 8's aligned corpus). Returns each
+    kernel's launches in the phase, by the form that took it, and the
+    numbers the record and PERF.md need."""
+    t0 = time.perf_counter()
+    parts = {}
+
+    def part(name, fn, *args):
+        t = time.perf_counter()
+        out = fn(*args)
+        parts[name] = time.perf_counter() - t
+        return out
+
+    fs2 = part("FastSpeech2 steps", mp_fs2_steps, root, seed, where)
+    bwd = part("scalar bf16 backward", check_mp_bwd, seed, where)
+    small = part("Matcha and VITS steps", mp_small_steps, root, seed, where)
+    cli = part("bf16 CLI", mp_cli_run, root, align_paths, freqs, seed, where)
+    def n(which, dtype_name, name):
+        return fs2[(which, "flash", dtype_name)]["launches"][name]
+
+    # each kernel's launches in the phase, by the form that took it
+    launches = {
+        "tc": n("jsut", "bf16", "launches_tc") + cli["launches"]["launches_tc"],
+        "tc_relpos": n("jvs_latest", "bf16", "launches_tc"),
+        "tc_f32": n("jsut", "f32", "launches_tc_f32"),
+        "tc_f32_relpos": n("jvs_latest", "f32", "launches_tc_f32"),
+        "bwd_scalar": (n("jsut", "bf16", "launches_bwd_dkv") + cli["launches"]["launches_bwd_dkv"],
+                       n("jsut", "bf16", "launches_bwd_dq") + cli["launches"]["launches_bwd_dq"]),
+        "bwd_scalar_relpos": (n("jvs_latest", "bf16", "launches_bwd_dkv_relpos"),
+                              n("jvs_latest", "bf16", "launches_bwd_dq_relpos")),
+        "bwd_tc_f32": (n("jsut", "f32", "launches_bwd_dkv_tc_f32"), n("jsut", "f32", "launches_bwd_dq_tc_f32")),
+        "bwd_tc_f32_relpos": (n("jvs_latest", "f32", "launches_bwd_dkv_tc_f32"),
+                              n("jvs_latest", "f32", "launches_bwd_dq_tc_f32")),
+        "mas_path": sum(small[("vits", d)]["mas_launches"] for d in ("f32", "bf16")),
+    }
+    print(f"phase 21 (mixed precision) {time.perf_counter() - t0:.1f} s: "
+          + ", ".join(f"{n} {sec:.1f} s" for n, sec in parts.items()), flush=True)
+    return launches, {"fs2": fs2, "bwd": bwd, "small": small, "cli": cli}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -5421,7 +5895,7 @@ def main() -> int:
     # 7. the serving slice, at the full JSUT width, bf16, K1 on
     sr, max_frames, bucket, batch = 24000, 1024, 128, 8
     torch.manual_seed(args.seed)
-    fs2 = FastSpeech2(idim=64, attn_backend="flash", device="cuda", dtype=torch.bfloat16)
+    fs2 = FastSpeech2(idim=64, attn_backend="flash", device="cuda", dtype=None).to(torch.bfloat16)
     voc = HiFiGANGenerator(device="cuda", dtype=torch.bfloat16)
     with torch.no_grad():
         # random init rounds most durations to 0; centre them on
@@ -5613,6 +6087,12 @@ def main() -> int:
     # replays against the eager programs, streaming, the fused VALL-E
     # program and the E2 artifact
     art_tc, art = artifact_slice(tmp.name, args.seed, where)
+
+    # 21. mixed precision: FastSpeech2 (JSUT, JVS-latest), Matcha-TTS and
+    # VITS steps in f32 and in bf16 compute side by side, the scalar bf16
+    # backward a flash step takes against its plain twin, a bf16 CLI run
+    # with the intermediate hook and the event file
+    mp_n, mp = mixed_precision_slice(tmp.name, align_paths, freqs, args.seed, where)
     tmp.cleanup()
     e2_tc = {"e2tts_serving": e2_launches["serve_tc"], "e2tts_training": e2_launches["train"]["k1.launches_tc"],
              "e2tts_decode": e2_launches["decode_tc"]}
@@ -5655,8 +6135,9 @@ def main() -> int:
         "route": "cuda",
         "source": "jatts_torch/csrc/flash_attn_fwd_tc_f32.cu",
         "replaces": "jatts_tpu/modules/attention.py:158",
-        "launches": train["fwd_tc_f32"] + decode_tc_f32,
-        "launches_by_path": {"training": train["fwd_tc_f32"], "decode": decode_tc_f32},
+        "launches": train["fwd_tc_f32"] + decode_tc_f32 + mp_n["tc_f32"],
+        "launches_by_path": {"training": train["fwd_tc_f32"], "decode": decode_tc_f32,
+                             "mixed_precision_f32_steps": mp_n["tc_f32"]},
         "max_abs_err": max(max_err["f32"], tc_f32_err["k1"]),
         "ms": train_k1["ms"],
         "plain_ms": train_k1["plain_ms"],
@@ -5671,8 +6152,8 @@ def main() -> int:
         "route": "cuda",
         "source": "jatts_torch/csrc/flash_attn_fwd_tc_f32.cu",
         "replaces": "jatts_tpu/modules/attention.py:372",
-        "launches": jvs["fwd_tc_f32"],
-        "launches_by_path": {"training": jvs["fwd_tc_f32"]},
+        "launches": jvs["fwd_tc_f32"] + mp_n["tc_f32_relpos"],
+        "launches_by_path": {"training": jvs["fwd_tc_f32"], "mixed_precision_f32_steps": mp_n["tc_f32_relpos"]},
         "max_abs_err": max(k1r_fwd_err["f32"], tc_f32_err["k1r"]),
         "ms": k1r_times["fwd"],
         "plain_ms": k1r_times["plain_fwd_ms"],
@@ -5689,9 +6170,10 @@ def main() -> int:
         "replaces": "jatts_tpu/modules/attention.py:158",
         # the served programs' launches (phase 20) are their graphs' replays:
         # launches a replay times replays
-        "launches": serve_tc + nar_launches["k1.launches_tc"] + sum(e2_tc.values()) + sum(art_tc.values()),
+        "launches": serve_tc + nar_launches["k1.launches_tc"] + sum(e2_tc.values()) + sum(art_tc.values())
+        + mp_n["tc"],
         "launches_by_path": {"serving": serve_tc, "valle_nar_training": nar_launches["k1.launches_tc"], **e2_tc,
-                             **art_tc},
+                             **art_tc, "mixed_precision_bf16_steps": mp_n["tc"]},
         "max_abs_err": max(max_err["bf16"], tc_err["k1"], e2["train"]["errs"]["fwd"], e2["serve"]["fwd"]["max_abs_err"],
                            e2["decode"]["fwd"]["max_abs_err"]),
         "ms": ms,
@@ -5730,7 +6212,8 @@ def main() -> int:
         "route": "cuda",
         "source": "jatts_torch/csrc/flash_attn_fwd_tc.cu",
         "replaces": "jatts_tpu/modules/attention.py:372",
-        "launches": jvs_serve_launches,
+        "launches": jvs_serve_launches + mp_n["tc_relpos"],
+        "launches_by_path": {"serving": jvs_serve_launches, "mixed_precision_bf16_steps": mp_n["tc_relpos"]},
         "max_abs_err": max(k1r_fwd_err["bf16"], tc_err["k1r"]),
         "ms": k1r_times["serve"]["fwd"],
         "plain_ms": k1r_times["serve"]["plain_fwd_ms"],
@@ -5744,23 +6227,28 @@ def main() -> int:
         # is the 3xTF32 kernels'; timed beside them on the same inputs
         "name": f"flash_attn_bwd_{key}",
         "replaces": f"jax/experimental/pallas/ops/tpu/flash_attention.py:{line}",
-        "launches": n - n_tc, "launches_by_path": {"training": n - n_tc},
+        "launches": n - n_tc + n_mp, "launches_by_path": {"training": n - n_tc, "mixed_precision_bf16_steps": n_mp},
         "ms": bwd_times[f"{key}_scalar"], "bound_ms": bwd_times["bounds"][key][0],
         "bound_by": bwd_times["bounds"][key][1], "cuda_core_bound_ms": cuda_core_ms(bwd_times["bounds"][key][3]),
         **bwd_row,
-    } for key, line, n, n_tc in (("dkv", 1121, train_launches[1], train["bwd_tc_f32"][0]),
-                                 ("dq", 1456, train_launches[2], train["bwd_tc_f32"][1]))] + [{
+        # the bf16 form with the matrix_bd bias that a bf16 flash step takes (phase 21), at its shape
+        "bf16_step": mp_bwd_entry(mp["bwd"]["k1"], key),
+    } for key, line, n, n_tc, n_mp in (
+        ("dkv", 1121, train_launches[1], train["bwd_tc_f32"][0], mp_n["bwd_scalar"][0]),
+        ("dq", 1456, train_launches[2], train["bwd_tc_f32"][1], mp_n["bwd_scalar"][1]))] + [{
         # K1-bwd's f32 dk/dv and dq (d 192, a bias, d(ab)) on the tensor cores
         # (3xTF32), JSUT training
         "name": f"{k1.KERNEL_BWD_TC_F32}_{key}_bias", "route": "cuda",
         "source": f"jatts_torch/csrc/{k1.KERNEL_BWD_TC_F32}.cu",
         "replaces": f"jax/experimental/pallas/ops/tpu/flash_attention.py:{line}",
-        "launches": n, "launches_by_path": {"training": n}, "max_abs_err": bwd_err["tc_f32"],
+        "launches": n + n_mp, "launches_by_path": {"training": n, "mixed_precision_f32_steps": n_mp},
+        "max_abs_err": bwd_err["tc_f32"],
         "ms": bwd_times[key], "graph_ms": bwd_times[f"{key}_graph"], "scalar_ms": bwd_times[f"{key}_scalar"],
         "plain_ms": bwd_times["plain_ms"], "bound_ms": bwd_times["bounds"][key][0],
         "bound_by": bwd_times["bounds"][key][1], "cuda_core_bound_ms": cuda_core_ms(bwd_times["bounds"][key][3]),
         "library_ms": bwd_times["library_ms"],
-    } for key, line, n in (("dkv", 1121, train["bwd_tc_f32"][0]), ("dq", 1456, train["bwd_tc_f32"][1]))] + [{
+    } for key, line, n, n_mp in (("dkv", 1121, train["bwd_tc_f32"][0], mp_n["bwd_tc_f32"][0]),
+                                 ("dq", 1456, train["bwd_tc_f32"][1], mp_n["bwd_tc_f32"][1]))] + [{
         # off the main path since the fused search; timed at 16x1024x128
         "name": "mas_fwd", "replaces": "jatts_tpu/ops/mas_pallas.py:139", "launches": mas_launches[1],
         "mismatches": mas_mismatches[0] + mas_mismatches[2], "max_abs_err": mas_max_err[0],
@@ -5775,9 +6263,9 @@ def main() -> int:
         # largest batch; ``matcha_mas_training``: at that run's largest)
         "name": "mas_path", "route": "cuda", "source": "jatts_torch/csrc/mas_path.cu",
         "replaces": "jatts_tpu/ops/mas_pallas.py:139", "replaces_also": "jatts_tpu/ops/mas_pallas.py:161",
-        "launches": mas_launches[0] + matcha_tts2["launches"] + vits_train["launches"],
+        "launches": mas_launches[0] + matcha_tts2["launches"] + vits_train["launches"] + mp_n["mas_path"],
         "launches_by_path": {"aligner": mas_launches[0], "matcha_mas_training": matcha_tts2["launches"],
-                             "vits_training": vits_train["launches"]},
+                             "vits_training": vits_train["launches"], "mixed_precision_vits_steps": mp_n["mas_path"]},
         "mismatches": mas_mismatches[3] + mas_mismatches[4], "max_abs_err": mas_max_err[2], "routes": mas_routes,
         "ms": mas_times["ms"], "graph_ms": mas_times["graph_ms"], "pair_ms": mas_times["pair_ms"],
         "pair_graph_ms": mas_times["pair_graph_ms"], "plain_ms": mas_times["plain_ms"],
@@ -5834,33 +6322,37 @@ def main() -> int:
     )] + [{
         "name": f"{name}_relpos", "route": "cuda", "source": f"jatts_torch/csrc/{src}",
         "replaces": f"jax/experimental/pallas/ops/tpu/flash_attention.py:{line}",
-        "launches": n_serve + n_train, "launches_by_path": {"serving": n_serve, "training": n_train},
+        "launches": n_serve + n_train + n_mp,
+        "launches_by_path": {"serving": n_serve, "training": n_train, "mixed_precision_bf16_steps": n_mp},
         "max_abs_err": err, "ms": k1r_times[f"{key}_scalar"],
         "plain_ms": k1r_times["plain_fwd_ms" if key == "fwd" else "plain_bwd_ms"],
         "bound_ms": k1r_times["bounds"][key][0], "bound_by": k1r_times["bounds"][key][1],
         "cuda_core_bound_ms": cuda_core_ms(k1r_times["bounds"][key][3]),
         "library_ms": k1r_times["sdpa_fwd_ms" if key == "fwd" else "sdpa_ms"],
-    } for name, src, line, key, n_serve, n_train, err in (
+        **({} if key == "fwd" else {"bf16_step": mp_bwd_entry(mp["bwd"]["k1r"], key)}),
+    } for name, src, line, key, n_serve, n_train, err, n_mp in (
         # the scalar K1r forward, dk/dv and dq no longer run on the main path:
         # bf16 is the tensor-core forward's, f32 the 3xTF32 kernels'; timed
         # beside them on the same inputs (the bf16 K1r backward stays here)
         ("flash_attn_fwd", "flash_attn_fwd.cu", 758, "fwd", 0, jvs_launches[0] - jvs["fwd_tc_f32"],
-         tc_f32_err["scalar_k1r"]),
+         tc_f32_err["scalar_k1r"], 0),
         ("flash_attn_bwd_dkv", "flash_attn_bwd.cu", 1121, "dkv", 0, jvs_launches[1] - jvs["bwd_tc_f32"][0],
-         k1r_bwd_err["scalar"]),
+         k1r_bwd_err["scalar"], mp_n["bwd_scalar_relpos"][0]),
         ("flash_attn_bwd_dq", "flash_attn_bwd.cu", 1456, "dq", 0, jvs_launches[2] - jvs["bwd_tc_f32"][1],
-         k1r_bwd_err["scalar"]),
+         k1r_bwd_err["scalar"], mp_n["bwd_scalar_relpos"][1]),
     )] + [{
         # K1r's f32 dk/dv and dq on the tensor cores (3xTF32), JVS-latest training
         "name": f"{k1.KERNEL_BWD_TC_F32}_{key}", "route": "cuda",
         "source": f"jatts_torch/csrc/{k1.KERNEL_BWD_TC_F32}.cu",
         "replaces": f"jax/experimental/pallas/ops/tpu/flash_attention.py:{line}",
-        "launches": n, "launches_by_path": {"training": n}, "max_abs_err": k1r_bwd_err["tc_f32"],
+        "launches": n + n_mp, "launches_by_path": {"training": n, "mixed_precision_f32_steps": n_mp},
+        "max_abs_err": k1r_bwd_err["tc_f32"],
         "ms": k1r_times[key], "graph_ms": k1r_times[f"{key}_graph"], "scalar_ms": k1r_times[f"{key}_scalar"],
         "plain_ms": k1r_times["plain_bwd_ms"], "bound_ms": k1r_times["bounds"][key][0],
         "bound_by": k1r_times["bounds"][key][1], "cuda_core_bound_ms": cuda_core_ms(k1r_times["bounds"][key][3]),
         "library_ms": k1r_times["sdpa_ms"], "library_backend": k1r_times["sdpa_backend"],
-    } for key, line, n in (("dkv", 1121, jvs["bwd_tc_f32"][0]), ("dq", 1456, jvs["bwd_tc_f32"][1]))] + [{
+    } for key, line, n, n_mp in (("dkv", 1121, jvs["bwd_tc_f32"][0], mp_n["bwd_tc_f32_relpos"][0]),
+                                 ("dq", 1456, jvs["bwd_tc_f32"][1], mp_n["bwd_tc_f32_relpos"][1]))] + [{
         # the VALL-E NAR's bf16 non-causal dk/dv and dq (d 64, a key mask) on
         # the tensor cores; timed at its largest batch with every key valid,
         # the scalar kernels (the form's before) on the same inputs beside

@@ -35,6 +35,7 @@ from torch import nn
 from jatts_torch.device import resolve_device
 from jatts_torch.losses.align import ForwardSumLoss
 from jatts_torch.modules.alignment import AlignmentModule
+from jatts_torch.modules.layers import Conv1d, Embedding, set_compute_dtype
 from jatts_torch.ops.mas import viterbi_decode
 from jatts_torch.ops.masks import sequence_mask
 
@@ -51,6 +52,12 @@ class Aligner(nn.Module):
     initialisers' distributions (embedding N(0, 1/adim), convolutions
     truncated normal of variance 1/fan_in, biases 0). Dropout draws from
     ``self.generator`` (``None``: torch's global generator).
+
+    ``dtype`` is a compute dtype, flax's meaning (``modules/layers.py``):
+    the embedding, the convolutions and the alignment module compute in it
+    on float32 parameters; the ``ln{i}``, which take no ``dtype`` in the JAX
+    model, return float32, so the residual stream is float32 after the
+    first layer, as there.
     """
 
     def __init__(
@@ -63,17 +70,20 @@ class Aligner(nn.Module):
         mas_backend: str = "auto",
         seed: int = 0,
         device: Optional[Union[str, torch.device]] = None,
+        dtype: torch.dtype = torch.float32,
     ):
         super().__init__()
         self.elayers = elayers
         self.dropout_rate = dropout_rate
         self.mas_backend = mas_backend
         self.generator: Optional[torch.Generator] = None
-        self.embed = nn.Embedding(idim, adim)
+        self.embed = Embedding(idim, adim)
         for i in range(elayers):
-            setattr(self, f"conv{i}", nn.Conv1d(adim, adim, 3, padding=1))
+            setattr(self, f"conv{i}", Conv1d(adim, adim, 3, padding=1))
+            # torch's own layer: no compute dtype, as the JAX ``ln{i}`` take none
             setattr(self, f"ln{i}", nn.LayerNorm(adim, eps=1e-6))
         self.alignment = AlignmentModule(adim, odim)
+        set_compute_dtype(self, dtype)
         self.reset_parameters(seed)
         self.to(resolve_device(device))
 
@@ -109,7 +119,8 @@ class Aligner(nn.Module):
         h = self.embed(xs) * keep
         for i in range(self.elayers):
             r = getattr(self, f"conv{i}")(h.transpose(1, 2)).transpose(1, 2)
-            r = getattr(self, f"ln{i}")(F.relu(r))
+            ln = getattr(self, f"ln{i}")
+            r = ln(F.relu(r).to(ln.weight.dtype))
             h = (h + self._dropout(r)) * keep
         log_p_attn = self.alignment(h, ys, x_masks)
         ds, bin_loss = viterbi_decode(log_p_attn, ilens, olens, backend=self.mas_backend)

@@ -95,6 +95,8 @@ def run(
         n_vocab = len([line for line in f if line.strip()])
     model_params = dict(config["model_params"])
     model_params["idim"] = n_vocab
+    # the compute dtype, on the float32 weights the checkpoint holds, as
+    # the JAX decode computes
     dtype = DTYPES[model_params.pop("dtype", "float32")]
     model = MODELS[model_type](**model_params, device=dev, dtype=dtype)
 

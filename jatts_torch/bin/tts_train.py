@@ -31,9 +31,9 @@ and E2-TTS (``E2TTS``, tts2, e.g.
 ``attn_backend: flash`` runs its bf16 attention forward and backward on the
 tensor cores); ``batch_size_per_gpu`` selects frame-budget batching
 (``DynamicBatchSampler``, capped at ``max_samples`` utterances, shuffled
-from ``sampler_random_seed``); ``model_params.dtype`` is passed to the
-model as its ``dtype`` (for VALL-E and E2-TTS the compute dtype: parameters
-stay float32). ``--multihost`` is not ported, nor are the multi-GPU confs
+from ``sampler_random_seed``); ``model_params.dtype`` (yaml ``dtype: bfloat16``) is
+the model's compute dtype, as the JAX CLI reads it: every family computes
+in it and its parameters stay float32. ``--multihost`` is not ported, nor are the multi-GPU confs
 (``n_data_devices``, ``mesh``), which raise.
 """
 
@@ -62,6 +62,7 @@ from jatts_torch.models.matchatts import MatchaTTS
 from jatts_torch.models.matchatts_mas import MatchaTTS_MAS
 from jatts_torch.models.valle import VALLEAR, VALLENAR
 from jatts_torch.models.vits import VITS
+from jatts_torch.train.intermediate import make_mel_eval_hook
 from jatts_torch.train.steps import get_loss_fn
 from jatts_torch.train.trainer import Trainer
 from jatts_torch.utils.config import dump_config, load_config
@@ -176,9 +177,16 @@ def run(
 
     torch.manual_seed(seed)  # the model's initial draws
     model = MODELS[model_type](**model_params, device=dev, dtype=dtype)
+    eval_hook = None
+    if model_type in ("FastSpeech2", "MatchaTTS", "MatchaTTS_MAS", "VITS"):
+        n_save = int(config.get("num_save_intermediate_results", 4))
+        eval_hook = make_mel_eval_hook(
+            [dev_set[i] for i in range(min(n_save, len(dev_set)))], num_save=n_save,
+            max_frames=int(config.get("eval_max_frames", 1024)),
+        )
     trainer = Trainer(
         config, model, build_criterions(config), get_loss_fn(config["trainer_type"]),
-        train_loader, dev_loader, outdir=outdir, seed=seed,
+        train_loader, dev_loader, outdir=outdir, seed=seed, eval_hook=eval_hook,
     )
     trainer.init_state()
     if pretrain:

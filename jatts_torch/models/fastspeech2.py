@@ -20,6 +20,13 @@ projected (``concat``), as the JAX package does. ``conformer_rel_pos_type:
 latest`` gives both conformers the latest rel-pos layers, whose flash path
 is K1r. ``init_type`` is read by the trainer (``utils/initialize.py``), not
 here.
+
+``dtype`` is a compute dtype, flax's meaning (``modules/layers.py``): the
+parameters are float32 and every layer that takes ``dtype`` in the JAX
+model computes in it; ``sid_emb``, the ``spembs`` normalisation and the
+length regulator's product stay float32, as there. ``dtype=None`` casts
+nothing: the model computes in its parameters' dtype (a served program
+whose weights a caller made bfloat16 with ``.to``).
 """
 
 from __future__ import annotations
@@ -33,6 +40,7 @@ from torch import nn
 
 from jatts_torch.device import resolve_device
 from jatts_torch.modules.conformer import ConformerEncoder, resolve_rel_pos_types
+from jatts_torch.modules.layers import Conv1d, Linear, set_compute_dtype
 from jatts_torch.modules.predictors import DurationPredictor, VariancePredictor
 from jatts_torch.modules.prenet_postnet import Postnet
 from jatts_torch.ops.masks import attn_mask, sequence_mask
@@ -101,7 +109,7 @@ class FastSpeech2(nn.Module):
         init_type: str = "xavier_uniform",
         attn_backend: str = "xla",
         device: Optional[Union[str, torch.device]] = None,
-        dtype: torch.dtype = torch.float32,
+        dtype: Optional[torch.dtype] = torch.float32,
     ):
         super().__init__()
         if encoder_type != "conformer" or decoder_type != "conformer":
@@ -141,7 +149,7 @@ class FastSpeech2(nn.Module):
             self.sid_emb = nn.Embedding(spks, adim)
         if spk_embed_dim is not None and spk_embed_dim > 0:
             in_dim = spk_embed_dim if spk_embed_integration_type == "add" else adim + spk_embed_dim
-            self.projection = nn.Linear(in_dim, adim)
+            self.projection = Linear(in_dim, adim)
         self.stop_gradient_from_pitch_predictor = stop_gradient_from_pitch_predictor
         self.stop_gradient_from_energy_predictor = stop_gradient_from_energy_predictor
         self.init_type = init_type
@@ -154,14 +162,14 @@ class FastSpeech2(nn.Module):
             pitch_predictor_kernel_size, pitch_predictor_dropout,
         )
         self.pitch_embed = nn.Sequential(
-            nn.Conv1d(1, adim, pitch_embed_kernel_size, padding="same")
+            Conv1d(1, adim, pitch_embed_kernel_size, padding="same")
         )
         self.energy_predictor = VariancePredictor(
             adim, energy_predictor_layers, energy_predictor_chans,
             energy_predictor_kernel_size, energy_predictor_dropout,
         )
         self.energy_embed = nn.Sequential(
-            nn.Conv1d(1, adim, energy_embed_kernel_size, padding="same")
+            Conv1d(1, adim, energy_embed_kernel_size, padding="same")
         )
         self.decoder = ConformerEncoder(
             linear_units=dunits, num_blocks=dlayers, input_layer=None,
@@ -171,13 +179,15 @@ class FastSpeech2(nn.Module):
             positional_dropout_rate=transformer_dec_positional_dropout_rate,
             attention_dropout_rate=transformer_dec_attn_dropout_rate, **common,
         )
-        self.feat_out = nn.Linear(adim, odim * reduction_factor)
+        self.feat_out = Linear(adim, odim * reduction_factor)
         if postnet_layers > 0:
             self.postnet = Postnet(
                 odim, postnet_layers, postnet_chans, postnet_filts, use_batch_norm,
                 postnet_dropout_rate,
             )
-        self.to(device=resolve_device(device), dtype=dtype)
+        self.compute_dtype = None
+        set_compute_dtype(self, dtype)
+        self.to(device=resolve_device(device))
 
     @contextlib.contextmanager
     def _deterministic(self):

@@ -17,7 +17,10 @@ kernel, and the port keeps it so. Speaker inputs as FastSpeech2's:
 so training uses ``olens - olens % 2`` frames and inference an even
 ``olens``. The ODE noise comes from an explicit ``torch.Generator``
 (``generator``) or the CFM's ``noise_generator``; ``samples_noise`` tells a
-caller (the serving bundle, the decode CLI) to hand one in.
+caller (the serving bundle, the decode CLI) to hand one in. ``dtype`` is
+flax's compute dtype (``modules/layers.py``; ``None`` casts nothing), as in
+``models/fastspeech2.py``; the sampler's mask, noise and output stay
+float32 under it, as the JAX model's do.
 """
 
 from __future__ import annotations
@@ -32,6 +35,7 @@ from torch import nn
 from jatts_torch.device import resolve_device
 from jatts_torch.modules.cfm import CFM
 from jatts_torch.modules.conformer import ConformerEncoder, resolve_rel_pos_types
+from jatts_torch.modules.layers import Linear, set_compute_dtype
 from jatts_torch.modules.predictors import DurationPredictor
 from jatts_torch.ops.masks import attn_mask, sequence_mask
 from jatts_torch.ops.upsample import predicted_durations_to_int, regulate_length
@@ -81,7 +85,7 @@ class MatchaTTS(nn.Module):
         use_masking: bool = True,
         init_type: str = "xavier_uniform",
         device: Optional[Union[str, torch.device]] = None,
-        dtype: torch.dtype = torch.float32,
+        dtype: Optional[torch.dtype] = torch.float32,
     ):
         super().__init__()
         if encoder_type != "conformer":
@@ -112,19 +116,21 @@ class MatchaTTS(nn.Module):
             self.sid_emb = nn.Embedding(spks, adim)
         if spk_embed_dim is not None and spk_embed_dim > 0:
             in_dim = spk_embed_dim if spk_embed_integration_type == "add" else adim + spk_embed_dim
-            self.projection = nn.Linear(in_dim, adim)
+            self.projection = Linear(in_dim, adim)
         self.duration_predictor = DurationPredictor(
             adim, duration_predictor_layers, duration_predictor_chans,
             duration_predictor_kernel_size, duration_predictor_dropout_rate,
         )
-        self.encoder_proj = nn.Linear(adim, odim * reduction_factor)
+        self.encoder_proj = Linear(adim, odim * reduction_factor)
         self.decoder = CFM(
             out_channels=odim * reduction_factor, channels=tuple(decoder_channels),
             dropout_rate=decoder_dropout, attention_head_dim=decoder_attention_head_dim,
             n_blocks=decoder_n_blocks, num_mid_blocks=decoder_num_mid_blocks,
             num_heads=decoder_num_heads, act_fn=decoder_act_fn,
         )
-        self.to(device=resolve_device(device), dtype=dtype)
+        self.compute_dtype = None
+        set_compute_dtype(self, dtype)
+        self.to(device=resolve_device(device))
 
     @contextlib.contextmanager
     def _deterministic(self):
@@ -194,7 +200,9 @@ class MatchaTTS(nn.Module):
         return olens - olens % 2
 
     def _sample(self, hs, olens, max_t_feats, n_timesteps, temperature, generator, z):
-        h_masks = sequence_mask(olens, max_t_feats, hs.dtype)
+        # a float32 mask under a compute dtype, as the JAX model's: mu, the
+        # noise and the sample are float32 then
+        h_masks = sequence_mask(olens, max_t_feats, hs.dtype if self.compute_dtype is None else torch.float32)
         m = h_masks[..., None]
         feat_gen = self.decoder.inference(hs * m, h_masks, n_timesteps, temperature, z=z, generator=generator)
         return feat_gen * m

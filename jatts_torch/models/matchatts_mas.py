@@ -22,6 +22,7 @@ import torch
 from jatts_torch.models.matchatts import MatchaTTS
 from jatts_torch.modules.alignment import AlignmentModule
 from jatts_torch.modules.flows import DURATION_PREDICTOR_TYPES, StochasticDurationPredictor
+from jatts_torch.modules.layers import set_compute_dtype
 from jatts_torch.ops.mas import viterbi_decode
 from jatts_torch.ops.masks import sequence_mask
 from jatts_torch.ops.upsample import gaussian_upsampling
@@ -35,7 +36,7 @@ class MatchaTTS_MAS(MatchaTTS):  # noqa: N801 - the JAX package's class name
         stochastic_duration_predictor_noise_scale: float = 0.8,
         mas_backend: str = "auto",
         device=None,
-        dtype: torch.dtype = torch.float32,
+        dtype: Optional[torch.dtype] = torch.float32,
         **kwargs,
     ):
         if duration_predictor_type not in DURATION_PREDICTOR_TYPES:
@@ -50,8 +51,9 @@ class MatchaTTS_MAS(MatchaTTS):  # noqa: N801 - the JAX package's class name
             # the flow replaces the conv predictor, which JAX never calls (and so never creates) then
             del self.duration_predictor
             kernel = kwargs.get("duration_predictor_kernel_size", 3)
-            self.sdp = StochasticDurationPredictor(adim, kernel).to(device=w.device, dtype=dtype)
-        self.alignment_module = AlignmentModule(adim, self.odim).to(device=w.device, dtype=dtype)
+            self.sdp = StochasticDurationPredictor(adim, kernel).to(device=w.device)
+        self.alignment_module = AlignmentModule(adim, self.odim).to(device=w.device)
+        set_compute_dtype(self, dtype)
 
     def forward(
         self,
@@ -75,8 +77,8 @@ class MatchaTTS_MAS(MatchaTTS):  # noqa: N801 - the JAX package's class name
         ds, bin_loss = viterbi_decode(log_p_attn, ilens, olens, backend=self.mas_backend)
         dur_nll = None
         if self.duration_predictor_type == "stochastic":
-            dur_nll = self.sdp(hs, d_masks[..., None].to(hs.dtype), w=ds[..., None], e_q=noise_e_q)
-            dur_nll = dur_nll / d_masks.sum().clamp(min=1).to(hs.dtype)
+            dur_nll = self.sdp(hs, d_masks[..., None], w=ds[..., None], e_q=noise_e_q)
+            dur_nll = dur_nll / d_masks.sum().clamp(min=1).to(dur_nll.dtype)
             d_outs = torch.zeros_like(ds)
         else:
             d_outs = self.duration_predictor(hs, d_masks)
@@ -111,7 +113,7 @@ class MatchaTTS_MAS(MatchaTTS):  # noqa: N801 - the JAX package's class name
             hs, d_masks = self.encode(xs, ilens, spembs, sids)
             if self.duration_predictor_type == "stochastic":
                 d_outs = self.sdp(
-                    hs, d_masks[..., None].to(hs.dtype), inverse=True,
+                    hs, d_masks[..., None], inverse=True,
                     noise_scale=self.stochastic_duration_predictor_noise_scale, z=z_dur, generator=generator,
                 ).to(torch.int32) * d_masks.to(torch.int32)
             else:

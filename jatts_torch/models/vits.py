@@ -18,7 +18,11 @@ predictor's e_q from the modules' ``noise_generator`` (the trainer's),
 the inference draws from the ``generator`` argument; ``samples_noise``
 tells a caller (the serving bundle, the decode CLI) to hand one in. Keys
 are the reference state_dict's, which
-``jatts_tpu.utils.torch_import.convert_vits`` reads.
+``jatts_tpu.utils.torch_import.convert_vits`` reads. ``dtype`` is flax's
+compute dtype (``modules/layers.py``; ``None`` casts nothing): the text
+and posterior encoders, the flow's WaveNets, the alignment module and the
+decoder compute in it, as the JAX modules do; the stochastic predictor,
+which takes no ``dtype`` there, stays float32.
 """
 
 from __future__ import annotations
@@ -34,6 +38,7 @@ from jatts_torch.device import resolve_device
 from jatts_torch.modules.alignment import AlignmentModule
 from jatts_torch.modules.conformer import ConformerEncoder, resolve_rel_pos_types
 from jatts_torch.modules.flows import DURATION_PREDICTOR_TYPES, StochasticDurationPredictor
+from jatts_torch.modules.layers import Linear, set_compute_dtype
 from jatts_torch.modules.predictors import DurationPredictor
 from jatts_torch.modules.vits_modules import PosteriorEncoder, ResidualAffineCouplingBlock, TextEncoder
 from jatts_torch.ops.mas import viterbi_decode
@@ -100,7 +105,7 @@ class VITS(nn.Module):
         use_masking: bool = True,
         init_type: str = "xavier_uniform",
         device: Optional[Union[str, torch.device]] = None,
-        dtype: torch.dtype = torch.float32,
+        dtype: Optional[torch.dtype] = torch.float32,
     ):
         super().__init__()
         if duration_predictor_type not in DURATION_PREDICTOR_TYPES:
@@ -126,7 +131,7 @@ class VITS(nn.Module):
         )
         if spk_embed_dim is not None and spk_embed_dim > 0:
             in_dim = spk_embed_dim if spk_embed_integration_type == "add" else adim + spk_embed_dim
-            self.projection = nn.Linear(in_dim, adim)
+            self.projection = Linear(in_dim, adim)
         glob = spk_embed_dim if spk_embed_dim else -1
         self.posterior_encoder = PosteriorEncoder(
             odim, adim, adim, posterior_encoder_kernel_size, posterior_encoder_layers,
@@ -158,8 +163,10 @@ class VITS(nn.Module):
             positional_dropout_rate=transformer_dec_positional_dropout_rate,
             attention_dropout_rate=transformer_dec_attn_dropout_rate,
         )
-        self.feat_out = nn.Linear(adim, odim * reduction_factor)
-        self.to(device=resolve_device(device), dtype=dtype)
+        self.feat_out = Linear(adim, odim * reduction_factor)
+        self.compute_dtype = None
+        set_compute_dtype(self, dtype)
+        self.to(device=resolve_device(device))
 
     @contextlib.contextmanager
     def _deterministic(self):
@@ -215,9 +222,8 @@ class VITS(nn.Module):
         ds, bin_loss = viterbi_decode(log_p_attn, ilens, olens, backend=self.mas_backend)
         dur_nll = None
         if self.duration_predictor_type == "stochastic":
-            dur_nll = self.duration_predictor(
-                hs, d_masks[..., None].to(hs.dtype), w=ds[..., None], e_q=noise_e_q,
-            ) / d_masks.sum().clamp(min=1).to(hs.dtype)
+            dur_nll = self.duration_predictor(hs, d_masks[..., None], w=ds[..., None], e_q=noise_e_q)
+            dur_nll = dur_nll / d_masks.sum().clamp(min=1).to(dur_nll.dtype)
             d_outs = torch.zeros_like(ds)
         else:
             d_outs = self.duration_predictor(hs, d_masks)
@@ -235,7 +241,7 @@ class VITS(nn.Module):
     def _durations(self, hs, d_masks, alpha, generator, z_dur):
         if self.duration_predictor_type == "stochastic":
             d = self.duration_predictor(
-                hs, d_masks[..., None].to(hs.dtype), inverse=True,
+                hs, d_masks[..., None], inverse=True,
                 noise_scale=self.stochastic_duration_predictor_noise_scale, z=z_dur, generator=generator,
             )
             return d.to(torch.int32) * d_masks.to(torch.int32)

@@ -11,17 +11,19 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from jatts_torch.modules.layers import Conv1d
+
 _MASK_VAL = -1e9
 
 
 class AlignmentModule(nn.Module):
     def __init__(self, adim: int, odim: int):
         super().__init__()
-        self.t_conv1 = nn.Conv1d(adim, adim, 3, padding=1)
-        self.t_conv2 = nn.Conv1d(adim, adim, 1)
-        self.f_conv1 = nn.Conv1d(odim, adim, 3, padding=1)
-        self.f_conv2 = nn.Conv1d(adim, adim, 3, padding=1)
-        self.f_conv3 = nn.Conv1d(adim, adim, 1)
+        self.t_conv1 = Conv1d(adim, adim, 3, padding=1)
+        self.t_conv2 = Conv1d(adim, adim, 1)
+        self.f_conv1 = Conv1d(odim, adim, 3, padding=1)
+        self.f_conv2 = Conv1d(adim, adim, 3, padding=1)
+        self.f_conv3 = Conv1d(adim, adim, 1)
 
     def forward(self, text, feats, x_masks=None):
         """text: [B, T_text, adim]; feats: [B, T_feats, odim];
@@ -36,11 +38,12 @@ class AlignmentModule(nn.Module):
 
         # -||f_i - t_j||_2 via the expanded quadratic form: one batched
         # matmul instead of a [B, T_feats, T_text, adim] broadcast. It
-        # cancels near 0, so it is taken in f32 (and wants TF32 off).
-        f, t = f.float(), t.float()
+        # cancels near 0, so the product is taken in f32 (and wants TF32
+        # off); the squared norms in the convolutions' dtype, as the JAX
+        # module takes them.
         f2 = (f ** 2).sum(-1)[:, :, None]
         t2 = (t ** 2).sum(-1)[:, None, :]
-        ft = torch.matmul(f, t.transpose(1, 2))
+        ft = torch.matmul(f.float(), t.float().transpose(1, 2))
         dist_sq = (f2 - 2.0 * ft + t2).clamp(min=0.0)
         score = -torch.sqrt(dist_sq + 1e-12)
 

@@ -34,6 +34,7 @@ import torch
 from torch import nn
 
 from jatts_torch.modules.dropout import Dropout
+from jatts_torch.modules.layers import Linear, in_dtype
 from jatts_torch.ops.flash_attention import flash_attention
 
 _MASK_VAL = -1e9
@@ -92,7 +93,10 @@ def _key_mask(mask: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
 
 
 class MultiHeadedAttention(nn.Module):
-    """Vanilla MHA; parameters linear_q/k/v/out as in the reference."""
+    """Vanilla MHA; parameters linear_q/k/v/out as in the reference.
+    ``compute_dtype`` (``modules/layers.py``) is the JAX layer's ``dtype``:
+    the projections, the position biases and the eager path's scale are
+    taken in it."""
 
     def __init__(
         self, n_head: int, n_feat: int, attn_backend: str = "xla", dropout_rate: float = 0.0
@@ -102,10 +106,16 @@ class MultiHeadedAttention(nn.Module):
         self.d_k = n_feat // n_head
         self.attn_backend = attn_backend
         self.dropout = Dropout(dropout_rate)
-        self.linear_q = nn.Linear(n_feat, n_feat)
-        self.linear_k = nn.Linear(n_feat, n_feat)
-        self.linear_v = nn.Linear(n_feat, n_feat)
-        self.linear_out = nn.Linear(n_feat, n_feat)
+        self.compute_dtype = None
+        self.linear_q = Linear(n_feat, n_feat)
+        self.linear_k = Linear(n_feat, n_feat)
+        self.linear_v = Linear(n_feat, n_feat)
+        self.linear_out = Linear(n_feat, n_feat)
+
+    def _pos_biases(self):
+        dt = self.compute_dtype
+        u, v = self.pos_bias_u, self.pos_bias_v
+        return (u, v) if dt is None else (u.to(dt), v.to(dt))
 
     def forward(self, query, key, value, mask=None):
         q = _split_heads(self.linear_q(query), self.n_head)
@@ -118,7 +128,7 @@ class MultiHeadedAttention(nn.Module):
                 _key_mask(mask), sm_scale,
             )
         else:
-            scores = torch.matmul(q, k.transpose(-1, -2)) * sm_scale
+            scores = torch.matmul(q, k.transpose(-1, -2)) * in_dtype(sm_scale, self.compute_dtype)
             x = _attend(scores, v, mask, self.dropout)
         return self.linear_out(_merge_heads(x))
 
@@ -140,7 +150,7 @@ class LegacyRelPositionMultiHeadedAttention(MultiHeadedAttention):
         self, n_head: int, n_feat: int, attn_backend: str = "xla", dropout_rate: float = 0.0
     ):
         super().__init__(n_head, n_feat, attn_backend, dropout_rate)
-        self.linear_pos = nn.Linear(n_feat, n_feat, bias=False)
+        self.linear_pos = Linear(n_feat, n_feat, bias=False)
         self.pos_bias_u = nn.Parameter(torch.empty(n_head, self.d_k))
         self.pos_bias_v = nn.Parameter(torch.empty(n_head, self.d_k))
         nn.init.xavier_uniform_(self.pos_bias_u)
@@ -152,8 +162,9 @@ class LegacyRelPositionMultiHeadedAttention(MultiHeadedAttention):
         v = _split_heads(self.linear_v(value), self.n_head)
         p = _split_heads(self.linear_pos(pos_emb), self.n_head)  # [1, H, T, d_k]
 
-        q_u = q + self.pos_bias_u[None, :, None, :]
-        q_v = q + self.pos_bias_v[None, :, None, :]
+        pos_bias_u, pos_bias_v = self._pos_biases()
+        q_u = q + pos_bias_u[None, :, None, :]
+        q_v = q + pos_bias_v[None, :, None, :]
         matrix_bd = legacy_rel_shift(torch.matmul(q_v, p.transpose(-1, -2)))
         sm_scale = 1.0 / math.sqrt(self.d_k)
 
@@ -165,7 +176,7 @@ class LegacyRelPositionMultiHeadedAttention(MultiHeadedAttention):
             )
         else:
             matrix_ac = torch.matmul(q_u, k.transpose(-1, -2))
-            x = _attend((matrix_ac + matrix_bd) * sm_scale, v, mask, self.dropout)
+            x = _attend((matrix_ac + matrix_bd) * in_dtype(sm_scale, self.compute_dtype), v, mask, self.dropout)
         return self.linear_out(_merge_heads(x))
 
 
@@ -234,15 +245,19 @@ class RelPositionMultiHeadedAttention(LegacyRelPositionMultiHeadedAttention):
         q = _split_heads(self.linear_q(query), self.n_head)
         k = _split_heads(self.linear_k(key), self.n_head)
         v = _split_heads(self.linear_v(value), self.n_head)
-        q_u = q + self.pos_bias_u[None, :, None, :]
-        q_v = q + self.pos_bias_v[None, :, None, :]
+        pos_bias_u, pos_bias_v = self._pos_biases()
+        q_u = q + pos_bias_u[None, :, None, :]
+        q_v = q + pos_bias_v[None, :, None, :]
         sm_scale = 1.0 / math.sqrt(self.d_k)
         n_feat = self.n_head * self.d_k
 
         if _flash_ok(self.attn_backend, mask, k.shape[2]):
             # bd[i, j] = u~(i) . phi(j): one K1r call over [q_u, u~] and
             # [k, phi], no [B, H, T, T] tensor
-            ut, phi = relpos_fused_features(q_v, self.linear_pos.weight.t(), q.shape[2], n_feat)
+            w_pos = self.linear_pos.weight.t()
+            ut, phi = relpos_fused_features(
+                q_v, w_pos if self.compute_dtype is None else w_pos.to(self.compute_dtype), q.shape[2], n_feat,
+            )
             q_cat = torch.cat([q_u, ut], dim=-1)
             k_cat = torch.cat([k, phi[None, None].expand(*k.shape[:3], n_feat)], dim=-1)
             x = flash_attention(
@@ -253,5 +268,5 @@ class RelPositionMultiHeadedAttention(LegacyRelPositionMultiHeadedAttention):
             p = _split_heads(self.linear_pos(pos_emb), self.n_head)  # [1, H, 2T-1, d_k]
             matrix_bd = rel_shift_gather(torch.matmul(q_v, p.transpose(-1, -2)), k.shape[2])
             matrix_ac = torch.matmul(q_u, k.transpose(-1, -2))
-            x = _attend((matrix_ac + matrix_bd) * sm_scale, v, mask, self.dropout)
+            x = _attend((matrix_ac + matrix_bd) * in_dtype(sm_scale, self.compute_dtype), v, mask, self.dropout)
         return self.linear_out(_merge_heads(x))

@@ -13,6 +13,9 @@ running statistics. In training it differs from torch's in two places:
 - the running update is flax's ``running = momentum·running +
   (1 - momentum)·batch`` with ``momentum = 0.9`` (torch's ``momentum=0.1``
   names the other factor).
+
+Under a compute dtype (``modules/layers.py``, flax's ``dtype``) it
+normalises in float32 in both modes and returns the compute dtype.
 """
 
 from __future__ import annotations
@@ -26,13 +29,20 @@ class BatchNorm1d(nn.BatchNorm1d):
     def __init__(self, num_features: int, eps: float = 1e-5, flax_momentum: float = 0.9):
         super().__init__(num_features, eps=eps)
         self.flax_momentum = flax_momentum
+        self.compute_dtype = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.compute_dtype
         if not self.training:
+            if dt is None:
+                return F.batch_norm(
+                    x, self.running_mean, self.running_var, self.weight, self.bias,
+                    training=False, eps=self.eps,
+                )
             return F.batch_norm(
-                x, self.running_mean, self.running_var, self.weight, self.bias,
-                training=False, eps=self.eps,
-            )
+                x.float(), self.running_mean.float(), self.running_var.float(), self.weight.float(),
+                self.bias.float(), training=False, eps=self.eps,
+            ).to(dt)
         xf = x.float()
         mean = xf.mean(dim=(0, 2))
         var = ((xf * xf).mean(dim=(0, 2)) - mean * mean).clamp(min=0.0)
@@ -43,4 +53,4 @@ class BatchNorm1d(nn.BatchNorm1d):
             self.num_batches_tracked.add_(1)
         mul = torch.rsqrt(var + self.eps) * self.weight.float()
         y = (xf - mean[None, :, None]) * mul[None, :, None] + self.bias.float()[None, :, None]
-        return y.to(x.dtype)
+        return y.to(x.dtype if dt is None else dt)

@@ -10,6 +10,9 @@ training, dropout goes where the JAX modules put it (the FFN hidden layer,
 each sub-block's output before its residual add, the positional encoding,
 the attention probabilities on the eager path) and the conv module's
 BatchNorm uses batch statistics with flax's update (``modules/batchnorm.py``).
+Under a compute dtype (``modules/layers.py``, the JAX modules' ``dtype``)
+the token embedding is taken in float32 and cast, as ``h.astype(dtype)``
+after the JAX embedding does; so is a decoder's input.
 
 Parameter names are the reference state_dict keys
 (``encoders.{i}.self_attn.linear_pos``, ``conv_module.depthwise_conv``, …).
@@ -30,6 +33,7 @@ from jatts_torch.modules.attention import (
 )
 from jatts_torch.modules.batchnorm import BatchNorm1d
 from jatts_torch.modules.dropout import Dropout
+from jatts_torch.modules.layers import Conv1d, LayerNorm, Linear
 from jatts_torch.modules.positional import (
     LegacyRelPositionalEncoding,
     PositionalEncoding,
@@ -80,8 +84,8 @@ class MultiLayeredConv1d(nn.Module):
         self, in_chans: int, hidden_chans: int, kernel_size: int, dropout_rate: float = 0.0
     ):
         super().__init__()
-        self.w_1 = nn.Conv1d(in_chans, hidden_chans, kernel_size, padding="same")
-        self.w_2 = nn.Conv1d(hidden_chans, in_chans, kernel_size, padding="same")
+        self.w_1 = Conv1d(in_chans, hidden_chans, kernel_size, padding="same")
+        self.w_2 = Conv1d(hidden_chans, in_chans, kernel_size, padding="same")
         self.dropout = Dropout(dropout_rate)
 
     def forward(self, x, pad_mask_t=None):
@@ -97,8 +101,8 @@ class PositionwiseFeedForward(nn.Module):
         self, idim: int, hidden_units: int, activation: str = "relu", dropout_rate: float = 0.0
     ):
         super().__init__()
-        self.w_1 = nn.Linear(idim, hidden_units)
-        self.w_2 = nn.Linear(hidden_units, idim)
+        self.w_1 = Linear(idim, hidden_units)
+        self.w_2 = Linear(hidden_units, idim)
         self.activation = _ACTIVATIONS[activation]
         self.dropout = Dropout(dropout_rate)
 
@@ -113,12 +117,12 @@ class ConvolutionModule(nn.Module):
 
     def __init__(self, channels: int, kernel_size: int, activation: str = "swish"):
         super().__init__()
-        self.pointwise_conv1 = nn.Conv1d(channels, 2 * channels, 1)
-        self.depthwise_conv = nn.Conv1d(
+        self.pointwise_conv1 = Conv1d(channels, 2 * channels, 1)
+        self.depthwise_conv = Conv1d(
             channels, channels, kernel_size, padding="same", groups=channels
         )
         self.norm = BatchNorm1d(channels, eps=1e-5)
-        self.pointwise_conv2 = nn.Conv1d(channels, channels, 1)
+        self.pointwise_conv2 = Conv1d(channels, channels, 1)
         self.activation = _ACTIVATIONS[activation]
 
     def forward(self, x, pad_mask_t=None):
@@ -181,15 +185,15 @@ class EncoderLayer(nn.Module):
             )
         self.rel_pos = selfattention_layer_type in ("legacy_rel_selfattn", "rel_selfattn")
         self.feed_forward = ffn()
-        self.norm_ff = nn.LayerNorm(size, eps=1e-5)
-        self.norm_mha = nn.LayerNorm(size, eps=1e-5)
+        self.norm_ff = LayerNorm(size, eps=1e-5)
+        self.norm_mha = LayerNorm(size, eps=1e-5)
         if macaron_style:
             self.feed_forward_macaron = ffn()
-            self.norm_ff_macaron = nn.LayerNorm(size, eps=1e-5)
+            self.norm_ff_macaron = LayerNorm(size, eps=1e-5)
         if use_cnn_module:
             self.conv_module = ConvolutionModule(size, cnn_module_kernel, activation_type)
-            self.norm_conv = nn.LayerNorm(size, eps=1e-5)
-            self.norm_final = nn.LayerNorm(size, eps=1e-5)
+            self.norm_conv = LayerNorm(size, eps=1e-5)
+            self.norm_final = LayerNorm(size, eps=1e-5)
 
     def _sublayer(self, x, norm, fn, scale=1.0):
         """Residual sub-block with pre- or post-norm; dropout on its output."""
@@ -280,6 +284,7 @@ class ConformerEncoder(nn.Module):
             raise ValueError(f"input_layer {input_layer!r} is not ported")
         self.input_layer = input_layer
         self.normalize_before = normalize_before
+        self.compute_dtype = None
         self.encoders = nn.ModuleList(
             EncoderLayer(
                 attention_dim, attention_heads, linear_units,
@@ -291,12 +296,14 @@ class ConformerEncoder(nn.Module):
             for _ in range(num_blocks)
         )
         if normalize_before:
-            self.after_norm = nn.LayerNorm(attention_dim, eps=1e-5)
+            self.after_norm = LayerNorm(attention_dim, eps=1e-5)
 
     def forward(self, xs, mask=None, pad_mask_t=None):
         """xs: [B, T] token ids ("embed") or [B, T, C]; mask: [B, 1, T] key
         mask; pad_mask_t: [B, T] frame validity. Returns [B, T, C]."""
         h = self.embed[0](xs) if self.input_layer == "embed" else xs
+        if self.compute_dtype is not None:
+            h = h.to(self.compute_dtype)
         if self.rel_pos:
             h, pos_emb = self.embed[-1](h)
         else:

@@ -37,6 +37,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from jatts_torch.modules import layers
 from jatts_torch.modules.attention import _flash_ok
 from jatts_torch.modules.dropout import Dropout
 from jatts_torch.modules.valle_modules import Dense, trunc_normal_
@@ -107,21 +108,17 @@ class TimestepEmbedding(nn.Module):
         return self.time_mlp(sinus_position_embedding(t, self.freq_embed_dim))
 
 
-class Conv1d(nn.Conv1d):
-    """flax ``nn.Conv(padding="SAME", dtype=compute_dtype)`` on [B, C, T]:
-    input, weight and bias cast to the compute dtype; lecun-normal weight
-    (fan-in ``k·C_in/groups``), zero bias."""
+class Conv1d(layers.Conv1d):
+    """flax ``nn.Conv(padding="SAME", dtype=compute_dtype)`` on [B, C, T]
+    (``modules/layers.py:Conv1d``); lecun-normal weight (fan-in
+    ``k·C_in/groups``), zero bias."""
 
     def __init__(self, channels: int, kernel_size: int, groups: int, compute_dtype=torch.float32, device=None):
-        super().__init__(channels, channels, kernel_size, padding=kernel_size // 2, groups=groups, device=device)
-        self.compute_dtype = compute_dtype
+        super().__init__(channels, channels, kernel_size, padding=kernel_size // 2, groups=groups, device=device,
+                         compute_dtype=compute_dtype)
         with torch.no_grad():
             trunc_normal_(self.weight, 1.0 / math.sqrt(kernel_size * channels // groups))
             self.bias.zero_()
-
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        dt = self.compute_dtype
-        return self._conv_forward(x.to(dt), self.weight.to(dt), self.bias.to(dt))
 
 
 class Mish(nn.Module):

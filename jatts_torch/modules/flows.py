@@ -236,10 +236,13 @@ class StochasticDurationPredictor(nn.Module):
         """``e_q`` (training) and ``z`` (inference, before ``noise_scale``)
         are ``[B, T, 2]`` N(0, 1) draws, from ``noise_generator`` (training)
         or ``generator`` (inference, else ``noise_generator``) unless given."""
-        x, x_mask = x.detach().transpose(1, 2), x_mask.transpose(1, 2)
+        # the JAX predictor takes no ``dtype``: its flax layers promote a
+        # compute-dtype input to their float32 parameters; here it is cast once
+        dt = self.pre.weight.dtype
+        x, x_mask = x.detach().to(dt).transpose(1, 2), x_mask.to(dt).transpose(1, 2)
         x = self.pre(x)
         if g is not None:
-            x = x + self.global_conv(g.detach().transpose(1, 2))
+            x = x + self.global_conv(g.detach().to(dt).transpose(1, 2))
         x = self.proj(self.dds(x, x_mask)) * x_mask
         shape = (x.shape[0], 2, x.shape[2])
 

@@ -19,6 +19,10 @@ The attention is plain ``torch.matmul`` and softmax with the JAX package's
 -1e9 key mask: the JAX package computes it as an einsum, outside any Pallas
 kernel. GroupNorm's statistics include the padded frames, in both packages.
 The U-Net halves the time axis and doubles it back, so T must be even.
+Under a compute dtype (``modules/layers.py``, the JAX modules' ``dtype``)
+the convolutions, projections and norms compute in it; SnakeBeta's
+``alpha``/``beta`` and the masks stay float32, so a block's output is
+float32 where the JAX one's is.
 """
 
 from __future__ import annotations
@@ -31,6 +35,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from jatts_torch.modules.dropout import Dropout
+from jatts_torch.modules.layers import Conv1d, ConvTranspose1d, GroupNorm, LayerNorm, Linear, in_dtype
 
 _MASK_VAL = -1e9
 
@@ -55,8 +60,8 @@ class TimestepEmbedding(nn.Module):
 
     def __init__(self, in_dim: int, time_embed_dim: int):
         super().__init__()
-        self.linear_1 = nn.Linear(in_dim, time_embed_dim)
-        self.linear_2 = nn.Linear(time_embed_dim, time_embed_dim)
+        self.linear_1 = Linear(in_dim, time_embed_dim)
+        self.linear_2 = Linear(time_embed_dim, time_embed_dim)
 
     def forward(self, sample: torch.Tensor) -> torch.Tensor:
         return self.linear_2(F.silu(self.linear_1(sample)))
@@ -74,7 +79,7 @@ class Block1D(nn.Module):
     def __init__(self, dim: int, dim_out: int, groups: int = 8):
         super().__init__()
         self.block = nn.Sequential(
-            nn.Conv1d(dim, dim_out, 3, padding=1), nn.GroupNorm(groups, dim_out, eps=1e-5), Mish()
+            Conv1d(dim, dim_out, 3, padding=1), GroupNorm(groups, dim_out, eps=1e-5), Mish()
         )
 
     def forward(self, x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
@@ -84,10 +89,10 @@ class Block1D(nn.Module):
 class ResnetBlock1D(nn.Module):
     def __init__(self, dim: int, dim_out: int, time_emb_dim: int, groups: int = 8):
         super().__init__()
-        self.mlp = nn.Sequential(Mish(), nn.Linear(time_emb_dim, dim_out))
+        self.mlp = nn.Sequential(Mish(), Linear(time_emb_dim, dim_out))
         self.block1 = Block1D(dim, dim_out, groups)
         self.block2 = Block1D(dim_out, dim_out, groups)
-        self.res_conv = nn.Conv1d(dim, dim_out, 1)
+        self.res_conv = Conv1d(dim, dim_out, 1)
 
     def forward(self, x: torch.Tensor, mask: torch.Tensor, time_emb: torch.Tensor) -> torch.Tensor:
         h = self.block1(x, mask)
@@ -102,7 +107,7 @@ class SnakeBeta(nn.Module):
 
     def __init__(self, dim: int, inner_dim: int):
         super().__init__()
-        self.proj = nn.Linear(dim, inner_dim)
+        self.proj = Linear(dim, inner_dim)
         self.alpha = nn.Parameter(torch.zeros(inner_dim))
         self.beta = nn.Parameter(torch.zeros(inner_dim))
 
@@ -117,7 +122,7 @@ class SnakeBetaFF(nn.Module):
 
     def __init__(self, dim: int, inner_dim: int, dropout_rate: float = 0.0):
         super().__init__()
-        self.net = nn.Sequential(SnakeBeta(dim, inner_dim), Dropout(dropout_rate), nn.Linear(inner_dim, dim))
+        self.net = nn.Sequential(SnakeBeta(dim, inner_dim), Dropout(dropout_rate), Linear(inner_dim, dim))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.net(x)
@@ -126,11 +131,11 @@ class SnakeBetaFF(nn.Module):
 class _Attention(nn.Module):
     def __init__(self, dim: int, inner: int, dropout_rate: float):
         super().__init__()
-        self.to_q = nn.Linear(dim, inner, bias=False)
-        self.to_k = nn.Linear(dim, inner, bias=False)
-        self.to_v = nn.Linear(dim, inner, bias=False)
+        self.to_q = Linear(dim, inner, bias=False)
+        self.to_k = Linear(dim, inner, bias=False)
+        self.to_v = Linear(dim, inner, bias=False)
         # diffusers' to_out = [Linear, Dropout(p)]
-        self.to_out = nn.ModuleList([nn.Linear(inner, dim), Dropout(dropout_rate)])
+        self.to_out = nn.ModuleList([Linear(inner, dim), Dropout(dropout_rate)])
 
 
 class BasicTransformerBlock(nn.Module):
@@ -146,10 +151,11 @@ class BasicTransformerBlock(nn.Module):
             # the JAX package builds SnakeBeta whatever act_fn says
             raise ValueError(f"act_fn {act_fn!r}: only snakebeta is built")
         self.num_heads, self.head_dim = num_heads, head_dim
+        self.compute_dtype = None
         inner = num_heads * head_dim
-        self.norm1 = nn.LayerNorm(dim, eps=1e-5)
+        self.norm1 = LayerNorm(dim, eps=1e-5)
         self.attn1 = _Attention(dim, inner, dropout_rate)
-        self.norm3 = nn.LayerNorm(dim, eps=1e-5)
+        self.norm3 = LayerNorm(dim, eps=1e-5)
         self.ff = SnakeBetaFF(dim, dim * 4, dropout_rate)
 
     def forward(self, x: torch.Tensor, attn_mask: torch.Tensor = None) -> torch.Tensor:
@@ -160,7 +166,7 @@ class BasicTransformerBlock(nn.Module):
             return lin(h).reshape(b, t, self.num_heads, self.head_dim).transpose(1, 2)
 
         q, k, v = heads(self.attn1.to_q), heads(self.attn1.to_k), heads(self.attn1.to_v)
-        scores = torch.matmul(q, k.transpose(-1, -2)) / math.sqrt(self.head_dim)
+        scores = torch.matmul(q, k.transpose(-1, -2)) / in_dtype(math.sqrt(self.head_dim), self.compute_dtype)
         if attn_mask is not None:
             scores = scores.masked_fill(~attn_mask[:, None, None, :], _MASK_VAL)
         out = torch.matmul(torch.softmax(scores, dim=-1), v)
@@ -202,7 +208,7 @@ class MatchaDecoder(nn.Module):
         prev = in_dim
         for i, ch in enumerate(chans):
             last = i == len(chans) - 1
-            down = nn.Conv1d(ch, ch, 3, padding=1) if last else _Resample(nn.Conv1d(ch, ch, 3, 2, 1))
+            down = Conv1d(ch, ch, 3, padding=1) if last else _Resample(Conv1d(ch, ch, 3, 2, 1))
             self.down_blocks.append(nn.ModuleList([ResnetBlock1D(prev, ch, temb), tfs(ch), down]))
             prev = ch
         self.mid_blocks = nn.ModuleList(
@@ -216,11 +222,11 @@ class MatchaDecoder(nn.Module):
             last = i == len(up_chans) - 2
             # ConvTranspose1d(4, stride 2, padding 1) doubles T, as the JAX
             # package's ConvTranspose with padding (2, 2) and transpose_kernel
-            up = (nn.Conv1d(out_ch, out_ch, 3, padding=1) if last
-                  else _Resample(nn.ConvTranspose1d(out_ch, out_ch, 4, 2, 1)))
+            up = (Conv1d(out_ch, out_ch, 3, padding=1) if last
+                  else _Resample(ConvTranspose1d(out_ch, out_ch, 4, 2, 1)))
             self.up_blocks.append(nn.ModuleList([ResnetBlock1D(2 * up_chans[i], out_ch, temb), tfs(out_ch), up]))
         self.final_block = Block1D(up_chans[-1], up_chans[-1])
-        self.final_proj = nn.Conv1d(up_chans[-1], out_channels, 1)
+        self.final_proj = Conv1d(up_chans[-1], out_channels, 1)
 
     @staticmethod
     def _transformers(blocks, h, m):

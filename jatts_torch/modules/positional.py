@@ -1,7 +1,9 @@
 """Positional encodings (counterpart of jatts_tpu/modules/positional.py).
 
 Tables are built in float64 with numpy, like the JAX package, and cast to
-the activation dtype. They are non-persistent buffers: no state_dict keys,
+the activation dtype. Under a compute dtype (``modules/layers.py``) the
+``sqrt(d)`` scale is rounded to it first, as the JAX modules' ``jnp.sqrt(
+jnp.asarray(d, x.dtype))`` is. They are non-persistent buffers: no state_dict keys,
 as in the reference. In training the encodings apply dropout
 (``dropout_rate``) where the JAX modules do: to the scaled input, and for
 the relative encodings also to the positional table.
@@ -17,6 +19,7 @@ import torch
 from torch import nn
 
 from jatts_torch.modules.dropout import Dropout
+from jatts_torch.modules.layers import in_dtype
 
 
 def sinusoid_table(t: int, d_model: int) -> np.ndarray:
@@ -67,17 +70,22 @@ def rel_table(t: int, d_model: int, device: torch.device, dtype: torch.dtype) ->
     return torch.from_numpy(np.ascontiguousarray(rel_sinusoid_table(t, d_model))).to(device, dtype)
 
 
+def _sqrt_d(enc: nn.Module) -> float:
+    return in_dtype(math.sqrt(enc.d_model), enc.compute_dtype)
+
+
 class PositionalEncoding(nn.Module):
     """Absolute sinusoidal PE: ``x*sqrt(d) + pe``."""
 
     def __init__(self, d_model: int, dropout_rate: float = 0.0):
         super().__init__()
         self.d_model = d_model
+        self.compute_dtype = None
         self.dropout = Dropout(dropout_rate)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         pe = abs_table(x.shape[1], self.d_model, x.device, x.dtype)
-        return self.dropout(x * math.sqrt(self.d_model) + pe[None])
+        return self.dropout(x * _sqrt_d(self) + pe[None])
 
 
 class ScaledPositionalEncoding(nn.Module):
@@ -105,6 +113,7 @@ class LegacyRelPositionalEncoding(nn.Module):
         super().__init__()
         self.d_model = d_model
         self.max_len = max_len
+        self.compute_dtype = None
         self.dropout = Dropout(dropout_rate)
         table = sinusoid_table(max_len, d_model)[::-1].copy()
         self.register_buffer("pe", torch.from_numpy(table).float(), persistent=False)
@@ -115,7 +124,7 @@ class LegacyRelPositionalEncoding(nn.Module):
             pe = self.pe[:t].to(x.dtype)
         else:
             pe = _table(sinusoid_table(t, self.d_model)[::-1][:t], x)
-        return self.dropout(x * math.sqrt(self.d_model)), self.dropout(pe[None])
+        return self.dropout(x * _sqrt_d(self)), self.dropout(pe[None])
 
 
 class RelPositionalEncoding(nn.Module):
@@ -124,8 +133,9 @@ class RelPositionalEncoding(nn.Module):
     def __init__(self, d_model: int, dropout_rate: float = 0.0):
         super().__init__()
         self.d_model = d_model
+        self.compute_dtype = None
         self.dropout = Dropout(dropout_rate)
 
     def forward(self, x: torch.Tensor):
         pe = rel_table(x.shape[1], self.d_model, x.device, x.dtype)
-        return self.dropout(x * math.sqrt(self.d_model)), self.dropout(pe[None])
+        return self.dropout(x * _sqrt_d(self)), self.dropout(pe[None])

@@ -13,6 +13,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from jatts_torch.modules.dropout import Dropout
+from jatts_torch.modules.layers import Conv1d, LayerNorm, Linear
 
 
 class ConvReluNormStack(nn.ModuleList):
@@ -24,9 +25,9 @@ class ConvReluNormStack(nn.ModuleList):
     ):
         super().__init__(
             nn.Sequential(
-                nn.Conv1d(idim if i == 0 else n_chans, n_chans, kernel_size, padding="same"),
+                Conv1d(idim if i == 0 else n_chans, n_chans, kernel_size, padding="same"),
                 nn.ReLU(),
-                nn.LayerNorm(n_chans, eps=1e-5),
+                LayerNorm(n_chans, eps=1e-5),
                 Dropout(dropout_rate),
             )
             for i in range(n_layers)
@@ -48,7 +49,7 @@ class DurationPredictor(nn.Module):
     ):
         super().__init__()
         self.conv = ConvReluNormStack(idim, n_layers, n_chans, kernel_size, dropout_rate)
-        self.linear = nn.Linear(n_chans, 1)
+        self.linear = Linear(n_chans, 1)
 
     def forward(self, xs, x_masks=None):
         xs = self.linear(self.conv(xs))[..., 0]
@@ -64,7 +65,7 @@ class VariancePredictor(nn.Module):
     ):
         super().__init__()
         self.conv = ConvReluNormStack(idim, n_layers, n_chans, kernel_size, dropout_rate)
-        self.linear = nn.Linear(n_chans, 1)
+        self.linear = Linear(n_chans, 1)
 
     def forward(self, xs, x_masks=None):
         xs = self.linear(self.conv(xs))

@@ -14,6 +14,7 @@ from torch import nn
 
 from jatts_torch.modules.batchnorm import BatchNorm1d
 from jatts_torch.modules.dropout import Dropout
+from jatts_torch.modules.layers import Conv1d
 
 
 class Postnet(nn.Module):
@@ -35,7 +36,7 @@ class Postnet(nn.Module):
         for i in range(n_layers):
             ichans = odim if i == 0 else n_chans
             ochans = odim if i == n_layers - 1 else n_chans
-            layer = [nn.Conv1d(ichans, ochans, n_filts, padding="same", bias=False)]
+            layer = [Conv1d(ichans, ochans, n_filts, padding="same", bias=False)]
             if use_batch_norm:
                 layer.append(BatchNorm1d(ochans, eps=1e-5))
             self.postnet.append(nn.Sequential(*layer))

@@ -33,7 +33,9 @@ import torch.nn.functional as F
 from torch import nn
 
 from jatts_torch.modules.attention import _flash_ok
+from jatts_torch.modules import layers
 from jatts_torch.modules.dropout import Dropout
+from jatts_torch.modules.layers import Linear
 from jatts_torch.ops.flash_attention import flash_attention
 
 _MASK_VAL = -1e9
@@ -47,37 +49,24 @@ def trunc_normal_(w: torch.Tensor, std: float) -> torch.Tensor:
     return nn.init.trunc_normal_(w, std=s, a=-2.0 * s, b=2.0 * s)
 
 
-class Dense(nn.Linear):
-    """flax ``nn.Dense(dtype=compute_dtype)``: input, weight and bias cast to
-    the compute dtype; lecun-normal weight, zero bias."""
+class Dense(Linear):
+    """flax ``nn.Dense(dtype=compute_dtype)`` (``modules/layers.py:Linear``);
+    lecun-normal weight, zero bias."""
 
     def __init__(self, in_features, out_features, bias=True, compute_dtype=torch.float32, device=None):
-        super().__init__(in_features, out_features, bias=bias, device=device)
-        self.compute_dtype = compute_dtype
+        super().__init__(in_features, out_features, bias=bias, device=device, compute_dtype=compute_dtype)
         with torch.no_grad():
             trunc_normal_(self.weight, 1.0 / math.sqrt(in_features))
             if self.bias is not None:
                 self.bias.zero_()
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        dt = self.compute_dtype
-        bias = None if self.bias is None else self.bias.to(dt)
-        return F.linear(x.to(dt), self.weight.to(dt), bias)
 
-
-class LayerNorm(nn.LayerNorm):
+class LayerNorm(layers.LayerNorm):
     """flax ``nn.LayerNorm(epsilon=1e-5, dtype=compute_dtype)``: statistics
     and affine in float32, output in the compute dtype."""
 
     def __init__(self, d: int, compute_dtype=torch.float32, device=None):
-        super().__init__(d, eps=1e-5, device=device)
-        self.compute_dtype = compute_dtype
-
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        # float32 statistics and affine, whatever the parameters' dtype (the
-        # decode CLI's bf16 weights)
-        y = F.layer_norm(x.float(), self.normalized_shape, self.weight.float(), self.bias.float(), self.eps)
-        return y.to(self.compute_dtype)
+        super().__init__(d, eps=1e-5, device=device, compute_dtype=compute_dtype)
 
 
 class AdaLN(nn.Module):

@@ -20,10 +20,10 @@ import math
 from typing import Optional, Tuple
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
 from jatts_torch.modules.conformer import ConformerEncoder
+from jatts_torch.modules.layers import Conv1d
 from jatts_torch.modules.wavenet import WaveNet
 from jatts_torch.ops.masks import attn_mask, sequence_mask
 
@@ -66,7 +66,7 @@ class TextEncoder(nn.Module):
             selfattention_layer_type=selfattention_layer_type, dropout_rate=dropout_rate,
             positional_dropout_rate=positional_dropout_rate, attention_dropout_rate=attention_dropout_rate,
         )
-        self.proj = nn.Conv1d(attention_dim, attention_dim * 2, 1)
+        self.proj = Conv1d(attention_dim, attention_dim * 2, 1)
 
     def forward(self, xs: torch.Tensor, ilens: torch.Tensor):
         """xs [B, T_text] ids -> (h [B, T, d], m, logs [B, T, d], mask [B, T, 1]).
@@ -76,7 +76,7 @@ class TextEncoder(nn.Module):
         emb = self.emb(xs) * math.sqrt(self.attention_dim)
         h = self.encoder(emb, attn_mask(ilens, t_text))
         mask = sequence_mask(ilens, t_text, h.dtype)[..., None]
-        stats = F.linear(h, self.proj.weight[..., 0], self.proj.bias) * mask
+        stats = self.proj.pointwise(h) * mask
         m, logs = stats.chunk(2, dim=-1)
         return h, m, logs, mask
 
@@ -98,14 +98,14 @@ class PosteriorEncoder(nn.Module):
         use_weight_norm: bool = True,
     ):
         super().__init__()
-        self.input_conv = nn.Conv1d(in_channels, hidden_channels, 1)
+        self.input_conv = Conv1d(in_channels, hidden_channels, 1)
         self.encoder = WaveNet(
             kernel_size=kernel_size, layers=layers, stacks=stacks, base_dilation=base_dilation,
             residual_channels=hidden_channels, gate_channels=hidden_channels * 2,
             skip_channels=hidden_channels, global_channels=global_channels,
             dropout_rate=dropout_rate, use_weight_norm=use_weight_norm,
         )
-        self.proj = nn.Conv1d(hidden_channels, out_channels * 2, 1)
+        self.proj = Conv1d(hidden_channels, out_channels * 2, 1)
         self.noise_generator: Optional[torch.Generator] = None
 
     def forward(
@@ -148,14 +148,14 @@ class ResidualAffineCouplingLayer(nn.Module):
     ):
         super().__init__()
         self.use_only_mean = use_only_mean
-        self.input_conv = nn.Conv1d(half_channels, hidden_channels, 1)
+        self.input_conv = Conv1d(half_channels, hidden_channels, 1)
         self.encoder = WaveNet(
             kernel_size=kernel_size, layers=layers, stacks=1, base_dilation=base_dilation,
             residual_channels=hidden_channels, gate_channels=hidden_channels * 2,
             skip_channels=hidden_channels, global_channels=global_channels,
             dropout_rate=dropout_rate, use_weight_norm=use_weight_norm,
         )
-        self.proj = nn.Conv1d(hidden_channels, half_channels * (1 if use_only_mean else 2), 1)
+        self.proj = Conv1d(hidden_channels, half_channels * (1 if use_only_mean else 2), 1)
         nn.init.zeros_(self.proj.weight)
         nn.init.zeros_(self.proj.bias)
 

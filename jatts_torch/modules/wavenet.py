@@ -29,6 +29,7 @@ class WNConv(nn.Module):
     # for utils/initialize.py: v is a torch [out, in, k] weight; g is a
     # per-channel scale (flax's 1-dim ``g``), left as it is
     INIT_RULES = {"weight_v": "torch_layout", "weight_g": "keep", "weight": "torch_layout"}
+    compute_dtype: Optional[torch.dtype] = None  # modules/layers.py; set by the model
 
     def __init__(
         self,
@@ -58,7 +59,13 @@ class WNConv(nn.Module):
         return v * (self.weight_g / norm)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.conv1d(x, self.kernel(), self.bias, padding=self.padding, dilation=self.dilation)
+        dt = self.compute_dtype
+        if dt is None:
+            return F.conv1d(x, self.kernel(), self.bias, padding=self.padding, dilation=self.dilation)
+        # the JAX module: the weight-normed kernel in float32, then the
+        # convolution in the compute dtype and the bias added after it
+        y = F.conv1d(x.to(dt), self.kernel().to(dt), None, padding=self.padding, dilation=self.dilation)
+        return y if self.bias is None else y + self.bias.to(dt)[None, :, None]
 
 
 class ResidualBlock(nn.Module):

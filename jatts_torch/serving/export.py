@@ -109,12 +109,17 @@ def _weights_from_npz(z, meta: Dict[str, Any], prefix: str = "w",
 
 def module_spec(module: torch.nn.Module, params: Dict[str, Any]) -> Dict[str, Any]:
     """How :func:`load_bundle` rebuilds ``module``: its class, constructor
-    keywords (``params``; a ``dtype`` there is the constructor's dtype, else
-    the parameters' dtype is) and its parameters' dtype."""
+    keywords (``params``), its constructor's dtype and its parameters'
+    dtype. A model with a ``compute_dtype`` (FastSpeech2, the Matcha family,
+    VITS) names its own, ``None`` where it casts nothing; for another module
+    a ``dtype`` in ``params`` is the constructor's dtype, else the
+    parameters' dtype is."""
     params = dict(params)
     param_dtype = _dtype_name(next(module.parameters()).dtype)
-    return {"class": type(module).__name__, "params": params,
-            "dtype": params.pop("dtype", None) or param_dtype, "param_dtype": param_dtype}
+    dtype = params.pop("dtype", None) or param_dtype
+    if hasattr(module, "compute_dtype"):
+        dtype = None if module.compute_dtype is None else _dtype_name(module.compute_dtype)
+    return {"class": type(module).__name__, "params": params, "dtype": dtype, "param_dtype": param_dtype}
 
 
 def _rebuild(spec: Dict[str, Any], state_dict: Dict[str, torch.Tensor], device) -> torch.nn.Module:
@@ -130,7 +135,8 @@ def _rebuild(spec: Dict[str, Any], state_dict: Dict[str, torch.Tensor], device) 
                                        HiFiGANGenerator)}
     if spec["class"] not in classes:
         raise ValueError(f"the artifact names an unknown module class {spec['class']!r}")
-    module = classes[spec["class"]](**spec["params"], device=device, dtype=DTYPES[spec["dtype"]])
+    dtype = None if spec["dtype"] is None else DTYPES[spec["dtype"]]
+    module = classes[spec["class"]](**spec["params"], device=device, dtype=dtype)
     module.to(DTYPES[spec["param_dtype"]])
     module.load_state_dict(state_dict, strict=True)
     return module.eval()

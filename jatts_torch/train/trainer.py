@@ -26,10 +26,14 @@ is accepted and has no effect: the K steps run one by one, which the JAX
 package pins as equal (tests/test_train_loop.py). ``rng_impl`` (the TPU's
 dropout-mask generator) is accepted and has no effect either.
 
-The parameters are float32; a model may compute in another dtype (VALL-E's
-``dtype: bfloat16``), as the JAX modules do. Not ported: the device mesh
-(data, tensor and sequence parallelism), multihost, the tensorboard writer
-and the intermediate-results hook.
+The parameters are float32; a model may compute in another dtype
+(``model_params.dtype``, flax's compute dtype), as the JAX modules do.
+Each log interval writes the averaged ``train/*`` stats, ``train/lr`` and,
+on the card, ``mem/*`` to an event file in ``outdir`` (``utils/events.py``),
+each eval interval ``eval/*``, at the JAX trainer's tags and steps; after
+the eval interval ``eval_hook(trainer)`` runs (``train/intermediate.py``).
+Not ported: the device mesh (data, tensor and sequence parallelism) and
+multihost.
 """
 
 from __future__ import annotations
@@ -47,6 +51,7 @@ from jatts_torch.modules.dropout import set_dropout_generator
 from jatts_torch.modules.noise import set_noise_generator
 from jatts_torch.train.schedulers import build_optimizer, build_schedule, clip_by_global_norm, global_norm
 from jatts_torch.utils.checkpoint import find_latest_checkpoint, restore_checkpoint, save_checkpoint
+from jatts_torch.utils.events import EventWriter
 from jatts_torch.utils.initialize import initialize
 
 # the noise generator's seeds: the dropout seeds with the top bit set
@@ -69,6 +74,7 @@ class Trainer:
         dev_loader=None,
         outdir: str = "exp/tmp",
         seed: int = 0,
+        eval_hook: Optional[Callable[["Trainer"], None]] = None,
     ):
         mesh = config.get("mesh") or {}
         if int(mesh.get("model", 1)) > 1 or mesh.get("sequence_parallel"):
@@ -113,7 +119,26 @@ class Trainer:
         self.total_train_loss: Dict[str, float] = defaultdict(float)
         self.finish_train = False
         self.request_stop = False
+        self.eval_hook = eval_hook
+        self._writer: Optional[EventWriter] = None
         os.makedirs(outdir, exist_ok=True)
+
+    @property
+    def writer(self) -> EventWriter:
+        """The scalar event file in ``outdir`` (``utils/events.py``), made at
+        the first logged scalar."""
+        if self._writer is None:
+            self._writer = EventWriter(self.outdir)
+        return self._writer
+
+    def _device_memory_stats(self) -> Dict[str, float]:
+        """``mem/*`` in GiB, as the JAX trainer logs them; none on the CPU."""
+        if self.device.type != "cuda":
+            return {}
+        return {
+            "mem/bytes_in_use_gb": torch.cuda.memory_allocated(self.device) / 2**30,
+            "mem/peak_bytes_gb": torch.cuda.max_memory_allocated(self.device) / 2**30,
+        }
 
     # -- state ------------------------------------------------------------
     def init_state(self) -> None:
@@ -242,10 +267,15 @@ class Trainer:
 
     def _log_interval(self, interval: int, t0: float) -> None:
         dt = time.time() - t0
-        msgs = [f"{k}={v / interval:.4f}" for k, v in sorted(self.total_train_loss.items())]
+        msgs = []
+        for k, v in sorted(self.total_train_loss.items()):
+            self.writer.add_scalar(k, v / interval, self.steps)
+            msgs.append(f"{k}={v / interval:.4f}")
         lr = self.schedule(self.steps // self.accum)
-        if self.device.type == "cuda":
-            msgs.append(f"mem/peak_gb={torch.cuda.max_memory_allocated(self.device) / 2**30:.2f}")
+        self.writer.add_scalar("train/lr", lr, self.steps)
+        for k, v in self._device_memory_stats().items():
+            self.writer.add_scalar(k, v, self.steps)
+            msgs.append(f"{k}={v:.2f}")
         logging.info(
             f"(steps {self.steps}) {' '.join(msgs)} lr={lr:.2e} "
             f"({interval / max(dt, 1e-9):.2f} steps/s)"
@@ -261,10 +291,16 @@ class Trainer:
             for k, v in self.eval_step(batch).items():
                 totals[k] += v
             count += 1
+        for k, v in totals.items():
+            # loss functions emit 'train/<name>': the tag is 'eval/<name>'
+            tag = k.split("/", 1)[1] if k.startswith("train/") else k
+            self.writer.add_scalar(f"eval/{tag}", v / max(count, 1), self.steps)
         logging.info(
             f"(steps {self.steps}) eval "
             + " ".join(f"{k}={v / max(count, 1):.4f}" for k, v in sorted(totals.items()))
         )
+        if self.eval_hook is not None:
+            self.eval_hook(self)
 
     # -- checkpoint -------------------------------------------------------
     def save_checkpoint(self) -> str:

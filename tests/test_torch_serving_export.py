@@ -186,7 +186,7 @@ def test_exported_fastspeech2_matches_jax_build_infer_fn(fs2_pair, tmp_path, out
 
 def test_artifact_round_trip_keeps_meta_and_bf16_bits(tmp_path):
     torch.manual_seed(0)
-    fs2 = _centre_durations(FastSpeech2(**FS2, device="cpu", dtype=torch.bfloat16))
+    fs2 = _centre_durations(FastSpeech2(**FS2, device="cpu", dtype=torch.bfloat16).to(torch.bfloat16))
     voc = HiFiGANGenerator(**VOC, device="cpu", dtype=torch.bfloat16)
     stats = _stats(1)
     chunk_voc = HiFiGANGenerator(**VOC, device="cpu")

@@ -202,7 +202,7 @@ def test_clip_matches_optax_below_at_and_above(ratio):
 
 
 def test_trainer_refuses_other_dtypes_and_stops_on_request(tmp_path):
-    bf16 = FastSpeech2(**FS2_CONFIG, device="cpu", dtype=torch.bfloat16)
+    bf16 = FastSpeech2(**FS2_CONFIG, device="cpu").to(torch.bfloat16)
     with pytest.raises(TypeError, match="float32"):
         Trainer(_config(), bf16, {}, fastspeech2_loss, FakeLoader([]), outdir=str(tmp_path))
     model = FastSpeech2(**FS2_CONFIG, device="cpu")
