@@ -117,9 +117,11 @@ Phases, each of which fails the run with a non-zero exit:
      pair (192, 64), at a ragged T, at T = 1, at Tq != Tk, with rows that see
      no key and with keys that start inside a tile, each output within its
      tolerance of every batch item's own max(1, max|plain|); the f32 dk/dv
-     and dq on the 3xTF32 tensor-core kernels (``flash_attn_bwd_tc_f32.cu``,
-     each launch checked from the counters), with the same bits on a second
-     run and for an item alone, the scalar ones checked on the same inputs;
+     and dq on the 3xTF32 tensor-core kernels (``flash_attn_bwd_tc_f32.cu``),
+     the bf16 ones on the bf16 tensor-core kernels
+     (``flash_attn_bwd_tc_relpos.cu``; each launch checked from the
+     counters), with the same bits on a second run and for an item alone,
+     the scalar ones checked on the same inputs;
      the backward also against autograd through the plain forward; then
      their times at the training decoder shape (f32, by CUDA events and by
      graph replay, the scalar forward, dk/dv and dq on the same inputs
@@ -264,9 +266,12 @@ Phases, each of which fails the run with a non-zero exit:
      ``flash`` (median ms of 10 steps after 2, device-busy ms of a profiled
      step, peak GiB, the launches of each forward and backward route, held
      to the dispatch rules; the two dtypes' first-step losses within 2e-2);
-     the scalar bf16 backwards a bf16 flash step takes (K1-bwd with the
-     ``matrix_bd`` bias at d 192, K1r's (576, 192)) against their plain
-     twins at the step's shapes, timed beside the plain backward and SDPA;
+     the bf16 backwards a bf16 flash step takes (the scalar K1-bwd with the
+     ``matrix_bd`` bias at d 192; K1r's (576, 192) on its bf16 tensor-core
+     kernels, no launch on its scalar ones, which are checked and timed
+     beside on the same inputs) against their plain twins at the step's
+     shapes, timed (K1r's also by graph replay) beside the plain backward,
+     SDPA's forward+backward and the bounds;
      Matcha-TTS's tts1 step at 16 x 704 x 96 and a VITS micro-step at 8 x
      896 x 112 past ``dp_train_start_steps``, f32 and bf16 alternating in 3
      rounds of 20 steps, each dtype's host profile (op events, casts and
@@ -346,8 +351,9 @@ def ptxas_entry(line: str) -> str:
             args.append("f32")
             rest = rest[1:]
         elif rest.startswith("Lb"):
-            if name.group(1) == "flash_attn_bwd_tc_f32_kernel" and not {"dq", "dk/dv"} & set(args):
-                args.append("dq" if rest[2] == "1" else "dk/dv")  # <D_QK, D_V, DQ, BIAS>
+            if name.group(1) in ("flash_attn_bwd_tc_f32_kernel", "flash_attn_bwd_tc_relpos_kernel") and not {
+                    "dq", "dk/dv"} & set(args):
+                args.append("dq" if rest[2] == "1" else "dk/dv")  # <D_QK, D_V, DQ(, BIAS)>
             elif name.group(1) == "flash_attn_bwd_tc_f32_kernel":
                 args.append("bias" if rest[2] == "1" else "no bias")
             elif name.group(1) == "mas_path_kernel":
@@ -1619,6 +1625,14 @@ def _tc_f32_bwd_launches():
     return (k1.launches_bwd_dkv_tc_f32, k1.launches_bwd_dq_tc_f32)
 
 
+def _tc_bwd_launches():
+    """K1r's dk/dv and dq on their tensor-core kernels: the 3xTF32 ones (f32),
+    then the bf16 ones."""
+    from jatts_torch.ops import flash_attention as k1
+
+    return _tc_f32_bwd_launches() + (k1.launches_bwd_dkv_tc_relpos, k1.launches_bwd_dq_tc_relpos)
+
+
 def check_k1r(name, shape, dims, dtype_name, rows, seed, against_autograd=False):
     """The three K1r kernels against flash_attention_ref /
     flash_attention_bwd_ref on the same inputs (the backward fed the plain
@@ -1628,12 +1642,12 @@ def check_k1r(name, shape, dims, dtype_name, rows, seed, against_autograd=False)
     own max(1, max|plain|) (item_err), and each launch on the kernel the
     dispatch rules give the form: the forward on the tensor cores (bf16) or
     the 3xTF32 kernel (f32), the f32 dk/dv and dq on the 3xTF32 tensor-core
-    kernels (each of their counters one up with its ``_relpos`` one), the
-    bf16 ones on the scalar kernels. In f32 also the backward's bits from run
-    to run and for item 1 alone, and the scalar dk/dv and dq on the same
-    inputs. Returns the largest |kernel - plain| of the forward, of the
-    backward, and of the scalar backward (f32; None in bf16, where the
-    backward is the scalar one)."""
+    kernels, the bf16 ones on the bf16 tensor-core kernels
+    (``csrc/flash_attn_bwd_tc_relpos.cu``; each of their counters one up with
+    its ``_relpos`` one). Also the backward's bits from run to run and for
+    item 1 alone, and the scalar dk/dv and dq on the same inputs. Returns
+    the largest |kernel - plain| of the forward, of the backward, and of the
+    scalar backward."""
     import torch
 
     from jatts_torch.ops import flash_attention as k1
@@ -1643,7 +1657,7 @@ def check_k1r(name, shape, dims, dtype_name, rows, seed, against_autograd=False)
     scale = dims[1] ** -0.5  # 1/sqrt(d_k), as the attention layer passes it
     before = _legacy_launches()
     counter = "launches_tc_f32" if dtype_name == "f32" else "launches_tc"
-    tc_before, relpos_before, bwd_tc_before = getattr(k1, counter), _relpos_launches(), _tc_f32_bwd_launches()
+    tc_before, relpos_before, bwd_tc_before = getattr(k1, counter), _relpos_launches(), _tc_bwd_launches()
     out_k, lse_k = k1.flash_attention_fwd(q, k, v, None, key_mask, scale)
     out_nolse = k1.flash_attention(q, k, v, None, key_mask, scale)
     o, lse = k1.flash_attention_ref(q.float(), k.float(), v.float(), None, key_mask, scale, return_lse=True)
@@ -1652,10 +1666,10 @@ def check_k1r(name, shape, dims, dtype_name, rows, seed, against_autograd=False)
     check(_legacy_launches() == before, f"K1r {name}: a d_qk == d_v kernel launched")
     check(getattr(k1, counter) - tc_before == 2, f"K1r {name}: the forward missed its tensor-core kernel ({counter})")
     relpos = tuple(a - b for a, b in zip(_relpos_launches(), relpos_before))
-    bwd_tc = tuple(a - b for a, b in zip(_tc_f32_bwd_launches(), bwd_tc_before))
-    on_tc = dtype_name == "f32"
-    check(relpos == (2, 1, 1) and bwd_tc == ((1, 1) if on_tc else (0, 0)),
-          f"K1r {name}: launches (relpos forward, dk/dv, dq) {relpos}, on the 3xTF32 dk/dv and dq {bwd_tc}")
+    bwd_tc = tuple(a - b for a, b in zip(_tc_bwd_launches(), bwd_tc_before))
+    check(relpos == (2, 1, 1) and bwd_tc == ((1, 1, 0, 0) if dtype_name == "f32" else (0, 0, 1, 1)),
+          f"K1r {name}: launches (relpos forward, dk/dv, dq) {relpos}, on the 3xTF32 and the bf16 tensor-core "
+          f"dk/dv and dq {bwd_tc}")
     want = k1.flash_attention_bwd_ref(q.float(), k.float(), v.float(), None, key_mask, scale, o, lse, do.float())
     check(bool(torch.equal(out_k, out_nolse)), f"K1r {name}: the forward with and without lse differ")
     tol = TOL_K1R[dtype_name]
@@ -1680,30 +1694,30 @@ def check_k1r(name, shape, dims, dtype_name, rows, seed, against_autograd=False)
     unseen = ~key_mask[:, None, :, None]
     check(bool((got[1].masked_select(unseen) == 0).all()) and bool((got[2].masked_select(unseen) == 0).all()),
           f"K1r {name}: dk or dv of a key that no row sees is not 0")
-    extra, scalar_err = "", None
-    if on_tc:
-        # no atomics: the same bits on a second run and for item 1 alone
-        di = (o * do.float()).sum(-1)
-        again = (*k1.flash_attention_bwd_dkv(q, k, v, None, key_mask, scale, lse, di, do),
-                 k1.flash_attention_bwd_dq(q, k, v, None, key_mask, scale, lse, di, do)[0])
-        one = [x[1:2].contiguous() for x in (q, k, v, key_mask, lse, di, do)]
-        alone = (*k1.flash_attention_bwd_dkv(*one[:3], None, one[3], scale, *one[4:]),
-                 k1.flash_attention_bwd_dq(*one[:3], None, one[3], scale, *one[4:])[0])
-        # the scalar kernels on the same inputs
-        scalar = (torch.empty_like(k), torch.empty_like(v), torch.empty_like(q))
-        k1._launch_bwd("dkv", q, k, v, None, key_mask, scale, lse, di, do, scalar[0], scalar[1], False,
-                       _lib=k1.KERNEL_BWD)
-        k1._launch_bwd("dq", q, k, v, None, key_mask, scale, lse, di, do, scalar[2], None, False, _lib=k1.KERNEL_BWD)
-        torch.cuda.synchronize()
-        mine = (got[1], got[2], got[0])
-        check(all(torch.equal(a, b) for a, b in zip(again, mine)), f"K1r {name}: dk, dv, dq differ between runs")
-        check(all(torch.equal(a, b[1:2]) for a, b in zip(alone, mine)),
-              f"K1r {name}: item 1 alone differs from item 1 in its batch")
-        scalar_rel = max(item_err(g_, w) for g_, w in zip(scalar, (want[1], want[2], want[0])))
-        scalar_err = max((g_.float() - w).abs().max().item() for g_, w in zip(scalar, (want[1], want[2], want[0])))
-        check(scalar_rel <= tol, f"K1r {name}: the scalar backward on the same inputs err {scalar_rel} > {tol}")
-        extra = (f"; dk/dv and dq on the 3xTF32 tensor-core kernels, the same bits on a second run and for item 1 "
-                 f"alone; the scalar dk/dv and dq on the same inputs {scalar_rel:.2e}")
+    # no atomics: the same bits on a second run and for item 1 alone (di as
+    # the wrapper forms it, from o in the inputs' dtype)
+    di = (o.to(dtype).float() * do.float()).sum(-1)
+    again = (*k1.flash_attention_bwd_dkv(q, k, v, None, key_mask, scale, lse, di, do),
+             k1.flash_attention_bwd_dq(q, k, v, None, key_mask, scale, lse, di, do)[0])
+    one = [x[1:2].contiguous() for x in (q, k, v, key_mask, lse, di, do)]
+    alone = (*k1.flash_attention_bwd_dkv(*one[:3], None, one[3], scale, *one[4:]),
+             k1.flash_attention_bwd_dq(*one[:3], None, one[3], scale, *one[4:])[0])
+    # the scalar kernels on the same inputs
+    scalar = (torch.empty_like(k), torch.empty_like(v), torch.empty_like(q))
+    k1._launch_bwd("dkv", q, k, v, None, key_mask, scale, lse, di, do, scalar[0], scalar[1], False,
+                   _lib=k1.KERNEL_BWD)
+    k1._launch_bwd("dq", q, k, v, None, key_mask, scale, lse, di, do, scalar[2], None, False, _lib=k1.KERNEL_BWD)
+    torch.cuda.synchronize()
+    mine = (got[1], got[2], got[0])
+    check(all(torch.equal(a, b) for a, b in zip(again, mine)), f"K1r {name}: dk, dv, dq differ between runs")
+    check(all(torch.equal(a, b[1:2]) for a, b in zip(alone, mine)),
+          f"K1r {name}: item 1 alone differs from item 1 in its batch")
+    scalar_rel = max(item_err(g_, w) for g_, w in zip(scalar, (want[1], want[2], want[0])))
+    scalar_err = max((g_.float() - w).abs().max().item() for g_, w in zip(scalar, (want[1], want[2], want[0])))
+    check(scalar_rel <= tol, f"K1r {name}: the scalar backward on the same inputs err {scalar_rel} > {tol}")
+    extra = (f"; dk/dv and dq on the {'3xTF32' if dtype_name == 'f32' else 'bf16'} tensor-core kernels, the "
+             f"same bits on a second run and for item 1 alone; the scalar dk/dv and dq on the same inputs "
+             f"{scalar_rel:.2e}")
     print(
         f"K1r check {name} {dtype_name} B,H,Tq,Tk={q.shape[0]},{q.shape[1]},{q.shape[2]},{k.shape[2]} "
         f"d_qk,d_v={dims[0]},{dims[1]}: "
@@ -1880,16 +1894,14 @@ def k1r_phase(seed, where):
     """Phase 13: every K1r case, then the times. Returns the largest errors
     of the forward by dtype (bf16 runs the tensor-core kernel, f32 the
     3xTF32 one) and of the backward by kernel ("tc_f32": the f32 dk/dv and
-    dq; "scalar": the bf16 ones and the scalar kernels on the f32 cases'
-    inputs), and the times."""
-    fwd_err, bwd_err = {"f32": 0.0, "bf16": 0.0}, {"tc_f32": 0.0, "scalar": 0.0}
+    dq; "tc_relpos": the bf16 ones; "scalar": the scalar kernels on every
+    case's inputs), and the times."""
+    fwd_err, bwd_err = {"f32": 0.0, "bf16": 0.0}, {"tc_f32": 0.0, "tc_relpos": 0.0, "scalar": 0.0}
     for i, (name, shape, dims, dtype_name, rows) in enumerate(k1r_cases()):
         fe, be, se = check_k1r(name, shape, dims, dtype_name, rows, seed + i, against_autograd=(name == "f32"))
         fwd_err[dtype_name] = max(fwd_err[dtype_name], fe)
-        if dtype_name == "f32":
-            bwd_err["tc_f32"], bwd_err["scalar"] = max(bwd_err["tc_f32"], be), max(bwd_err["scalar"], se)
-        else:
-            bwd_err["scalar"] = max(bwd_err["scalar"], be)
+        key = "tc_f32" if dtype_name == "f32" else "tc_relpos"
+        bwd_err[key], bwd_err["scalar"] = max(bwd_err[key], be), max(bwd_err["scalar"], se)
     return fwd_err, bwd_err, time_k1r(seed + 100, where)
 
 
@@ -5316,7 +5328,8 @@ MP_SMALL_ROUNDS = 3  # rounds, f32 and bf16 alternating in each
 MP_CLI_STEPS = 4  # the bf16 CLI run: an eval interval at 2 and 4
 # the backward routes a FastSpeech2 step can take, by the counters of ops/flash_attention.py
 MP_ROUTES = ("launches", "launches_relpos", "launches_tc", "launches_tc_f32", "launches_bwd_dkv", "launches_bwd_dq",
-             "launches_bwd_dkv_relpos", "launches_bwd_dq_relpos", "launches_bwd_dkv_tc_f32", "launches_bwd_dq_tc_f32")
+             "launches_bwd_dkv_relpos", "launches_bwd_dq_relpos", "launches_bwd_dkv_tc_f32", "launches_bwd_dq_tc_f32",
+             "launches_bwd_dkv_tc_relpos", "launches_bwd_dq_tc_relpos")
 
 
 def mp_batch(shape, odim, seed, spk_dim=0, pitch=True):
@@ -5434,9 +5447,11 @@ def mp_fs2_steps(root, seed, where):
     """The JSUT and JVS-latest FastSpeech2 steps at 24 x 896 in f32 and in
     bf16 compute, under ``xla`` and ``flash``, side by side on the same
     seed-made weights and batch; the launches each step takes, checked
-    against the dispatch rules (bf16 + flash: the tensor-core forward and
-    the scalar backward; f32 + flash: the 3xTF32 kernels; xla: none), and
-    each dtype's first-step loss against the other's."""
+    against the dispatch rules (bf16 + flash: the tensor-core forward, and
+    the backward on K1r's bf16 tensor-core kernels at JVS-latest, none on its
+    scalar ones, or on the scalar K1-bwd with its bias at JSUT; f32 + flash:
+    the 3xTF32 kernels; xla: none), and each dtype's first-step loss against
+    the other's."""
     from jatts_torch.utils.config import load_config
 
     out = {}
@@ -5462,10 +5477,15 @@ def mp_fs2_steps(root, seed, where):
                 else:
                     check(fwd == dkv == dq == 8 * steps, f"{label}: forward, dk/dv, dq launches {fwd, dkv, dq}")
                     tc = (n["launches_tc"], n["launches_tc_f32"], n["launches_bwd_dkv_tc_f32"],
-                          n["launches_bwd_dq_tc_f32"])
-                    want = (8 * steps, 0, 0, 0) if dtype_name == "bf16" else (0, 8 * steps, 8 * steps, 8 * steps)
+                          n["launches_bwd_dq_tc_f32"], n["launches_bwd_dkv_tc_relpos"], n["launches_bwd_dq_tc_relpos"])
+                    relpos_bf16 = (8 * steps, 8 * steps) if rel else (0, 0)
+                    want = ((8 * steps, 0, 0, 0, *relpos_bf16) if dtype_name == "bf16"
+                            else (0, 8 * steps, 8 * steps, 8 * steps, 0, 0))
                     check(tc == want, f"{label}: tensor-core routes {tc} != {want}")
-                res["scalar_bwd"] = (dkv, dq) if dtype_name == "bf16" and backend == "flash" else (0, 0)
+                # the launches on the scalar backward: K1-bwd's bf16 form with its bias (JSUT); 0 at JVS-latest
+                res["scalar_bwd"] = ((dkv - n["launches_bwd_dkv_tc_relpos"], dq - n["launches_bwd_dq_tc_relpos"])
+                                     if dtype_name == "bf16" and backend == "flash" else (0, 0))
+                check(not rel or res["scalar_bwd"] == (0, 0), f"{label}: scalar K1r backward {res['scalar_bwd']}")
                 out[(which, backend, dtype_name)] = res
                 del tr
         for backend in ("xla", "flash"):
@@ -5478,10 +5498,13 @@ def mp_fs2_steps(root, seed, where):
 
 
 def check_mp_bwd(seed, where):
-    """The scalar bf16 backwards a bf16 ``flash`` step launches, each against
-    its plain twin at the step's shapes (K1-bwd with the ``matrix_bd`` bias
-    at d 192, JSUT; K1r's (576, 192), JVS-latest), then timed with every key
-    valid beside the plain backward and SDPA's forward+backward."""
+    """The bf16 backwards a bf16 ``flash`` step launches, each against its
+    plain twin at the step's shapes (K1-bwd with the ``matrix_bd`` bias at d
+    192, JSUT, on the scalar kernels; K1r's (576, 192), JVS-latest, on its
+    bf16 tensor-core kernels, the scalar ones on the same inputs beside),
+    then timed with every key valid beside the plain backward, SDPA's
+    forward+backward and the bounds; K1r's also by graph replay, the scalar
+    kernels beside."""
     import torch
 
     from jatts_torch.ops import flash_attention as k1
@@ -5514,19 +5537,29 @@ def check_mp_bwd(seed, where):
     r["bounds"] = dict(zip(("dkv", "dq"), k1bwd_bounds_ms(b, 2, t, 192, 2, "bf16")))
     res["k1"] = r
     del q, k, v, ab, do, o, lse, di, qs, ks, vs, bias
-    # K1r: the bf16 (576, 192) form
-    _, rerr, _ = check_k1r("JVS-latest step, bf16", (b, 2, t), K1R_DIMS, "bf16", [(0, t), (0, t - 101)], seed)
+    # K1r: the bf16 (576, 192) form, on its tensor-core kernels
+    _, rerr, rserr = check_k1r("JVS-latest step, bf16", (b, 2, t), K1R_DIMS, "bf16", [(0, t), (0, t - 101)], seed)
     q, k, v, _, do = k1r_inputs((b, 2, t), K1R_DIMS, torch.bfloat16, [(0, t)], seed + 2)
     scale = 192 ** -0.5  # d_k of the model; the features ride in d_qk
     o, lse = k1.flash_attention_fwd(q, k, v, None, full, scale)
     di = (o.float() * do.float()).sum(-1)
-    r = {"dkv": time_ms(lambda: k1.flash_attention_bwd_dkv(q, k, v, None, full, scale, lse, di, do), iters=3,
-                        warmup=1),
-         "dq": time_ms(lambda: k1.flash_attention_bwd_dq(q, k, v, None, full, scale, lse, di, do), iters=3,
-                       warmup=1),
+    dk, dv, dq = torch.empty_like(k), torch.empty_like(v), torch.empty_like(q)
+
+    def dkv():
+        return k1.flash_attention_bwd_dkv(q, k, v, None, full, scale, lse, di, do)
+
+    def dq_():
+        return k1.flash_attention_bwd_dq(q, k, v, None, full, scale, lse, di, do)
+
+    r = {"dkv": time_ms(dkv, iters=10, warmup=2), "dq": time_ms(dq_, iters=10, warmup=2),
+         "dkv_graph": graph_ms(dkv, iters=10, replays=3), "dq_graph": graph_ms(dq_, iters=10, replays=3),
+         "dkv_scalar": time_ms(lambda: k1._launch_bwd("dkv", q, k, v, None, full, scale, lse, di, do, dk, dv, False,
+                                                      _lib=k1.KERNEL_BWD), iters=3, warmup=1),
+         "dq_scalar": time_ms(lambda: k1._launch_bwd("dq", q, k, v, None, full, scale, lse, di, do, dq, None, False,
+                                                     _lib=k1.KERNEL_BWD), iters=3, warmup=1),
          "plain_ms": time_ms(lambda: k1.flash_attention_bwd_ref(q, k, v, None, full, scale, o, lse, do), iters=3,
                              warmup=1),
-         "max_abs_err": rerr, "shape": [b, 2, t, *K1R_DIMS]}
+         "max_abs_err": rerr, "scalar_max_abs_err": rserr, "shape": [b, 2, t, *K1R_DIMS]}
     qs, ks, vs = (x.detach().requires_grad_() for x in (q, k, v))
 
     def sdpa_r():
@@ -5536,12 +5569,19 @@ def check_mp_bwd(seed, where):
     r["library_ms"] = time_ms(sdpa_r, iters=3, warmup=1)
     r["bounds"] = {n: v for n, v in k1r_bounds_ms(b, 2, t, *K1R_DIMS, 2, "bf16", True).items() if n != "fwd"}
     res["k1r"] = r
+    del q, k, v, do, o, lse, di, qs, ks, vs, dk, dv, dq
     for name, r in res.items():
-        print(f"mixed precision, the scalar bf16 backward ({name}, B,H,T,d={r['shape']}, every key valid): dk/dv "
+        kind = "scalar" if name == "k1" else "tensor-core"
+        beside = "" if name == "k1" else (
+            f"; graph replay dk/dv {r['dkv_graph']:.4f} ms, dq {r['dq_graph']:.4f} ms; the scalar kernels on the same "
+            f"inputs dk/dv {r['dkv_scalar']:.4f} ms, dq {r['dq_scalar']:.4f} ms (max_abs_err "
+            f"{r['scalar_max_abs_err']:.2e}); each kernel under sdpa forward+backward: "
+            f"{r['dkv'] < r['library_ms'] and r['dq'] < r['library_ms']}")
+        print(f"mixed precision, the {kind} bf16 backward ({name}, B,H,T,d={r['shape']}, every key valid): dk/dv "
               f"{r['dkv']:.4f} ms (bound {r['bounds']['dkv'][0]:.4f} by {r['bounds']['dkv'][1]}), dq {r['dq']:.4f} "
               f"ms (bound {r['bounds']['dq'][0]:.4f} by {r['bounds']['dq'][1]}); plain backward {r['plain_ms']:.4f} "
-              f"ms; sdpa forward+backward {r['library_ms']:.4f} ms; max_abs_err {r['max_abs_err']:.2e}; {where}",
-              flush=True)
+              f"ms; sdpa forward+backward {r['library_ms']:.4f} ms; max_abs_err {r['max_abs_err']:.2e}{beside}; "
+              f"{where}", flush=True)
     return res
 
 
@@ -5711,11 +5751,13 @@ def mp_cli_run(root, align_paths, freqs, seed, where):
     return {"run_s": run_s, "launches": launches, "scalars": len(scalars)}
 
 
-def mp_bwd_entry(r, key):
-    """A scalar bf16 backward kernel's numbers at a phase-21 step's shape,
-    for the record."""
-    return {"shape": r["shape"], "ms": r[key], "plain_ms": r["plain_ms"], "library_ms": r["library_ms"],
-            "bound_ms": r["bounds"][key][0], "bound_by": r["bounds"][key][1], "max_abs_err": r["max_abs_err"]}
+def mp_bwd_entry(r, key, scalar=False):
+    """A bf16 backward kernel's numbers at a phase-21 step's shape, for the
+    record; ``scalar``: K1r's scalar kernels, timed beside its tensor-core
+    ones."""
+    ms, err = (r[f"{key}_scalar"], r["scalar_max_abs_err"]) if scalar else (r[key], r["max_abs_err"])
+    return {"shape": r["shape"], "ms": ms, "plain_ms": r["plain_ms"], "library_ms": r["library_ms"],
+            "bound_ms": r["bounds"][key][0], "bound_by": r["bounds"][key][1], "max_abs_err": err}
 
 
 def mixed_precision_slice(root, align_paths, freqs, seed, where):
@@ -5732,7 +5774,7 @@ def mixed_precision_slice(root, align_paths, freqs, seed, where):
         return out
 
     fs2 = part("FastSpeech2 steps", mp_fs2_steps, root, seed, where)
-    bwd = part("scalar bf16 backward", check_mp_bwd, seed, where)
+    bwd = part("bf16 backward kernels", check_mp_bwd, seed, where)
     small = part("Matcha and VITS steps", mp_small_steps, root, seed, where)
     cli = part("bf16 CLI", mp_cli_run, root, align_paths, freqs, seed, where)
     def n(which, dtype_name, name):
@@ -5746,8 +5788,9 @@ def mixed_precision_slice(root, align_paths, freqs, seed, where):
         "tc_f32_relpos": n("jvs_latest", "f32", "launches_tc_f32"),
         "bwd_scalar": (n("jsut", "bf16", "launches_bwd_dkv") + cli["launches"]["launches_bwd_dkv"],
                        n("jsut", "bf16", "launches_bwd_dq") + cli["launches"]["launches_bwd_dq"]),
-        "bwd_scalar_relpos": (n("jvs_latest", "bf16", "launches_bwd_dkv_relpos"),
-                              n("jvs_latest", "bf16", "launches_bwd_dq_relpos")),
+        "bwd_scalar_relpos": fs2[("jvs_latest", "flash", "bf16")]["scalar_bwd"],
+        "bwd_tc_relpos": (n("jvs_latest", "bf16", "launches_bwd_dkv_tc_relpos"),
+                          n("jvs_latest", "bf16", "launches_bwd_dq_tc_relpos")),
         "bwd_tc_f32": (n("jsut", "f32", "launches_bwd_dkv_tc_f32"), n("jsut", "f32", "launches_bwd_dq_tc_f32")),
         "bwd_tc_f32_relpos": (n("jvs_latest", "f32", "launches_bwd_dkv_tc_f32"),
                               n("jvs_latest", "f32", "launches_bwd_dq_tc_f32")),
@@ -5801,7 +5844,7 @@ def main() -> int:
     t0 = time.perf_counter()
     nvcc_s = {}
     kernels = [k1.KERNEL, k1.KERNEL_TC, k1.KERNEL_TC_F32, k1.KERNEL_BWD, k1.KERNEL_BWD_TC, k1.KERNEL_BWD_TC_F32,
-               mas.KERNEL, mas.KERNEL_PATH]
+               k1.KERNEL_BWD_TC_RELPOS, mas.KERNEL, mas.KERNEL_PATH]
     reports = build.build(kernels, seconds=nvcc_s)
     print(f"build: {', '.join(kernels)} in {time.perf_counter() - t0:.1f} s (nvcc each: "
           + ", ".join(f"{n} {sec:.1f} s" for n, sec in nvcc_s.items()) + ")", flush=True)
@@ -5814,7 +5857,8 @@ def main() -> int:
             elif ("registers" in line or "spill" in line) and "(C75" not in line:
                 print(f"  ptxas {kernel} {entry}: {line.strip()}", flush=True)
                 spilled = re.search(r"(\d+) bytes spill stores", line)
-                no_spill = (k1.KERNEL_TC, k1.KERNEL_TC_F32, k1.KERNEL_BWD_TC, k1.KERNEL_BWD_TC_F32, mas.KERNEL_PATH)
+                no_spill = (k1.KERNEL_TC, k1.KERNEL_TC_F32, k1.KERNEL_BWD_TC, k1.KERNEL_BWD_TC_F32,
+                            k1.KERNEL_BWD_TC_RELPOS, mas.KERNEL_PATH)
                 if kernel in no_spill and spilled and int(spilled.group(1)):
                     spills.append(entry)
     # the tensor-core kernels hold their accumulators in registers, the
@@ -6089,8 +6133,8 @@ def main() -> int:
     art_tc, art = artifact_slice(tmp.name, args.seed, where)
 
     # 21. mixed precision: FastSpeech2 (JSUT, JVS-latest), Matcha-TTS and
-    # VITS steps in f32 and in bf16 compute side by side, the scalar bf16
-    # backward a flash step takes against its plain twin, a bf16 CLI run
+    # VITS steps in f32 and in bf16 compute side by side, the bf16 backward
+    # kernels a flash step takes against their plain twins, a bf16 CLI run
     # with the intermediate hook and the event file
     mp_n, mp = mixed_precision_slice(tmp.name, align_paths, freqs, args.seed, where)
     tmp.cleanup()
@@ -6329,11 +6373,12 @@ def main() -> int:
         "bound_ms": k1r_times["bounds"][key][0], "bound_by": k1r_times["bounds"][key][1],
         "cuda_core_bound_ms": cuda_core_ms(k1r_times["bounds"][key][3]),
         "library_ms": k1r_times["sdpa_fwd_ms" if key == "fwd" else "sdpa_ms"],
-        **({} if key == "fwd" else {"bf16_step": mp_bwd_entry(mp["bwd"]["k1r"], key)}),
+        **({} if key == "fwd" else {"bf16_step": mp_bwd_entry(mp["bwd"]["k1r"], key, scalar=True)}),
     } for name, src, line, key, n_serve, n_train, err, n_mp in (
         # the scalar K1r forward, dk/dv and dq no longer run on the main path:
-        # bf16 is the tensor-core forward's, f32 the 3xTF32 kernels'; timed
-        # beside them on the same inputs (the bf16 K1r backward stays here)
+        # the bf16 forward is the tensor-core kernel's, the bf16 backward the
+        # bf16 tensor-core kernels', f32 the 3xTF32 kernels'; timed beside
+        # them on the same inputs
         ("flash_attn_fwd", "flash_attn_fwd.cu", 758, "fwd", 0, jvs_launches[0] - jvs["fwd_tc_f32"],
          tc_f32_err["scalar_k1r"], 0),
         ("flash_attn_bwd_dkv", "flash_attn_bwd.cu", 1121, "dkv", 0, jvs_launches[1] - jvs["bwd_tc_f32"][0],
@@ -6353,6 +6398,20 @@ def main() -> int:
         "library_ms": k1r_times["sdpa_ms"], "library_backend": k1r_times["sdpa_backend"],
     } for key, line, n, n_mp in (("dkv", 1121, jvs["bwd_tc_f32"][0], mp_n["bwd_tc_f32_relpos"][0]),
                                  ("dq", 1456, jvs["bwd_tc_f32"][1], mp_n["bwd_tc_f32_relpos"][1]))] + [{
+        # K1r's bf16 dk/dv and dq on the tensor cores, the bf16-compute
+        # JVS-latest flash step's (phase 21); timed at its shape with every
+        # key valid, the scalar kernels (the form's before) on the same inputs
+        "name": f"{k1.KERNEL_BWD_TC_RELPOS}_{key}", "route": "cuda",
+        "source": f"jatts_torch/csrc/{k1.KERNEL_BWD_TC_RELPOS}.cu",
+        "replaces": f"jax/experimental/pallas/ops/tpu/flash_attention.py:{line}",
+        "launches": n_mp, "launches_by_path": {"mixed_precision_bf16_steps": n_mp},
+        "max_abs_err": max(k1r_bwd_err["tc_relpos"], r_mp["max_abs_err"]), "ms": r_mp[key],
+        "graph_ms": r_mp[f"{key}_graph"], "scalar_ms": r_mp[f"{key}_scalar"],
+        "scalar_max_abs_err": r_mp["scalar_max_abs_err"], "plain_ms": r_mp["plain_ms"],
+        "bound_ms": r_mp["bounds"][key][0], "bound_by": r_mp["bounds"][key][1], "library_ms": r_mp["library_ms"],
+        "shape": r_mp["shape"],
+    } for key, line, n_mp, r_mp in (("dkv", 1121, mp_n["bwd_tc_relpos"][0], mp["bwd"]["k1r"]),
+                                    ("dq", 1456, mp_n["bwd_tc_relpos"][1], mp["bwd"]["k1r"]))] + [{
         # the VALL-E NAR's bf16 non-causal dk/dv and dq (d 64, a key mask) on
         # the tensor cores; timed at its largest batch with every key valid,
         # the scalar kernels (the form's before) on the same inputs beside

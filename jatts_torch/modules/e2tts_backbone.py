@@ -153,6 +153,27 @@ class InputEmbedding(nn.Module):
         self.conv_pos_embed = ConvPositionEmbedding(dim, **cd)
 
 
+class _TableLookup(torch.autograd.Function):
+    """``weight[ids]`` whose gradient to the table is one product,
+    one_hot(ids)^T . grad, summed in a fixed order. The embedding's own
+    backward adds the rows with atomics on the card, so two identical steps
+    gave the table's gradient different last bits (every padded frame sends
+    its gradient to the filler row) and a run resumed from a checkpoint
+    drifted from the run bit by bit."""
+
+    @staticmethod
+    def forward(ctx, weight, ids):
+        ctx.save_for_backward(ids)
+        ctx.rows = weight.shape[0]
+        return F.embedding(ids, weight)
+
+    @staticmethod
+    def backward(ctx, grad):
+        (ids,) = ctx.saved_tensors
+        one_hot = F.one_hot(ids.reshape(-1), ctx.rows).to(grad.dtype)
+        return one_hot.t() @ grad.reshape(-1, grad.shape[-1]), None
+
+
 class TextEmbedding(nn.Module):
     """The filler-token text table, ``text_num_embeds + 1`` rows (row 0 the
     filler), flax's Embed init."""
@@ -287,7 +308,7 @@ class UNetT(nn.Module):
         nt = ids.shape[1]
         ids = F.pad(ids, (0, n - nt)) if nt < n else ids[:, :n]
         ids = torch.where(drop_text[:, None], torch.zeros_like(ids), ids)
-        emb = self.text_embed.text_embed(ids).to(self.compute_dtype)
+        emb = _TableLookup.apply(self.text_embed.text_embed.weight, ids).to(self.compute_dtype)
         if self.text_mask_padding:
             emb = emb.masked_fill((ids == 0)[..., None], 0.0)
         return emb

@@ -3,7 +3,8 @@ forms on the tensor cores in ``csrc/flash_attn_fwd_tc.cu``, its f32
 non-causal forms in 3xTF32 in ``csrc/flash_attn_fwd_tc_f32.cu``), K1-bwd — its
 backward (``csrc/flash_attn_bwd.cu``; K1b's bf16 dk/dv and dq at d 64 on the
 tensor cores in ``csrc/flash_attn_bwd_tc.cu``, K1r's and K1-bwd's f32 dk/dv
-and dq in 3xTF32 in ``csrc/flash_attn_bwd_tc_f32.cu``), K1b — the causal form
+and dq in 3xTF32 in ``csrc/flash_attn_bwd_tc_f32.cu``, K1r's bf16 dk/dv and dq
+on the tensor cores in ``csrc/flash_attn_bwd_tc_relpos.cu``), K1b — the causal form
 of both, K1r — the fused rel-pos form of both (d_qk != d_v), and their plain
 twins.
 
@@ -54,8 +55,11 @@ f32 non-causal forms of ``BWD_TC_F32_FORMS``
 (K1r's pairs without a bias, K1-bwd's d 192 with or without one) to the
 3xTF32 tensor-core kernels (``launches_bwd_dkv_tc_f32`` and
 ``launches_bwd_dq_tc_f32``, besides the ``*_relpos`` counters or
-``launches_bwd_dkv`` and ``launches_bwd_dq``), every other form to the
-scalar ones. See the source notes in the ``.cu`` files for the bounds.
+``launches_bwd_dkv`` and ``launches_bwd_dq``), K1r's bf16 form (bf16,
+non-causal, a pair of ``RELPOS_PAIRS``, no bias) to the bf16 tensor-core
+kernels (``launches_bwd_dkv_tc_relpos`` and ``launches_bwd_dq_tc_relpos``,
+besides the ``*_relpos`` counters), every other form to the scalar ones.
+See the source notes in the ``.cu`` files for the bounds.
 """
 
 from __future__ import annotations
@@ -73,6 +77,7 @@ KERNEL_TC = "flash_attn_fwd_tc"
 KERNEL_TC_F32 = "flash_attn_fwd_tc_f32"
 KERNEL_BWD_TC = "flash_attn_bwd_tc"
 KERNEL_BWD_TC_F32 = "flash_attn_bwd_tc_f32"
+KERNEL_BWD_TC_RELPOS = "flash_attn_bwd_tc_relpos"
 HEAD_DIMS = (64, 128, 192, 256)
 # K1r's (d_qk, d_v) = (d_k + n_feat, d_k): 2 heads of 64 (adim 128) and of
 # 192 (adim 384, the JSUT/JVS width)
@@ -105,6 +110,8 @@ launches_bwd_dkv_relpos = 0  # K1r, dk/dv kernel
 launches_bwd_dq_relpos = 0  # K1r, dq kernel
 launches_bwd_dkv_tc_f32 = 0  # dk/dv calls (K1r or K1-bwd f32) that ran on the 3xTF32 tensor-core kernel
 launches_bwd_dq_tc_f32 = 0  # dq calls (K1r or K1-bwd f32) that ran on the 3xTF32 tensor-core kernel
+launches_bwd_dkv_tc_relpos = 0  # K1r bf16 dk/dv calls that ran on the tensor-core kernel
+launches_bwd_dq_tc_relpos = 0  # K1r bf16 dq calls that ran on the tensor-core kernel
 
 
 def reset_launches() -> None:
@@ -114,8 +121,10 @@ def reset_launches() -> None:
     global launches_bwd_dkv_tc, launches_bwd_dq_tc, launches_tc_f32
     global launches_bwd_dkv_tc_f32, launches_bwd_dq_tc_f32
     global launches_bwd_dkv_tc_noncausal, launches_bwd_dq_tc_noncausal
+    global launches_bwd_dkv_tc_relpos, launches_bwd_dq_tc_relpos
     launches = launches_bwd_dkv = launches_bwd_dq = launches_tc = launches_tc_f32 = 0
     launches_bwd_dkv_tc = launches_bwd_dq_tc = launches_bwd_dkv_tc_f32 = launches_bwd_dq_tc_f32 = 0
+    launches_bwd_dkv_tc_relpos = launches_bwd_dq_tc_relpos = 0
     launches_bwd_dkv_tc_noncausal = launches_bwd_dq_tc_noncausal = 0
     launches_causal = launches_bwd_dkv_causal = launches_bwd_dq_causal = 0
     launches_relpos = launches_bwd_dkv_relpos = launches_bwd_dq_relpos = 0
@@ -228,13 +237,16 @@ def _bwd_kernel(dtype: torch.dtype, causal: bool, d_qk: int, d_v: int, has_bias:
     """The backward's one rule: VALL-E's forms (bf16, d_qk = d_v = 64, no
     bias, causal or not) -> ``KERNEL_BWD_TC``; f32 non-causal at a (d_qk,
     d_v, bias) of ``BWD_TC_F32_FORMS`` (K1r's, and K1-bwd's at d 192) ->
-    ``KERNEL_BWD_TC_F32``; every other form (K1-bwd at d 64/128/256, bf16 at
-    d != 64 or with a bias, the bf16 K1r backward, f32 causal) ->
-    ``KERNEL_BWD``."""
+    ``KERNEL_BWD_TC_F32``; bf16 non-causal at a pair of ``RELPOS_PAIRS``
+    without a bias (K1r's bf16 form) -> ``KERNEL_BWD_TC_RELPOS``; every other
+    form (K1-bwd at d 64/128/256, bf16 at d_qk = d_v != 64 or with a bias,
+    f32 causal) -> ``KERNEL_BWD``."""
     if dtype == torch.bfloat16 and d_qk == d_v == 64 and not has_bias:
         return KERNEL_BWD_TC
     if dtype == torch.float32 and not causal and (d_qk, d_v, has_bias) in BWD_TC_F32_FORMS:
         return KERNEL_BWD_TC_F32
+    if dtype == torch.bfloat16 and not causal and (d_qk, d_v) in RELPOS_PAIRS and not has_bias:
+        return KERNEL_BWD_TC_RELPOS
     return KERNEL_BWD
 
 
@@ -243,8 +255,9 @@ def dkv_kernel(dtype: torch.dtype, causal: bool, d_qk: int, d_v: int, has_bias: 
     (tensor cores) for VALL-E's forms (bf16, d 64, no bias; the AR's causal
     one, ``launch_dkv<true>``, and the NAR's non-causal one,
     ``launch_dkv<false>``), ``KERNEL_BWD_TC_F32`` (tensor cores, 3xTF32) for
-    the f32 forms of ``BWD_TC_F32_FORMS``, else ``KERNEL_BWD`` (scalar; the
-    bf16 K1r form and K1-bwd's other forms stay there)."""
+    the f32 forms of ``BWD_TC_F32_FORMS``, ``KERNEL_BWD_TC_RELPOS`` (tensor
+    cores, bf16) for K1r's bf16 form, else ``KERNEL_BWD`` (scalar; K1-bwd's
+    other forms, bf16 with a bias among them, stay there)."""
     return _bwd_kernel(dtype, causal, d_qk, d_v, has_bias)
 
 
@@ -252,8 +265,9 @@ def dq_kernel(dtype: torch.dtype, causal: bool, d_qk: int, d_v: int, has_bias: b
     """The library a dq backward on the card takes, by :func:`dkv_kernel`'s
     rule: ``KERNEL_BWD_TC`` for VALL-E's forms (``launch_dq<true>`` causal,
     ``launch_dq<false>`` not), ``KERNEL_BWD_TC_F32`` for the f32 forms of
-    ``BWD_TC_F32_FORMS``, else ``KERNEL_BWD`` (scalar). With a bias, the
-    scalar kernel and the 3xTF32 one also write d(ab)."""
+    ``BWD_TC_F32_FORMS``, ``KERNEL_BWD_TC_RELPOS`` for K1r's bf16 form, else
+    ``KERNEL_BWD`` (scalar). With a bias, the scalar kernel and the 3xTF32
+    one also write d(ab)."""
     return _bwd_kernel(dtype, causal, d_qk, d_v, has_bias)
 
 
@@ -372,7 +386,8 @@ def _check_bwd(q, k, v, ab, key_mask, lse, di, do, causal) -> None:
         raise ValueError("flash_attention_bwd: lse, di, do must be contiguous on q's device")
 
 
-_BWD_SUFFIX = {KERNEL_BWD: "", KERNEL_BWD_TC: "_tc", KERNEL_BWD_TC_F32: "_tc_f32"}
+_BWD_SUFFIX = {KERNEL_BWD: "", KERNEL_BWD_TC: "_tc", KERNEL_BWD_TC_F32: "_tc_f32",
+               KERNEL_BWD_TC_RELPOS: "_tc_relpos"}
 
 
 def _launch_bwd(name, q, k, v, ab, key_mask, sm_scale, lse, di, do, out_a, out_b, causal, _lib=None):

@@ -235,6 +235,23 @@ def _attn_case(seed):
     return x, mask
 
 
+def test_text_table_gradient_is_the_embedding_gradient_in_one_product():
+    """The table's gradient is one_hot(ids)^T . grad (one product in a fixed
+    order: the embedding's own backward adds rows with atomics on the card);
+    the lookup is the embedding's bit for bit, the gradient within f32
+    rounding of it, with the filler row taking most of the positions."""
+    rng = np.random.default_rng(3)
+    weight = torch.from_numpy(rng.normal(size=(9, 5)).astype(np.float32)).requires_grad_()
+    ids = torch.from_numpy(np.where(rng.random((3, 40)) < 0.7, 0, rng.integers(1, 9, (3, 40))))
+    grad = torch.from_numpy(rng.normal(size=(3, 40, 5)).astype(np.float32))
+    out = bb._TableLookup.apply(weight, ids)
+    (got,) = torch.autograd.grad(out, weight, grad)
+    want_out = torch.nn.functional.embedding(ids, weight)
+    (want,) = torch.autograd.grad(want_out, weight, grad)
+    assert torch.equal(out, want_out)
+    assert torch.allclose(got, want, rtol=1e-6, atol=1e-6) and not torch.all(got == 0)
+
+
 @pytest.mark.parametrize("backend", ["xla", "flash"])
 def test_e2_attention_matches_jax_padded_call(backend):
     """E2Attention on S = 41 against JAX's on the sequence padded to 128

@@ -578,12 +578,15 @@ def test_truncating_sums_need_the_kernels_short_chains():
 def test_bwd_rule_sends_k1r_f32_to_the_3xtf32_kernels(dtype, causal, d_qk, d_v, has_bias):
     """f32, non-causal, a K1r pair without a bias or K1-bwd's (192, 192)
     with or without one -> the 3xTF32 dk/dv and dq; the bf16 K1r backward
-    and K1-bwd's other forms stay scalar (VALL-E's forms aside: bf16, d 64,
-    no bias, causal or not)."""
+    (non-causal, no bias) -> its own tensor-core kernels
+    (``tests/test_torch_flash_tc_relpos_bwd.py``); K1-bwd's other forms stay
+    scalar (VALL-E's forms aside: bf16, d 64, no bias, causal or not)."""
     f32_tc = dtype == torch.float32 and not causal and (
         ((d_qk, d_v) in k1.RELPOS_PAIRS and not has_bias) or (d_qk, d_v) == (192, 192))
     valle = dtype == torch.bfloat16 and (d_qk, d_v) == (64, 64) and not has_bias
-    want = k1.KERNEL_BWD_TC_F32 if f32_tc else k1.KERNEL_BWD_TC if valle else k1.KERNEL_BWD
+    relpos_bf16 = dtype == torch.bfloat16 and not causal and (d_qk, d_v) in k1.RELPOS_PAIRS and not has_bias
+    want = (k1.KERNEL_BWD_TC_F32 if f32_tc else k1.KERNEL_BWD_TC if valle
+            else k1.KERNEL_BWD_TC_RELPOS if relpos_bf16 else k1.KERNEL_BWD)
     assert k1.dkv_kernel(dtype, causal, d_qk, d_v, has_bias) == want
     assert k1.dq_kernel(dtype, causal, d_qk, d_v, has_bias) == want
 
@@ -598,10 +601,15 @@ def test_source_is_a_cluster_3xtf32_kernel_with_a_plain_c_interface():
     assert "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32" in header
     assert "(__float_as_uint(x) + 0x1000u) & 0xFFFFE000u" in header
     assert "wgmma_3xtf32(" in src and "split_tf32(" in src
-    # a cluster over the widths, the partials exchanged by st.async in distributed shared memory
+    # a cluster over the widths, the partials exchanged by st.async in
+    # distributed shared memory (the helpers in tc_cluster.cuh, shared with
+    # the bf16 K1r backward)
+    cluster = (CSRC / "tc_cluster.cuh").read_text()
     assert "cudaLaunchAttributeClusterDimension" in src and "cudaLaunchKernelEx" in src
-    assert "%%cluster_ctarank" in src and "mapa.shared::cluster" in src and "barrier.cluster" in src
-    assert "st.async.shared::cluster.mbarrier::complete_tx::bytes" in src
+    assert '#include "tc_cluster.cuh"' in src and '#include "tc_common.cuh"' in cluster
+    assert "%%cluster_ctarank" in cluster and "mapa.shared::cluster" in cluster and "barrier.cluster" in cluster
+    assert "st.async.shared::cluster.mbarrier::complete_tx::bytes" in cluster
+    assert "cluster_sync();" in src and "st_async4(" in src and "st_async_ack(" in src and "peer_addr(" in src
     assert "cp.async.bulk.tensor" in (CSRC / "tc_common.cuh").read_text() and "tma_load(" in src
     assert "torch/" not in src and "#include <ATen" not in src
     assert "atomicAdd" not in src and not re.search(r"\b(atom|red)\.(global|shared|add)", src)
@@ -617,7 +625,8 @@ def test_source_is_a_cluster_3xtf32_kernel_with_a_plain_c_interface():
     assert "put_dab2(c0, j, h, 0.f, 0.f)" in src and "put_dab2(c0, j, h, a[4 * j + 2 * h]" in src
     # the shared helpers live once, in the headers
     for helper in ("uint32_t tf32_rna(", "void wgmma_tf32(", "bool make_map_f32(", "void tma_load(", "void mbar_wait(",
-                   "void stage_bias2_f32(", "void cp_async8("):
+                   "void stage_bias2_f32(", "void cp_async8(", "void st_async4(", "uint32_t peer_addr(",
+                   "void mbar_wait_cluster(", "int slot_of("):
         assert helper not in src, helper
     assert src.count("__global__") == 1  # one template: the dk/dv kernel (DQ false) and the dq kernel
 

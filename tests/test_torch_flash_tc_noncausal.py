@@ -54,8 +54,10 @@ _item_err = chip_smoke.item_err  # max |got - want| over max(1, max|want|) of ea
 def test_bwd_rule_sends_both_valle_forms_to_the_tensor_cores(dtype, causal, d, has_bias):
     """bf16, d 64, no bias: the tensor-core dk/dv and dq, the AR's causal
     form and the NAR's non-causal one alike; bf16 with a bias or at another
-    width stays on the scalar kernels."""
+    width d_qk = d_v stays on the scalar kernels (K1r's bf16 kernels take
+    d_qk != d_v only: ``tests/test_torch_flash_tc_relpos_bwd.py``)."""
     rule = {k1.dkv_kernel(dtype, causal, d, d, has_bias), k1.dq_kernel(dtype, causal, d, d, has_bias)}
+    assert k1.KERNEL_BWD_TC_RELPOS not in rule
     if dtype == torch.bfloat16:
         assert rule == {k1.KERNEL_BWD_TC if d == 64 and not has_bias else k1.KERNEL_BWD}
     else:

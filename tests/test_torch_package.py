@@ -143,7 +143,8 @@ def test_resolve_device_defaults_to_cuda():
             resolve_device("cuda:0")
 
 
-@pytest.mark.parametrize("kernel", [k1.KERNEL, k1.KERNEL_TC, k1.KERNEL_BWD, k1.KERNEL_BWD_TC, mas.KERNEL])
+@pytest.mark.parametrize("kernel", [k1.KERNEL, k1.KERNEL_TC, k1.KERNEL_BWD, k1.KERNEL_BWD_TC, k1.KERNEL_BWD_TC_RELPOS,
+                                    mas.KERNEL])
 def test_kernel_build_command_targets_hopper(monkeypatch, kernel):
     monkeypatch.setattr(build, "nvcc_path", lambda: "nvcc")
     out = build.library_path(kernel)
