@@ -61,9 +61,13 @@ Phases, each of which fails the run with a non-zero exit:
      without bias, at a ragged length, with a masked leading key tile and
      with rows of no valid key (their dq and d(ab), unseen keys' dk and dv,
      masked keys' d(ab) exactly 0); the f32 d 192 forms on the 3xTF32
-     tensor-core kernels (``flash_attn_bwd_tc_f32.cu``, each launch checked
-     from the counters; the same bits on a second run; the scalar kernels
-     checked on the same inputs), every other form on the scalar ones;
+     tensor-core kernels (``flash_attn_bwd_tc_f32.cu``), the bf16 d 192
+     form with a bias on the bf16 tensor-core kernels
+     (``flash_attn_bwd_tc_bias.cu``; at T 1024 and 1000, the bias a TMA
+     box, and at 999 with a masked leading key tile and 1, the bias by
+     cp.async windows), each launch checked from the counters, the
+     same bits on a second run, the scalar kernels checked on the same
+     inputs; every other form on the scalar ones;
      against autograd through K1's plain version; then the kernels' times at
      the training decoder by CUDA events and graph replay beside the scalar
      kernels' on the same inputs, the plain version's, SDPA
@@ -266,18 +270,20 @@ Phases, each of which fails the run with a non-zero exit:
      ``flash`` (median ms of 10 steps after 2, device-busy ms of a profiled
      step, peak GiB, the launches of each forward and backward route, held
      to the dispatch rules; the two dtypes' first-step losses within 2e-2);
-     the bf16 backwards a bf16 flash step takes (the scalar K1-bwd with the
-     ``matrix_bd`` bias at d 192; K1r's (576, 192) on its bf16 tensor-core
-     kernels, no launch on its scalar ones, which are checked and timed
-     beside on the same inputs) against their plain twins at the step's
-     shapes, timed (K1r's also by graph replay) beside the plain backward,
-     SDPA's forward+backward and the bounds;
+     the bf16 backwards a bf16 flash step takes (K1-bwd with the
+     ``matrix_bd`` bias at d 192 on its bf16 tensor-core kernels, 8 dk/dv
+     and 8 dq a JSUT step; K1r's (576, 192) on its bf16 tensor-core kernels;
+     no launch on the scalar ones, which are checked and timed beside on the
+     same inputs) against their plain twins at the step's shapes, timed by
+     CUDA events and graph replay beside the plain backward, SDPA's
+     forward+backward (each new kernel must be under it) and the bounds;
      Matcha-TTS's tts1 step at 16 x 704 x 96 and a VITS micro-step at 8 x
      896 x 112 past ``dp_train_start_steps``, f32 and bf16 alternating in 3
-     rounds of 20 steps, each dtype's host profile (op events, casts and
+     rounds of 10 steps, each dtype's host profile (op events, casts and
      the host ms inside them); then
      ``bin/tts_train.py`` on the JSUT conf with ``dtype: bfloat16`` and
-     flash for 4 steps over two eval intervals: the intermediate hook's
+     flash for 4 steps over two eval intervals (every dk/dv and dq on
+     K1-bwd's bf16 tensor-core kernels with its bias): the intermediate hook's
      files (valid PNGs) and the event file read back by
      ``jatts_torch/utils/events.py`` with every CRC checked and ``mem/*``.
 The line before the last is the kernels' JSON record, the last line
@@ -988,19 +994,28 @@ def k1bwd_inputs(b, h, t, d, dtype, with_bias, seed):
     return q, k, v, ab, key_mask, do, lens
 
 
+def _k1bwd_tc_launches():
+    """(3xTF32 dk/dv, dq, bf16-with-a-bias dk/dv, dq) launches so far."""
+    from jatts_torch.ops import flash_attention as k1
+
+    return _tc_f32_bwd_launches() + (k1.launches_bwd_dkv_tc_bias, k1.launches_bwd_dq_tc_bias)
+
+
 def check_k1bwd(b, h, t, d, dtype_name, with_bias, seed, against_autograd=False, rows=None):
     """K1-bwd's four outputs against flash_attention_bwd_ref, both fed the
     plain forward's o and lse, each within TOL_BWD of every batch item's own
     max(1, max|plain|) (item_err); K1's own lse against the plain one; dq
     and d(ab) on rows that see no key, dk and dv on keys that no row sees
     and d(ab) on masked keys exactly 0. The f32 (192, 192) forms must run on
-    the 3xTF32 kernels and every other form on the scalar ones (by the
-    counters); on the 3xTF32 kernels also the same bits on a second run, and
-    the scalar kernels checked on the same inputs. ``rows``: the key mask as
-    (first valid key, count) per item, cycled over the batch, instead of
-    k1_inputs' lengths. Returns the largest |kernel - plain| over the
-    outputs, whether the 3xTF32 kernels ran, and the scalar kernels' largest
-    |kernel - plain| on the same inputs (None where they were the rule's)."""
+    the 3xTF32 kernels, the bf16 (192, 192) form with a bias on the bf16
+    tensor-core kernels with a bias, and every other form on the scalar ones
+    (by the counters); on a tensor-core route also the same bits on a second
+    run, the scalar kernels checked on the same inputs and the worst item
+    against float64. ``rows``: the key mask as (first valid key, count) per
+    item, cycled over the batch, instead of k1_inputs' lengths. Returns the
+    largest |kernel - plain| over the outputs, the library that ran
+    (``dkv_kernel``'s), and the scalar kernels' largest |kernel - plain| on
+    the same inputs (None where they were the rule's)."""
     import torch
 
     from jatts_torch.ops import flash_attention as k1
@@ -1013,13 +1028,20 @@ def check_k1bwd(b, h, t, d, dtype_name, with_bias, seed, against_autograd=False,
     scale = d ** -0.5
     o, lse = k1.flash_attention_ref(q, k, v, ab, key_mask, scale, return_lse=True)
     _, lse_k = k1.flash_attention_fwd(q, k, v, ab, key_mask, scale)
-    on_tc = k1.dkv_kernel(dtype, False, d, d, with_bias) == k1.KERNEL_BWD_TC_F32
-    check(on_tc == (dtype_name == "f32" and d == 192), f"K1-bwd {dtype_name} d {d}: the rule sends it to {on_tc}")
-    before = _tc_f32_bwd_launches()
+    lib = k1.dkv_kernel(dtype, False, d, d, with_bias)
+    # the tensor-core routes at d 192: f32 with or without a bias, bf16 with one
+    want_lib = (k1.KERNEL_BWD_TC_F32 if d == 192 and dtype_name == "f32"
+                else k1.KERNEL_BWD_TC_BIAS if d == 192 and with_bias else k1.KERNEL_BWD)
+    check(lib == want_lib and k1.dq_kernel(dtype, False, d, d, with_bias) == lib,
+          f"K1-bwd {dtype_name} d {d} bias={with_bias}: the rule sends it to {lib}, not {want_lib}")
+    on_tc = lib != k1.KERNEL_BWD
+    before = _k1bwd_tc_launches()
     got = k1.flash_attention_bwd(q, k, v, ab, key_mask, scale, o, lse, do)
     torch.cuda.synchronize()
-    ran = tuple(x - y for x, y in zip(_tc_f32_bwd_launches(), before))
-    check(ran == ((1, 1) if on_tc else (0, 0)), f"K1-bwd {dtype_name} d {d}: dk/dv and dq on the 3xTF32 kernels {ran}")
+    ran = tuple(x - y for x, y in zip(_k1bwd_tc_launches(), before))
+    want_ran = ((1, 1, 0, 0) if lib == k1.KERNEL_BWD_TC_F32 else (0, 0, 1, 1) if on_tc else (0, 0, 0, 0))
+    check(ran == want_ran, f"K1-bwd {dtype_name} d {d}: dk/dv and dq on the 3xTF32 and bf16 tensor-core kernels "
+                           f"{ran}, not {want_ran}")
 
     def f32(x):
         return None if x is None else x.float()
@@ -1051,7 +1073,7 @@ def check_k1bwd(b, h, t, d, dtype_name, with_bias, seed, against_autograd=False,
                  "that no row sees, or d(ab) of a masked key is not 0")
     extra, scalar_err = "", None
     if on_tc:
-        di = (o * do).sum(-1)
+        di = (o.float() * do.float()).sum(-1)
         again = k1.flash_attention_bwd(q, k, v, ab, key_mask, scale, o, lse, do)
         scalar = (torch.empty_like(q), torch.empty_like(k), torch.empty_like(v), None if ab is None else
                   torch.empty_like(ab))
@@ -1060,7 +1082,8 @@ def check_k1bwd(b, h, t, d, dtype_name, with_bias, seed, against_autograd=False,
         k1._launch_bwd("dq", q, k, v, ab, key_mask, scale, lse, di, do, scalar[0], scalar[3], False,
                        _lib=k1.KERNEL_BWD)
         torch.cuda.synchronize()
-        check(all(x is None or torch.equal(x, y) for x, y in zip(again, got)), "K1-bwd 3xTF32: bits differ between runs")
+        check(all(x is None or torch.equal(x, y) for x, y in zip(again, got)),
+              f"K1-bwd {lib}: bits differ between runs")
         pairs = [(g_, w) for g_, w in zip(scalar, want) if w is not None]
         scalar_rel = max(item_err(g_, w) for g_, w in pairs)
         scalar_err = max((g_ - w).abs().max().item() for g_, w in pairs)
@@ -1077,7 +1100,7 @@ def check_k1bwd(b, h, t, d, dtype_name, with_bias, seed, against_autograd=False,
         exact = (ds2 @ k2, ds2.transpose(-1, -2) @ q2, p2.transpose(-1, -2) @ do2, ds2)
         f64 = {name: (item_err(g_[i:i + 1], e), item_err(w[i:i + 1], e))
                for name, g_, w, e in zip(("dq", "dk", "dv", "dab"), got, want, exact) if w is not None}
-        extra = (f"; on the 3xTF32 tensor-core kernels, the same bits on a second run; the scalar kernels on the same "
+        extra = (f"; on {lib}, the same bits on a second run; the scalar kernels on the same "
                  f"inputs {scalar_rel:.2e}; the worst item ({int(key_mask[i].sum())} valid keys) against float64, "
                  f"kernels / plain f32: " + ", ".join(f"{n} {a:.2e} / {c:.2e}" for n, (a, c) in f64.items()))
     line = ", ".join(f"{n} {errs[n]:.2e} ({rel[n]:.2e})" for n in errs)
@@ -1095,7 +1118,7 @@ def check_k1bwd(b, h, t, d, dtype_name, with_bias, seed, against_autograd=False,
         print(f"K1-bwd vs autograd through the plain K1: worst item's max_abs_err over max(1, max|plain| of the "
               f"item) {ag_err:.2e} (tol {tol:.0e})", flush=True)
         check(ag_err <= tol, "K1-bwd disagrees with autograd of the plain K1")
-    return max(errs.values()), on_tc, scalar_err
+    return max(errs.values()), lib, scalar_err
 
 
 def k1bwd_bounds_ms(b, h, t, d, elem, dtype_name):
@@ -5323,13 +5346,15 @@ MP_MATCHA = (16, 704, 96)  # Matcha-TTS's tts1 step (phase 16's largest)
 MP_VITS = (8, 896, 112)  # a VITS micro-step (phase 17's largest)
 MP_TIMED = 10  # steps timed after MP_WARM warm-up steps
 MP_WARM = 2
-MP_SMALL_TIMED = 20  # the Matcha and VITS steps: timed steps a round
+MP_SMALL_TIMED = 10  # the Matcha and VITS steps: timed steps a round
 MP_SMALL_ROUNDS = 3  # rounds, f32 and bf16 alternating in each
 MP_CLI_STEPS = 4  # the bf16 CLI run: an eval interval at 2 and 4
+SDPA_ROUNDS = 5  # rounds of SDPA's forward+backward beside the bf16 backward pairs
 # the backward routes a FastSpeech2 step can take, by the counters of ops/flash_attention.py
 MP_ROUTES = ("launches", "launches_relpos", "launches_tc", "launches_tc_f32", "launches_bwd_dkv", "launches_bwd_dq",
              "launches_bwd_dkv_relpos", "launches_bwd_dq_relpos", "launches_bwd_dkv_tc_f32", "launches_bwd_dq_tc_f32",
-             "launches_bwd_dkv_tc_relpos", "launches_bwd_dq_tc_relpos")
+             "launches_bwd_dkv_tc_relpos", "launches_bwd_dq_tc_relpos", "launches_bwd_dkv_tc_bias",
+             "launches_bwd_dq_tc_bias")
 
 
 def mp_batch(shape, odim, seed, spk_dim=0, pitch=True):
@@ -5448,10 +5473,10 @@ def mp_fs2_steps(root, seed, where):
     bf16 compute, under ``xla`` and ``flash``, side by side on the same
     seed-made weights and batch; the launches each step takes, checked
     against the dispatch rules (bf16 + flash: the tensor-core forward, and
-    the backward on K1r's bf16 tensor-core kernels at JVS-latest, none on its
-    scalar ones, or on the scalar K1-bwd with its bias at JSUT; f32 + flash:
-    the 3xTF32 kernels; xla: none), and each dtype's first-step loss against
-    the other's."""
+    the backward on K1r's bf16 tensor-core kernels at JVS-latest or on
+    K1-bwd's bf16 tensor-core kernels with its bias at JSUT, none on the
+    scalar ones; f32 + flash: the 3xTF32 kernels; xla: none), and each
+    dtype's first-step loss against the other's."""
     from jatts_torch.utils.config import load_config
 
     out = {}
@@ -5477,15 +5502,19 @@ def mp_fs2_steps(root, seed, where):
                 else:
                     check(fwd == dkv == dq == 8 * steps, f"{label}: forward, dk/dv, dq launches {fwd, dkv, dq}")
                     tc = (n["launches_tc"], n["launches_tc_f32"], n["launches_bwd_dkv_tc_f32"],
-                          n["launches_bwd_dq_tc_f32"], n["launches_bwd_dkv_tc_relpos"], n["launches_bwd_dq_tc_relpos"])
+                          n["launches_bwd_dq_tc_f32"], n["launches_bwd_dkv_tc_relpos"], n["launches_bwd_dq_tc_relpos"],
+                          n["launches_bwd_dkv_tc_bias"], n["launches_bwd_dq_tc_bias"])
                     relpos_bf16 = (8 * steps, 8 * steps) if rel else (0, 0)
-                    want = ((8 * steps, 0, 0, 0, *relpos_bf16) if dtype_name == "bf16"
-                            else (0, 8 * steps, 8 * steps, 8 * steps, 0, 0))
+                    bias_bf16 = (0, 0) if rel else (8 * steps, 8 * steps)
+                    want = ((8 * steps, 0, 0, 0, *relpos_bf16, *bias_bf16) if dtype_name == "bf16"
+                            else (0, 8 * steps, 8 * steps, 8 * steps, 0, 0, 0, 0))
                     check(tc == want, f"{label}: tensor-core routes {tc} != {want}")
-                # the launches on the scalar backward: K1-bwd's bf16 form with its bias (JSUT); 0 at JVS-latest
-                res["scalar_bwd"] = ((dkv - n["launches_bwd_dkv_tc_relpos"], dq - n["launches_bwd_dq_tc_relpos"])
+                # the launches on the scalar backward: 0 at both (K1-bwd's bf16 form with its bias at JSUT, K1r's
+                # at JVS-latest, each on its tensor-core kernels)
+                res["scalar_bwd"] = ((dkv - n["launches_bwd_dkv_tc_relpos"] - n["launches_bwd_dkv_tc_bias"],
+                                      dq - n["launches_bwd_dq_tc_relpos"] - n["launches_bwd_dq_tc_bias"])
                                      if dtype_name == "bf16" and backend == "flash" else (0, 0))
-                check(not rel or res["scalar_bwd"] == (0, 0), f"{label}: scalar K1r backward {res['scalar_bwd']}")
+                check(res["scalar_bwd"] == (0, 0), f"{label}: scalar K1-bwd or K1r backward {res['scalar_bwd']}")
                 out[(which, backend, dtype_name)] = res
                 del tr
         for backend in ("xla", "flash"):
@@ -5497,91 +5526,97 @@ def mp_fs2_steps(root, seed, where):
     return out
 
 
+def mp_bwd_times(q, k, v, ab, full, scale, do):
+    """One bf16 backward pair (the form's tensor-core dk/dv and dq) at a
+    step's shape with every key valid: each kernel by CUDA events and by
+    graph replay, the scalar kernels on the same inputs beside
+    (``_lib=KERNEL_BWD``), the plain backward and SDPA's forward+backward
+    (the yardstick, never used by the port; the bias, if any, as a float
+    mask after the scale): the median of SDPA_ROUNDS rounds of 5 calls, each
+    round's mean kept (``library_rounds``)."""
+    import torch
+
+    from jatts_torch.ops import flash_attention as k1
+
+    o, lse = k1.flash_attention_fwd(q, k, v, ab, full, scale)
+    di = (o.float() * do.float()).sum(-1)
+    dk, dv, dq = torch.empty_like(k), torch.empty_like(v), torch.empty_like(q)
+    dab = None if ab is None else torch.empty_like(ab)
+
+    def dkv():
+        return k1.flash_attention_bwd_dkv(q, k, v, ab, full, scale, lse, di, do)
+
+    def dq_():
+        return k1.flash_attention_bwd_dq(q, k, v, ab, full, scale, lse, di, do)
+
+    r = {"dkv": time_ms(dkv, iters=10, warmup=2), "dq": time_ms(dq_, iters=10, warmup=2),
+         "dkv_graph": graph_ms(dkv, iters=10, replays=3), "dq_graph": graph_ms(dq_, iters=10, replays=3),
+         "dkv_scalar": time_ms(lambda: k1._launch_bwd("dkv", q, k, v, ab, full, scale, lse, di, do, dk, dv, False,
+                                                      _lib=k1.KERNEL_BWD), iters=3, warmup=1),
+         "dq_scalar": time_ms(lambda: k1._launch_bwd("dq", q, k, v, ab, full, scale, lse, di, do, dq, dab, False,
+                                                     _lib=k1.KERNEL_BWD), iters=3, warmup=1),
+         "plain_ms": time_ms(lambda: k1.flash_attention_bwd_ref(q, k, v, ab, full, scale, o, lse, do), iters=3,
+                             warmup=1)}
+    leaves = [x.detach().requires_grad_() for x in (q, k, v)]
+    if ab is not None:
+        leaves.append((ab * scale).detach().requires_grad_())  # SDPA adds its mask after the scale
+
+    def sdpa():
+        out_ = torch.nn.functional.scaled_dot_product_attention(
+            *leaves[:3], attn_mask=leaves[3] if ab is not None else None, scale=scale)
+        torch.autograd.grad(out_, leaves, do)
+
+    r["library_rounds"] = [time_ms(sdpa, iters=5, warmup=2 if i == 0 else 0) for i in range(SDPA_ROUNDS)]
+    r["library_ms"] = statistics.median(r["library_rounds"])
+    return r
+
+
 def check_mp_bwd(seed, where):
     """The bf16 backwards a bf16 ``flash`` step launches, each against its
     plain twin at the step's shapes (K1-bwd with the ``matrix_bd`` bias at d
-    192, JSUT, on the scalar kernels; K1r's (576, 192), JVS-latest, on its
-    bf16 tensor-core kernels, the scalar ones on the same inputs beside),
-    then timed with every key valid beside the plain backward, SDPA's
-    forward+backward and the bounds; K1r's also by graph replay, the scalar
-    kernels beside."""
+    192, JSUT, on its bf16 tensor-core kernels with a bias; K1r's (576, 192),
+    JVS-latest, on its bf16 tensor-core kernels; the scalar ones on the same
+    inputs beside), then timed with every key valid by CUDA events and graph
+    replay beside the scalar kernels, the plain backward, SDPA's
+    forward+backward and the bounds."""
     import torch
 
     from jatts_torch.ops import flash_attention as k1
 
     b, t = MP_FS2[0], MP_FS2[1]
-    res = {}
-    # K1-bwd: bf16 with a bias goes to the scalar kernels (ops/flash_attention.py:_bwd_kernel)
-    check(k1.dkv_kernel(torch.bfloat16, False, 192, 192, True) == k1.KERNEL_BWD, "K1-bwd bf16 bias: not scalar")
-    err, on_tc, _ = check_k1bwd(b, 2, t, 192, "bf16", True, seed)
-    check(not on_tc, "K1-bwd bf16 ran on the 3xTF32 kernels")
-    q, k, v, ab, _, do, _ = k1bwd_inputs(b, 2, t, 192, torch.bfloat16, True, seed + 1)
     full = torch.ones(b, t, dtype=torch.bool, device="cuda")
-    scale = 192 ** -0.5
-    o, lse = k1.flash_attention_fwd(q, k, v, ab, full, scale)
-    di = (o.float() * do.float()).sum(-1)
-    r = {"dkv": time_ms(lambda: k1.flash_attention_bwd_dkv(q, k, v, ab, full, scale, lse, di, do), iters=5,
-                        warmup=1),
-         "dq": time_ms(lambda: k1.flash_attention_bwd_dq(q, k, v, ab, full, scale, lse, di, do), iters=5, warmup=1),
-         "plain_ms": time_ms(lambda: k1.flash_attention_bwd_ref(q, k, v, ab, full, scale, o, lse, do), iters=3,
-                             warmup=1),
-         "max_abs_err": err, "shape": [b, 2, t, 192]}
-    qs, ks, vs = (x.detach().requires_grad_() for x in (q, k, v))
-    bias = (ab * scale).detach().requires_grad_()
-
-    def sdpa_fwd_bwd():
-        out_ = torch.nn.functional.scaled_dot_product_attention(qs, ks, vs, attn_mask=bias, scale=scale)
-        torch.autograd.grad(out_, (qs, ks, vs, bias), do)
-
-    r["library_ms"] = time_ms(sdpa_fwd_bwd, iters=3, warmup=1)
-    r["bounds"] = dict(zip(("dkv", "dq"), k1bwd_bounds_ms(b, 2, t, 192, 2, "bf16")))
+    res = {}
+    # K1-bwd: bf16 with a bias at d 192 goes to its tensor-core kernels (ops/flash_attention.py:_bwd_kernel)
+    err, lib, serr = check_k1bwd(b, 2, t, 192, "bf16", True, seed)
+    check(lib == k1.KERNEL_BWD_TC_BIAS, f"K1-bwd bf16 with a bias ran on {lib}")
+    _, lib_enc, serr_enc = check_k1bwd(b, 2, MP_FS2[2], 192, "bf16", True, seed + 4)  # the encoder's T_text
+    check(lib_enc == k1.KERNEL_BWD_TC_BIAS, f"K1-bwd bf16 with a bias at the encoder ran on {lib_enc}")
+    q, k, v, ab, _, do, _ = k1bwd_inputs(b, 2, t, 192, torch.bfloat16, True, seed + 1)
+    r = mp_bwd_times(q, k, v, ab, full, 192 ** -0.5, do)
+    r.update(max_abs_err=err, scalar_max_abs_err=max(serr, serr_enc), shape=[b, 2, t, 192],
+             bounds=dict(zip(("dkv", "dq"), k1bwd_bounds_ms(b, 2, t, 192, 2, "bf16"))))
     res["k1"] = r
-    del q, k, v, ab, do, o, lse, di, qs, ks, vs, bias
+    del q, k, v, ab, do
     # K1r: the bf16 (576, 192) form, on its tensor-core kernels
     _, rerr, rserr = check_k1r("JVS-latest step, bf16", (b, 2, t), K1R_DIMS, "bf16", [(0, t), (0, t - 101)], seed)
     q, k, v, _, do = k1r_inputs((b, 2, t), K1R_DIMS, torch.bfloat16, [(0, t)], seed + 2)
-    scale = 192 ** -0.5  # d_k of the model; the features ride in d_qk
-    o, lse = k1.flash_attention_fwd(q, k, v, None, full, scale)
-    di = (o.float() * do.float()).sum(-1)
-    dk, dv, dq = torch.empty_like(k), torch.empty_like(v), torch.empty_like(q)
-
-    def dkv():
-        return k1.flash_attention_bwd_dkv(q, k, v, None, full, scale, lse, di, do)
-
-    def dq_():
-        return k1.flash_attention_bwd_dq(q, k, v, None, full, scale, lse, di, do)
-
-    r = {"dkv": time_ms(dkv, iters=10, warmup=2), "dq": time_ms(dq_, iters=10, warmup=2),
-         "dkv_graph": graph_ms(dkv, iters=10, replays=3), "dq_graph": graph_ms(dq_, iters=10, replays=3),
-         "dkv_scalar": time_ms(lambda: k1._launch_bwd("dkv", q, k, v, None, full, scale, lse, di, do, dk, dv, False,
-                                                      _lib=k1.KERNEL_BWD), iters=3, warmup=1),
-         "dq_scalar": time_ms(lambda: k1._launch_bwd("dq", q, k, v, None, full, scale, lse, di, do, dq, None, False,
-                                                     _lib=k1.KERNEL_BWD), iters=3, warmup=1),
-         "plain_ms": time_ms(lambda: k1.flash_attention_bwd_ref(q, k, v, None, full, scale, o, lse, do), iters=3,
-                             warmup=1),
-         "max_abs_err": rerr, "scalar_max_abs_err": rserr, "shape": [b, 2, t, *K1R_DIMS]}
-    qs, ks, vs = (x.detach().requires_grad_() for x in (q, k, v))
-
-    def sdpa_r():
-        out_ = torch.nn.functional.scaled_dot_product_attention(qs, ks, vs, scale=scale)
-        torch.autograd.grad(out_, (qs, ks, vs), do)
-
-    r["library_ms"] = time_ms(sdpa_r, iters=3, warmup=1)
-    r["bounds"] = {n: v for n, v in k1r_bounds_ms(b, 2, t, *K1R_DIMS, 2, "bf16", True).items() if n != "fwd"}
+    r = mp_bwd_times(q, k, v, None, full, 192 ** -0.5, do)  # d_k of the model; the features ride in d_qk
+    r.update(max_abs_err=rerr, scalar_max_abs_err=rserr, shape=[b, 2, t, *K1R_DIMS],
+             bounds={n: v for n, v in k1r_bounds_ms(b, 2, t, *K1R_DIMS, 2, "bf16", True).items() if n != "fwd"})
     res["k1r"] = r
-    del q, k, v, do, o, lse, di, qs, ks, vs, dk, dv, dq
+    del q, k, v, do
     for name, r in res.items():
-        kind = "scalar" if name == "k1" else "tensor-core"
-        beside = "" if name == "k1" else (
-            f"; graph replay dk/dv {r['dkv_graph']:.4f} ms, dq {r['dq_graph']:.4f} ms; the scalar kernels on the same "
-            f"inputs dk/dv {r['dkv_scalar']:.4f} ms, dq {r['dq_scalar']:.4f} ms (max_abs_err "
-            f"{r['scalar_max_abs_err']:.2e}); each kernel under sdpa forward+backward: "
-            f"{r['dkv'] < r['library_ms'] and r['dq'] < r['library_ms']}")
-        print(f"mixed precision, the {kind} bf16 backward ({name}, B,H,T,d={r['shape']}, every key valid): dk/dv "
-              f"{r['dkv']:.4f} ms (bound {r['bounds']['dkv'][0]:.4f} by {r['bounds']['dkv'][1]}), dq {r['dq']:.4f} "
-              f"ms (bound {r['bounds']['dq'][0]:.4f} by {r['bounds']['dq'][1]}); plain backward {r['plain_ms']:.4f} "
-              f"ms; sdpa forward+backward {r['library_ms']:.4f} ms; max_abs_err {r['max_abs_err']:.2e}{beside}; "
-              f"{where}", flush=True)
+        print(f"mixed precision, the tensor-core bf16 backward ({name}, B,H,T,d={r['shape']}, every key valid): "
+              f"dk/dv {r['dkv']:.4f} ms (bound {r['bounds']['dkv'][0]:.4f} by {r['bounds']['dkv'][1]}), dq "
+              f"{r['dq']:.4f} ms (bound {r['bounds']['dq'][0]:.4f} by {r['bounds']['dq'][1]}); graph replay dk/dv "
+              f"{r['dkv_graph']:.4f} ms, dq {r['dq_graph']:.4f} ms; the scalar kernels on the same inputs dk/dv "
+              f"{r['dkv_scalar']:.4f} ms, dq {r['dq_scalar']:.4f} ms (max_abs_err {r['scalar_max_abs_err']:.2e}); "
+              f"plain backward {r['plain_ms']:.4f} ms; sdpa forward+backward {r['library_ms']:.4f} ms (median of "
+              f"rounds {', '.join(f'{x:.4f}' for x in r['library_rounds'])}); each kernel "
+              f"under sdpa forward+backward: {r['dkv'] < r['library_ms'] and r['dq'] < r['library_ms']}; max_abs_err "
+              f"{r['max_abs_err']:.2e}; {where}", flush=True)
+    k1_under = res["k1"]["dkv"] < res["k1"]["library_ms"] and res["k1"]["dq"] < res["k1"]["library_ms"]
+    check(k1_under, "K1-bwd's bf16 tensor-core kernels with a bias: not each under SDPA's forward+backward")
     return res
 
 
@@ -5744,6 +5779,10 @@ def mp_cli_run(root, align_paths, freqs, seed, where):
     check(0.0 < peak < 80.0 and all(math.isfinite(v) for _, _, v in scalars), "the event file's values")
     check(launches["launches_tc"] > 0 and launches["launches_bwd_dkv"] > 0 and launches["launches_tc_f32"] == 0
           and launches["launches_bwd_dkv_tc_f32"] == 0, f"the bf16 CLI run's launches {launches}")
+    # every dk/dv and dq on K1-bwd's bf16 tensor-core kernels with its bias, none on the scalar ones
+    check((launches["launches_bwd_dkv_tc_bias"], launches["launches_bwd_dq_tc_bias"])
+          == (launches["launches_bwd_dkv"], launches["launches_bwd_dq"]) and launches["launches_bwd_dkv"] > 0,
+          f"the bf16 CLI run's backward launches {launches}")
     print(f"mixed precision CLI (bin/tts_train.py, JSUT conf, dtype bfloat16, flash): {MP_CLI_STEPS} steps in "
           f"{run_s:.1f} s; predictions at 2 and 4 steps: {len(files[2])} + {len(files[4])} files, PNGs valid; "
           f"event file {len(scalars)} scalars, every CRC checked, mem/peak_bytes_gb {peak:.2f}; launches "
@@ -5786,8 +5825,9 @@ def mixed_precision_slice(root, align_paths, freqs, seed, where):
         "tc_relpos": n("jvs_latest", "bf16", "launches_tc"),
         "tc_f32": n("jsut", "f32", "launches_tc_f32"),
         "tc_f32_relpos": n("jvs_latest", "f32", "launches_tc_f32"),
-        "bwd_scalar": (n("jsut", "bf16", "launches_bwd_dkv") + cli["launches"]["launches_bwd_dkv"],
-                       n("jsut", "bf16", "launches_bwd_dq") + cli["launches"]["launches_bwd_dq"]),
+        "bwd_scalar": fs2[("jsut", "flash", "bf16")]["scalar_bwd"],  # 0, 0: the scalar K1-bwd is off the path
+        "bwd_tc_bias": (n("jsut", "bf16", "launches_bwd_dkv_tc_bias"), n("jsut", "bf16", "launches_bwd_dq_tc_bias")),
+        "bwd_tc_bias_cli": (cli["launches"]["launches_bwd_dkv_tc_bias"], cli["launches"]["launches_bwd_dq_tc_bias"]),
         "bwd_scalar_relpos": fs2[("jvs_latest", "flash", "bf16")]["scalar_bwd"],
         "bwd_tc_relpos": (n("jvs_latest", "bf16", "launches_bwd_dkv_tc_relpos"),
                           n("jvs_latest", "bf16", "launches_bwd_dq_tc_relpos")),
@@ -5844,7 +5884,7 @@ def main() -> int:
     t0 = time.perf_counter()
     nvcc_s = {}
     kernels = [k1.KERNEL, k1.KERNEL_TC, k1.KERNEL_TC_F32, k1.KERNEL_BWD, k1.KERNEL_BWD_TC, k1.KERNEL_BWD_TC_F32,
-               k1.KERNEL_BWD_TC_RELPOS, mas.KERNEL, mas.KERNEL_PATH]
+               k1.KERNEL_BWD_TC_RELPOS, k1.KERNEL_BWD_TC_BIAS, mas.KERNEL, mas.KERNEL_PATH]
     reports = build.build(kernels, seconds=nvcc_s)
     print(f"build: {', '.join(kernels)} in {time.perf_counter() - t0:.1f} s (nvcc each: "
           + ", ".join(f"{n} {sec:.1f} s" for n, sec in nvcc_s.items()) + ")", flush=True)
@@ -5858,7 +5898,7 @@ def main() -> int:
                 print(f"  ptxas {kernel} {entry}: {line.strip()}", flush=True)
                 spilled = re.search(r"(\d+) bytes spill stores", line)
                 no_spill = (k1.KERNEL_TC, k1.KERNEL_TC_F32, k1.KERNEL_BWD_TC, k1.KERNEL_BWD_TC_F32,
-                            k1.KERNEL_BWD_TC_RELPOS, mas.KERNEL_PATH)
+                            k1.KERNEL_BWD_TC_RELPOS, k1.KERNEL_BWD_TC_BIAS, mas.KERNEL_PATH)
                 if kernel in no_spill and spilled and int(spilled.group(1)):
                     spills.append(entry)
     # the tensor-core kernels hold their accumulators in registers, the
@@ -6065,8 +6105,9 @@ def main() -> int:
     mas_checks.append(own_check)
 
     # 9. K1-bwd against its plain version (f32 d 192 on the 3xTF32 kernels,
-    # the scalar ones beside on the same inputs), then its times
-    bwd_err = {"tc_f32": 0.0, "scalar": 0.0}
+    # bf16 d 192 with a bias on the bf16 tensor-core kernels, the scalar ones
+    # beside on the same inputs), then its times
+    bwd_err = {"tc_f32": 0.0, "tc_bias": 0.0, "scalar": 0.0}
     for (b, h, t, d), dtype_name, with_bias, rows in (
         ((32, 2, 1024, 192), "f32", True, None),   # the training decoder
         ((32, 2, 112, 192), "f32", True, None),    # the training encoder
@@ -6077,16 +6118,21 @@ def main() -> int:
         ((8, 2, 256, 256), "bf16", True, None),
         ((8, 2, 1024, 192), "f32", False, None),   # MHA form, no bias
         ((8, 2, 1000, 192), "f32", True, None),    # ragged edge
+        ((8, 2, 1000, 192), "bf16", True, None),
+        ((8, 2, 256, 192), "bf16", False, None),   # bf16 MHA form: the scalar kernels'
         # keys 70..680: a whole masked leading key tile (and trailing ones),
         # which dq skips and must still write d(ab) = 0 on; an odd T
         ((4, 2, 999, 192), "f32", True, [(0, 999), (70, 611), (0, 17), (0, 0)]),
+        ((4, 2, 999, 192), "bf16", True, [(0, 999), (70, 611), (0, 17), (0, 0)]),
+        ((2, 2, 1, 192), "bf16", True, [(0, 1), (0, 0)]),
     ):
-        err, on_tc, scalar_err = check_k1bwd(b, h, t, d, dtype_name, with_bias, args.seed,
-                                             against_autograd=(t == 1024 and b == 32), rows=rows)
-        if on_tc:
-            bwd_err["tc_f32"], bwd_err["scalar"] = max(bwd_err["tc_f32"], err), max(bwd_err["scalar"], scalar_err)
-        else:
+        err, lib, scalar_err = check_k1bwd(b, h, t, d, dtype_name, with_bias, args.seed,
+                                           against_autograd=(t == 1024 and b == 32), rows=rows)
+        if lib == k1.KERNEL_BWD:
             bwd_err["scalar"] = max(bwd_err["scalar"], err)
+        else:
+            key = "tc_f32" if lib == k1.KERNEL_BWD_TC_F32 else "tc_bias"
+            bwd_err[key], bwd_err["scalar"] = max(bwd_err[key], err), max(bwd_err["scalar"], scalar_err)
     bwd_times = time_k1bwd(args.seed + 3, where)
 
     # 10. the training slice
@@ -6275,8 +6321,9 @@ def main() -> int:
         "ms": bwd_times[f"{key}_scalar"], "bound_ms": bwd_times["bounds"][key][0],
         "bound_by": bwd_times["bounds"][key][1], "cuda_core_bound_ms": cuda_core_ms(bwd_times["bounds"][key][3]),
         **bwd_row,
-        # the bf16 form with the matrix_bd bias that a bf16 flash step takes (phase 21), at its shape
-        "bf16_step": mp_bwd_entry(mp["bwd"]["k1"], key),
+        # the bf16 form with the matrix_bd bias that a bf16 flash step took before its tensor-core kernels
+        # (phase 21), timed beside them at the step's shape
+        "bf16_step": mp_bwd_entry(mp["bwd"]["k1"], key, scalar=True),
     } for key, line, n, n_tc, n_mp in (
         ("dkv", 1121, train_launches[1], train["bwd_tc_f32"][0], mp_n["bwd_scalar"][0]),
         ("dq", 1456, train_launches[2], train["bwd_tc_f32"][1], mp_n["bwd_scalar"][1]))] + [{
@@ -6412,6 +6459,23 @@ def main() -> int:
         "shape": r_mp["shape"],
     } for key, line, n_mp, r_mp in (("dkv", 1121, mp_n["bwd_tc_relpos"][0], mp["bwd"]["k1r"]),
                                     ("dq", 1456, mp_n["bwd_tc_relpos"][1], mp["bwd"]["k1r"]))] + [{
+        # K1-bwd's bf16 dk/dv and dq/d(ab) with the matrix_bd bias at d 192 on
+        # the tensor cores, the bf16-compute JSUT flash step's (phase 21);
+        # timed at its decoder shape with every key valid, the scalar kernels
+        # (the form's before) on the same inputs beside
+        "name": f"{k1.KERNEL_BWD_TC_BIAS}_{key}", "route": "cuda",
+        "source": f"jatts_torch/csrc/{k1.KERNEL_BWD_TC_BIAS}.cu",
+        "replaces": f"jax/experimental/pallas/ops/tpu/flash_attention.py:{line}",
+        "launches": n_mp + n_cli,
+        "launches_by_path": {"mixed_precision_bf16_steps": n_mp, "mixed_precision_cli": n_cli},
+        "max_abs_err": max(bwd_err["tc_bias"], r_mp["max_abs_err"]), "ms": r_mp[key],
+        "graph_ms": r_mp[f"{key}_graph"], "scalar_ms": r_mp[f"{key}_scalar"],
+        "scalar_max_abs_err": r_mp["scalar_max_abs_err"], "plain_ms": r_mp["plain_ms"],
+        "bound_ms": r_mp["bounds"][key][0], "bound_by": r_mp["bounds"][key][1], "library_ms": r_mp["library_ms"],
+        "shape": r_mp["shape"],
+    } for key, line, n_mp, n_cli, r_mp in (
+        ("dkv", 1121, mp_n["bwd_tc_bias"][0], mp_n["bwd_tc_bias_cli"][0], mp["bwd"]["k1"]),
+        ("dq", 1456, mp_n["bwd_tc_bias"][1], mp_n["bwd_tc_bias_cli"][1], mp["bwd"]["k1"]))] + [{
         # the VALL-E NAR's bf16 non-causal dk/dv and dq (d 64, a key mask) on
         # the tensor cores; timed at its largest batch with every key valid,
         # the scalar kernels (the form's before) on the same inputs beside

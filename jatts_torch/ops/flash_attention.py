@@ -4,7 +4,9 @@ non-causal forms in 3xTF32 in ``csrc/flash_attn_fwd_tc_f32.cu``), K1-bwd — its
 backward (``csrc/flash_attn_bwd.cu``; K1b's bf16 dk/dv and dq at d 64 on the
 tensor cores in ``csrc/flash_attn_bwd_tc.cu``, K1r's and K1-bwd's f32 dk/dv
 and dq in 3xTF32 in ``csrc/flash_attn_bwd_tc_f32.cu``, K1r's bf16 dk/dv and dq
-on the tensor cores in ``csrc/flash_attn_bwd_tc_relpos.cu``), K1b — the causal form
+on the tensor cores in ``csrc/flash_attn_bwd_tc_relpos.cu``, K1-bwd's bf16 dk/dv
+and dq/d(ab) with a bias at d 192 on the tensor cores in
+``csrc/flash_attn_bwd_tc_bias.cu``), K1b — the causal form
 of both, K1r — the fused rel-pos form of both (d_qk != d_v), and their plain
 twins.
 
@@ -58,7 +60,12 @@ f32 non-causal forms of ``BWD_TC_F32_FORMS``
 ``launches_bwd_dkv`` and ``launches_bwd_dq``), K1r's bf16 form (bf16,
 non-causal, a pair of ``RELPOS_PAIRS``, no bias) to the bf16 tensor-core
 kernels (``launches_bwd_dkv_tc_relpos`` and ``launches_bwd_dq_tc_relpos``,
-besides the ``*_relpos`` counters), every other form to the scalar ones.
+besides the ``*_relpos`` counters), K1-bwd's bf16 form with a bias at d 192
+(bf16, non-causal, d_qk = d_v = 192, a bias: the legacy rel-pos call's
+``matrix_bd``) to the bf16 tensor-core kernels with a bias
+(``launches_bwd_dkv_tc_bias`` and ``launches_bwd_dq_tc_bias``, besides
+``launches_bwd_dkv`` and ``launches_bwd_dq``), every other form to the scalar
+ones.
 See the source notes in the ``.cu`` files for the bounds.
 """
 
@@ -78,6 +85,7 @@ KERNEL_TC_F32 = "flash_attn_fwd_tc_f32"
 KERNEL_BWD_TC = "flash_attn_bwd_tc"
 KERNEL_BWD_TC_F32 = "flash_attn_bwd_tc_f32"
 KERNEL_BWD_TC_RELPOS = "flash_attn_bwd_tc_relpos"
+KERNEL_BWD_TC_BIAS = "flash_attn_bwd_tc_bias"
 HEAD_DIMS = (64, 128, 192, 256)
 # K1r's (d_qk, d_v) = (d_k + n_feat, d_k): 2 heads of 64 (adim 128) and of
 # 192 (adim 384, the JSUT/JVS width)
@@ -112,6 +120,8 @@ launches_bwd_dkv_tc_f32 = 0  # dk/dv calls (K1r or K1-bwd f32) that ran on the 3
 launches_bwd_dq_tc_f32 = 0  # dq calls (K1r or K1-bwd f32) that ran on the 3xTF32 tensor-core kernel
 launches_bwd_dkv_tc_relpos = 0  # K1r bf16 dk/dv calls that ran on the tensor-core kernel
 launches_bwd_dq_tc_relpos = 0  # K1r bf16 dq calls that ran on the tensor-core kernel
+launches_bwd_dkv_tc_bias = 0  # bf16 dk/dv calls with a bias at d 192 that ran on the tensor-core kernel
+launches_bwd_dq_tc_bias = 0  # bf16 dq/d(ab) calls with a bias at d 192 that ran on the tensor-core kernel
 
 
 def reset_launches() -> None:
@@ -122,9 +132,11 @@ def reset_launches() -> None:
     global launches_bwd_dkv_tc_f32, launches_bwd_dq_tc_f32
     global launches_bwd_dkv_tc_noncausal, launches_bwd_dq_tc_noncausal
     global launches_bwd_dkv_tc_relpos, launches_bwd_dq_tc_relpos
+    global launches_bwd_dkv_tc_bias, launches_bwd_dq_tc_bias
     launches = launches_bwd_dkv = launches_bwd_dq = launches_tc = launches_tc_f32 = 0
     launches_bwd_dkv_tc = launches_bwd_dq_tc = launches_bwd_dkv_tc_f32 = launches_bwd_dq_tc_f32 = 0
     launches_bwd_dkv_tc_relpos = launches_bwd_dq_tc_relpos = 0
+    launches_bwd_dkv_tc_bias = launches_bwd_dq_tc_bias = 0
     launches_bwd_dkv_tc_noncausal = launches_bwd_dq_tc_noncausal = 0
     launches_causal = launches_bwd_dkv_causal = launches_bwd_dq_causal = 0
     launches_relpos = launches_bwd_dkv_relpos = launches_bwd_dq_relpos = 0
@@ -238,15 +250,20 @@ def _bwd_kernel(dtype: torch.dtype, causal: bool, d_qk: int, d_v: int, has_bias:
     bias, causal or not) -> ``KERNEL_BWD_TC``; f32 non-causal at a (d_qk,
     d_v, bias) of ``BWD_TC_F32_FORMS`` (K1r's, and K1-bwd's at d 192) ->
     ``KERNEL_BWD_TC_F32``; bf16 non-causal at a pair of ``RELPOS_PAIRS``
-    without a bias (K1r's bf16 form) -> ``KERNEL_BWD_TC_RELPOS``; every other
-    form (K1-bwd at d 64/128/256, bf16 at d_qk = d_v != 64 or with a bias,
-    f32 causal) -> ``KERNEL_BWD``."""
+    without a bias (K1r's bf16 form) -> ``KERNEL_BWD_TC_RELPOS``; bf16
+    non-causal at d_qk = d_v = 192 with a bias (K1-bwd's bf16 form, the
+    legacy rel-pos call's ``matrix_bd``) -> ``KERNEL_BWD_TC_BIAS``; every
+    other form (K1-bwd at d 64/128/256, bf16 at d 128/192/256 without a bias
+    or at d 64/128/256 with one, bf16 causal at d 192, f32 causal) ->
+    ``KERNEL_BWD``."""
     if dtype == torch.bfloat16 and d_qk == d_v == 64 and not has_bias:
         return KERNEL_BWD_TC
     if dtype == torch.float32 and not causal and (d_qk, d_v, has_bias) in BWD_TC_F32_FORMS:
         return KERNEL_BWD_TC_F32
     if dtype == torch.bfloat16 and not causal and (d_qk, d_v) in RELPOS_PAIRS and not has_bias:
         return KERNEL_BWD_TC_RELPOS
+    if dtype == torch.bfloat16 and not causal and d_qk == d_v == 192 and has_bias:
+        return KERNEL_BWD_TC_BIAS
     return KERNEL_BWD
 
 
@@ -256,8 +273,9 @@ def dkv_kernel(dtype: torch.dtype, causal: bool, d_qk: int, d_v: int, has_bias: 
     one, ``launch_dkv<true>``, and the NAR's non-causal one,
     ``launch_dkv<false>``), ``KERNEL_BWD_TC_F32`` (tensor cores, 3xTF32) for
     the f32 forms of ``BWD_TC_F32_FORMS``, ``KERNEL_BWD_TC_RELPOS`` (tensor
-    cores, bf16) for K1r's bf16 form, else ``KERNEL_BWD`` (scalar; K1-bwd's
-    other forms, bf16 with a bias among them, stay there)."""
+    cores, bf16) for K1r's bf16 form, ``KERNEL_BWD_TC_BIAS`` (tensor cores,
+    bf16) for K1-bwd's bf16 non-causal form with a bias at d 192, else
+    ``KERNEL_BWD`` (scalar; K1-bwd's other forms stay there)."""
     return _bwd_kernel(dtype, causal, d_qk, d_v, has_bias)
 
 
@@ -265,9 +283,10 @@ def dq_kernel(dtype: torch.dtype, causal: bool, d_qk: int, d_v: int, has_bias: b
     """The library a dq backward on the card takes, by :func:`dkv_kernel`'s
     rule: ``KERNEL_BWD_TC`` for VALL-E's forms (``launch_dq<true>`` causal,
     ``launch_dq<false>`` not), ``KERNEL_BWD_TC_F32`` for the f32 forms of
-    ``BWD_TC_F32_FORMS``, ``KERNEL_BWD_TC_RELPOS`` for K1r's bf16 form, else
-    ``KERNEL_BWD`` (scalar). With a bias, the scalar kernel and the 3xTF32
-    one also write d(ab)."""
+    ``BWD_TC_F32_FORMS``, ``KERNEL_BWD_TC_RELPOS`` for K1r's bf16 form,
+    ``KERNEL_BWD_TC_BIAS`` for K1-bwd's bf16 form with a bias at d 192, else
+    ``KERNEL_BWD`` (scalar). With a bias, each of the scalar kernel, the
+    3xTF32 one and the bf16 one also writes d(ab)."""
     return _bwd_kernel(dtype, causal, d_qk, d_v, has_bias)
 
 
@@ -387,7 +406,7 @@ def _check_bwd(q, k, v, ab, key_mask, lse, di, do, causal) -> None:
 
 
 _BWD_SUFFIX = {KERNEL_BWD: "", KERNEL_BWD_TC: "_tc", KERNEL_BWD_TC_F32: "_tc_f32",
-               KERNEL_BWD_TC_RELPOS: "_tc_relpos"}
+               KERNEL_BWD_TC_RELPOS: "_tc_relpos", KERNEL_BWD_TC_BIAS: "_tc_bias"}
 
 
 def _launch_bwd(name, q, k, v, ab, key_mask, sm_scale, lse, di, do, out_a, out_b, causal, _lib=None):

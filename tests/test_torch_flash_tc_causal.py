@@ -63,14 +63,17 @@ def test_dkv_rule_sends_valle_form_to_the_tensor_cores(dtype, causal, d_qk, d_v,
     f32, non-causal, a K1r pair without a bias or K1-bwd's d 192 with or
     without one -> the 3xTF32 one (``tests/test_torch_flash_tc_f32_bwd.py``);
     bf16, non-causal, a K1r pair without a bias -> the bf16 K1r one
-    (``tests/test_torch_flash_tc_relpos_bwd.py``); everything else stays on
-    the scalar kernel."""
+    (``tests/test_torch_flash_tc_relpos_bwd.py``); bf16, non-causal, d 192
+    with a bias -> the bf16 one with a bias
+    (``tests/test_torch_flash_tc_bias_bwd.py``); everything else (the causal
+    bf16 d 192 with a bias among it) stays on the scalar kernel."""
     tc = dtype == torch.bfloat16 and (d_qk, d_v) == (64, 64) and not has_bias
     tc_f32 = dtype == torch.float32 and not causal and (
         ((d_qk, d_v) in k1.RELPOS_PAIRS and not has_bias) or (d_qk, d_v) == (192, 192))
     tc_relpos = dtype == torch.bfloat16 and not causal and (d_qk, d_v) in k1.RELPOS_PAIRS and not has_bias
+    tc_bias = dtype == torch.bfloat16 and not causal and (d_qk, d_v) == (192, 192) and has_bias
     want = (k1.KERNEL_BWD_TC if tc else k1.KERNEL_BWD_TC_F32 if tc_f32
-            else k1.KERNEL_BWD_TC_RELPOS if tc_relpos else k1.KERNEL_BWD)
+            else k1.KERNEL_BWD_TC_RELPOS if tc_relpos else k1.KERNEL_BWD_TC_BIAS if tc_bias else k1.KERNEL_BWD)
     assert k1.dkv_kernel(dtype, causal, d_qk, d_v, has_bias) == want
 
 
@@ -81,14 +84,17 @@ def test_dkv_rule_sends_valle_form_to_the_tensor_cores(dtype, causal, d_qk, d_v,
 def test_dq_rule_sends_valle_form_to_the_tensor_cores(dtype, causal, d_qk, d_v, has_bias):
     """dq by dk/dv's rule: VALL-E's forms (causal or not) on the tensor-core
     dq, K1r's f32 form and K1-bwd's f32 d 192 (with a bias, and its d(ab), or
-    without) on the 3xTF32 one, K1r's bf16 form on the bf16 K1r one; any
-    other bias, d_qk = d_v != 64 in bf16 and f32 causal on the scalar one."""
+    without) on the 3xTF32 one, K1r's bf16 form on the bf16 K1r one,
+    K1-bwd's bf16 non-causal d 192 with a bias (and its d(ab)) on the bf16
+    one with a bias; any other bias, d_qk = d_v != 64 in bf16 and f32 causal
+    on the scalar one."""
     tc = dtype == torch.bfloat16 and (d_qk, d_v) == (64, 64) and not has_bias
     tc_f32 = dtype == torch.float32 and not causal and (
         ((d_qk, d_v) in k1.RELPOS_PAIRS and not has_bias) or (d_qk, d_v) == (192, 192))
     tc_relpos = dtype == torch.bfloat16 and not causal and (d_qk, d_v) in k1.RELPOS_PAIRS and not has_bias
+    tc_bias = dtype == torch.bfloat16 and not causal and (d_qk, d_v) == (192, 192) and has_bias
     want = (k1.KERNEL_BWD_TC if tc else k1.KERNEL_BWD_TC_F32 if tc_f32
-            else k1.KERNEL_BWD_TC_RELPOS if tc_relpos else k1.KERNEL_BWD)
+            else k1.KERNEL_BWD_TC_RELPOS if tc_relpos else k1.KERNEL_BWD_TC_BIAS if tc_bias else k1.KERNEL_BWD)
     assert k1.dq_kernel(dtype, causal, d_qk, d_v, has_bias) == want
 
 

@@ -579,14 +579,17 @@ def test_bwd_rule_sends_k1r_f32_to_the_3xtf32_kernels(dtype, causal, d_qk, d_v, 
     """f32, non-causal, a K1r pair without a bias or K1-bwd's (192, 192)
     with or without one -> the 3xTF32 dk/dv and dq; the bf16 K1r backward
     (non-causal, no bias) -> its own tensor-core kernels
-    (``tests/test_torch_flash_tc_relpos_bwd.py``); K1-bwd's other forms stay
+    (``tests/test_torch_flash_tc_relpos_bwd.py``); the bf16 K1-bwd backward
+    at (192, 192) with a bias (non-causal) -> its own tensor-core kernels
+    (``tests/test_torch_flash_tc_bias_bwd.py``); K1-bwd's other forms stay
     scalar (VALL-E's forms aside: bf16, d 64, no bias, causal or not)."""
     f32_tc = dtype == torch.float32 and not causal and (
         ((d_qk, d_v) in k1.RELPOS_PAIRS and not has_bias) or (d_qk, d_v) == (192, 192))
     valle = dtype == torch.bfloat16 and (d_qk, d_v) == (64, 64) and not has_bias
     relpos_bf16 = dtype == torch.bfloat16 and not causal and (d_qk, d_v) in k1.RELPOS_PAIRS and not has_bias
+    bias_bf16 = dtype == torch.bfloat16 and not causal and (d_qk, d_v) == (192, 192) and has_bias
     want = (k1.KERNEL_BWD_TC_F32 if f32_tc else k1.KERNEL_BWD_TC if valle
-            else k1.KERNEL_BWD_TC_RELPOS if relpos_bf16 else k1.KERNEL_BWD)
+            else k1.KERNEL_BWD_TC_RELPOS if relpos_bf16 else k1.KERNEL_BWD_TC_BIAS if bias_bf16 else k1.KERNEL_BWD)
     assert k1.dkv_kernel(dtype, causal, d_qk, d_v, has_bias) == want
     assert k1.dq_kernel(dtype, causal, d_qk, d_v, has_bias) == want
 

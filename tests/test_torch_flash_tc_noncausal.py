@@ -53,13 +53,17 @@ _item_err = chip_smoke.item_err  # max |got - want| over max(1, max|want|) of ea
 @pytest.mark.parametrize("has_bias", [False, True])
 def test_bwd_rule_sends_both_valle_forms_to_the_tensor_cores(dtype, causal, d, has_bias):
     """bf16, d 64, no bias: the tensor-core dk/dv and dq, the AR's causal
-    form and the NAR's non-causal one alike; bf16 with a bias or at another
-    width d_qk = d_v stays on the scalar kernels (K1r's bf16 kernels take
-    d_qk != d_v only: ``tests/test_torch_flash_tc_relpos_bwd.py``)."""
+    form and the NAR's non-causal one alike; bf16 non-causal at d 192 with a
+    bias: K1-bwd's bf16 kernels with a bias
+    (``tests/test_torch_flash_tc_bias_bwd.py``); bf16 otherwise with a bias
+    or at another width d_qk = d_v stays on the scalar kernels (K1r's bf16
+    kernels take d_qk != d_v only: ``tests/test_torch_flash_tc_relpos_bwd.py``)."""
     rule = {k1.dkv_kernel(dtype, causal, d, d, has_bias), k1.dq_kernel(dtype, causal, d, d, has_bias)}
     assert k1.KERNEL_BWD_TC_RELPOS not in rule
     if dtype == torch.bfloat16:
-        assert rule == {k1.KERNEL_BWD_TC if d == 64 and not has_bias else k1.KERNEL_BWD}
+        want = (k1.KERNEL_BWD_TC if d == 64 and not has_bias
+                else k1.KERNEL_BWD_TC_BIAS if d == 192 and has_bias and not causal else k1.KERNEL_BWD)
+        assert rule == {want}
     else:
         assert k1.KERNEL_BWD_TC not in rule
 

@@ -298,10 +298,14 @@ def test_mistakes_fail_the_check_by_more_than_10x():
 @pytest.mark.parametrize("has_bias", [False, True])
 def test_bwd_rule_sends_k1r_bf16_to_the_tensor_cores(dtype, causal, d_qk, d_v, has_bias):
     """bf16, non-causal, a K1r pair, no bias -> the bf16 tensor-core dk/dv
-    and dq; no other form goes there."""
+    and dq; no other form goes there. bf16, non-causal, (192, 192) with a
+    bias -> K1-bwd's bf16 kernels with a bias
+    (``tests/test_torch_flash_tc_bias_bwd.py``)."""
     want_relpos = dtype == torch.bfloat16 and not causal and (d_qk, d_v) in k1.RELPOS_PAIRS and not has_bias
+    want_bias = dtype == torch.bfloat16 and not causal and (d_qk, d_v) == (192, 192) and has_bias
     for rule in (k1.dkv_kernel, k1.dq_kernel):
         assert (rule(dtype, causal, d_qk, d_v, has_bias) == k1.KERNEL_BWD_TC_RELPOS) == want_relpos
+        assert (rule(dtype, causal, d_qk, d_v, has_bias) == k1.KERNEL_BWD_TC_BIAS) == want_bias
 
 
 def test_source_is_a_cluster_bf16_kernel_with_a_plain_c_interface():

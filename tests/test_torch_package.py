@@ -144,7 +144,7 @@ def test_resolve_device_defaults_to_cuda():
 
 
 @pytest.mark.parametrize("kernel", [k1.KERNEL, k1.KERNEL_TC, k1.KERNEL_BWD, k1.KERNEL_BWD_TC, k1.KERNEL_BWD_TC_RELPOS,
-                                    mas.KERNEL])
+                                    k1.KERNEL_BWD_TC_BIAS, mas.KERNEL])
 def test_kernel_build_command_targets_hopper(monkeypatch, kernel):
     monkeypatch.setattr(build, "nvcc_path", lambda: "nvcc")
     out = build.library_path(kernel)
