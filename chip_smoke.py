@@ -278,14 +278,31 @@ Phases, each of which fails the run with a non-zero exit:
      CUDA events and graph replay beside the plain backward, SDPA's
      forward+backward (each new kernel must be under it) and the bounds;
      Matcha-TTS's tts1 step at 16 x 704 x 96 and a VITS micro-step at 8 x
-     896 x 112 past ``dp_train_start_steps``, f32 and bf16 alternating in 3
-     rounds of 10 steps, each dtype's host profile (op events, casts and
+     896 x 112 past ``dp_train_start_steps``, f32 and bf16 alternating in 2
+     rounds of 8 steps, each dtype's host profile (op events, casts and
      the host ms inside them); then
      ``bin/tts_train.py`` on the JSUT conf with ``dtype: bfloat16`` and
      flash for 4 steps over two eval intervals (every dk/dv and dq on
      K1-bwd's bf16 tensor-core kernels with its bias): the intermediate hook's
      files (valid PNGs) and the event file read back by
-     ``jatts_torch/utils/events.py`` with every CRC checked and ``mem/*``.
+     ``jatts_torch/utils/events.py`` with every CRC checked and ``mem/*``;
+ 22. tts1 stage 5 and speaker embeddings (no kernel of the port: these
+     modules reach no TPU kernel): the ECAPA-TDNN at speechbrain's widths
+     (seed-made weights saved as an ``embedding_model.ckpt``) on the card
+     against its CPU run on ``bin/verify_ecapa.py``'s probe signals, ms an
+     utterance by CUDA events and by the host's clock, the profiler's busy
+     share and launches; ``verify_ecapa`` goldens written on the CPU and
+     checked on the card; stage 1 (``bin/preprocess.py``) with the JVS conf
+     and ``spkemb_model_path`` on phase 8's corpus, each dump's spkemb
+     against the extractor on the wav resampled to 16 kHz; stage 5
+     (``bin/evaluate.py --metrics mcd spkemb``) on phase 15's stage-4 wavs
+     at ``--n-jobs`` 4 and 1 (the two results.csv files identical), the
+     mean metrics and the seconds an utterance of f0 on the card and of
+     host work, and the corpus scored against itself (MCD, F0RMSE, DDUR 0,
+     F0CORR and the spkemb similarity 1, within 1e-5);
+     ``bin/create_histogram.py`` on the corpus; a reference ``.pkl`` of
+     phase 15's FastSpeech2 through ``bin/import_checkpoint.py``, decoded by
+     stage 4 on one batch: the wavs bit for bit the original checkpoint's.
 The line before the last is the kernels' JSON record, the last line
 ``{"ok": true, "device": {...}}``. Exits 2 without a CUDA device or
 without the jatts_torch package beside this file.
@@ -793,7 +810,7 @@ ALIGN_CONFIG = {  # egs/jsut/tts1/conf/fastspeech2.v1.yaml, the feature settings
     "sampling_rate": 24000, "fft_size": 2048, "hop_size": 300, "win_length": None,
     "num_mels": 80, "fmin": 80, "fmax": 7600,
 }
-ALIGN_STEPS = 200  # the CLI's default is 2000 (300 before phase 21 needed the run's time)
+ALIGN_STEPS = 80  # the CLI's default is 2000 (300 before phase 21, 200 before phase 22 needed the run's time)
 
 
 def write_tone_corpus(root, seed, n_utts=64, n_phones=40):
@@ -2740,7 +2757,9 @@ def write_pwg_checkpoint(root, seed, stats):
 def recipe_slice(root, align_paths, seed, where):
     """Phase 15: tts1 stages 1-4 through the port's CLIs on phase 8's
     aligned corpus. Returns the two decode runs' K1 launches (all on the
-    3xTF32 tensor-core kernel)."""
+    3xTF32 tensor-core kernel) and what phase 22 reads: the stage-1 csvs,
+    the experiment, stats, token list, decode config and the HiFi-GAN
+    run's wav directory."""
     import numpy as np
     import torch
     import yaml
@@ -3013,7 +3032,9 @@ def recipe_slice(root, align_paths, seed, where):
     print(f"stage 4 whole CLI: HiFi-GAN run {hg['wall_s']:.2f} s, Griffin-Lim run {gl['wall_s']:.2f} s for "
           f"{audio_dec:.1f} s of audio; {where}", flush=True)
     print(f"phase 15 (stages 1-4 and their checks): {time.perf_counter() - t_phase:.1f} s; {where}", flush=True)
-    return hg["k1"][1] + gl["k1"][1]
+    recipe = {"csvs": csvs, "expdir": expdir, "stats": stats, "tokens": tokens, "exp_conf": exp_conf_path,
+              "decode_dir": root / "decode_hifigan" / "wav"}
+    return hg["k1"][1] + gl["k1"][1], recipe
 
 
 # ---------------------------------------------------------------------------
@@ -5346,8 +5367,8 @@ MP_MATCHA = (16, 704, 96)  # Matcha-TTS's tts1 step (phase 16's largest)
 MP_VITS = (8, 896, 112)  # a VITS micro-step (phase 17's largest)
 MP_TIMED = 10  # steps timed after MP_WARM warm-up steps
 MP_WARM = 2
-MP_SMALL_TIMED = 10  # the Matcha and VITS steps: timed steps a round
-MP_SMALL_ROUNDS = 3  # rounds, f32 and bf16 alternating in each
+MP_SMALL_TIMED = 8  # the Matcha and VITS steps: timed steps a round (10 before phase 22)
+MP_SMALL_ROUNDS = 2  # rounds, f32 and bf16 alternating in each (3 before phase 22 needed the run's time)
 MP_CLI_STEPS = 4  # the bf16 CLI run: an eval interval at 2 and 4
 SDPA_ROUNDS = 5  # rounds of SDPA's forward+backward beside the bf16 backward pairs
 # the backward routes a FastSpeech2 step can take, by the counters of ops/flash_attention.py
@@ -5841,6 +5862,187 @@ def mixed_precision_slice(root, align_paths, freqs, seed, where):
     return launches, {"fs2": fs2, "bwd": bwd, "small": small, "cli": cli}
 
 
+# ---------------------------------------------------------------------------
+# phase 22: tts1 stage 5 and speaker embeddings
+# ---------------------------------------------------------------------------
+
+# the ECAPA-TDNN on the card against the CPU: f32 (TF32 off) in another
+# order, embeddings O(1)
+ECAPA_TOL = (1e-3, 1e-4)  # rtol, atol
+STAGE5_JOBS = (4, 1)  # --n-jobs of the two stage-5 runs, which must agree bit for bit
+
+
+def seed_ecapa_checkpoint(path, seed):
+    """speechbrain's ``embedding_model.ckpt`` layout at the published widths
+    with seed-made weights: torch's default initialisation under ``seed``,
+    every BatchNorm's running statistics and affine drawn around identity.
+    Returns the path."""
+    import torch
+
+    from jatts_torch.features.ecapa import EcapaTdnn
+
+    torch.manual_seed(seed)
+    model = EcapaTdnn(device="cpu")
+    g = torch.Generator().manual_seed(seed + 1)
+    sd = {}
+    for k, v in model.state_dict().items():
+        if k.endswith(("running_mean", "norm.bias")):
+            v = 0.1 * torch.randn(v.shape, generator=g)
+        elif k.endswith("running_var"):
+            v = torch.rand(v.shape, generator=g) + 0.5
+        elif k.endswith("norm.weight"):
+            v = 1.0 + 0.1 * torch.randn(v.shape, generator=g)
+        sd[k] = v
+    Path(path).parent.mkdir(parents=True, exist_ok=True)
+    torch.save(sd, str(path))
+    return str(path)
+
+
+def stage5_slice(root, align_paths, recipe, seed, where, device="cuda"):
+    """Phase 22: the ECAPA-TDNN extractor at speechbrain's widths, its golden
+    check, stage 1 with speaker embeddings (the JVS conf), stage 5 on phase
+    15's stage-4 wavs, the f0 histograms, and a reference checkpoint of phase
+    15's model imported and decoded. Returns the phase's numbers."""
+    import numpy as np
+    import torch
+
+    from jatts_torch.bin import create_histogram, evaluate, import_checkpoint, preprocess, tts_decode, verify_ecapa
+    from jatts_torch.features.ecapa import EcapaSpkEmbExtractor
+    from jatts_torch.ops import flash_attention as k1
+    from jatts_torch.utils.checkpoint import find_latest_checkpoint, restore_checkpoint
+    from jatts_torch.utils.config import load_config
+    from jatts_torch.utils.io import read_csv, write_csv
+
+    t_phase = time.perf_counter()
+    corpus_wavs = Path(root) / "wav"  # phase 8's corpus
+    root = Path(root) / "stage5"
+    out = {}
+    ckpt = seed_ecapa_checkpoint(root / "ecapa" / "embedding_model.ckpt", seed)
+
+    # the extractor on the card against its CPU run, on the probe signals
+    card = EcapaSpkEmbExtractor(ckpt, device=device)
+    cpu = EcapaSpkEmbExtractor(ckpt, device="cpu")
+    rtol, atol = ECAPA_TOL
+    err, share, scale = 0.0, 0.0, 0.0
+    probes = verify_ecapa.probe_wavs()
+    for name, wav in probes.items():
+        got, want = card(wav), cpu(wav)
+        check(got.shape == (192,) and bool(np.isfinite(got).all()), f"ECAPA {name}: {got.shape}, finite {np.isfinite(got).all()}")
+        diff = np.abs(got - want)
+        err, scale = max(err, float(diff.max())), max(scale, float(np.abs(want).max()))
+        share = max(share, float((diff / (atol + rtol * np.abs(want))).max()))
+    print(f"ECAPA-TDNN at speechbrain's widths (channels (1024, 1024, 1024, 1024, 3072), seed-made weights), "
+          f"{device} vs CPU on the 3 probe signals of 2 s: max_abs_err {err:.3e} (max |embedding| {scale:.3f}; "
+          f"tol {atol:g} + {rtol:g} |x|, {share:.3f} of it)", flush=True)
+    check(share <= 1.0, "ECAPA on the card differs from the CPU")
+    wav = probes["noise"]
+    ev_ms = time_ms(lambda: card(wav), iters=10, warmup=2)
+    host_ms = time_ms(lambda: card(wav), iters=10, warmup=0, host_clock=True)
+    wall_ms, busy_ms, events = profile_ms(lambda: card(wav))
+    n_kernels = sum(e.count for e in events)
+    print(f"ECAPA-TDNN an utterance of 2 s (bucket 2 s, fbank + model + copy to the host): {ev_ms:.3f} ms by CUDA "
+          f"events, {host_ms:.3f} ms by the host's clock; profiled {wall_ms:.3f} ms wall, device busy "
+          f"{busy_ms:.3f} ms (share {busy_ms / wall_ms:.3f}) in {n_kernels} kernel launches; {where}", flush=True)
+    out["ecapa"] = {"max_abs_err": err, "ms": ev_ms, "host_ms": host_ms, "busy_share": busy_ms / wall_ms,
+                    "launches": n_kernels}
+
+    # the golden check: goldens written on the CPU, checked on the card
+    golden = str(root / "ecapa" / "golden.npz")
+    verify_ecapa.main(["--ckpt", ckpt, "--write-golden", golden, "--device", "cpu"])
+    verify_ecapa.main(["--ckpt", ckpt, "--golden", golden, "--atol", "1e-3", "--device", device])
+
+    # stage 1 with speaker embeddings, the JVS conf, on phase 8's corpus
+    conf = dict(load_config(str(JVS_CONF)), spkemb_model_path=ckpt)
+    check("spkemb" in conf["feat_list"], f"{JVS_CONF} lists no spkemb")
+    t0 = time.perf_counter()
+    n_utts, emb_err = 0, 0.0
+    n_rows = sum(len(read_csv(p, dict_reader=True)[0]) for p in align_paths)
+    for split, src in zip(("train", "dev"), align_paths):
+        csv = str(root / f"{split}.csv")
+        preprocess.run(src, conf, str(root / "dump" / split), out_csv=csv, device=device, dump_format="npz")
+        for row in read_csv(csv, dict_reader=True)[0]:
+            with np.load(row["feat_path"]) as f:
+                check(sorted(f.files) == ["energy", "mel", "pitch", "spkemb", "wave"], f"stage 1 keys {f.files}")
+                emb, wave = f["spkemb"], f["wave"]
+            check(emb.shape == (192,) and emb.dtype == np.float32 and bool(np.isfinite(emb).all()),
+                  f"{row['sample_id']}: spkemb {emb.shape} {emb.dtype}")
+            emb_err = max(emb_err, float(np.abs(emb - preprocess._extract_spkemb(wave, conf["sampling_rate"], card)).max()))
+            n_utts += 1
+    stage1_s = time.perf_counter() - t0
+    print(f"stage 1 with spkemb ({JVS_CONF.relative_to(ROOT)}, spkemb_model_path the seed-made ckpt): {n_utts} "
+          f"utterances in {stage1_s:.2f} s (every dump's spkemb 192-d and finite); against the extractor on the "
+          f"wav resampled to 16 kHz: max_abs_err {emb_err:.2e} (tol 1e-5); {where}", flush=True)
+    check(n_utts == n_rows and emb_err <= 1e-5, "stage 1 spkemb")
+
+    # stage 5 on phase 15's stage-4 wavs (the dev rows), at two --n-jobs
+    dev_csv = recipe["csvs"]["dev"]
+    n_dev = len(read_csv(dev_csv, dict_reader=True)[0])
+    base = ["--csv", dev_csv, "--config", str(JSUT_CONF), "--metrics", "mcd", "spkemb", "--spkemb-model", ckpt,
+            "--device", device, "--verbose", "0"]
+    runs = {}
+    for n_jobs in STAGE5_JOBS:
+        t0 = time.perf_counter()
+        res = evaluate.main(base + ["--wavdir", str(recipe["decode_dir"]), "--n-jobs", str(n_jobs),
+                                    "--out", str(root / f"results_{n_jobs}.csv")])
+        res["wall_s"] = time.perf_counter() - t0
+        runs[n_jobs] = res
+        check(len(res["results"]) == n_dev, f"stage 5 scored {len(res['results'])} of {n_dev} rows")
+        m = res["means"]
+        print(f"stage 5 (--n-jobs {n_jobs}) on {n_dev} stage-4 wavs against the corpus: mean MCD {m['mcd']:.4f} dB, "
+              f"F0RMSE {m['f0rmse']:.4f} Hz, F0CORR {m['f0corr']:.4f}, DDUR {m['ddur']:.4f} s, spkemb similarity "
+              f"{res['spkemb']:.4f}; seconds an utterance: f0 on the card {res['device_s'] / n_dev:.4f}, host work "
+              f"{res['host_s'] / n_dev:.4f}, whole CLI {res['wall_s'] / n_dev:.4f}; {where}", flush=True)
+        check(all(math.isfinite(m[k]) for k in ("mcd", "ddur")) and math.isfinite(res["spkemb"]), "stage 5 metrics")
+    same = all((root / f"results_{a}.csv").read_bytes() == (root / f"results_{STAGE5_JOBS[0]}.csv").read_bytes()
+               for a in STAGE5_JOBS)
+    print(f"stage 5 results.csv at --n-jobs {' and '.join(map(str, STAGE5_JOBS))}: identical bytes {same}", flush=True)
+    check(same, "stage 5 results differ across --n-jobs")
+    res = evaluate.main(base + ["--wavdir", str(corpus_wavs), "--n-jobs", str(STAGE5_JOBS[0]),
+                                "--out", str(root / "results_self.csv")])
+    worst = max(max(abs(r["mcd"]), abs(r["f0rmse"]), abs(r["f0corr"] - 1.0), abs(r["ddur"])) for r in res["results"])
+    worst = max(worst, abs(res["spkemb"] - 1.0))
+    print(f"stage 5, the corpus against itself: the largest of |MCD|, |F0RMSE|, |F0CORR - 1|, |DDUR| and "
+          f"|spkemb similarity - 1| over {len(res['results'])} rows {worst:.2e} (limit 1e-5)", flush=True)
+    check(len(res["results"]) == n_dev and worst <= 1e-5, "stage 5 of the corpus against itself")
+    out["stage5"] = {n: {k: runs[n][k] for k in ("means", "spkemb", "device_s", "host_s", "wall_s")} for n in runs}
+
+    # f0 histograms of the corpus
+    hist = create_histogram.main(["--csv", align_paths[0], "--outdir", str(root / "hist"), "--device", device])
+    for spk in hist:
+        png = root / "hist" / f"{spk}_f0_histogram.png"
+        check(png.read_bytes()[:8] == b"\x89PNG\r\n\x1a\n", f"{png} is not a PNG")
+    print(f"create_histogram: {len(hist)} speaker(s), {sum(len(v) for v in hist.values())} voiced frames, PNGs "
+          f"written", flush=True)
+
+    # a reference .pkl of phase 15's FastSpeech2 imported and decoded
+    src = find_latest_checkpoint(recipe["expdir"])
+    state = restore_checkpoint(src, map_location="cpu")
+    pkl = root / "reference" / f"checkpoint-{state['steps']}steps.pkl"
+    pkl.parent.mkdir(parents=True, exist_ok=True)
+    torch.save({"model": state["model"], "steps": state["steps"]}, str(pkl))
+    imported = import_checkpoint.main(["--checkpoint", str(pkl), "--config", str(Path(recipe["expdir"]) / "config.yml"),
+                                       "--token-list", recipe["tokens"], "--out", str(root / "imported")])
+    one = str(root / "one_batch.csv")
+    write_csv(read_csv(dev_csv, dict_reader=True)[0][:RECIPE_BATCH], one)
+    k1.reset_launches()
+    for tag, path in (("original", src), ("imported", imported)):
+        tts_decode.main(["--csv", one, "--stats", recipe["stats"], "--token-list", recipe["tokens"],
+                         "--checkpoint", path, "--config", recipe["exp_conf"], "--outdir", str(root / f"decode_{tag}"),
+                         "--batch-size", str(RECIPE_BATCH), "--max-frames", "2048", "--device", device,
+                         "--verbose", "0"])
+    n_same = 0
+    utts = [r["sample_id"] for r in read_csv(one, dict_reader=True)[0]]
+    for utt in utts:
+        a, b = (root / f"decode_{t}" / "wav" for t in ("original", "imported"))
+        n_same += (a / f"{utt}.wav").read_bytes() == (b / f"{utt}.wav").read_bytes()
+    print(f"import_checkpoint: {pkl.name} -> {Path(imported).name}; stage 4 on one batch of {len(utts)}: {n_same} of "
+          f"{len(utts)} wavs bit for bit the original checkpoint's; K1 launches {k1.launches} (on the 3xTF32 kernel "
+          f"{k1.launches_tc_f32})", flush=True)
+    check(n_same == len(utts), "the imported checkpoint decodes to other wavs")
+    print(f"phase 22 (stage 5 and speaker embeddings): {time.perf_counter() - t_phase:.1f} s; {where}", flush=True)
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -6153,7 +6355,7 @@ def main() -> int:
     jvs_launches, jvs = training_slice(tmp.name, align_paths, freqs, args.seed, where, which="jvs")
 
     # 15. the tts1 recipe, stages 1-4, through the port's CLIs on phase 8's corpus
-    decode_tc_f32 = recipe_slice(tmp.name, align_paths, args.seed, where)
+    decode_tc_f32, recipe = recipe_slice(tmp.name, align_paths, args.seed, where)
 
     # 16. the Matcha family: serving, then tts1 and tts2 (MAS) training on phase 8's corpus
     matcha_serve, matcha_tts1, matcha_tts2 = matcha_slice(tmp.name, align_paths, freqs, args.seed, where)
@@ -6183,6 +6385,11 @@ def main() -> int:
     # kernels a flash step takes against their plain twins, a bf16 CLI run
     # with the intermediate hook and the event file
     mp_n, mp = mixed_precision_slice(tmp.name, align_paths, freqs, args.seed, where)
+
+    # 22. tts1 stage 5 and speaker embeddings: the ECAPA-TDNN, its golden
+    # check, stage 1 with spkemb, stage 5 on phase 15's wavs, the f0
+    # histograms, a reference checkpoint imported and decoded
+    stage5_slice(tmp.name, align_paths, recipe, args.seed, where)
     tmp.cleanup()
     e2_tc = {"e2tts_serving": e2_launches["serve_tc"], "e2tts_training": e2_launches["train"]["k1.launches_tc"],
              "e2tts_decode": e2_launches["decode_tc"]}

@@ -7,9 +7,11 @@ read the port's ``state_dict()`` unchanged.
 
 The package imports ``torch`` and never ``jax``, ``flax`` or ``jatts_tpu``.
 Entry points (``FastSpeech2``, ``HiFiGANGenerator``, ``ServingBundle``,
-the feature extractors and vocoders, and the CLIs ``bin/align.py``,
-``bin/preprocess.py``, ``bin/tts_train.py``, ``bin/tts_decode.py``) run on
-``cuda`` unless the caller passes ``device="cpu"``. Hand-written CUDA kernels
+the feature extractors and vocoders, the ECAPA-TDNN, and the CLIs
+``bin/align.py``, ``bin/preprocess.py``, ``bin/tts_train.py``,
+``bin/tts_decode.py``, ``bin/evaluate.py``, ``bin/verify_ecapa.py``,
+``bin/create_histogram.py``) run on ``cuda`` unless the caller passes
+``device="cpu"``. Hand-written CUDA kernels
 live in ``csrc/`` and are built with ``nvcc`` at first use.
 """
 

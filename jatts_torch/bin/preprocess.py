@@ -12,9 +12,11 @@ It runs on the CUDA card unless ``--device cpu`` is given. Dumps are
 ``{utt}.h5`` (the JAX package's format, needs h5py) or, with
 ``--dump-format npz``, ``{utt}.npz`` with the same keys, for a machine
 without h5py. ``--f0-config`` is a yaml of per-speaker ``f0min``/``f0max``.
-Speaker embeddings (``spkemb``) and codec codes (``encodec*``) need weights
-that are not in the repository: without them the stage warns and skips the
-feature, as the JAX CLI does.
+Speaker embeddings (``spkemb``) come from the port's ECAPA-TDNN
+(``features/ecapa.py``) on speechbrain's ``embedding_model.ckpt`` named by
+the config's ``spkemb_model_path``, on the audio resampled to 16 kHz; codec
+codes (``encodec*``) need local weights. Without weights the stage warns and
+skips the feature, as the JAX CLI does.
 """
 
 from __future__ import annotations
@@ -82,6 +84,8 @@ def run(
         device=dev,
     )
 
+    spkemb = _spkemb_extractor(config.get("spkemb_model_path"), dev) if "spkemb" in feat_list else None
+
     rows, fieldnames = read_csv(csv, dict_reader=True)
     os.makedirs(dumpdir, exist_ok=True)
     seconds = 0.0
@@ -121,10 +125,8 @@ def run(
                 use_token_averaged_energy=durations is not None, device=dev,
             )
             feats["energy"] = en(wav, feat_length=len(mel), durations=durations)
-        if "spkemb" in feat_list:
-            emb = _extract_spkemb(wav, sr, config.get("spkemb_model_path"))
-            if emb is not None:
-                feats["spkemb"] = emb
+        if spkemb is not None:
+            feats["spkemb"] = _extract_spkemb(wav, sr, spkemb)
         if any(f.startswith("encodec") for f in feat_list):
             codes = _extract_encodec(wav, sr, config.get("codec_path"), dev)
             if codes is not None:
@@ -171,17 +173,50 @@ def _extract_encodec(wav, sr, codec_path, device):
         return None
 
 
-def _extract_spkemb(wav, sr, model_path=None):
-    """Speaker embeddings: the ECAPA-TDNN extractor is not ported yet. With
-    weights (``spkemb_model_path``) this raises; without them it warns and
-    skips, as the JAX CLI does when no extractor is available."""
+def _spkemb_extractor(model_path, device):
+    """The speaker-embedding extractor of one stage-1 run, built once: the
+    port's ECAPA-TDNN on ``device`` with speechbrain's
+    ``embedding_model.ckpt`` from a local ``model_path``; without a path
+    the speechbrain package when it is importable; else a warning and None
+    (the feature is skipped)."""
     if model_path:
-        raise NotImplementedError(
-            "spkemb extraction with spkemb_model_path needs the ECAPA-TDNN "
-            "extractor, which is not ported yet (ROADMAP section 1 item 10)"
+        from jatts_torch.features.ecapa import EcapaSpkEmbExtractor
+
+        return EcapaSpkEmbExtractor(model_path, device=device)
+    try:
+        import torch
+        from speechbrain.pretrained import EncoderClassifier
+
+        clf = EncoderClassifier.from_hparams(
+            source="speechbrain/spkrec-ecapa-voxceleb", run_opts={"device": str(device)}
         )
-    logging.warning("spkemb: no spkemb_model_path; skipping spkemb")
-    return None
+
+        def encode(wav):
+            with torch.no_grad():
+                return clf.encode_batch(torch.from_numpy(wav)[None]).squeeze().cpu().numpy()
+
+        return encode
+    except Exception:  # noqa: BLE001 - package or weights unavailable
+        logging.warning("speechbrain unavailable; skipping spkemb")
+        return None
+
+
+def _extract_spkemb(wav, sr, extractor):
+    """Speaker embedding of one utterance (the reference's extractor,
+    feature_extract/spkemb_speechbrain.py:14-30). For the ECAPA-TDNN the
+    audio is resampled to the 16 kHz the voxceleb model was trained on by
+    ``resample_poly``, as the JAX CLI does; the speechbrain package is fed
+    the corpus rate as it is, as the reference feeds it (a known quirk)."""
+    from jatts_torch.features.ecapa import EcapaSpkEmbExtractor
+
+    if sr != 16000 and isinstance(extractor, EcapaSpkEmbExtractor):
+        from math import gcd
+
+        from scipy.signal import resample_poly
+
+        g = gcd(16000, int(sr))
+        wav = resample_poly(wav, 16000 // g, int(sr) // g)
+    return np.asarray(extractor(wav), np.float32)
 
 
 def main(argv: Optional[Sequence[str]] = None) -> None:

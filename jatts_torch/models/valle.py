@@ -108,10 +108,17 @@ class VALLEBase(nn.Module):
         prompt_prefix_mode: int = 1,
         prompt_max_frame_length: int = 225,
         attn_backend: str = "xla",
+        use_remat: bool = False,
+        remat_policy: Optional[str] = None,
         device: Optional[Union[str, torch.device]] = None,
         dtype: torch.dtype = torch.float32,
     ):
         super().__init__()
+        if use_remat:
+            raise NotImplementedError(
+                "use_remat (activation checkpointing) is not ported: train VALL-E without it"
+            )
+        del remat_policy  # read only under use_remat, which is refused above
         dev = resolve_device(device)
         self.n_tokens = n_tokens
         self.d_model = d_model

@@ -248,3 +248,19 @@ def e2tts_state_dict_from_jax(variables: Mapping[str, Any], depth: int) -> Dict[
     if found != set(range(depth)):
         raise ValueError(f"expected layers 0..{depth - 1}, found {sorted(found)}")
     return sd
+
+
+ECAPA_EVERY = (
+    (r"(^|/)blocks_(\d+)(?=/|$)", r"\1blocks/\2"),
+    # speechbrain's wrappers: a Conv1d owns an inner .conv, a BatchNorm1d
+    # an inner .norm
+    (r"(^|/)(conv|conv1|conv2|fc)$", r"\1\2/conv"),
+    (r"(^|/)(norm|asp_bn)$", r"\1\2/norm"),
+)
+
+
+def ecapa_state_dict_from_jax(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """ECAPA-TDNN flax variables (``jatts_tpu/features/ecapa.py``) -> the
+    port's state_dict, which is speechbrain's ``embedding_model.ckpt``
+    layout; the inverse of the JAX package's ``convert_speechbrain_ecapa``."""
+    return flax_to_state_dict(variables, every=ECAPA_EVERY)

@@ -114,3 +114,18 @@ def plot_1d(x: np.ndarray, path: str, title: str = "") -> None:
         a, b = min(prev, r), max(prev, r)
         canvas[a:b + 1, i * SCALE:(i + 1) * SCALE] = (31, 119, 180)
     _save(canvas, path, title)
+
+
+def plot_histogram(values: np.ndarray, path: str, bins: int = 100, value_range=None, title: str = "") -> None:
+    """``np.histogram(values, bins, value_range)`` as bars on a white
+    LINE_HEIGHT-pixel canvas, 2 * SCALE pixels a bin, the tallest bin full
+    height."""
+    counts, _ = np.histogram(np.asarray(values, np.float64).reshape(-1), bins=bins, range=value_range)
+    top = max(int(counts.max()), 1) if counts.size else 1
+    heights = np.rint(counts / top * (LINE_HEIGHT - 1)).astype(np.int64)
+    width = 2 * SCALE
+    canvas = np.full((LINE_HEIGHT, bins * width, 3), 255, np.uint8)
+    for i, h in enumerate(heights):
+        if counts[i]:
+            canvas[LINE_HEIGHT - 1 - h:, i * width:(i + 1) * width - 1] = (31, 119, 180)
+    _save(canvas, path, title)

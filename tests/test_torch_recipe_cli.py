@@ -211,8 +211,9 @@ def test_inference_dataset_loads_leniently(stages, tmp_path):
 
 def test_feature_gates(stages, tmp_path, caplog):
     """spkemb and encodec need weights: without them the stage warns and
-    the dump has no such key; a spkemb model path raises, naming the
-    missing ECAPA port."""
+    the dump has no such key; with a spkemb model path (speechbrain's
+    layout, here at small widths) every dump holds the ECAPA-TDNN's
+    embedding, and a path to no file raises."""
     config = dict(CONFIG, feat_list=["mel", "spkemb", "encodec"])
     with caplog.at_level(logging.WARNING):
         tpre.run(stages["in_csv"], config, str(tmp_path / "dump"), out_csv=str(tmp_path / "a.csv"),
@@ -221,9 +222,22 @@ def test_feature_gates(stages, tmp_path, caplog):
     rows, _ = tio.read_csv(str(tmp_path / "a.csv"), dict_reader=True)
     with np.load(rows[0]["feat_path"]) as f:
         assert sorted(f.files) == ["mel", "wave"]
-    with pytest.raises(NotImplementedError, match="ROADMAP section 1 item 10"):
-        tpre.run(stages["in_csv"], dict(config, spkemb_model_path="ecapa.ckpt"), str(tmp_path / "d2"),
-                 out_csv=str(tmp_path / "b.csv"), dump_format="npz", device="cpu")
+    from jatts_torch.features.ecapa import EcapaTdnn
+
+    small = dict(channels=(16, 16, 16, 16, 48), attn_ch=8, res2net_scale=8, se_ch=8, lin_neurons=12)
+    ckpt = str(tmp_path / "embedding_model.ckpt")
+    torch.save(EcapaTdnn(**small, device="cpu").state_dict(), ckpt)
+    config = dict(config, feat_list=["spkemb"], spkemb_model_path=ckpt)
+    tpre.run(stages["in_csv"], config, str(tmp_path / "d2"), out_csv=str(tmp_path / "b.csv"), dump_format="npz",
+             device="cpu")
+    for row in tio.read_csv(str(tmp_path / "b.csv"), dict_reader=True)[0]:
+        with np.load(row["feat_path"]) as f:
+            assert sorted(f.files) == ["spkemb", "wave"]
+            assert f["spkemb"].shape == (12,) and f["spkemb"].dtype == np.float32
+            assert np.isfinite(f["spkemb"]).all()
+    with pytest.raises(FileNotFoundError):
+        tpre.run(stages["in_csv"], dict(config, spkemb_model_path=str(tmp_path / "none.ckpt")),
+                 str(tmp_path / "d3"), out_csv=str(tmp_path / "c.csv"), dump_format="npz", device="cpu")
 
 
 @pytest.fixture(scope="module")
