@@ -303,6 +303,18 @@ Phases, each of which fails the run with a non-zero exit:
      ``bin/create_histogram.py`` on the corpus; a reference ``.pkl`` of
      phase 15's FastSpeech2 through ``bin/import_checkpoint.py``, decoded by
      stage 4 on one batch: the wavs bit for bit the original checkpoint's.
+ 23. training over several processes (``jatts_torch/parallel/mesh.py``):
+     (c) E2-TTS's attention at its sequence-parallel shapes (B, 16, N/2 + 1,
+     N + 1, 64) and (B, 16, N/2, N, 64), bf16 with a key mask, forward, dk/dv
+     and dq on the tensor cores against the plain versions per item; (b) two
+     ranks on the one card over gloo (NCCL refuses two ranks on one device),
+     each a ``chip_smoke.py --p23-rank`` process: dp2 FastSpeech2 (JSUT),
+     VALL-E AR dp1 x tp2 and E2-TTS sp2 at their published widths in bf16
+     with ``flash``, each for a few steps against the one-rank run here (the
+     losses and grad norms a step, the weights' updates), each rank's
+     launches counted; (a) the JSUT bf16 conf through ``bin/tts_train.py
+     --multihost`` in an NCCL world of 1 with ``mesh: {model: 1}``: its
+     checkpoint bit for bit the plain CLI run's.
 The line before the last is the kernels' JSON record, the last line
 ``{"ok": true, "device": {...}}``. Exits 2 without a CUDA device or
 without the jatts_torch package beside this file.
@@ -5808,7 +5820,8 @@ def mp_cli_run(root, align_paths, freqs, seed, where):
           f"{run_s:.1f} s; predictions at 2 and 4 steps: {len(files[2])} + {len(files[4])} files, PNGs valid; "
           f"event file {len(scalars)} scalars, every CRC checked, mem/peak_bytes_gb {peak:.2f}; launches "
           + ", ".join(f"{n[9:] or 'K1'} {v}" for n, v in launches.items() if v) + f"; {where}", flush=True)
-    return {"run_s": run_s, "launches": launches, "scalars": len(scalars)}
+    return {"run_s": run_s, "launches": launches, "scalars": len(scalars),
+            "corpus": (train_csv, dev_csv, stats, tokens)}
 
 
 def mp_bwd_entry(r, key, scalar=False):
@@ -6043,12 +6056,363 @@ def stage5_slice(root, align_paths, recipe, seed, where, device="cuda"):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 23: training over several processes (torch.distributed)
+# ---------------------------------------------------------------------------
+
+P23_STEPS = 2  # steps of each run of (b) (3 in the first probe: 87.1 s for the phase); the confs' 100000-1000000
+P23_CLI_STEPS = 2  # (a): the JSUT conf through the CLI (4 in the first probe)
+P23_FS2 = (8, 512, 64)  # (b) dp2 FastSpeech2: B, T_feats, T_text (4 rows a rank)
+P23_VALLE = (4, 64, 150, 400)  # (b) VALL-E AR dp1 x tp2: B, text, prompt and response frames
+P23_E2 = (2, 1024, 200)  # (b) E2-TTS sp2: B, N frames (N/2 a rank), text tokens
+P23_ATTN = ((2, 16, 513, 1025, 64), (2, 16, 512, 1024, 64))  # (c): B, H, Tq, Tk, d
+# (b) against the one-rank run, bf16 compute: per-step loss and grad norm
+# relative; the weights' updates, |Δ_mesh - Δ_one| / |Δ_one| over every parameter
+P23_TOL = {"loss": 1e-2, "grad_norm": 2e-2, "update": 0.1}
+P23_TIMEOUT = 300  # seconds: every collective of (b), and the ranks' join
+# what one step launches on each rank, by counter (bf16, flash)
+P23_WANT = {
+    "fs2": {"k1.launches_tc": 8, "k1.launches_bwd_dkv_tc_bias": 8, "k1.launches_bwd_dq_tc_bias": 8},
+    "valle": {"k1.launches_tc": 12, "k1.launches_bwd_dkv_tc": 12, "k1.launches_bwd_dq_tc": 12},
+    "e2": {"k1.launches_tc": 24, "k1.launches_bwd_dkv_tc_noncausal": 24, "k1.launches_bwd_dq_tc_noncausal": 24},
+}
+
+
+def p23_jobs(seed):
+    """The three runs of (b): each model at its conf's published widths in
+    bf16 compute with ``attn_backend: flash``, the conf's optimizer at a
+    constant rate without accumulation, ``P23_STEPS`` seed-made global
+    batches, and its mesh."""
+    import numpy as np
+
+    from jatts_torch.utils.config import load_config
+
+    rng = np.random.default_rng(seed)
+    jobs = []
+    conf = load_config(str(JSUT_CONF))
+    jobs.append({"name": "fs2", "model_type": "FastSpeech2", "conf": conf, "mesh": (2, 1), "mesh_cfg": {},
+                 "batches": [mp_batch(P23_FS2, int(conf["num_mels"]), seed + i) for i in range(P23_STEPS)]})
+    conf = load_config(str(TTS3_CONF))
+    b, tx, tp, tr = P23_VALLE
+    batches = []
+    for _ in range(P23_STEPS):
+        batches.append({
+            "text": rng.integers(1, 64, (b, tx)), "text_lens": np.array([tx, tx - 9, tx // 2, 13][:b]),
+            "proms": rng.integers(0, 1024, (b, tp, 8)), "prom_lens": np.array([tp, tp - 30, 90, 75][:b]),
+            "resps": rng.integers(0, 1024, (b, tr, 8)), "resp_lens": np.array([tr, tr - 50, 250, 120][:b]),
+        })
+    jobs.append({"name": "valle", "model_type": "VALLEAR", "conf": conf, "mesh": (1, 2), "mesh_cfg": {"model": 2},
+                 "batches": batches})
+    conf = load_config(str(E2_CONF))
+    b, n, nt = P23_E2
+    batches = []
+    for _ in range(P23_STEPS):
+        xs = rng.integers(0, 64, (b, nt))
+        xs[1, 150:] = -1
+        batches.append({"xs": xs, "ilens": (xs >= 0).sum(1), "olens": np.array([n, 700][:b]),
+                        "ys": rng.normal(size=(b, n, conf["model_params"]["odim"])).astype(np.float32)})
+    jobs.append({"name": "e2", "model_type": "E2TTS", "conf": conf, "mesh": (1, 2),
+                 "mesh_cfg": {"model": 2, "sequence_parallel": True}, "batches": batches})
+    for job in jobs:
+        c = dict(job["conf"])
+        c["optimizer_params"] = dict(c["optimizer_params"])
+        c.update(scheduler="constant", gradient_accumulate_steps=1, mesh=job["mesh_cfg"],
+                 model_params={**c["model_params"], "dtype": "bfloat16", "attn_backend": "flash"})
+        job["conf"] = c
+    return jobs
+
+
+def p23_trainer(job, seed, outdir, mesh=None):
+    """The job's model made from ``seed`` on this process's card and its
+    Trainer, initialised."""
+    import torch
+
+    from jatts_torch.bin import tts_train
+    from jatts_torch.train.steps import get_loss_fn
+    from jatts_torch.train.trainer import Trainer
+
+    config = job["conf"]
+    mp = dict(config["model_params"])
+    dtype = tts_train.DTYPES[mp.pop("dtype")]
+    torch.manual_seed(seed)
+    model = tts_train.MODELS[job["model_type"]](idim=64, **mp, device=torch.cuda.current_device(), dtype=dtype)
+    trainer = Trainer(config, model, tts_train.build_criterions(config), get_loss_fn(config["trainer_type"]),
+                      _NoLoader(), outdir=outdir, seed=seed, mesh=mesh)
+    trainer.init_state()
+    return trainer
+
+
+def p23_rank(job_path):
+    """One rank of (b), started by :func:`parallel_slice` with torchrun's
+    variables: the jobs over gloo on this rank's card, each rank's launch
+    counts and history written beside ``job_path``, the whole final weights
+    by rank 0."""
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, str(ROOT))
+    from jatts_torch.parallel.mesh import get_mesh, init_distributed, local_device
+
+    spec = torch.load(job_path, weights_only=False)
+    rank, _, _ = init_distributed("gloo", timeout=P23_TIMEOUT)
+    torch.cuda.set_device(local_device("cuda"))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out = {}
+    try:
+        for job in spec["jobs"]:
+            mesh = get_mesh(*job["mesh"], device_type="cuda")
+            trainer = p23_trainer(job, spec["seed"], str(Path(job_path).parent / f"{job['name']}_r{rank}"), mesh)
+            reset_all_launches()
+            t0 = time.perf_counter()
+            for batch in job["batches"]:
+                trainer.train_step(batch)
+            torch.cuda.synchronize()
+            counts = {k: v for k, v in launch_counts().items() if v}
+            state = {k: v.float().cpu() for k, v in trainer._model_state().items()}
+            out[job["name"]] = {"history": trainer.history, "launches": counts, "s": time.perf_counter() - t0,
+                                "sharded": sum(trainer.sharded)}
+            if rank == 0:
+                torch.save(state, Path(job_path).parent / f"{job['name']}_state.pt")
+            del trainer, state
+            torch.cuda.empty_cache()
+        torch.save(out, Path(job_path).parent / f"rank{rank}.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+def p23_free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def p23_cli(corpus, outdir, seed, multihost):
+    """(a): the JSUT conf, bf16 compute, ``flash``, through ``bin/tts_train.py``;
+    with ``multihost`` as an NCCL world of 1 with ``mesh: {model: 1}``.
+    Returns the final checkpoint's state and the launches of the run."""
+    import torch
+    import yaml
+
+    from jatts_torch.bin import tts_train
+    from jatts_torch.ops import flash_attention as k1
+    from jatts_torch.utils.checkpoint import restore_checkpoint
+    from jatts_torch.utils.config import load_config
+
+    config = load_config(str(JSUT_CONF))
+    config["model_params"] = {**config["model_params"], "dtype": "bfloat16"}
+    config.update(train_max_steps=P23_CLI_STEPS, eval_interval_steps=0, log_interval_steps=2,
+                  save_interval_steps=P23_CLI_STEPS, batch_size=8)
+    if multihost:
+        config["mesh"] = {"model": 1}
+    conf_path = Path(outdir).parent / f"{Path(outdir).name}.yaml"
+    conf_path.parent.mkdir(parents=True, exist_ok=True)
+    conf_path.write_text(yaml.safe_dump(config))
+    train_csv, dev_csv, stats, tokens = corpus
+    argv = ["--train-csv", train_csv, "--dev-csv", dev_csv, "--stats", stats, "--token-list", tokens,
+            "--config", str(conf_path), "--outdir", str(outdir), "--seed", str(seed), "--attn-backend", "flash",
+            "--verbose", "0"]
+    env_before = {k: os.environ.get(k) for k in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT")}
+    if multihost:
+        argv += ["--multihost", "--dist-backend", "nccl"]
+        os.environ.update(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0", MASTER_ADDR="localhost",
+                          MASTER_PORT=str(p23_free_port()))
+    k1.reset_launches()
+    t0 = time.perf_counter()
+    try:
+        trainer = tts_train.main(argv)
+        torch.cuda.synchronize()
+    finally:
+        for k, v in env_before.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    seconds = time.perf_counter() - t0
+    launches = {n: getattr(k1, n) for n in MP_ROUTES if getattr(k1, n)}
+    check(trainer.steps == P23_CLI_STEPS, f"(a) {'multihost' if multihost else 'plain'} CLI ran {trainer.steps} steps")
+    check((trainer.mesh is not None) == multihost, "(a) the CLI's mesh")
+    state = restore_checkpoint(str(Path(outdir) / f"checkpoint-{P23_CLI_STEPS}steps"))
+    del trainer
+    return state, launches, seconds
+
+
+def p23_same_bits(a, b, path=""):
+    """Whether two checkpoint trees hold the same tensors bit for bit; the
+    first difference."""
+    import torch
+
+    if isinstance(a, dict):
+        if set(a) != set(b):
+            return False, f"{path}: keys differ"
+        for k in a:
+            ok, where_ = p23_same_bits(a[k], b[k], f"{path}.{k}")
+            if not ok:
+                return ok, where_
+        return True, ""
+    if isinstance(a, (list, tuple)):
+        for i, (x, y) in enumerate(zip(a, b)):
+            ok, where_ = p23_same_bits(x, y, f"{path}[{i}]")
+            if not ok:
+                return ok, where_
+        return len(a) == len(b), path
+    if isinstance(a, torch.Tensor):
+        return bool(a.dtype == b.dtype and a.shape == b.shape and torch.equal(a, b)), path
+    return a == b, path
+
+
+def parallel_slice(root, corpus, seed, where):
+    """Phase 23: (c) the E2-TTS attention at its sequence-parallel shapes
+    (Tq = N/2 + 1 local queries against Tk = N + 1 gathered keys, and N/2
+    against N) on the tensor-core kernels against the plain versions; (b)
+    two ranks over gloo on the one card (NCCL refuses two ranks on one
+    device): dp2 FastSpeech2, VALL-E AR dp1 x tp2 and E2-TTS sp2 at their
+    published widths for ``P23_STEPS`` steps each against the one-rank run,
+    each rank's launches counted; (a) the JSUT bf16 conf through
+    ``bin/tts_train.py --multihost`` in an NCCL world of 1 against the plain
+    CLI, bit for bit. Returns each rank's launches by counter."""
+    import torch
+
+    t_phase = time.perf_counter()
+    root = Path(root) / "parallel"
+    root.mkdir(parents=True, exist_ok=True)
+
+    # (c) the attention at the SP shapes
+    for shape in P23_ATTN:
+        rows = [(0, shape[3]), (0, shape[3] - 300)]
+        check_nar_bwd("sp", shape, rows, seed, label="E2 SP")
+        check_nar_chain(shape, rows, seed, label="E2 SP")
+    fwd_ms = {}
+    from jatts_torch.ops import flash_attention as k1
+
+    for shape in P23_ATTN + ((2, 16, 1025, 1025, 64),):
+        b, h, tq, tk, d = shape
+        q = torch.randn(b, h, tq, d, device="cuda").bfloat16()
+        kv = torch.randn(b, h, tk, d, device="cuda").bfloat16()
+        fwd_ms[(tq, tk)] = time_ms(lambda: k1.flash_attention(q, kv, kv, None, None, d ** -0.5))
+    print("phase 23 (c): E2 forward at B=2, H=16, d=64 ms by Tq x Tk: "
+          + ", ".join(f"{tq} x {tk} {ms:.4f}" for (tq, tk), ms in fwd_ms.items()) + f"; {where}", flush=True)
+
+    # (b) two ranks over gloo on the one card
+    jobs = p23_jobs(seed)
+    job_path = root / "jobs.pt"
+    torch.save({"jobs": jobs, "seed": seed}, job_path)
+    port = p23_free_port()
+    procs = []
+    for r in range(2):
+        env = {**os.environ, "RANK": str(r), "LOCAL_RANK": str(r), "WORLD_SIZE": "2", "MASTER_ADDR": "localhost",
+               "MASTER_PORT": str(port)}
+        log = open(root / f"rank{r}.log", "w")
+        procs.append((subprocess.Popen([sys.executable, str(ROOT / "chip_smoke.py"), "--p23-rank", str(job_path)],
+                                       env=env, cwd=str(ROOT), stdout=log, stderr=subprocess.STDOUT), log))
+    t_spawn = time.perf_counter()
+    try:
+        # (a) meanwhile, in this process: the plain CLI, then the NCCL world of 1
+        torch.backends.cudnn.deterministic = True
+        plain, plain_n, plain_s = p23_cli(corpus, root / "cli_plain", seed, multihost=False)
+        nccl, nccl_n, nccl_s = p23_cli(corpus, root / "cli_nccl", seed, multihost=True)
+        torch.backends.cudnn.deterministic = False
+        same, first = p23_same_bits(plain, nccl)
+        check(same, f"(a) the NCCL world of 1 left the plain CLI's bits at {first}")
+        check(plain_n == nccl_n and nccl_n.get("launches_bwd_dkv_tc_bias", 0) == 8 * P23_CLI_STEPS,
+              f"(a) launches: plain {plain_n}, NCCL world of 1 {nccl_n}")
+        print(f"phase 23 (a): JSUT bf16 flash through bin/tts_train.py, {P23_CLI_STEPS} steps: the NCCL world of 1 "
+              f"(--multihost, mesh model 1) {nccl_s:.1f} s, the plain run {plain_s:.1f} s; every tensor of the "
+              f"checkpoint bit for bit; launches each " + ", ".join(f"{n[9:] or 'K1'} {v}" for n, v in nccl_n.items())
+              + f"; {where}", flush=True)
+
+        # (b)'s one-rank references, here
+        refs = {}
+        for job in jobs:
+            tr = p23_trainer(job, seed, str(root / f"{job['name']}_one"))
+            w0 = {k: v.float().clone() for k, v in tr._model_state().items()}
+            reset_all_launches()
+            t0 = time.perf_counter()
+            for batch in job["batches"]:
+                tr.train_step(batch)
+            torch.cuda.synchronize()
+            refs[job["name"]] = {"history": tr.history, "s": time.perf_counter() - t0, "w0": w0,
+                                 "w": {k: v.float().clone() for k, v in tr._model_state().items()},
+                                 "launches": {k: v for k, v in launch_counts().items() if v}}
+            del tr
+            torch.cuda.empty_cache()
+        for p, log in procs:
+            p.wait(timeout=max(P23_TIMEOUT - (time.perf_counter() - t_spawn), 1))
+            log.close()
+    finally:
+        for p, log in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, (p, _) in enumerate(procs):
+        if p.returncode != 0:
+            print((root / f"rank{r}.log").read_text()[-6000:], flush=True)
+        check(p.returncode == 0, f"(b) rank {r} exited with {p.returncode}")
+    ranks = [torch.load(root / f"rank{r}.pt", weights_only=False) for r in range(2)]
+    per_rank = {"nccl_world1": nccl_n}
+    for job in jobs:
+        name = job["name"]
+        ref = refs[name]
+        for r in range(2):
+            got = ranks[r][name]
+            for step, (g, w) in enumerate(zip(got["history"], ref["history"])):
+                for key in ("train/loss", "train/grad_norm"):
+                    tol = P23_TOL["loss" if key == "train/loss" else "grad_norm"]
+                    rel = abs(g[key] - w[key]) / max(abs(w[key]), 1e-12)
+                    check(rel <= tol, f"(b) {name} rank {r} step {step}: {key} {g[key]} against {w[key]} (rel {rel:.2e})")
+            want = {k: v * P23_STEPS for k, v in P23_WANT[name].items()}
+            have = {k: got["launches"].get(k, 0) for k in want}
+            check(have == want, f"(b) {name} rank {r}: launches {have} != {want}")
+        per_rank[name] = [ranks[r][name]["launches"] for r in range(2)]
+        check({k: ref["launches"].get(k, 0) for k in P23_WANT[name]}
+              == {k: v * P23_STEPS for k, v in P23_WANT[name].items()}, f"(b) {name} one-rank launches {ref['launches']}")
+        state = torch.load(root / f"{name}_state.pt")
+        num = den = 0.0
+        for k, w in ref["w"].items():
+            if not torch.is_floating_point(w):
+                continue
+            d_one = w - ref["w0"][k]
+            d_mesh = state[k].to(w.device) - ref["w0"][k]
+            num += float((d_mesh - d_one).pow(2).sum())
+            den += float(d_one.pow(2).sum())
+        upd = math.sqrt(num / max(den, 1e-30))
+        check(upd <= P23_TOL["update"], f"(b) {name}: the updates differ by {upd:.3e} of their size")
+        hist = ", ".join(f"{h['train/loss']:.4f}/{w_['train/loss']:.4f}" for h, w_ in
+                         zip(ranks[0][name]["history"], ref["history"]))
+        print(f"phase 23 (b) {name} mesh {job['mesh']} (data, model) over gloo on one card, {P23_STEPS} steps: "
+              f"losses mesh/one {hist}; updates differ by {upd:.3e} of their size (tol {P23_TOL['update']}); "
+              f"{ranks[0][name]['sharded']} tensors sharded; rank 0 {ranks[0][name]['s']:.1f} s, rank 1 "
+              f"{ranks[1][name]['s']:.1f} s, one rank {ref['s']:.1f} s; launches a rank "
+              + ", ".join(f"{k[3:]} {v}" for k, v in ranks[0][name]["launches"].items()) + f"; {where}", flush=True)
+    print(f"phase 23 (several processes: SP attention, gloo ranks, NCCL world of 1): "
+          f"{time.perf_counter() - t_phase:.1f} s; {where}", flush=True)
+    return per_rank, {"fwd_ms": fwd_ms}
+
+
+def p23_paths(p23_n, jobs, counter):
+    """Phase 23's launches of ``counter`` by path: each gloo rank's over
+    ``jobs``, and the NCCL world of 1's."""
+    out = {f"parallel_rank{r}": sum(p23_n[j][r].get(counter, 0) for j in jobs) for r in range(2)}
+    if "fs2" in jobs:
+        out["parallel_nccl_world1"] = p23_n["nccl_world1"].get(counter[3:], 0)
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--p23-rank", default=None, help=argparse.SUPPRESS)  # one rank of phase 23 (b)
     args = ap.parse_args()
 
     import torch
+
+    if args.p23_rank is not None:
+        if not torch.cuda.is_available():
+            return 2
+        p23_rank(args.p23_rank)
+        return 0
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this check runs only on the card", file=sys.stderr)
@@ -6390,10 +6754,17 @@ def main() -> int:
     # check, stage 1 with spkemb, stage 5 on phase 15's wavs, the f0
     # histograms, a reference checkpoint imported and decoded
     stage5_slice(tmp.name, align_paths, recipe, args.seed, where)
+
+    # 23. training over several processes: the E2 attention at its
+    # sequence-parallel shapes, two gloo ranks on the card (dp2 FastSpeech2,
+    # VALL-E AR tp2, E2-TTS sp2) against one rank, the JSUT bf16 conf in an
+    # NCCL world of 1 through the CLI bit for bit
+    p23_n, p23 = parallel_slice(tmp.name, mp["cli"]["corpus"], args.seed, where)
     tmp.cleanup()
     e2_tc = {"e2tts_serving": e2_launches["serve_tc"], "e2tts_training": e2_launches["train"]["k1.launches_tc"],
              "e2tts_decode": e2_launches["decode_tc"]}
     e2_times = e2["train"]["times"]
+    p23_tc = p23_paths(p23_n, ("fs2", "e2"), "k1.launches_tc")
     # K2, K3, pair, fused path, fused bits: differing elements over every
     # case and the run's own lattice; K2, K3, fused: the largest |kernel -
     # twin| seen there
@@ -6468,9 +6839,9 @@ def main() -> int:
         # the served programs' launches (phase 20) are their graphs' replays:
         # launches a replay times replays
         "launches": serve_tc + nar_launches["k1.launches_tc"] + sum(e2_tc.values()) + sum(art_tc.values())
-        + mp_n["tc"],
+        + mp_n["tc"] + sum(p23_tc.values()),
         "launches_by_path": {"serving": serve_tc, "valle_nar_training": nar_launches["k1.launches_tc"], **e2_tc,
-                             **art_tc, "mixed_precision_bf16_steps": mp_n["tc"]},
+                             **art_tc, "mixed_precision_bf16_steps": mp_n["tc"], **p23_tc},
         "max_abs_err": max(max_err["bf16"], tc_err["k1"], e2["train"]["errs"]["fwd"], e2["serve"]["fwd"]["max_abs_err"],
                            e2["decode"]["fwd"]["max_abs_err"]),
         "ms": ms,
@@ -6588,20 +6959,23 @@ def main() -> int:
     } for name, src, line, key, n, by_path, err, times, library, extra in (
         # VALL-E's bf16 forms: the tensor-core forward, dk/dv and dq; the library
         # call is SDPA with is_causal (every key valid in the timing)
-        ("flash_attn_fwd_tc_causal", "flash_attn_fwd_tc.cu", 758, "fwd", valle_launches[0],
-         {"valle_training": valle_launches[0]}, max(k1b_err["fwd_tc"], valle_own["fwd"]), k1b_times,
+        ("flash_attn_fwd_tc_causal", "flash_attn_fwd_tc.cu", 758, "fwd",
+         valle_launches[0] + sum(p23_paths(p23_n, ("valle",), "k1.launches_tc").values()),
+         {"valle_training": valle_launches[0], **p23_paths(p23_n, ("valle",), "k1.launches_tc")}, max(k1b_err["fwd_tc"], valle_own["fwd"]), k1b_times,
          "sdpa_causal_fwd_ms", {"graph_ms": k1b_times["fwd_graph"],
                                 "noncausal_graph_ms_by_key_tiles": k1b_times["fwd_tiles_graph"],
                                 "library_graph_ms": k1b_times["sdpa_causal_fwd_graph_ms"],
                                 "library_backend": k1b_times["sdpa_causal_backend"],
                                 "library_mask_ms": k1b_times["sdpa_mask_fwd_ms"]}),
-        ("flash_attn_bwd_dkv_tc_causal", "flash_attn_bwd_tc.cu", 1121, "dkv", valle_launches[1],
-         {"valle_training": valle_launches[1]}, max(k1b_err["dkv_tc"], valle_own["dk"], valle_own["dv"]),
+        ("flash_attn_bwd_dkv_tc_causal", "flash_attn_bwd_tc.cu", 1121, "dkv",
+         valle_launches[1] + sum(p23_paths(p23_n, ("valle",), "k1.launches_bwd_dkv_tc").values()),
+         {"valle_training": valle_launches[1], **p23_paths(p23_n, ("valle",), "k1.launches_bwd_dkv_tc")}, max(k1b_err["dkv_tc"], valle_own["dk"], valle_own["dv"]),
          k1b_times, "sdpa_causal_ms", {"graph_ms": k1b_times["dkv_graph"],
                                        "library_backend": k1b_times["sdpa_causal_backend"],
                                        "library_mask_ms": k1b_times["sdpa_mask_ms"]}),
-        ("flash_attn_bwd_dq_tc_causal", "flash_attn_bwd_tc.cu", 1456, "dq", valle_launches[2],
-         {"valle_training": valle_launches[2]}, max(k1b_err["dq_tc"], valle_own["dq"]), k1b_times,
+        ("flash_attn_bwd_dq_tc_causal", "flash_attn_bwd_tc.cu", 1456, "dq",
+         valle_launches[2] + sum(p23_paths(p23_n, ("valle",), "k1.launches_bwd_dq_tc").values()),
+         {"valle_training": valle_launches[2], **p23_paths(p23_n, ("valle",), "k1.launches_bwd_dq_tc")}, max(k1b_err["dq_tc"], valle_own["dq"]), k1b_times,
          "sdpa_causal_ms", {"graph_ms": k1b_times["dq_graph"],
                             "scalar_bf16_ms": k1b_times["dq_scalar_bf16"],
                             "library_backend": k1b_times["sdpa_causal_backend"],
@@ -6673,8 +7047,9 @@ def main() -> int:
         "name": f"{k1.KERNEL_BWD_TC_BIAS}_{key}", "route": "cuda",
         "source": f"jatts_torch/csrc/{k1.KERNEL_BWD_TC_BIAS}.cu",
         "replaces": f"jax/experimental/pallas/ops/tpu/flash_attention.py:{line}",
-        "launches": n_mp + n_cli,
-        "launches_by_path": {"mixed_precision_bf16_steps": n_mp, "mixed_precision_cli": n_cli},
+        "launches": n_mp + n_cli + sum(p23_paths(p23_n, ("fs2",), f"k1.launches_bwd_{key}_tc_bias").values()),
+        "launches_by_path": {"mixed_precision_bf16_steps": n_mp, "mixed_precision_cli": n_cli,
+                             **p23_paths(p23_n, ("fs2",), f"k1.launches_bwd_{key}_tc_bias")},
         "max_abs_err": max(bwd_err["tc_bias"], r_mp["max_abs_err"]), "ms": r_mp[key],
         "graph_ms": r_mp[f"{key}_graph"], "scalar_ms": r_mp[f"{key}_scalar"],
         "scalar_max_abs_err": r_mp["scalar_max_abs_err"], "plain_ms": r_mp["plain_ms"],
@@ -6690,9 +7065,11 @@ def main() -> int:
         "source": "jatts_torch/csrc/flash_attn_bwd_tc.cu",
         "replaces": f"jax/experimental/pallas/ops/tpu/flash_attention.py:{line}",
         "launches": nar_launches[f"k1.launches_bwd_{key}_tc_noncausal"]
-        + e2_launches["train"][f"k1.launches_bwd_{key}_tc_noncausal"],
+        + e2_launches["train"][f"k1.launches_bwd_{key}_tc_noncausal"]
+        + sum(p23_paths(p23_n, ("e2",), f"k1.launches_bwd_{key}_tc_noncausal").values()),
         "launches_by_path": {"valle_nar_training": nar_launches[f"k1.launches_bwd_{key}_tc_noncausal"],
-                             "e2tts_training": e2_launches["train"][f"k1.launches_bwd_{key}_tc_noncausal"]},
+                             "e2tts_training": e2_launches["train"][f"k1.launches_bwd_{key}_tc_noncausal"],
+                             **p23_paths(p23_n, ("e2",), f"k1.launches_bwd_{key}_tc_noncausal")},
         "max_abs_err": max(nar["errs"][key], e2["train"]["errs"][key]), "ms": nar["times"][key],
         "graph_ms": nar["times"][f"{key}_graph"],
         "scalar_ms": nar["times"][f"{key}_scalar"], "scalar_max_abs_err": nar["errs"]["scalar"],

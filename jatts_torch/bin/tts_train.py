@@ -2,7 +2,8 @@
 
 Builds the datasets, batcher, model, losses and optimizer from the recipe's
 yaml, overlays the CLI's arguments, writes ``outdir/config.yml`` and trains
-on one GPU, writing ``checkpoint-{N}steps`` directories as the JAX CLI does:
+on one GPU, or on several with ``--multihost``, writing
+``checkpoint-{N}steps`` directories as the JAX CLI does:
 
     python -m jatts_torch.bin.tts_train --train-csv dump/train.csv \\
         --dev-csv dump/dev.csv --stats dump/stats.npz --token-list data/tokens.txt \\
@@ -33,8 +34,27 @@ tensor cores); ``batch_size_per_gpu`` selects frame-budget batching
 (``DynamicBatchSampler``, capped at ``max_samples`` utterances, shuffled
 from ``sampler_random_seed``); ``model_params.dtype`` (yaml ``dtype: bfloat16``) is
 the model's compute dtype, as the JAX CLI reads it: every family computes
-in it and its parameters stay float32. ``--multihost`` is not ported, nor are the multi-GPU confs
-(``n_data_devices``, ``mesh``), which raise.
+in it and its parameters stay float32.
+
+Several GPUs: one process a device, launched by torchrun, which sets
+``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``, ``MASTER_ADDR`` and
+``MASTER_PORT``; ``--multihost`` asks for the process group:
+
+    torchrun --nproc_per_node 4 -m jatts_torch.bin.tts_train --multihost \
+        --config egs/hificaptain_jp_female/tts3/conf/valle_ar.given.bs128.4chips.yaml ...
+
+``--dist-backend`` names the backend (``nccl`` by default on the card,
+``gloo`` on the CPU; nothing falls back from one to the other). The
+world is a ``(data, model)`` mesh (``parallel/mesh.py``): the yaml's
+``mesh: {model: M}`` shards the large parameters over M ranks (tensor
+parallelism) and ``sequence_parallel: true`` cuts E2-TTS's frames over
+them; the data axis takes the rest. Every rank reads the same csv with the
+same sampler seed and takes its part of each global batch, so
+``batch_size``/``batch_size_per_gpu`` keep their JAX meaning (the global
+batch; for ``batch_size_per_gpu`` the global frame budget).
+``n_data_devices`` is accepted and read nowhere, as in the JAX CLI.
+Without ``--multihost`` a ``mesh`` with ``model: 1`` is ignored and a
+larger one raises.
 """
 
 from __future__ import annotations
@@ -62,6 +82,7 @@ from jatts_torch.models.matchatts import MatchaTTS
 from jatts_torch.models.matchatts_mas import MatchaTTS_MAS
 from jatts_torch.models.valle import VALLEAR, VALLENAR
 from jatts_torch.models.vits import VITS
+from jatts_torch.parallel.mesh import get_mesh, init_distributed, local_device
 from jatts_torch.train.intermediate import make_mel_eval_hook
 from jatts_torch.train.steps import get_loss_fn
 from jatts_torch.train.trainer import Trainer
@@ -101,11 +122,17 @@ def run(
     seed: int = 0,
     device: Optional[str] = None,
     attn_backend: Optional[str] = None,
+    multihost: bool = False,
+    dist_backend: Optional[str] = None,
 ) -> Trainer:
     """Train per ``config`` (the recipe's yaml as a dict) and return the
     trainer. ``resume`` "" resumes from the latest checkpoint under
     ``outdir``, a path from that checkpoint; ``pretrain`` loads weights only.
-    A final checkpoint is written however the run ends."""
+    A final checkpoint is written however the run ends. ``multihost`` joins
+    (or uses) the process group of torchrun's environment over
+    ``dist_backend`` (default ``nccl`` on the card, ``gloo`` on the CPU)
+    and trains over the mesh of ``config["mesh"]``; a group this call
+    made is destroyed at its end."""
     dev = resolve_device(device)
     config = dict(config)
     config.update(
@@ -115,11 +142,18 @@ def run(
     model_type = config.get("model_type", "FastSpeech2")
     if model_type not in MODELS:
         raise ValueError(f"unknown model_type {model_type!r} (the port trains {', '.join(MODELS)})")
-    if int(config.get("n_data_devices", 1) or 1) > 1 or config.get("mesh"):
-        raise ValueError(
-            "multi-GPU training (n_data_devices, mesh) is not ported yet (ROADMAP section 1 item 6): "
-            "the port trains on one GPU"
-        )
+    mesh_cfg = config.get("mesh") or {}
+    n_model = int(mesh_cfg.get("model", 1))
+    if not multihost and (n_model > 1 or mesh_cfg.get("sequence_parallel")):
+        raise ValueError(f"mesh {mesh_cfg} needs {n_model} or more ranks: launch with torchrun and --multihost")
+    owns_group = False
+    if multihost:
+        owns_group = not torch.distributed.is_initialized()
+        init_distributed(dist_backend or ("nccl" if dev.type == "cuda" else "gloo"))
+        dev = local_device(dev.type)
+        if dev.type == "cuda":
+            torch.cuda.set_device(dev)
+    is_main = not multihost or torch.distributed.get_rank() == 0
 
     with open(token_list, encoding="utf-8") as f:
         n_vocab = len([line for line in f if line.strip()])
@@ -133,7 +167,8 @@ def run(
     dtype = DTYPES[model_params.pop("dtype", "float32")]
 
     os.makedirs(outdir, exist_ok=True)
-    dump_config(config, os.path.join(outdir, "config.yml"))
+    if is_main:
+        dump_config(config, os.path.join(outdir, "config.yml"))
 
     ds_kwargs = dict(
         stats_path=stats,
@@ -184,9 +219,12 @@ def run(
             [dev_set[i] for i in range(min(n_save, len(dev_set)))], num_save=n_save,
             max_frames=int(config.get("eval_max_frames", 1024)),
         )
+    mesh = get_mesh(n_model=n_model, device_type=dev.type) if multihost else None
+    if mesh is not None:
+        logging.info(f"mesh: data={mesh.n_data} model={mesh.n_model}")
     trainer = Trainer(
         config, model, build_criterions(config), get_loss_fn(config["trainer_type"]),
-        train_loader, dev_loader, outdir=outdir, seed=seed, eval_hook=eval_hook,
+        train_loader, dev_loader, outdir=outdir, seed=seed, eval_hook=eval_hook, mesh=mesh,
     )
     trainer.init_state()
     if pretrain:
@@ -214,6 +252,8 @@ def run(
             logging.info(f"saved final checkpoint at {trainer.steps} steps")
         except Exception as e:  # noqa: BLE001 - must not mask the original exception
             logging.error(f"final checkpoint save failed: {e}")
+        if owns_group:
+            torch.distributed.destroy_process_group()
     return trainer
 
 
@@ -227,7 +267,10 @@ def main(argv: Optional[Sequence[str]] = None) -> Trainer:
     parser.add_argument("--outdir", required=True)
     parser.add_argument("--resume", default=None, nargs="?", const="")
     parser.add_argument("--pretrain", default=None, help="params-only init checkpoint")
-    parser.add_argument("--multihost", action="store_true", help="not ported: raises")
+    parser.add_argument("--multihost", action="store_true",
+                        help="train over the process group of torchrun's environment")
+    parser.add_argument("--dist-backend", default=None, choices=("nccl", "gloo"),
+                        help="the process group's backend (default: nccl on the card, gloo on the CPU)")
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--verbose", type=int, default=1)
     parser.add_argument("--device", default=None,
@@ -236,19 +279,18 @@ def main(argv: Optional[Sequence[str]] = None) -> Trainer:
                         help="override model_params.attn_backend")
     args = parser.parse_args(argv)
 
+    rank0 = int(os.environ.get("RANK", 0)) == 0 if args.multihost else True
     logging.basicConfig(
         force=True,
-        level=logging.INFO if args.verbose > 0 else logging.WARNING,
+        level=logging.INFO if args.verbose > 0 and rank0 else logging.WARNING,
         format="%(asctime)s (%(module)s:%(lineno)d) %(levelname)s: %(message)s",
     )
-    if args.multihost:
-        raise SystemExit("--multihost is not ported: the port trains on one GPU")
     config = load_config(args.config)
     config["verbose"] = args.verbose
     return run(
         args.train_csv, args.dev_csv, args.stats, args.token_list, config, args.outdir,
         resume=args.resume, pretrain=args.pretrain, seed=args.seed, device=args.device,
-        attn_backend=args.attn_backend,
+        attn_backend=args.attn_backend, multihost=args.multihost, dist_backend=args.dist_backend,
     )
 
 

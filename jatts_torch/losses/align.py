@@ -18,6 +18,7 @@ import math
 import torch
 
 from jatts_torch.ops.masks import sequence_mask
+from jatts_torch.parallel.mesh import global_sum
 
 _NEG = -1e9  # -inf stand-in: keeps every sum and gradient finite
 
@@ -135,7 +136,7 @@ class ForwardSumLoss:
         nll = torch.where(nonpad & feasible, nll, torch.zeros_like(nll))
         # ctc_loss(reduction='mean') divides by the target length
         per = nll / ilens.to(nll.dtype).clamp(min=1.0)
-        return per.sum() / nonpad.sum().clamp(min=1).to(per.dtype)
+        return per.sum() / global_sum(nonpad.sum()).clamp(min=1).to(per.dtype)
 
 
 class BinLoss:

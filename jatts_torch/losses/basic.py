@@ -14,12 +14,13 @@ from jatts_torch.losses.align import BinLoss, ForwardSumLoss
 from jatts_torch.losses.flow_matching import CFMLoss, EncoderPriorLoss
 from jatts_torch.losses.kl import KLDivergenceLoss, KLDivergenceLossWithoutFlow
 from jatts_torch.ops.masks import sequence_mask
+from jatts_torch.parallel.mesh import global_sum
 
 
 def _masked_mean(err: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     """Mean of ``err`` over positions where ``mask`` (broadcastable) is 1."""
     mask = mask.to(err.dtype).expand(err.shape)
-    return (err * mask).sum() / mask.sum().clamp(min=1.0)
+    return (err * mask).sum() / global_sum(mask.sum()).clamp(min=1.0)
 
 
 def masked_l1(pred, target, mask):

@@ -6,6 +6,8 @@ import math
 
 import torch
 
+from jatts_torch.parallel.mesh import global_sum, share
+
 
 class CFMLoss:
     """No-op kept for the registry: the OT-CFM loss is computed inside the
@@ -33,4 +35,4 @@ class EncoderPriorLoss:
             olens_mask = olens_mask[..., None]
         err = 0.5 * (hs - ys) ** 2
         mask = olens_mask.to(err.dtype).expand(err.shape)  # losses/basic.py:_masked_mean
-        return (err * mask).sum() / mask.sum().clamp(min=1.0) + math.log(2.0 * math.pi)
+        return (err * mask).sum() / global_sum(mask.sum()).clamp(min=1.0) + math.log(2.0 * math.pi) * share()

@@ -4,6 +4,8 @@ from __future__ import annotations
 
 import torch
 
+from jatts_torch.parallel.mesh import global_mean, global_sum
+
 
 class KLDivergenceLoss:
     """KL of the posterior's flow image against the prior, summed over
@@ -16,7 +18,7 @@ class KLDivergenceLoss:
         z_mask = z_mask.float()
         kl = logs_p - logs_q - 0.5
         kl = kl + 0.5 * ((z_p - m_p) ** 2) * torch.exp(-2.0 * logs_p)
-        return (kl * z_mask).sum() / z_mask.sum().clamp(min=1.0)
+        return (kl * z_mask).sum() / global_sum(z_mask.sum()).clamp(min=1.0)
 
 
 class KLDivergenceLossWithoutFlow:
@@ -26,4 +28,4 @@ class KLDivergenceLossWithoutFlow:
         v_q = torch.exp(2.0 * logs_q)
         v_p = torch.exp(2.0 * logs_p)
         kl = logs_p - logs_q + (v_q + (m_q - m_p) ** 2) / (2.0 * v_p) - 0.5
-        return kl.mean()
+        return global_mean(kl)

@@ -16,8 +16,12 @@ flow is float32), see ``modules/e2tts_backbone.py``.
 Every random draw goes through the module-level :func:`draw`: in training
 from ``noise_generator`` (the trainer's noise stream, ``modules/noise.py``),
 so a resumed run draws what an uninterrupted one would; in inference from
-the caller's ``generator``. Not ported: activation checkpointing
-(``use_remat``), which raises.
+the caller's ``generator``. Under a mesh (``parallel/mesh.py``) the
+training draws are made at the global batch's shape and each rank keeps its
+rows (and, under sequence parallelism, its frames), and the loss is this
+rank's sum over the world's count. With ``seq_parallel`` the model rank
+holds a block of the frames (``UNetT.forward``). Not ported: activation
+checkpointing (``use_remat``), which raises.
 """
 
 from __future__ import annotations
@@ -30,6 +34,7 @@ from torch import nn
 from jatts_torch.device import resolve_device
 from jatts_torch.modules.e2tts_backbone import UNetT
 from jatts_torch.ops.masks import sequence_mask
+from jatts_torch.parallel.mesh import active, global_sum
 
 
 def draw(kind: str, shape, generator: Optional[torch.Generator], device, low: float = 0.0,
@@ -44,15 +49,19 @@ def draw(kind: str, shape, generator: Optional[torch.Generator], device, low: fl
 
 
 def mask_from_frac_lengths(seq_len: torch.Tensor, frac_min: float, frac_max: float, t_max: int,
-                           generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                           generator: Optional[torch.Generator] = None, rows=None) -> torch.Tensor:
     """A random contiguous span of ``frac`` ~ U[frac_min, frac_max) of each
     utterance's frames: [B, t_max] bool. ``frac·seq_len`` and
     ``(seq_len - length)·u`` are taken in float32 before the integer cast,
-    so the spans are the JAX package's integers for the same draws."""
-    frac = draw("uniform", seq_len.shape, generator, seq_len.device, frac_min, frac_max)
+    so the spans are the JAX package's integers for the same draws. Under a
+    mesh, ``rows`` is the mesh: the uniforms are drawn for the global batch
+    and cut to its rows."""
+    shape = (seq_len.shape[0] * (rows.n_data if rows is not None else 1),)
+    take = rows.rows if rows is not None else (lambda x: x)
+    frac = take(draw("uniform", shape, generator, seq_len.device, frac_min, frac_max))
     lengths = (frac * seq_len.float()).int()
     max_start = seq_len.int() - lengths
-    start = (max_start.float() * draw("uniform", seq_len.shape, generator, seq_len.device)).int().clamp(min=0)
+    start = (max_start.float() * take(draw("uniform", shape, generator, seq_len.device))).int().clamp(min=0)
     end = start + lengths
     pos = torch.arange(t_max, device=seq_len.device)[None, :]
     return (pos >= start[:, None]) & (pos < end[:, None])
@@ -60,6 +69,7 @@ def mask_from_frac_lengths(seq_len: torch.Tensor, frac_min: float, frac_max: flo
 
 class E2TTS(nn.Module):
     samples_noise = True  # inference draws its initial noise: callers hand in a generator
+    supports_seq_parallel = True  # the trainer may cut its frames over the mesh's model axis
 
     def __init__(
         self,
@@ -103,29 +113,43 @@ class E2TTS(nn.Module):
             compute_dtype=dtype, device=dev,
         )
 
-    def forward(self, text: torch.Tensor, feats: torch.Tensor, feats_lengths: torch.Tensor) -> Dict[str, torch.Tensor]:
+    def forward(self, text: torch.Tensor, feats: torch.Tensor, feats_lengths: torch.Tensor,
+                seq_parallel: bool = False) -> Dict[str, torch.Tensor]:
         """Training: text [B, N_t] ids (pad -1), feats [B, N, odim], lengths
         [B] -> {"loss", "cond", "pred"}. The draws, in the JAX model's order:
-        the span (two uniforms), x0, t, the audio and the both-drop flags."""
+        the span (two uniforms), x0, t, the audio and the both-drop flags.
+        With ``seq_parallel`` (under a mesh) feats are this model rank's
+        block of the frames, text and lengths whole; cond and pred are the
+        block's."""
         g = self.noise_generator
+        m = active()
         b, n, _ = feats.shape
         dev = feats.device
-        span = mask_from_frac_lengths(feats_lengths, *self.frac_lengths_mask, n, generator=g)
+        bg = b * (m.n_data if m is not None else 1)
+        n_all = n * m.n_model if seq_parallel else n
+
+        def rows(x):
+            return x if m is None else m.rows(x)
+
+        def frames(x):
+            return m.frames(x) if seq_parallel else x
+
+        span = frames(mask_from_frac_lengths(feats_lengths, *self.frac_lengths_mask, n_all, generator=g, rows=m))
         x1 = feats.float()
-        x0 = draw("normal", x1.shape, g, dev)
-        time = draw("uniform", (b,), g, dev)
+        x0 = frames(rows(draw("normal", (bg, n_all, x1.shape[2]), g, dev)))
+        time = rows(draw("uniform", (bg,), g, dev))
         t = time[:, None, None]
         phi = (1.0 - t) * x0 + t * x1
         flow = x1 - x0
         cond = x1.masked_fill(span[..., None], 0.0)
-        drop_audio = draw("uniform", (b,), g, dev) < self.audio_drop_prob
-        drop_both = draw("uniform", (b,), g, dev) < self.cond_drop_prob
+        drop_audio = rows(draw("uniform", (bg,), g, dev)) < self.audio_drop_prob
+        drop_both = rows(draw("uniform", (bg,), g, dev)) < self.cond_drop_prob
         drop_audio = drop_audio | drop_both
-        mask = sequence_mask(feats_lengths, n)
-        pred = self.backbone(phi, cond, text, time, drop_audio, drop_both, mask)
+        mask = sequence_mask(feats_lengths, n_all)
+        pred = self.backbone(phi, cond, text, time, drop_audio, drop_both, mask, seq_parallel=seq_parallel)
         err = (pred - flow) ** 2
         sel = span[..., None].to(err.dtype)
-        loss = (err * sel).sum() / torch.clamp(sel.sum() * self.odim, min=1.0)
+        loss = (err * sel).sum() / torch.clamp(global_sum(sel.sum()) * self.odim, min=1.0)
         return {"loss": loss, "cond": cond, "pred": pred}
 
     @torch.no_grad()

@@ -25,6 +25,7 @@ from jatts_torch.modules.flows import DURATION_PREDICTOR_TYPES, StochasticDurati
 from jatts_torch.modules.layers import set_compute_dtype
 from jatts_torch.ops.mas import viterbi_decode
 from jatts_torch.ops.masks import sequence_mask
+from jatts_torch.parallel.mesh import global_sum
 from jatts_torch.ops.upsample import gaussian_upsampling
 
 
@@ -78,7 +79,7 @@ class MatchaTTS_MAS(MatchaTTS):  # noqa: N801 - the JAX package's class name
         dur_nll = None
         if self.duration_predictor_type == "stochastic":
             dur_nll = self.sdp(hs, d_masks[..., None], w=ds[..., None], e_q=noise_e_q)
-            dur_nll = dur_nll / d_masks.sum().clamp(min=1).to(dur_nll.dtype)
+            dur_nll = dur_nll / global_sum(d_masks.sum()).clamp(min=1).to(dur_nll.dtype)
             d_outs = torch.zeros_like(ds)
         else:
             d_outs = self.duration_predictor(hs, d_masks)

@@ -28,6 +28,7 @@ from torch import nn
 from jatts_torch.device import resolve_device
 from jatts_torch.modules.valle_modules import Dense, SinusoidalEmbedding, VALLEBlock, trunc_normal_
 from jatts_torch.ops.masks import sequence_mask
+from jatts_torch.parallel.mesh import draw, global_sum
 
 IGNORE = -100
 
@@ -220,7 +221,7 @@ class VALLEAR(VALLEBase):
         valid = tgt != IGNORE
         logp = torch.log_softmax(logits, dim=-1)
         nll = -torch.gather(logp, -1, torch.where(valid, tgt, 0)[..., None])[..., 0]
-        loss = (nll * valid).sum() / valid.sum().clamp(min=1)
+        loss = (nll * valid).sum() / global_sum(valid.sum()).clamp(min=1)
         return {"loss": loss, "logits": logits, "total": total}
 
     def prefix_forward(self, text, text_lens, proms, prom_lens):
@@ -410,8 +411,8 @@ class VALLENAR(VALLEBase):
         b = text.shape[0]
         tp = proms.shape[1]
         if quant_levels is None:
-            quant_levels = torch.randint(0, self.n_resp_levels, (b,), generator=self.noise_generator,
-                                         device=text.device)
+            quant_levels = draw(lambda s: torch.randint(0, self.n_resp_levels, s, generator=self.noise_generator,
+                                                        device=text.device), (b,))
         quant_levels = quant_levels.long()
         logits, total = self.trunk(
             text, text_lens, proms, prom_lens, resps, resp_lens, quant_levels + 1, quant_levels,
@@ -423,7 +424,7 @@ class VALLENAR(VALLEBase):
         valid = y != IGNORE
         logp = torch.log_softmax(logits, dim=-1)
         nll = -torch.gather(logp, -1, torch.where(valid, y, 0)[..., None])[..., 0]
-        loss = (nll * valid).sum() / valid.sum().clamp(min=1)
+        loss = (nll * valid).sum() / global_sum(valid.sum()).clamp(min=1)
         return {"loss": loss, "logits": logits}
 
     @torch.no_grad()

@@ -43,6 +43,7 @@ from jatts_torch.modules.predictors import DurationPredictor
 from jatts_torch.modules.vits_modules import PosteriorEncoder, ResidualAffineCouplingBlock, TextEncoder
 from jatts_torch.ops.mas import viterbi_decode
 from jatts_torch.ops.masks import attn_mask, sequence_mask
+from jatts_torch.parallel.mesh import global_sum
 from jatts_torch.ops.upsample import gaussian_upsampling, predicted_durations_to_int
 
 
@@ -223,7 +224,7 @@ class VITS(nn.Module):
         dur_nll = None
         if self.duration_predictor_type == "stochastic":
             dur_nll = self.duration_predictor(hs, d_masks[..., None], w=ds[..., None], e_q=noise_e_q)
-            dur_nll = dur_nll / d_masks.sum().clamp(min=1).to(dur_nll.dtype)
+            dur_nll = dur_nll / global_sum(d_masks.sum()).clamp(min=1).to(dur_nll.dtype)
             d_outs = torch.zeros_like(ds)
         else:
             d_outs = self.duration_predictor(hs, d_masks)

@@ -16,6 +16,12 @@ running statistics. In training it differs from torch's in two places:
 
 Under a compute dtype (``modules/layers.py``, flax's ``dtype``) it
 normalises in float32 in both modes and returns the compute dtype.
+
+The training statistics are sums over a count (``sum x / n``, ``sum x² /
+n``); under a mesh (``parallel/mesh.py``) the sums and the count are the
+world's, with the gradient flowing back through the reduction, so every
+rank normalises with, and updates its running statistics to, the global
+batch's statistics (under sequence parallelism, its frames').
 """
 
 from __future__ import annotations
@@ -23,6 +29,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from jatts_torch.parallel.mesh import all_reduce_sum, global_sum
 
 
 class BatchNorm1d(nn.BatchNorm1d):
@@ -44,8 +52,10 @@ class BatchNorm1d(nn.BatchNorm1d):
                 self.bias.float(), training=False, eps=self.eps,
             ).to(dt)
         xf = x.float()
-        mean = xf.mean(dim=(0, 2))
-        var = ((xf * xf).mean(dim=(0, 2)) - mean * mean).clamp(min=0.0)
+        sums = all_reduce_sum(torch.stack([xf.sum(dim=(0, 2)), (xf * xf).sum(dim=(0, 2))]))
+        count = global_sum(torch.tensor(float(xf.shape[0] * xf.shape[2]), device=xf.device))
+        mean = sums[0] / count
+        var = (sums[1] / count - mean * mean).clamp(min=0.0)
         with torch.no_grad():
             m = self.flax_momentum
             self.running_mean.mul_(m).add_(mean.to(self.running_mean.dtype), alpha=1.0 - m)

@@ -22,6 +22,7 @@ import torch
 from torch import nn
 
 from jatts_torch.modules.matcha_decoder import MatchaDecoder
+from jatts_torch.parallel.mesh import draw, global_sum
 
 
 class CFM(nn.Module):
@@ -62,13 +63,15 @@ class CFM(nn.Module):
         ``sum(mask) * C``."""
         b = x1.shape[0]
         if t is None:
-            t = torch.rand((b, 1, 1), generator=self.noise_generator, device=x1.device, dtype=x1.dtype)
+            t = draw(lambda s: torch.rand(s, generator=self.noise_generator, device=x1.device, dtype=x1.dtype),
+                     (b, 1, 1))
         if z is None:
-            z = torch.randn(x1.shape, generator=self.noise_generator, device=x1.device, dtype=x1.dtype)
+            z = draw(lambda s: torch.randn(s, generator=self.noise_generator, device=x1.device, dtype=x1.dtype),
+                     x1.shape)
         y = (1.0 - (1.0 - self.sigma_min) * t) * z + t * x1
         u = x1 - (1.0 - self.sigma_min) * z
         pred = self.estimator(y, mask, mu, t[:, 0, 0])
-        loss = ((pred - u) ** 2).sum() / (mask.sum() * u.shape[-1]).clamp(min=1.0)
+        loss = ((pred - u) ** 2).sum() / (global_sum(mask.sum()) * u.shape[-1]).clamp(min=1.0)
         return loss, y
 
     @torch.no_grad()

@@ -8,7 +8,10 @@ unchanged. The masks come from ``generator`` (``None``: torch's default
 generator for the tensor's device). A trainer owns one generator, seeds it
 from its ``--seed`` and hands it to every dropout of a model with
 :func:`set_dropout_generator`. The masks are not jax.random's bits, so a
-parity test against the JAX package runs with every rate at 0.
+parity test against the JAX package runs with every rate at 0. Under a
+mesh (``parallel/mesh.py:draw``) a mask is drawn at the global batch's
+shape and each rank keeps its part, so the masks do not depend on the
+mesh; ``rows=False`` marks a tensor without a batch axis.
 """
 
 from __future__ import annotations
@@ -18,6 +21,8 @@ from typing import Optional
 import torch
 from torch import nn
 
+from jatts_torch.parallel.mesh import draw
+
 
 class Dropout(nn.Module):
     def __init__(self, rate: float = 0.0):
@@ -25,12 +30,12 @@ class Dropout(nn.Module):
         self.rate = float(rate)
         self.generator: Optional[torch.Generator] = None
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, rows: bool = True) -> torch.Tensor:
         if not self.training or self.rate == 0.0:
             return x
         if self.rate >= 1.0:
             return torch.zeros_like(x)
-        keep = torch.rand(x.shape, generator=self.generator, device=x.device) >= self.rate
+        keep = draw(lambda s: torch.rand(s, generator=self.generator, device=x.device), x.shape, rows) >= self.rate
         return torch.where(keep, x / (1.0 - self.rate), torch.zeros((), dtype=x.dtype, device=x.device))
 
 

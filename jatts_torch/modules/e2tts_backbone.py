@@ -24,10 +24,25 @@ here mask their own ragged edge, so the port pads nothing. On the TPU the
 kernel takes segment ids for queries and keys alike, so a query row past its
 utterance attends to the pad keys there and to the valid keys here; each
 attention's output is multiplied by the mask, so the two agree.
+
+Sequence parallelism (``UNetT.forward(seq_parallel=True)``, under a mesh
+of ``parallel/mesh.py``): a model rank holds frames ``[s, s + n)`` of the
+``N = n·M`` frames. The per-frame layers run on its frames; the position
+convolution (two kernels of 31, run unmasked over the padded frames too)
+takes a halo of 30 frames a side from the gathered frames, so its block
+equals the whole's; the time token is held by every rank (its positions
+are ``[0, 1 + s, ..., s + n]`` of the ``N + 1`` long sequence, rope by
+global position), its copy on model rank 0 is the one the other rows'
+keys and values see, and the other copies reach no loss; each attention
+runs the rank's queries (Tq = n + 1) against the keys and values gathered
+over the model axis (Tk = N + 1), whose gradients are summed back over the
+ranks to their owners. Dropout masks are drawn for the whole sequence
+(``parallel/mesh.py:seq_scope``).
 """
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import math
 from typing import Optional
@@ -42,6 +57,7 @@ from jatts_torch.modules.attention import _flash_ok
 from jatts_torch.modules.dropout import Dropout
 from jatts_torch.modules.valle_modules import Dense, trunc_normal_
 from jatts_torch.ops.flash_attention import flash_attention
+from jatts_torch.parallel.mesh import active, gather, seq_scope
 
 _MASK_VAL = -1e9
 
@@ -210,23 +226,31 @@ class E2Attention(nn.Module):
         b, n, _ = y.shape
         return y.reshape(b, n, self.heads, self.dim_head).transpose(1, 2)  # [B, H, N, D]
 
-    def forward(self, x: torch.Tensor, rope: tuple, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, rope: tuple, mask: Optional[torch.Tensor] = None,
+                key_mask: Optional[torch.Tensor] = None, gather_kv=None) -> torch.Tensor:
         """x [B, N, dim]; rope: (cos, sin) [N, dim_head // 2] in x's dtype;
-        mask [B, N] bool or None."""
+        mask [B, N] bool or None. Under sequence parallelism ``gather_kv``
+        takes this rank's k or v [B, H, N, D] to the whole sequence's
+        [B, H, N_k, D], ``key_mask`` [B, N_k] marks its valid keys, and
+        ``mask`` the rank's valid rows."""
         b, n, _ = x.shape
         q, k, v = self._heads(self.to_q(x)), self._heads(self.to_k(x)), self._heads(self.to_v(x))
         pn = self.pe_attn_head if self.pe_attn_head is not None else self.heads
         q = torch.cat([apply_rope(q[:, :pn], *rope), q[:, pn:]], dim=1)
         k = torch.cat([apply_rope(k[:, :pn], *rope), k[:, pn:]], dim=1)
-        if _flash_ok(self.attn_backend, mask, n):
+        if gather_kv is not None:
+            k, v = gather_kv(k), gather_kv(v)
+        else:
+            key_mask = mask
+        if _flash_ok(self.attn_backend, key_mask, k.shape[2]):
             out = flash_attention(q.contiguous(), k.contiguous(), v.contiguous(), None,
-                                  None if mask is None else mask.contiguous(), 1.0 / math.sqrt(self.dim_head))
+                                  None if key_mask is None else key_mask.contiguous(), 1.0 / math.sqrt(self.dim_head))
         else:
             # the divisor made on the device: no host copy inside a CUDA graph capture
             scores = torch.matmul(q, k.transpose(-1, -2)) / torch.sqrt(
                 torch.full((), float(self.dim_head), dtype=q.dtype, device=q.device))
-            if mask is not None:
-                scores = scores.masked_fill(~mask[:, None, None, :], _MASK_VAL)
+            if key_mask is not None:
+                scores = scores.masked_fill(~key_mask[:, None, None, :], _MASK_VAL)
             out = torch.matmul(torch.softmax(scores, dim=-1), v)
         out = out.transpose(1, 2).reshape(b, n, self.heads * self.dim_head)
         dense, drop = self.to_out
@@ -324,37 +348,73 @@ class UNetT(nn.Module):
         mask: Optional[torch.Tensor] = None,
         text_embed: Optional[torch.Tensor] = None,
         return_text_embed: bool = False,
+        seq_parallel: bool = False,
     ) -> torch.Tensor:
         """x, cond [B, N, mel]; text [B, N_t] ids (pad -1); time [B];
         drop_audio_cond, drop_text [B] bool (per-sample CFG drops); mask
         [B, N] bool -> the flow [B, N, mel] f32. ``return_text_embed``
         returns :meth:`embed_text`'s output only, which a later call takes
         back as ``text_embed`` (inference computes it once for every ODE
-        step)."""
+        step). With ``seq_parallel`` (under a mesh) x and cond are this
+        model rank's block of the frames, mask covers all of them, and the
+        flow returned is the block's."""
         b, n, _ = x.shape
+        m = active() if seq_parallel else None
+        n_all, s = (n * m.n_model, n * m.model_rank) if m is not None else (n, 0)
         if text_embed is None:
-            text_embed = self.embed_text(text, n, drop_text)
+            text_embed = self.embed_text(text, n_all, drop_text)
         if return_text_embed:
             return text_embed
         dt = self.compute_dtype
         t = self.time_embed(time)
         cond = cond.masked_fill(drop_audio_cond[:, None, None], 0.0)
-        h = self.input_embed.proj(torch.cat([x.to(dt), cond.to(dt), text_embed.to(dt)], dim=-1))
+        h = self.input_embed.proj(torch.cat([x.to(dt), cond.to(dt), text_embed[:, s:s + n].to(dt)], dim=-1))
         # the reference's input embedding runs the position convolution
         # without the mask: padded frames hold noise, and the convolution
         # sees them near the utterance's end (kept for import parity)
-        h = self.input_embed.conv_pos_embed(h) + h
-        h = torch.cat([t[:, None, :].to(h.dtype), h], dim=1)  # [B, N + 1, dim]
+        h = self._conv_pos(h, m, s) + h
+        h = torch.cat([t[:, None, :].to(h.dtype), h], dim=1)  # [B, n + 1, dim]
+        key_mask = None
         if mask is not None:
-            mask = torch.cat([torch.ones(b, 1, dtype=torch.bool, device=mask.device), mask.bool()], dim=1)
-        rope = rope_tables(h.shape[1], self.dim_head, h.dtype, h.device)
+            key_mask = torch.cat([torch.ones(b, 1, dtype=torch.bool, device=mask.device), mask.bool()], dim=1)
+            mask = key_mask[:, :1 + n] if m is None else torch.cat([key_mask[:, :1], key_mask[:, 1 + s:1 + s + n]], 1)
+        rope = rope_tables(n_all + 1, self.dim_head, h.dtype, h.device)
+        scope, gather_kv = contextlib.nullcontext(), None
+        if m is not None:
+            pos = torch.cat([torch.zeros(1, dtype=torch.long), torch.arange(1 + s, 1 + s + n)]).to(h.device)
+            rope = (rope[0][pos], rope[1][pos])
+            scope, gather_kv = seq_scope(pos, n_all + 1), functools.partial(_gather_seq, m=m, n=n)
         skips = []
-        for idx, (skip_proj, attn_norm, attn, ff_norm, ff) in enumerate(self.layers):
-            if skip_proj is None:
-                skips.append(h)
-            else:
-                h = skip_proj(torch.cat([h, skips.pop()], dim=-1))
-            h = attn(attn_norm(h), rope, mask) + h
-            h = ff(ff_norm(h)) + h
+        with scope:
+            for idx, (skip_proj, attn_norm, attn, ff_norm, ff) in enumerate(self.layers):
+                if skip_proj is None:
+                    skips.append(h)
+                else:
+                    h = skip_proj(torch.cat([h, skips.pop()], dim=-1))
+                h = attn(attn_norm(h), rope, mask, key_mask, gather_kv) + h
+                h = ff(ff_norm(h)) + h
         h = self.norm_out(h)[:, 1:]
         return self.proj_out(h.float())
+
+    def _conv_pos(self, h: torch.Tensor, m, s: int) -> torch.Tensor:
+        """The position convolution of ``h`` [B, n, dim]; under sequence
+        parallelism (mesh ``m``, the block starting at frame ``s``) run on
+        the block and a halo of the gathered frames a side as wide as the
+        two convolutions reach, which gives the block of the whole's."""
+        conv = self.input_embed.conv_pos_embed
+        if m is None:
+            return conv(h)
+        n = h.shape[1]
+        halo = sum(c.padding[0] for c in conv.conv1d if isinstance(c, nn.Conv1d))
+        full = gather(h, 1, m.model_group)
+        lo, hi = max(0, s - halo), min(full.shape[1], s + n + halo)
+        return conv(full[:, lo:hi])[:, s - lo:s - lo + n]
+
+
+def _gather_seq(t: torch.Tensor, m, n: int) -> torch.Tensor:
+    """k or v [B, H, 1 + n, D] of every model rank (time token, then its n
+    frames) -> [B, H, 1 + N, D]: model rank 0's time token, then the ranks'
+    frames in order."""
+    full = gather(t, 2, m.model_group)
+    keep = [0] + [r * (1 + n) + 1 + j for r in range(m.n_model) for j in range(n)]
+    return full.index_select(2, torch.tensor(keep, device=t.device))

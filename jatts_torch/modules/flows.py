@@ -25,6 +25,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from jatts_torch.modules.dropout import Dropout
+from jatts_torch.parallel.mesh import draw
 
 DEFAULT_MIN_BIN_WIDTH = 1e-3
 DEFAULT_MIN_BIN_HEIGHT = 1e-3
@@ -252,7 +253,8 @@ class StochasticDurationPredictor(nn.Module):
             h_w = self.post_pre(w)
             h_w = self.post_proj(self.post_dds(h_w, x_mask)) * x_mask
             if e_q is None:
-                e_q = torch.randn(shape, generator=self.noise_generator, device=x.device, dtype=x.dtype)
+                e_q = draw(lambda s: torch.randn(s, generator=self.noise_generator, device=x.device, dtype=x.dtype),
+                           shape)
             else:
                 e_q = e_q.transpose(1, 2)
             e_q = e_q * x_mask

@@ -124,7 +124,7 @@ class LegacyRelPositionalEncoding(nn.Module):
             pe = self.pe[:t].to(x.dtype)
         else:
             pe = _table(sinusoid_table(t, self.d_model)[::-1][:t], x)
-        return self.dropout(x * _sqrt_d(self)), self.dropout(pe[None])
+        return self.dropout(x * _sqrt_d(self)), self.dropout(pe[None], rows=False)
 
 
 class RelPositionalEncoding(nn.Module):
@@ -138,4 +138,4 @@ class RelPositionalEncoding(nn.Module):
 
     def forward(self, x: torch.Tensor):
         pe = rel_table(x.shape[1], self.d_model, x.device, x.dtype)
-        return self.dropout(x * _sqrt_d(self)), self.dropout(pe[None])
+        return self.dropout(x * _sqrt_d(self)), self.dropout(pe[None], rows=False)

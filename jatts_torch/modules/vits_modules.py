@@ -26,6 +26,7 @@ from jatts_torch.modules.conformer import ConformerEncoder
 from jatts_torch.modules.layers import Conv1d
 from jatts_torch.modules.wavenet import WaveNet
 from jatts_torch.ops.masks import attn_mask, sequence_mask
+from jatts_torch.parallel.mesh import draw
 
 
 def _cf(x: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
@@ -123,7 +124,8 @@ class PosteriorEncoder(nn.Module):
         stats = self.proj(h) * mask
         m, logs = stats.chunk(2, dim=1)
         if eps is None:
-            eps = torch.randn(m.shape, generator=self.noise_generator, device=m.device, dtype=m.dtype)
+            eps = draw(lambda s: torch.randn(s, generator=self.noise_generator, device=m.device, dtype=m.dtype),
+                       m.shape)
         else:
             eps = _cf(eps)
         z = (m + eps * torch.exp(logs)) * mask

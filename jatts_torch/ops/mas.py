@@ -37,6 +37,7 @@ import torch
 
 from jatts_torch.ops import build
 from jatts_torch.ops.masks import sequence_mask
+from jatts_torch.parallel.mesh import global_mean
 
 KERNEL = "mas_viterbi"
 KERNEL_PATH = "mas_path"
@@ -404,4 +405,4 @@ def viterbi_decode(
         ds.scatter_add_(1, index, frame_valid * on_path)
     gathered = log_p_attn.float().gather(2, index[:, :, None])[:, :, 0] * on_path
     per_utt = -(gathered * frame_valid).sum(1) / feats_lengths.float().clamp(min=1.0)
-    return ds, per_utt.mean()
+    return ds, global_mean(per_utt)

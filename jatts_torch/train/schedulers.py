@@ -17,9 +17,10 @@ decoupled decay equals ``optax.adamw``'s.
 from __future__ import annotations
 
 import math
-from typing import Any, Callable, Dict, Iterable, List
+from typing import Any, Callable, Dict, Iterable, List, Optional, Sequence
 
 import torch
+import torch.distributed as dist
 
 Schedule = Callable[[int], float]
 
@@ -115,17 +116,27 @@ def build_optimizer(config: Dict[str, Any], params: Iterable[torch.nn.Parameter]
     raise ValueError(f"unknown optimizer: {opt_name}")
 
 
-def global_norm(grads: List[torch.Tensor]) -> torch.Tensor:
-    """sqrt of the sum of squares over every gradient, in f32 (optax.global_norm)."""
-    return torch.sqrt(sum(g.float().pow(2).sum() for g in grads))
+def global_norm(grads: List[torch.Tensor], sharded: Optional[Sequence[bool]] = None, group=None) -> torch.Tensor:
+    """sqrt of the sum of squares over every gradient, in f32 (optax.global_norm),
+    over the logical parameters: a gradient marked in ``sharded`` is this
+    rank's block of a tensor-parallel parameter, whose blocks' squares are
+    summed over ``group`` (the model axis), so the parameter counts once."""
+    if not sharded or not any(sharded):
+        return torch.sqrt(sum(g.float().pow(2).sum() for g in grads))
+    whole = [g.float().pow(2).sum() for g, s in zip(grads, sharded) if not s]
+    blocks = sum(g.float().pow(2).sum() for g, s in zip(grads, sharded) if s)
+    dist.all_reduce(blocks, group=group)
+    return torch.sqrt(sum(whole) + blocks if whole else blocks)
 
 
 @torch.no_grad()
-def clip_by_global_norm(grads: List[torch.Tensor], max_norm: float) -> torch.Tensor:
+def clip_by_global_norm(grads: List[torch.Tensor], max_norm: float, sharded: Optional[Sequence[bool]] = None,
+                        group=None) -> torch.Tensor:
     """optax.clip_by_global_norm in place: when ``norm >= max_norm`` every
     gradient becomes ``(g / norm) * max_norm``; below it they are unchanged.
-    Returns the norm before clipping."""
-    norm = global_norm(grads)
+    Returns the norm before clipping (:func:`global_norm`'s, ``sharded``
+    and ``group`` as there)."""
+    norm = global_norm(grads, sharded, group)
     if bool(norm >= max_norm):
         for g in grads:
             g.div_(norm.to(g.dtype)).mul_(max_norm)

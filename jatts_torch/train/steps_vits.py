@@ -16,6 +16,8 @@ from typing import Any, Dict
 
 import torch
 
+from jatts_torch.parallel.mesh import global_mean
+
 
 def vits_kwargs(batch: Dict[str, Any], model=None) -> Dict[str, Any]:
     """batch -> ``VITS.forward`` kwargs: VITS searches its own durations."""
@@ -47,7 +49,7 @@ def vits_loss(model, batch: Dict[str, Any], criterions, config, step):
     if out.get("dur_nll") is not None:
         dur = zero
         if step > dp_start:
-            dur = out["dur_nll"].mean()
+            dur = global_mean(out["dur_nll"])
             loss = loss + dur
         stats["train/duration_loss"] = dur
     elif "DurationPredictorLoss" in criterions:

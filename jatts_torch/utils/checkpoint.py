@@ -6,7 +6,9 @@ experiment's outdir, as the JAX package names its orbax checkpoints, so a
 recipe's latest-checkpoint discovery by steps works unchanged. It holds one
 file, ``state.pt``: ``torch.save`` of ``{model, optimizer, steps, epochs,
 ema}`` (state_dicts; ``ema`` None without EMA). Orbax checkpoints of the
-JAX package are not read here.
+JAX package are not read here. A run over a mesh saves the same file: the
+whole, unsharded state (``train/trainer.py``), so a checkpoint moves
+between world sizes in both directions.
 """
 
 from __future__ import annotations
@@ -20,14 +22,15 @@ import torch
 STATE_FILE = "state.pt"
 
 
-def _ckpt_dir(outdir: str, steps: int) -> str:
+def checkpoint_dir(outdir: str, steps: int) -> str:
+    """The directory of the checkpoint at ``steps``."""
     return os.path.join(os.path.abspath(outdir), f"checkpoint-{steps}steps")
 
 
 def save_checkpoint(outdir: str, steps: int, state: Dict[str, Any]) -> str:
     """Write ``state`` to ``outdir/checkpoint-{steps}steps/state.pt``
     (through a temporary file, so a reader never sees half a checkpoint)."""
-    path = _ckpt_dir(outdir, steps)
+    path = checkpoint_dir(outdir, steps)
     os.makedirs(path, exist_ok=True)
     tmp = os.path.join(path, STATE_FILE + ".tmp")
     torch.save(state, tmp)
