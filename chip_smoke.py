@@ -78,7 +78,7 @@ Phases, each of which fails the run with a non-zero exit:
      (log-mel, per-token log tone frequency as pitch, per-token energy),
      and ``jatts_torch/bin/tts_train.py:run`` trains FastSpeech2 at the full
      JSUT width (egs/jsut/tts1/conf/fastspeech2.v1.yaml, batch 32, f32) with
-     ``attn_backend: flash`` for 50 steps (warm-up 25), launch counts set
+     ``attn_backend: flash`` for 30 steps (warm-up 25), launch counts set
      to 0 just before and read just after (every forward on the 3xTF32
      tensor-core kernel, none on the scalar one or the bf16 one; every dk/dv
      and dq on the 3xTF32 backward kernels, none on the scalar ones); then
@@ -106,7 +106,7 @@ Phases, each of which fails the run with a non-zero exit:
      dumps) trains through ``jatts_torch/bin/tts_train.py:run`` on
      egs/hificaptain_jp_female/tts3/conf/valle_ar.given.bs32.yaml as it
      stands (d_model 1024, 16 heads, 12 layers, bf16 compute, batch 16 x
-     accumulation 2, AdamW) with ``attn_backend: flash`` for 50 steps
+     accumulation 2, AdamW) with ``attn_backend: flash`` for 30 steps
      (warm-up 25), launch counts set to 0 just before and read just after
      (every K1b forward, dk/dv and dq on the tensor-core kernels, 12 a
      step, no scalar bf16 one);
@@ -140,7 +140,7 @@ Phases, each of which fails the run with a non-zero exit:
      bf16 (K1r 8 launches a batch, all on the tensor-core kernel), the same
      model small in f32 against its
      eager path; then phase 8's corpus with a seed-made 192-d ``spkemb`` an
-     utterance (4 synthetic speakers) trains 50 steps through
+     utterance (4 synthetic speakers) trains 30 steps through
      ``jatts_torch/bin/tts_train.py:run`` (f32, batch 32, warm-up 25), launch
      counts set to 0 just before and read just after (K1r 8 launches a step
      each, every forward on the 3xTF32 kernel and every dk/dv and dq on the
@@ -155,7 +155,7 @@ Phases, each of which fails the run with a non-zero exit:
      CLI on the CPU), ``Dio``'s f0 on the card against known-truth glottal
      pulse trains, stages 1b and 2 (``bin/compute_statistics.py``,
      ``bin/generate_token_list.py``), stage 3 (``bin/tts_train.main`` with
-     ``--attn-backend flash``, 50 steps on those dumps) and stage 4
+     ``--attn-backend flash``, 30 steps on those dumps) and stage 4
      (``bin/tts_decode.main``, batch 8, 2048 frames, with a seed-made
      HiFi-GAN checkpoint in parallel_wavegan's layout and again with
      ``--vocoder griffin_lim``; every K1 launch on the 3xTF32 kernel, 8 a
@@ -168,8 +168,8 @@ Phases, each of which fails the run with a non-zero exit:
      Matcha's attention runs eager, as in the JAX package), the seed (same
      bits; another seed, other audio) and the served mel against
      ``MatchaTTS.inference`` on the same noise; then phase 8's corpus as
-     mel-only dumps trains Matcha-TTS (tts1, 50 steps, batch 32) and
-     Matcha-TTS+MAS (egs/jsut/tts2/conf/matcha_tts.mas.v1.yaml, 50 steps,
+     mel-only dumps trains Matcha-TTS (tts1, 32 steps, batch 32) and
+     Matcha-TTS+MAS (egs/jsut/tts2/conf/matcha_tts.mas.v1.yaml, 32 steps,
      batch 16, its gates cut to 20 and 30 steps) through
      ``jatts_torch/bin/tts_train.py:run``, launch counts set to 0 just
      before and read just after (tts2: one fused MAS search a step, no K2 or
@@ -185,20 +185,20 @@ Phases, each of which fails the run with a non-zero exit:
      requests through BatchingServer with phase 7's HiFi-GAN and
      ``noise_scale`` 0.667 (0 launches; the seed; the served mel against
      ``VITS.inference`` on the same generator; the inverse flow's and the
-     decoder's times); then phase 8's corpus as mel-only dumps trains 50
+     decoder's times); then phase 8's corpus as mel-only dumps trains 34
      micro-steps through ``jatts_torch/bin/tts_train.py:run`` (batch 8,
      accumulation 4, the gates cut to 20 and 30 steps), launch counts set
      to 0 just before and read just after (one fused MAS search a
      micro-step, each held against the plain search on its own lattice as
      the run goes; no K2, K3 or flash), the gates, the mel and KL losses on
      a fixed batch before and after, the last two micro-steps replayed
-     bitwise from ``checkpoint-48steps``, the largest lattice through the
+     bitwise from ``checkpoint-32steps``, the largest lattice through the
      MAS checks, a micro-step's time with and without the forward-sum loss,
      the CTC loop's and the fused search's shares; then ``bin/tts_decode.py``
      on the trained checkpoint (its duration bias centred) with phase 15's
      HiFi-GAN checkpoint and with Griffin-Lim, the mels against
      ``VITS.inference``;
- 18. the VALL-E NAR: phase 12's codec corpus trains 100 micro-steps through
+ 18. the VALL-E NAR: phase 12's codec corpus trains 60 micro-steps through
      ``jatts_torch/bin/tts_train.py:run`` on
      egs/hificaptain_jp_female/tts3/conf/valle_nar.given.bs32.yaml as it
      stands (d_model 1024, 16 heads, 12 layers, 7 levels, bf16 compute,
@@ -206,8 +206,8 @@ Phases, each of which fails the run with a non-zero exit:
      flash``, launch counts set to 0 just before and read just after (every
      forward on the tensor-core kernel, every dk/dv and dq on the
      non-causal tensor-core forms of ``flash_attn_bwd_tc.cu``, 12 a
-     micro-step, nothing else); the falling loss, micro-steps 98-99
-     replayed bitwise from ``checkpoint-98steps`` with the same levels
+     micro-step, nothing else); the falling loss, micro-steps 58-59
+     replayed bitwise from ``checkpoint-58steps`` with the same levels
      drawn, a micro-step's time and a profiled one, the same step under
      ``attn_backend: xla`` (bf16, then f32 on 4 rows); the non-causal dk/dv
      and dq against the plain backward at the run's largest batch and on
@@ -231,13 +231,13 @@ Phases, each of which fails the run with a non-zero exit:
      counts set to 0 just before and read just after (24 tensor-core
      forwards an ODE step, nothing else), every served mel against
      ``E2TTS.inference`` on the same generator bit for bit, another seed
-     another mel; the conf as it stands trains 100 micro-steps through
+     another mel; the conf as it stands trains 60 micro-steps through
      ``bin/tts_train.py:run`` (frame budget 8640, max_samples 32,
      accumulation 4, AdamW, ``e2tts_sequentiallr`` with warm-up 25, EMA,
      flash; every forward on the tensor-core kernel and every dk/dv and dq
      on the non-causal tensor-core forms, 24 a micro-step, nothing else),
-     the falling loss, micro-steps 98-99 replayed bitwise from
-     ``checkpoint-98steps`` with the same draws, a micro-step's time and a
+     the falling loss, micro-steps 58-59 replayed bitwise from
+     ``checkpoint-58steps`` with the same draws, a micro-step's time and a
      profiled one, the same step under ``xla`` (bf16, then f32 on 2 rows),
      the kernels per item against their plain versions at the run's largest
      batch and their times beside the bounds and SDPA; the served forward
@@ -245,29 +245,41 @@ Phases, each of which fails the run with a non-zero exit:
      their plain versions and timed; then ``bin/e2tts_decode.py`` on 4 dev
      rows with the trained checkpoint's EMA weights and Griffin-Lim, each
      mel against ``E2TTS.inference`` with the CLI's generator;
- 20. the serving artifact (``jatts_torch/serving/export.py``): FastSpeech2
-     at the JSUT conf's width (bf16, flash, seed-made weights) + HiFi-GAN
-     exported as a pcm16 wav artifact and as a mel artifact with a stream
-     step (chunk 128), B=8, text buckets 32/64/128, 1024 frames, each loaded
-     on the card (one CUDA graph a bucket and one of the stream step; the
-     artifact's MiB, the load-and-capture seconds and the graph pool's
-     bytes printed); each bucket's replay against the eager program bit for
-     bit (wav, olens) with 8 K1 tc launches a replay; 10 batches eager and
-     replayed in turns (median ms, RTF); time to first audio and ms a chunk,
-     the chunks against the wav artifact within 1 LSB (the differing samples
-     counted); 16 requests through BatchingServer, 8 streamed and 8 whole;
-     the fused VALL-E AR+NAR program at the tts3 confs' width (bf16
-     parameters, 4 rows, max_steps 256; the prefix, one AR step and the NAR
-     fill as graphs) against the eager program on the same seed code for
-     code, ms an AR step replayed and eager; the E2-TTS artifact (the conf as
-     it stands, 4 requests, capacity 3000, 32 steps; one graph of the whole
-     CFG Euler loop) against the in-process bundle bit for bit. The kernels'
-     counters count Python calls, once at a capture: the record counts a
-     replayed program's launches as launches a replay times replays;
+ 20. the serving artifact (``jatts_torch/serving/export.py``): each
+     served program traced by ``torch.export`` with its weights as inputs
+     (stored once) and its kernels as ``jatts::`` ops, saved, deserialised
+     and captured with no model code on the path. FastSpeech2 at the JSUT
+     conf's width (bf16, flash, seed-made weights) + HiFi-GAN exported as
+     a pcm16 wav artifact (bf16 and f32 HiFi-GAN) and as a mel artifact
+     with a stream step (chunk 128), B=8, text buckets 32/64/128, 1024
+     frames, each loaded on the card (one CUDA graph a bucket and one of the
+     stream step; the export seconds, the artifact's MiB beside the format
+     before ``torch.export``, the load-and-capture seconds and the graph
+     pool's bytes printed); each bucket's replay and the loaded program run
+     eagerly against the in-process eager program bit for bit (wav, olens)
+     with 8 K1 tc launches a replay; 10 batches, the loaded program eagerly
+     and replayed in turns (median ms, RTF); time to first audio and ms a
+     chunk, the chunks against the wav artifact within 1 LSB (the differing
+     samples counted); 16 requests through BatchingServer, 8 streamed and 8
+     whole (the f32 reference at bucket 128 only); a small FastSpeech2 (f32)
+     exported on the CPU, moved to the card
+     at load and replayed within 1e-3 of the card's own export; Matcha-TTS
+     and mel-VITS (f32) replayed and run eagerly against the in-process
+     program on a generator seeded alike, bit for bit, the caller's random
+     state kept; the VALL-E AR+NAR at the tts3 confs' width (bf16
+     parameters, 4 rows, max_steps 128; the prefix, one AR step and the NAR
+     fill as three exported programs and graphs) against the in-process
+     program on the same seed code for code, ms an AR step replayed and
+     eager; the E2-TTS artifact (the conf as it stands, 4 requests,
+     capacity 3000, 32 steps; its start, step and finish exported, the whole
+     CFG Euler loop one graph) against the in-process bundle bit for bit.
+     The kernels' counters count Python calls, once at a capture: the
+     record counts a replayed program's launches as launches a replay times
+     replays;
  21. mixed precision (``model_params.dtype`` as flax's compute dtype): the
      JSUT and JVS-latest FastSpeech2 steps at 24 x 896 x 112 on seed-made
      weights at the confs' widths, f32 and bf16 compute under ``xla`` and
-     ``flash`` (median ms of 10 steps after 2, device-busy ms of a profiled
+     ``flash`` (median ms of 3 steps after 2, device-busy ms of a profiled
      step, peak GiB, the launches of each forward and backward route, held
      to the dispatch rules; the two dtypes' first-step losses within 2e-2);
      the bf16 backwards a bf16 flash step takes (K1-bwd with the
@@ -278,8 +290,8 @@ Phases, each of which fails the run with a non-zero exit:
      CUDA events and graph replay beside the plain backward, SDPA's
      forward+backward (each new kernel must be under it) and the bounds;
      Matcha-TTS's tts1 step at 16 x 704 x 96 and a VITS micro-step at 8 x
-     896 x 112 past ``dp_train_start_steps``, f32 and bf16 alternating in 2
-     rounds of 8 steps, each dtype's host profile (op events, casts and
+     896 x 112 past ``dp_train_start_steps``, f32 and bf16 alternating in 1
+     round of 4 steps, each dtype's host profile (op events, casts and
      the host ms inside them); then
      ``bin/tts_train.py`` on the JSUT conf with ``dtype: bfloat16`` and
      flash for 4 steps over two eval intervals (every dk/dv and dq on
@@ -2071,7 +2083,7 @@ def jvs_serving(seed, where):
 JSUT_CONF = ROOT / "egs" / "jsut" / "tts1" / "conf" / "fastspeech2.v1.yaml"
 JVS_CONF = ROOT / "egs" / "jvs" / "tts1" / "conf" / "fastspeech2.v1.yaml"
 JVS_SPEAKERS = 4  # synthetic speakers of phase 14's corpus
-TRAIN_STEPS = 50  # the conf's train_max_steps is 100000 (200, then 100, before phases 19 and 21 needed the run's time)
+TRAIN_STEPS = 30  # the conf's train_max_steps is 100000 (200, 100, then 50, before phases 19, 21 and 20 needed the run's time)
 TRAIN_WARMUP = 25  # the conf's warmup_steps is 4000 (50 at 100 steps)
 
 
@@ -2375,7 +2387,7 @@ def training_slice(root, align_paths, freqs, seed, where, which="jsut"):
 # ---------------------------------------------------------------------------
 
 TTS3_CONF = ROOT / "egs" / "hificaptain_jp_female" / "tts3" / "conf" / "valle_ar.given.bs32.yaml"
-VALLE_STEPS = 50  # the conf's train_max_steps is 400000 (200, then 100, before phases 19 and 21 needed the run's time)
+VALLE_STEPS = 30  # the conf's train_max_steps is 400000 (200, 100, then 50, before phases 19, 21 and 20 needed the run's time)
 VALLE_WARMUP = 25  # the conf's warmup_steps is 8000 (50 at 100 steps)
 CODEC_HOP = 320  # EnCodec at 24 kHz: 75 frames a second
 
@@ -2669,7 +2681,7 @@ def valle_slice(root, seed, where):
 # the tts1 recipe, stages 1-4
 # ---------------------------------------------------------------------------
 
-RECIPE_STEPS = 50  # stage 3 of phase 15: the conf's train_max_steps is 100000
+RECIPE_STEPS = 30  # stage 3 of phase 15: the conf's train_max_steps is 100000 (50 before phase 20 needed the run's time)
 RECIPE_WARMUP = 10  # the conf's warmup_steps is 4000
 RECIPE_BATCH = 8  # tts_decode's default batch
 HIFIGAN = dict(in_channels=80, out_channels=1, channels=512, kernel_size=7, upsample_scales=[5, 5, 4, 3],
@@ -3055,8 +3067,8 @@ def recipe_slice(root, align_paths, seed, where):
 
 MATCHA_CONF = ROOT / "egs" / "jsut" / "tts1" / "conf" / "matcha_tts.v1.prior.steplr.large.yaml"
 MATCHA_MAS_CONF = ROOT / "egs" / "jsut" / "tts2" / "conf" / "matcha_tts.mas.v1.yaml"
-MATCHA_STEPS = 50  # both confs' train_max_steps is 100000
-MATCHA_RESUME = 48  # an interval checkpoint: steps 48 and 49 are replayed from it
+MATCHA_STEPS = 32  # both confs' train_max_steps is 100000 (50 before phase 20 needed the run's time)
+MATCHA_RESUME = 30  # an interval checkpoint: steps 30 and 31 are replayed from it
 MAS_GATES = {"dp_train_start_steps": 20, "bin_loss_start_steps": 30}  # the conf's 10000 and 15000
 
 
@@ -3395,8 +3407,8 @@ def matcha_slice(root, align_paths, freqs, seed, where):
 # ---------------------------------------------------------------------------
 
 VITS_CONF = ROOT / "egs" / "jsut" / "tts2" / "conf" / "vits.v1.bs32.yaml"
-VITS_STEPS = 50  # the conf's train_max_steps is 100000
-VITS_RESUME = 48  # an interval checkpoint at an accumulation boundary: steps 48 and 49 are replayed
+VITS_STEPS = 34  # the conf's train_max_steps is 100000 (50 before phase 20 needed the run's time)
+VITS_RESUME = 32  # an interval checkpoint at an accumulation boundary: steps 32 and 33 are replayed
 
 
 def randomize_flow_projections(model, seed):
@@ -3839,9 +3851,9 @@ def vits_slice(root, align_paths, freqs, seed, where):
 # ---------------------------------------------------------------------------
 
 NAR_CONF = ROOT / "egs" / "hificaptain_jp_female" / "tts3" / "conf" / "valle_nar.given.bs32.yaml"
-NAR_STEPS = 100  # the conf's train_max_steps is 400000 (200 before phase 19 needed the run's time)
+NAR_STEPS = 60  # the conf's train_max_steps is 400000 (200 before phase 19, 100 before phase 20 needed the run's time)
 NAR_WARMUP = 50  # the conf's warmup_steps is 8000
-NAR_RESUME = 98  # an interval checkpoint at an accumulation boundary: micro-steps 98 and 99 are replayed
+NAR_RESUME = 58  # an interval checkpoint at an accumulation boundary: micro-steps 58 and 59 are replayed
 NAR_DECODE_STEPS = 256  # the decode CLI's --max-steps (the AR's capacity, which the NAR fills)
 # the launches of one non-causal bf16 backward at d 64: dk/dv and dq on the
 # tensor cores, counted apart from the causal ones, and nothing else
@@ -4363,9 +4375,9 @@ def nar_slice(root, corpus, ar_outdir, seed, where):
 # ---------------------------------------------------------------------------
 
 E2_CONF = ROOT / "egs" / "hificaptain_jp_female" / "tts2" / "conf" / "e2tts.v1.yaml"
-E2_STEPS = 100  # the conf's train_max_steps is 1000000 (200 before phase 21 needed the run's time)
+E2_STEPS = 60  # the conf's train_max_steps is 1000000 (200, then 100, before phases 21 and 20 needed the run's time)
 E2_WARMUP = 25  # the conf's warmup_steps is 20000 (50 at 200 micro-steps)
-E2_RESUME = 98  # an interval checkpoint at an accumulation boundary: micro-steps 98 and 99 are replayed
+E2_RESUME = 58  # an interval checkpoint: micro-steps 58 and 59 are replayed
 E2_BUCKETS = (64, 128, 256)  # the serving bundle's text buckets
 E2_SERVE_BATCH = 4
 E2_REQUESTS = 8
@@ -4657,8 +4669,8 @@ def e2_training(corpus, conf, outdir, seed, where):
     stands (dim 1024, depth 24, 16 heads of d 64, bf16, frame budget 8640 x
     max_samples 32, accumulation 4, AdamW, e2tts_sequentiallr, EMA, clip 1)
     with ``attn_backend: flash`` on phase 19's corpus, launch counts set to 0
-    just before and read just after; the falling loss; micro-steps 98-99
-    replayed bitwise from checkpoint-98steps with the same draws; a
+    just before and read just after; the falling loss; micro-steps 58-59
+    replayed bitwise from checkpoint-58steps with the same draws; a
     micro-step's time and a profiled one; the same step under ``xla`` (bf16
     at the largest batch, then f32 on 2 rows); the kernels per item against
     their plain versions at the largest batch and their times."""
@@ -4953,7 +4965,7 @@ ART_CHUNK = 128  # the stream step's mel frames a chunk
 ART_TIMED = 10  # batches timed eagerly and replayed, in turns
 ART_SERVED = 16  # requests through BatchingServer, half of them streamed
 VALLE_ART_ROWS = 4
-VALLE_ART_STEPS = 256  # the fused program's max_steps
+VALLE_ART_STEPS = 128  # the artifact's max_steps (256 before the torch.export phase needed the run's time)
 VALLE_ART_BUCKET = 64
 E2_ART_REQUESTS = 4
 E2_ART_BUCKET = 128
@@ -4969,12 +4981,40 @@ def pool_bytes():
     return sum(s["total_size"] for s in segs if tuple(s.get("segment_pool_id", (0, 0))) != (0, 0))
 
 
-def _load(path, where, label):
-    """load_bundle on the card, timed (rebuild, eager warm-ups, captures),
-    and the pool bytes its captures added."""
+def artifact_mib(path):
+    """An artifact's MiB: the whole, its ``torch.export`` programs, its
+    buffers outside the state_dicts, and the rest, which is the layout of
+    the format before ``torch.export`` (the weights and the meta)."""
+    import zipfile
+
+    with zipfile.ZipFile(path) as z:
+        sizes = {i.filename[:-4]: i.file_size for i in z.infolist()}
+    programs = sum(n for k, n in sizes.items() if k.startswith("t") or k == "stream_step")
+    buffers = sum(n for k, n in sizes.items() if k.startswith(("b/", "sb/")))
+    total = os.path.getsize(path)
+    return {"mib": total / 2**20, "programs_mib": programs / 2**20, "buffers_mib": buffers / 2**20,
+            "pr18_layout_mib": (total - programs - buffers) / 2**20}
+
+
+def timed_export(fn, *args, **kwargs):
+    """``fn(*args, **kwargs)`` (an ``export_*`` call) and its seconds."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    path = fn(*args, **kwargs)
+    torch.cuda.synchronize()
+    return path, time.perf_counter() - t0
+
+
+def _load(path, where, label, export_s):
+    """load_bundle on the card, timed (deserialise, weights to the card,
+    eager warm-ups, captures), the pool bytes its captures added and the
+    artifact's MiB beside the format before ``torch.export``."""
     import torch
 
     from jatts_torch.serving import load_bundle
+    from jatts_torch.serving.export import read_meta
 
     torch.cuda.synchronize()
     before = pool_bytes()
@@ -4983,30 +5023,44 @@ def _load(path, where, label):
     torch.cuda.synchronize()
     load_s = time.perf_counter() - t0
     pool = pool_bytes() - before
-    print(f"artifact {label}: {os.path.getsize(path) / 2**20:.1f} MiB; load and capture {load_s:.2f} s, graph pool "
-          f"{pool} bytes ({pool / 2**20:.1f} MiB); {where}", flush=True)
-    return bundle, {"mib": os.path.getsize(path) / 2**20, "load_s": load_s, "pool_bytes": pool}
+    size = artifact_mib(path)
+    meta = read_meta(path)
+    check(meta.get("format") == "torch.export", f"{label}: the artifact is not of the torch.export format")
+    print(f"artifact {label}: exported in {export_s:.2f} s (tracing and saving each program "
+          f"{ {k: round(v, 2) for k, v in meta['export_s'].items()} } s); {size['mib']:.1f} MiB ({size['programs_mib']:.2f} "
+          f"MiB of {len(meta['export_s'])} torch.export programs, {size['buffers_mib']:.2f} MiB of buffers outside the "
+          f"state_dicts; the format before torch.export, weights and meta only: {size['pr18_layout_mib']:.1f} MiB); "
+          f"load and capture {load_s:.2f} s, graph pool {pool} bytes ({pool / 2**20:.1f} MiB); {where}", flush=True)
+    return bundle, dict(size, export_s=export_s, program_s=meta["export_s"], load_s=load_s, pool_bytes=pool)
 
 
 def _tc_a_replay(call):
     return call.launches.get("flash_attention.launches_tc", 0)
 
 
+def n_differ(a, b):
+    """Values of two outputs (tensors or dicts of them) that differ."""
+    if isinstance(a, dict):
+        return sum(n_differ(a[k], b[k]) for k in a)
+    return int((a != b).sum())
+
+
 def artifact_jsut(root, seed, where):
     """Phase 20, the JSUT artifacts: FastSpeech2 at the conf's width (bf16,
     flash, seed-made weights) + HiFi-GAN, B=8, buckets 32/64/128, 1024
-    frames, exported three times and each loaded on the card (one graph a
-    bucket, the stream step's): a pcm16 wav artifact with phase 7's bf16
-    HiFi-GAN, and a pcm16 wav artifact and a mel artifact with a stream step
-    (chunk 128) with the f32 HiFi-GAN ``vocoder/vocoder.py:Vocoder`` builds.
-    Each bucket's replay against the eager program bit for bit; 10 batches
-    eager and replayed in turns; time to first audio and ms a chunk, the
-    chunks against the f32 wav artifact; 16 requests, half streamed, through
-    BatchingServer. The stream pair's vocoder is f32 because a chunk equals
-    the whole call's samples only where the convolutions' arithmetic does:
-    cuDNN picks its algorithm by length, and bf16 activations turn another
-    summation order into whole-ulp differences (32 LSB on an H100 with a
-    bf16 generator, PERF.md)."""
+    frames, exported three times by ``torch.export`` and each loaded on the
+    card (one graph a bucket, the stream step's): a pcm16 wav artifact with
+    phase 7's bf16 HiFi-GAN, and a pcm16 wav artifact and a mel artifact
+    with a stream step (chunk 128) with the f32 HiFi-GAN
+    ``vocoder/vocoder.py:Vocoder`` builds. Each bucket's replay and the
+    loaded program run eagerly against the in-process eager program bit for
+    bit; 10 batches eager and replayed in turns; time to first audio and ms
+    a chunk, the chunks against the f32 wav artifact; 16 requests, half
+    streamed, through BatchingServer. The stream pair's vocoder is f32
+    because a chunk equals the whole call's samples only where the
+    convolutions' arithmetic does: cuDNN picks its algorithm by length, and
+    bf16 activations turn another summation order into whole-ulp
+    differences (32 LSB on an H100 with a bf16 generator, PERF.md)."""
     from types import SimpleNamespace
 
     import numpy as np
@@ -5034,28 +5088,32 @@ def artifact_jsut(root, seed, where):
     config = {"model_type": "FastSpeech2", "model_params": mp}
     meta = {"model_type": "FastSpeech2", "model_params": mp, "num_mels": 80, "sampling_rate": 24000,
             "hop_size": voc16.hop_size, "max_frames": ART_FRAMES}
-    paths = {}
-    for name, voc in (("wav_bf16_voc", voc16), ("wav", voc32)):
+    paths, export_s, programs = {}, {}, {}
+    # the f32 HiFi-GAN's wav artifact is the streamed chunks' reference, at bucket 128 only
+    for name, voc, buckets in (("wav_bf16_voc", voc16, ART_BUCKETS), ("wav", voc32, ART_BUCKETS[-1:])):
         fn, w = build_infer_fn(config, fs2, mean, scale, ART_FRAMES, vocoder=SimpleNamespace(model=voc, mean=None,
                                                                                              scale=None))
-        paths[name] = export_bundle(str(root / f"jsut_{name}.npz"), fn, ART_BATCH, ART_BUCKETS,
-                                    dict(meta, output="wav", wav_format="pcm16"), weights=w)
+        programs[name] = fn
+        paths[name], export_s[name] = timed_export(export_bundle, str(root / f"jsut_{name}.npz"), fn, ART_BATCH,
+                                                   buckets, dict(meta, output="wav", wav_format="pcm16"), weights=w)
     fn, w = build_infer_fn(config, fs2, mean, scale, ART_FRAMES)
     stream = build_stream_step_fn(SimpleNamespace(model=voc32, mean=None, scale=None), ART_FRAMES, 80, chunk=ART_CHUNK)
-    paths["mel"] = export_bundle(str(root / "jsut_mel_stream.npz"), fn, ART_BATCH, ART_BUCKETS,
-                                 dict(meta, output="mel"), weights=w, stream=stream)
-    del fs2, voc16, voc32, fn, w, stream
+    paths["mel"], export_s["mel"] = timed_export(export_bundle, str(root / "jsut_mel_stream.npz"), fn, ART_BATCH,
+                                                 ART_BUCKETS, dict(meta, output="mel"), weights=w, stream=stream)
+    inproc = programs["wav_bf16_voc"]
+    del fn, w, stream, programs
     torch.cuda.empty_cache()
-    wav_b, wav_load = _load(paths["wav_bf16_voc"], where, "JSUT wav pcm16, bf16 HiFi-GAN")
-    ref_b, ref_load = _load(paths["wav"], where, "JSUT wav pcm16, f32 HiFi-GAN")
-    mel_b, mel_load = _load(paths["mel"], where, f"JSUT mel + stream step (chunk {ART_CHUNK}), f32 HiFi-GAN")
-    check(all(sorted(b.graphs) == list(ART_BUCKETS) for b in (wav_b, ref_b, mel_b))
+    wav_b, wav_load = _load(paths["wav_bf16_voc"], where, "JSUT wav pcm16, bf16 HiFi-GAN", export_s["wav_bf16_voc"])
+    ref_b, ref_load = _load(paths["wav"], where, "JSUT wav pcm16, f32 HiFi-GAN", export_s["wav"])
+    mel_b, mel_load = _load(paths["mel"], where, f"JSUT mel + stream step (chunk {ART_CHUNK}), f32 HiFi-GAN",
+                            export_s["mel"])
+    check(all(sorted(b.graphs) == list(ART_BUCKETS) for b in (wav_b, mel_b)) and sorted(ref_b.graphs) == [ART_BUCKETS[-1]]
           and mel_b.stream_graph is not None, "a bucket or the stream step was not captured")
     tc = {b: _tc_a_replay(g) for b, g in wav_b.graphs.items()}
     check(all(n == 8 for n in tc.values()), f"K1 tc launches a replay {tc}, want 8 a bucket")
 
-    # each bucket: 8 requests of lengths inside it, the replay against the
-    # eager program on the same inputs
+    # each bucket: 8 requests of lengths inside it, the replay and the loaded
+    # program run eagerly against the in-process eager program on the same inputs
     lo = 1
     per_bucket = {}
     for b in ART_BUCKETS:
@@ -5063,14 +5121,17 @@ def artifact_jsut(root, seed, where):
         reqs[0] = rng.integers(1, ART_VOCAB, size=b).tolist()
         per_bucket[b], lo = reqs, b + 1
         xs, ilens = wav_b.prepare(reqs)
-        eager = {k: v.clone() for k, v in wav_b.program(xs, ilens, None, wav_b.generator).items()}
+        eager = {k: v.clone() for k, v in inproc(xs, ilens, None, None).items()}
+        loaded_eager = {k: v.clone() for k, v in wav_b.program(xs, ilens).items()}
         replay = wav_b.run(xs, ilens)
-        differ = int((eager["wav"] != replay["wav"]).sum()) + int((eager["olens"] != replay["olens"]).sum())
-        print(f"artifact JSUT bucket {b}: replay vs eager program, {differ} values differ (wav {tuple(replay['wav'].shape)}"
-              f" int16, olens {replay['olens'].tolist()}; limit 0); K1 tc launches a replay {tc[b]}", flush=True)
-        check(differ == 0, f"bucket {b}: the graph replay differs from the eager program")
+        differ, differ_loaded = n_differ(eager, replay), n_differ(eager, loaded_eager)
+        print(f"artifact JSUT bucket {b}: replay vs the in-process eager program, {differ} values differ, the loaded "
+              f"program run eagerly {differ_loaded} (wav {tuple(replay['wav'].shape)} int16, olens "
+              f"{replay['olens'].tolist()}; limit 0); K1 tc launches a replay {tc[b]}", flush=True)
+        check(differ == 0 and differ_loaded == 0, f"bucket {b}: the loaded program differs from the in-process one")
 
-    # 10 batches at bucket 128, eager and replayed in turns (host clock, to the fetch)
+    # 10 batches at bucket 128, the loaded program eagerly and replayed in
+    # turns (host clock, to the fetch)
     full = per_bucket[ART_BUCKETS[-1]]
     graphs = wav_b.graphs
     times = {"eager": [], "replay": []}
@@ -5086,9 +5147,9 @@ def artifact_jsut(root, seed, where):
     audio_s = sum(len(r["wav"]) for r in out) / 24000
     print(f"artifact JSUT served batch (B={ART_BATCH}, bucket {ART_BUCKETS[-1]}, {ART_FRAMES} frames, pcm16, bf16 "
           f"HiFi-GAN): median of "
-          f"{ART_TIMED} eager {med['eager']:.2f} ms (min {min(times['eager']):.2f}), replayed {med['replay']:.2f} ms "
-          f"(min {min(times['replay']):.2f}); RTF eager {med['eager'] / 1e3 / audio_s:.5f}, replayed "
-          f"{med['replay'] / 1e3 / audio_s:.5f} ({audio_s:.2f} s of audio); {where}", flush=True)
+          f"{ART_TIMED} eager (the loaded program) {med['eager']:.2f} ms (min {min(times['eager']):.2f}), replayed "
+          f"{med['replay']:.2f} ms (min {min(times['replay']):.2f}); RTF eager {med['eager'] / 1e3 / audio_s:.5f}, "
+          f"replayed {med['replay'] / 1e3 / audio_s:.5f} ({audio_s:.2f} s of audio); {where}", flush=True)
 
     # streaming: time to first audio, ms a chunk, the chunks against the f32 wav artifact
     ref = ref_b.synthesize(full)
@@ -5146,24 +5207,78 @@ def artifact_jsut(root, seed, where):
     out = {"load": {"wav_bf16_voc": wav_load, "wav": ref_load, "mel": mel_load}, "batch_ms": med, "ttfa_ms": ttfa_ms,
            "chunk_ms": statistics.median(chunk_ms), "stream_worst_lsb": worst, "stream_differ": n_diff,
            "replayed": replayed}
-    del wav_b, ref_b, mel_b
+    del wav_b, ref_b, mel_b, inproc, fs2, voc16, voc32
+    torch.cuda.empty_cache()
+    return out
+
+
+def artifact_from_cpu(root, seed, where):
+    """Phase 20, an artifact exported on the CPU and run on the card: a
+    small FastSpeech2 (adim 128 over 2 heads, 2 + 2 conformer blocks, f32,
+    flash, seed-made weights; B=4, bucket 32, 128 frames) exported by
+    ``torch.export`` on the CPU and on the card; the CPU's, moved to the card
+    at load (``move_to_device_pass``), within 1e-3 of the card's own (f32,
+    TF32 off: the CPU's and the card's kernels sum in other orders), whose
+    replay equals its in-process eager program bit for bit; both replays
+    launch one K1 an attention layer."""
+    import numpy as np
+    import torch
+
+    from jatts_torch.models.fastspeech2 import FastSpeech2
+    from jatts_torch.serving import build_infer_fn, export_bundle
+
+    params = dict(idim=ART_VOCAB, odim=80, adim=128, aheads=2, elayers=2, eunits=256, dlayers=2, dunits=256,
+                  postnet_layers=0, duration_predictor_chans=64, pitch_predictor_chans=64, energy_predictor_chans=64,
+                  conformer_enc_kernel_size=7, conformer_dec_kernel_size=7, attn_backend="flash")
+    rng = np.random.default_rng(seed + 24)
+    mean, scale = rng.normal(-4.0, 1.0, 80).astype(np.float32), rng.uniform(0.5, 2.0, 80).astype(np.float32)
+    torch.manual_seed(seed)
+    model = FastSpeech2(**params, device="cpu").eval()
+    with torch.no_grad():
+        model.duration_predictor.linear.bias.fill_(math.log(4.0))
+    meta = {"model_type": "FastSpeech2", "model_params": params, "num_mels": 80, "hop_size": 300,
+            "max_frames": 128, "output": "mel"}
+    paths, export_s, fns = {}, {}, {}
+    for dev in ("cpu", "cuda"):
+        fns[dev], w = build_infer_fn({"model_type": "FastSpeech2"}, model.to(dev), mean, scale, 128)
+        paths[dev], export_s[dev] = timed_export(export_bundle, str(root / f"small_{dev}.npz"), fns[dev], 4, (32,),
+                                                 meta, platforms=("cuda", "cpu"), weights=w)
+    from_cpu, cpu_load = _load(paths["cpu"], where, "small FastSpeech2 exported on the CPU", export_s["cpu"])
+    own, own_load = _load(paths["cuda"], where, "small FastSpeech2 exported on the card", export_s["cuda"])
+    reqs = [rng.integers(1, ART_VOCAB, size=int(n)).tolist() for n in rng.integers(4, 33, size=4)]
+    xs, ilens = own.prepare(reqs)
+    got, want = from_cpu.run(xs, ilens), own.run(xs, ilens)
+    eager = fns["cuda"](xs, ilens, None, None)
+    err = float((got["mel"] - want["mel"]).abs().max())
+    differ = n_differ(want, eager) + n_differ(got["olens"], want["olens"])
+    launches = {n: [c.launches.get("flash_attention.launches", 0) for c in b.graphs.values()]
+                for n, b in (("cpu", from_cpu), ("card", own))}
+    print(f"artifact exported on the CPU, replayed on the card: max |mel - the card's export's| {err:.3g} (limit 1e-3), "
+          f"the card's export's replay vs its in-process eager program {differ} values differ (and olens; limit 0); "
+          f"K1 launches a replay {launches}; {where}", flush=True)
+    check(err <= 1e-3 and differ == 0, "the CPU-exported artifact disagrees on the card")
+    check(all(v == [4] for v in launches.values()), f"K1 launches a replay {launches}, want 4")
+    out = {"load": {"cpu": cpu_load, "card": own_load}, "max_abs_err": err}
+    del from_cpu, own, fns, model
     torch.cuda.empty_cache()
     return out
 
 
 def artifact_valle(root, seed, where):
-    """Phase 20, the fused VALL-E program: the AR and NAR confs as they
-    stand (d_model 1024, 12 layers, bf16 compute and parameters, flash,
-    seed-made weights), 4 rows, max_steps 256, one text bucket; loaded on
-    the card (the prefix, one AR step and the NAR fill as graphs). The
-    replay against the eager program on the same seed, code for code; ms an
-    AR step replayed and eager."""
+    """Phase 20, the VALL-E artifact: the AR and NAR confs as they stand
+    (d_model 1024, 12 layers, bf16 compute and parameters, flash, seed-made
+    weights), 4 rows, max_steps 128, one text bucket, exported by
+    ``torch.export`` as three programs (the prefix, one AR step, the NAR
+    fill) and loaded on the card as graphs. The replay and the loaded
+    programs run eagerly against the in-process eager program on the same
+    seed, code for code; ms an AR step replayed and eager."""
     import numpy as np
     import torch
 
     from jatts_torch.bin.tts_train import DTYPES
     from jatts_torch.models.valle import VALLEAR, VALLENAR
     from jatts_torch.serving import build_valle_fn, export_valle_bundle
+    from jatts_torch.serving.bundle import seeded
     from jatts_torch.utils.config import load_config
 
     def build(cls, conf_path):
@@ -5176,13 +5291,14 @@ def artifact_valle(root, seed, where):
 
     (ar, ar_params), (nar, nar_params) = build(VALLEAR, TTS3_CONF), build(VALLENAR, NAR_CONF)
     fn, w = build_valle_fn(ar, nar, VALLE_ART_STEPS)
-    path = export_valle_bundle(str(root / "valle.npz"), fn, VALLE_ART_ROWS, [VALLE_ART_BUCKET],
-                               prompt_frames=ar.prompt_max_frame_length, n_prom_levels=ar.n_prom_levels,
-                               meta={"model_type": "VALLE", "sampling_rate": 24000, "max_steps": VALLE_ART_STEPS,
-                                     "ar_params": ar_params, "nar_params": nar_params}, weights=w)
-    del ar, nar, fn, w
+    path, export_s = timed_export(
+        export_valle_bundle, str(root / "valle.npz"), fn, VALLE_ART_ROWS, [VALLE_ART_BUCKET],
+        prompt_frames=ar.prompt_max_frame_length, n_prom_levels=ar.n_prom_levels,
+        meta={"model_type": "VALLE", "sampling_rate": 24000, "max_steps": VALLE_ART_STEPS, "ar_params": ar_params,
+              "nar_params": nar_params}, weights=w)
+    del w
     torch.cuda.empty_cache()
-    vb, load = _load(path, where, f"VALL-E AR+NAR ({VALLE_ART_ROWS} rows, max_steps {VALLE_ART_STEPS})")
+    vb, load = _load(path, where, f"VALL-E AR+NAR ({VALLE_ART_ROWS} rows, max_steps {VALLE_ART_STEPS})", export_s)
     rng = np.random.default_rng(seed + 21)
     tok = [rng.integers(0, ART_VOCAB, size=int(n)).tolist() for n in rng.integers(30, VALLE_ART_BUCKET + 1,
                                                                                   size=VALLE_ART_ROWS)]
@@ -5191,45 +5307,51 @@ def artifact_valle(root, seed, where):
     args = vb.prepare(tok, prom)
     start, step, fill = vb.graphs[VALLE_ART_BUCKET]
     results = {}
-    for mode in ("eager", "replay"):
+    for mode in ("eager", "loaded", "replay"):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        out = vb.program(*args, generator=torch.Generator(device="cuda").manual_seed(seed)) if mode == "eager" \
-            else vb.run(*args, seed=seed)
+        if mode == "eager":
+            out = fn(*args, generator=torch.Generator(device="cuda").manual_seed(seed))
+        elif mode == "loaded":
+            with seeded(vb.device, None, seed):
+                out = vb.program(*args)
+        else:
+            out = vb.run(*args, seed=seed)
         results[mode] = ({k: v.cpu() for k, v in out.items()}, (time.perf_counter() - t0) * 1e3)
-    (want, eager_ms), (got, replay_ms) = results["eager"], results["replay"]
-    differ = int((want["codes"] != got["codes"]).sum()) + int((want["resp_lens"] != got["resp_lens"]).sum())
-    # an AR step alone: eager on the program's state, and the step graph's replay
+    (want, eager_ms), (loaded, loaded_ms), (got, replay_ms) = results["eager"], results["loaded"], results["replay"]
+    differ, differ_loaded = n_differ(want, got), n_differ(want, loaded)
+    # an AR step alone: the loaded step program eagerly, and the step graph's replay
     p, steps = vb.program, VALLE_ART_STEPS - 1
-    gen = torch.Generator(device="cuda").manual_seed(seed)
-    state = p.start(*args, gen)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(steps):
-        p.step(state, gen)
-    torch.cuda.synchronize()
+    with seeded(vb.device, None, seed):
+        state = p.start(*args)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            p.step(state)
+        torch.cuda.synchronize()
     eager_step_ms = (time.perf_counter() - t0) * 1e3 / steps
-    vb.generator.manual_seed(seed)
-    start(*args)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(steps):
-        step()
-    torch.cuda.synchronize()
+    with seeded(vb.device, None, seed):
+        start(*args)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            step()
+        torch.cuda.synchronize()
     replay_step_ms = (time.perf_counter() - t0) * 1e3 / steps
     tc = _tc_a_replay(fill)
-    print(f"artifact VALL-E fused program (ar and nar confs as they stand: d_model {p.ar.d_model}, {p.ar.n_layers} "
-          f"layers, bf16 parameters, flash; {VALLE_ART_ROWS} rows, bucket {VALLE_ART_BUCKET}, max_steps "
-          f"{VALLE_ART_STEPS}): replay vs eager program on seed {seed}, {differ} codes and lengths differ (limit 0), "
-          f"resp_lens {got['resp_lens'].tolist()}; the whole call eager {eager_ms:.1f} ms, replayed {replay_ms:.1f} ms; "
-          f"an AR step eager {eager_step_ms:.3f} ms, replayed {replay_step_ms:.3f} ms; K1 tc launches a fill replay "
-          f"{tc} ({p.nar.n_layers} x {p.nar.n_resp_levels}); {where}", flush=True)
-    check(differ == 0, "the replayed VALL-E program differs from the eager one")
-    check(tc == p.nar.n_layers * p.nar.n_resp_levels, f"K1 tc launches a fill replay {tc}")
+    print(f"artifact VALL-E (ar and nar confs as they stand: d_model {fn.ar.d_model}, {fn.ar.n_layers} layers, bf16 "
+          f"parameters, flash; {VALLE_ART_ROWS} rows, bucket {VALLE_ART_BUCKET}, max_steps {VALLE_ART_STEPS}): replay "
+          f"vs the in-process eager program on seed {seed}, {differ} codes and lengths differ, the loaded programs run "
+          f"eagerly {differ_loaded} (limit 0), resp_lens {got['resp_lens'].tolist()}; the whole call in process "
+          f"{eager_ms:.1f} ms, loaded eagerly {loaded_ms:.1f} ms, replayed {replay_ms:.1f} ms; an AR step loaded "
+          f"eagerly {eager_step_ms:.3f} ms, replayed {replay_step_ms:.3f} ms; K1 tc launches a fill replay {tc} "
+          f"({fn.nar.n_layers} x {fn.nar.n_resp_levels}); {where}", flush=True)
+    check(differ == 0 and differ_loaded == 0, "the loaded VALL-E programs differ from the in-process one")
+    check(tc == fn.nar.n_layers * fn.nar.n_resp_levels, f"K1 tc launches a fill replay {tc}")
     check(bool(((got["codes"] >= 0) & (got["codes"] <= 1024)).all()), "a VALL-E code out of range")
-    out = {"load": load, "eager_ms": eager_ms, "replay_ms": replay_ms, "eager_step_ms": eager_step_ms,
-           "replay_step_ms": replay_step_ms, "replayed": vb.graph_launches()}
-    del vb, state
+    out = {"load": load, "eager_ms": eager_ms, "loaded_ms": loaded_ms, "replay_ms": replay_ms,
+           "eager_step_ms": eager_step_ms, "replay_step_ms": replay_step_ms, "replayed": vb.graph_launches()}
+    del vb, state, fn, ar, nar
     torch.cuda.empty_cache()
     return out
 
@@ -5237,14 +5359,15 @@ def artifact_valle(root, seed, where):
 def artifact_e2(root, seed, where):
     """Phase 20, the E2-TTS artifact: the conf as it stands (bf16, flash,
     seed-made weights, 32 steps, CFG, sway), 4 requests at a capacity of
-    ``max_duration`` frames, one text bucket; loaded on the card (one graph
-    of the whole CFG Euler loop) and held to the in-process bundle on the
-    same seed, bit for bit."""
+    ``max_duration`` frames, one text bucket, exported by ``torch.export``
+    (the whole CFG Euler loop unrolled in one program) and loaded on the
+    card as one graph; the replay and the loaded program run eagerly held
+    to the in-process bundle on the same seed, bit for bit."""
     import numpy as np
     import torch
 
     from jatts_torch.serving import E2ttsServingBundle
-    from jatts_torch.serving.bundle import inference_kwargs
+    from jatts_torch.serving.bundle import inference_kwargs, seeded
     from jatts_torch.serving.export import build_e2tts_bundle_cli
     from jatts_torch.utils.config import load_config
 
@@ -5254,11 +5377,11 @@ def artifact_e2(root, seed, where):
     mean, scale = rng.normal(-4.0, 1.0, 80).astype(np.float32), rng.uniform(0.5, 2.0, 80).astype(np.float32)
     max_frames = int(conf["max_duration"])
     config = dict(conf, model_params=dict(conf["model_params"], idim=ART_VOCAB, attn_backend="flash"))
-    path = build_e2tts_bundle_cli(str(root / "e2tts"), config, model, mean, scale, E2_ART_REQUESTS, [E2_ART_BUCKET],
-                                  max_frames, ["cuda"])
+    path, export_s = timed_export(build_e2tts_bundle_cli, str(root / "e2tts"), config, model, mean, scale,
+                                  E2_ART_REQUESTS, [E2_ART_BUCKET], max_frames, ["cuda"])
     inproc = E2ttsServingBundle(model, mean, scale, batch_size=E2_ART_REQUESTS, buckets=[E2_ART_BUCKET],
                                 max_frames=max_frames, infer_kwargs=inference_kwargs(conf))
-    loaded, load = _load(path, where, f"E2-TTS ({E2_ART_REQUESTS} requests, capacity {max_frames})")
+    loaded, load = _load(path, where, f"E2-TTS ({E2_ART_REQUESTS} requests, capacity {max_frames})", export_s)
     fields = [[rng.integers(0, ART_VOCAB, size=int(n)).tolist() for n in rng.integers(60, E2_ART_BUCKET + 1,
                                                                                       size=E2_ART_REQUESTS)],
               [(rng.normal(size=(int(n), 80)) * scale + mean).astype(np.float32)
@@ -5271,13 +5394,19 @@ def artifact_e2(root, seed, where):
         results[label] = (bundle.synthesize(*fields, seed=seed), (time.perf_counter() - t0) * 1e3)
     (want, eager_ms), (got, replay_ms) = results["in-process"], results["artifact"]
     differ = sum(int((a != b).sum()) for a, b in zip(got, want))
+    args = loaded.prepare(*fields)
+    with seeded(loaded.device, None, seed):
+        loaded_eager = loaded.program(*args).cpu().numpy()
+    ref, dur = args[2].cpu().numpy(), args[3].cpu().numpy()
+    differ_loaded = sum(int((loaded_eager[i, ref[i]: dur[i]] != w).sum()) for i, w in enumerate(want))
     tc = _tc_a_replay(loaded.graphs[E2_ART_BUCKET])
     steps = loaded.program.infer_kwargs["steps"]
     print(f"artifact E2-TTS ({E2_CONF.relative_to(ROOT)} as it stands, bf16, flash; {steps} steps, CFG, sway): "
-          f"replayed vs the in-process bundle on seed {seed}, {differ} values differ (limit 0), mels "
-          f"{[g.shape[0] for g in got]} frames; a batch in process {eager_ms:.1f} ms, replayed {replay_ms:.1f} ms; "
-          f"K1 tc launches a replay {tc} ({model.backbone.depth} x {steps}); {where}", flush=True)
-    check(differ == 0, "the E2 artifact's replay differs from the in-process bundle")
+          f"replayed vs the in-process bundle on seed {seed}, {differ} values differ, the loaded program run eagerly "
+          f"{differ_loaded} (limit 0), mels {[g.shape[0] for g in got]} frames; a batch in process {eager_ms:.1f} ms, "
+          f"replayed {replay_ms:.1f} ms; K1 tc launches a replay {tc} ({model.backbone.depth} x {steps}); {where}",
+          flush=True)
+    check(differ == 0 and differ_loaded == 0, "the E2 artifact differs from the in-process bundle")
     check(all(g.shape == (n, 80) and bool(np.isfinite(g).all()) for g, n in zip(got, fields[2])),
           "an E2 mel is not [gen_frames, 80] and finite")
     check(tc == model.backbone.depth * steps, f"K1 tc launches a replay {tc}")
@@ -5290,16 +5419,19 @@ def artifact_e2(root, seed, where):
 def artifact_noise_models(root, seed, where):
     """Phase 20, Matcha-TTS and mel-VITS mel artifacts (the JSUT confs as
     they stand, f32, TF32 off, seed-made weights as phases 16 and 17 make
-    them; B=8, bucket 128, 1024 frames): the graph's replay against the
-    eager program on the same seed bit for bit (mel, olens), another seed
-    other mels; the noise drawn inside the graph from the bundle's
-    registered generator."""
+    them; B=8, bucket 128, 1024 frames), exported by ``torch.export``: the
+    graph's replay and the loaded program run eagerly against the
+    in-process eager program on a generator seeded alike, bit for bit (mel,
+    olens), another seed other mels, the caller's random state unchanged;
+    the noise drawn inside the graph from the device's default generator,
+    which the bundle seeds."""
     import numpy as np
     import torch
 
     from jatts_torch.models.matchatts import MatchaTTS
     from jatts_torch.models.vits import VITS
     from jatts_torch.serving import build_infer_fn, export_bundle
+    from jatts_torch.serving.bundle import seeded
     from jatts_torch.utils.config import load_config
 
     out = {}
@@ -5316,34 +5448,39 @@ def artifact_noise_models(root, seed, where):
         rng = np.random.default_rng(seed + 23)
         mean, scale = rng.normal(-4.0, 1.0, 80).astype(np.float32), rng.uniform(0.5, 2.0, 80).astype(np.float32)
         fn, w = build_infer_fn(config, model, mean, scale, ART_FRAMES)
-        path = export_bundle(str(root / f"{name}.npz"), fn, ART_BATCH, ART_BUCKETS[-1:],
-                             {"model_type": config["model_type"], "model_params": mp, "num_mels": 80,
-                              "sampling_rate": 24000, "hop_size": 300, "max_frames": ART_FRAMES, "output": "mel"},
-                             weights=w)
-        del model, fn, w
+        path, export_s = timed_export(export_bundle, str(root / f"{name}.npz"), fn, ART_BATCH, ART_BUCKETS[-1:],
+                                      {"model_type": config["model_type"], "model_params": mp, "num_mels": 80,
+                                       "sampling_rate": 24000, "hop_size": 300, "max_frames": ART_FRAMES,
+                                       "output": "mel"}, weights=w)
+        del w
         torch.cuda.empty_cache()
-        bundle, load = _load(path, where, f"{cls.__name__} mel (f32)")
+        bundle, load = _load(path, where, f"{cls.__name__} mel (f32)", export_s)
         reqs = [rng.integers(1, ART_VOCAB, size=int(n)).tolist() for n in rng.integers(40, 129, size=ART_BATCH)]
         xs, ilens = bundle.prepare(reqs)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        eager = {k: v.cpu() for k, v in bundle.program(xs, ilens, None,
-                                                       torch.Generator(device="cuda").manual_seed(seed)).items()}
+        eager = {k: v.cpu() for k, v in fn(xs, ilens, None, torch.Generator(device="cuda").manual_seed(seed)).items()}
         eager_ms = (time.perf_counter() - t0) * 1e3
+        with seeded(bundle.device, None, seed):
+            loaded_eager = {k: v.cpu() for k, v in bundle.program(xs, ilens).items()}
+        rng_before = torch.cuda.get_rng_state()
         t0 = time.perf_counter()
         replay = {k: v.cpu() for k, v in bundle.run(xs, ilens, seed=seed).items()}
         replay_ms = (time.perf_counter() - t0) * 1e3
         other = bundle.run(xs, ilens, seed=seed + 1)["mel"].cpu()
-        differ = int((eager["mel"] != replay["mel"]).sum()) + int((eager["olens"] != replay["olens"]).sum())
+        kept = bool(torch.equal(rng_before, torch.cuda.get_rng_state()))
+        differ, differ_loaded = n_differ(eager, replay), n_differ(eager, loaded_eager)
         moved = float((other - replay["mel"]).abs().max())
         print(f"artifact {cls.__name__} ({conf_path.relative_to(ROOT)} as it stands, f32, {bundle.program.infer_kwargs})"
-              f": replay vs eager program on seed {seed}, {differ} values differ (limit 0), olens "
-              f"{replay['olens'].tolist()}; seed {seed + 1} moves the mel by up to {moved:.3f} (limit > 1e-3); a batch "
-              f"eager {eager_ms:.1f} ms, replayed {replay_ms:.1f} ms; {where}", flush=True)
-        check(differ == 0, f"the {cls.__name__} replay differs from the eager program")
+              f": replay vs the in-process eager program on seed {seed}, {differ} values differ, the loaded program run "
+              f"eagerly {differ_loaded} (limit 0), olens {replay['olens'].tolist()}; seed {seed + 1} moves the mel by up "
+              f"to {moved:.3f} (limit > 1e-3); the caller's CUDA random state kept: {kept}; a batch in process "
+              f"{eager_ms:.1f} ms, replayed {replay_ms:.1f} ms; {where}", flush=True)
+        check(differ == 0 and differ_loaded == 0, f"the {cls.__name__} artifact differs from the in-process program")
         check(moved > 1e-3, f"another seed gave the same {cls.__name__} mel")
+        check(kept, f"a {cls.__name__} call moved the caller's random state")
         out[name] = {"load": load, "eager_ms": eager_ms, "replay_ms": replay_ms}
-        del bundle
+        del bundle, fn, model
         torch.cuda.empty_cache()
     return out
 
@@ -5356,18 +5493,20 @@ def artifact_slice(root, seed, where):
     root.mkdir(parents=True, exist_ok=True)
     reset_all_launches()
     jsut = artifact_jsut(root, seed, where)
+    from_cpu = artifact_from_cpu(root, seed, where)
     noise = artifact_noise_models(root, seed, where)
     valle = artifact_valle(root, seed, where)
     e2 = artifact_e2(root, seed, where)
     eager = launch_counts()
     replayed = {path: out["replayed"].get("flash_attention.launches_tc", 0)
                 for path, out in (("served_artifact", jsut), ("valle_fused", valle), ("e2tts_artifact", e2))}
-    print(f"phase 20 (the serving artifact): K1 tc launches replayed {replayed}; launched eagerly (the warm-ups "
-          f"before each capture, the captures and the eager references) {eager['k1.launches_tc']}; every other counter "
+    print(f"phase 20 (the serving artifact): K1 tc launches replayed {replayed}; launched eagerly (the exports' "
+          f"warm-ups, the warm-ups before each capture, the captures and the eager references) "
+          f"{eager['k1.launches_tc']}; every other counter "
           f"{ {k: v for k, v in eager.items() if v and k not in ('k1.launches', 'k1.launches_tc')} }; "
           f"{time.perf_counter() - t_phase:.1f} s; {where}", flush=True)
     check(all(n > 0 for n in replayed.values()), f"a served program replayed no K1 tc launch: {replayed}")
-    return replayed, {"jsut": jsut, "noise": noise, "valle": valle, "e2": e2}
+    return replayed, {"jsut": jsut, "from_cpu": from_cpu, "noise": noise, "valle": valle, "e2": e2}
 
 
 # ---------------------------------------------------------------------------
@@ -5377,10 +5516,10 @@ def artifact_slice(root, seed, where):
 MP_FS2 = (24, 896, 112)  # a FastSpeech2 step's batch: B, T_feats, T_text (phases 10 and 14's largest)
 MP_MATCHA = (16, 704, 96)  # Matcha-TTS's tts1 step (phase 16's largest)
 MP_VITS = (8, 896, 112)  # a VITS micro-step (phase 17's largest)
-MP_TIMED = 10  # steps timed after MP_WARM warm-up steps
+MP_TIMED = 3  # steps timed after MP_WARM warm-up steps (10 before phase 20 took the run's time)
 MP_WARM = 2
-MP_SMALL_TIMED = 8  # the Matcha and VITS steps: timed steps a round (10 before phase 22)
-MP_SMALL_ROUNDS = 2  # rounds, f32 and bf16 alternating in each (3 before phase 22 needed the run's time)
+MP_SMALL_TIMED = 4  # the Matcha and VITS steps: timed steps a round (10 before phase 22, 8 before phase 20)
+MP_SMALL_ROUNDS = 1  # rounds, f32 and bf16 alternating in each (3 before phase 22, 2 before phase 20 needed the run's time)
 MP_CLI_STEPS = 4  # the bf16 CLI run: an eval interval at 2 and 4
 SDPA_ROUNDS = 5  # rounds of SDPA's forward+backward beside the bf16 backward pairs
 # the backward routes a FastSpeech2 step can take, by the counters of ops/flash_attention.py

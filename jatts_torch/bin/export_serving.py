@@ -2,10 +2,12 @@
 (counterpart of jatts_tpu/bin/export_serving.py).
 
 Reads the experiment's config, its latest checkpoint (or ``--checkpoint``)
-and the stats, and writes ONE ``.npz`` that ``jatts_torch.serving.load_bundle``
-turns back into a bundle with no config file, checkpoint directory or
-training code (``jatts_torch/serving/export.py``); on a CUDA card the load
-captures one CUDA graph per text bucket:
+and the stats, traces each served program with ``torch.export`` at its
+fixed shapes and writes ONE ``.npz`` of the programs and their weights
+(stored once) that ``jatts_torch.serving.load_bundle`` deserialises and
+runs with no config file, checkpoint directory or model code
+(``jatts_torch/serving/export.py``); on a CUDA card the load captures one
+CUDA graph per text bucket:
 
     python -m jatts_torch.bin.export_serving \\
         --config exp/fs2/config.yml --stats dump/stats.npz \\
@@ -18,8 +20,12 @@ The mel models are FastSpeech2, MatchaTTS, MatchaTTS_MAS and VITS
 ``BatchingServer.submit_stream``) and E2TTS (its checkpoint's EMA weights
 when it has them; the mel). ``--ar-config``/``--nar-config`` export the
 fused VALL-E AR+NAR program instead (bf16 parameters; RVQ codes out, the
-EnCodec decode outside). The modules are loaded on ``--device`` (default
-the card; ``cpu`` when asked) and written from there.
+EnCodec decode outside). The modules are loaded, and the programs traced,
+on ``--device`` (default the card; ``cpu`` when asked). ``--platforms``
+lists the device types the artifact is for, the first being where
+``load_bundle`` puts it by default; a program traced on another device type
+is moved at load (``torch.export.passes.move_to_device_pass``), so an
+artifact exported with ``--device cpu --platforms cuda`` serves on the card.
 """
 
 from __future__ import annotations
@@ -74,8 +80,8 @@ def main(argv: Optional[Sequence[str]] = None) -> str:
                         help="comma-separated text-length buckets (one CUDA graph each at load)")
     parser.add_argument("--max-frames", type=int, default=2048)
     parser.add_argument("--platforms", default="cuda",
-                        help="recorded in the meta and without effect: the port rebuilds its programs at "
-                        "load (the JAX package lowers one program per listed platform)")
+                        help="comma-separated device types the artifact is for; the first is load_bundle's "
+                        "default device (programs traced on another type are moved there at load)")
     parser.add_argument(
         "--vocoder", default="auto", choices=["auto", "none", "stream"],
         help="'auto' adds the config-declared HiFi-GAN (text->wav artifact) when its checkpoint exists; "

@@ -172,41 +172,70 @@ class E2TTS(nn.Module):
         ``[cond; uncond]`` and ``pred + (pred - null)·cfg_strength``. Returns
         ``feat_gen`` [B, T_max, odim] (the prompt frames kept, zero past
         ``duration``) and ``olens`` (the clipped durations). Runs in eval
-        mode; the mode is restored."""
+        mode; the mode is restored. It is :meth:`inference_start`, ``steps``
+        :meth:`inference_step` calls and :meth:`inference_finish`, the three
+        parts a serving artifact exports."""
         was_training = self.training
         self.eval()
         try:
-            net = self.backbone
-            b, t_max, _ = cond.shape
-            dev = cond.device
-            duration = torch.clamp(duration, 1, t_max)
-            cond_mask = sequence_mask(ref_lens, t_max)[..., None]
-            step_cond = cond.masked_fill(~cond_mask, 0.0)
-            mask = sequence_mask(duration, t_max)
-            y = draw("normal", (b, t_max, self.odim), generator, dev).to(cond.dtype)
-            ts = torch.linspace(0.0, 1.0, steps + 1, dtype=torch.float32, device=dev)
-            if sway_sampling_coef is not None:
-                ts = ts + sway_sampling_coef * (torch.cos(torch.pi / 2 * ts) - 1 + ts)
-            # guided: rows [cond; uncond], the second half with the audio
-            # and the text dropped
-            guided = cfg_strength >= 1e-5
-            drop = torch.zeros(b, dtype=torch.bool, device=dev)
-            if guided:
-                step_cond, text, mask = (torch.cat([x, x]) for x in (step_cond, text, mask))
-                drop = torch.cat([drop, ~drop])
-            rows = step_cond.shape[0]
-            te = net(step_cond, step_cond, text, torch.zeros(rows, device=dev), drop, drop, mask,
-                     return_text_embed=True)
+            state = self.inference_start(cond, text, ref_lens, duration, steps, cfg_strength, sway_sampling_coef,
+                                         generator)
             for i in range(steps):
-                t_i, dt = ts[i], ts[i + 1] - ts[i]
-                out = net(torch.cat([y, y]) if guided else y, step_cond, text, t_i.expand(rows), drop, drop, mask,
-                          text_embed=te)
-                if guided:
-                    pred, null = out[:b], out[b:]
-                    out = pred + (pred - null) * cfg_strength
-                y = y + dt * out
-            mask = mask[:b]
-            out = torch.where(cond_mask, cond, y) * mask[..., None]
-            return {"feat_gen": out, "olens": duration}
+                state["y"] = self.inference_step(state, i, cfg_strength)
+            return self.inference_finish(state)
         finally:
             self.train(was_training)
+
+    def inference_start(self, cond, text, ref_lens, duration, steps: int = 32, cfg_strength: float = 1.0,
+                        sway_sampling_coef: Optional[float] = None,
+                        generator: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:
+        """:meth:`inference`'s state before its first step: the noise drawn,
+        the times ``ts`` [steps + 1], the rows (doubled under CFG), their
+        masks and drops and the text embedding. The model must be in eval
+        mode."""
+        net = self.backbone
+        b, t_max, _ = cond.shape
+        dev = cond.device
+        duration = torch.clamp(duration, 1, t_max)
+        cond_mask = sequence_mask(ref_lens, t_max)[..., None]
+        step_cond = cond.masked_fill(~cond_mask, 0.0)
+        mask = sequence_mask(duration, t_max)
+        y = draw("normal", (b, t_max, self.odim), generator, dev).to(cond.dtype)
+        ts = torch.linspace(0.0, 1.0, steps + 1, dtype=torch.float32, device=dev)
+        if sway_sampling_coef is not None:
+            ts = ts + sway_sampling_coef * (torch.cos(torch.pi / 2 * ts) - 1 + ts)
+        # guided: rows [cond; uncond], the second half with the audio
+        # and the text dropped
+        drop = torch.zeros(b, dtype=torch.bool, device=dev)
+        if cfg_strength >= 1e-5:
+            step_cond, text, mask = (torch.cat([x, x]) for x in (step_cond, text, mask))
+            drop = torch.cat([drop, ~drop])
+        rows = step_cond.shape[0]
+        te = net(step_cond, step_cond, text, torch.zeros(rows, device=dev), drop, drop, mask,
+                 return_text_embed=True)
+        return {"cond": cond, "cond_mask": cond_mask, "duration": duration, "y": y, "ts": ts,
+                "step_cond": step_cond, "text": text, "mask": mask, "drop": drop, "text_embed": te}
+
+    def inference_step(self, state: Dict[str, torch.Tensor], i, cfg_strength: float = 1.0) -> torch.Tensor:
+        """Euler step ``i`` (an int, or an int64 0-d tensor on the device)
+        from ``state["y"]``: the next y."""
+        ts, y, guided = state["ts"], state["y"], cfg_strength >= 1e-5
+        b, rows = y.shape[0], state["step_cond"].shape[0]
+        if isinstance(i, torch.Tensor):  # gathered on the device: no host read of i
+            t_i, t_next = ts.index_select(0, torch.stack([i, i + 1]))
+        else:
+            t_i, t_next = ts[i], ts[i + 1]
+        dt = t_next - t_i
+        out = self.backbone(torch.cat([y, y]) if guided else y, state["step_cond"], state["text"], t_i.expand(rows),
+                            state["drop"], state["drop"], state["mask"], text_embed=state["text_embed"])
+        if guided:
+            pred, null = out[:b], out[b:]
+            out = pred + (pred - null) * cfg_strength
+        return y + dt * out
+
+    def inference_finish(self, state: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        """:meth:`inference`'s output from the state after its last step."""
+        b = state["y"].shape[0]
+        mask = state["mask"][:b]
+        out = torch.where(state["cond_mask"], state["cond"], state["y"]) * mask[..., None]
+        return {"feat_gen": out, "olens": state["duration"]}

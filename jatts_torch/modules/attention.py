@@ -25,7 +25,6 @@ package's fused branch does in training.
 
 from __future__ import annotations
 
-import functools
 import math
 from typing import Optional, Tuple
 
@@ -34,7 +33,7 @@ import torch
 from torch import nn
 
 from jatts_torch.modules.dropout import Dropout
-from jatts_torch.modules.layers import Linear, in_dtype
+from jatts_torch.modules.layers import Linear, in_dtype, per_shape
 from jatts_torch.ops.flash_attention import flash_attention
 
 _MASK_VAL = -1e9
@@ -218,7 +217,7 @@ def relpos_fused_features(
     return ut.to(q_v.dtype), phi
 
 
-@functools.lru_cache(maxsize=32)
+@per_shape
 def _fused_tables(t: int, n_feat: int, device: torch.device, dtype: torch.dtype):
     """sin and cos of ω·i ``[T, n_feat / 2]`` and phi ``[T, n_feat]``, built
     in float64 once per shape (the JAX package's trace-time constants);

@@ -25,6 +25,24 @@ from jatts_torch.modules.matcha_decoder import MatchaDecoder
 from jatts_torch.parallel.mesh import draw, global_sum
 
 
+_GRIDS = {}
+
+
+def euler_grid(n_timesteps: int) -> Tuple[Tuple[float, ...], Tuple[float, ...]]:
+    """The Euler sampler's times and steps, Python floats: ``t_span[:-1]``
+    and the differences of ``t_span = linspace(0, 1, n_timesteps + 1)`` in
+    f32. Made once for each count, outside any trace: while ``torch.export``
+    traces, the tensors are fake and hold no values, so the sampler must
+    have run eagerly once with this count before it is exported."""
+    if n_timesteps not in _GRIDS:
+        if torch.compiler.is_exporting():
+            raise RuntimeError(f"the Euler grid of {n_timesteps} steps was not made before the trace: run the "
+                               "sampler once eagerly first")
+        t_span = torch.linspace(0.0, 1.0, n_timesteps + 1, dtype=torch.float32)
+        _GRIDS[n_timesteps] = (tuple(t_span[:-1].tolist()), tuple((t_span[1:] - t_span[:-1]).tolist()))
+    return _GRIDS[n_timesteps]
+
+
 class CFM(nn.Module):
     def __init__(
         self,
@@ -91,10 +109,8 @@ class CFM(nn.Module):
         if z is None:
             gen = generator if generator is not None else self.noise_generator
             z = torch.randn(mu.shape, generator=gen, device=mu.device, dtype=mu.dtype) * temperature
-        t_span = torch.linspace(0.0, 1.0, n_timesteps + 1, dtype=torch.float32)
-        dts = (t_span[1:] - t_span[:-1]).tolist()
         x = z
-        for t, dt in zip(t_span[:-1].tolist(), dts):
+        for t, dt in zip(*euler_grid(n_timesteps)):
             dphi = self.estimator(x, mask, mu, torch.full((x.shape[0],), t, device=x.device))
             x = x + dt * dphi
         return x

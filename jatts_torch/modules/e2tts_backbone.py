@@ -81,7 +81,7 @@ def rotary_freqs(seq_len: int, dim_head: int, theta: float = 10000.0) -> np.ndar
     return np.outer(np.arange(seq_len, dtype=np.float64), inv)
 
 
-@functools.lru_cache(maxsize=32)
+@layers.per_shape
 def rope_tables(seq_len: int, dim_head: int, dtype: torch.dtype, device) -> tuple:
     """cos and sin of :func:`rotary_freqs` taken in float32, then cast to
     ``dtype``: [N, dim_head // 2] each; built once per shape (a table copied

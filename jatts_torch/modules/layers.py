@@ -38,6 +38,28 @@ def _cast(t: Optional[torch.Tensor], dt: torch.dtype) -> Optional[torch.Tensor]:
     return None if t is None else t.to(dt)
 
 
+def per_shape(fn):
+    """A cache of 32 entries for a table a forward builds once per shape
+    (the oldest entry goes first). While ``torch.export`` traces, a table
+    already made is handed out (it becomes a constant of the exported
+    program, on its device) and a table made then is not kept: it is a fake
+    tensor, which must not reach a later eager call."""
+    cache = {}
+
+    @functools.wraps(fn)
+    def table(*args):
+        if args in cache:
+            return cache[args]
+        out = fn(*args)
+        if not torch.compiler.is_exporting():
+            if len(cache) >= 32:
+                del cache[next(iter(cache))]
+            cache[args] = out
+        return out
+
+    return table
+
+
 @functools.lru_cache(maxsize=None)
 def in_dtype(value: float, dtype: Optional[torch.dtype]) -> float:
     """``value`` rounded to ``dtype`` (a JAX scalar made with

@@ -11,7 +11,6 @@ the relative encodings also to the positional table.
 
 from __future__ import annotations
 
-import functools
 import math
 
 import numpy as np
@@ -19,7 +18,7 @@ import torch
 from torch import nn
 
 from jatts_torch.modules.dropout import Dropout
-from jatts_torch.modules.layers import in_dtype
+from jatts_torch.modules.layers import in_dtype, per_shape
 
 
 def sinusoid_table(t: int, d_model: int) -> np.ndarray:
@@ -51,7 +50,7 @@ def _table(table: np.ndarray, like: torch.Tensor) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(table)).to(like.device, like.dtype)
 
 
-@functools.lru_cache(maxsize=32)
+@per_shape
 def abs_table(t: int, d_model: int, device: torch.device, dtype: torch.dtype) -> torch.Tensor:
     """``sinusoid_table(t, d_model)`` on ``device`` in ``dtype``, built once
     per shape, as :func:`rel_table` is (a table copied from pageable host
@@ -60,7 +59,7 @@ def abs_table(t: int, d_model: int, device: torch.device, dtype: torch.dtype) ->
     return torch.from_numpy(np.ascontiguousarray(sinusoid_table(t, d_model))).to(device, dtype)
 
 
-@functools.lru_cache(maxsize=32)
+@per_shape
 def rel_table(t: int, d_model: int, device: torch.device, dtype: torch.dtype) -> torch.Tensor:
     """``rel_sinusoid_table(t, d_model)`` on ``device`` in ``dtype``, built
     once per shape, as the JAX package folds it into its traced program: a

@@ -67,12 +67,30 @@ besides the ``*_relpos`` counters), K1-bwd's bf16 form with a bias at d 192
 ``launches_bwd_dkv`` and ``launches_bwd_dq``), every other form to the scalar
 ones.
 See the source notes in the ``.cu`` files for the bounds.
+
+The kernels are ``torch.library`` ops in the ``jatts`` namespace, registered
+when this module is imported (the libraries are still built at their first
+launch, ``ops/build.py``): ``jatts::flash_attn_fwd`` (out and, when asked,
+lse), ``jatts::flash_attn_bwd_dkv`` and ``jatts::flash_attn_bwd_dq`` (dq
+and, when asked, d(ab)). Each op's CUDA implementation is the launch code
+below, counted as above; its CPU implementation is the plain version; its
+fake checks shapes and dtypes as the wrappers do (the card's forms only for
+CUDA tensors), so a bad call fails while ``torch.export`` traces and not
+when the program loads. An absent output (lse, d(ab)) is an empty tensor.
+The forward op's gradient is the two backward ops
+(``torch.library.register_autograd``). :func:`flash_attention` calls the
+forward op, except for CPU tensors under autograd: there it stays the plain
+version under autograd, whose gradients are the ones the CPU trainers and
+their parity tests hold (the backward op's explicit formulas would round
+otherwise). The kernel wrappers (:func:`flash_attention_fwd`,
+:func:`flash_attention_bwd` and its two halves) refuse CPU tensors before
+they call the ops.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -217,6 +235,12 @@ def flash_attention_bwd_ref(q, k, v, ab, key_mask, sm_scale, o, lse, do, causal=
     p = exp(s - lse) on the keys a row sees (0 elsewhere), di = rowsum(o·do),
     dv = pᵀ·do, dp = do·vᵀ, ds = p·(dp - di)·sm_scale, dq = ds·k,
     dk = dsᵀ·q, d(ab) = ds (the bias is added before the scale)."""
+    return _bwd_ref_di(q, k, v, ab, key_mask, sm_scale, lse, (o.float() * do.float()).sum(-1), do, causal)
+
+
+def _bwd_ref_di(q, k, v, ab, key_mask, sm_scale, lse, di, do, causal=False):
+    """:func:`flash_attention_bwd_ref` from ``di = rowsum(o·do)`` [B, H, Tq]
+    f32, as the kernels take it: the backward ops' CPU implementation."""
     _check_causal(q, k, causal)
     s = _scores(q, k, ab, sm_scale)
     p = torch.exp(s - lse.float()[..., None])
@@ -224,7 +248,6 @@ def flash_attention_bwd_ref(q, k, v, ab, key_mask, sm_scale, o, lse, do, causal=
     if m is not None:
         p = p.masked_fill(~m, 0.0)
     dof = do.float()
-    di = (o.float() * dof).sum(-1)
     dv = torch.matmul(p.transpose(-1, -2), dof)
     dp = torch.matmul(dof, v.float().transpose(-1, -2))
     ds = p * (dp - di[..., None]) * sm_scale
@@ -380,6 +403,116 @@ def _launch_fwd(q, k, v, ab, key_mask, sm_scale, with_lse: bool, causal: bool, _
     return out, lse
 
 
+# --------------------------------------------------------------------------
+# the ops
+# --------------------------------------------------------------------------
+
+@torch.library.custom_op("jatts::flash_attn_fwd", mutates_args=(), device_types="cpu")
+def _fwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, ab: Optional[torch.Tensor],
+            key_mask: Optional[torch.Tensor], sm_scale: float, causal: bool,
+            with_lse: bool) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K1's op on the CPU: the plain version, lse empty unless ``with_lse``."""
+    if with_lse:
+        return flash_attention_ref(q, k, v, ab, key_mask, sm_scale, return_lse=True, causal=causal)
+    out = flash_attention_ref(q, k, v, ab, key_mask, sm_scale, causal=causal)
+    return out, q.new_empty(0, dtype=torch.float32)
+
+
+@_fwd_op.register_kernel("cuda")
+def _fwd_op_cuda(q, k, v, ab, key_mask, sm_scale, causal, with_lse):
+    _check(q, k, v, ab, key_mask, causal)
+    _check_card(q, k, v, ab, key_mask, causal)
+    out, lse = _launch_fwd(q, k, v, ab, key_mask, sm_scale, with_lse=with_lse, causal=causal)
+    return out, q.new_empty(0, dtype=torch.float32) if lse is None else lse
+
+
+@_fwd_op.register_fake
+def _fwd_op_fake(q, k, v, ab, key_mask, sm_scale, causal, with_lse):
+    _check(q, k, v, ab, key_mask, causal)
+    if q.device.type == "cuda":
+        _check_card(q, k, v, ab, key_mask, causal)
+    b, h, tq, _ = q.shape
+    lse = q.new_empty((b, h, tq) if with_lse else (0,), dtype=torch.float32)
+    return q.new_empty(b, h, tq, v.shape[3]), lse
+
+
+def _fwd_setup(ctx, inputs, output):
+    q, k, v, ab, key_mask, sm_scale, causal, with_lse = inputs
+    out, lse = output
+    ctx.mark_non_differentiable(lse)
+    ctx.save_for_backward(q, k, v, ab, key_mask, out, lse)
+    ctx.sm_scale, ctx.causal, ctx.with_lse = sm_scale, causal, with_lse
+
+
+def _fwd_backward(ctx, dout, _dlse):
+    """K1-bwd: di as a PyTorch op, then the dk/dv op and the dq/d(ab) op
+    (d(ab) only when the bias takes a gradient)."""
+    if not ctx.with_lse:
+        raise RuntimeError("jatts::flash_attn_fwd's gradient needs the forward's lse (with_lse=True)")
+    q, k, v, ab, key_mask, out, lse = ctx.saved_tensors
+    dout = dout.contiguous()
+    di = (out.float() * dout.float()).sum(-1)
+    with_dab = ab is not None and ctx.needs_input_grad[3]
+    dk, dv = _dkv_op(q, k, v, ab, key_mask, ctx.sm_scale, lse, di, dout, ctx.causal)
+    dq, dab = _dq_op(q, k, v, ab, key_mask, ctx.sm_scale, lse, di, dout, with_dab, ctx.causal)
+    return dq, dk, dv, dab if with_dab else None, None, None, None, None
+
+
+torch.library.register_autograd("jatts::flash_attn_fwd", _fwd_backward, setup_context=_fwd_setup)
+
+
+@torch.library.custom_op("jatts::flash_attn_bwd_dkv", mutates_args=(), device_types="cpu")
+def _dkv_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, ab: Optional[torch.Tensor],
+            key_mask: Optional[torch.Tensor], sm_scale: float, lse: torch.Tensor, di: torch.Tensor,
+            do: torch.Tensor, causal: bool) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K1-bwd's dk/dv op on the CPU: the plain version's dk, dv."""
+    _, dk, dv, _ = _bwd_ref_di(q, k, v, ab, key_mask, sm_scale, lse, di, do, causal)
+    return dk, dv
+
+
+@_dkv_op.register_kernel("cuda")
+def _dkv_op_cuda(q, k, v, ab, key_mask, sm_scale, lse, di, do, causal):
+    _check_bwd(q, k, v, ab, key_mask, lse, di, do, causal)
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    _launch_bwd("dkv", q, k, v, ab, key_mask, sm_scale, lse, di, do, dk, dv, causal)
+    return dk, dv
+
+
+@_dkv_op.register_fake
+def _dkv_op_fake(q, k, v, ab, key_mask, sm_scale, lse, di, do, causal):
+    _check_bwd_shapes(q, k, v, ab, key_mask, lse, di, do, causal)
+    return torch.empty_like(k), torch.empty_like(v)
+
+
+@torch.library.custom_op("jatts::flash_attn_bwd_dq", mutates_args=(), device_types="cpu")
+def _dq_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, ab: Optional[torch.Tensor],
+           key_mask: Optional[torch.Tensor], sm_scale: float, lse: torch.Tensor, di: torch.Tensor,
+           do: torch.Tensor, with_dab: bool, causal: bool) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K1-bwd's dq/d(ab) op on the CPU: the plain version's dq, and d(ab)
+    when ``ab`` is given and ``with_dab`` (else empty)."""
+    dq, _, _, dab = _bwd_ref_di(q, k, v, ab, key_mask, sm_scale, lse, di, do, causal)
+    return dq, dab if ab is not None and with_dab else q.new_empty(0)
+
+
+@_dq_op.register_kernel("cuda")
+def _dq_op_cuda(q, k, v, ab, key_mask, sm_scale, lse, di, do, with_dab, causal):
+    _check_bwd(q, k, v, ab, key_mask, lse, di, do, causal)
+    dq = torch.empty_like(q)
+    dab = torch.empty_like(ab) if ab is not None and with_dab else None
+    _launch_bwd("dq", q, k, v, ab, key_mask, sm_scale, lse, di, do, dq, dab, causal)
+    return dq, q.new_empty(0) if dab is None else dab
+
+
+@_dq_op.register_fake
+def _dq_op_fake(q, k, v, ab, key_mask, sm_scale, lse, di, do, with_dab, causal):
+    _check_bwd_shapes(q, k, v, ab, key_mask, lse, di, do, causal)
+    return torch.empty_like(q), torch.empty_like(ab) if ab is not None and with_dab else q.new_empty(0)
+
+
+# --------------------------------------------------------------------------
+# the wrappers
+# --------------------------------------------------------------------------
+
 def flash_attention_fwd(q, k, v, ab=None, key_mask=None, sm_scale=None, causal=False):
     """K1 (K1b with ``causal``, K1r when d_qk != d_v) on CUDA tensors with
     the row log-sum-exp: ``(out, lse)``, lse [B, H, Tq] f32 (+inf on a row
@@ -389,12 +522,13 @@ def flash_attention_fwd(q, k, v, ab=None, key_mask=None, sm_scale=None, causal=F
     _check_card(q, k, v, ab, key_mask, causal)
     if sm_scale is None:
         sm_scale = q.shape[-1] ** -0.5
-    return _launch_fwd(q, k, v, ab, key_mask, sm_scale, with_lse=True, causal=causal)
+    return _fwd_op(q, k, v, ab, key_mask, float(sm_scale), bool(causal), True)
 
 
-def _check_bwd(q, k, v, ab, key_mask, lse, di, do, causal) -> None:
+def _check_bwd_shapes(q, k, v, ab, key_mask, lse, di, do, causal) -> None:
     _check(q, k, v, ab, key_mask, causal)
-    _check_card(q, k, v, ab, key_mask, causal)
+    if q.device.type == "cuda":
+        _check_card(q, k, v, ab, key_mask, causal)
     b, h, tq, _ = q.shape
     if do.shape != (b, h, tq, v.shape[3]) or do.dtype != q.dtype:
         raise ValueError("flash_attention_bwd: do must be [B, H, Tq, D_v] in q's dtype")
@@ -403,6 +537,11 @@ def _check_bwd(q, k, v, ab, key_mask, lse, di, do, causal) -> None:
             raise ValueError(f"flash_attention_bwd: {name} must be f32 {(b, h, tq)}")
     if any(t.device != q.device or not t.is_contiguous() for t in (lse, di, do)):
         raise ValueError("flash_attention_bwd: lse, di, do must be contiguous on q's device")
+
+
+def _check_bwd(q, k, v, ab, key_mask, lse, di, do, causal) -> None:
+    _check_card(q, k, v, ab, key_mask, causal)
+    _check_bwd_shapes(q, k, v, ab, key_mask, lse, di, do, causal)
 
 
 _BWD_SUFFIX = {KERNEL_BWD: "", KERNEL_BWD_TC: "_tc", KERNEL_BWD_TC_F32: "_tc_f32",
@@ -436,24 +575,21 @@ def _launch_bwd(name, q, k, v, ab, key_mask, sm_scale, lse, di, do, out_a, out_b
 
 def flash_attention_bwd_dkv(q, k, v, ab, key_mask, sm_scale, lse, di, do, causal=False):
     """K1-bwd's dk/dv kernel (K1b's with ``causal``, K1r's when d_qk !=
-    d_v) on CUDA tensors ->
+    d_v) on CUDA tensors, through ``jatts::flash_attn_bwd_dkv`` ->
     ``(dk, dv)``; ``di`` is rowsum(o·do) [B, H, Tq] f32."""
     _check_bwd(q, k, v, ab, key_mask, lse, di, do, causal)
-    dk, dv = torch.empty_like(k), torch.empty_like(v)
-    _launch_bwd("dkv", q, k, v, ab, key_mask, sm_scale, lse, di, do, dk, dv, causal)
-    return dk, dv
+    return _dkv_op(q, k, v, ab, key_mask, float(sm_scale), lse, di, do, bool(causal))
 
 
 def flash_attention_bwd_dq(q, k, v, ab, key_mask, sm_scale, lse, di, do, with_dab=True, causal=False):
     """K1-bwd's dq/d(ab) kernel (K1b's with ``causal``, K1r's dq when
-    d_qk != d_v) on CUDA tensors ->
+    d_qk != d_v) on CUDA tensors, through ``jatts::flash_attn_bwd_dq`` ->
     ``(dq, dab)``; ``dab`` is written when ``ab`` is given and ``with_dab``,
     else None."""
     _check_bwd(q, k, v, ab, key_mask, lse, di, do, causal)
-    dq = torch.empty_like(q)
-    dab = torch.empty_like(ab) if ab is not None and with_dab else None
-    _launch_bwd("dq", q, k, v, ab, key_mask, sm_scale, lse, di, do, dq, dab, causal)
-    return dq, dab
+    with_dab = ab is not None and bool(with_dab)
+    dq, dab = _dq_op(q, k, v, ab, key_mask, float(sm_scale), lse, di, do, with_dab, bool(causal))
+    return dq, dab if with_dab else None
 
 
 def flash_attention_bwd(q, k, v, ab, key_mask, sm_scale, o, lse, do, with_dab=True, causal=False):
@@ -471,29 +607,6 @@ def flash_attention_bwd(q, k, v, ab, key_mask, sm_scale, o, lse, do, with_dab=Tr
     return dq, dk, dv, dab
 
 
-class FlashAttention(torch.autograd.Function):
-    """K1 forward (with the row log-sum-exp) and K1-bwd backward on CUDA
-    tensors, K1b's with ``causal``, K1r's when d_qk != d_v. Gradients flow
-    to q, k, v and ab; the mask, the scale and the form take none."""
-
-    @staticmethod
-    def forward(ctx, q, k, v, ab, key_mask, sm_scale, causal=False):
-        out, lse = _launch_fwd(q, k, v, ab, key_mask, sm_scale, with_lse=True, causal=causal)
-        ctx.save_for_backward(q, k, v, ab, key_mask, out, lse)
-        ctx.sm_scale = sm_scale
-        ctx.causal = causal
-        return out
-
-    @staticmethod
-    def backward(ctx, dout):
-        q, k, v, ab, key_mask, out, lse = ctx.saved_tensors
-        dq, dk, dv, dab = flash_attention_bwd(
-            q, k, v, ab, key_mask, ctx.sm_scale, out, lse, dout.contiguous(),
-            with_dab=ctx.needs_input_grad[3], causal=ctx.causal,
-        )
-        return dq, dk, dv, dab, None, None, None
-
-
 def flash_attention(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -503,23 +616,26 @@ def flash_attention(
     sm_scale: Optional[float] = None,
     causal: bool = False,
 ) -> torch.Tensor:
-    """K1 (K1b with ``causal``, K1r when d_qk != d_v) on CUDA tensors,
-    :func:`flash_attention_ref` on CPU tensors.
+    """K1 (K1b with ``causal``, K1r when d_qk != d_v) through
+    ``jatts::flash_attn_fwd``: the kernel on CUDA tensors, the plain version
+    on CPU tensors (under autograd on the CPU, :func:`flash_attention_ref`
+    itself, whose autograd the CPU trainers take).
 
     On the card it takes contiguous q/k/v (and ab) of one dtype, f32 or
     bf16, head dim in ``HEAD_DIMS`` (or (d_qk, d_v) in ``RELPOS_PAIRS``,
     without bias or causal mask), all on one device, and raises on anything
     else; it launches on the current stream and does not
     synchronise. When autograd records (grad mode on and an input that
-    requires grad) it goes through :class:`FlashAttention`, so the backward
-    is K1-bwd."""
+    requires grad) the forward keeps its lse and the backward is K1-bwd's
+    two ops."""
     _check(q, k, v, ab, key_mask, causal)
     if sm_scale is None:
         sm_scale = q.shape[-1] ** -0.5
     tensors = [t for t in (q, k, v, ab, key_mask) if t is not None]
+    grad = torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
     if all(t.device.type == "cpu" for t in tensors):
-        return flash_attention_ref(q, k, v, ab, key_mask, sm_scale, causal=causal)
-    _check_card(q, k, v, ab, key_mask, causal)
-    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
-        return FlashAttention.apply(q, k, v, ab, key_mask, float(sm_scale), bool(causal))
-    return _launch_fwd(q, k, v, ab, key_mask, sm_scale, with_lse=False, causal=causal)[0]
+        if grad:
+            return flash_attention_ref(q, k, v, ab, key_mask, sm_scale, causal=causal)
+    else:
+        _check_card(q, k, v, ab, key_mask, causal)
+    return _fwd_op(q, k, v, ab, key_mask, float(sm_scale), bool(causal), grad)[0]

@@ -16,7 +16,11 @@ device, with no host round trip:
   backends ``auto`` and ``cuda`` send CUDA tensors here;
   :func:`mas_path_cuda` keeps the K2 then K3 pair.
 
-On CUDA tensors each wrapper launches its kernel, counts the launch
+Each kernel is a ``torch.library`` op (``jatts::mas_decisions``,
+``jatts::mas_backtrace``, ``jatts::mas_path``), registered at import and
+built at its first launch: the CUDA implementation launches, the CPU one is
+the plain twin, the fake checks what the card takes, so the search can be
+traced. On CUDA tensors each wrapper launches its kernel, counts the launch
 (``fwd_launches``, ``backtrace_launches``, ``path_launches`` and the fused
 search's storage route in ``path_routes``) and raises on what the kernel
 does not take; it takes its plain twin only for CPU tensors. The twins
@@ -217,27 +221,49 @@ def _launch(fn, device: torch.device, *args) -> None:
         raise RuntimeError(f"{KERNEL} launch failed with CUDA error {rc}")
 
 
-def mas_decisions(log_p_attn: torch.Tensor, text_lengths: torch.Tensor) -> torch.Tensor:
-    """K2 on CUDA tensors, ``pack_bits(mas_decisions_ref(...))`` on CPU
-    tensors: int32 ``[B, T_feats, ceil(T_text / 32)]``.
-
-    On the card it takes a contiguous f32 or bf16 ``[B, T_feats, T_text]``
-    (bf16 is cast to f32 first) with ``1 <= T_text <= 1024`` and
-    ``T_feats >= 1`` and raises on anything else; it launches on the current
-    stream and does not synchronise."""
-    if log_p_attn.dim() != 3:
-        raise ValueError("log_p_attn must be [B, T_feats, T_text]")
-    b, t_feats, t_text = log_p_attn.shape
-    _check_lengths("text_lengths", text_lengths, b)
-    if _on_cpu("mas_decisions", log_p_attn, text_lengths):
-        return pack_bits(mas_decisions_ref(log_p_attn, text_lengths))
+def _check_card_lattice(name: str, log_p_attn: torch.Tensor) -> None:
+    """What K2 and the fused search take on the card; raises on anything else."""
+    _, t_feats, t_text = log_p_attn.shape
     if log_p_attn.dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"mas_decisions: log_p_attn must be f32 or bf16, got {log_p_attn.dtype}")
+        raise TypeError(f"{name}: log_p_attn must be f32 or bf16, got {log_p_attn.dtype}")
     if not log_p_attn.is_contiguous():
-        raise ValueError("mas_decisions: log_p_attn must be contiguous")
+        raise ValueError(f"{name}: log_p_attn must be contiguous")
+    _check_sizes(name, t_feats, t_text)
+
+
+def _check_sizes(name: str, t_feats: int, t_text: int) -> None:
     if t_feats < 1 or not 1 <= t_text <= MAX_T_TEXT:
-        raise ValueError(f"mas_decisions: unsupported sizes T_feats={t_feats}, T_text={t_text} "
+        raise ValueError(f"{name}: unsupported sizes T_feats={t_feats}, T_text={t_text} "
                          f"(T_text <= {MAX_T_TEXT})")
+
+
+def _check_path_args(log_p_attn, smem_bits_bytes: int) -> str:
+    """The fused search's card checks -> its storage route."""
+    _check_card_lattice("mas_path_fused", log_p_attn)
+    _, t_feats, t_text = log_p_attn.shape
+    n_words = (t_text + 31) // 32
+    if not n_words * 4 <= smem_bits_bytes <= MAX_SMEM_BITS_BYTES:
+        raise ValueError(f"mas_path_fused: smem_bits_bytes={smem_bits_bytes} must hold a frame's "
+                         f"{n_words * 4} bytes and be at most {MAX_SMEM_BITS_BYTES}")
+    return "smem" if t_feats * n_words * 4 <= smem_bits_bytes else "global"
+
+
+# --------------------------------------------------------------------------
+# the ops: ``jatts::mas_decisions`` (K2), ``jatts::mas_backtrace`` (K3) and
+# ``jatts::mas_path`` (the fused search), registered at import; the CUDA
+# implementation launches and counts, the CPU one is the plain version, the
+# fake checks what the card takes for CUDA tensors
+# --------------------------------------------------------------------------
+
+@torch.library.custom_op("jatts::mas_decisions", mutates_args=(), device_types="cpu")
+def _decisions_op(log_p_attn: torch.Tensor, text_lengths: torch.Tensor) -> torch.Tensor:
+    return pack_bits(mas_decisions_ref(log_p_attn, text_lengths))
+
+
+@_decisions_op.register_kernel("cuda")
+def _decisions_op_cuda(log_p_attn, text_lengths):
+    _check_card_lattice("mas_decisions", log_p_attn)
+    b, t_feats, t_text = log_p_attn.shape
     bits = torch.empty(b, t_feats, (t_text + 31) // 32, dtype=torch.int32, device=log_p_attn.device)
     if b == 0:
         return bits
@@ -250,26 +276,26 @@ def mas_decisions(log_p_attn: torch.Tensor, text_lengths: torch.Tensor) -> torch
     return bits
 
 
-def mas_backtrace(
-    bits: torch.Tensor, text_lengths: torch.Tensor, feats_lengths: torch.Tensor, t_text: int
-) -> torch.Tensor:
-    """K3 on CUDA tensors, :func:`mas_backtrace_ref` on CPU tensors: the
-    int32 path ``[B, T_feats]`` from K2's packed bits."""
-    if bits.dim() != 3 or bits.dtype != torch.int32:
-        raise ValueError("bits must be int32 [B, T_feats, ceil(T_text / 32)]")
-    b, t_feats, n_words = bits.shape
-    if n_words != (t_text + 31) // 32:
-        raise ValueError(f"bits has {n_words} words a frame, T_text={t_text} needs "
-                         f"{(t_text + 31) // 32}")
-    _check_lengths("text_lengths", text_lengths, b)
-    _check_lengths("feats_lengths", feats_lengths, b)
-    if _on_cpu("mas_backtrace", bits, text_lengths, feats_lengths):
-        return mas_backtrace_ref(unpack_bits(bits, t_text), text_lengths, feats_lengths)
+@_decisions_op.register_fake
+def _decisions_op_fake(log_p_attn, text_lengths):
+    if log_p_attn.device.type == "cuda":
+        _check_card_lattice("mas_decisions", log_p_attn)
+    b, t_feats, t_text = log_p_attn.shape
+    return log_p_attn.new_empty(b, t_feats, (t_text + 31) // 32, dtype=torch.int32)
+
+
+@torch.library.custom_op("jatts::mas_backtrace", mutates_args=(), device_types="cpu")
+def _backtrace_op(bits: torch.Tensor, text_lengths: torch.Tensor, feats_lengths: torch.Tensor,
+                  t_text: int) -> torch.Tensor:
+    return mas_backtrace_ref(unpack_bits(bits, t_text), text_lengths, feats_lengths)
+
+
+@_backtrace_op.register_kernel("cuda")
+def _backtrace_op_cuda(bits, text_lengths, feats_lengths, t_text):
+    b, t_feats, _ = bits.shape
     if not bits.is_contiguous():
         raise ValueError("mas_backtrace: bits must be contiguous")
-    if t_feats < 1 or not 1 <= t_text <= MAX_T_TEXT:
-        raise ValueError(f"mas_backtrace: unsupported sizes T_feats={t_feats}, T_text={t_text} "
-                         f"(T_text <= {MAX_T_TEXT})")
+    _check_sizes("mas_backtrace", t_feats, t_text)
     path = torch.empty(b, t_feats, dtype=torch.int32, device=bits.device)
     if b == 0:
         return path
@@ -280,6 +306,100 @@ def mas_backtrace(
     global backtrace_launches
     backtrace_launches += 1
     return path
+
+
+@_backtrace_op.register_fake
+def _backtrace_op_fake(bits, text_lengths, feats_lengths, t_text):
+    b, t_feats, _ = bits.shape
+    if bits.device.type == "cuda":
+        _check_sizes("mas_backtrace", t_feats, t_text)
+    return bits.new_empty(b, t_feats, dtype=torch.int32)
+
+
+@torch.library.custom_op("jatts::mas_path", mutates_args=(), device_types="cpu")
+def _path_op(log_p_attn: torch.Tensor, text_lengths: torch.Tensor, feats_lengths: torch.Tensor,
+             return_bits: bool, smem_bits_bytes: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    path = mas_path_ref(log_p_attn, text_lengths, feats_lengths)
+    if return_bits:
+        return path, pack_bits(mas_decisions_ref(log_p_attn, text_lengths))
+    return path, path.new_empty(0)
+
+
+@_path_op.register_kernel("cuda")
+def _path_op_cuda(log_p_attn, text_lengths, feats_lengths, return_bits, smem_bits_bytes):
+    route = _check_path_args(log_p_attn, smem_bits_bytes)
+    b, t_feats, t_text = log_p_attn.shape
+    n_words = (t_text + 31) // 32
+    device = log_p_attn.device
+    path = torch.empty(b, t_feats, dtype=torch.int32, device=device)
+    bits = scratch = None
+    if return_bits:
+        bits = torch.empty(b, t_feats, n_words, dtype=torch.int32, device=device)
+    elif route == "global":
+        scratch = torch.empty(b, t_feats, n_words, dtype=torch.int32, device=device)
+    if b > 0:
+        lp = log_p_attn.float()
+        tl = _lengths_i32(text_lengths)
+        fl = _lengths_i32(feats_lengths)
+        with torch.cuda.device(device):
+            rc = _path_fn()(lp.data_ptr(), tl.data_ptr(), fl.data_ptr(), path.data_ptr(),
+                            None if bits is None else bits.data_ptr(),
+                            None if scratch is None else scratch.data_ptr(),
+                            b, t_feats, t_text, smem_bits_bytes, torch.cuda.current_stream(device).cuda_stream)
+        if rc != 0:
+            raise RuntimeError(f"{KERNEL_PATH} launch failed with CUDA error {rc}")
+        global path_launches
+        path_launches += 1
+        path_routes[route] += 1
+    return path, path.new_empty(0) if bits is None else bits
+
+
+@_path_op.register_fake
+def _path_op_fake(log_p_attn, text_lengths, feats_lengths, return_bits, smem_bits_bytes):
+    if log_p_attn.device.type == "cuda":
+        _check_path_args(log_p_attn, smem_bits_bytes)
+    b, t_feats, t_text = log_p_attn.shape
+    path = log_p_attn.new_empty(b, t_feats, dtype=torch.int32)
+    shape = (b, t_feats, (t_text + 31) // 32) if return_bits else (0,)
+    return path, log_p_attn.new_empty(shape, dtype=torch.int32)
+
+
+# --------------------------------------------------------------------------
+# the wrappers
+# --------------------------------------------------------------------------
+
+def mas_decisions(log_p_attn: torch.Tensor, text_lengths: torch.Tensor) -> torch.Tensor:
+    """K2 (``jatts::mas_decisions``) on CUDA tensors,
+    ``pack_bits(mas_decisions_ref(...))`` on CPU tensors: int32
+    ``[B, T_feats, ceil(T_text / 32)]``.
+
+    On the card it takes a contiguous f32 or bf16 ``[B, T_feats, T_text]``
+    (bf16 is cast to f32 first) with ``1 <= T_text <= 1024`` and
+    ``T_feats >= 1`` and raises on anything else; it launches on the current
+    stream and does not synchronise."""
+    if log_p_attn.dim() != 3:
+        raise ValueError("log_p_attn must be [B, T_feats, T_text]")
+    _check_lengths("text_lengths", text_lengths, log_p_attn.shape[0])
+    _on_cpu("mas_decisions", log_p_attn, text_lengths)
+    return _decisions_op(log_p_attn, text_lengths)
+
+
+def mas_backtrace(
+    bits: torch.Tensor, text_lengths: torch.Tensor, feats_lengths: torch.Tensor, t_text: int
+) -> torch.Tensor:
+    """K3 (``jatts::mas_backtrace``) on CUDA tensors,
+    :func:`mas_backtrace_ref` on CPU tensors: the int32 path
+    ``[B, T_feats]`` from K2's packed bits."""
+    if bits.dim() != 3 or bits.dtype != torch.int32:
+        raise ValueError("bits must be int32 [B, T_feats, ceil(T_text / 32)]")
+    b, t_feats, n_words = bits.shape
+    if n_words != (t_text + 31) // 32:
+        raise ValueError(f"bits has {n_words} words a frame, T_text={t_text} needs "
+                         f"{(t_text + 31) // 32}")
+    _check_lengths("text_lengths", text_lengths, b)
+    _check_lengths("feats_lengths", feats_lengths, b)
+    _on_cpu("mas_backtrace", bits, text_lengths, feats_lengths)
+    return _backtrace_op(bits, text_lengths, feats_lengths, int(t_text))
 
 
 def mas_path_cuda(
@@ -302,8 +422,9 @@ def mas_path_fused(
     return_bits: bool = False,
     smem_bits_bytes: int = SMEM_BITS_BYTES,
 ):
-    """The whole search in one launch (``csrc/mas_path.cu``) on CUDA tensors,
-    :func:`mas_path_ref` on CPU tensors: the int32 path ``[B, T_feats]``.
+    """The whole search in one launch (``csrc/mas_path.cu``, the op
+    ``jatts::mas_path``) on CUDA tensors, :func:`mas_path_ref` on CPU
+    tensors: the int32 path ``[B, T_feats]``.
 
     With ``return_bits`` it returns ``(path, bits)``, ``bits`` every frame's
     decisions as K2 packs them (``pack_bits(mas_decisions_ref(...))``).
@@ -315,47 +436,11 @@ def mas_path_fused(
     and does not synchronise."""
     if log_p_attn.dim() != 3:
         raise ValueError("log_p_attn must be [B, T_feats, T_text]")
-    b, t_feats, t_text = log_p_attn.shape
+    b = log_p_attn.shape[0]
     _check_lengths("text_lengths", text_lengths, b)
     _check_lengths("feats_lengths", feats_lengths, b)
-    if _on_cpu("mas_path_fused", log_p_attn, text_lengths, feats_lengths):
-        path = mas_path_ref(log_p_attn, text_lengths, feats_lengths)
-        if return_bits:
-            return path, pack_bits(mas_decisions_ref(log_p_attn, text_lengths))
-        return path
-    if log_p_attn.dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"mas_path_fused: log_p_attn must be f32 or bf16, got {log_p_attn.dtype}")
-    if not log_p_attn.is_contiguous():
-        raise ValueError("mas_path_fused: log_p_attn must be contiguous")
-    if t_feats < 1 or not 1 <= t_text <= MAX_T_TEXT:
-        raise ValueError(f"mas_path_fused: unsupported sizes T_feats={t_feats}, T_text={t_text} "
-                         f"(T_text <= {MAX_T_TEXT})")
-    n_words = (t_text + 31) // 32
-    if not n_words * 4 <= smem_bits_bytes <= MAX_SMEM_BITS_BYTES:
-        raise ValueError(f"mas_path_fused: smem_bits_bytes={smem_bits_bytes} must hold a frame's "
-                         f"{n_words * 4} bytes and be at most {MAX_SMEM_BITS_BYTES}")
-    route = "smem" if t_feats * n_words * 4 <= smem_bits_bytes else "global"
-    device = log_p_attn.device
-    path = torch.empty(b, t_feats, dtype=torch.int32, device=device)
-    bits = scratch = None
-    if return_bits:
-        bits = torch.empty(b, t_feats, n_words, dtype=torch.int32, device=device)
-    elif route == "global":
-        scratch = torch.empty(b, t_feats, n_words, dtype=torch.int32, device=device)
-    if b > 0:
-        lp = log_p_attn.float()
-        tl = _lengths_i32(text_lengths)
-        fl = _lengths_i32(feats_lengths)
-        with torch.cuda.device(device):
-            rc = _path_fn()(lp.data_ptr(), tl.data_ptr(), fl.data_ptr(), path.data_ptr(),
-                            None if bits is None else bits.data_ptr(),
-                            None if scratch is None else scratch.data_ptr(),
-                            b, t_feats, t_text, smem_bits_bytes, torch.cuda.current_stream(device).cuda_stream)
-        if rc != 0:
-            raise RuntimeError(f"{KERNEL_PATH} launch failed with CUDA error {rc}")
-        global path_launches
-        path_launches += 1
-        path_routes[route] += 1
+    _on_cpu("mas_path_fused", log_p_attn, text_lengths, feats_lengths)
+    path, bits = _path_op(log_p_attn, text_lengths, feats_lengths, bool(return_bits), int(smem_bits_bytes))
     return (path, bits) if return_bits else path
 
 

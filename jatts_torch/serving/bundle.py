@@ -1,33 +1,32 @@
-"""Serving bundles (counterpart of ``build_infer_fn``, ``build_stream_step_fn``,
-``build_e2tts_fn`` and the loaded bundles of jatts_tpu/serving/export.py).
+"""Serving bundles (counterpart of the loaded bundles of
+jatts_tpu/serving/export.py): a served program at a fixed batch size and
+text buckets.
 
-:class:`MelProgram` is the text -> mel (-> wav) program at fixed shapes: an
-acoustic model (FastSpeech2, MatchaTTS, MatchaTTS_MAS or VITS), its mel
-statistics and, for a wav bundle, a HiFi-GAN vocoder (with its own
-statistics), inference -> denormalise -> (renormalise) -> vocoder -> pcm16
-(or f32 with the mel) in one pass; without a vocoder it returns the
-denormalised mel. :class:`StreamStep` turns chunk ``k`` of such a mel into
-pcm16 audio through a window of the vocoder's receptive field.
-:class:`ServingBundle` runs a ``MelProgram`` at a fixed ``batch_size``: a
-call pads the requests to the batch and to the smallest text bucket that
-fits, runs the program, fetches each output once and crops every row by its
-``olens``. A multi-speaker model (``spk_embed_dim``) takes one speaker
-embedding a request, zero rows past them, as the JAX bundle pads them.
-Matcha's inference keywords (``ode_steps``, ``temperature``) and VITS's
-(``noise_scale``) come from :func:`inference_kwargs`, and their noise (the
-ODE's, the prior's) from the bundle's generator, seeded by the call's
-``seed``.
+:class:`ServingBundle` runs a text -> mel (-> wav) program at a fixed
+``batch_size``: a call pads the requests to the batch and to the smallest
+text bucket that fits, runs the program, fetches each output once and crops
+every row by its ``olens``. A multi-speaker model (``spk_embed_dim``) takes
+one speaker embedding a request, zero rows past them, as the JAX bundle pads
+them. Matcha's inference keywords (``ode_steps``, ``temperature``) and
+VITS's (``noise_scale``) come from :func:`inference_kwargs`, and their noise
+(the ODE's, the prior's) from draws seeded by the call's ``seed``.
 
 :class:`E2ttsServingBundle` serves E2-TTS's prompt-conditioned infill: a raw
 prompt log-mel and token ids (prompt, separator, target) in, the generated
 mel out, normalised by the model's statistics inside and denormalised on
 the way out. It carries no vocoder, as the JAX artifact does not.
+:class:`ValleServingBundle` serves VALL-E's two-stage decode.
 
-The same bundles serve in process (built from modules) and from an
-artifact (``serving/export.py:load_bundle``). :meth:`ServingBundle.capture`
-(and the E2 bundle's) records one CUDA graph per text bucket, and one for
-the stream step, in one memory pool; a call then copies its padded inputs
-into the graph's buffers and replays it. On the CPU the programs run
+The same bundles serve in process, built from modules (the programs of
+``serving/programs.py``, drawing from the bundle's ``generator``), and from
+an artifact (``serving/export.py:load_bundle``: the deserialised
+``torch.export`` programs, with no model code; they draw from torch's
+default generator of the device, which a call seeds with its ``seed`` and
+restores afterwards, so the caller's random state is left as it was). A
+call with seed s gives the same bits either way. :meth:`ServingBundle.capture`
+(and the E2 and VALL-E bundles') records one CUDA graph per text bucket, and
+one for the stream step, in one memory pool; a call then copies its padded
+inputs into the graph's buffers and replays it. On the CPU the programs run
 eagerly. A bundle serves one call at a time (``BatchingServer`` has one
 dispatcher thread): a replay overwrites the outputs of the call before it,
 and ``synthesize_streaming`` keeps its mel in the stream graph's buffer
@@ -36,15 +35,25 @@ until its last chunk.
 
 from __future__ import annotations
 
+import contextlib
 from typing import Any, Dict, Iterator, List, Optional, Sequence
 
 import numpy as np
 import torch
 
-from jatts_torch.models import valle
 from jatts_torch.serving.graphs import GraphedCall, replayed_launches
-from jatts_torch.vocoder.streaming import hop_size as voc_hop_size
-from jatts_torch.vocoder.streaming import min_context_frames
+
+# the programs built from modules live in serving/programs.py, which imports
+# the models; they are read from there on first use
+_PROGRAMS = ("MelProgram", "StreamStep", "E2ttsProgram", "ValleProgram")
+
+
+def __getattr__(name: str):
+    if name in _PROGRAMS:
+        from jatts_torch.serving import programs
+
+        return getattr(programs, name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
 
 
 def inference_kwargs(config: Dict[str, Any]) -> Dict[str, Any]:
@@ -76,110 +85,43 @@ def pcm16(wav: torch.Tensor) -> torch.Tensor:
     return torch.round(torch.clamp(wav, -1.0, 1.0) * 32767.0).to(torch.int16)
 
 
-class MelProgram:
-    """``program(xs, ilens, spembs, generator) -> {"olens", ...}`` on device
-    tensors at fixed shapes: xs [B, bucket], ilens [B] (, spembs [B,
-    spk_dim]). With a vocoder: ``wav`` (int16 for pcm16; float32 with the
-    ``mel`` for f32); without: the denormalised ``mel`` [B, max_frames,
-    n_mels] float32. A model that samples noise (Matcha, VITS) draws it from
-    ``generator``."""
+class Weights:
+    """A loaded artifact's weights of one module, standing where the module
+    stands in a bundle built in process: ``state_dict()`` gives them."""
 
-    def __init__(self, model, vocoder, mel_mean, mel_scale, max_frames: int, *, voc_mean=None, voc_scale=None,
-                 wav_format: str = "pcm16", infer_kwargs: Optional[Dict[str, Any]] = None):
-        if wav_format not in ("pcm16", "f32"):
-            raise ValueError(f"wav_format must be 'pcm16' or 'f32', not {wav_format!r}")
-        self.model = model
-        self.vocoder = vocoder
-        self.device = next(model.parameters()).device
-        self.max_frames = int(max_frames)
-        self.wav_format = wav_format
-        self.infer_kwargs = dict(infer_kwargs or {})
-        self.samples_noise = bool(getattr(model, "samples_noise", False))
-        self.mel_mean, self.mel_scale = _stat(mel_mean, self.device), _stat(mel_scale, self.device)
-        self.voc_mean, self.voc_scale = _stat(voc_mean, self.device), _stat(voc_scale, self.device)
+    def __init__(self, tensors: Dict[str, torch.Tensor]):
+        self._tensors = dict(tensors)
 
-    @torch.no_grad()
-    def __call__(self, xs, ilens, spembs=None, generator: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:
-        kwargs = dict(self.infer_kwargs)
-        if self.samples_noise:
-            kwargs["generator"] = generator
-        out = self.model.inference(xs, ilens, self.max_frames, spembs, **kwargs)
-        mel = out["feat_gen"].float() * self.mel_scale + self.mel_mean
-        res = {"olens": out["olens"]}
-        if self.vocoder is None:
-            res["mel"] = mel
-            return res
-        v = mel if self.voc_mean is None else (mel - self.voc_mean) / self.voc_scale
-        voc_dtype = next(self.vocoder.parameters()).dtype
-        wav = self.vocoder(v.to(voc_dtype))[..., 0].float()
-        if self.wav_format == "pcm16":
-            res["wav"] = pcm16(wav)
+    def state_dict(self) -> Dict[str, torch.Tensor]:
+        return dict(self._tensors)
+
+
+@contextlib.contextmanager
+def kept_rng(device: torch.device):
+    """Torch's random state of the CPU and of ``device`` as it was before,
+    after the block."""
+    devices = [device.index if device.index is not None else torch.cuda.current_device()] \
+        if device.type == "cuda" else []
+    with torch.random.fork_rng(devices=devices, device_type="cuda"):
+        yield
+
+
+@contextlib.contextmanager
+def seeded(device: torch.device, generator: Optional[torch.Generator], seed: int):
+    """Draws of the block seeded by ``seed``: ``generator`` seeded, or, when
+    it is None (a loaded artifact's programs), torch's default generator of
+    ``device``, its state restored after the block."""
+    if generator is not None:
+        generator.manual_seed(int(seed))
+        yield
+        return
+    with kept_rng(device):
+        if device.type == "cuda":
+            index = device.index if device.index is not None else torch.cuda.current_device()
+            torch.cuda.default_generators[index].manual_seed(int(seed))
         else:
-            res["mel"] = mel
-            res["wav"] = wav
-        return res
-
-    def weights(self) -> Dict[str, Any]:
-        """The program's weights as the artifact stores them: the model's and
-        the vocoder's state_dicts and the statistics."""
-        w: Dict[str, Any] = {"model": self.model.state_dict(), "mel_mean": self.mel_mean,
-                             "mel_scale": self.mel_scale}
-        if self.vocoder is not None:
-            w["voc"] = self.vocoder.state_dict()
-            if self.voc_mean is not None:
-                w["voc_mean"], w["voc_scale"] = self.voc_mean, self.voc_scale
-        return w
-
-
-class StreamStep:
-    """The streaming companion of a mel bundle: ``step(mel, k) -> int16 [B,
-    chunk*hop]``, chunk ``k`` (int64 [1] on the device) of the denormalised
-    mel [B, max_frames, n_mels] through the vocoder. The window is
-    ``min(max_frames, chunk + 2·context)`` frames from ``clamp(k·chunk -
-    context, 0, max_frames - window)``, so an edge window ends at the mel's
-    true boundary and the crop equals the whole-utterance vocoder's samples
-    (``context``: by default the receptive field, ``min_context_frames``).
-    On the card that holds to 1 LSB of pcm16 where the convolutions'
-    arithmetic matches: an f32 generator with TF32 off
-    (``torch.backends.cudnn.allow_tf32 = False``). cuDNN picks its algorithm
-    by length, and bf16 or TF32 convolutions turn another summation order
-    into whole-ulp differences (32 LSB on an H100 with a bf16 generator,
-    PERF.md)."""
-
-    def __init__(self, vocoder, max_frames: int, num_mels: int, chunk: int = 128, context: Optional[int] = None,
-                 voc_mean=None, voc_scale=None):
-        if context is None:
-            context = min_context_frames(vocoder)
-        if max_frames % chunk:
-            raise ValueError(f"max_frames {max_frames} not a multiple of chunk {chunk}")
-        if chunk < context:
-            raise ValueError(f"chunk {chunk} < vocoder receptive field {context}")
-        self.vocoder = vocoder
-        self.device = next(vocoder.parameters()).device
-        self.max_frames, self.num_mels, self.chunk, self.context = int(max_frames), int(num_mels), int(chunk), int(context)
-        self.hop = voc_hop_size(vocoder)
-        self.window = min(self.max_frames, self.chunk + 2 * self.context)
-        self.voc_mean, self.voc_scale = _stat(voc_mean, self.device), _stat(voc_scale, self.device)
-
-    @torch.no_grad()
-    def __call__(self, mel: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
-        v = mel if self.voc_mean is None else (mel - self.voc_mean) / self.voc_scale
-        s = k * self.chunk
-        start = torch.clamp(s - self.context, 0, self.max_frames - self.window)
-        win = v.index_select(1, start + torch.arange(self.window, device=v.device))
-        wav = self.vocoder(win.to(next(self.vocoder.parameters()).dtype))[..., 0].float()
-        crop = wav.index_select(1, (s - start) * self.hop + torch.arange(self.chunk * self.hop, device=v.device))
-        return pcm16(crop)
-
-    def meta(self) -> Dict[str, int]:
-        return {"chunk": self.chunk, "context": self.context, "hop": self.hop, "max_frames": self.max_frames,
-                "num_mels": self.num_mels}
-
-    def weights(self) -> Dict[str, Any]:
-        w: Dict[str, Any] = {"voc": self.vocoder.state_dict()}
-        if self.voc_mean is not None:
-            w["voc_mean"], w["voc_scale"] = self.voc_mean, self.voc_scale
-        return w
+            torch.default_generator.manual_seed(int(seed))
+        yield
 
 
 def _fit(buckets: Sequence[int], lengths: Sequence[int], n: int, batch_size: int) -> int:
@@ -194,11 +136,32 @@ def _fit(buckets: Sequence[int], lengths: Sequence[int], n: int, batch_size: int
     return fit[0]
 
 
-class ServingBundle:
-    """A :class:`MelProgram` at ``batch_size`` rows and text ``buckets``.
-    ``vocoder`` None makes a mel bundle (``hop_size`` then says the
-    samples a frame, for the meta); ``stream`` (a :class:`StreamStep`) lets
-    a mel bundle stream. ``meta`` is the artifact's meta when loaded."""
+class _Bundle:
+    """What every bundle shares: the program, its device, batch and buckets,
+    the meta, the generator its draws come from (None for a loaded
+    artifact: the device's default generator) and the graphs."""
+
+    def _init(self, program, *, batch_size: int, buckets: Sequence[int], meta: Optional[Dict[str, Any]],
+              loaded: bool) -> None:
+        self.program = program
+        self.device = program.device
+        self.batch_size = int(batch_size)
+        self.buckets = sorted(int(t) for t in buckets)
+        self.meta = dict(meta or {})
+        self.generator = None if loaded else torch.Generator(device=self.device)
+        self.graphs: Dict[int, Any] = {}
+
+    def _check_cuda(self) -> None:
+        if self.device.type != "cuda":
+            raise RuntimeError("CUDA graphs need the bundle on a CUDA device")
+
+
+class ServingBundle(_Bundle):
+    """A text -> mel (-> wav) program at ``batch_size`` rows and text
+    ``buckets``. Built in process from ``model`` (and ``vocoder``: None makes
+    a mel bundle, ``hop_size`` then says the samples a frame, for the meta);
+    ``stream`` (a ``StreamStep``) lets a mel bundle stream. ``meta`` is the
+    artifact's meta when loaded (:meth:`loaded`)."""
 
     def __init__(
         self,
@@ -215,25 +178,39 @@ class ServingBundle:
         wav_format: str = "pcm16",
         infer_kwargs: Optional[Dict[str, Any]] = None,
         hop_size: Optional[int] = None,
-        stream: Optional[StreamStep] = None,
+        stream=None,
         meta: Optional[Dict[str, Any]] = None,
     ):
-        self.program = MelProgram(model, vocoder, mel_mean, mel_scale, max_frames, voc_mean=voc_mean,
-                                  voc_scale=voc_scale, wav_format=wav_format, infer_kwargs=infer_kwargs)
+        from jatts_torch.serving.programs import MelProgram
+
+        program = MelProgram(model, vocoder, mel_mean, mel_scale, max_frames, voc_mean=voc_mean,
+                             voc_scale=voc_scale, wav_format=wav_format, infer_kwargs=infer_kwargs)
+        self._setup(program, model, vocoder, batch_size=batch_size, buckets=buckets, max_frames=max_frames,
+                    hop_size=int(vocoder.hop_size if vocoder is not None else hop_size), wav_format=wav_format,
+                    spk_dim=int(getattr(model, "spk_embed_dim", None) or 0), stream=stream, meta=meta, loaded=False)
+
+    @classmethod
+    def loaded(cls, program, model: Weights, vocoder: Optional[Weights], *, batch_size: int,
+               buckets: Sequence[int], max_frames: int, hop_size: int, wav_format: str, spk_dim: int,
+               stream=None, meta: Optional[Dict[str, Any]] = None) -> "ServingBundle":
+        """The bundle of an artifact's deserialised programs (``program`` and
+        the ``stream`` step from ``serving/export.py``)."""
+        self = cls.__new__(cls)
+        self._setup(program, model, vocoder, batch_size=batch_size, buckets=buckets, max_frames=max_frames,
+                    hop_size=hop_size, wav_format=wav_format, spk_dim=spk_dim, stream=stream, meta=meta, loaded=True)
+        return self
+
+    def _setup(self, program, model, vocoder, *, batch_size, buckets, max_frames, hop_size, wav_format, spk_dim,
+               stream, meta, loaded) -> None:
+        self._init(program, batch_size=batch_size, buckets=buckets, meta=meta, loaded=loaded)
         self.model = model
         self.vocoder = vocoder
-        self.device = self.program.device
-        self.mel_mean, self.mel_scale = self.program.mel_mean, self.program.mel_scale
-        self.batch_size = int(batch_size)
-        self.buckets = sorted(int(t) for t in buckets)
+        self.mel_mean, self.mel_scale = program.mel_mean, program.mel_scale
         self.max_frames = int(max_frames)
-        self.hop_size = int(vocoder.hop_size if vocoder is not None else hop_size)
+        self.hop_size = int(hop_size)
         self.wav_format = wav_format
-        self.spk_dim = int(getattr(model, "spk_embed_dim", None) or 0)
+        self.spk_dim = int(spk_dim)
         self.stream = stream
-        self.meta = dict(meta or {})
-        self.generator = torch.Generator(device=self.device)
-        self.graphs: Dict[int, GraphedCall] = {}
         self.stream_graph: Optional[GraphedCall] = None
 
     def prepare(self, token_ids: Sequence[Sequence[int]]):
@@ -266,20 +243,20 @@ class ServingBundle:
         step) in one memory pool; later calls replay them. The stream graph
         is captured last, so its buffers lie outside every bucket graph's
         scratch. Raises on the CPU and when a capture fails."""
-        if self.device.type != "cuda":
-            raise RuntimeError("CUDA graphs need the bundle on a CUDA device")
+        self._check_cuda()
         pool = torch.cuda.graph_pool_handle()
         gen = self.generator if self.program.samples_noise else None
-        for bucket in self.buckets:
-            xs = torch.ones(self.batch_size, bucket, dtype=torch.long, device=self.device)
-            ilens = torch.full((self.batch_size,), bucket, dtype=torch.long, device=self.device)
-            se = self.prepare_spembs(None)
-            self.graphs[bucket] = GraphedCall(lambda x, il, s: self.program(x, il, s, self.generator),
-                                              [xs, ilens, se], pool, gen)
-        if self.stream is not None:
-            mel = torch.zeros(self.batch_size, self.max_frames, self.stream.num_mels, device=self.device)
-            k = torch.zeros(1, dtype=torch.long, device=self.device)
-            self.stream_graph = GraphedCall(self.stream, [mel, k], pool)
+        with kept_rng(self.device):
+            for bucket in self.buckets:
+                xs = torch.ones(self.batch_size, bucket, dtype=torch.long, device=self.device)
+                ilens = torch.full((self.batch_size,), bucket, dtype=torch.long, device=self.device)
+                se = self.prepare_spembs(None)
+                self.graphs[bucket] = GraphedCall(lambda x, il, s: self.program(x, il, s, self.generator),
+                                                  [xs, ilens, se], pool, gen)
+            if self.stream is not None:
+                mel = torch.zeros(self.batch_size, self.max_frames, self.stream.num_mels, device=self.device)
+                k = torch.zeros(1, dtype=torch.long, device=self.device)
+                self.stream_graph = GraphedCall(self.stream, [mel, k], pool)
 
     def graph_launches(self) -> Dict[str, int]:
         """Kernel launches made by graph replays since capture."""
@@ -290,13 +267,13 @@ class ServingBundle:
     ) -> Dict[str, torch.Tensor]:
         """The program on device tensors xs [batch_size, bucket], ilens
         [batch_size] (, spembs [batch_size, spk_dim]): the bucket's graph
-        when captured, else eagerly; the noise of Matcha and VITS from the
-        bundle's generator seeded by ``seed``."""
-        self.generator.manual_seed(int(seed))
-        graph = self.graphs.get(xs.shape[1])
-        if graph is not None:
-            return graph(xs, ilens, spembs)
-        return self.program(xs, ilens, spembs, self.generator)
+        when captured, else eagerly; the noise of Matcha and VITS seeded by
+        ``seed``."""
+        with seeded(self.device, self.generator, seed):
+            graph = self.graphs.get(xs.shape[1])
+            if graph is not None:
+                return graph(xs, ilens, spembs)
+            return self.program(xs, ilens, spembs, self.generator)
 
     def synthesize(
         self, token_ids: Sequence[Sequence[int]], seed: int = 0, spembs: Optional[np.ndarray] = None
@@ -336,7 +313,7 @@ class ServingBundle:
     ) -> Iterator[List[Dict[str, Any]]]:
         """Chunked synthesis: yields audio left to right as it is computed.
 
-        Needs a mel bundle with a :class:`StreamStep`. The mel program runs
+        Needs a mel bundle with a stream step. The mel program runs
         once; its mel stays on the device and each item costs one window
         call and one fetch, so the first playable chunk arrives after two
         programs instead of after the whole waveform. Yields, per chunk k, a
@@ -366,39 +343,14 @@ class ServingBundle:
             yield results
 
 
-class E2ttsProgram:
-    """``program(cond_raw, text, ref_lens, duration, generator) -> mel``:
-    the raw prompt mel normalised by the model's statistics, the CFG Euler
-    loop (``E2TTS.inference``, its noise from ``generator``), the mel
-    denormalised: [B, max_frames, num_mels] float32 (``build_e2tts_fn``'s
-    program)."""
-
-    samples_noise = True
-
-    def __init__(self, model, mel_mean, mel_scale, infer_kwargs: Optional[Dict[str, Any]] = None):
-        self.model = model
-        self.device = next(model.parameters()).device
-        self.infer_kwargs = dict(infer_kwargs or {})
-        self.mel_mean, self.mel_scale = _stat(mel_mean, self.device), _stat(mel_scale, self.device)
-
-    @torch.no_grad()
-    def __call__(self, cond_raw, text, ref_lens, duration, generator: Optional[torch.Generator] = None):
-        out = self.model.inference((cond_raw - self.mel_mean) / self.mel_scale, text, ref_lens, duration,
-                                   generator=generator, **self.infer_kwargs)
-        return out["feat_gen"].float() * self.mel_scale + self.mel_mean
-
-    def weights(self) -> Dict[str, Any]:
-        return {"model": self.model.state_dict(), "mel_mean": self.mel_mean, "mel_scale": self.mel_scale}
-
-
-class E2ttsServingBundle:
+class E2ttsServingBundle(_Bundle):
     """E2-TTS at a fixed batch size, text buckets and frame capacity
     ``max_frames``. A call pads the token ids with -1 (the backbone's filler)
     to the smallest bucket that fits, clamps each prompt to
     ``max_frames - gen_frames`` frames so that generation keeps its room,
-    pads the rows to ``batch_size``, runs an :class:`E2ttsProgram` with noise
-    from the bundle's generator seeded by ``seed`` and crops each row to its
-    generated frames ``[ref_len, duration)``."""
+    pads the rows to ``batch_size``, runs an E2-TTS program with noise
+    seeded by ``seed`` and crops each row to its generated frames
+    ``[ref_len, duration)``."""
 
     def __init__(
         self,
@@ -412,17 +364,26 @@ class E2ttsServingBundle:
         infer_kwargs: Optional[Dict[str, Any]] = None,
         meta: Optional[Dict[str, Any]] = None,
     ):
-        self.program = E2ttsProgram(model, mel_mean, mel_scale, infer_kwargs)
+        from jatts_torch.serving.programs import E2ttsProgram
+
+        self._setup(E2ttsProgram(model, mel_mean, mel_scale, infer_kwargs), model, batch_size=batch_size,
+                    buckets=buckets, max_frames=max_frames, num_mels=int(model.odim), meta=meta, loaded=False)
+
+    @classmethod
+    def loaded(cls, program, model: Weights, *, batch_size: int, buckets: Sequence[int], max_frames: int,
+               num_mels: int, meta: Optional[Dict[str, Any]] = None) -> "E2ttsServingBundle":
+        """The bundle of an artifact's deserialised programs."""
+        self = cls.__new__(cls)
+        self._setup(program, model, batch_size=batch_size, buckets=buckets, max_frames=max_frames,
+                    num_mels=num_mels, meta=meta, loaded=True)
+        return self
+
+    def _setup(self, program, model, *, batch_size, buckets, max_frames, num_mels, meta, loaded) -> None:
+        self._init(program, batch_size=batch_size, buckets=buckets, meta=meta, loaded=loaded)
         self.model = model
-        self.device = self.program.device
-        self.batch_size = int(batch_size)
-        self.buckets = sorted(int(t) for t in buckets)
         self.max_frames = int(max_frames)
-        self.num_mels = int(model.odim)
-        self.mel_mean, self.mel_scale = self.program.mel_mean, self.program.mel_scale
-        self.meta = dict(meta or {})
-        self.generator = torch.Generator(device=self.device)
-        self.graphs: Dict[int, GraphedCall] = {}
+        self.num_mels = int(num_mels)
+        self.mel_mean, self.mel_scale = program.mel_mean, program.mel_scale
 
     def prepare(
         self, token_ids: Sequence[Sequence[int]], prompt_mels: Sequence[np.ndarray], gen_frames: Sequence[int]
@@ -449,17 +410,17 @@ class E2ttsServingBundle:
         """One CUDA graph of the whole CFG Euler loop per text bucket, at
         capacity, in one memory pool. Raises on the CPU and when a capture
         fails."""
-        if self.device.type != "cuda":
-            raise RuntimeError("CUDA graphs need the bundle on a CUDA device")
+        self._check_cuda()
         pool = torch.cuda.graph_pool_handle()
         b, dev = self.batch_size, self.device
-        for bucket in self.buckets:
-            inputs = [torch.zeros(b, self.max_frames, self.num_mels, device=dev),
-                      torch.ones(b, bucket, dtype=torch.long, device=dev),
-                      torch.zeros(b, dtype=torch.long, device=dev),
-                      torch.full((b,), self.max_frames, dtype=torch.long, device=dev)]
-            self.graphs[bucket] = GraphedCall(lambda *a: self.program(*a, self.generator), inputs, pool,
-                                              self.generator)
+        with kept_rng(dev):
+            for bucket in self.buckets:
+                inputs = [torch.zeros(b, self.max_frames, self.num_mels, device=dev),
+                          torch.ones(b, bucket, dtype=torch.long, device=dev),
+                          torch.zeros(b, dtype=torch.long, device=dev),
+                          torch.full((b,), self.max_frames, dtype=torch.long, device=dev)]
+                self.graphs[bucket] = GraphedCall(lambda *a: self.program(*a, self.generator), inputs, pool,
+                                                  self.generator)
 
     def graph_launches(self) -> Dict[str, int]:
         """Kernel launches made by graph replays since capture."""
@@ -467,12 +428,12 @@ class E2ttsServingBundle:
 
     def run(self, cond_raw, text, ref_lens, duration, seed: int = 0) -> torch.Tensor:
         """The program on device tensors, replayed from the bucket's graph
-        when captured, with the generator seeded by ``seed``."""
-        self.generator.manual_seed(int(seed))
-        graph = self.graphs.get(text.shape[1])
-        if graph is not None:
-            return graph(cond_raw, text, ref_lens, duration)
-        return self.program(cond_raw, text, ref_lens, duration, self.generator)
+        when captured, its draws seeded by ``seed``."""
+        with seeded(self.device, self.generator, seed):
+            graph = self.graphs.get(text.shape[1])
+            if graph is not None:
+                return graph(cond_raw, text, ref_lens, duration)
+            return self.program(cond_raw, text, ref_lens, duration, self.generator)
 
     def synthesize(
         self,
@@ -492,71 +453,35 @@ class E2ttsServingBundle:
         return [mel[i, ref[i]: dur[i]] for i in range(len(token_ids))]
 
 
-class ValleProgram:
-    """The VALL-E two-stage decode as one program (``build_valle_fn``'s):
-    ``program(text, text_lens, proms, prom_lens, generator) -> {"codes"
-    [B, max_steps, 8], "resp_lens" [B]}``: :func:`ar_generate` at
-    ``max_steps`` (temperature ``ar_temperature``), then
-    :func:`nar_generate`'s 7 levels (``nar_temperature``), both drawing from
-    ``generator``. :meth:`start`, :meth:`step` and :meth:`fill` are its three
-    parts at fixed shapes, which the bundle captures as CUDA graphs: the
-    prefix, one AR step (replayed ``max_steps - 1`` times) and the NAR fill.
-    The neural codec decode (EnCodec) stays outside, as in the JAX
-    artifact."""
-
-    samples_noise = True
-
-    def __init__(self, ar, nar, max_steps: int, ar_temperature: float = 1.0, nar_temperature: float = 0.2):
-        self.ar, self.nar = ar, nar
-        self.device = next(ar.parameters()).device
-        self.max_steps = int(max_steps)
-        self.ar_temperature, self.nar_temperature = float(ar_temperature), float(nar_temperature)
-
-    def start(self, text, text_lens, proms, prom_lens, generator=None) -> Dict[str, Any]:
-        return valle.ar_start(self.ar, text, text_lens, proms, prom_lens, self.max_steps, self.ar_temperature,
-                              generator)
-
-    def step(self, state, generator=None) -> None:
-        valle.ar_step(self.ar, state, self.ar_temperature, generator)
-
-    @torch.no_grad()
-    def fill(self, state, text, text_lens, proms, prom_lens, generator=None) -> Dict[str, torch.Tensor]:
-        resp_lens = valle.ar_finish(self.ar, state["codes"])
-        codes = valle.nar_generate(self.nar, text, text_lens, proms, prom_lens, state["codes"], resp_lens,
-                                   self.nar_temperature, generator)
-        return {"codes": codes, "resp_lens": resp_lens}
-
-    def __call__(self, text, text_lens, proms, prom_lens, generator=None) -> Dict[str, torch.Tensor]:
-        ar_out = valle.ar_generate(self.ar, text, text_lens, proms, prom_lens, max_steps=self.max_steps,
-                                   sampling_temperature=self.ar_temperature, generator=generator)
-        with torch.no_grad():
-            codes = valle.nar_generate(self.nar, text, text_lens, proms, prom_lens, ar_out["codes"],
-                                       ar_out["resp_lens"], self.nar_temperature, generator)
-        return {"codes": codes, "resp_lens": ar_out["resp_lens"]}
-
-    def weights(self) -> Dict[str, Any]:
-        return {"ar": self.ar.state_dict(), "nar": self.nar.state_dict()}
-
-
-class ValleServingBundle:
-    """A :class:`ValleProgram` at ``batch_size`` rows, text ``buckets`` and
-    a prompt capacity of ``prompt_frames`` frames of ``n_prom_levels``
+class ValleServingBundle(_Bundle):
+    """VALL-E's two-stage decode at ``batch_size`` rows, text ``buckets``
+    and a prompt capacity of ``prompt_frames`` frames of ``n_prom_levels``
     levels: text ids + prompt codes -> RVQ codes [T_i, 8] a request, cropped
     to the AR's length. :meth:`capture` records, per text bucket, graphs of
     the prefix, of one AR step and of the NAR fill in one memory pool."""
 
     def __init__(self, ar, nar, *, batch_size: int, buckets: Sequence[int], max_steps: int,
                  ar_temperature: float = 1.0, nar_temperature: float = 0.2, meta: Optional[Dict[str, Any]] = None):
-        self.program = ValleProgram(ar, nar, max_steps, ar_temperature, nar_temperature)
-        self.device = self.program.device
-        self.batch_size = int(batch_size)
-        self.buckets = sorted(int(t) for t in buckets)
-        self.prompt_frames = int(ar.prompt_max_frame_length)
-        self.n_prom_levels = int(ar.n_prom_levels)
-        self.max_steps = int(max_steps)
-        self.meta = dict(meta or {})
-        self.generator = torch.Generator(device=self.device)
-        self.graphs: Dict[int, tuple] = {}
+        from jatts_torch.serving.programs import ValleProgram
+
+        self._setup(ValleProgram(ar, nar, max_steps, ar_temperature, nar_temperature), batch_size=batch_size,
+                    buckets=buckets, prompt_frames=ar.prompt_max_frame_length, n_prom_levels=ar.n_prom_levels,
+                    meta=meta, loaded=False)
+
+    @classmethod
+    def loaded(cls, program, *, batch_size: int, buckets: Sequence[int], prompt_frames: int, n_prom_levels: int,
+               meta: Optional[Dict[str, Any]] = None) -> "ValleServingBundle":
+        """The bundle of an artifact's deserialised programs."""
+        self = cls.__new__(cls)
+        self._setup(program, batch_size=batch_size, buckets=buckets, prompt_frames=prompt_frames,
+                    n_prom_levels=n_prom_levels, meta=meta, loaded=True)
+        return self
+
+    def _setup(self, program, *, batch_size, buckets, prompt_frames, n_prom_levels, meta, loaded) -> None:
+        self._init(program, batch_size=batch_size, buckets=buckets, meta=meta, loaded=loaded)
+        self.prompt_frames = int(prompt_frames)
+        self.n_prom_levels = int(n_prom_levels)
+        self.max_steps = int(program.max_steps)
 
     def prepare(self, token_ids: Sequence[Sequence[int]], prompt_codes: Sequence[np.ndarray]):
         """<= batch_size requests -> (text [batch_size, bucket], text_lens,
@@ -580,23 +505,23 @@ class ValleServingBundle:
         prefix graph's state and of the NAR fill, in one memory pool, the
         generator registered with each. Raises on the CPU and when a
         capture fails."""
-        if self.device.type != "cuda":
-            raise RuntimeError("CUDA graphs need the bundle on a CUDA device")
+        self._check_cuda()
         pool = torch.cuda.graph_pool_handle()
         p, gen, b, dev = self.program, self.generator, self.batch_size, self.device
-        for bucket in self.buckets:
-            inputs = [torch.ones(b, bucket, dtype=torch.long, device=dev),
-                      torch.full((b,), bucket, dtype=torch.long, device=dev),
-                      torch.zeros(b, self.prompt_frames, self.n_prom_levels, dtype=torch.long, device=dev),
-                      torch.full((b,), self.prompt_frames, dtype=torch.long, device=dev)]
-            start = GraphedCall(lambda *a: p.start(*a, gen), inputs, pool, gen)
-            # a capture only records: the step's warm-up needs the state filled
-            start.graph.replay()
-            # one warm-up step keeps its slot inside the cache at max_steps 2
-            step = GraphedCall(lambda st: p.step(st, gen), [start.outputs], pool, gen, warmup=1) \
-                if self.max_steps > 1 else None
-            fill = GraphedCall(lambda st, *a: p.fill(st, *a, gen), [start.outputs, *inputs], pool, gen)
-            self.graphs[bucket] = (start, step, fill)
+        with kept_rng(dev):
+            for bucket in self.buckets:
+                inputs = [torch.ones(b, bucket, dtype=torch.long, device=dev),
+                          torch.full((b,), bucket, dtype=torch.long, device=dev),
+                          torch.zeros(b, self.prompt_frames, self.n_prom_levels, dtype=torch.long, device=dev),
+                          torch.full((b,), self.prompt_frames, dtype=torch.long, device=dev)]
+                start = GraphedCall(lambda *a: p.start(*a, gen), inputs, pool, gen)
+                # a capture only records: the step's warm-up needs the state filled
+                start.graph.replay()
+                # one warm-up step keeps its slot inside the cache at max_steps 2
+                step = GraphedCall(lambda st: p.step(st, gen), [start.outputs], pool, gen, warmup=1) \
+                    if self.max_steps > 1 else None
+                fill = GraphedCall(lambda c, *a: p.fill(c, *a, gen), [start.outputs["codes"], *inputs], pool, gen)
+                self.graphs[bucket] = (start, step, fill)
 
     def graph_launches(self) -> Dict[str, int]:
         """Kernel launches made by graph replays since capture."""
@@ -605,16 +530,16 @@ class ValleServingBundle:
     def run(self, text, text_lens, proms, prom_lens, seed: int = 0) -> Dict[str, torch.Tensor]:
         """The program on device tensors: the bucket's graphs replayed
         (prefix, ``max_steps - 1`` steps, fill) when captured, else eagerly;
-        every draw from the generator seeded by ``seed``."""
-        self.generator.manual_seed(int(seed))
-        graphs = self.graphs.get(text.shape[1])
-        if graphs is None:
-            return self.program(text, text_lens, proms, prom_lens, self.generator)
-        start, step, fill = graphs
-        start(text, text_lens, proms, prom_lens)
-        for _ in range(self.max_steps - 1):
-            step()
-        return fill()
+        every draw seeded by ``seed``."""
+        with seeded(self.device, self.generator, seed):
+            graphs = self.graphs.get(text.shape[1])
+            if graphs is None:
+                return self.program(text, text_lens, proms, prom_lens, self.generator)
+            start, step, fill = graphs
+            start(text, text_lens, proms, prom_lens)
+            for _ in range(self.max_steps - 1):
+                step()
+            return fill()
 
     def synthesize(self, token_ids: Sequence[Sequence[int]], prompt_codes: Sequence[np.ndarray],
                    seed: int = 0) -> List[np.ndarray]:
