@@ -148,19 +148,22 @@ Phases, each of which fails the run with a non-zero exit:
      resume, a step's time
      and parts, a profiled step, and the same step under ``attn_backend:
      xla`` (the eager rel_shift_gather path) on the same weights and batch;
- 15. the tts1 recipe, stages 1-4, through the port's CLIs on phase 8's
-     aligned corpus (egs/jsut/tts1/conf/fastspeech2.v1.yaml): stage 1
-     (``bin/preprocess.py``: log-mel, NCCF pitch and energy on the card,
-     ``.npz`` dumps; timed, profiled, 4 utterances held against the same
-     CLI on the CPU), ``Dio``'s f0 on the card against known-truth glottal
-     pulse trains, stages 1b and 2 (``bin/compute_statistics.py``,
-     ``bin/generate_token_list.py``), stage 3 (``bin/tts_train.main`` with
-     ``--attn-backend flash``, 30 steps on those dumps) and stage 4
-     (``bin/tts_decode.main``, batch 8, 2048 frames, with a seed-made
-     HiFi-GAN checkpoint in parallel_wavegan's layout and again with
-     ``--vocoder griffin_lim``; every K1 launch on the 3xTF32 kernel, 8 a
-     batch; the mels against ``FastSpeech2.inference``, the wavs against
-     the generator on torch-folded weights and Griffin-Lim on the CPU);
+ 15. the tts1 recipe, stages 0-4, through the port's recipe runner
+     (``bin/run_recipe.py jsut/tts1``, egs/jsut/tts1/conf/fastspeech2.v1.yaml)
+     on phase 8's corpus written as a JSUT tree (kana transcripts) with
+     Julius labels from its known alignment, so that stage 0
+     (``jatts_torch/egs/jsut/tts1/local/data_prep.py --labdir``) runs no
+     aligner: stage 1 (``bin/preprocess.py``: log-mel, NCCF pitch and
+     energy on the card, ``.npz`` dumps; timed, profiled, 4 utterances held
+     against the same CLI on the CPU) and 1b, ``Dio``'s f0 on the card
+     against known-truth glottal pulse trains, stage 2, stage 3 (30 steps,
+     the conf's copy in the working directory with ``attn_backend:
+     flash``) and stage 4 (batch 8, 2048 frames, with a seed-made HiFi-GAN
+     checkpoint in parallel_wavegan's layout in the experiment's
+     config.yml and again with ``--vocoder griffin_lim``; every K1 launch
+     on the 3xTF32 kernel, 8 a batch; the mels against
+     ``FastSpeech2.inference``, the wavs against the generator on
+     torch-folded weights and Griffin-Lim on the CPU);
  16. the Matcha family at the JSUT width (f32, TF32 off): 16 requests
      through BatchingServer on egs/jsut/tts1/conf/matcha_tts.v1.prior.steplr.large.yaml
      as it stands (seed-made weights, phase 7's HiFi-GAN, 10 ODE steps),
@@ -327,6 +330,20 @@ Phases, each of which fails the run with a non-zero exit:
      launches counted; (a) the JSUT bf16 conf through ``bin/tts_train.py
      --multihost`` in an NCCL world of 1 with ``mesh: {model: 1}``: its
      checkpoint bit for bit the plain CLI run's.
+ 24. activation checkpointing (``use_remat``, ``remat_policy``;
+     ``jatts_torch/modules/remat.py``) on the flash kernels: one forward
+     and backward from the same weights, batch and generator seeds, dropout
+     on, plain (twice), under full remat and under ``dots_saveable`` for
+     VALL-E AR (phase 12's conf and largest batch; also
+     ``everything_saveable``), E2-TTS (phase 19's) and the NAR (phase 18's,
+     full remat): the loss's bits, every gradient against the plain one
+     (bitwise where the plain backward is bitwise from run to run), the
+     peak memory, the ms a step, the forward kernel launched again in the
+     backward (12 -> 24 and 24 -> 48 a micro-step); 4 micro-steps of E2's
+     ``bin/tts_train.py`` with remat against the run without; phase 23's
+     two gloo ranks with ``use_remat`` (VALL-E AR tp2, E2-TTS sp2, one step)
+     against the one-rank remat step; stage 0's
+     ``egs/jvs/tts1/local/prepare_f0_range`` on the card against the CPU.
 The line before the last is the kernels' JSON record, the last line
 ``{"ok": true, "device": {...}}``. Exits 2 without a CUDA device or
 without the jatts_torch package beside this file.
@@ -890,7 +907,8 @@ def aligner_slice(seed, where, root, floors):
     """Phase 8, on a corpus written under ``root`` (kept for phase 10).
     Returns the (fused search, K2, K3) launches of the main-path run, what
     check_mas found on the run's own largest lattice, the MAS times there
-    (time_mas), the csv paths and the phones' tone frequencies."""
+    (time_mas), the csv paths, the phones' tone frequencies and the
+    corpus's true frames per phone."""
     import numpy as np
     import torch
 
@@ -1018,7 +1036,7 @@ def aligner_slice(seed, where, root, floors):
         f"{busy_ms:.2f} ms in {sum(e.count for e in events)} kernels, idle share "
         f"{1 - busy_ms / wall_ms:.3f}", flush=True,
     )
-    return launches, own_check, times, paths, freqs
+    return launches, own_check, times, paths, freqs, truth
 
 
 # ---------------------------------------------------------------------------
@@ -2674,7 +2692,8 @@ def valle_slice(root, seed, where):
     return launches, f32_launches[:3], own, {
         "step_ms": step_ms, "run_s": run_s, "k_ms": k_ms, "k1b_share": k1b_ms / busy_ms,
         "idle": 1 - busy_ms / wall_ms, "flash_ms": flash_ms, "xla_ms": xla_ms,
-        "corpus": (train_csv, dev_csv, stats, tokens), "outdir": outdir}
+        "corpus": (train_csv, dev_csv, stats, tokens), "outdir": outdir, "batch": tb, "model_params": model_params,
+        "dtype": dtype}
 
 
 # ---------------------------------------------------------------------------
@@ -2778,19 +2797,60 @@ def write_pwg_checkpoint(root, seed, stats):
     return ckpt, conf, voc_stats, sd
 
 
-def recipe_slice(root, align_paths, seed, where):
-    """Phase 15: tts1 stages 1-4 through the port's CLIs on phase 8's
-    aligned corpus. Returns the two decode runs' K1 launches (all on the
-    3xTF32 tensor-core kernel) and what phase 22 reads: the stage-1 csvs,
-    the experiment, stats, token list, decode config and the HiFi-GAN
-    run's wav directory."""
+def write_jsut_tree(root, align_paths, truth, sr, hop):
+    """Stage 0's input from phase 8's corpus: a JSUT tree (``basic5000/wav``
+    linking phase 8's wavs, ``transcript_utf8.txt`` in kana, phase 8's dev
+    rows first) and a Julius ``.lab`` per utterance made from the known
+    alignment (silB over the 60 ms lead, each phone its true frames, silE).
+    Returns the tree's and the labels' directories."""
+    import wave
+
+    from jatts_torch.utils.io import read_csv
+
+    rows = [r for p in reversed(align_paths) for r in read_csv(p, dict_reader=True)[0]]
+    db, labdir = Path(root) / "jsut", Path(root) / "lab"
+    wavdir = db / "basic5000" / "wav"
+    wavdir.mkdir(parents=True)
+    labdir.mkdir()
+    kana = "あいうえおかきくけこ"
+    lines = []
+    for i, row in enumerate(rows):
+        utt = row["sample_id"]
+        os.symlink(row["wav_path"], wavdir / f"{utt}.wav")
+        lines.append(f"{utt}:{kana[i % len(kana)] * 3}")
+        with wave.open(row["wav_path"], "rb") as w:
+            total = w.getnframes() / w.getframerate()
+        # write_tone_corpus's 60 ms lead; every boundary half a sample late, so
+        # that read_audio's int(time * sr) of the crop lands on its sample
+        t = 0.06 + 0.5 / sr
+        labs = [f"0.0000000 {t:.7f} silB"]
+        for ph, d in zip(row["phonemes"].split(), truth[utt]):
+            labs.append(f"{t:.7f} {t + d * hop / sr:.7f} {ph}")
+            t += d * hop / sr
+        labs.append(f"{t:.7f} {total:.7f} silE")
+        (labdir / f"{utt}.lab").write_text("\n".join(labs) + "\n")
+    (db / "basic5000" / "transcript_utf8.txt").write_text("\n".join(lines) + "\n", encoding="utf-8")
+    return db, labdir
+
+
+def recipe_slice(root, align_paths, truth, seed, where):
+    """Phase 15: tts1 stages 0-4 through the port's recipe runner
+    (``bin/run_recipe.py jsut/tts1``) on phase 8's corpus as a JSUT tree
+    with Julius labels from its known alignment (stage 0 runs no aligner).
+    Returns the two decode runs' K1 launches (all on the 3xTF32
+    tensor-core kernel) and what phase 22 reads: the stage-1 csvs, the
+    experiment, stats, token list, decode config and the HiFi-GAN run's wav
+    directory."""
+    import logging
+    import shutil
+
     import numpy as np
     import torch
     import yaml
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from jatts_torch.bin import compute_statistics, generate_token_list, preprocess, tts_decode, tts_train
+    from jatts_torch.bin import preprocess, run_recipe
     from jatts_torch.data.batcher import round_up
     from jatts_torch.data.dataset import TTSDataset
     from jatts_torch.models.fastspeech2 import FastSpeech2
@@ -2806,17 +2866,53 @@ def recipe_slice(root, align_paths, seed, where):
     root = Path(root) / "recipe"
     conf = load_config(str(JSUT_CONF))
     sr, hop = conf["sampling_rate"], conf["hop_size"]
+    db, labdir = write_jsut_tree(root, align_paths, truth, sr, hop)
+    f0_conf = str(JSUT_CONF.parent / "f0.yaml")  # stage 1's --f0-config conf/f0.yaml, read from the recipe
+    work = root / "work"
+    (work / "conf").mkdir(parents=True)
+    # stage 3's conf: the recipe's with fewer steps and the flash kernels
+    reduced = dict(conf, train_max_steps=RECIPE_STEPS,
+                   scheduler_params={**conf["scheduler_params"], "warmup_steps": RECIPE_WARMUP},
+                   model_params={**conf["model_params"], "attn_backend": "flash"})
+    with open(work / "conf" / JSUT_CONF.name, "w") as f:
+        yaml.dump(reduced, f)
+    n_held = len(read_csv(align_paths[1], dict_reader=True)[0])
+    csvs = {split: str(work / "data" / f"{split}.csv") for split in ("train", "dev", "test")}
+    common = {"db_root": str(db), "labdir": str(labdir), "n_dev": str(n_held), "n_test": str(n_held),
+              "device": "cuda", "dump_format": "npz", "dumpdir": str(work / "dump"),
+              **{f"{split}_csv": path for split, path in csvs.items()}}
 
-    # stage 1 on the card, train and dev, .npz dumps
-    csvs = {split: str(root / f"{split}.csv") for split in ("train", "dev")}
+    def stages(lo, hi, **extra):
+        done = run_recipe.run("jsut/tts1", {**common, "stage": str(lo), "stop_stage": str(hi), **extra}, str(work))
+        logging.getLogger().setLevel(logging.WARNING)  # the CLIs' --verbose 1 leaves INFO on
+        return done
+
+    # stage 0
+    done = stages(0, 0)
+    check([d["module"] for d in done] == ["jatts_torch.egs.jsut.tts1.local.data_prep"],
+          f"stage 0 called {[d['module'] for d in done]}, not the data prep alone")
+    rows0 = {split: read_csv(path, dict_reader=True)[0] for split, path in csvs.items()}
+    n_frames = 0
+    for split, rs in rows0.items():
+        for row in rs:
+            want = truth[row["sample_id"]]
+            got = [int(d) for d in row["durations"].split()]
+            check(len(got) == len(want) and sum(got) == int(want.sum()) + 1,
+                  f"stage 0 {row['sample_id']}: {sum(got)} frames in {len(got)} phones, want {int(want.sum())} + 1 "
+                  f"in {len(want)}")
+            n_frames += sum(got)
+    print(f"stage 0 (bin/run_recipe.py jsut/tts1, local/data_prep with --labdir from the known alignment, no "
+          f"aligner): train/dev/test {len(rows0['train'])}/{len(rows0['dev'])}/{len(rows0['test'])} rows, "
+          f"{n_frames} frames; {done[0]['seconds']:.2f} s", flush=True)
+
+    # stage 1 on the card, .npz dumps, and the statistics
     torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    audio_s = 0.0
-    for split, src in zip(("train", "dev"), align_paths):
-        audio_s += preprocess.run(src, conf, str(root / "dump" / split), out_csv=csvs[split], device="cuda",
-                                  dump_format="npz")
-    torch.cuda.synchronize()
-    stage1_s = time.perf_counter() - t0
+    done = stages(1, 1)
+    pre = [d for d in done if d["module"].endswith(".preprocess")]
+    check(len(pre) == 3 and done[-1]["module"].endswith(".compute_statistics"),
+          f"stage 1 called {[d['module'] for d in done]}")
+    audio_s = sum(d["result"] for d in pre)
+    stage1_s = sum(d["seconds"] for d in pre)
     rows = {split: read_csv(csvs[split], dict_reader=True)[0] for split in csvs}
     n_utts = sum(len(r) for r in rows.values())
     print(f"stage 1 (preprocess, mel + pitch + energy, .npz, JSUT feature settings): {n_utts} utterances, "
@@ -2825,8 +2921,8 @@ def recipe_slice(root, align_paths, seed, where):
     print(f"stage 1 seconds per hour of audio: {stage1_s / audio_s * 3600:.2f} s; {where}", flush=True)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        preprocess.run(align_paths[1], conf, str(root / "dump_profiled"), out_csv=str(root / "profiled.csv"),
-                       device="cuda", dump_format="npz")
+        preprocess.run(csvs["dev"], conf, str(root / "dump_profiled"), out_csv=str(root / "profiled.csv"),
+                       f0_config=f0_conf, device="cuda", dump_format="npz")
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
@@ -2839,9 +2935,9 @@ def recipe_slice(root, align_paths, seed, where):
 
     # 4 utterances' dumps against the same CLI on the CPU
     four = str(root / "four.csv")
-    write_csv(read_csv(align_paths[1], dict_reader=True)[0][:4], four)
-    preprocess.run(four, conf, str(root / "dump_cpu"), out_csv=str(root / "four_cpu.csv"), device="cpu",
-                   dump_format="npz")
+    write_csv(rows["dev"][:4], four)
+    preprocess.run(four, conf, str(root / "dump_cpu"), out_csv=str(root / "four_cpu.csv"), f0_config=f0_conf,
+                   device="cpu", dump_format="npz")
     errs = {"mel": 0.0, "mel_linear": 0.0, "mel_all": (0.0, 0.0), "pitch": 0.0, "energy": 0.0}
     for cpu_row, row in zip(read_csv(str(root / "four_cpu.csv"), dict_reader=True)[0], rows["dev"]):
         check(cpu_row["sample_id"] == row["sample_id"], "stage 1 rows out of order")
@@ -2875,62 +2971,60 @@ def recipe_slice(root, align_paths, seed, where):
 
     f0_truth_on_card(where)
 
-    # stages 1b and 2
-    stats = str(root / "stats.npz")
-    compute_statistics.run(csvs["train"], conf, stats)
-    tokens = str(root / "tokens.txt")
-    vocab = generate_token_list.run([csvs["train"], csvs["dev"]], tokens)
+    # stage 2
+    done = stages(2, 2)
+    check([d["module"] for d in done] == ["jatts_torch.bin.generate_token_list"], "stage 2 calls")
+    stats = str(work / "dump" / "stats.npz")
+    tokens = str(work / "dump" / "tokens.txt")
+    vocab = [line for line in open(tokens, encoding="utf-8") if line.strip()]
     with np.load(stats) as st:
         check(sorted(st.files) == sorted(f"{f}_{s}" for f in ("mel", "pitch", "energy") for s in ("mean", "scale"))
               and st["mel_mean"].shape == (80,) and st["pitch_mean"].shape == (1,), f"stats {st.files}")
     check(len(vocab) == 43, f"{len(vocab)} tokens, want 40 phones + 3")
 
-    # stage 3 through the CLI's main
-    reduced = dict(conf, train_max_steps=RECIPE_STEPS,
-                   scheduler_params={**conf["scheduler_params"], "warmup_steps": RECIPE_WARMUP})
-    conf_path = str(root / "fastspeech2.yaml")
-    with open(conf_path, "w") as f:
-        yaml.dump(reduced, f)
-    print(f"stage 3 config {JSUT_CONF.relative_to(ROOT)} with --attn-backend flash; reductions: train_max_steps "
+    # stage 3 through the runner, the conf in the working directory
+    print(f"stage 3 config {JSUT_CONF.relative_to(ROOT)} with attn_backend flash; reductions: train_max_steps "
           f"{conf['train_max_steps']} -> {RECIPE_STEPS}, warmup_steps {conf['scheduler_params']['warmup_steps']} "
           f"-> {RECIPE_WARMUP}", flush=True)
-    expdir = str(root / "exp")
+    expdir = work / "exp" / JSUT_CONF.stem
     t0 = time.perf_counter()
-    trainer = tts_train.main(["--train-csv", csvs["train"], "--dev-csv", csvs["dev"], "--stats", stats,
-                              "--token-list", tokens, "--config", conf_path, "--outdir", expdir,
-                              "--attn-backend", "flash", "--seed", str(seed), "--verbose", "0"])
+    done = stages(3, 3)
     torch.cuda.synchronize()
     stage3_s = time.perf_counter() - t0
+    trainer = done[0]["result"]
     losses = [h["train/loss"] for h in trainer.history]
     first, last = float(np.mean(losses[:10])), float(np.mean(losses[-10:]))
     print(f"stage 3: {trainer.steps} steps in {stage3_s:.1f} s on the stage-1 dumps; loss mean of the first 10 "
           f"steps {first:.4f}, of the last 10 {last:.4f}; {where}", flush=True)
     check(trainer.steps == RECIPE_STEPS and all(math.isfinite(v) for v in losses), "stage 3 training")
     check(last < first, "stage 3: the training loss did not fall")
-    del trainer
+    check(Path(work, trainer.outdir).resolve() == expdir.resolve(), f"stage 3 wrote {trainer.outdir}, not {expdir}")
+    del trainer, done
 
-    # stage 4: the dev rows, then the same rows under other ids, so that a
-    # second batch of the same shape gives the CLI's steady-state RTF
+    # stage 4 through the runner: the dev rows, then the same rows under
+    # other ids (so that a second batch of the same shape gives the CLI's
+    # steady-state RTF), once with a seed-made HiFi-GAN checkpoint in the
+    # experiment's config.yml and once with --vocoder griffin_lim
     dev_rows = rows["dev"]
     decode_csv = str(root / "decode.csv")
     write_csv(dev_rows + [dict(r, sample_id=r["sample_id"] + "_again") for r in dev_rows], decode_csv)
     ckpt, voc_conf, voc_stats, pairs = write_pwg_checkpoint(root, seed, stats)
-    exp_conf = load_config(str(Path(expdir) / "config.yml"))
+    exp_conf_path = str(expdir / "config.yml")
+    exp_conf = load_config(exp_conf_path)
     check(exp_conf["model_params"]["attn_backend"] == "flash", "config.yml lost the attention backend")
     exp_conf["vocoder"] = {"checkpoint": ckpt, "config": voc_conf, "stats": voc_stats}
-    exp_conf_path = str(root / "exp_config.yml")
     with open(exp_conf_path, "w") as f:
         yaml.dump(exp_conf, f)
     n_batches = -(-len(dev_rows) * 2 // RECIPE_BATCH)
     decoded = {}
-    for name, extra in (("hifigan", []), ("griffin_lim", ["--vocoder", "griffin_lim"])):
+    for name, extra in (("hifigan", {}), ("griffin_lim", {"vocoder": "griffin_lim"})):
         k1.reset_launches()
         t0 = time.perf_counter()
-        decoded[name] = tts_decode.main([
-            "--csv", decode_csv, "--stats", stats, "--token-list", tokens, "--expdir", expdir,
-            "--config", exp_conf_path, "--outdir", str(root / f"decode_{name}"),
-            "--batch-size", str(RECIPE_BATCH), "--max-frames", "2048", "--verbose", "0", *extra])
+        done = stages(4, 4, test_csv=decode_csv, **extra)
         torch.cuda.synchronize()
+        check([d["module"] for d in done] == ["jatts_torch.bin.tts_decode"], "stage 4 calls")
+        decoded[name] = done[0]["result"]
+        shutil.move(str(expdir / "results"), str(root / f"decode_{name}"))
         decoded[name]["wall_s"] = time.perf_counter() - t0
         decoded[name]["k1"] = (k1.launches, k1.launches_tc_f32, k1.launches - k1.launches_tc_f32,
                                k1.launches_tc + k1.launches_relpos + k1.launches_causal)
@@ -2960,7 +3054,7 @@ def recipe_slice(root, align_paths, seed, where):
     # the mels against FastSpeech2.inference on the same batch
     mp = dict(exp_conf["model_params"])
     model = FastSpeech2(**mp, device="cuda")
-    model.load_state_dict(restore_checkpoint(find_latest_checkpoint(expdir), map_location="cuda")["model"])
+    model.load_state_dict(restore_checkpoint(find_latest_checkpoint(str(expdir)), map_location="cuda")["model"])
     model.eval()
     ds = TTSDataset(decode_csv, stats, conf["feat_list"], tokens, is_inference=True)
     items = [ds[i] for i in range(len(ds))]
@@ -3055,9 +3149,10 @@ def recipe_slice(root, align_paths, seed, where):
     print(f"stage 4 Griffin-Lim ms per utterance (32 iterations): {gl_ms:.2f} ms; {where}", flush=True)
     print(f"stage 4 whole CLI: HiFi-GAN run {hg['wall_s']:.2f} s, Griffin-Lim run {gl['wall_s']:.2f} s for "
           f"{audio_dec:.1f} s of audio; {where}", flush=True)
-    print(f"phase 15 (stages 1-4 and their checks): {time.perf_counter() - t_phase:.1f} s; {where}", flush=True)
-    recipe = {"csvs": csvs, "expdir": expdir, "stats": stats, "tokens": tokens, "exp_conf": exp_conf_path,
-              "decode_dir": root / "decode_hifigan" / "wav"}
+    print(f"phase 15 (stages 0-4 through the recipe runner, and their checks): {time.perf_counter() - t_phase:.1f} s; "
+          f"{where}", flush=True)
+    recipe = {"csvs": {"train": csvs["train"], "dev": csvs["dev"]}, "expdir": str(expdir), "stats": stats,
+              "tokens": tokens, "exp_conf": exp_conf_path, "decode_dir": root / "decode_hifigan" / "wav"}
     return hg["k1"][1] + gl["k1"][1], recipe
 
 
@@ -3779,7 +3874,7 @@ def vits_decode(root, expdir, csvs, dur_csv, stats, tokens, seed, where):
                   f"VITS decode ({name}) {utt}: {len(wav)} samples, want {olen * hop}")
 
     model = VITS(**exp_conf["model_params"], device="cuda")
-    model.load_state_dict(restore_checkpoint(find_latest_checkpoint(expdir), map_location="cuda")["model"])
+    model.load_state_dict(restore_checkpoint(find_latest_checkpoint(str(expdir)), map_location="cuda")["model"])
     model.eval()
     ds = TTSDataset(decode_csv, stats, exp_conf["feat_list"], tokens, is_inference=True)
     items = [ds[i] for i in range(len(ds))]
@@ -4257,7 +4352,7 @@ def nar_training(corpus, outdir, seed, where):
 
     rel_bf16 = step_pair(dtype, tb, 1e-2, 5e-2)
     rel_f32 = step_pair(torch.float32, small, 1e-4, 1e-3)
-    return trainer, counts, {"run_s": run_s, "micro_ms": micro_ms, "fwd_ms": fwd_ms, "bwd_ms": bwd_ms,
+    return trainer, counts, {"batch": tb, "run_s": run_s, "micro_ms": micro_ms, "fwd_ms": fwd_ms, "bwd_ms": bwd_ms,
                              "peak_gb": peak_gb, "idle": 1 - busy_ms / wall_ms, "busy_ms": busy_ms,
                              "wall_ms": wall_ms, "k_ms": k_ms, "attn_share": attn_ms / busy_ms, "shape": shape,
                              "loss": (first, last), "rel_bf16": rel_bf16, "rel_f32": rel_f32}
@@ -4852,7 +4947,7 @@ def e2_training(corpus, conf, outdir, seed, where):
     errs = {"fwd": chain["fwd"], "dkv": max(e["dk"], e["dv"], chain["dk"], chain["dv"]),
             "dq": max(e["dq"], chain["dq"]), "scalar": scalar_err}
     times = time_nar_attn((b, 16, s_len, 64), seed + 94, where, label="E2")
-    return trainer, counts, {"run_s": run_s, "micro_ms": micro_ms, "fwd_ms": fwd_ms, "bwd_ms": bwd_ms,
+    return trainer, counts, {"batch": tb, "run_s": run_s, "micro_ms": micro_ms, "fwd_ms": fwd_ms, "bwd_ms": bwd_ms,
                              "peak_gb": peak_gb, "idle": 1 - busy_ms / wall_ms, "busy_ms": busy_ms,
                              "wall_ms": wall_ms, "k_ms": k_ms, "attn_share": attn_ms / busy_ms,
                              "shape": (b, s_len), "frames": frames, "loss": (first, last), "rel_bf16": rel_bf16,
@@ -4954,7 +5049,8 @@ def e2_slice(root, seed, where):
     decode_tc, decode = e2_decode(root, corpus, conf, outdir, seed, where)
     print(f"phase 19 (E2-TTS features, serving, training, kernels, decode): {time.perf_counter() - t_phase:.1f} s; "
           f"{where}", flush=True)
-    return {"serve_tc": serve_tc, "train": counts, "decode_tc": decode_tc}, {"serve": serve, "train": train,
+    return {"serve_tc": serve_tc, "train": counts, "decode_tc": decode_tc}, {"corpus": corpus, "conf": conf,
+                                                                               "serve": serve, "train": train,
                                                                                "decode": decode}
 
 
@@ -4962,7 +5058,7 @@ ART_BUCKETS = (32, 64, 128)  # the JSUT artifact's text buckets
 ART_BATCH = 8
 ART_FRAMES = 1024
 ART_CHUNK = 128  # the stream step's mel frames a chunk
-ART_TIMED = 10  # batches timed eagerly and replayed, in turns
+ART_TIMED = 6  # batches timed eagerly and replayed, in turns (10 before phase 24 needed the run's time)
 ART_SERVED = 16  # requests through BatchingServer, half of them streamed
 VALLE_ART_ROWS = 4
 VALLE_ART_STEPS = 128  # the artifact's max_steps (256 before the torch.export phase needed the run's time)
@@ -5517,7 +5613,7 @@ MP_FS2 = (24, 896, 112)  # a FastSpeech2 step's batch: B, T_feats, T_text (phase
 MP_MATCHA = (16, 704, 96)  # Matcha-TTS's tts1 step (phase 16's largest)
 MP_VITS = (8, 896, 112)  # a VITS micro-step (phase 17's largest)
 MP_TIMED = 3  # steps timed after MP_WARM warm-up steps (10 before phase 20 took the run's time)
-MP_WARM = 2
+MP_WARM = 1  # (2 before phase 24 needed the run's time)
 MP_SMALL_TIMED = 4  # the Matcha and VITS steps: timed steps a round (10 before phase 22, 8 before phase 20)
 MP_SMALL_ROUNDS = 1  # rounds, f32 and bf16 alternating in each (3 before phase 22, 2 before phase 20 needed the run's time)
 MP_CLI_STEPS = 4  # the bf16 CLI run: an eval interval at 2 and 4
@@ -6199,7 +6295,7 @@ def stage5_slice(root, align_paths, recipe, seed, where, device="cuda"):
 # phase 23: training over several processes (torch.distributed)
 # ---------------------------------------------------------------------------
 
-P23_STEPS = 2  # steps of each run of (b) (3 in the first probe: 87.1 s for the phase); the confs' 100000-1000000
+P23_STEPS = 1  # steps of each run of (b) (2 before phase 24 needed the run's time, 3 in the first probe); the confs' 100000-1000000
 P23_CLI_STEPS = 2  # (a): the JSUT conf through the CLI (4 in the first probe)
 P23_FS2 = (8, 512, 64)  # (b) dp2 FastSpeech2: B, T_feats, T_text (4 rows a rank)
 P23_VALLE = (4, 64, 150, 400)  # (b) VALL-E AR dp1 x tp2: B, text, prompt and response frames
@@ -6402,7 +6498,118 @@ def p23_same_bits(a, b, path=""):
     return a == b, path
 
 
-def parallel_slice(root, corpus, seed, where):
+def p23_spawn(root, jobs, seed):
+    """Start the two gloo ranks of ``jobs`` (``chip_smoke.py --p23-rank``
+    processes on the one card, their logs under ``root``); returns them and
+    the time they were started."""
+    import torch
+
+    root.mkdir(parents=True, exist_ok=True)
+    job_path = root / "jobs.pt"
+    torch.save({"jobs": jobs, "seed": seed}, job_path)
+    port = p23_free_port()
+    procs = []
+    for r in range(2):
+        env = {**os.environ, "RANK": str(r), "LOCAL_RANK": str(r), "WORLD_SIZE": "2", "MASTER_ADDR": "localhost",
+               "MASTER_PORT": str(port)}
+        log = open(root / f"rank{r}.log", "w")
+        procs.append((subprocess.Popen([sys.executable, str(ROOT / "chip_smoke.py"), "--p23-rank", str(job_path)],
+                                       env=env, cwd=str(ROOT), stdout=log, stderr=subprocess.STDOUT), log))
+    return procs, time.perf_counter()
+
+
+def p23_one_rank(root, jobs, seed):
+    """Each job's one-rank reference in this process: its history, the
+    weights before and after, the launches and the seconds."""
+    import torch
+
+    refs = {}
+    for job in jobs:
+        tr = p23_trainer(job, seed, str(root / f"{job['name']}_one"))
+        w0 = {k: v.float().clone() for k, v in tr._model_state().items()}
+        reset_all_launches()
+        t0 = time.perf_counter()
+        for batch in job["batches"]:
+            tr.train_step(batch)
+        torch.cuda.synchronize()
+        refs[job["name"]] = {"history": tr.history, "s": time.perf_counter() - t0, "w0": w0,
+                             "w": {k: v.float().clone() for k, v in tr._model_state().items()},
+                             "launches": {k: v for k, v in launch_counts().items() if v}}
+        del tr
+        torch.cuda.empty_cache()
+    return refs
+
+
+def p23_join(root, procs, t_spawn):
+    """Wait for the two ranks (the collectives' time limit in all); fail on
+    a rank's error with its log; returns each rank's results."""
+    import torch
+
+    for p, log in procs:
+        p.wait(timeout=max(P23_TIMEOUT - (time.perf_counter() - t_spawn), 1))
+        log.close()
+    for r, (p, _) in enumerate(procs):
+        if p.returncode != 0:
+            print((root / f"rank{r}.log").read_text()[-6000:], flush=True)
+        check(p.returncode == 0, f"(b) rank {r} exited with {p.returncode}")
+    return [torch.load(root / f"rank{r}.pt", weights_only=False) for r in range(2)]
+
+
+def p23_kill(procs):
+    for p, _ in procs:
+        if p.poll() is None:
+            p.kill()
+            p.wait()
+
+
+def p23_compare(root, jobs, refs, ranks, want_step, label, where):
+    """Each job's ranks against its one-rank run: the per-step loss and
+    grad norm and the weights' update within ``P23_TOL``, each rank's
+    launches ``want_step`` a step. Returns the launches by job and rank."""
+    import torch
+
+    per_rank = {}
+    for job in jobs:
+        name = job["name"]
+        ref = refs[name]
+        n_steps = len(job["batches"])
+        for r in range(2):
+            got = ranks[r][name]
+            for step, (g, w) in enumerate(zip(got["history"], ref["history"])):
+                for key in ("train/loss", "train/grad_norm"):
+                    tol = P23_TOL["loss" if key == "train/loss" else "grad_norm"]
+                    rel = abs(g[key] - w[key]) / max(abs(w[key]), 1e-12)
+                    check(rel <= tol, f"{label} {name} rank {r} step {step}: {key} {g[key]} against {w[key]} "
+                                      f"(rel {rel:.2e})")
+            want = {k: v * n_steps for k, v in want_step[name].items()}
+            have = {k: got["launches"].get(k, 0) for k in want}
+            check(have == want, f"{label} {name} rank {r}: launches {have} != {want}")
+        per_rank[name] = [ranks[r][name]["launches"] for r in range(2)]
+        check({k: ref["launches"].get(k, 0) for k in want_step[name]}
+              == {k: v * n_steps for k, v in want_step[name].items()}, f"{label} {name} one-rank launches "
+                                                                         f"{ref['launches']}")
+        state = torch.load(root / f"{name}_state.pt")
+        num = den = 0.0
+        for k, w in ref["w"].items():
+            if not torch.is_floating_point(w):
+                continue
+            d_one = w - ref["w0"][k]
+            d_mesh = state[k].to(w.device) - ref["w0"][k]
+            num += float((d_mesh - d_one).pow(2).sum())
+            den += float(d_one.pow(2).sum())
+        upd = math.sqrt(num / max(den, 1e-30))
+        check(upd <= P23_TOL["update"], f"{label} {name}: the updates differ by {upd:.3e} of their size")
+        hist = ", ".join(f"{h['train/loss']:.4f}/{w_['train/loss']:.4f}" for h, w_ in
+                         zip(ranks[0][name]["history"], ref["history"]))
+        print(f"{label} {name} mesh {job['mesh']} (data, model) over gloo on one card, {n_steps} steps: "
+              f"losses mesh/one {hist}; updates differ by {upd:.3e} of their size (tol {P23_TOL['update']}); "
+              f"{ranks[0][name]['sharded']} tensors sharded; rank 0 {ranks[0][name]['s']:.1f} s, rank 1 "
+              f"{ranks[1][name]['s']:.1f} s, one rank {ref['s']:.1f} s; launches a rank "
+              + ", ".join(f"{k[3:]} {v}" for k, v in ranks[0][name]["launches"].items()) + f"; {where}", flush=True)
+    return per_rank
+
+
+def parallel_slice(root, corpus, seed, where, extra_jobs=()):
     """Phase 23: (c) the E2-TTS attention at its sequence-parallel shapes
     (Tq = N/2 + 1 local queries against Tk = N + 1 gathered keys, and N/2
     against N) on the tensor-core kernels against the plain versions; (b)
@@ -6411,7 +6618,10 @@ def parallel_slice(root, corpus, seed, where):
     published widths for ``P23_STEPS`` steps each against the one-rank run,
     each rank's launches counted; (a) the JSUT bf16 conf through
     ``bin/tts_train.py --multihost`` in an NCCL world of 1 against the plain
-    CLI, bit for bit. Returns each rank's launches by counter."""
+    CLI, bit for bit. ``extra_jobs`` (phase 24's remat steps) run on the
+    same two ranks after the three and are compared by the phase that asked
+    for them. Returns each rank's launches by counter, and what the extra
+    jobs' comparison needs."""
     import torch
 
     t_phase = time.perf_counter()
@@ -6436,17 +6646,8 @@ def parallel_slice(root, corpus, seed, where):
 
     # (b) two ranks over gloo on the one card
     jobs = p23_jobs(seed)
-    job_path = root / "jobs.pt"
-    torch.save({"jobs": jobs, "seed": seed}, job_path)
-    port = p23_free_port()
-    procs = []
-    for r in range(2):
-        env = {**os.environ, "RANK": str(r), "LOCAL_RANK": str(r), "WORLD_SIZE": "2", "MASTER_ADDR": "localhost",
-               "MASTER_PORT": str(port)}
-        log = open(root / f"rank{r}.log", "w")
-        procs.append((subprocess.Popen([sys.executable, str(ROOT / "chip_smoke.py"), "--p23-rank", str(job_path)],
-                                       env=env, cwd=str(ROOT), stdout=log, stderr=subprocess.STDOUT), log))
-    t_spawn = time.perf_counter()
+    extra_jobs = list(extra_jobs)
+    procs, t_spawn = p23_spawn(root / "b", jobs + extra_jobs, seed)
     try:
         # (a) meanwhile, in this process: the plain CLI, then the NCCL world of 1
         torch.backends.cudnn.deterministic = True
@@ -6461,73 +6662,16 @@ def parallel_slice(root, corpus, seed, where):
               f"(--multihost, mesh model 1) {nccl_s:.1f} s, the plain run {plain_s:.1f} s; every tensor of the "
               f"checkpoint bit for bit; launches each " + ", ".join(f"{n[9:] or 'K1'} {v}" for n, v in nccl_n.items())
               + f"; {where}", flush=True)
-
-        # (b)'s one-rank references, here
-        refs = {}
-        for job in jobs:
-            tr = p23_trainer(job, seed, str(root / f"{job['name']}_one"))
-            w0 = {k: v.float().clone() for k, v in tr._model_state().items()}
-            reset_all_launches()
-            t0 = time.perf_counter()
-            for batch in job["batches"]:
-                tr.train_step(batch)
-            torch.cuda.synchronize()
-            refs[job["name"]] = {"history": tr.history, "s": time.perf_counter() - t0, "w0": w0,
-                                 "w": {k: v.float().clone() for k, v in tr._model_state().items()},
-                                 "launches": {k: v for k, v in launch_counts().items() if v}}
-            del tr
-            torch.cuda.empty_cache()
-        for p, log in procs:
-            p.wait(timeout=max(P23_TIMEOUT - (time.perf_counter() - t_spawn), 1))
-            log.close()
+        refs = p23_one_rank(root / "b", jobs + extra_jobs, seed)
+        ranks = p23_join(root / "b", procs, t_spawn)
     finally:
-        for p, log in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
-    for r, (p, _) in enumerate(procs):
-        if p.returncode != 0:
-            print((root / f"rank{r}.log").read_text()[-6000:], flush=True)
-        check(p.returncode == 0, f"(b) rank {r} exited with {p.returncode}")
-    ranks = [torch.load(root / f"rank{r}.pt", weights_only=False) for r in range(2)]
+        p23_kill(procs)
     per_rank = {"nccl_world1": nccl_n}
-    for job in jobs:
-        name = job["name"]
-        ref = refs[name]
-        for r in range(2):
-            got = ranks[r][name]
-            for step, (g, w) in enumerate(zip(got["history"], ref["history"])):
-                for key in ("train/loss", "train/grad_norm"):
-                    tol = P23_TOL["loss" if key == "train/loss" else "grad_norm"]
-                    rel = abs(g[key] - w[key]) / max(abs(w[key]), 1e-12)
-                    check(rel <= tol, f"(b) {name} rank {r} step {step}: {key} {g[key]} against {w[key]} (rel {rel:.2e})")
-            want = {k: v * P23_STEPS for k, v in P23_WANT[name].items()}
-            have = {k: got["launches"].get(k, 0) for k in want}
-            check(have == want, f"(b) {name} rank {r}: launches {have} != {want}")
-        per_rank[name] = [ranks[r][name]["launches"] for r in range(2)]
-        check({k: ref["launches"].get(k, 0) for k in P23_WANT[name]}
-              == {k: v * P23_STEPS for k, v in P23_WANT[name].items()}, f"(b) {name} one-rank launches {ref['launches']}")
-        state = torch.load(root / f"{name}_state.pt")
-        num = den = 0.0
-        for k, w in ref["w"].items():
-            if not torch.is_floating_point(w):
-                continue
-            d_one = w - ref["w0"][k]
-            d_mesh = state[k].to(w.device) - ref["w0"][k]
-            num += float((d_mesh - d_one).pow(2).sum())
-            den += float(d_one.pow(2).sum())
-        upd = math.sqrt(num / max(den, 1e-30))
-        check(upd <= P23_TOL["update"], f"(b) {name}: the updates differ by {upd:.3e} of their size")
-        hist = ", ".join(f"{h['train/loss']:.4f}/{w_['train/loss']:.4f}" for h, w_ in
-                         zip(ranks[0][name]["history"], ref["history"]))
-        print(f"phase 23 (b) {name} mesh {job['mesh']} (data, model) over gloo on one card, {P23_STEPS} steps: "
-              f"losses mesh/one {hist}; updates differ by {upd:.3e} of their size (tol {P23_TOL['update']}); "
-              f"{ranks[0][name]['sharded']} tensors sharded; rank 0 {ranks[0][name]['s']:.1f} s, rank 1 "
-              f"{ranks[1][name]['s']:.1f} s, one rank {ref['s']:.1f} s; launches a rank "
-              + ", ".join(f"{k[3:]} {v}" for k, v in ranks[0][name]["launches"].items()) + f"; {where}", flush=True)
+    per_rank.update(p23_compare(root / "b", jobs, refs, ranks, P23_WANT, "phase 23 (b)", where))
     print(f"phase 23 (several processes: SP attention, gloo ranks, NCCL world of 1): "
           f"{time.perf_counter() - t_phase:.1f} s; {where}", flush=True)
-    return per_rank, {"fwd_ms": fwd_ms}
+    extra = {"root": root / "b", "jobs": extra_jobs, "refs": refs, "ranks": ranks}
+    return per_rank, {"fwd_ms": fwd_ms, "extra": extra}
 
 
 def p23_paths(p23_n, jobs, counter):
@@ -6537,6 +6681,291 @@ def p23_paths(p23_n, jobs, counter):
     if "fs2" in jobs:
         out["parallel_nccl_world1"] = p23_n["nccl_world1"].get(counter[3:], 0)
     return out
+
+
+# ---------------------------------------------------------------------------
+# phase 24: activation checkpointing (use_remat, remat_policy) on the flash
+# kernels, the recipes' stage 0 on the card
+# ---------------------------------------------------------------------------
+
+REMAT_TIMED = 3  # steps timed after one warm-up, the median kept
+REMAT_CLI_STEPS = 4  # E2's micro-steps through bin/tts_train.py (the conf's accumulation: one update)
+# the CLI runs' depth (the conf's 24): each run writes a checkpoint of f32
+# weights, AdamW state, accumulated gradients and EMA (6.6 GB at 24 layers),
+# which at full depth adds 13 GB to what the script writes to disk
+REMAT_CLI_DEPTH = 2
+# a gradient that is bitwise from run to run in the plain model must be
+# bitwise under remat; one that is not (the embedding tables' backward adds
+# with atomics on the card) within this share of its largest element
+REMAT_ATOMIC_TOL = 1e-3
+REMAT_CLI_TOL = 1e-5  # E2 CLI: each logged loss and grad norm, relative
+REMAT_WAYS = (("plain", {}), ("plain again", {}), ("remat", {"use_remat": True}),
+              ("dots_saveable", {"use_remat": True, "remat_policy": "dots_saveable"}))
+
+
+def remat_ways(label, model, loss_of, fwd_counter, layers, where, ways=REMAT_WAYS):
+    """One forward and backward from the same weights, batch and generator
+    seeds in each of ``ways``: ``model``'s remat setting (the ``use_remat``
+    and ``remat_policy`` its constructor takes) set to the way's. For each:
+    the loss's bits, each gradient against the plain one, the peak memory of
+    the step above what was allocated before it, the median of
+    ``REMAT_TIMED`` timed steps, the device-busy ms of a profiled one and
+    the forward kernel's launches (``fwd_counter``) in one step: ``layers``
+    plain, twice that when every forward is recomputed, ``layers`` under
+    ``everything_saveable``. Returns each way's numbers."""
+    import torch
+
+    from jatts_torch.modules.remat import Remat
+    from jatts_torch.ops import flash_attention as k1
+
+    m = model
+    holder = getattr(m, "backbone", m)  # E2-TTS keeps it in its UNetT
+    names = [n for n, _ in m.named_parameters()]
+    params = list(m.parameters())
+    m.train()
+    out = {}
+    for name, kw in ways:
+        holder.remat = Remat(kw.get("use_remat", False), kw.get("remat_policy"))
+
+        def step():
+            return torch.autograd.grad(loss_of(m), params)
+
+        step()  # warm-up
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        reset_all_launches()
+        loss = loss_of(m)
+        grads = [g.detach() for g in torch.autograd.grad(loss, params)]
+        torch.cuda.synchronize()
+        peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+        fwd, tc = getattr(k1, fwd_counter), k1.launches_tc
+        bwd = (k1.launches_bwd_dkv, k1.launches_bwd_dq) if fwd_counter == "launches" else (
+            k1.launches_bwd_dkv_causal, k1.launches_bwd_dq_causal)
+        times = []
+        for _ in range(REMAT_TIMED):
+            t0 = time.perf_counter()
+            step()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        _, busy, _ = profile_ms(step)
+        out[name] = {"loss": loss.detach(), "grads": grads, "peak": peak, "fwd": fwd, "tc": tc, "bwd": bwd,
+                     "ms": sorted(times)[len(times) // 2], "busy": busy}
+        del loss
+        torch.cuda.empty_cache()
+    holder.remat = Remat()
+    plain, again = out["plain"], out["plain again"]
+    noisy = [not torch.equal(a, b) for a, b in zip(plain["grads"], again["grads"])]
+    for name, kw in ways:
+        r = out[name]
+        want_fwd = layers if not kw.get("use_remat") or kw.get("remat_policy") == "everything_saveable" else 2 * layers
+        bitwise = all(torch.equal(a, b) for a, b, n in zip(r["grads"], plain["grads"], noisy) if not n)
+        worst, worst_name = 0.0, ""
+        for g, p, n, pname in zip(r["grads"], plain["grads"], noisy, names):
+            d = float((g.float() - p.float()).abs().max())
+            if n and d / max(float(p.float().abs().max()), 1e-30) > worst:
+                worst, worst_name = d / max(float(p.float().abs().max()), 1e-30), pname
+        same_loss = torch.equal(r["loss"], plain["loss"])
+        print(f"phase 24 {label} {name}: loss {float(r['loss']):.6f} (bits equal to plain: {same_loss}); gradients "
+              f"bitwise on the {noisy.count(False)} parameters bitwise from run to run: {bitwise}, the other "
+              f"{sum(noisy)} within {worst:.2e} of their largest element (tol {REMAT_ATOMIC_TOL:.0e}"
+              f"{', ' + worst_name if worst_name else ''}); peak {r['peak']:.2f} GiB above the "
+              f"step's start; {r['ms']:.1f} ms a step (median of {REMAT_TIMED}, host clock), device busy "
+              f"{r['busy']:.1f} ms in a profiled step; forward launches "
+              f"{r['fwd']} (want {want_fwd}; on the tensor cores {r['tc']}), dk/dv, dq {r['bwd']}; {where}", flush=True)
+        check(same_loss, f"phase 24 {label} {name}: the loss's bits differ from the plain step's")
+        check(bitwise and worst <= REMAT_ATOMIC_TOL, f"phase 24 {label} {name}: gradients differ ({worst:.2e})")
+        check(r["fwd"] == want_fwd and r["tc"] == want_fwd and r["bwd"] == (layers, layers),
+              f"phase 24 {label} {name}: launches forward {r['fwd']} (tensor cores {r['tc']}), backward {r['bwd']}; "
+              f"want {want_fwd} and {layers} each")
+        if kw.get("use_remat") and kw.get("remat_policy") != "everything_saveable":
+            check(r["peak"] < plain["peak"], f"phase 24 {label} {name}: peak {r['peak']:.2f} GiB not below plain's "
+                                             f"{plain['peak']:.2f} GiB")
+    return {name: {k: out[name][k] for k in ("peak", "ms", "busy", "fwd")} for name, _ in ways}
+
+
+def remat_valle(valle, nar, seed, where):
+    """(1) VALL-E AR and (3) the NAR, at phases 12 and 18's largest batch."""
+    import torch
+
+    from jatts_torch.bin.tts_train import DTYPES
+    from jatts_torch.models.valle import VALLEAR, VALLENAR
+    from jatts_torch.modules.dropout import set_dropout_generator
+    from jatts_torch.modules.noise import set_noise_generator
+    from jatts_torch.train.steps_valle import valle_kwargs
+    from jatts_torch.utils.config import load_config
+
+    mp, dtype = valle["model_params"], valle["dtype"]
+
+    def seeded(m):
+        set_dropout_generator(m, torch.Generator(device="cuda").manual_seed(seed + 11))
+        set_noise_generator(m, torch.Generator(device="cuda").manual_seed(seed + 12))
+        return m
+
+    def make_ar():
+        torch.manual_seed(seed)
+        return VALLEAR(**mp, device="cuda", dtype=dtype)
+
+    tb = valle["batch"]
+    s_len = tb["text"].shape[1] + tb["proms"].shape[1] + tb["resps"].shape[1] + 2
+    print(f"phase 24 (1): VALL-E AR, {TTS3_CONF.relative_to(ROOT)} as phase 12 runs it (d_model {mp['d_model']}, "
+          f"{mp['n_layers']} layers, bf16, flash, dropout {mp.get('p_dropout', 0.1)}) at phase 12's largest batch "
+          f"{tuple(tb['text'].shape[:1]) + (s_len,)} (B, S packed); seed-made weights", flush=True)
+    ways = REMAT_WAYS + (("everything_saveable", {"use_remat": True, "remat_policy": "everything_saveable"}),)
+    ar = remat_ways("VALL-E AR", make_ar(), lambda m: seeded(m)(**valle_kwargs(tb, m))["loss"], "launches_causal",
+                    mp["n_layers"], where, ways)
+
+    conf = load_config(str(NAR_CONF))
+    nmp = dict(conf["model_params"])
+    ndtype = DTYPES[nmp.pop("dtype")]
+    n_vocab = len([line for line in open(valle["corpus"][3], encoding="utf-8") if line.strip()])
+    nb = nar["train"]["batch"]
+    levels = torch.arange(nb["text"].shape[0], device="cuda") % int(nmp.get("n_resp_levels", 7))
+
+    def make_nar():
+        torch.manual_seed(seed)
+        return VALLENAR(**{**nmp, "idim": n_vocab, "attn_backend": "flash"}, device="cuda", dtype=ndtype)
+
+    s_nar = nb["text"].shape[1] + nb["proms"].shape[1] + nb["resps"].shape[1] + 2
+    print(f"phase 24 (3): VALL-E NAR, {NAR_CONF.relative_to(ROOT)} at phase 18's largest batch "
+          f"{tuple(nb['text'].shape[:1]) + (s_nar,)}, levels {levels.tolist()}; seed-made weights", flush=True)
+    nar_out = remat_ways("VALL-E NAR", make_nar(),
+                         lambda m: seeded(m)(**valle_kwargs(nb, m), quant_levels=levels)["loss"], "launches",
+                         nmp["n_layers"], where, REMAT_WAYS[:3])
+    return ar, nar_out
+
+
+def remat_e2(root, e2, seed, where):
+    """(2) E2-TTS at phase 19's largest batch, then 4 micro-steps of the
+    tts2 CLI with ``use_remat`` and ``dots_saveable`` against the same run
+    without them."""
+    import torch
+    import yaml
+
+    from jatts_torch.bin import tts_train
+    from jatts_torch.bin.tts_train import DTYPES
+    from jatts_torch.models.e2tts import E2TTS
+    from jatts_torch.modules.dropout import set_dropout_generator
+    from jatts_torch.modules.noise import set_noise_generator
+    from jatts_torch.train.steps_e2tts import e2tts_kwargs
+
+    conf, corpus = e2["conf"], e2["corpus"]
+    mp = dict(conf["model_params"])
+    dtype = DTYPES[mp.pop("dtype")]
+    n_vocab = len([line for line in open(corpus[3], encoding="utf-8") if line.strip()])
+    tb = e2["train"]["batch"]
+
+    def make():
+        torch.manual_seed(seed)
+        return E2TTS(**{**mp, "idim": n_vocab, "attn_backend": "flash"}, device="cuda", dtype=dtype)
+
+    def loss_of(m):
+        set_dropout_generator(m, torch.Generator(device="cuda").manual_seed(seed + 21))
+        set_noise_generator(m, torch.Generator(device="cuda").manual_seed(seed + 22))
+        return m(**e2tts_kwargs(tb, m))["loss"]
+
+    print(f"phase 24 (2): E2-TTS, {E2_CONF.relative_to(ROOT)} (dim {mp['dim']}, depth {mp['depth']}, bf16, flash, "
+          f"dropout 0.1) at phase 19's largest batch B={tb['ys'].shape[0]}, S={tb['ys'].shape[1] + 1}; seed-made "
+          f"weights", flush=True)
+    out = remat_ways("E2-TTS", make(), loss_of, "launches", mp["depth"], where)
+
+    # the tts2 CLI, 4 micro-steps, with and without remat
+    runs = {}
+    for name, extra in (("plain", {}), ("remat", {"use_remat": True, "remat_policy": "dots_saveable"})):
+        c = dict(conf, train_max_steps=REMAT_CLI_STEPS, save_interval_steps=10 * REMAT_CLI_STEPS,
+                 eval_interval_steps=0, log_interval_steps=1,
+                 model_params={**conf["model_params"], "attn_backend": "flash", "depth": REMAT_CLI_DEPTH, **extra})
+        path = Path(root) / f"e2_{name}.yaml"
+        path.write_text(yaml.safe_dump(c))
+        reset_all_launches()
+        t0 = time.perf_counter()
+        trainer = tts_train.main(["--train-csv", corpus[0], "--dev-csv", corpus[1], "--stats", corpus[2],
+                                  "--token-list", corpus[3], "--config", str(path), "--outdir",
+                                  str(Path(root) / f"e2_cli_{name}"), "--seed", str(seed), "--device", "cuda",
+                                  "--verbose", "0"])
+        torch.cuda.synchronize()
+        runs[name] = (trainer.history, time.perf_counter() - t0, launch_counts()["k1.launches"],
+                      trainer.model.backbone.remat.on)
+        del trainer
+        torch.cuda.empty_cache()
+    (hp, sp, lp, onp), (hr, sr, lr, onr) = runs["plain"], runs["remat"]
+    depth = REMAT_CLI_DEPTH
+    worst = max(abs(a[k] - b[k]) / max(abs(b[k]), 1e-12) for a, b in zip(hr, hp)
+                for k in ("train/loss", "train/grad_norm") if k in b)
+    print(f"phase 24 (2): bin/tts_train.py on phase 19's corpus, {REMAT_CLI_STEPS} micro-steps, conf copy with "
+          f"use_remat true and remat_policy dots_saveable against the same run without (reductions: depth "
+          f"{mp['depth']} -> {REMAT_CLI_DEPTH}, train_max_steps {conf['train_max_steps']} -> {REMAT_CLI_STEPS}): losses "
+          + ", ".join(f"{a['train/loss']:.6f}/{b['train/loss']:.6f}" for a, b in zip(hr, hp))
+          + f" (remat/plain; worst relative difference of a loss or grad norm {worst:.2e}, tol {REMAT_CLI_TOL:.0e}, "
+          f"bitwise {hr == hp}); forward launches {lr}/{lp} (want {2 * depth * REMAT_CLI_STEPS}/"
+          f"{depth * REMAT_CLI_STEPS}); {sr:.1f}/{sp:.1f} s; {where}", flush=True)
+    check(len(hr) == len(hp) == REMAT_CLI_STEPS and onr and not onp, "phase 24 (2): the CLI runs")
+    check(worst <= REMAT_CLI_TOL, f"phase 24 (2): the remat CLI run's losses differ by {worst:.2e}")
+    check(lr == 2 * depth * REMAT_CLI_STEPS and lp == depth * REMAT_CLI_STEPS,
+          f"phase 24 (2): CLI forward launches {lr}/{lp}")
+    return out, lr + lp
+
+
+def remat_mesh_jobs(seed):
+    """(4)'s runs, made here and run on phase 23's two gloo ranks after its
+    own: VALL-E AR tp2 and E2-TTS sp2 with ``use_remat: true``, one step."""
+    jobs = []
+    for job in p23_jobs(seed):
+        if job["name"] in ("valle", "e2"):
+            conf = dict(job["conf"], model_params={**job["conf"]["model_params"], "use_remat": True})
+            jobs.append(dict(job, name=f"{job['name']}_remat", conf=conf, batches=job["batches"][:1]))
+    return jobs
+
+
+def remat_mesh(held, where):
+    """(4): the remat steps of phase 23's ranks against the one-rank remat
+    step (phase 23's tolerances), each rank's forward launched again in the
+    backward."""
+    want = {f"{name}_remat": {k: 2 * v if k == "k1.launches_tc" else v for k, v in P23_WANT[name].items()}
+            for name in ("valle", "e2")}
+    return p23_compare(held["root"], held["jobs"], held["refs"], held["ranks"], want, "phase 24 (4)", where)
+
+
+def remat_slice(root, valle, nar, e2, align_paths, held, seed, where):
+    """Phase 24: activation checkpointing on the flash kernels (VALL-E AR,
+    E2-TTS and the NAR plain, under full remat and under ``dots_saveable``;
+    E2's CLI with remat; the mesh with remat), then ``prepare_f0_range`` on
+    the card against the CPU on phase 8's corpus."""
+    import torch
+
+    from jatts_torch.egs.jvs.tts1.local import prepare_f0_range
+
+    t_phase = time.perf_counter()
+    root = Path(root) / "remat"
+    root.mkdir(parents=True, exist_ok=True)
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True  # E2's position convolutions, bit for bit
+    try:
+        t0 = time.perf_counter()
+        ar, nar_out = remat_valle(valle, nar, seed, where)
+        t1 = time.perf_counter()
+        e2_out, e2_cli = remat_e2(root, e2, seed, where)
+        print(f"phase 24 (1) and (3): {t1 - t0:.1f} s; (2): {time.perf_counter() - t1:.1f} s", flush=True)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    t0 = time.perf_counter()
+    mesh_n = remat_mesh(held, where)
+    print(f"phase 24 (4): {time.perf_counter() - t0:.1f} s (the ranks' steps ran in phase 23's processes)", flush=True)
+
+    # (5) prepare_f0_range on the card and on the CPU
+    yamls = {}
+    for dev in ("cuda", "cpu"):
+        t0 = time.perf_counter()
+        prepare_f0_range.main(["--csv", align_paths[0], "--out", str(root / f"f0_{dev}.yaml"), "--n-per-spk", "20",
+                               "--device", dev])
+        yamls[dev] = ((root / f"f0_{dev}.yaml").read_text(), time.perf_counter() - t0)
+    print(f"phase 24 (5): egs jvs/tts1 local/prepare_f0_range on phase 8's corpus (20 wavs of its one speaker): the "
+          f"card's yaml {yamls['cuda'][0].strip()!r} in {yamls['cuda'][1]:.2f} s, the CPU's in {yamls['cpu'][1]:.2f} "
+          f"s; equal {yamls['cuda'][0] == yamls['cpu'][0]}; {where}", flush=True)
+    check(yamls["cuda"][0] == yamls["cpu"][0], "phase 24 (5): the card's f0 yaml differs from the CPU's")
+    print(f"phase 24 (activation checkpointing, the mesh with remat, stage 0's f0 range): "
+          f"{time.perf_counter() - t_phase:.1f} s; {where}", flush=True)
+    return {"ar": ar, "nar": nar_out, "e2": e2_out, "e2_cli": e2_cli, "mesh": mesh_n}
 
 
 def main() -> int:
@@ -6806,7 +7235,8 @@ def main() -> int:
 
     # 8. the aligner slice; its corpus and durations feed phase 10
     tmp = tempfile.TemporaryDirectory(prefix="jatts_smoke_")
-    mas_launches, own_check, mas_align_times, align_paths, freqs = aligner_slice(args.seed, where, tmp.name, floors)
+    mas_launches, own_check, mas_align_times, align_paths, freqs, truth = aligner_slice(
+        args.seed, where, tmp.name, floors)
     mas_checks.append(own_check)
 
     # 9. K1-bwd against its plain version (f32 d 192 on the 3xTF32 kernels,
@@ -6857,8 +7287,8 @@ def main() -> int:
     jvs_serve_launches, jvs_serve = jvs_serving(args.seed, where)
     jvs_launches, jvs = training_slice(tmp.name, align_paths, freqs, args.seed, where, which="jvs")
 
-    # 15. the tts1 recipe, stages 1-4, through the port's CLIs on phase 8's corpus
-    decode_tc_f32, recipe = recipe_slice(tmp.name, align_paths, args.seed, where)
+    # 15. the tts1 recipe, stages 0-4, through the port's recipe runner on phase 8's corpus
+    decode_tc_f32, recipe = recipe_slice(tmp.name, align_paths, truth, args.seed, where)
 
     # 16. the Matcha family: serving, then tts1 and tts2 (MAS) training on phase 8's corpus
     matcha_serve, matcha_tts1, matcha_tts2 = matcha_slice(tmp.name, align_paths, freqs, args.seed, where)
@@ -6898,8 +7328,21 @@ def main() -> int:
     # sequence-parallel shapes, two gloo ranks on the card (dp2 FastSpeech2,
     # VALL-E AR tp2, E2-TTS sp2) against one rank, the JSUT bf16 conf in an
     # NCCL world of 1 through the CLI bit for bit
-    p23_n, p23 = parallel_slice(tmp.name, mp["cli"]["corpus"], args.seed, where)
+    p23_n, p23 = parallel_slice(tmp.name, mp["cli"]["corpus"], args.seed, where, extra_jobs=remat_mesh_jobs(args.seed))
+
+    # 24. activation checkpointing on the flash kernels: VALL-E AR, E2-TTS
+    # and the NAR plain, under full remat and under dots_saveable (the
+    # forward kernels launched again in the backward), E2's CLI with remat,
+    # the mesh with remat; stage 0's f0 range on the card
+    remat = remat_slice(tmp.name, valle, nar, e2, align_paths, p23["extra"], args.seed, where)
     tmp.cleanup()
+    remat_causal = {"remat_valle_ar": sum(w["fwd"] for w in remat["ar"].values()),
+                    **{f"remat_valle_ar_gloo_rank{r}": n.get("k1.launches_tc", 0)
+                       for r, n in enumerate(remat["mesh"]["valle_remat"])}}
+    remat_noncausal = {"remat_valle_nar": sum(w["fwd"] for w in remat["nar"].values()),
+                       "remat_e2tts": sum(w["fwd"] for w in remat["e2"].values()), "remat_e2tts_cli": remat["e2_cli"],
+                       **{f"remat_e2tts_gloo_rank{r}": n.get("k1.launches_tc", 0)
+                          for r, n in enumerate(remat["mesh"]["e2_remat"])}}
     e2_tc = {"e2tts_serving": e2_launches["serve_tc"], "e2tts_training": e2_launches["train"]["k1.launches_tc"],
              "e2tts_decode": e2_launches["decode_tc"]}
     e2_times = e2["train"]["times"]
@@ -6978,9 +7421,9 @@ def main() -> int:
         # the served programs' launches (phase 20) are their graphs' replays:
         # launches a replay times replays
         "launches": serve_tc + nar_launches["k1.launches_tc"] + sum(e2_tc.values()) + sum(art_tc.values())
-        + mp_n["tc"] + sum(p23_tc.values()),
+        + mp_n["tc"] + sum(p23_tc.values()) + sum(remat_noncausal.values()),
         "launches_by_path": {"serving": serve_tc, "valle_nar_training": nar_launches["k1.launches_tc"], **e2_tc,
-                             **art_tc, "mixed_precision_bf16_steps": mp_n["tc"], **p23_tc},
+                             **art_tc, "mixed_precision_bf16_steps": mp_n["tc"], **p23_tc, **remat_noncausal},
         "max_abs_err": max(max_err["bf16"], tc_err["k1"], e2["train"]["errs"]["fwd"], e2["serve"]["fwd"]["max_abs_err"],
                            e2["decode"]["fwd"]["max_abs_err"]),
         "ms": ms,
@@ -7099,8 +7542,9 @@ def main() -> int:
         # VALL-E's bf16 forms: the tensor-core forward, dk/dv and dq; the library
         # call is SDPA with is_causal (every key valid in the timing)
         ("flash_attn_fwd_tc_causal", "flash_attn_fwd_tc.cu", 758, "fwd",
-         valle_launches[0] + sum(p23_paths(p23_n, ("valle",), "k1.launches_tc").values()),
-         {"valle_training": valle_launches[0], **p23_paths(p23_n, ("valle",), "k1.launches_tc")}, max(k1b_err["fwd_tc"], valle_own["fwd"]), k1b_times,
+         valle_launches[0] + sum(p23_paths(p23_n, ("valle",), "k1.launches_tc").values()) + sum(remat_causal.values()),
+         {"valle_training": valle_launches[0], **p23_paths(p23_n, ("valle",), "k1.launches_tc"), **remat_causal},
+         max(k1b_err["fwd_tc"], valle_own["fwd"]), k1b_times,
          "sdpa_causal_fwd_ms", {"graph_ms": k1b_times["fwd_graph"],
                                 "noncausal_graph_ms_by_key_tiles": k1b_times["fwd_tiles_graph"],
                                 "library_graph_ms": k1b_times["sdpa_causal_fwd_graph_ms"],

@@ -219,7 +219,8 @@ def _extract_spkemb(wav, sr, extractor):
     return np.asarray(extractor(wav), np.float32)
 
 
-def main(argv: Optional[Sequence[str]] = None) -> None:
+def main(argv: Optional[Sequence[str]] = None) -> float:
+    """The CLI; returns :func:`run`'s seconds of audio."""
     parser = argparse.ArgumentParser(description="Extract features (stage 1).")
     parser.add_argument("--csv", required=True, help="input csv")
     parser.add_argument("--config", required=True, help="yaml config")
@@ -238,8 +239,8 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
         level=logging.INFO if args.verbose > 0 else logging.WARNING,
         format="%(asctime)s (%(module)s:%(lineno)d) %(levelname)s: %(message)s",
     )
-    run(args.csv, load_config(args.config), args.dumpdir, out_csv=args.out_csv,
-        f0_config=args.f0_config, dump_format=args.dump_format, device=args.device)
+    return run(args.csv, load_config(args.config), args.dumpdir, out_csv=args.out_csv,
+               f0_config=args.f0_config, dump_format=args.dump_format, device=args.device)
 
 
 if __name__ == "__main__":

@@ -5,7 +5,8 @@ else the latest under ``--{ar,nar}-expdir``; their models from
 ``--{ar,nar}-config``), generates codec level 0 of each csv row with the
 KV-cached AR loop (``models/valle.py:ar_generate``), fills levels 1..7 with
 the NAR (``nar_generate``) and writes ``outdir/codes/<utt>.npy`` ([T, 8]
-int32 codes):
+int32 codes) and, with a codec, ``outdir/{wav,wav_ar,wav_prompt}/<utt>.wav``
+(the 8 levels, level 0 repeated over the 8, and the prompt):
 
     python -m jatts_torch.bin.ttslm_decode --csv dump/eval.csv --token-list data/tokens.txt \\
         --ar-expdir exp/valle_ar --ar-config exp/valle_ar/config.yml \\
@@ -19,9 +20,16 @@ come from the row's ``prompt_feat_path`` (``encodec``, ``.h5`` or ``.npz``;
 ``[8, T]`` is transposed). Row i draws from generators seeded ``i`` (AR) and
 ``1000 + i`` (NAR), where the JAX CLI takes ``jax.random.key(i)`` and
 ``key(1000 + i)``. ``--dtype bfloat16`` (the default) computes in bf16 with
-the parameters cast to bf16, logits in f32. The EnCodec codec is not ported:
-no EnCodec weights are in the repository, so ``--codec-path`` raises and the
-stage ends at code dumps.
+the parameters cast to bf16, logits in f32.
+
+``--codec-path`` names a local EnCodec directory, loaded as the JAX CLI
+loads it (``transformers.EncodecModel``, bandwidth 6.0, codes ``[T, 8]``;
+read with ``local_files_only``, so nothing is fetched): with it each row's
+prompt is encoded from its ``prompt_wav_path`` at ``codec_sampling_rate``
+(the AR conf's, default 24000) and the codes are decoded to wavs. When the
+codec cannot be loaded (no ``transformers``, no weights there), a warning is
+logged and the stage ends at code dumps, as the JAX CLI does; the AR and
+NAR run on the device all the same.
 """
 
 from __future__ import annotations
@@ -35,7 +43,7 @@ import argparse
 import logging
 import os
 import time
-from typing import Any, Dict, Optional, Sequence
+from typing import Any, Callable, Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -47,7 +55,7 @@ from jatts_torch.device import resolve_device
 from jatts_torch.models.valle import VALLEAR, VALLENAR, ar_generate, nar_generate
 from jatts_torch.utils.checkpoint import find_latest_checkpoint, restore_checkpoint
 from jatts_torch.utils.config import load_config
-from jatts_torch.utils.io import read_array, read_csv
+from jatts_torch.utils.io import read_array, read_audio, read_csv, write_audio
 
 
 def load_model(cls, config: Dict[str, Any], n_vocab: int, dtype: torch.dtype, checkpoint: Optional[str],
@@ -66,6 +74,32 @@ def load_model(cls, config: Dict[str, Any], n_vocab: int, dtype: torch.dtype, ch
     if dtype == torch.bfloat16:
         model.to(torch.bfloat16)
     return model.eval()
+
+
+def load_codec(codec_path: str, device) -> Tuple[Optional[Callable], Optional[Callable]]:
+    """(encode, decode) of the local EnCodec at ``codec_path``: encode a
+    float32 wav to [T, 8] codes at bandwidth 6.0, decode [T, 8] codes to a
+    float32 wav. (None, None) and a warning when it cannot be loaded."""
+    try:
+        from transformers import EncodecModel
+
+        model = EncodecModel.from_pretrained(codec_path, local_files_only=True).to(device).eval()
+
+        def encode(wav: np.ndarray) -> np.ndarray:
+            with torch.no_grad():
+                out = model.encode(torch.from_numpy(wav)[None, None].to(device), bandwidth=6.0)
+            return out.audio_codes[0, 0].T.cpu().numpy()
+
+        def decode(codes: np.ndarray) -> np.ndarray:
+            # audio_codes: (nb_frames, batch, nq, frame_len)
+            with torch.no_grad():
+                wav = model.decode(torch.from_numpy(codes.T.copy()).long()[None, None].to(device), [None]).audio_values
+            return wav[0, 0].cpu().numpy()
+
+        return encode, decode
+    except Exception as e:  # noqa: BLE001 - the package or the weights are unavailable
+        logging.warning(f"codec unavailable ({e}); emitting code dumps only")
+        return None, None
 
 
 def prompt_codes(row: Dict[str, str]) -> np.ndarray:
@@ -96,27 +130,29 @@ def run(
     (the AR's codes over the whole capacity, stop tokens included), ``ar_s``
     and ``nar_s`` (seconds of each stage on the host clock, each ending in a
     fetch to the host)."""
-    if codec_path:
-        raise NotImplementedError(
-            f"--codec-path {codec_path}: the EnCodec codec is not ported (no EnCodec weights are in the "
-            "repository); decode from prompt codes (prompt_feat_path) into code dumps instead"
-        )
     dev = resolve_device(device)
     with open(token_list, encoding="utf-8") as f:
         n_vocab = len([line for line in f if line.strip()])
     dt = DTYPES[dtype]
     ar = load_model(VALLEAR, ar_config, n_vocab, dt, ar_checkpoint, ar_expdir, dev)
     nar = load_model(VALLENAR, nar_config, n_vocab, dt, nar_checkpoint, nar_expdir, dev)
+    sr = int(ar_config.get("codec_sampling_rate", 24000))
+    encode, decode = load_codec(codec_path, dev) if codec_path else (None, None)
     conv = TokenIDConverter(token_list)
     tp_cap = ar.prompt_max_frame_length
     rows, _ = read_csv(csv, dict_reader=True)
-    os.makedirs(os.path.join(outdir, "codes"), exist_ok=True)
+    for sub in ("wav", "wav_ar", "wav_prompt", "codes"):
+        os.makedirs(os.path.join(outdir, sub), exist_ok=True)
 
     done = []
     for i, row in enumerate(rows):
         utt = row["sample_id"]
         ids = np.asarray(conv.tokens2ids(row["phonemes"].split(" ")), np.int64)
-        prom = prompt_codes(row)[:tp_cap]
+        if encode is not None:
+            prom = encode(read_audio(row["prompt_wav_path"], sr)[0]).astype(np.int64)
+        else:
+            prom = prompt_codes(row)
+        prom = prom[:tp_cap]
         xs = np.zeros((1, round_up(len(ids), 16)), np.int64)
         xs[0, : len(ids)] = ids
         proms = np.zeros((1, tp_cap, prom.shape[1]), np.int64)
@@ -138,6 +174,11 @@ def run(
         codes = codes[0, :n_gen].cpu().numpy().astype(np.int32)  # [T, 8]
         nar_s = time.perf_counter() - t0
         np.save(os.path.join(outdir, "codes", f"{utt}.npy"), codes)
+        if decode is not None:
+            write_audio(os.path.join(outdir, "wav", f"{utt}.wav"), decode(codes), sr)
+            level0 = codes[:, :1]
+            write_audio(os.path.join(outdir, "wav_ar", f"{utt}.wav"), decode(np.repeat(level0, 8, axis=1)), sr)
+            write_audio(os.path.join(outdir, "wav_prompt", f"{utt}.wav"), decode(prom), sr)
         done.append({"utt": utt, "n_gen": n_gen, "level0": ar_out["codes"][0].cpu().numpy(), "ar_s": ar_s,
                      "nar_s": nar_s})
         logging.info(f"{utt}: {n_gen} frames (AR {ar_s:.2f} s, NAR {nar_s:.2f} s)")
@@ -155,7 +196,8 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, Any]:
     parser.add_argument("--nar-checkpoint", default=None)
     parser.add_argument("--nar-expdir", default=None)
     parser.add_argument("--nar-config", required=True)
-    parser.add_argument("--codec-path", default=None, help="local EnCodec weights (not ported: raises)")
+    parser.add_argument("--codec-path", default=None,
+                        help="local EnCodec weights (transformers); without them, code dumps only")
     parser.add_argument("--dtype", default="bfloat16", choices=["float32", "bfloat16"],
                         help="compute dtype for the LMs (bf16 also casts the parameters; f32 logits either way)")
     parser.add_argument("--outdir", required=True)

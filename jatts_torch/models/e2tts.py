@@ -20,8 +20,10 @@ the caller's ``generator``. Under a mesh (``parallel/mesh.py``) the
 training draws are made at the global batch's shape and each rank keeps its
 rows (and, under sequence parallelism, its frames), and the loss is this
 rank's sum over the world's count. With ``seq_parallel`` the model rank
-holds a block of the frames (``UNetT.forward``). Not ported: activation
-checkpointing (``use_remat``), which raises.
+holds a block of the frames (``UNetT.forward``). ``use_remat`` and
+``remat_policy`` go to the backbone, which recomputes each attention and
+feed-forward call in the backward; the span, noise, time and CFG draws are
+made here, outside the recomputed calls, once.
 """
 
 from __future__ import annotations
@@ -95,11 +97,7 @@ class E2TTS(nn.Module):
         super().__init__()
         if backbone != "UNetT":
             raise ValueError(f"Unsupported backbone: {backbone}")
-        if use_remat:
-            raise NotImplementedError(
-                "use_remat (activation checkpointing) is not ported: train E2TTS without it"
-            )
-        del remat_policy, sigma  # remat is refused above; sigma is unused, as in the JAX model
+        del sigma  # unused, as in the JAX model
         dev = resolve_device(device)
         self.odim = odim
         self.audio_drop_prob = audio_drop_prob
@@ -110,7 +108,7 @@ class E2TTS(nn.Module):
         self.backbone = UNetT(
             text_num_embeds=idim, mel_dim=odim, dim=dim, depth=depth, heads=heads, ff_mult=ff_mult,
             text_mask_padding=text_mask_padding, pe_attn_head=pe_attn_head, attn_backend=attn_backend,
-            compute_dtype=dtype, device=dev,
+            compute_dtype=dtype, use_remat=use_remat, remat_policy=remat_policy, device=dev,
         )
 
     def forward(self, text: torch.Tensor, feats: torch.Tensor, feats_lengths: torch.Tensor,

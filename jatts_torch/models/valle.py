@@ -12,9 +12,10 @@ another (:func:`nar_generate`). Parameters carry the reference state_dict
 keys that ``jatts_tpu.utils.torch_import.convert_valle`` reads; ``dtype`` is
 the compute dtype in flax's sense (parameters stay float32, logits are
 float32), see ``modules/valle_modules.py``. Dropout follows
-``self.training``.
-
-Not ported: activation checkpointing (``use_remat``).
+``self.training``. ``use_remat`` recomputes each block of the trunk in the
+backward (``modules/remat.py``; ``remat_policy`` a
+``jax.checkpoint_policies`` name), as the JAX model wraps each block in
+``nn.remat``; the KV-cached decode runs plain.
 """
 
 from __future__ import annotations
@@ -26,6 +27,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from jatts_torch.device import resolve_device
+from jatts_torch.modules.remat import Remat, dropout_generators
 from jatts_torch.modules.valle_modules import Dense, SinusoidalEmbedding, VALLEBlock, trunc_normal_
 from jatts_torch.ops.masks import sequence_mask
 from jatts_torch.parallel.mesh import draw, global_sum
@@ -115,11 +117,7 @@ class VALLEBase(nn.Module):
         dtype: torch.dtype = torch.float32,
     ):
         super().__init__()
-        if use_remat:
-            raise NotImplementedError(
-                "use_remat (activation checkpointing) is not ported: train VALL-E without it"
-            )
-        del remat_policy  # read only under use_remat, which is refused above
+        self.remat = Remat(use_remat, remat_policy)
         dev = resolve_device(device)
         self.n_tokens = n_tokens
         self.d_model = d_model
@@ -181,8 +179,12 @@ class VALLEBase(nn.Module):
         x, total = pack_three(e_text, text_lens, e_prom, prom_lens, e_resp, resp_lens, self.sep)
         x = self.sin_emb(x).to(self.dtype)
         m = sequence_mask(total, x.shape[1], x.dtype)[..., None]
+        remat = self.remat.active(self)
         for block in self.blocks:
-            x = block(x, m, quant_levels)
+            if remat:
+                x = self.remat(block, x, m, quant_levels, generators=dropout_generators(block))
+            else:
+                x = block(x, m, quant_levels)
         if return_hidden:
             return x, total
         return (self.classifier(x) * m).float(), total

@@ -278,6 +278,11 @@ class ConformerEncoder(nn.Module):
             self.embed = nn.Sequential(
                 nn.Embedding(idim, attention_dim, padding_idx=padding_idx), pos_enc
             )
+        elif input_layer == "linear":
+            # Linear, LayerNorm, dropout: no activation, as the JAX module has it
+            self.embed = nn.Sequential(
+                Linear(idim, attention_dim), LayerNorm(attention_dim, eps=1e-5), Dropout(dropout_rate), pos_enc
+            )
         elif input_layer is None:
             self.embed = nn.Sequential(pos_enc)
         else:
@@ -301,7 +306,7 @@ class ConformerEncoder(nn.Module):
     def forward(self, xs, mask=None, pad_mask_t=None):
         """xs: [B, T] token ids ("embed") or [B, T, C]; mask: [B, 1, T] key
         mask; pad_mask_t: [B, T] frame validity. Returns [B, T, C]."""
-        h = self.embed[0](xs) if self.input_layer == "embed" else xs
+        h = self.embed[:-1](xs)  # the input layer before the positional encoding, if any
         if self.compute_dtype is not None:
             h = h.to(self.compute_dtype)
         if self.rel_pos:

@@ -38,6 +38,13 @@ runs the rank's queries (Tq = n + 1) against the keys and values gathered
 over the model axis (Tk = N + 1), whose gradients are summed back over the
 ranks to their owners. Dropout masks are drawn for the whole sequence
 (``parallel/mesh.py:seq_scope``).
+
+``use_remat`` (``modules/remat.py``; ``remat_policy`` a
+``jax.checkpoint_policies`` name) recomputes each attention and each
+feed-forward call in the backward, one checkpoint each, as the JAX backbone
+wraps the two calls in ``nn.remat``; the RMSNorms, skip projections and
+residual adds stay outside. Under sequence parallelism the recomputed
+attention gathers its keys and values again.
 """
 
 from __future__ import annotations
@@ -55,6 +62,7 @@ from torch import nn
 from jatts_torch.modules import layers
 from jatts_torch.modules.attention import _flash_ok
 from jatts_torch.modules.dropout import Dropout
+from jatts_torch.modules.remat import Remat, dropout_generators
 from jatts_torch.modules.valle_modules import Dense, trunc_normal_
 from jatts_torch.ops.flash_attention import flash_attention
 from jatts_torch.parallel.mesh import active, gather, seq_scope
@@ -299,9 +307,12 @@ class UNetT(nn.Module):
         pe_attn_head: Optional[int] = 1,
         attn_backend: str = "xla",
         compute_dtype: torch.dtype = torch.float32,
+        use_remat: bool = False,
+        remat_policy: Optional[str] = None,
         device=None,
     ):
         super().__init__()
+        self.remat = Remat(use_remat, remat_policy)
         self.mel_dim = mel_dim
         self.depth = depth
         self.dim_head = dim_head
@@ -379,20 +390,30 @@ class UNetT(nn.Module):
             key_mask = torch.cat([torch.ones(b, 1, dtype=torch.bool, device=mask.device), mask.bool()], dim=1)
             mask = key_mask[:, :1 + n] if m is None else torch.cat([key_mask[:, :1], key_mask[:, 1 + s:1 + s + n]], 1)
         rope = rope_tables(n_all + 1, self.dim_head, h.dtype, h.device)
-        scope, gather_kv = contextlib.nullcontext(), None
+        scope, gather_kv, scoped = contextlib.nullcontext(), None, None
         if m is not None:
             pos = torch.cat([torch.zeros(1, dtype=torch.long), torch.arange(1 + s, 1 + s + n)]).to(h.device)
             rope = (rope[0][pos], rope[1][pos])
-            scope, gather_kv = seq_scope(pos, n_all + 1), functools.partial(_gather_seq, m=m, n=n)
+            scoped = (pos, n_all + 1)
+            scope, gather_kv = seq_scope(*scoped), functools.partial(_gather_seq, m=m, n=n)
         skips = []
+        remat = self.remat.active(self)
         with scope:
             for idx, (skip_proj, attn_norm, attn, ff_norm, ff) in enumerate(self.layers):
                 if skip_proj is None:
                     skips.append(h)
                 else:
                     h = skip_proj(torch.cat([h, skips.pop()], dim=-1))
-                h = attn(attn_norm(h), rope, mask, key_mask, gather_kv) + h
-                h = ff(ff_norm(h)) + h
+                if remat:
+                    # the recomputation runs in the backward, outside this
+                    # block's sequence scope: each call enters it itself
+                    h = self.remat(functools.partial(_scoped, scoped, attn), attn_norm(h), rope, mask, key_mask,
+                                   gather_kv, generators=dropout_generators(attn)) + h
+                    h = self.remat(functools.partial(_scoped, scoped, ff), ff_norm(h),
+                                   generators=dropout_generators(ff)) + h
+                else:
+                    h = attn(attn_norm(h), rope, mask, key_mask, gather_kv) + h
+                    h = ff(ff_norm(h)) + h
         h = self.norm_out(h)[:, 1:]
         return self.proj_out(h.float())
 
@@ -409,6 +430,16 @@ class UNetT(nn.Module):
         full = gather(h, 1, m.model_group)
         lo, hi = max(0, s - halo), min(full.shape[1], s + n + halo)
         return conv(full[:, lo:hi])[:, s - lo:s - lo + n]
+
+
+def _scoped(scoped, module: nn.Module, *args) -> torch.Tensor:
+    """``module(*args)``, under ``seq_scope(*scoped)`` when ``scoped`` is
+    given (sequence parallelism: the dropout masks are the whole
+    sequence's)."""
+    if scoped is None:
+        return module(*args)
+    with seq_scope(*scoped):
+        return module(*args)
 
 
 def _gather_seq(t: torch.Tensor, m, n: int) -> torch.Tensor:

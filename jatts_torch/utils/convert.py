@@ -27,6 +27,8 @@ import torch
 # flax module path ("/"-joined) -> reference module path, first match wins
 FASTSPEECH2_RENAMES = (
     (r"^encoder/embed_tok$", "encoder/embed/0"),
+    (r"^encoder/embed_lin$", "encoder/embed/0"),
+    (r"^encoder/embed_ln$", "encoder/embed/1"),
     (r"^(encoder|decoder)/encoders_(\d+)/", r"\1/encoders/\2/"),
     (r"^(\w+_predictor)/conv/conv_(\d+)$", r"\1/conv/\2/0"),
     (r"^(\w+_predictor)/conv/norm_(\d+)$", r"\1/conv/\2/2"),

@@ -52,11 +52,15 @@ def _port_from_jax(variables, cfg, backend):
     (None, True, "conv1d", "xla"),
     (None, True, "conv1d", "flash"),
     ("embed", False, "linear", "xla"),
+    ("linear", True, "conv1d", "xla"),
+    ("linear", False, "linear", "flash"),
 ])
 def test_conformer_encoder_parity(input_layer, normalize_before, ffn, backend):
     rng = np.random.default_rng(0)
     if input_layer == "embed":
         xs = rng.integers(1, IDIM, size=(len(LENS), T)).astype(np.int32)
+    elif input_layer == "linear":  # Dense(idim -> adim), LayerNorm, dropout
+        xs = rng.normal(size=(len(LENS), T, IDIM)).astype(np.float32)
     else:
         xs = rng.normal(size=(len(LENS), T, ADIM)).astype(np.float32)
     cfg = _config(input_layer, normalize_before, ffn)

@@ -470,8 +470,17 @@ def test_state_dict_round_trips_through_convert_e2tts(weights):
 
 
 def test_use_remat_raises():
-    with pytest.raises(NotImplementedError, match="use_remat"):
-        e2tts.E2TTS(**TINY, use_remat=True, device="cpu")
+    """``use_remat`` builds the plain model's parameters and turns remat on
+    in the backbone; under it a ``remat_policy`` that is no argument-free
+    ``jax.checkpoint_policies`` name raises, naming it."""
+    torch.manual_seed(0)
+    plain = e2tts.E2TTS(**TINY, device="cpu")
+    torch.manual_seed(0)
+    m = e2tts.E2TTS(**TINY, use_remat=True, remat_policy="dots_with_no_batch_dims_saveable", device="cpu")
+    assert m.backbone.remat.on and not plain.backbone.remat.on
+    assert all(torch.equal(a, b) for a, b in zip(m.state_dict().values(), plain.state_dict().values()))
+    with pytest.raises(ValueError, match="'everything'"):
+        e2tts.E2TTS(**TINY, use_remat=True, remat_policy="everything", device="cpu")
 
 
 # ---------------------------------------------------------------------------

@@ -21,7 +21,7 @@ from jatts_torch.ops import flash_attention as k1  # noqa: E402
 from jatts_torch.ops import mas  # noqa: E402
 
 ROOT = Path(__file__).resolve().parents[1]
-FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "jatts_tpu"}
+FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "jatts_tpu", "egs", "data_prep"}  # egs/*/local too
 
 
 def _port_sources():
@@ -47,7 +47,13 @@ def test_import_leaves_jax_out_of_sys_modules():
         "jatts_torch.modules.vits_modules, jatts_torch.modules.noise, jatts_torch.losses.kl, "
         "jatts_torch.train.steps_vits, jatts_torch.bin.ttslm_decode, jatts_torch.models.e2tts, "
         "jatts_torch.modules.e2tts_backbone, jatts_torch.train.steps_e2tts, jatts_torch.bin.e2tts_decode, "
-        "jatts_torch.bin.e2tts_train\n"
+        "jatts_torch.bin.e2tts_train, jatts_torch.modules.remat, jatts_torch.bin.run_recipe, "
+        "jatts_torch.egs.jsut.tts1.local.data_prep, jatts_torch.egs.jsut.tts2.local.data_prep, "
+        "jatts_torch.egs.jvs.tts1.local.data_prep, jatts_torch.egs.jvs.tts2.local.data_prep, "
+        "jatts_torch.egs.jvs.tts1.local.prepare_f0_range, "
+        "jatts_torch.egs.hificaptain_jp_female.tts1.local.data_prep, "
+        "jatts_torch.egs.hificaptain_jp_female.tts2.local.data_prep, "
+        "jatts_torch.egs.hificaptain_jp_female.tts3.local.data_prep\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in %r)\n"
         "bad += [m for m in ('h5py', 'yaml', 'triton') if m in sys.modules]\n"
         "print(bad); sys.exit(1 if bad else 0)" % (FORBIDDEN,)

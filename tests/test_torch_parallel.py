@@ -25,7 +25,10 @@ run:
   ends every rank at the same step; ``bin/tts_train.py --multihost`` with
   ``valle_ar.given.bs128.dp4tp2.yaml`` at small widths on 2 ranks for 4
   steps against the one-process CLI; dp2 mel-VITS, Matcha-TTS+MAS and the
-  VALL-E NAR against their one-process runs.
+  VALL-E NAR against their one-process runs; tp2 VALL-E AR with
+  ``use_remat`` (each block recomputed in the backward, its gathers
+  repeated) and sp2 E2-TTS with ``use_remat`` and ``dots_saveable`` against
+  the plain one-process runs.
 
 Tolerances: losses and grad norms rtol 1e-5, weights atol 2e-5
 (tests/test_torch_trainer.py), the JAX runs' with its exceptions.
@@ -334,6 +337,15 @@ def _runs(tmp, t0):
         job("e2_on", "trajectory", e2_model, E2, e2_sd, e2_cfg, e2_b, (2, 2), None, 3),
         job("e2_off", "trajectory", e2_model, E2, e2_sd, e2_cfg, e2_b, (2, 2), 0.0, 3, draws=tdraws),
     ]
+    # VALL-E AR tp2 with every block recomputed in the backward: the
+    # recomputation repeats the tensor-parallel gathers, on both ranks in
+    # one order
+    two.append(job("valle_tp2_remat", "trajectory", valle_model, {**VALLE, "use_remat": True}, valle_sd, valle_cfg,
+                   valle_b, (1, 2), DROPOUT, 3))
+    # E2-TTS sp2 with each attention and feed-forward recomputed: the
+    # recomputed attention gathers its keys and values again
+    two.append(job("e2_sp2_remat", "trajectory", e2_model, {**E2, "use_remat": True, "remat_policy": "dots_saveable"},
+                   e2_sd, e2_cfg, e2_b, (1, 2), None, 3))
     others = {}
     for name, (path, kw, trainer_type, crits) in OTHERS.items():
         mod, cls = path.rsplit(".", 1)
@@ -538,6 +550,26 @@ def test_valle_dp2_tp2_matches_one_process(runs):
     _close_state(state["ema"], ref["ema"][3])
     assert state["steps"] == 3 and state["optimizer"]["mini_step"] == 1
     assert state["model"]["blocks.0.attn.block.to_qkv.weight"].shape == (480, 160)  # saved whole
+
+
+def test_valle_tp2_with_remat_matches_one_process(runs):
+    """``use_remat`` at tp2 on two ranks (dropout on) against the plain
+    one-process run."""
+    state, hist = _saved(runs, "valle_tp2_remat")
+    ref = runs["valle"]
+    _close(hist, ref["history"][:3], ("train/loss", "train/grad_norm", "train/loss_ce"))
+    _close_state(state["model"], ref["state"][3])
+    _close_state(state["ema"], ref["ema"][3])
+
+
+def test_e2_sp2_with_remat_matches_one_process(runs):
+    """``use_remat`` with ``dots_saveable`` at sp2 on two ranks (dropout
+    and the training draws on) against the plain one-process run."""
+    state, hist = _saved(runs, "e2_sp2_remat")
+    ref = runs["e2"]
+    _close(hist, ref["history"], ("train/loss", "train/grad_norm", "train/cfm_loss"))
+    total_lr = sum(schedulers.e2tts_sequentiallr(1e-3, 2, 3)(i) for i in range(3))
+    _close_state(state["model"], ref["state"][3], total_lr)
 
 
 def test_e2_dp2_sp2_matches_one_process(runs):

@@ -314,16 +314,19 @@ def test_fixed_shape_step_gives_the_sliced_steps_logits(weights):
 
 @pytest.mark.parametrize("cls", ["VALLEAR", "VALLENAR"])
 def test_remat_keys_are_accepted_and_use_remat_is_refused_by_name(cls):
-    """A conf's ``use_remat: false`` and ``remat_policy`` build the same
-    model as without them (the JAX package accepts both keys); ``use_remat:
-    true`` is refused with a named error, not a bare TypeError."""
+    """A conf's ``use_remat`` and ``remat_policy`` build the same model as
+    without them (the JAX package accepts both keys), with remat on or off;
+    under ``use_remat`` a ``remat_policy`` that is no argument-free
+    ``jax.checkpoint_policies`` name is refused with an error naming it."""
     kw = {} if cls == "VALLEAR" else dict(n_resp_levels=3)
     torch.manual_seed(0)
     plain = getattr(valle, cls)(**{**CFG, **kw}, device="cpu")
-    torch.manual_seed(0)
-    keyed = getattr(valle, cls)(**{**CFG, **kw}, use_remat=False, remat_policy="dots_saveable", device="cpu")
-    assert plain.state_dict().keys() == keyed.state_dict().keys()
-    for k, v in plain.state_dict().items():
-        assert torch.equal(v, keyed.state_dict()[k]), k
-    with pytest.raises(NotImplementedError, match="use_remat"):
-        getattr(valle, cls)(**{**CFG, **kw}, use_remat=True, remat_policy="dots_saveable", device="cpu")
+    for use_remat in (False, True):
+        torch.manual_seed(0)
+        keyed = getattr(valle, cls)(**{**CFG, **kw}, use_remat=use_remat, remat_policy="dots_saveable", device="cpu")
+        assert plain.state_dict().keys() == keyed.state_dict().keys()
+        for k, v in plain.state_dict().items():
+            assert torch.equal(v, keyed.state_dict()[k]), k
+        assert keyed.remat.on == use_remat
+    with pytest.raises(ValueError, match="'save_only_these_names'"):
+        getattr(valle, cls)(**{**CFG, **kw}, use_remat=True, remat_policy="save_only_these_names", device="cpu")

@@ -23,6 +23,7 @@ significant bits and the two frameworks round at other places). Codes:
 exact.
 """
 
+import logging
 import os
 
 import numpy as np
@@ -494,13 +495,10 @@ def test_tts3_nar_cli_four_steps_and_bitwise_resume(tmp_path, monkeypatch):
         assert torch.equal(resumed.model.state_dict()[k], v), k
 
 
-def test_ttslm_decode_cli_from_codes(tmp_path, monkeypatch):
-    """bin/ttslm_decode.py on the CPU with seed-made AR and NAR checkpoints,
-    prompts from prompt_feat_path ([8, T] transposed): codes [T, 8] in the
-    codebook; level 0 the AR's output; the fill equal to nar_generate called
-    directly with the CLI's generator on the CLI's padded inputs; bf16
-    parameters; --codec-path refused with a message naming the EnCodec
-    weights."""
+def _decode_setup(tmp_path):
+    """Seed-made AR and NAR checkpoints and a decode csv of 3 rows whose
+    prompts are their own codes; returns (rows, argv, checkpoint dirs,
+    token list, vocabulary size)."""
     csv, _, tokens = write_codec_corpus(str(tmp_path / "corpus"), "npz", n_utts=3)
     rows = list(__import__("csv").DictReader(open(csv, encoding="utf-8")))
     for row in rows:
@@ -521,6 +519,17 @@ def test_ttslm_decode_cli_from_codes(tmp_path, monkeypatch):
             "--ar-config", os.path.join(dirs["ar"], "config.yml"), "--nar-expdir", dirs["nar"],
             "--nar-config", os.path.join(dirs["nar"], "config.yml"), "--outdir", str(tmp_path / "out"),
             "--max-steps", "12", "--device", "cpu", "--verbose", "0"]
+    return rows, argv, dirs, tokens, n_vocab
+
+
+def test_ttslm_decode_cli_from_codes(tmp_path, monkeypatch):
+    """bin/ttslm_decode.py on the CPU with seed-made AR and NAR checkpoints,
+    prompts from prompt_feat_path ([8, T] transposed): codes [T, 8] in the
+    codebook; level 0 the AR's output; the fill equal to nar_generate called
+    directly with the CLI's generator on the CLI's padded inputs; bf16
+    parameters; a --codec-path that does not load logs a warning and
+    leaves the code dumps, with no wavs, as the JAX CLI does."""
+    rows, argv, dirs, tokens, n_vocab = _decode_setup(tmp_path)
     out = ttslm_decode.main(argv)
     assert len(out["rows"]) >= 1
     nar_conf = {"model_params": {**CFG, "n_tokens": 1024, "dtype": "bfloat16"}}
@@ -544,8 +553,61 @@ def test_ttslm_decode_cli_from_codes(tmp_path, monkeypatch):
                                   torch.from_numpy(res["level0"])[None].long(), torch.tensor([res["n_gen"]]),
                                   generator=torch.Generator().manual_seed(1000 + i_row))
         np.testing.assert_array_equal(fill[0, :res["n_gen"]].numpy(), codes)
-    with pytest.raises(NotImplementedError, match="EnCodec weights"):
-        ttslm_decode.main(argv + ["--codec-path", str(tmp_path / "encodec")])
+    (tmp_path / "encodec").mkdir()  # an empty directory: no weights to load
+    warned = []
+    monkeypatch.setattr(logging, "warning", lambda msg, *a, **kw: warned.append(msg))  # main resets the handlers
+    again = ttslm_decode.main(argv[:-2] + ["--verbose", "1", "--outdir", str(tmp_path / "out2"),
+                                           "--codec-path", str(tmp_path / "encodec")])
+    assert any(m.startswith("codec unavailable") for m in warned), warned
+    assert [r["utt"] for r in again["rows"]] == [r["utt"] for r in out["rows"]]
+    for res in again["rows"]:
+        np.testing.assert_array_equal(np.load(str(tmp_path / "out2" / "codes" / f"{res['utt']}.npy")),
+                                      np.load(str(tmp_path / "out" / "codes" / f"{res['utt']}.npy")))
+    assert not os.listdir(tmp_path / "out2" / "wav")
+
+
+def test_ttslm_decode_cli_with_a_local_encodec(tmp_path):
+    """``--codec-path`` with a tiny local EnCodec (tests/tiny_models.py,
+    the real code layout): each prompt is encoded from its
+    ``prompt_wav_path``, and the wavs written are ``EncodecModel.decode``
+    of the dumped codes (all 8 levels; level 0 repeated; the prompt's own
+    codes), to the 16-bit file's rounding."""
+    pytest.importorskip("transformers")
+    from transformers import EncodecModel
+
+    from jatts_torch.utils.io import read_audio, write_audio
+    from tests.tiny_models import make_tiny_encodec
+
+    codec = make_tiny_encodec(str(tmp_path / "encodec"))
+    rows, argv, dirs, tokens, n_vocab = _decode_setup(tmp_path)
+    rng = np.random.default_rng(3)
+    for i, row in enumerate(rows):
+        row["prompt_wav_path"] = str(tmp_path / f"prompt{i}.wav")
+        write_audio(row["prompt_wav_path"], 0.3 * rng.standard_normal(4800 + 960 * i).astype(np.float32), 24000)
+        del row["prompt_feat_path"]
+    write_csv(rows, argv[argv.index("--csv") + 1])
+    out = ttslm_decode.main(argv + ["--codec-path", codec])
+    assert len(out["rows"]) >= 1
+    model = EncodecModel.from_pretrained(codec, local_files_only=True).eval()
+
+    def decode(codes):
+        with torch.no_grad():
+            return model.decode(torch.from_numpy(codes.T.copy()).long()[None, None], [None]).audio_values[0, 0].numpy()
+
+    by_id = {r["sample_id"]: r for r in rows}
+    for res in out["rows"]:
+        utt = res["utt"]
+        codes = np.load(str(tmp_path / "out" / "codes" / f"{utt}.npy"))
+        wav, _ = read_audio(by_id[utt]["prompt_wav_path"], 24000)
+        with torch.no_grad():
+            prom = model.encode(torch.from_numpy(wav)[None, None], bandwidth=6.0).audio_codes[0, 0].T.numpy()
+        assert prom.shape[1] == 8
+        for sub, want_codes in (("wav", codes), ("wav_ar", np.repeat(codes[:, :1], 8, axis=1)),
+                                ("wav_prompt", prom[:24])):
+            got, sr = read_audio(str(tmp_path / "out" / sub / f"{utt}.wav"))
+            want = np.clip(decode(want_codes), -1, 1)
+            assert sr == 24000 and got.shape == want.shape, (sub, got.shape, want.shape)
+            assert np.abs(got - want).max() <= 1.0 / 32768 + 1e-7, sub
 
 
 def test_nar_and_the_decode_cli_default_to_cuda():
